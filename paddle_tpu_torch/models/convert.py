@@ -1,0 +1,85 @@
+"""Carry Llama weights from the JAX package's `state_dict` naming.
+
+≙ the structured names of `paddle_tpu/nn/layer/layers.py` `state_dict`:
+``model.embed_tokens.weight``, ``model.layers.{i}.input_layernorm.weight``,
+``model.layers.{i}.post_attention_layernorm.weight``,
+``model.layers.{i}.self_attn.{q,k,v,o}_proj.weight``,
+``model.layers.{i}.mlp.{gate,up,down}_proj.weight``, ``model.norm.weight``
+and ``lm_head.weight`` (absent when the embeddings are tied). The port's
+module tree uses the same names, so the carry is a name check plus a
+transpose of every Linear weight: the JAX package stores (in, out),
+torch (out, in). The rope tables are non-persistent buffers on both
+sides and are recomputed, not carried.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+_LAYER_KEYS = ("input_layernorm.weight", "post_attention_layernorm.weight",
+               "self_attn.q_proj.weight", "self_attn.k_proj.weight",
+               "self_attn.v_proj.weight", "self_attn.o_proj.weight",
+               "mlp.gate_proj.weight", "mlp.up_proj.weight",
+               "mlp.down_proj.weight")
+_LAYER_RE = re.compile(r"model\.layers\.(\d+)\.(.+)")
+
+
+def _expected_names(sd) -> set:
+    n_layers = 1 + max((int(m.group(1)) for k in sd
+                        if (m := _LAYER_RE.fullmatch(k))), default=-1)
+    names = {"model.embed_tokens.weight", "model.norm.weight"}
+    if "lm_head.weight" in sd:
+        names.add("lm_head.weight")
+    names |= {f"model.layers.{i}.{k}" for i in range(n_layers)
+              for k in _LAYER_KEYS}
+    return names
+
+
+def llama_state_from_numpy(sd: Dict[str, np.ndarray],
+                           model: torch.nn.Module | None = None
+                           ) -> Dict[str, torch.Tensor]:
+    """Map a JAX Llama ``{name: numpy array}`` state dict onto the
+    port's parameter names, transposing the Linear weights.
+
+    Raises ValueError on an unexpected key, on a missing key (every
+    layer up to the highest index present must be complete), on a
+    weight whose width disagrees with the embedding's hidden size, and,
+    when ``model`` is given, on any key or shape that differs from the
+    model's own state dict. The tensors stay on the CPU in the arrays'
+    dtype; ``model.load_state_dict`` copies them to the model's device
+    and dtype."""
+    want = _expected_names(sd)
+    if model is not None:
+        want = set(model.state_dict())
+    missing = sorted(want - set(sd))
+    unexpected = sorted(set(sd) - want)
+    if missing or unexpected:
+        raise ValueError(f"state dict mismatch: missing {missing}, "
+                         f"unexpected {unexpected}")
+    out = {}
+    for name, arr in sd.items():
+        t = torch.from_numpy(np.array(arr, copy=True))
+        if name.endswith("_proj.weight") or name == "lm_head.weight":
+            t = t.T.contiguous()
+        out[name] = t
+    hidden = out["model.embed_tokens.weight"].shape[1]
+    bad = []
+    for name, t in out.items():
+        if name.endswith("norm.weight"):
+            ok = tuple(t.shape) == (hidden,)
+        elif name.endswith(("o_proj.weight", "down_proj.weight")):
+            ok = t.ndim == 2 and t.shape[0] == hidden
+        else:
+            ok = t.ndim == 2 and t.shape[1] == hidden
+        if not ok:
+            bad.append(f"{name}: {tuple(t.shape)} (hidden {hidden})")
+    if model is not None:
+        ref = model.state_dict()
+        bad += [f"{k}: {tuple(t.shape)} vs model {tuple(ref[k].shape)}"
+                for k, t in out.items() if t.shape != ref[k].shape]
+    if bad:
+        raise ValueError("shape mismatch: " + "; ".join(bad))
+    return out

@@ -1,0 +1,307 @@
+"""Llama-3 family, serving path.
+
+≙ `paddle_tpu/models/llama.py` :28-105 (`LlamaConfig`, `precompute_rope`),
+:230-286 (`RaggedKVCacheView`), :475-652 (the ragged attention path, MLP,
+decoder, model) and :653-694 (`LlamaForCausalLM`). Only the ragged paged
+path that the serving engine drives is ported: a packed (1, T) token
+axis of decode steps, prefills and chunk continuations, with the KV
+cache in page pools. The dense, flash and paged-legacy branches of the
+JAX `LlamaAttention.forward` raise `NotImplementedError`.
+
+Linear weights are stored (out, in), the torch way; the JAX package
+stores (in, out) (`models.convert` transposes). RoPE pairs are
+interleaved, ``(x[..., 0::2], x[..., 1::2])``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..nn import functional as F
+from ..nn.layers import RMSNorm
+from ..ops import resolve_device
+from ..ops.ragged_paged_attention import (ragged_paged_attention_values,
+                                          ragged_scatter_values)
+from ..ops.rope import rope_rotate_values
+
+
+@dataclass
+class LlamaConfig:
+    """The serving fields of the JAX `LlamaConfig`. Its training-only
+    fields (``recompute``, ``recompute_policy``, ``sep_strategy``) and
+    ``dtype``, which no code reads (the dtype is the model's build
+    argument), are left out."""
+
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    max_position_embeddings: int = 8192
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 500000.0
+    tie_word_embeddings: bool = False
+    sliding_window: Optional[int] = None
+
+    @staticmethod
+    def llama3_8b():
+        return LlamaConfig()
+
+    @staticmethod
+    def tiny():
+        return LlamaConfig(vocab_size=512, hidden_size=128,
+                           intermediate_size=256, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2,
+                           max_position_embeddings=256)
+
+    @staticmethod
+    def tiny_draft():
+        """A draft-sized sibling of `tiny()` sharing its vocabulary and
+        rope coverage."""
+        return LlamaConfig(vocab_size=512, hidden_size=64,
+                           intermediate_size=128, num_hidden_layers=1,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           max_position_embeddings=256)
+
+    @staticmethod
+    def small():
+        """~110M parameters."""
+        return LlamaConfig(vocab_size=32000, hidden_size=768,
+                           intermediate_size=2048, num_hidden_layers=12,
+                           num_attention_heads=12, num_key_value_heads=4,
+                           max_position_embeddings=2048)
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+    def num_params(self) -> int:
+        h, i, v = self.hidden_size, self.intermediate_size, self.vocab_size
+        kvh = self.num_key_value_heads * self.head_dim
+        per_layer = (h * h + 2 * h * kvh + h * h) + 3 * h * i + 2 * h
+        emb = v * h * (1 if self.tie_word_embeddings else 2)
+        return self.num_hidden_layers * per_layer + emb + h
+
+
+def precompute_rope(head_dim: int, max_len: int, theta: float):
+    """(cos, sin) tables of shape (max_len, head_dim / 2): computed in
+    float64 with numpy, stored as f32 — as the JAX package does."""
+    inv = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                           / head_dim))
+    t = np.arange(max_len, dtype=np.float64)
+    freqs = np.outer(t, inv)
+    return (torch.from_numpy(np.cos(freqs).astype(np.float32)),
+            torch.from_numpy(np.sin(freqs).astype(np.float32)))
+
+
+def _unported(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue A, item 3b: the "
+        "dense, flash and legacy-paged attention paths); the port runs "
+        "the ragged paged path only — pass one RaggedKVCacheView per "
+        "layer")
+
+
+class RaggedKVCacheView:
+    """`past_key_values` entry of one layer for one packed ragged batch:
+    the layer's page pools (HK, P, page_size, D), the shared block
+    table (N, pps), the per-token ``token_seq`` / ``positions`` (T,)
+    (-1 marks padding rows, which scatter to the trash page) and the
+    per-sequence ``query_start`` / ``query_len`` / ``context_lens``
+    (N,), all int32 tensors on the pools' device. ``block_q`` is the
+    q-block size the packer aligned ``query_start`` to (decode passes
+    1); ``pages_bound`` caps the plain version's page gather.
+
+    The attention writes the batch's new K/V rows into the pools in
+    place."""
+
+    def __init__(self, k_pages, v_pages, block_tables, token_seq,
+                 positions, query_start, query_len, context_lens,
+                 block_q=1, pages_bound=None):
+        self.k_pages = k_pages
+        self.v_pages = v_pages
+        self.block_tables = block_tables
+        self.token_seq = token_seq
+        self.positions = positions
+        self.query_start = query_start
+        self.query_len = query_len
+        self.context_lens = context_lens
+        self.block_q = int(block_q)
+        self.pages_bound = None if pages_bound is None else int(pages_bound)
+
+
+def _linear(h_in, h_out, device, dtype):
+    return torch.nn.Linear(h_in, h_out, bias=False, device=device,
+                           dtype=dtype)
+
+
+class LlamaAttention(torch.nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        h, hd = cfg.hidden_size, cfg.head_dim
+        self.num_heads = cfg.num_attention_heads
+        self.num_kv_heads = cfg.num_key_value_heads
+        self.head_dim = hd
+        self.sliding_window = cfg.sliding_window
+        self.q_proj = _linear(h, self.num_heads * hd, device, dtype)
+        self.k_proj = _linear(h, self.num_kv_heads * hd, device, dtype)
+        self.v_proj = _linear(h, self.num_kv_heads * hd, device, dtype)
+        self.o_proj = _linear(self.num_heads * hd, h, device, dtype)
+
+    def forward(self, x, cos, sin, past_key_value=None, use_kernel=None):
+        """x: (1, T, hidden) packed tokens; `past_key_value` a
+        `RaggedKVCacheView`. Per-token RoPE, ONE scatter of every new
+        K/V row into the pages, then ragged paged attention."""
+        if not isinstance(past_key_value, RaggedKVCacheView):
+            _unported("LlamaAttention without a RaggedKVCacheView")
+        b, t = x.shape[0], x.shape[1]
+        if b != 1:
+            raise ValueError("ragged KV cache wants a packed (1, T, ...) "
+                             "batch")
+        view = past_key_value
+        x = x[0]
+        q = F.linear(x, self.q_proj.weight).reshape(
+            t, self.num_heads, self.head_dim)
+        k = F.linear(x, self.k_proj.weight).reshape(
+            t, self.num_kv_heads, self.head_dim)
+        v = F.linear(x, self.v_proj.weight).reshape(
+            t, self.num_kv_heads, self.head_dim)
+        pos = view.positions.long()
+        cv = cos[pos].float()[:, None, :]
+        sv = sin[pos].float()[:, None, :]
+        q = rope_rotate_values(q, cv, sv)
+        k = rope_rotate_values(k, cv, sv)
+        ragged_scatter_values(view.k_pages, view.v_pages, k, v,
+                              view.block_tables, view.token_seq,
+                              view.positions)
+        out = ragged_paged_attention_values(
+            q, view.k_pages, view.v_pages, view.query_start,
+            view.query_len, view.context_lens, view.block_tables,
+            window=self.sliding_window, block_q=view.block_q,
+            use_kernel=use_kernel, pages_bound=view.pages_bound)
+        return F.linear(out.reshape(1, t, -1), self.o_proj.weight)
+
+
+class LlamaMLP(torch.nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        h, i = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = _linear(h, i, device, dtype)
+        self.up_proj = _linear(h, i, device, dtype)
+        self.down_proj = _linear(i, h, device, dtype)
+
+    def forward(self, x):
+        hmid = F.silu(F.linear(x, self.gate_proj.weight)) \
+            * F.linear(x, self.up_proj.weight)
+        return F.linear(hmid, self.down_proj.weight)
+
+
+class LlamaDecoderLayer(torch.nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        eps = cfg.rms_norm_eps
+        self.input_layernorm = RMSNorm(cfg.hidden_size, eps, device, dtype)
+        self.self_attn = LlamaAttention(cfg, device, dtype)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps,
+                                                device, dtype)
+        self.mlp = LlamaMLP(cfg, device, dtype)
+
+    def forward(self, x, cos, sin, past_key_value=None, use_kernel=None):
+        x = x + self.self_attn(self.input_layernorm(x, use_kernel), cos,
+                               sin, past_key_value, use_kernel)
+        return x + self.mlp(self.post_attention_layernorm(x, use_kernel))
+
+
+class LlamaModel(torch.nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = cfg
+        self.embed_tokens = torch.nn.Embedding(
+            cfg.vocab_size, cfg.hidden_size, device=device, dtype=dtype)
+        self.layers = torch.nn.ModuleList(
+            [LlamaDecoderLayer(cfg, device, dtype)
+             for _ in range(cfg.num_hidden_layers)])
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device,
+                            dtype)
+        cos, sin = precompute_rope(cfg.head_dim,
+                                   cfg.max_position_embeddings,
+                                   cfg.rope_theta)
+        # the tables take the model's dtype, as `Module.to(dtype)` (and
+        # the JAX `Layer.to`, which bench_decode.py builds its bf16
+        # model with) casts buffers too: a bf16 model rotates with
+        # bf16-rounded angles on both sides
+        rope_dt = dtype if dtype is not None else torch.float32
+        self.register_buffer("rope_cos", cos.to(device, rope_dt),
+                             persistent=False)
+        self.register_buffer("rope_sin", sin.to(device, rope_dt),
+                             persistent=False)
+
+    def forward(self, input_ids, past_key_values=None, use_kernel=None):
+        if past_key_values is None:
+            _unported("LlamaModel.forward without past_key_values")
+        x = self.embed_tokens(input_ids.long())
+        for layer, kv in zip(self.layers, past_key_values, strict=True):
+            x = layer(x, self.rope_cos, self.rope_sin, kv, use_kernel)
+        return self.norm(x, use_kernel)
+
+
+class LlamaForCausalLM(torch.nn.Module):
+    """Greedy-serving Llama. Builds on the CUDA card unless ``device``
+    names another device (without CUDA and without a device it raises
+    RuntimeError). ``dtype`` defaults to float32, as the JAX model's
+    parameters do; ``seed`` seeds the `torch.Generator` (on the build
+    device) that initialises the weights with the JAX package's
+    initialisers: Normal(0, 1) embeddings, Xavier-normal linears, unit
+    norm scales."""
+
+    def __init__(self, cfg: LlamaConfig | None = None, device=None,
+                 dtype=None, seed: int = 0):
+        super().__init__()
+        cfg = cfg or LlamaConfig.llama3_8b()
+        device = resolve_device(device)
+        dtype = dtype if dtype is not None else torch.float32
+        self.config = cfg
+        self.model = LlamaModel(cfg, device, dtype)
+        self.lm_head = None if cfg.tie_word_embeddings \
+            else _linear(cfg.hidden_size, cfg.vocab_size, device, dtype)
+        self.init_weights(torch.Generator(device=device).manual_seed(seed))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        for name, p in self.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            elif "embed_tokens" in name:
+                p.normal_(0.0, 1.0, generator=generator)
+            else:
+                out_f, in_f = p.shape
+                p.normal_(0.0, math.sqrt(2.0 / (in_f + out_f)),
+                          generator=generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.embed_tokens.weight.device
+
+    def logits(self, hidden):
+        w = self.lm_head.weight if self.lm_head is not None \
+            else self.model.embed_tokens.weight
+        return F.linear(hidden, w)
+
+    def forward(self, input_ids, past_key_values=None, rows=None,
+                use_kernel=None):
+        """input_ids: (1, T) packed tokens; past_key_values: one
+        `RaggedKVCacheView` per layer (pools updated in place). Returns
+        logits (1, T, vocab), or with ``rows`` (a (n,) index tensor)
+        only those packed rows' logits, (n, vocab) — the engine asks for
+        the rows it samples and skips the rest of the vocab matmul.
+        ``use_kernel`` goes to every kernel wrapper on the path (None:
+        route by device)."""
+        hidden = self.model(input_ids, past_key_values, use_kernel)
+        if rows is not None:
+            hidden = hidden[0, rows.long()]
+        return self.logits(hidden)

@@ -1,0 +1,28 @@
+"""Functional layer math of the serving path.
+
+≙ `paddle_tpu/nn/functional/norm.py` :52-70 (`rms_norm`),
+`nn/functional/common.py` (`linear`) and the `silu` activation.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.norm_kernels import rms_norm_values
+
+
+def rms_norm(x, weight, epsilon=1e-6, use_kernel=None):
+    """RMSNorm over the last axis. On the TPU `F.rms_norm` routed to the
+    Pallas kernel; here CUDA tensors go to the CUDA kernel and CPU
+    tensors to the plain version (`ops.norm_kernels.rms_norm_values`)."""
+    return rms_norm_values(x, weight, epsilon, use_kernel=use_kernel)
+
+
+def silu(x):
+    return torch.nn.functional.silu(x)
+
+
+def linear(x, weight, bias=None):
+    """``x @ weight.T + bias`` with the weight stored the torch way,
+    (out, in). The JAX package stores (in, out) and computes ``x @ W``;
+    `models.convert` transposes when it carries weights across."""
+    return torch.nn.functional.linear(x, weight, bias)
