@@ -24,6 +24,30 @@ no result. Phases, in order (any failure raises):
 6. one admission dispatch of the 8B model through the kernels and
    through the plain versions (``use_kernel=True`` / ``False``).
 
+Quantized serving adds, in the same run:
+
+3b. the dequant matmul kernel against its plain version at the serving
+    shapes (decode (8, 4096)->14336, (8, 14336)->4096, (8, 4096)->128256
+    and the first admission batch's (t_adm, 4096)->14336), int8 and fp8
+    storage, bf16 activations, plus one small f32 case: error, ms,
+    bound, plain ms, ``library_ms`` (``torch._weight_int8pack_mm`` for
+    int8 where the installed torch runs it on CUDA, else null with the
+    reason) and ``bf16_linear_ms``, the full-width ``F.linear`` the
+    quantized path has to beat;
+3c. the int8-KV branch of ragged attention on the four attention cases
+    of phase 3, over int8 pools and scales written by
+    `ragged_scatter_quantized`, bf16 q;
+4b. a tiny f32 Llama under ``QuantServingConfig(weights="int8" / "fp8",
+    kv="int8")`` served on the card and on the CPU: equal greedy streams
+    and every dispatch's logits within a stated budget (after a
+    divergence, the logits up to it, over at least 3 dispatches);
+5b. the 16 requests again with ``quant=QuantServingConfig("int8",
+    "int8")`` on the same bf16 model object (exact launch counts: 225
+    dequant matmuls, 32 int8-KV attentions, 65 RMSNorms per dispatch and
+    no full-width attention), then 4 of them with ``weights="fp8"``;
+6b. one admission dispatch with the quantized weights and int8 pools,
+    kernels against plain versions, as in phase 6.
+
 It prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -51,7 +75,18 @@ TOL = {"bfloat16": dict(rtol=2 ** -7, atol=1e-3),
 # core does), so bf16 outputs differ by a few bf16 ulps
 ATTN_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
 N_REQUESTS = 16
+N_FP8_REQUESTS = 4
 LLAMA_VOCAB = 128256      # LlamaConfig.llama3_8b().vocab_size
+# dequant matmul against its plain version: the widened weights and
+# their products with bf16 x are exact in f32, so the two differ by the
+# order of the f32 sums and one final bf16 rounding (bf16: one bf16 ulp
+# relative plus 2^-8 of the largest |output|); f32: sums in another order
+DQ_TOL = {"bfloat16": (2 ** -7, 2 ** -8), "float32": (1e-5, 1e-5)}
+# tiny quantized Llama, card against CPU: logits of f32 sums in another
+# order, and an int8 K/V element on a lattice midpoint may round one
+# step apart (one such step moved the CPU port's logits 7.2e-4 from
+# JAX's, tests/test_torch_quant_serving.py)
+TINY_QUANT_LOGIT_BUDGET = 5e-3
 
 
 def log(msg):
@@ -117,11 +152,13 @@ def rms_phase(rows_list, results):
             results.append(rec)
 
 
-def attn_case(seqs, block_q, tail_pad, dtype, window, gen):
-    """One ragged batch: `seqs` is [(query_len, context_len), ...]."""
+def attn_case(seqs, block_q, tail_pad, dtype, window, gen, int8kv=False):
+    """One ragged batch: `seqs` is [(query_len, context_len), ...].
+    With ``int8kv`` the pools are int8, every row written by
+    `ragged_scatter_quantized`, and their scale pools come back too."""
     import torch
-    from paddle_tpu_torch.ops.ragged_paged_attention import \
-        pack_ragged_starts
+    from paddle_tpu_torch.ops.ragged_paged_attention import (
+        pack_ragged_starts, ragged_scatter_quantized)
     H, HK, D, ps = 32, 8, 128, 16
     ql = np.array([s[0] for s in seqs], np.int32)
     cl = np.array([s[1] for s in seqs], np.int32)
@@ -140,8 +177,22 @@ def attn_case(seqs, block_q, tail_pad, dtype, window, gen):
     kp = torch.randn(HK, P, ps, D, device="cuda", generator=gen).to(dtype)
     vp = torch.randn(HK, P, ps, D, device="cuda", generator=gen).to(dtype)
     dev = [torch.from_numpy(a).cuda() for a in (qs, ql, cl, bt)]
-    # bytes: q, o, each live K/V page once, descriptors; operations:
-    # 2*D for q.k and 2*D for p.v per valid (query head, key) pair
+    scales = []
+    if int8kv:
+        n = P * ps
+        scales = [torch.zeros(P, ps, device="cuda") for _ in range(2)]
+        q8 = [torch.zeros(HK, P, ps, D, dtype=torch.int8, device="cuda")
+              for _ in range(2)]
+        rows = lambda a: a.permute(1, 2, 0, 3).reshape(n, HK, D)
+        ragged_scatter_quantized(
+            *q8, *scales, rows(kp), rows(vp),
+            torch.arange(P, dtype=torch.int32, device="cuda")[None],
+            torch.zeros(n, dtype=torch.int32, device="cuda"),
+            torch.arange(n, dtype=torch.int32, device="cuda"))
+        kp, vp = q8
+    # bytes: q, o, each live K/V page once (int8 pages: one byte a value
+    # and one f32 scale a row), descriptors; operations: 2*D for q.k and
+    # 2*D for p.v per valid (query head, key) pair
     pages = pairs = 0
     for qlen, ctx in zip(ql, cl):
         if qlen == 0:
@@ -152,17 +203,23 @@ def attn_case(seqs, block_q, tail_pad, dtype, window, gen):
         for p in range(first, int(ctx)):
             pairs += p + 1 if window is None else min(p + 1, window)
     isz = q.element_size()
-    nbytes = (2 * t * H * D * isz + pages * 2 * HK * ps * D * isz
+    page_bytes = 2 * ps * (HK * D + 4) if int8kv else 2 * HK * ps * D * isz
+    nbytes = (2 * t * H * D * isz + pages * page_bytes
               + 4 * (3 * len(seqs) + bt.size))
     ops = pairs * H * 4 * D
-    return (q, kp, vp, *dev), nbytes, ops
+    return (q, kp, vp, *dev), scales, nbytes, ops
 
 
-def attn_phase(results):
+def attn_phase(results, int8kv=False):
+    """The attention cases over full-width pools in bf16 and f32, or
+    with ``int8kv`` over int8 pools and their scales with bf16 q."""
     import torch
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention_ref, ragged_paged_attention_values)
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(5 if int8kv else 2)
+    kernel = "ragged_paged_attention_int8kv" if int8kv \
+        else "ragged_paged_attention"
+    dtypes = (torch.bfloat16,) if int8kv else (torch.bfloat16, torch.float32)
     decode = [(1, c) for c in (1, 33, 300, 517, 1024, 1500, 2000, 2048)]
     mixed = [(600, 600), (300, 1100), (1, 900), (0, 0), (37, 37),
              (1, 1), (0, 0), (0, 0)]
@@ -171,21 +228,25 @@ def attn_phase(results):
              ("windowed", mixed, 8, 16, 256),
              ("decode_windowed", decode, 1, 0, 256)]
     for label, seqs, bq, tail, win in cases:
-        for dt in (torch.bfloat16, torch.float32):
+        for dt in dtypes:
             name = str(dt).split(".")[1]
-            args, nbytes, ops = attn_case(seqs, bq, tail, dt, win, gen)
+            args, scales, nbytes, ops = attn_case(seqs, bq, tail, dt, win,
+                                                  gen, int8kv)
             scale = 1.0 / math.sqrt(128)
+            kw = dict(k_scale=scales[0], v_scale=scales[1]) if int8kv \
+                else {}
             run = lambda: ragged_paged_attention_values(
-                *args, window=win, block_q=bq, use_kernel=True)
+                *args, window=win, block_q=bq, use_kernel=True, **kw)
+            plain_fn = lambda: ragged_paged_attention_ref(
+                *args, scale, win, None, *scales)
             out = run()
-            ref = ragged_paged_attention_ref(*args, scale, win)
+            ref = plain_fn()
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             ms = time_ms(run)
-            plain = time_ms(lambda: ragged_paged_attention_ref(
-                *args, scale, win), iters=5, warmup=1)
+            plain = time_ms(plain_fn, iters=5, warmup=1)
             b_ms, b_by = bound(nbytes, ops, name)
-            rec = dict(kernel="ragged_paged_attention", case=label,
+            rec = dict(kernel=kernel, case=label,
                        dtype=name, block_q=bq, window=win,
                        max_abs_err=err, tol=ATTN_ATOL[name], ms=ms,
                        plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
@@ -195,6 +256,86 @@ def attn_phase(results):
                 raise AssertionError(f"ragged attention kernel disagrees: "
                                      f"{rec}")
             results.append(rec)
+
+
+def dq_library(x, qw, sc, mode):
+    """One PyTorch call that computes the same function, timed as a
+    yardstick (the port never calls it): (ms, max |diff| from the plain
+    version, note)."""
+    import torch
+    from paddle_tpu_torch.ops.quant_matmul import dequant_matmul_ref
+    if mode != "int8":
+        return None, None, ("no PyTorch call takes bf16 x with e4m3 "
+                            "weights and per-channel scales "
+                            "(torch._scaled_mm wants both operands fp8)")
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None, None, "torch._weight_int8pack_mm is not in this torch"
+    s_x = sc.to(x.dtype)
+    try:
+        out = fn(x, qw, s_x)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, None, ("torch._weight_int8pack_mm refused: "
+                            + str(e).splitlines()[0][:160])
+    diff = (out.float() - dequant_matmul_ref(x, qw, sc).float()) \
+        .abs().max().item()
+    return (time_ms(lambda: fn(x, qw, s_x)), diff,
+            "torch._weight_int8pack_mm (scales cast to x's dtype)")
+
+
+def dq_phase(t_adm, results):
+    """The dequant matmul kernel against its plain version at the
+    serving path's shapes, int8 and fp8 storage."""
+    import torch
+    from paddle_tpu_torch.ops.quant_matmul import (dequant_matmul_ref,
+                                                   dequant_matmul_values,
+                                                   quantize_weight_values)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [("decode_gate_up", 8, 4096, 14336, torch.bfloat16),
+             ("decode_down", 8, 14336, 4096, torch.bfloat16),
+             ("decode_lm_head", 8, 4096, LLAMA_VOCAB, torch.bfloat16),
+             ("admission_gate_up", t_adm, 4096, 14336, torch.bfloat16),
+             ("small_f32", 8, 128, 256, torch.float32)]
+    for label, m, k, n, dt in cases:
+        name = str(dt).split(".")[1]
+        w = (0.02 * torch.randn(n, k, device="cuda", generator=gen)).to(dt)
+        x = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+        lin_ms = time_ms(lambda: torch.nn.functional.linear(x, w))
+        for mode in ("int8", "fp8"):
+            qw, sc = quantize_weight_values(w, mode)
+            run = lambda: dequant_matmul_values(x, qw, sc, use_kernel=True)
+            out = run()
+            ref = dequant_matmul_ref(x, qw, sc)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            rtol, atol_rel = DQ_TOL[name]
+            top = ref.float().abs().max().item()
+            ok = torch.allclose(out.float(), ref.float(), rtol=rtol,
+                                atol=atol_rel * top)
+            ms = time_ms(run)
+            plain = time_ms(lambda: dequant_matmul_ref(x, qw, sc), iters=5,
+                            warmup=1)
+            lib_ms, lib_diff, lib_note = dq_library(x, qw, sc, mode)
+            isz = x.element_size()
+            nbytes = m * k * isz + n * k + 4 * n + m * n * isz
+            b_ms, b_by = bound(nbytes, 2 * m * n * k, name)
+            rec = dict(kernel="dequant_matmul", case=label, mode=mode,
+                       dtype=name, M=m, K=k, N=n, max_abs_err=err,
+                       max_abs_out=top,
+                       tol=dict(rtol=rtol, atol=atol_rel * top), ms=ms,
+                       plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms, library_max_abs_diff=lib_diff,
+                       library_note=lib_note,
+                       bf16_linear_ms=lin_ms if dt == torch.bfloat16
+                       else None)
+            log("kernel " + json.dumps(rec))
+            if not (ok and torch.isfinite(out).all()):
+                raise AssertionError(f"dequant matmul kernel disagrees: "
+                                     f"{rec}")
+            results.append(rec)
+            del qw, sc, out, ref
+        del w, x
 
 
 def tiny_parity():
@@ -219,6 +360,71 @@ def tiny_parity():
     if streams[0] != streams[1]:
         raise AssertionError("tiny Llama greedy streams differ between "
                              "the card and the CPU")
+
+
+def tiny_quant_parity():
+    """A tiny f32 Llama under quantized serving on the card (kernels)
+    and on the CPU (plain versions): equal greedy streams, and every
+    dispatch's logits within `TINY_QUANT_LOGIT_BUDGET` — if the streams
+    diverge, over the dispatches up to the first whose greedy tokens
+    differ, which must be at least 3."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.serving import (ContinuousBatchingEngine,
+                                                 QuantServingConfig)
+    cfg = LlamaConfig.tiny()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 20, 47, 3)]
+    for weights in ("int8", "fp8"):
+        streams, recs = [], []
+        for dev in ("cuda", "cpu"):
+            model = LlamaForCausalLM(cfg, device="cpu", seed=3).to(dev)
+            eng = ContinuousBatchingEngine(
+                model, max_batch_size=2, max_seq_len=64, prefill_chunk=16,
+                device=dev, quant=QuantServingConfig(weights, "int8"))
+            rec = []              # (logits, rows to compare) per dispatch
+            decoding = [False]
+            head, decode = model.logits, eng._decode
+
+            def logits(h, *a, _head=head, _rec=rec, _eng=eng,
+                       _decoding=decoding, **kw):
+                out = _head(h, *a, **kw)
+                # a decode dispatch has one row per slot; an empty slot
+                # reads the trash page, whose bytes are unspecified
+                live = [r is not None for r in _eng._slot_req] \
+                    if _decoding[0] else [True] * out.shape[0]
+                _rec.append((out.float().cpu(), torch.tensor(live)))
+                return out
+
+            def traced(finished, _decode=decode, _decoding=decoding):
+                _decoding[0] = True
+                try:
+                    _decode(finished)
+                finally:
+                    _decoding[0] = False
+            model.logits = logits
+            eng._decode = traced
+            for p in prompts:
+                eng.add_request(p, max_new_tokens=8)
+            streams.append(eng.run())
+            eng.check_invariants()
+            recs.append(rec)
+        worst, n_cmp = 0.0, 0
+        for (a, live), (b, _) in zip(*recs):
+            a, b = a[live], b[live]
+            worst = max(worst, (a - b).abs().max().item())
+            n_cmp += 1
+            if not torch.equal(a.argmax(-1), b.argmax(-1)):
+                break
+        same = streams[0] == streams[1]
+        log(f"tiny quant parity ({weights} weights, int8 KV): streams "
+            f"{'equal' if same else 'DIVERGE'}; max |logit diff| "
+            f"{worst:.3g} over {n_cmp} of {len(recs[0])} dispatches "
+            f"(budget {TINY_QUANT_LOGIT_BUDGET}); card {streams[0]} "
+            f"cpu {streams[1]}")
+        if worst > TINY_QUANT_LOGIT_BUDGET or (not same and n_cmp < 3):
+            raise AssertionError("tiny quantized Llama: card and CPU "
+                                 "logits disagree beyond the budget")
 
 
 def make_requests(vocab):
@@ -273,30 +479,100 @@ def serve_8b():
     eng.check_invariants()
     if len(eng._free) != eng.num_pages - 1:
         raise AssertionError("pages still held after the run")
-    want = {"ragged_paged_attention": L * nd, "rms_norm": (2 * L + 1) * nd}
+    want = {"ragged_paged_attention": L * nd, "rms_norm": (2 * L + 1) * nd,
+            "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0}
     log(f"launches {counts} expected {want} over {nd} dispatches "
         f"({eng.num_admission_dispatches} admission, "
         f"{eng.num_decode_dispatches} decode)")
     if counts != want:
         raise AssertionError("launch counts do not match the dispatches")
-    ttft = sorted(r.first_token_time - r.arrival_time for r in done)
-    stats = dict(requests=N_REQUESTS, wall_s=wall,
-                 ttft_p50_s=statistics.median(ttft),
-                 decode_tokens=eng.decode_tokens,
-                 decode_tokens_per_s=eng.decode_tokens / eng.decode_seconds,
-                 decode_step_ms=1e3 * eng.decode_seconds
-                 / eng.num_decode_dispatches,
-                 dispatches=nd,
-                 admission_dispatches=eng.num_admission_dispatches,
-                 decode_dispatches=eng.num_decode_dispatches,
-                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    log("serving " + json.dumps(stats))
+    log("serving " + json.dumps(serving_stats(eng, done, wall)))
     return model, counts, reqs
 
 
-def path_check(model, reqs):
+def serving_stats(eng, done, wall):
+    import torch
+    ttft = sorted(r.first_token_time - r.arrival_time for r in done)
+    return dict(requests=len(done), wall_s=wall,
+                ttft_p50_s=statistics.median(ttft),
+                decode_tokens=eng.decode_tokens,
+                decode_tokens_per_s=eng.decode_tokens / eng.decode_seconds,
+                decode_step_ms=1e3 * eng.decode_seconds
+                / eng.num_decode_dispatches,
+                dispatches=eng.num_dispatches,
+                admission_dispatches=eng.num_admission_dispatches,
+                decode_dispatches=eng.num_decode_dispatches,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def serve_8b_quant(model, reqs, weights, n_requests):
+    """Serve the first `n_requests` of `reqs` on the same bf16 8B model
+    object with ``quant=QuantServingConfig(weights, "int8")`` and check
+    the launch counts exactly. Returns (counts, the engine's quantized
+    weights); the engine itself is freed."""
+    import torch
+    from paddle_tpu_torch.models.serving import (ContinuousBatchingEngine,
+                                                 QuantServingConfig)
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    L = model.config.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ContinuousBatchingEngine(model, max_batch_size=8,
+                                   max_seq_len=2048,
+                                   quant=QuantServingConfig(weights, "int8"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if eng.quant_weight_layers != 7 * L + 1:
+        raise AssertionError(f"{eng.quant_weight_layers} quantized "
+                             f"weights, expected {7 * L + 1}")
+    reqs = reqs[:n_requests]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for p, new in reqs:
+        eng.add_request(p, max_new_tokens=new)
+    done = []
+    while len(done) < len(reqs):
+        done += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    by_rid = {r.rid: r for r in done}
+    for rid, (_, new) in enumerate(reqs):
+        r = by_rid[rid]
+        if r.status != "finished" or len(r.output) != new:
+            raise AssertionError(f"quantized request {rid}: {r.status} "
+                                 f"with {len(r.output)} of {new} tokens")
+    eng.check_invariants()
+    if len(eng._free) != eng.num_pages - 1:
+        raise AssertionError("pages still held after the quantized run")
+    nd = eng.num_dispatches
+    want = {"rms_norm": (2 * L + 1) * nd, "ragged_paged_attention": 0,
+            "ragged_paged_attention_int8kv": L * nd,
+            "dequant_matmul": (7 * L + 1) * nd}
+    log(f"launches ({weights} weights, int8 KV) {counts} expected {want} "
+        f"over {nd} dispatches ({eng.num_admission_dispatches} admission, "
+        f"{eng.num_decode_dispatches} decode)")
+    if counts != want:
+        raise AssertionError("quantized launch counts do not match the "
+                             "dispatches")
+    stats = serving_stats(eng, done, wall)
+    info = eng.cache_memory_info()
+    stats.update(weights=weights, kv="int8", page_bytes=info["page_bytes"],
+                 kv_pool_gib=info["bytes_pool"] / 2 ** 30,
+                 quant_weight_bytes=eng.quant_weight_bytes,
+                 quant_weight_gib=eng.quant_weight_bytes / 2 ** 30,
+                 quant_build_s=build_s)
+    tag = "serving_quant" if weights == "int8" else "serving_quant_fp8"
+    log(f"{tag} " + json.dumps(stats))
+    qweights = eng._qweights
+    del eng
+    return counts, qweights
+
+
+def path_check(model, reqs, weights=None):
     """One admission dispatch of the 8B model through the kernels and
-    through the plain versions, on fresh pools each."""
+    through the plain versions, on fresh pools each: full-width pools,
+    or, with the quantized ``weights``, int8 pools and their scales."""
     import torch
     from paddle_tpu_torch.models.llama import RaggedKVCacheView
     from paddle_tpu_torch.ops.ragged_paged_attention import \
@@ -317,26 +593,33 @@ def path_check(model, reqs):
            for k in ("ids", "token_seq", "positions", "query_start",
                      "query_len", "context_len", "sample_rows")}
     bt_d = torch.from_numpy(bt).cuda()
+    quant = weights is not None
     logits = {}
     for use_kernel in (True, False):
         pools = [tuple(torch.zeros(cfg.num_key_value_heads, nxt, ps,
-                                   cfg.head_dim, dtype=torch.bfloat16,
-                                   device="cuda") for _ in range(2))
+                                   cfg.head_dim, device="cuda",
+                                   dtype=torch.int8 if quant
+                                   else torch.bfloat16) for _ in range(2))
+                 + tuple(torch.zeros(nxt, ps, device="cuda")
+                         for _ in range(2 if quant else 0))
                  for _ in range(cfg.num_hidden_layers)]
-        views = [RaggedKVCacheView(k, v, bt_d, dev["token_seq"],
+        views = [RaggedKVCacheView(e[0], e[1], bt_d, dev["token_seq"],
                                    dev["positions"], dev["query_start"],
-                                   dev["query_len"], dev["context_len"], 8)
-                 for k, v in pools]
+                                   dev["query_len"], dev["context_len"], 8,
+                                   None, *e[2:])
+                 for e in pools]
         with torch.no_grad():
             logits[use_kernel] = model(dev["ids"][None], views,
                                        rows=dev["sample_rows"],
-                                       use_kernel=use_kernel).float()
+                                       use_kernel=use_kernel,
+                                       weights=weights).float()
         del pools, views
     a, b = logits[True], logits[False]
     diff = (a - b).abs().max().item()
     scale = b.abs().max().item()
     agree = (a.argmax(-1) == b.argmax(-1)).tolist()
-    log(f"path check: max |logit diff| {diff:.4g} (max |logit| "
+    log(f"{'quantized ' if quant else ''}path check: max |logit diff| "
+        f"{diff:.4g} (max |logit| "
         f"{scale:.4g}), argmax agrees per row {agree}, shape "
         f"{tuple(a.shape)}")
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
@@ -384,21 +667,39 @@ def main():
     t_adm = pack_ragged_batch(first, 8, block_q=8, pad_to=16)["t_pad"]
     rms_phase([8, t_adm], results)
     attn_phase(results)
+    dq_phase(t_adm, results)
+    attn_phase(results, int8kv=True)
     tiny_parity()
+    tiny_quant_parity()
     model, counts, reqs = serve_8b()
     path_check(model, reqs)
+    qcounts, qweights = serve_8b_quant(model, reqs, "int8", N_REQUESTS)
+    path_check(model, reqs, qweights)
+    del qweights
+    serve_8b_quant(model, reqs, "fp8", N_FP8_REQUESTS)
+    # each kernel's launches on its own main path: the full-width run
+    # for RMSNorm and full-width attention, the int8 run for the others
+    counts.update((k, qcounts[k]) for k in (
+        "ragged_paged_attention_int8kv", "dequant_matmul"))
 
-    main_case = {"rms_norm": ("rows=8", "bfloat16"),
-                 "ragged_paged_attention": ("decode", "bfloat16")}
+    main_case = {"rms_norm": ("rows=8", "bfloat16", None),
+                 "ragged_paged_attention": ("decode", "bfloat16", None),
+                 "ragged_paged_attention_int8kv": ("decode", "bfloat16",
+                                                   None),
+                 "dequant_matmul": ("decode_gate_up", "bfloat16", "int8")}
+    attn_src = ("paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+                "paddle_tpu/ops/ragged_paged_attention.py:293")
     meta = {"rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
                          "paddle_tpu/ops/norm_kernels.py:45"),
-            "ragged_paged_attention": (
-                "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
-                "paddle_tpu/ops/ragged_paged_attention.py:293")}
+            "ragged_paged_attention": attn_src,
+            "ragged_paged_attention_int8kv": attn_src,
+            "dequant_matmul": ("paddle_tpu_torch/csrc/dequant_matmul.cu",
+                               "paddle_tpu/ops/quant_matmul.py:130")}
     kernels = []
-    for name, (case, dt) in main_case.items():
+    for name, (case, dt, mode) in main_case.items():
         rec = next(r for r in results if r["kernel"] == name
-                   and r["case"] == case and r["dtype"] == dt)
+                   and r["case"] == case and r["dtype"] == dt
+                   and r.get("mode") == mode)
         kernels.append(dict(
             name=name, route="cuda", source=meta[name][0],
             replaces=meta[name][1], launches=counts[name],

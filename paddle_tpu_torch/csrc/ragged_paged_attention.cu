@@ -2,8 +2,9 @@
 // packed ragged token axis (decode rows, full prefills, chunk continuations)
 // over a block-table paged KV cache, with an optional sliding window.
 //
-// Replaces: paddle_tpu/ops/ragged_paged_attention.py:_ragged_kernel
-// (unquantized branch; launched by _ragged_pallas, pallas_call at :460).
+// Replaces: paddle_tpu/ops/ragged_paged_attention.py:_ragged_kernel, both
+// branches: full-width pages and quantized int8 pages (quantized=True,
+// :296-309, :341-343, :358); launched by _ragged_pallas, pallas_call at :460.
 //
 // Layout (the JAX package's, unchanged): q and o are (T, H, D); k/v pages
 // are (HK, P, page_size, D); query_start / query_len / context_len are (N,)
@@ -35,12 +36,25 @@
 // across blocks, cp.async/TMA double buffering and wgmma for admission
 // tiles are later changes.
 //
+// Quantized pages. int8 pools carry two (P, page_size) f32 scale pools, one
+// DEQUANT multiplier per page row, shared by the KV heads (written by
+// ragged_scatter_quantized). The kernel is templated on the page type apart
+// from q's: an int8 page is widened to f32 while it is staged (16 values a
+// 16-byte load, sign-extended), the key-row scale multiplies logit column j
+// after the softmax scale, and the value-row scale multiplies weight column
+// j before p @ v; the denominator l sums the unscaled weights, as the TPU
+// kernel does. Page bytes halve against bf16, which is what bounds decode.
+// Dead pages are still never read, so trash page 0's scales never reach a
+// live row.
+//
 // C interface: device pointers on the caller's stream; the entry returns
 // cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -51,6 +65,9 @@ constexpr size_t kMaxSmem = 232448;  // 227 KB: a block's dynamic limit
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f(int8_t v) {
+  return static_cast<float>(v);  // int8_t is signed: sign-extends
 }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
@@ -88,19 +105,23 @@ __device__ __forceinline__ float warp_sum(float v) {
 // floats of dynamic shared memory one block needs
 __host__ __device__ inline size_t smem_floats(int R, int D, int ps) {
   // q tile + accumulator (R x D), K tile (ps x (D+1), padded against bank
-  // conflicts), V tile (ps x D), scores / weights (R x ps), m, l, alpha
+  // conflicts), V tile (ps x D), scores / weights (R x ps), m, l, alpha,
+  // and the page's key / value row scales (2 x ps; unused when unquantized)
   return 2 * size_t(R) * D + size_t(ps) * (D + 1) + size_t(ps) * D +
-         size_t(R) * ps + 3 * size_t(R);
+         size_t(R) * ps + 3 * size_t(R) + 2 * size_t(ps);
 }
 
-template <typename T, bool kVec>
+// T: q / o type; KV: page type (T, or int8_t with scale pools ks / vs)
+template <typename T, typename KV, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ kp,
-    const T* __restrict__ vp, const int* __restrict__ qstart,
+    const T* __restrict__ q, const KV* __restrict__ kp,
+    const KV* __restrict__ vp, const float* __restrict__ ks,
+    const float* __restrict__ vs, const int* __restrict__ qstart,
     const int* __restrict__ qlen, const int* __restrict__ ctxlen,
     const int* __restrict__ bt, T* __restrict__ o, int H, int HK, int D,
     int P, int ps, int N, int pps, int block_q, float scale, int window) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   extern __shared__ float smem[];
   __shared__ int owner;
   const int G = H / HK;
@@ -119,6 +140,8 @@ ragged_paged_attention_kernel(
   float* m_s = p_s + R * ps;
   float* l_s = m_s + R;
   float* a_s = l_s + R;
+  float* ks_s = a_s + R;
+  float* vs_s = ks_s + ps;
 
   // the owning sequence of this q block (-1: a padding block)
   if (tid == 0) {
@@ -163,8 +186,14 @@ ragged_paged_attention_kernel(
   const int* bt_row = bt + size_t(s < 0 ? 0 : s) * pps;
   for (int i = page_lo; i <= page_hi; ++i) {
     const size_t base = (size_t(hk) * P + bt_row[i]) * ps * D;
+    if constexpr (kQuant) {
+      for (int j = tid; j < ps; j += kThreads) {
+        ks_s[j] = ks[size_t(bt_row[i]) * ps + j];
+        vs_s[j] = vs[size_t(bt_row[i]) * ps + j];
+      }
+    }
     if constexpr (kVec) {
-      constexpr int V = Vec<T>::n;
+      constexpr int V = Vec<KV>::n;
       float fk[V], fv[V];
       for (int e = tid * V; e < ps * D; e += kThreads * V) {
         load_vec(kp + base + e, fk);
@@ -198,6 +227,7 @@ ragged_paged_attention_kernel(
         float dot = 0.f;
         for (int d = 0; d < D; ++d) dot += qr[d] * kr[d];
         sim = dot * scale;
+        if constexpr (kQuant) sim *= ks_s[j];  // key-row dequant
       }
       p_s[e] = sim;
     }
@@ -214,7 +244,8 @@ ragged_paged_attention_kernel(
       for (int j = lane; j < ps; j += 32) {
         const float sv = p_s[r * ps + j];
         const float pv = sv > kNegInf * 0.5f ? expf(sv - m_new) : 0.f;
-        p_s[r * ps + j] = pv;
+        // value-row dequant scales the weights, not the denominator
+        p_s[r * ps + j] = kQuant ? pv * vs_s[j] : pv;
         sum += pv;
       }
       sum = warp_sum(sum);
@@ -248,14 +279,14 @@ ragged_paged_attention_kernel(
   }
 }
 
-template <typename T, bool kVec>
+template <typename T, typename KV, bool kVec>
 cudaError_t launch_one(dim3 grid, size_t smem, cudaStream_t stream,
                        const void* q, const void* kp, const void* vp,
-                       const int* qs, const int* ql, const int* cl,
-                       const int* bt, void* o, int H, int HK, int D, int P,
-                       int ps, int N, int pps, int block_q, float scale,
-                       int window) {
-  auto kern = ragged_paged_attention_kernel<T, kVec>;
+                       const float* ks, const float* vs, const int* qs,
+                       const int* ql, const int* cl, const int* bt, void* o,
+                       int H, int HK, int D, int P, int ps, int N, int pps,
+                       int block_q, float scale, int window) {
+  auto kern = ragged_paged_attention_kernel<T, KV, kVec>;
   static size_t opted_in = 48 * 1024;
   if (smem > opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -263,42 +294,45 @@ cudaError_t launch_one(dim3 grid, size_t smem, cudaStream_t stream,
     if (err != cudaSuccess) return err;
     opted_in = smem;
   }
-  ragged_paged_attention_kernel<T, kVec><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), qs, ql, cl, bt, static_cast<T*>(o), H, HK,
-      D, P, ps, N, pps, block_q, scale, window);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kp),
+      static_cast<const KV*>(vp), ks, vs, qs, ql, cl, bt, static_cast<T*>(o),
+      H, HK, D, P, ps, N, pps, block_q, scale, window);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* qs, const int* ql, const int* cl,
-                   const int* bt, void* o, int T_, int H, int HK, int D,
-                   int P, int ps, int N, int pps, int block_q, float scale,
-                   int window, cudaStream_t stream) {
+                   const float* ks, const float* vs, const int* qs,
+                   const int* ql, const int* cl, const int* bt, void* o,
+                   int T_, int H, int HK, int D, int P, int ps, int N,
+                   int pps, int block_q, float scale, int window,
+                   cudaStream_t stream) {
   const int R = block_q * (H / HK);
   const size_t smem = smem_floats(R, D, ps) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const dim3 grid(T_ / block_q, HK);
-  constexpr int V = Vec<T>::n;
+  constexpr int V = Vec<KV>::n;
   const bool vec = D % V == 0 &&
                    reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(vp) % 16 == 0;
   if (vec)
-    return launch_one<T, true>(grid, smem, stream, q, kp, vp, qs, ql, cl, bt,
-                               o, H, HK, D, P, ps, N, pps, block_q, scale,
-                               window);
-  return launch_one<T, false>(grid, smem, stream, q, kp, vp, qs, ql, cl, bt,
-                              o, H, HK, D, P, ps, N, pps, block_q, scale,
-                              window);
+    return launch_one<T, KV, true>(grid, smem, stream, q, kp, vp, ks, vs, qs,
+                                   ql, cl, bt, o, H, HK, D, P, ps, N, pps,
+                                   block_q, scale, window);
+  return launch_one<T, KV, false>(grid, smem, stream, q, kp, vp, ks, vs, qs,
+                                  ql, cl, bt, o, H, HK, D, P, ps, N, pps,
+                                  block_q, scale, window);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pages and o share it).
-// window <= 0: no sliding window.
+// dtype: 0 = float32, 1 = bfloat16 (q and o share it). k_scale / v_scale:
+// null for full-width pages, which then share q's dtype; both non-null for
+// int8 pages, each a (P, page_size) f32 pool. window <= 0: no sliding window.
 extern "C" int pdt_ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale,
     const void* query_start, const void* query_len, const void* context_len,
     const void* block_tables, void* o, int T, int H, int HK, int D, int P,
     int page_size, int N, int pps, int block_q, float scale, int window,
@@ -311,15 +345,28 @@ extern "C" int pdt_ragged_paged_attention(
   const int* ql = static_cast<const int*>(query_len);
   const int* cl = static_cast<const int*>(context_len);
   const int* bt = static_cast<const int*>(block_tables);
-  switch (dtype) {
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  if ((ks == nullptr) != (vs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool quant = ks != nullptr;
+  switch (dtype * 2 + quant) {
     case 0:
-      return launch<float>(q, k_pages, v_pages, qs, ql, cl, bt, o, T, H, HK,
-                           D, P, page_size, N, pps, block_q, scale, window,
-                           s);
+      return launch<float, float>(q, k_pages, v_pages, ks, vs, qs, ql, cl,
+                                  bt, o, T, H, HK, D, P, page_size, N, pps,
+                                  block_q, scale, window, s);
     case 1:
-      return launch<__nv_bfloat16>(q, k_pages, v_pages, qs, ql, cl, bt, o, T,
-                                   H, HK, D, P, page_size, N, pps, block_q,
-                                   scale, window, s);
+      return launch<float, int8_t>(q, k_pages, v_pages, ks, vs, qs, ql, cl,
+                                   bt, o, T, H, HK, D, P, page_size, N, pps,
+                                   block_q, scale, window, s);
+    case 2:
+      return launch<__nv_bfloat16, __nv_bfloat16>(
+          q, k_pages, v_pages, ks, vs, qs, ql, cl, bt, o, T, H, HK, D, P,
+          page_size, N, pps, block_q, scale, window, s);
+    case 3:
+      return launch<__nv_bfloat16, int8_t>(
+          q, k_pages, v_pages, ks, vs, qs, ql, cl, bt, o, T, H, HK, D, P,
+          page_size, N, pps, block_q, scale, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

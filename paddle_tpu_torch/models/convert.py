@@ -9,7 +9,8 @@ and ``lm_head.weight`` (absent when the embeddings are tied). The port's
 module tree uses the same names, so the carry is a name check plus a
 transpose of every Linear weight: the JAX package stores (in, out),
 torch (out, in). The rope tables are non-persistent buffers on both
-sides and are recomputed, not carried.
+sides and are recomputed, not carried. `quantized_weight_from_numpy`
+carries one quantized weight the same way.
 """
 from __future__ import annotations
 
@@ -83,3 +84,27 @@ def llama_state_from_numpy(sd: Dict[str, np.ndarray],
     if bad:
         raise ValueError("shape mismatch: " + "; ".join(bad))
     return out
+
+
+def quantized_weight_from_numpy(qw: np.ndarray, scale: np.ndarray):
+    """Carry a JAX `QuantizedWeight` (``qw`` (K, N) int8 or
+    float8_e4m3fn storage as a numpy array, ``scale`` (N,) f32 per
+    output channel) into the port's `ops.quant_matmul.QuantizedWeight`:
+    ``qw`` transposed to (N, K), the bytes unchanged, ``scale``
+    unchanged. numpy has no fp8 dtype of its own (JAX's arrays carry
+    ml_dtypes' ``float8_e4m3fn``), so fp8 crosses as its bytes."""
+    from ..ops.quant_matmul import QuantizedWeight
+    qw = np.asarray(qw)
+    if qw.ndim != 2 or np.shape(scale) != (qw.shape[1],):
+        raise ValueError(f"want qw (K, N) and scale (N,), got "
+                         f"{qw.shape} and {np.shape(scale)}")
+    if qw.dtype == np.int8:
+        t = torch.from_numpy(np.ascontiguousarray(qw.T))
+    elif qw.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(np.ascontiguousarray(qw.T).view(np.uint8)) \
+            .view(torch.float8_e4m3fn)
+    else:
+        raise ValueError(f"quantized storage must be int8 or "
+                         f"float8_e4m3fn, got {qw.dtype}")
+    return QuantizedWeight(t, torch.from_numpy(
+        np.array(scale, np.float32, copy=True)))

@@ -1,8 +1,9 @@
 """Llama-3 family, serving path.
 
 ≙ `paddle_tpu/models/llama.py` :28-105 (`LlamaConfig`, `precompute_rope`),
-:230-286 (`RaggedKVCacheView`), :475-652 (the ragged attention path, MLP,
-decoder, model) and :653-694 (`LlamaForCausalLM`). Only the ragged paged
+:230-286 (`RaggedKVCacheView`), :475-652 (the ragged attention path with
+its quantized-page branch :507-531, MLP, decoder, model) and :653-694
+(`LlamaForCausalLM`). Only the ragged paged
 path that the serving engine drives is ported: a packed (1, T) token
 axis of decode steps, prefills and chunk continuations, with the KV
 cache in page pools. The dense, flash and paged-legacy branches of the
@@ -11,6 +12,16 @@ JAX `LlamaAttention.forward` raise `NotImplementedError`.
 Linear weights are stored (out, in), the torch way; the JAX package
 stores (in, out) (`models.convert` transposes). RoPE pairs are
 interleaved, ``(x[..., 0::2], x[..., 1::2])``.
+
+Quantized serving hands the model its quantized weights per call: the
+optional ``weights`` mapping of `LlamaForCausalLM.forward`, {parameter
+name: `QuantizedWeight`}, which each Linear call consults before its own
+parameter. The model object is never changed, so one bf16 model can
+serve a quantized engine and a full-width engine side by side (the JAX
+engine gets the same from binding values per dispatch, `bind_state`).
+An explicit argument was chosen over a scoped binding because it leaves
+no state on the modules between calls and reads plainly at each call
+site.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from ..nn import functional as F
 from ..nn.layers import RMSNorm
 from ..ops import resolve_device
 from ..ops.ragged_paged_attention import (ragged_paged_attention_values,
+                                          ragged_scatter_quantized,
                                           ragged_scatter_values)
 from ..ops.rope import rope_rotate_values
 
@@ -116,15 +128,21 @@ class RaggedKVCacheView:
     (N,), all int32 tensors on the pools' device. ``block_q`` is the
     q-block size the packer aligned ``query_start`` to (decode passes
     1); ``pages_bound`` caps the plain version's page gather.
+    ``k_scale``/``v_scale`` are the (P, page_size) f32 scale pools of
+    int8 page pools (quantized serving), None for full-width pools.
 
     The attention writes the batch's new K/V rows into the pools in
-    place."""
+    place (quantized on commit when the view has scales)."""
 
     def __init__(self, k_pages, v_pages, block_tables, token_seq,
                  positions, query_start, query_len, context_lens,
-                 block_q=1, pages_bound=None):
+                 block_q=1, pages_bound=None, k_scale=None, v_scale=None):
+        if (k_scale is None) != (v_scale is None):
+            raise ValueError("k_scale and v_scale must be passed together")
         self.k_pages = k_pages
         self.v_pages = v_pages
+        self.k_scale = k_scale
+        self.v_scale = v_scale
         self.block_tables = block_tables
         self.token_seq = token_seq
         self.positions = positions
@@ -140,10 +158,22 @@ def _linear(h_in, h_out, device, dtype):
                            dtype=dtype)
 
 
+def _proj(module, name, x, weights, use_kernel):
+    """``x`` through the Linear ``module.<name>``: by the
+    `QuantizedWeight` that ``weights`` binds to its parameter name, else
+    by its own weight."""
+    w = getattr(module, name).weight
+    if weights is not None:
+        w = weights.get(f"{module.prefix}{name}.weight", w)
+    return F.linear(x, w, use_kernel=use_kernel)
+
+
 class LlamaAttention(torch.nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
+                 prefix=""):
         super().__init__()
         h, hd = cfg.hidden_size, cfg.head_dim
+        self.prefix = prefix          # this module's parameter-name prefix
         self.num_heads = cfg.num_attention_heads
         self.num_kv_heads = cfg.num_key_value_heads
         self.head_dim = hd
@@ -153,10 +183,15 @@ class LlamaAttention(torch.nn.Module):
         self.v_proj = _linear(h, self.num_kv_heads * hd, device, dtype)
         self.o_proj = _linear(self.num_heads * hd, h, device, dtype)
 
-    def forward(self, x, cos, sin, past_key_value=None, use_kernel=None):
+    def forward(self, x, cos, sin, past_key_value=None, use_kernel=None,
+                weights=None):
         """x: (1, T, hidden) packed tokens; `past_key_value` a
         `RaggedKVCacheView`. Per-token RoPE, ONE scatter of every new
-        K/V row into the pages, then ragged paged attention."""
+        K/V row into the pages, then ragged paged attention. With scale
+        pools on the view the scatter quantizes on commit and the
+        attention reads the post-scatter int8 pages and scales, so a
+        prefill row attends exactly the values a later decode step
+        would. ``weights`` as in `LlamaForCausalLM.forward`."""
         if not isinstance(past_key_value, RaggedKVCacheView):
             _unported("LlamaAttention without a RaggedKVCacheView")
         b, t = x.shape[0], x.shape[1]
@@ -165,56 +200,70 @@ class LlamaAttention(torch.nn.Module):
                              "batch")
         view = past_key_value
         x = x[0]
-        q = F.linear(x, self.q_proj.weight).reshape(
+        q = _proj(self, "q_proj", x, weights, use_kernel).reshape(
             t, self.num_heads, self.head_dim)
-        k = F.linear(x, self.k_proj.weight).reshape(
+        k = _proj(self, "k_proj", x, weights, use_kernel).reshape(
             t, self.num_kv_heads, self.head_dim)
-        v = F.linear(x, self.v_proj.weight).reshape(
+        v = _proj(self, "v_proj", x, weights, use_kernel).reshape(
             t, self.num_kv_heads, self.head_dim)
         pos = view.positions.long()
         cv = cos[pos].float()[:, None, :]
         sv = sin[pos].float()[:, None, :]
         q = rope_rotate_values(q, cv, sv)
         k = rope_rotate_values(k, cv, sv)
-        ragged_scatter_values(view.k_pages, view.v_pages, k, v,
-                              view.block_tables, view.token_seq,
-                              view.positions)
+        if view.k_scale is not None:
+            ragged_scatter_quantized(view.k_pages, view.v_pages,
+                                     view.k_scale, view.v_scale, k, v,
+                                     view.block_tables, view.token_seq,
+                                     view.positions)
+        else:
+            ragged_scatter_values(view.k_pages, view.v_pages, k, v,
+                                  view.block_tables, view.token_seq,
+                                  view.positions)
         out = ragged_paged_attention_values(
             q, view.k_pages, view.v_pages, view.query_start,
             view.query_len, view.context_lens, view.block_tables,
             window=self.sliding_window, block_q=view.block_q,
-            use_kernel=use_kernel, pages_bound=view.pages_bound)
-        return F.linear(out.reshape(1, t, -1), self.o_proj.weight)
+            use_kernel=use_kernel, pages_bound=view.pages_bound,
+            k_scale=view.k_scale, v_scale=view.v_scale)
+        return _proj(self, "o_proj", out.reshape(1, t, -1), weights,
+                     use_kernel)
 
 
 class LlamaMLP(torch.nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
+                 prefix=""):
         super().__init__()
         h, i = cfg.hidden_size, cfg.intermediate_size
+        self.prefix = prefix          # this module's parameter-name prefix
         self.gate_proj = _linear(h, i, device, dtype)
         self.up_proj = _linear(h, i, device, dtype)
         self.down_proj = _linear(i, h, device, dtype)
 
-    def forward(self, x):
-        hmid = F.silu(F.linear(x, self.gate_proj.weight)) \
-            * F.linear(x, self.up_proj.weight)
-        return F.linear(hmid, self.down_proj.weight)
+    def forward(self, x, use_kernel=None, weights=None):
+        hmid = F.silu(_proj(self, "gate_proj", x, weights, use_kernel)) \
+            * _proj(self, "up_proj", x, weights, use_kernel)
+        return _proj(self, "down_proj", hmid, weights, use_kernel)
 
 
 class LlamaDecoderLayer(torch.nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
+                 prefix=""):
         super().__init__()
         eps = cfg.rms_norm_eps
         self.input_layernorm = RMSNorm(cfg.hidden_size, eps, device, dtype)
-        self.self_attn = LlamaAttention(cfg, device, dtype)
+        self.self_attn = LlamaAttention(cfg, device, dtype,
+                                        f"{prefix}self_attn.")
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps,
                                                 device, dtype)
-        self.mlp = LlamaMLP(cfg, device, dtype)
+        self.mlp = LlamaMLP(cfg, device, dtype, f"{prefix}mlp.")
 
-    def forward(self, x, cos, sin, past_key_value=None, use_kernel=None):
+    def forward(self, x, cos, sin, past_key_value=None, use_kernel=None,
+                weights=None):
         x = x + self.self_attn(self.input_layernorm(x, use_kernel), cos,
-                               sin, past_key_value, use_kernel)
-        return x + self.mlp(self.post_attention_layernorm(x, use_kernel))
+                               sin, past_key_value, use_kernel, weights)
+        return x + self.mlp(self.post_attention_layernorm(x, use_kernel),
+                            use_kernel, weights)
 
 
 class LlamaModel(torch.nn.Module):
@@ -224,8 +273,8 @@ class LlamaModel(torch.nn.Module):
         self.embed_tokens = torch.nn.Embedding(
             cfg.vocab_size, cfg.hidden_size, device=device, dtype=dtype)
         self.layers = torch.nn.ModuleList(
-            [LlamaDecoderLayer(cfg, device, dtype)
-             for _ in range(cfg.num_hidden_layers)])
+            [LlamaDecoderLayer(cfg, device, dtype, f"model.layers.{i}.")
+             for i in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device,
                             dtype)
         cos, sin = precompute_rope(cfg.head_dim,
@@ -241,12 +290,14 @@ class LlamaModel(torch.nn.Module):
         self.register_buffer("rope_sin", sin.to(device, rope_dt),
                              persistent=False)
 
-    def forward(self, input_ids, past_key_values=None, use_kernel=None):
+    def forward(self, input_ids, past_key_values=None, use_kernel=None,
+                weights=None):
         if past_key_values is None:
             _unported("LlamaModel.forward without past_key_values")
         x = self.embed_tokens(input_ids.long())
         for layer, kv in zip(self.layers, past_key_values, strict=True):
-            x = layer(x, self.rope_cos, self.rope_sin, kv, use_kernel)
+            x = layer(x, self.rope_cos, self.rope_sin, kv, use_kernel,
+                      weights)
         return self.norm(x, use_kernel)
 
 
@@ -269,6 +320,7 @@ class LlamaForCausalLM(torch.nn.Module):
         self.model = LlamaModel(cfg, device, dtype)
         self.lm_head = None if cfg.tie_word_embeddings \
             else _linear(cfg.hidden_size, cfg.vocab_size, device, dtype)
+        self.prefix = ""              # parameter-name prefix (`_proj`)
         self.init_weights(torch.Generator(device=device).manual_seed(seed))
 
     @torch.no_grad()
@@ -287,21 +339,26 @@ class LlamaForCausalLM(torch.nn.Module):
     def device(self) -> torch.device:
         return self.model.embed_tokens.weight.device
 
-    def logits(self, hidden):
-        w = self.lm_head.weight if self.lm_head is not None \
-            else self.model.embed_tokens.weight
-        return F.linear(hidden, w)
+    def logits(self, hidden, use_kernel=None, weights=None):
+        """The vocab matmul. A tied head is the embedding, which is
+        never quantized (the embed lookup is a gather, not a matmul)."""
+        if self.lm_head is None:
+            return F.linear(hidden, self.model.embed_tokens.weight)
+        return _proj(self, "lm_head", hidden, weights, use_kernel)
 
     def forward(self, input_ids, past_key_values=None, rows=None,
-                use_kernel=None):
+                use_kernel=None, weights=None):
         """input_ids: (1, T) packed tokens; past_key_values: one
         `RaggedKVCacheView` per layer (pools updated in place). Returns
         logits (1, T, vocab), or with ``rows`` (a (n,) index tensor)
         only those packed rows' logits, (n, vocab) — the engine asks for
         the rows it samples and skips the rest of the vocab matmul.
         ``use_kernel`` goes to every kernel wrapper on the path (None:
-        route by device)."""
-        hidden = self.model(input_ids, past_key_values, use_kernel)
+        route by device). ``weights``: {parameter name, as in
+        `named_parameters()`: `QuantizedWeight`}; each Linear whose
+        weight is named there multiplies by it instead of its own
+        parameter (module docstring)."""
+        hidden = self.model(input_ids, past_key_values, use_kernel, weights)
         if rows is not None:
             hidden = hidden[0, rows.long()]
-        return self.logits(hidden)
+        return self.logits(hidden, use_kernel, weights)

@@ -10,7 +10,11 @@ paged `check_invariants` :2069-2176, `_finalize` / `_release_slot`
 dispatch per batch, with `prefill_chunk` chunk continuations), the page
 allocator :2852-3110 (trash page 0, refcounts, worst-case reservation)
 and the synchronous ragged decode step with lazy page growth and
-preemption :3268-3565.
+preemption :3268-3565. Quantized serving (≙ `QUANT_MATMULS` /
+`QuantServingConfig` :401-453, the ``quant=`` check :561-571, the int8
+page and scale pools :668-693, `_build_quant_weights` :930-964 without
+tensor parallelism, and the paged part of `cache_memory_info`
+:2034-2060 without the prefix fields).
 
 Each admission batch and each decode step is ONE ragged dispatch: the
 packed token axis runs through `LlamaForCausalLM.forward` with one
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from ..ops import resolve_device
+from ..ops.quant_matmul import QuantizedWeight, quantize_weight_values
 from ..ops.ragged_paged_attention import pack_ragged_batch
 from .generation import RequestStatus, _sample_token
 from .llama import RaggedKVCacheView
@@ -82,10 +87,52 @@ _UNPORTED_OPTIONS = (
     ("harvest_every", 1, "6c (pipelined decode)"),
     ("max_prefill_programs", 8, "6d (CUDA-graph dispatch cache)"),
     ("max_decode_retries", 3, "5 (fault points and telemetry)"),
-    ("quant", None, "7 (quantized serving)"),
     ("spec_decode", None, "9 (speculative decoding)"),
     ("submesh", None, "12 (tensor parallelism)"),
 )
+
+
+# the matmuls a quantized engine converts (embeddings stay full width:
+# the embed lookup is a gather, not a matmul, and a tied lm_head reuses
+# the embedding, so it is left out with it)
+QUANT_MATMULS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                 "up_proj", "down_proj", "lm_head")
+
+
+@dataclass
+class QuantServingConfig:
+    """Quantized serving as an engine mode:
+    ``ContinuousBatchingEngine(quant=QuantServingConfig(...))``.
+
+    ``weights``: ``"int8"`` | ``"fp8"`` | None — the `QUANT_MATMULS`
+    weights are converted once at engine build to int8 or
+    float8_e4m3fn storage with one f32 scale per output channel
+    (`ops.quant_matmul.quantize_weight_values`) and run through the
+    dequant matmul kernel. The model object is untouched: the engine
+    hands the quantized weights to each dispatch.
+
+    ``kv``: ``"int8"`` | None — the KV page pools store int8 with
+    (P, page_size) f32 per-page-row dequant scales
+    (`ragged_scatter_quantized` quantizes on commit, the ragged
+    attention kernel dequantizes per page in flight). Per-row
+    quantization keeps the page bytes path-invariant, so quantized-mode
+    greedy streams stay bit-identical through preemption.
+
+    Requires ``kv_layout="paged"`` with ``attention_impl="ragged"``."""
+
+    weights: Optional[str] = None
+    kv: Optional[str] = None
+
+    def __post_init__(self):
+        if self.weights not in (None, "int8", "fp8"):
+            raise ValueError(
+                f"quant weights {self.weights!r}: int8|fp8|None")
+        if self.kv not in (None, "int8"):
+            raise ValueError(f"quant kv {self.kv!r}: int8|None")
+        if self.weights is None and self.kv is None:
+            raise ValueError(
+                "QuantServingConfig with neither weights nor kv set — "
+                "drop the quant= argument instead")
 
 
 def _not_ported(what: str, item: str):
@@ -98,9 +145,11 @@ class ContinuousBatchingEngine:
 
     Runs on the CUDA card unless ``device`` names another device; the
     model must live on that device. The KV page pools take the model's
-    parameter dtype. ``temperature`` / ``top_k`` / ``top_p`` / ``seed``
-    act only with sampling, which is not ported, so a greedy engine
-    ignores them as the JAX engine does."""
+    parameter dtype, or int8 with f32 scale pools under
+    ``quant=QuantServingConfig(kv="int8")``. ``temperature`` /
+    ``top_k`` / ``top_p`` / ``seed`` act only with sampling, which is
+    not ported, so a greedy engine ignores them as the JAX engine
+    does."""
 
     def __init__(self, model, max_batch_size: int = 8,
                  max_seq_len: Optional[int] = None,
@@ -139,6 +188,13 @@ class ContinuousBatchingEngine:
         if attention_impl not in ("ragged", "legacy"):
             raise ValueError(
                 f"attention_impl {attention_impl!r}: ragged|legacy")
+        if quant is not None and (kv_layout != "paged"
+                                  or attention_impl != "ragged"):
+            raise ValueError(
+                "quant= requires kv_layout='paged' with "
+                "attention_impl='ragged' — the quantized page layout "
+                "and the fused dequant epilogue thread through the "
+                "ragged dispatch family only")
         if kv_layout != "paged" or attention_impl != "ragged":
             _not_ported(f"kv_layout={kv_layout!r} with attention_impl="
                         f"{attention_impl!r}",
@@ -173,11 +229,31 @@ class ContinuousBatchingEngine:
             raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
         hk, hd = cfg.num_key_value_heads, cfg.head_dim
         dt = next(model.parameters()).dtype
-        self._kv = [
-            tuple(torch.zeros(hk, self.num_pages, self.page_size, hd,
-                              dtype=dt, device=self.device)
-                  for _ in range(2))
-            for _ in range(cfg.num_hidden_layers)]
+        self._qw_mode = quant.weights if quant is not None else None
+        self._qkv = quant.kv if quant is not None else None
+        self._kv_shape = (cfg.num_hidden_layers, hk, hd, dt)
+        pool_dt = torch.int8 if self._qkv else dt
+
+        def pools():
+            # (k, v) pages, and for int8 pages (k_scale, v_scale): one
+            # f32 dequant scale per page row, shared by every head
+            kv = [torch.zeros(hk, self.num_pages, self.page_size, hd,
+                              dtype=pool_dt, device=self.device)
+                  for _ in range(2)]
+            if self._qkv:
+                kv += [torch.zeros(self.num_pages, self.page_size,
+                                   dtype=torch.float32, device=self.device)
+                       for _ in range(2)]
+            return tuple(kv)
+        self._kv = [pools() for _ in range(cfg.num_hidden_layers)]
+        # the quantized weights handed to every dispatch, and their count
+        # and bytes (the JAX engine's ``pdt_quant_weight_*`` gauges;
+        # telemetry is not ported yet)
+        self._qweights = self._build_quant_weights() if self._qw_mode \
+            else None
+        qws = (self._qweights or {}).values()
+        self.quant_weight_layers = len(qws)
+        self.quant_weight_bytes = sum(w.nbytes for w in qws)
         self._bt = np.zeros((self.B, self.pps), np.int32)
         self._free: List[int] = list(range(1, self.num_pages))
         self._slot_pages: List[List[int]] = [[] for _ in range(self.B)]
@@ -319,6 +395,41 @@ class ContinuousBatchingEngine:
     @property
     def num_dispatches(self) -> int:
         return self.num_admission_dispatches + self.num_decode_dispatches
+
+    def cache_memory_info(self) -> Dict[str, object]:
+        """KV-cache device-memory accounting of the page pools:
+        ``bytes_in_use`` is proportional to the pages allocated. With
+        int8 pages ``page_bytes`` is the honest bill of one page across
+        all layers: int8 storage plus the f32 scale rows of both
+        pools."""
+        L, hk, hd, dt = self._kv_shape
+        if self._qkv:
+            page_bytes = self.page_size * hk * hd * 2 * L \
+                + self.page_size * 4 * 2 * L
+        else:
+            itemsize = torch.empty((), dtype=dt).element_size()
+            page_bytes = self.page_size * hk * hd * itemsize * 2 * L
+        usable = self.num_pages - 1
+        in_use = usable - len(self._free)
+        return {"layout": "paged", "page_bytes": page_bytes,
+                "kv_quant": self._qkv,
+                "total_pages": usable, "pages_in_use": in_use,
+                "bytes_pool": self.num_pages * page_bytes,
+                "bytes_in_use": in_use * page_bytes,
+                "utilization": in_use / max(usable, 1)}
+
+    # -- quantized weights ---------------------------------------------
+    def _build_quant_weights(self) -> Dict[str, QuantizedWeight]:
+        """Quantize the `QUANT_MATMULS` weights once at engine build:
+        {parameter name: `QuantizedWeight`} (int8 / fp8 storage and one
+        f32 scale per output channel). The model object is never
+        changed."""
+        with torch.no_grad():
+            return {name: QuantizedWeight(*quantize_weight_values(
+                        p, self._qw_mode))
+                    for name, p in self.model.named_parameters()
+                    if p.ndim == 2
+                    and any(k in name.lower() for k in QUANT_MATMULS)}
 
     # -- invariants ----------------------------------------------------
     def check_invariants(self):
@@ -633,11 +744,13 @@ class ContinuousBatchingEngine:
             flat[a:b] for a, b in zip(cut[:-1], cut[1:]))
         bt_d = flat[cut[-1]:].view(self.B, self.pps)
         with torch.no_grad():
-            views = [RaggedKVCacheView(k, v, bt_d, seq_d, pos_d, qs_d, ql_d,
-                                       cl_d, block_q, pages_bound)
-                     for k, v in self._kv]
+            views = [RaggedKVCacheView(pools[0], pools[1], bt_d, seq_d,
+                                       pos_d, qs_d, ql_d, cl_d, block_q,
+                                       pages_bound, *pools[2:])
+                     for pools in self._kv]
             logits = self.model(ids_d[None], views,
-                                rows=rows_d.clamp(0, t - 1))
+                                rows=rows_d.clamp(0, t - 1),
+                                weights=self._qweights)
             return _sample_token(logits).cpu().numpy()
 
     # -- decode ------------------------------------------------------------

@@ -1,13 +1,15 @@
 """Functional layer math of the serving path.
 
 ≙ `paddle_tpu/nn/functional/norm.py` :52-70 (`rms_norm`),
-`nn/functional/common.py` (`linear`) and the `silu` activation.
+`nn/functional/common.py` :53-74 (`linear`, with its `QuantizedWeight`
+dispatch) and the `silu` activation.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops.norm_kernels import rms_norm_values
+from ..ops.quant_matmul import QuantizedWeight, dequant_matmul_values
 
 
 def rms_norm(x, weight, epsilon=1e-6, use_kernel=None):
@@ -21,8 +23,16 @@ def silu(x):
     return torch.nn.functional.silu(x)
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, use_kernel=None):
     """``x @ weight.T + bias`` with the weight stored the torch way,
     (out, in). The JAX package stores (in, out) and computes ``x @ W``;
-    `models.convert` transposes when it carries weights across."""
+    `models.convert` transposes when it carries weights across.
+
+    A `QuantizedWeight` goes to `dequant_matmul_values` (its kernel on
+    the card, its plain version on the CPU; ``use_kernel`` as there), so
+    the model code never forks on quantization. A full-width weight is
+    one `torch.nn.functional.linear` and ignores ``use_kernel``."""
+    if isinstance(weight, QuantizedWeight):
+        y = dequant_matmul_values(x, weight.qw, weight.scale, use_kernel)
+        return y if bias is None else y + bias
     return torch.nn.functional.linear(x, weight, bias)

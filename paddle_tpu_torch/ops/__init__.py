@@ -12,7 +12,8 @@ import torch
 # one count per hand-written kernel, bumped by its wrapper exactly where
 # it launches the kernel (never by the plain version), so a run can show
 # that its path went through the kernels
-launch_counts = {"rms_norm": 0, "ragged_paged_attention": 0}
+launch_counts = {"rms_norm": 0, "ragged_paged_attention": 0,
+                 "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0}
 
 
 def reset_launch_counts() -> None:

@@ -13,6 +13,13 @@ output is zero and their KV goes to the trash page.
 (`csrc/ragged_paged_attention.cu`, which replaces the TPU's
 `_ragged_kernel`) for CUDA tensors and runs `ragged_paged_attention_ref`,
 the plain PyTorch version of the same function, for CPU tensors.
+
+Quantized pages (≙ :63, :183-190, :259-265, :582-583 and :627-666): int8
+page pools ride with (P, page_size) f32 scale pools, one DEQUANT
+multiplier per page row shared by the KV heads.
+`ragged_scatter_quantized` quantizes each new row on commit; the
+attention takes ``k_scale``/``v_scale`` and dequantizes — the plain
+version right after its gather, the kernel per page in flight.
 """
 from __future__ import annotations
 
@@ -27,12 +34,13 @@ from . import kernel_route, launch_counts
 NEG_INF = -1e30
 DEFAULT_BLOCK_Q = 8
 TRASH_PAGE = 0
+KV_QMAX = 127.0     # int8 absmax lattice of a quantized KV page row
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# pdt_ragged_paged_attention(q, k_pages, v_pages, query_start, query_len,
-#   context_len, block_tables, o, T, H, HK, D, P, page_size, N, pps,
-#   block_q, scale, window, dtype, stream)
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+# pdt_ragged_paged_attention(q, k_pages, v_pages, k_scale, v_scale,
+#   query_start, query_len, context_len, block_tables, o, T, H, HK, D, P,
+#   page_size, N, pps, block_q, scale, window, dtype, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p])
 
@@ -127,6 +135,14 @@ def page_gather_bound(block_tables, context_lens, pages_bound,
     return pps
 
 
+def gather_page_scales(scale_pool, block_tables, bound):
+    """Gather a (P, page_size) scale pool along the first `bound`
+    block-table columns to per-sequence rows (N, bound * page_size): the
+    dequant companion of `gather_pages` (same bound, same row order)."""
+    bt = block_tables[:, :bound].long()
+    return scale_pool[bt].reshape(bt.shape[0], -1)
+
+
 def gather_pages(k_pages, v_pages, block_tables, context_lens=None,
                  pages_bound=None):
     """Gather block-table pages into per-sequence contiguous caches
@@ -168,10 +184,14 @@ def masked_page_attention(q, kc, vc, q_positions, context_len, scale,
 
 def ragged_paged_attention_ref(q, k_pages, v_pages, query_start,
                                query_len, context_len, block_tables,
-                               scale, window=None, pages_bound=None):
+                               scale, window=None, pages_bound=None,
+                               k_scale=None, v_scale=None):
     """Plain PyTorch version (≙ `_ragged_xla`): a bounded page gather,
     then `masked_page_attention` for each sequence's rows. Padding rows
-    output zero. The descriptors are read on the host."""
+    output zero. The descriptors are read on the host. With
+    ``k_scale``/``v_scale`` the gathered int8 rows are dequantized to
+    f32 right after the gather, so the core runs in f32 (its
+    ``p.to(vc.dtype)`` keeps the weights f32, as in JAX)."""
     t, h, d = q.shape
     hk = k_pages.shape[0]
     g = h // hk
@@ -179,6 +199,13 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, query_start,
     ql = [int(x) for x in query_len.tolist()]
     cl = [int(x) for x in context_len.tolist()]
     kc, vc = gather_pages(k_pages, v_pages, block_tables, cl, pages_bound)
+    if k_scale is not None:
+        bound = page_gather_bound(block_tables, cl, pages_bound,
+                                  k_pages.shape[2])
+        ks = gather_page_scales(k_scale, block_tables, bound)   # (N, S)
+        vs = gather_page_scales(v_scale, block_tables, bound)
+        kc = kc.float() * ks[:, :, None, None]
+        vc = vc.float() * vs[:, :, None, None]
     out = torch.zeros(t, hk, g, d, dtype=q.dtype, device=q.device)
     qh = q.reshape(t, hk, g, d)
     for s in range(len(ql)):
@@ -195,22 +222,34 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, query_start,
 # CUDA kernel
 # ---------------------------------------------------------------------------
 def _ragged_cuda(q, k_pages, v_pages, query_start, query_len, context_len,
-                 block_tables, scale, window, block_q):
-    """Launch `csrc/ragged_paged_attention.cu` on the current stream."""
+                 block_tables, scale, window, block_q, k_scale=None,
+                 v_scale=None):
+    """Launch `csrc/ragged_paged_attention.cu` on the current stream:
+    full-width pages in q's dtype, or int8 pages with their scale
+    pools."""
     t, h, d = q.shape
     hk, p, page_size, _ = k_pages.shape
     n, pps = block_tables.shape
+    quant = k_scale is not None
     if q.dtype not in _DTYPES:
         raise TypeError(f"ragged attention kernel takes float32 or "
                         f"bfloat16, got {q.dtype}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("ragged attention kernel wants q and the page "
-                        "pools in one dtype")
+    page_dt = torch.int8 if quant else q.dtype
+    if k_pages.dtype != page_dt or v_pages.dtype != page_dt:
+        raise TypeError(
+            "ragged attention kernel wants int8 page pools with scales"
+            if quant else "ragged attention kernel wants q and the page "
+            "pools in one dtype (int8 pools need k_scale and v_scale)")
     if v_pages.shape != k_pages.shape or k_pages.shape[3] != d \
             or h % hk:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)}")
+    scales = (k_scale, v_scale) if quant else ()
+    if any(x.dtype != torch.float32 or x.shape != (p, page_size)
+           for x in scales):
+        raise ValueError(f"k_scale / v_scale must be float32 of shape "
+                         f"({p}, {page_size}), one per page row")
     desc = (query_start, query_len, context_len)
     if any(x.shape != (n,) for x in desc):
         raise ValueError(f"descriptors must be ({n},), matching the "
@@ -218,7 +257,7 @@ def _ragged_cuda(q, k_pages, v_pages, query_start, query_len, context_len,
     ints = desc + (block_tables,)
     if any(x.dtype != torch.int32 for x in ints):
         raise TypeError("descriptors and block tables must be int32")
-    tensors = (q, k_pages, v_pages) + ints
+    tensors = (q, k_pages, v_pages) + scales + ints
     if any(not x.is_cuda or x.device != q.device for x in tensors):
         raise ValueError("ragged attention kernel wants every input on "
                          "one CUDA device")
@@ -234,6 +273,8 @@ def _ragged_cuda(q, k_pages, v_pages, query_start, query_len, context_len,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 k_scale.data_ptr() if quant else None,
+                 v_scale.data_ptr() if quant else None,
                  query_start.data_ptr(), query_len.data_ptr(),
                  context_len.data_ptr(), block_tables.data_ptr(),
                  o.data_ptr(), t, h, hk, d, p, page_size, n, pps, block_q,
@@ -242,7 +283,8 @@ def _ragged_cuda(q, k_pages, v_pages, query_start, query_len, context_len,
     if err:
         raise RuntimeError(f"ragged attention kernel launch failed: CUDA "
                            f"error {err}")
-    launch_counts["ragged_paged_attention"] += 1
+    launch_counts["ragged_paged_attention_int8kv" if quant
+                  else "ragged_paged_attention"] += 1
     return o
 
 
@@ -250,7 +292,8 @@ def ragged_paged_attention_values(q, k_pages, v_pages, query_start,
                                   query_len, context_len, block_tables,
                                   scale=None, window=None,
                                   block_q=DEFAULT_BLOCK_Q, use_kernel=None,
-                                  pages_bound=None):
+                                  pages_bound=None, k_scale=None,
+                                  v_scale=None):
     """q: (T, H, D) packed queries; k_pages/v_pages: (HK, P, page_size,
     D); query_start/query_len/context_len: (N,) int32 tensors;
     block_tables: (N, pps) int32. Returns (T, H, D) in q's dtype;
@@ -262,16 +305,24 @@ def ragged_paged_attention_values(q, k_pages, v_pages, query_start,
     needs ``query_start`` aligned to ``block_q`` (`pack_ragged_starts`;
     decode batches pass block_q=1) and ``T % block_q == 0``.
     ``pages_bound`` caps the plain version's gather; the kernel walks
-    only each q block's live pages and ignores it."""
+    only each q block's live pages and ignores it.
+
+    ``k_scale``/``v_scale``: (P, page_size) f32 DEQUANT multipliers of
+    int8 page pools, written by `ragged_scatter_quantized`; both or
+    neither. The kernel counts these launches under
+    ``ragged_paged_attention_int8kv``."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
     d = q.shape[-1]
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     if not kernel_route(q, use_kernel):
         return ragged_paged_attention_ref(q, k_pages, v_pages, query_start,
                                           query_len, context_len,
                                           block_tables, sc, window,
-                                          pages_bound)
+                                          pages_bound, k_scale, v_scale)
     return _ragged_cuda(q, k_pages, v_pages, query_start, query_len,
-                        context_len, block_tables, sc, window, block_q)
+                        context_len, block_tables, sc, window, block_q,
+                        k_scale, v_scale)
 
 
 def ragged_scatter_values(k_pages, v_pages, k_rows, v_rows, block_tables,
@@ -286,13 +337,55 @@ def ragged_scatter_values(k_pages, v_pages, k_rows, v_rows, block_tables,
     of them may land on one cell, and which one wins is unspecified
     (on CUDA `index_put_` with repeated indices is nondeterministic).
     Live rows never collide. Returns (k_pages, v_pages)."""
-    page_size = k_pages.shape[2]
+    page_idx, slot = _scatter_cells(block_tables, token_seq, positions,
+                                    k_pages.shape[2])
+    k_pages[:, page_idx, slot] = k_rows.transpose(0, 1).to(k_pages.dtype)
+    v_pages[:, page_idx, slot] = v_rows.transpose(0, 1).to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+def _scatter_cells(block_tables, token_seq, positions, page_size):
+    """(page, slot) of each packed row: its sequence's block-table page
+    and in-page offset, or trash page 0 for a padding row."""
     live = token_seq >= 0
     sc = token_seq.clamp(min=0).long()
     pos = positions.long()
     page_idx = torch.where(live, block_tables[sc, pos // page_size].long(),
                            TRASH_PAGE)
     slot = torch.where(live, pos % page_size, 0)
-    k_pages[:, page_idx, slot] = k_rows.transpose(0, 1).to(k_pages.dtype)
-    v_pages[:, page_idx, slot] = v_rows.transpose(0, 1).to(v_pages.dtype)
-    return k_pages, v_pages
+    return page_idx, slot
+
+
+def _quantize_rows(rows):
+    """Per-row int8 quantization of (T, HK, D) rows: absmax over the
+    row's (HK, D) values through the shared round-clip core, and the
+    dequant scale absmax / 127 (0 for an all-zero row)."""
+    from ..nn.quant import absmax_round_clip_values
+    rf = rows.float()
+    amax = rf.abs().amax(dim=(1, 2))                         # (T,)
+    qr = absmax_round_clip_values(rf, amax[:, None, None], KV_QMAX,
+                                  out_dtype=torch.int8)
+    return qr, amax / KV_QMAX
+
+
+def ragged_scatter_quantized(k_pages, v_pages, k_scale, v_scale, k_rows,
+                             v_rows, block_tables, token_seq, positions):
+    """`ragged_scatter_values` for int8 page pools, IN PLACE: quantize
+    on commit. Each packed row quantizes on its own — absmax over its
+    (HK, D) values, shared across heads, so the scale pools (P,
+    page_size) carry no head axis. Per-row quantization makes the page
+    bytes path-invariant: rows written one decode step at a time equal
+    the same rows written at once by a re-prefill. The scale pools
+    store the dequant multiplier absmax / 127 (0 for an all-zero row).
+    Padding rows send values and scales to trash page 0. This is plain
+    PyTorch on either device: the JAX package's version is XLA, not a
+    kernel. Returns (k_pages, v_pages, k_scale, v_scale)."""
+    page_idx, slot = _scatter_cells(block_tables, token_seq, positions,
+                                    k_pages.shape[2])
+    kq, ks_row = _quantize_rows(k_rows)
+    vq, vs_row = _quantize_rows(v_rows)
+    k_pages[:, page_idx, slot] = kq.transpose(0, 1)
+    v_pages[:, page_idx, slot] = vq.transpose(0, 1)
+    k_scale[page_idx, slot] = ks_row
+    v_scale[page_idx, slot] = vs_row
+    return k_pages, v_pages, k_scale, v_scale
