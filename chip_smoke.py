@@ -48,7 +48,45 @@ Quantized serving adds, in the same run:
 6b. one admission dispatch with the quantized weights and int8 pools,
     kernels against plain versions, as in phase 6.
 
-It prints a ``{"kernels": [...]}`` line, the card line, and last
+Multi-LoRA serving and the legacy paged path add, in the same run:
+
+3d. the BGMV LoRA epilogue kernel against its plain version in bf16 at
+    the 8B decode shapes (8 tokens; q/o 4096->4096, k/v 4096->1024,
+    gate/up 4096->14336, down 14336->4096), at the first admission
+    batch's (t_adm, 4096)->14336 and one small f32 case, rank 16, ids
+    mixing rows 0..3: error, ms, bound, plain ms and ``bmm_ref_ms``
+    (the gather plus two ``torch.bmm``, a labelled yardstick: no single
+    PyTorch call computes the function, so ``library_ms`` is null); and
+    bitwise on the card: row-0 tokens give exact zeros, a token's delta
+    alone equals its delta inside the batch of 8 and of t_adm;
+3e. the q = 1 paged attention kernel against its plain version on the
+    decode case of phase 3 (8 slots, contexts 1..2048) in bf16 and f32
+    and windowed (w=256) in bf16: ms, bound, plain ms and
+    ``ragged_bq1_ms``, the ragged kernel at block_q = 1 on the same
+    pages (the same work);
+4c. a tiny f32 Llama with two adapters (plus base requests) served on
+    the card and on the CPU: equal greedy streams and every dispatch's
+    logits within a stated budget, full width and over an int8 base
+    (``QuantServingConfig("int8", None)``); whether the mixed engine's
+    streams equal dedicated engines' on the card is printed, not
+    asserted (cuBLAS may pick another algorithm for another batch);
+4d. a tiny f32 Llama under ``attention_impl="legacy"``, card against
+    CPU: equal greedy streams, and equal to the ragged engine's on the
+    card;
+5c. ``serving_lora {...}``: the 16 requests on the same bf16 8B model
+    object, round-robin over the base and three seeded rank-16 adapters
+    on all seven matmuls of every layer, installed through a
+    `FleetModelStore` (exact launch counts per dispatch: 7L LoRA
+    epilogues, L ragged attentions, 2L+1 RMSNorms, no paged attention);
+5d. ``serving_legacy {...}``: the first 8 requests under
+    ``attention_impl="legacy"`` (exact counts: L paged attentions per
+    decode dispatch, 2L+1 RMSNorms per dispatch, no ragged attention and
+    no LoRA epilogue);
+6c. one admission dispatch with the LoRA weights (three sequences under
+    three adapters), kernels against plain versions, as in phase 6.
+
+It prints a ``{"kernels": [...]}`` line (six kernels, each with its
+launches on its own serving run), the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -87,6 +125,13 @@ DQ_TOL = {"bfloat16": (2 ** -7, 2 ** -8), "float32": (1e-5, 1e-5)}
 # step apart (one such step moved the CPU port's logits 7.2e-4 from
 # JAX's, tests/test_torch_quant_serving.py)
 TINY_QUANT_LOGIT_BUDGET = 5e-3
+# tiny f32 Llama with adapters, card against CPU: f32 sums in another
+# order through every matmul, attention and epilogue (measured well
+# below this on the quantized runs, whose budget covers int8 steps too)
+TINY_LORA_LOGIT_BUDGET = 1e-3
+N_LEGACY_REQUESTS = 8
+LORA_RANK = 16
+LORA_ADAPTERS = ("a1", "a2", "a3")
 
 
 def log(msg):
@@ -338,6 +383,124 @@ def dq_phase(t_adm, results):
         del w, x
 
 
+def lora_phase(t_adm, results):
+    """The BGMV LoRA epilogue kernel against its plain version at the 8B
+    serving shapes (rank 16, four stack rows, ids mixing rows 0..3),
+    with bitwise checks of row 0 and of batch invariance."""
+    import torch
+    from paddle_tpu_torch.ops.lora_epilogue import (lora_epilogue_ref,
+                                                    lora_epilogue_values)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    r, n_rows = LORA_RANK, 4
+    scale = torch.tensor([0.0, 1.0, 0.5, 2.0], device="cuda")
+    cases = [("decode_q_o", 8, 4096, 4096, torch.bfloat16),
+             ("decode_k_v", 8, 4096, 1024, torch.bfloat16),
+             ("decode_gate_up", 8, 4096, 14336, torch.bfloat16),
+             ("decode_down", 8, 14336, 4096, torch.bfloat16),
+             ("admission_gate_up", t_adm, 4096, 14336, torch.bfloat16),
+             ("small_f32", 8, 128, 256, torch.float32)]
+    for label, t, k, n, dt in cases:
+        name = str(dt).split(".")[1]
+        x = torch.randn(t, k, device="cuda", generator=gen).to(dt)
+        a = (torch.randn(n_rows, k, r, device="cuda", generator=gen)
+             / math.sqrt(k)).to(dt)
+        b = (0.1 * torch.randn(n_rows, r, n, device="cuda",
+                               generator=gen)).to(dt)
+        a[0] = 0
+        b[0] = 0
+        ids = (torch.arange(t, device="cuda", dtype=torch.int32) * 3) \
+            % n_rows
+        run = lambda: lora_epilogue_values(x, a, b, scale, ids,
+                                           use_kernel=True)
+        plain_fn = lambda: lora_epilogue_ref(x, a, b, scale, ids)
+        il = ids.long()
+
+        def bmm_ref():
+            h = torch.bmm(x[:, None, :], a[il])
+            return (torch.bmm(h, b[il])[:, 0] * scale[il, None]).to(dt)
+        out = run()
+        ref = plain_fn()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        rtol, atol_rel = DQ_TOL[name]
+        top = ref.float().abs().max().item()
+        ok = torch.allclose(out.float(), ref.float(), rtol=rtol,
+                            atol=atol_rel * top)
+        # bitwise: no sum runs across tokens, so a token's delta does not
+        # depend on its batch; row-0 tokens are exact zeros
+        zeros = bool((out[ids == 0] == 0).all())
+        alone = all(torch.equal(lora_epilogue_values(
+            x[i:i + 1], a, b, scale, ids[i:i + 1], use_kernel=True),
+            out[i:i + 1]) for i in (0, 1, 2, 3, t - 1))
+        in8 = torch.equal(lora_epilogue_values(
+            x[:8], a, b, scale, ids[:8], use_kernel=True), out[:8])
+        ms = time_ms(run)
+        plain = time_ms(plain_fn, iters=5, warmup=1)
+        bmm_ms = time_ms(bmm_ref, iters=5, warmup=1)
+        isz = x.element_size()
+        live = ids[ids > 0]
+        rows_used = len(torch.unique(live))
+        nbytes = (rows_used * (k * r + r * n) * isz + t * k * isz
+                  + t * n * isz + 4 * t + 4 * n_rows)
+        b_ms, b_by = bound(nbytes, len(live) * 2 * (k * r + r * n), name)
+        rec = dict(kernel="lora_epilogue", case=label, dtype=name, T=t, K=k,
+                   N=n, rank=r, max_abs_err=err, max_abs_out=top,
+                   tol=dict(rtol=rtol, atol=atol_rel * top),
+                   row0_exact_zero=zeros, alone_equals_batch=alone,
+                   batch8_equals_batch=in8, ms=ms, plain_ms=plain,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   library_note="no single PyTorch call computes a "
+                   "per-token gathered low-rank product",
+                   bmm_ref_ms=bmm_ms)
+        log("kernel " + json.dumps(rec))
+        if not (ok and zeros and alone and in8
+                and torch.isfinite(out).all()):
+            raise AssertionError(f"lora epilogue kernel disagrees: {rec}")
+        results.append(rec)
+        del x, a, b, out, ref
+
+
+def paged_phase(results):
+    """The q = 1 paged attention kernel against its plain version on the
+    decode case of `attn_phase`, with the ragged kernel at block_q = 1
+    on the same pages beside it."""
+    import torch
+    from paddle_tpu_torch.ops.paged_attention import (paged_attention_ref,
+                                                      paged_attention_values)
+    from paddle_tpu_torch.ops.ragged_paged_attention import \
+        ragged_paged_attention_values
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    decode = [(1, c) for c in (1, 33, 300, 517, 1024, 1500, 2000, 2048)]
+    scale = 1.0 / math.sqrt(128)
+    for label, dt, win in (("decode", torch.bfloat16, None),
+                           ("decode", torch.float32, None),
+                           ("decode_windowed", torch.bfloat16, 256)):
+        name = str(dt).split(".")[1]
+        args, _, nbytes, ops = attn_case(decode, 1, 0, dt, win, gen)
+        q, kp, vp, _, _, cl, bt = args
+        run = lambda: paged_attention_values(q, kp, vp, cl, bt, window=win,
+                                             use_kernel=True)
+        plain_fn = lambda: paged_attention_ref(q, kp, vp, cl, bt, scale, win)
+        ragged = lambda: ragged_paged_attention_values(
+            *args, window=win, block_q=1, use_kernel=True)
+        out = run()
+        ref = plain_fn()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ms = time_ms(run)
+        plain = time_ms(plain_fn, iters=5, warmup=1)
+        ragged_ms = time_ms(ragged)
+        b_ms, b_by = bound(nbytes, ops, name)
+        rec = dict(kernel="paged_attention", case=label, dtype=name,
+                   window=win, max_abs_err=err, tol=ATTN_ATOL[name], ms=ms,
+                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, ragged_bq1_ms=ragged_ms)
+        log("kernel " + json.dumps(rec))
+        if not (err <= ATTN_ATOL[name] and torch.isfinite(out).all()):
+            raise AssertionError(f"paged attention kernel disagrees: {rec}")
+        results.append(rec)
+
+
 def tiny_parity():
     """A tiny f32 Llama served on the card (kernels) and on the CPU
     (plain versions) must give equal greedy streams."""
@@ -362,19 +525,70 @@ def tiny_parity():
                              "the card and the CPU")
 
 
+def recorded_run(model, eng, jobs):
+    """Serve ``jobs`` [(prompt, adapter or None)] on ``eng`` (8 new
+    tokens each), recording each dispatch's logits and which of their
+    rows to compare (a decode dispatch has one row per slot; an empty
+    slot reads the trash page, whose bytes are unspecified). Returns
+    (streams, records)."""
+    import torch
+    rec = []
+    decoding = [False]
+    head, decode = model.logits, eng._decode
+
+    def logits(h, *a, **kw):
+        out = head(h, *a, **kw)
+        live = [r is not None for r in eng._slot_req] \
+            if decoding[0] else [True] * out.shape[0]
+        rec.append((out.float().cpu(), torch.tensor(live)))
+        return out
+
+    def traced(finished):
+        decoding[0] = True
+        try:
+            decode(finished)
+        finally:
+            decoding[0] = False
+    model.logits = logits
+    eng._decode = traced
+    try:
+        for p, adapter in jobs:
+            eng.add_request(p, max_new_tokens=8, adapter=adapter)
+        streams = eng.run()
+    finally:
+        del model.logits, eng._decode
+    eng.check_invariants()
+    return streams, rec
+
+
+def compare_records(recs):
+    """(largest |logit difference|, dispatches compared) between the
+    card's and the CPU's records, up to and including the first
+    dispatch whose greedy tokens differ."""
+    import torch
+    worst, n_cmp = 0.0, 0
+    for (a, live), (b, _) in zip(*recs):
+        a, b = a[live], b[live]
+        worst = max(worst, (a - b).abs().max().item())
+        n_cmp += 1
+        if not torch.equal(a.argmax(-1), b.argmax(-1)):
+            break
+    return worst, n_cmp
+
+
 def tiny_quant_parity():
     """A tiny f32 Llama under quantized serving on the card (kernels)
     and on the CPU (plain versions): equal greedy streams, and every
     dispatch's logits within `TINY_QUANT_LOGIT_BUDGET` — if the streams
     diverge, over the dispatches up to the first whose greedy tokens
     differ, which must be at least 3."""
-    import torch
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.models.serving import (ContinuousBatchingEngine,
                                                  QuantServingConfig)
     cfg = LlamaConfig.tiny()
     rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 20, 47, 3)]
+    jobs = [(rng.integers(0, cfg.vocab_size, n), None)
+            for n in (5, 20, 47, 3)]
     for weights in ("int8", "fp8"):
         streams, recs = [], []
         for dev in ("cuda", "cpu"):
@@ -382,40 +596,10 @@ def tiny_quant_parity():
             eng = ContinuousBatchingEngine(
                 model, max_batch_size=2, max_seq_len=64, prefill_chunk=16,
                 device=dev, quant=QuantServingConfig(weights, "int8"))
-            rec = []              # (logits, rows to compare) per dispatch
-            decoding = [False]
-            head, decode = model.logits, eng._decode
-
-            def logits(h, *a, _head=head, _rec=rec, _eng=eng,
-                       _decoding=decoding, **kw):
-                out = _head(h, *a, **kw)
-                # a decode dispatch has one row per slot; an empty slot
-                # reads the trash page, whose bytes are unspecified
-                live = [r is not None for r in _eng._slot_req] \
-                    if _decoding[0] else [True] * out.shape[0]
-                _rec.append((out.float().cpu(), torch.tensor(live)))
-                return out
-
-            def traced(finished, _decode=decode, _decoding=decoding):
-                _decoding[0] = True
-                try:
-                    _decode(finished)
-                finally:
-                    _decoding[0] = False
-            model.logits = logits
-            eng._decode = traced
-            for p in prompts:
-                eng.add_request(p, max_new_tokens=8)
-            streams.append(eng.run())
-            eng.check_invariants()
+            out, rec = recorded_run(model, eng, jobs)
+            streams.append(out)
             recs.append(rec)
-        worst, n_cmp = 0.0, 0
-        for (a, live), (b, _) in zip(*recs):
-            a, b = a[live], b[live]
-            worst = max(worst, (a - b).abs().max().item())
-            n_cmp += 1
-            if not torch.equal(a.argmax(-1), b.argmax(-1)):
-                break
+        worst, n_cmp = compare_records(recs)
         same = streams[0] == streams[1]
         log(f"tiny quant parity ({weights} weights, int8 KV): streams "
             f"{'equal' if same else 'DIVERGE'}; max |logit diff| "
@@ -425,6 +609,104 @@ def tiny_quant_parity():
         if worst > TINY_QUANT_LOGIT_BUDGET or (not same and n_cmp < 3):
             raise AssertionError("tiny quantized Llama: card and CPU "
                                  "logits disagree beyond the budget")
+
+
+def tiny_adapters(model, names=("a1", "a2")):
+    """Seeded rank-8 deltas (A (K, r), B (r, N)) on three matmuls of the
+    tiny Llama, the vocab head among them."""
+    params = dict(model.named_parameters())
+    out = {}
+    for i, name in enumerate(names):
+        rng = np.random.default_rng(i + 1)
+        deltas = {}
+        for nm in ("model.layers.0.self_attn.q_proj.weight",
+                   "model.layers.1.mlp.down_proj.weight", "lm_head.weight"):
+            n, k = params[nm].shape
+            deltas[nm] = (rng.normal(size=(k, 8)).astype(np.float32) * 0.3,
+                          rng.normal(size=(8, n)).astype(np.float32) * 0.3)
+        out[name] = deltas
+    return out
+
+
+def tiny_lora_parity():
+    """A tiny f32 Llama serving base and two adapters in one engine on the
+    card (kernels) and on the CPU (plain versions): equal greedy streams
+    and every dispatch's logits within `TINY_LORA_LOGIT_BUDGET`, full
+    width and over an int8 base. Whether the card's mixed streams equal
+    dedicated engines' is printed only."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.serving import (ContinuousBatchingEngine,
+                                                 QuantServingConfig)
+    cfg = LlamaConfig.tiny()
+    rng = np.random.default_rng(4)
+    names = (None, "a1", "a2")
+    jobs = [(rng.integers(0, cfg.vocab_size, n), names[i % 3])
+            for i, n in enumerate((5, 20, 47, 3, 30, 9))]
+
+    def engine(dev, quant, adapters=("a1", "a2")):
+        model = LlamaForCausalLM(cfg, device="cpu", seed=3).to(dev)
+        eng = ContinuousBatchingEngine(model, max_batch_size=3,
+                                       max_seq_len=64, device=dev,
+                                       quant=quant)
+        deltas = tiny_adapters(model)
+        for name in adapters:
+            eng.install_adapter(name, deltas[name])
+        return model, eng
+
+    for label, quant in (("full width", None),
+                         ("int8 base", QuantServingConfig("int8", None))):
+        streams, recs = [], []
+        for dev in ("cuda", "cpu"):
+            out, rec = recorded_run(*engine(dev, quant), jobs)
+            streams.append(out)
+            recs.append(rec)
+        worst, n_cmp = compare_records(recs)
+        same = streams[0] == streams[1]
+        log(f"tiny lora parity ({label}, 2 adapters + base): streams "
+            f"{'equal' if same else 'DIVERGE'}; max |logit diff| "
+            f"{worst:.3g} over {n_cmp} of {len(recs[0])} dispatches "
+            f"(budget {TINY_LORA_LOGIT_BUDGET}); card {streams[0]} cpu "
+            f"{streams[1]}")
+        if not same or worst > TINY_LORA_LOGIT_BUDGET:
+            raise AssertionError(f"tiny LoRA Llama ({label}): card and "
+                                 "CPU disagree")
+    mixed, _ = recorded_run(*engine("cuda", None), jobs)
+    dedicated = {}
+    for name in names:
+        sub = [(i, j) for i, j in enumerate(jobs) if j[1] == name]
+        out, _ = recorded_run(*engine("cuda", None, [name] if name else []),
+                              [j for _, j in sub])
+        dedicated.update((i, out[k]) for k, (i, _) in enumerate(sub))
+    log(f"tiny lora: mixed engine's streams equal dedicated engines' on "
+        f"the card: {all(mixed[i] == dedicated[i] for i in mixed)}")
+
+
+def tiny_legacy_parity():
+    """A tiny f32 Llama under ``attention_impl="legacy"`` on the card
+    (paged attention kernel) and on the CPU: equal greedy streams, also
+    equal to the ragged engine's on the card."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    cfg = LlamaConfig.tiny()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 20, 47, 3)]
+    streams = {}
+    for dev, impl in (("cuda", "legacy"), ("cpu", "legacy"),
+                      ("cuda", "ragged")):
+        model = LlamaForCausalLM(cfg, device="cpu", seed=3).to(dev)
+        eng = ContinuousBatchingEngine(model, max_batch_size=2,
+                                       max_seq_len=64, device=dev,
+                                       attention_impl=impl)
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=8)
+        streams[dev, impl] = eng.run()
+        eng.check_invariants()
+    log(f"tiny legacy parity: card {streams['cuda', 'legacy']} cpu "
+        f"{streams['cpu', 'legacy']} card ragged {streams['cuda', 'ragged']}")
+    if not (streams["cuda", "legacy"] == streams["cpu", "legacy"]
+            == streams["cuda", "ragged"]):
+        raise AssertionError("tiny Llama legacy streams differ (card, CPU, "
+                             "ragged)")
 
 
 def make_requests(vocab):
@@ -480,7 +762,8 @@ def serve_8b():
     if len(eng._free) != eng.num_pages - 1:
         raise AssertionError("pages still held after the run")
     want = {"ragged_paged_attention": L * nd, "rms_norm": (2 * L + 1) * nd,
-            "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0}
+            "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
+            "lora_epilogue": 0, "paged_attention": 0}
     log(f"launches {counts} expected {want} over {nd} dispatches "
         f"({eng.num_admission_dispatches} admission, "
         f"{eng.num_decode_dispatches} decode)")
@@ -495,6 +778,9 @@ def serving_stats(eng, done, wall):
     ttft = sorted(r.first_token_time - r.arrival_time for r in done)
     return dict(requests=len(done), wall_s=wall,
                 ttft_p50_s=statistics.median(ttft),
+                admission_tokens=eng.admission_tokens,
+                admission_tokens_per_s=eng.admission_tokens
+                / eng.admission_seconds,
                 decode_tokens=eng.decode_tokens,
                 decode_tokens_per_s=eng.decode_tokens / eng.decode_seconds,
                 decode_step_ms=1e3 * eng.decode_seconds
@@ -548,7 +834,8 @@ def serve_8b_quant(model, reqs, weights, n_requests):
     nd = eng.num_dispatches
     want = {"rms_norm": (2 * L + 1) * nd, "ragged_paged_attention": 0,
             "ragged_paged_attention_int8kv": L * nd,
-            "dequant_matmul": (7 * L + 1) * nd}
+            "dequant_matmul": (7 * L + 1) * nd, "lora_epilogue": 0,
+            "paged_attention": 0}
     log(f"launches ({weights} weights, int8 KV) {counts} expected {want} "
         f"over {nd} dispatches ({eng.num_admission_dispatches} admission, "
         f"{eng.num_decode_dispatches} decode)")
@@ -569,10 +856,125 @@ def serve_8b_quant(model, reqs, weights, n_requests):
     return counts, qweights
 
 
-def path_check(model, reqs, weights=None):
+def serve_8b_lora(model, reqs):
+    """Serve `reqs` on the same bf16 8B model object round-robin over the
+    base and `LORA_ADAPTERS` (seeded rank-16 deltas on the seven matmuls
+    of every layer, registered with and installed through a
+    `FleetModelStore`) and check the launch counts exactly. Returns
+    (counts, the engine), the engine for `path_check`."""
+    import torch
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.serving import FleetModelStore, model_id
+    from paddle_tpu_torch.tools.profile_decode import seeded_lora_deltas
+    L = model.config.num_hidden_layers
+    t0 = time.perf_counter()
+    store = FleetModelStore(base_model="llama3_8b", max_rank=LORA_RANK)
+    for i, name in enumerate(LORA_ADAPTERS):
+        store.register_adapter(name, seeded_lora_deltas(model, 100 + i,
+                                                        LORA_RANK))
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048)
+    for name in LORA_ADAPTERS:
+        store.ensure("card0", eng, model_id("llama3_8b", name))
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    if eng.lora_adapters_resident != len(LORA_ADAPTERS):
+        raise AssertionError("adapters not resident after ensure()")
+    names = (None,) + LORA_ADAPTERS
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, (p, new) in enumerate(reqs):
+        eng.add_request(p, max_new_tokens=new,
+                        adapter=names[i % len(names)])
+    done = []
+    while len(done) < len(reqs):
+        done += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    by_rid = {r.rid: r for r in done}
+    for rid, (_, new) in enumerate(reqs):
+        r = by_rid[rid]
+        if r.status != "finished" or len(r.output) != new:
+            raise AssertionError(f"LoRA request {rid}: {r.status} with "
+                                 f"{len(r.output)} of {new} tokens")
+    eng.check_invariants()
+    if len(eng._free) != eng.num_pages - 1:
+        raise AssertionError("pages still held after the LoRA run")
+    nd = eng.num_dispatches
+    want = {"rms_norm": (2 * L + 1) * nd, "ragged_paged_attention": L * nd,
+            "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
+            "lora_epilogue": 7 * L * nd, "paged_attention": 0}
+    log(f"launches (LoRA) {counts} expected {want} over {nd} dispatches "
+        f"({eng.num_admission_dispatches} admission, "
+        f"{eng.num_decode_dispatches} decode)")
+    if counts != want:
+        raise AssertionError("LoRA launch counts do not match the "
+                             "dispatches")
+    stats = serving_stats(eng, done, wall)
+    stats.update(adapters=len(LORA_ADAPTERS), rank=LORA_RANK,
+                 adapted_matmuls=7 * L,
+                 lora_adapter_bytes=eng.lora_adapter_bytes,
+                 lora_adapter_gib=eng.lora_adapter_bytes / 2 ** 30,
+                 register_and_install_s=install_s, store=store.stats())
+    log("serving_lora " + json.dumps(stats))
+    return counts, eng
+
+
+def serve_8b_legacy(model, reqs):
+    """Serve the first `N_LEGACY_REQUESTS` of `reqs` on the same bf16 8B
+    model object with ``attention_impl="legacy"`` and check the launch
+    counts exactly. Returns the counts."""
+    import torch
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    L = model.config.num_hidden_layers
+    reqs = reqs[:N_LEGACY_REQUESTS]
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatchingEngine(model, max_batch_size=8,
+                                   max_seq_len=2048,
+                                   attention_impl="legacy")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for p, new in reqs:
+        eng.add_request(p, max_new_tokens=new)
+    done = []
+    while len(done) < len(reqs):
+        done += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    by_rid = {r.rid: r for r in done}
+    for rid, (_, new) in enumerate(reqs):
+        r = by_rid[rid]
+        if r.status != "finished" or len(r.output) != new:
+            raise AssertionError(f"legacy request {rid}: {r.status} with "
+                                 f"{len(r.output)} of {new} tokens")
+    eng.check_invariants()
+    if len(eng._free) != eng.num_pages - 1:
+        raise AssertionError("pages still held after the legacy run")
+    nd = eng.num_dispatches
+    want = {"rms_norm": (2 * L + 1) * nd, "ragged_paged_attention": 0,
+            "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
+            "lora_epilogue": 0,
+            "paged_attention": L * eng.num_decode_dispatches}
+    log(f"launches (legacy) {counts} expected {want} over {nd} dispatches "
+        f"({eng.num_admission_dispatches} prefill, "
+        f"{eng.num_decode_dispatches} decode)")
+    if counts != want:
+        raise AssertionError("legacy launch counts do not match the "
+                             "dispatches")
+    log("serving_legacy " + json.dumps(serving_stats(eng, done, wall)))
+    return counts
+
+
+def path_check(model, reqs, weights=None, lora_engine=None):
     """One admission dispatch of the 8B model through the kernels and
     through the plain versions, on fresh pools each: full-width pools,
-    or, with the quantized ``weights``, int8 pools and their scales."""
+    or, with the quantized ``weights``, int8 pools and their scales.
+    With ``lora_engine`` the dispatch reads that engine's adapter stacks,
+    sequence s under adapter row s + 1."""
     import torch
     from paddle_tpu_torch.models.llama import RaggedKVCacheView
     from paddle_tpu_torch.ops.ragged_paged_attention import \
@@ -594,6 +996,10 @@ def path_check(model, reqs, weights=None):
                      "query_len", "context_len", "sample_rows")}
     bt_d = torch.from_numpy(bt).cuda()
     quant = weights is not None
+    if lora_engine is not None:
+        # padding rows (token_seq -1) take the last sequence's row
+        rows = (np.arange(n_seq, dtype=np.int32) + 1)[pk["token_seq"]]
+        weights = lora_engine._dispatch_weights(torch.from_numpy(rows).cuda())
     logits = {}
     for use_kernel in (True, False):
         pools = [tuple(torch.zeros(cfg.num_key_value_heads, nxt, ps,
@@ -618,7 +1024,8 @@ def path_check(model, reqs, weights=None):
     diff = (a - b).abs().max().item()
     scale = b.abs().max().item()
     agree = (a.argmax(-1) == b.argmax(-1)).tolist()
-    log(f"{'quantized ' if quant else ''}path check: max |logit diff| "
+    what = "quantized " if quant else "LoRA " if lora_engine else ""
+    log(f"{what}path check: max |logit diff| "
         f"{diff:.4g} (max |logit| "
         f"{scale:.4g}), argmax agrees per row {agree}, shape "
         f"{tuple(a.shape)}")
@@ -669,24 +1076,38 @@ def main():
     attn_phase(results)
     dq_phase(t_adm, results)
     attn_phase(results, int8kv=True)
+    lora_phase(t_adm, results)
+    paged_phase(results)
     tiny_parity()
     tiny_quant_parity()
+    tiny_lora_parity()
+    tiny_legacy_parity()
     model, counts, reqs = serve_8b()
     path_check(model, reqs)
     qcounts, qweights = serve_8b_quant(model, reqs, "int8", N_REQUESTS)
     path_check(model, reqs, qweights)
     del qweights
     serve_8b_quant(model, reqs, "fp8", N_FP8_REQUESTS)
+    lcounts, lora_eng = serve_8b_lora(model, reqs)
+    path_check(model, reqs, lora_engine=lora_eng)
+    del lora_eng
+    gcounts = serve_8b_legacy(model, reqs)
     # each kernel's launches on its own main path: the full-width run
-    # for RMSNorm and full-width attention, the int8 run for the others
+    # for RMSNorm and full-width attention, the int8 run for int8-KV
+    # attention and the dequant matmul, the LoRA run for the epilogue,
+    # the legacy run for paged attention
     counts.update((k, qcounts[k]) for k in (
         "ragged_paged_attention_int8kv", "dequant_matmul"))
+    counts["lora_epilogue"] = lcounts["lora_epilogue"]
+    counts["paged_attention"] = gcounts["paged_attention"]
 
     main_case = {"rms_norm": ("rows=8", "bfloat16", None),
                  "ragged_paged_attention": ("decode", "bfloat16", None),
                  "ragged_paged_attention_int8kv": ("decode", "bfloat16",
                                                    None),
-                 "dequant_matmul": ("decode_gate_up", "bfloat16", "int8")}
+                 "dequant_matmul": ("decode_gate_up", "bfloat16", "int8"),
+                 "lora_epilogue": ("decode_gate_up", "bfloat16", None),
+                 "paged_attention": ("decode", "bfloat16", None)}
     attn_src = ("paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                 "paddle_tpu/ops/ragged_paged_attention.py:293")
     meta = {"rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
@@ -694,7 +1115,11 @@ def main():
             "ragged_paged_attention": attn_src,
             "ragged_paged_attention_int8kv": attn_src,
             "dequant_matmul": ("paddle_tpu_torch/csrc/dequant_matmul.cu",
-                               "paddle_tpu/ops/quant_matmul.py:130")}
+                               "paddle_tpu/ops/quant_matmul.py:130"),
+            "lora_epilogue": ("paddle_tpu_torch/csrc/lora_epilogue.cu",
+                              "paddle_tpu/ops/lora_epilogue.py:111"),
+            "paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
+                                "paddle_tpu/ops/paged_attention.py:53")}
     kernels = []
     for name, (case, dt, mode) in main_case.items():
         rec = next(r for r in results if r["kernel"] == name

@@ -1,27 +1,40 @@
 """Llama-3 family, serving path.
 
 ≙ `paddle_tpu/models/llama.py` :28-105 (`LlamaConfig`, `precompute_rope`),
-:230-286 (`RaggedKVCacheView`), :475-652 (the ragged attention path with
-its quantized-page branch :507-531, MLP, decoder, model) and :653-694
-(`LlamaForCausalLM`). Only the ragged paged
-path that the serving engine drives is ported: a packed (1, T) token
-axis of decode steps, prefills and chunk continuations, with the KV
-cache in page pools. The dense, flash and paged-legacy branches of the
-JAX `LlamaAttention.forward` raise `NotImplementedError`.
+:108-146 (`apply_rope`), :166-177 (`_window_band`), :212-286
+(`PagedKVCacheView`, `RaggedKVCacheView`), :304-433 (the paged decode
+branch and the tuple-cache prefill branch of `LlamaAttention.forward`),
+:475-652 (the ragged attention path with its quantized-page branch
+:507-531, MLP, decoder, model) and :653-694 (`LlamaForCausalLM`). The
+serving engine drives three paths:
+- the ragged paged path: a packed (1, T) token axis of decode steps,
+  prefills and chunk continuations, with the KV cache in page pools
+  (one `RaggedKVCacheView` per layer);
+- the legacy decode path: (B, 1) tokens, one per slot, each at its own
+  position, over the page pools (one `PagedKVCacheView` per layer);
+- the legacy prefill: one (1, S) prompt at an int ``position_offset``
+  into per-layer (k, v) caches with a key-validity ``attention_mask``,
+  in plain PyTorch (the JAX package runs it through `_sdpa_xla`, outside
+  any Pallas kernel).
+The dense-cache decode, the flash and the no-cache branches of the JAX
+`LlamaAttention.forward` raise `NotImplementedError`.
 
 Linear weights are stored (out, in), the torch way; the JAX package
 stores (in, out) (`models.convert` transposes). RoPE pairs are
 interleaved, ``(x[..., 0::2], x[..., 1::2])``.
 
-Quantized serving hands the model its quantized weights per call: the
+The serving engine hands the model the values its dispatch reads: the
 optional ``weights`` mapping of `LlamaForCausalLM.forward`, {parameter
-name: `QuantizedWeight`}, which each Linear call consults before its own
-parameter. The model object is never changed, so one bf16 model can
-serve a quantized engine and a full-width engine side by side (the JAX
-engine gets the same from binding values per dispatch, `bind_state`).
-An explicit argument was chosen over a scoped binding because it leaves
-no state on the modules between calls and reads plainly at each call
-site.
+name: value}, which every parameter read consults before the module's
+own parameter. A value is a tensor (a whole checkpoint swapped in with
+`install_weights`), a `QuantizedWeight` (quantized serving) or a
+`LoraWeight` (multi-LoRA serving); the Linear calls route the latter
+two through `nn.functional.linear`. The model object is never changed,
+so one bf16 model can serve a quantized engine, a multi-LoRA engine and
+a full-width engine side by side (the JAX engine gets the same from
+binding values per dispatch, `bind_state`). An explicit argument was
+chosen over a scoped binding because it leaves no state on the modules
+between calls and reads plainly at each call site.
 """
 from __future__ import annotations
 
@@ -35,7 +48,11 @@ import torch
 from ..nn import functional as F
 from ..nn.layers import RMSNorm
 from ..ops import resolve_device
-from ..ops.ragged_paged_attention import (ragged_paged_attention_values,
+from ..ops.lora_epilogue import LoraWeight
+from ..ops.paged_attention import (paged_append_values,
+                                   paged_attention_values)
+from ..ops.ragged_paged_attention import (NEG_INF,
+                                          ragged_paged_attention_values,
                                           ragged_scatter_quantized,
                                           ragged_scatter_values)
 from ..ops.rope import rope_rotate_values
@@ -114,9 +131,83 @@ def precompute_rope(head_dim: int, max_len: int, theta: float):
 def _unported(what: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md queue A, item 3b: the "
-        "dense, flash and legacy-paged attention paths); the port runs "
-        "the ragged paged path only — pass one RaggedKVCacheView per "
-        "layer")
+        "dense-cache decode, flash and no-cache attention paths); the "
+        "port runs the ragged paged path (a RaggedKVCacheView per "
+        "layer), the legacy paged decode (a PagedKVCacheView per layer) "
+        "and the legacy prefill ((k, v) caches with an int "
+        "position_offset)")
+
+
+def apply_rope(x, cos, sin, position_offset=0):
+    """x: (B, S, H, D) rotated at positions ``position_offset + i`` for
+    row i: an int offset, or a (B,) tensor of per-sequence positions
+    with S == 1 (a decode step, each slot at its own angle). The
+    interleaved-pair rotation in f32 (`rope_rotate_values`), returned in
+    x's dtype. ≙ `apply_rope`, whose serving calls take the XLA path
+    (``use_pallas=False``)."""
+    if isinstance(position_offset, int):
+        s = x.shape[1]
+        if position_offset + s > cos.shape[0]:
+            raise ValueError(
+                f"rope: position_offset {position_offset} + seq {s} "
+                f"exceeds precomputed table length {cos.shape[0]}")
+        rows = slice(position_offset, position_offset + s)
+        cv = cos[rows].float()[None, :, None, :]
+        sv = sin[rows].float()[None, :, None, :]
+    elif position_offset.ndim == 1 and x.shape[1] == 1:
+        pos = position_offset.long()
+        cv = cos[pos].float()[:, None, None, :]
+        sv = sin[pos].float()[:, None, None, :]
+    else:
+        _unported("rope with (B,) positions over S > 1 rows (the "
+                  "speculative verify pass)")
+    return rope_rotate_values(x, cv, sv)
+
+
+def _window_band(s: int, n_keys: int, offset: int, window):
+    """(s, n_keys) bool: q row i (global position i + offset) may attend
+    key j iff j <= i + offset and, with a sliding window, j > i + offset
+    - window. ≙ `_window_band`."""
+    rows = np.arange(s)[:, None] + offset
+    cols = np.arange(n_keys)[None, :]
+    band = cols <= rows
+    if window is not None:
+        band &= cols > rows - window
+    return band
+
+
+def _sdpa(q, k, v, mask):
+    """Attention of (B, S, H, D) queries over (B, L, HK, D) keys and
+    values under a bool ``mask`` broadcastable to (B, H, S, L): ≙
+    `_sdpa_xla` with a mask and no causal flag. The logits are the
+    product in the inputs' dtype cast to f32, times 1/sqrt(D); masked
+    logits are -1e30; the softmax runs in f32 and its weights are cast
+    to q's dtype for the weighted sum. GQA repeats each KV head
+    H / HK times."""
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    rep = q.shape[1] // k.shape[1]
+    if rep != 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() \
+        * (1.0 / math.sqrt(q.shape[-1]))
+    logits = logits.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v).transpose(1, 2)
+
+
+class PagedKVCacheView:
+    """`past_key_values` entry of one layer for the legacy decode path:
+    the layer's page pools (HK, P, page_size, D) and the shared
+    per-sequence block table (B, pps) int32. The new token's write
+    position and the context length both come from the (B,)
+    ``position_offset`` of the forward call. Decode only (S == 1); the
+    attention appends the new K/V rows to the pools in place."""
+
+    def __init__(self, k_pages, v_pages, block_tables):
+        self.k_pages = k_pages
+        self.v_pages = v_pages
+        self.block_tables = block_tables
 
 
 class RaggedKVCacheView:
@@ -158,13 +249,18 @@ def _linear(h_in, h_out, device, dtype):
                            dtype=dtype)
 
 
+def _bound(weights, name, own):
+    """The value a dispatch reads for parameter ``name``: the one
+    ``weights`` binds to it, else the module's own parameter ``own``."""
+    return own if weights is None else weights.get(name, own)
+
+
 def _proj(module, name, x, weights, use_kernel):
-    """``x`` through the Linear ``module.<name>``: by the
-    `QuantizedWeight` that ``weights`` binds to its parameter name, else
-    by its own weight."""
-    w = getattr(module, name).weight
-    if weights is not None:
-        w = weights.get(f"{module.prefix}{name}.weight", w)
+    """``x`` through the Linear ``module.<name>``: by the value that
+    ``weights`` binds to its parameter name (a tensor, `QuantizedWeight`
+    or `LoraWeight`), else by its own weight."""
+    w = _bound(weights, f"{module.prefix}{name}.weight",
+               getattr(module, name).weight)
     return F.linear(x, w, use_kernel=use_kernel)
 
 
@@ -184,21 +280,92 @@ class LlamaAttention(torch.nn.Module):
         self.o_proj = _linear(self.num_heads * hd, h, device, dtype)
 
     def forward(self, x, cos, sin, past_key_value=None, use_kernel=None,
-                weights=None):
-        """x: (1, T, hidden) packed tokens; `past_key_value` a
-        `RaggedKVCacheView`. Per-token RoPE, ONE scatter of every new
-        K/V row into the pages, then ragged paged attention. With scale
-        pools on the view the scatter quantizes on commit and the
-        attention reads the post-scatter int8 pages and scales, so a
-        prefill row attends exactly the values a later decode step
-        would. ``weights`` as in `LlamaForCausalLM.forward`."""
-        if not isinstance(past_key_value, RaggedKVCacheView):
-            _unported("LlamaAttention without a RaggedKVCacheView")
+                weights=None, attention_mask=None, position_offset=0):
+        """x: (B, S, hidden). ``past_key_value`` picks the path:
+        - a `RaggedKVCacheView`: a packed (1, T) batch (`_forward_ragged`);
+        - a `PagedKVCacheView`: one decode token per sequence, S == 1,
+          at the (B,) positions ``position_offset`` (`_forward_paged`);
+        - a (k_cache, v_cache) pair of (B, S_max, HK, D) caches with an
+          int ``position_offset`` and S > 1: a prefill
+          (`_forward_prefill`), ``attention_mask`` a (B, >= offset + S)
+          bool key-validity mask or None.
+        ``weights`` as in `LlamaForCausalLM.forward`."""
+        view = past_key_value
+        if isinstance(view, RaggedKVCacheView):
+            return self._forward_ragged(x, cos, sin, view, use_kernel,
+                                        weights)
+        paged = isinstance(view, PagedKVCacheView)
+        prefill = isinstance(view, tuple) and x.shape[1] > 1 \
+            and isinstance(position_offset, int)
+        if not (paged or prefill):
+            _unported("LlamaAttention without a RaggedKVCacheView, a "
+                      "PagedKVCacheView or a prefill into (k, v) caches")
+        b, s = x.shape[0], x.shape[1]
+        q = _proj(self, "q_proj", x, weights, use_kernel).reshape(
+            b, s, self.num_heads, self.head_dim)
+        k = _proj(self, "k_proj", x, weights, use_kernel).reshape(
+            b, s, self.num_kv_heads, self.head_dim)
+        v = _proj(self, "v_proj", x, weights, use_kernel).reshape(
+            b, s, self.num_kv_heads, self.head_dim)
+        q = apply_rope(q, cos, sin, position_offset)
+        k = apply_rope(k, cos, sin, position_offset)
+        if paged:
+            out = self._forward_paged(q, k, v, view, position_offset,
+                                      use_kernel)
+        else:
+            out = self._forward_prefill(q, k, v, view, position_offset,
+                                        attention_mask)
+        return _proj(self, "o_proj", out.reshape(b, s, -1), weights,
+                     use_kernel)
+
+    def _forward_paged(self, q, k, v, view, positions, use_kernel):
+        """≙ the paged branch :324-357: append each sequence's new K/V
+        row at its position (an inactive slot's all-trash block-table
+        row sends it to page 0), then the q = 1 paged attention over
+        context ``positions + 1``."""
+        if q.shape[1] != 1:
+            raise ValueError("paged KV cache is decode-only (seq_len == "
+                             "1); a prefill scatters its rows with "
+                             "paged_prefill_scatter")
+        if not torch.is_tensor(positions) or positions.ndim != 1:
+            raise ValueError("paged KV cache needs a (B,) position_offset "
+                             "tensor")
+        paged_append_values(view.k_pages, view.v_pages, k[:, 0], v[:, 0],
+                            view.block_tables, positions)
+        return paged_attention_values(
+            q[:, 0], view.k_pages, view.v_pages, positions + 1,
+            view.block_tables, window=self.sliding_window,
+            use_kernel=use_kernel)
+
+    def _forward_prefill(self, q, k, v, caches, offset, attention_mask):
+        """≙ the tuple-cache branch :358-433 for S > 1 at an int offset:
+        write the new rows into the caches IN PLACE at [offset, offset +
+        S), then attend keys [0, offset + S) under the causal (and
+        window) band ANDed with the key-validity mask. Plain PyTorch, as
+        in JAX (`_sdpa_xla`, no Pallas kernel)."""
+        k_cache, v_cache = caches
+        s = q.shape[1]
+        cur = offset + s
+        k_cache[:, offset:cur] = k.to(k_cache.dtype)
+        v_cache[:, offset:cur] = v.to(v_cache.dtype)
+        mask = torch.from_numpy(_window_band(s, cur, offset,
+                                             self.sliding_window))
+        mask = mask.to(q.device)[None, None]
+        if attention_mask is not None:
+            mask = mask & attention_mask[:, :cur].bool()[:, None, None, :]
+        return _sdpa(q, k_cache[:, :cur], v_cache[:, :cur], mask)
+
+    def _forward_ragged(self, x, cos, sin, view, use_kernel, weights):
+        """x: (1, T, hidden) packed tokens. Per-token RoPE, ONE scatter
+        of every new K/V row into the pages, then ragged paged
+        attention. With scale pools on the view the scatter quantizes
+        on commit and the attention reads the post-scatter int8 pages
+        and scales, so a prefill row attends exactly the values a later
+        decode step would."""
         b, t = x.shape[0], x.shape[1]
         if b != 1:
             raise ValueError("ragged KV cache wants a packed (1, T, ...) "
                              "batch")
-        view = past_key_value
         x = x[0]
         q = _proj(self, "q_proj", x, weights, use_kernel).reshape(
             t, self.num_heads, self.head_dim)
@@ -251,6 +418,7 @@ class LlamaDecoderLayer(torch.nn.Module):
                  prefix=""):
         super().__init__()
         eps = cfg.rms_norm_eps
+        self.prefix = prefix          # this module's parameter-name prefix
         self.input_layernorm = RMSNorm(cfg.hidden_size, eps, device, dtype)
         self.self_attn = LlamaAttention(cfg, device, dtype,
                                         f"{prefix}self_attn.")
@@ -259,10 +427,16 @@ class LlamaDecoderLayer(torch.nn.Module):
         self.mlp = LlamaMLP(cfg, device, dtype, f"{prefix}mlp.")
 
     def forward(self, x, cos, sin, past_key_value=None, use_kernel=None,
-                weights=None):
-        x = x + self.self_attn(self.input_layernorm(x, use_kernel), cos,
-                               sin, past_key_value, use_kernel, weights)
-        return x + self.mlp(self.post_attention_layernorm(x, use_kernel),
+                weights=None, attention_mask=None, position_offset=0):
+        ln1 = _bound(weights, f"{self.prefix}input_layernorm.weight",
+                     self.input_layernorm.weight)
+        ln2 = _bound(weights, f"{self.prefix}post_attention_layernorm.weight",
+                     self.post_attention_layernorm.weight)
+        x = x + self.self_attn(self.input_layernorm(x, use_kernel, ln1),
+                               cos, sin, past_key_value, use_kernel,
+                               weights, attention_mask, position_offset)
+        return x + self.mlp(self.post_attention_layernorm(x, use_kernel,
+                                                          ln2),
                             use_kernel, weights)
 
 
@@ -291,14 +465,18 @@ class LlamaModel(torch.nn.Module):
                              persistent=False)
 
     def forward(self, input_ids, past_key_values=None, use_kernel=None,
-                weights=None):
+                weights=None, attention_mask=None, position_offset=0):
         if past_key_values is None:
             _unported("LlamaModel.forward without past_key_values")
-        x = self.embed_tokens(input_ids.long())
+        emb = _bound(weights, "model.embed_tokens.weight",
+                     self.embed_tokens.weight)
+        x = torch.nn.functional.embedding(input_ids.long(), emb)
         for layer, kv in zip(self.layers, past_key_values, strict=True):
             x = layer(x, self.rope_cos, self.rope_sin, kv, use_kernel,
-                      weights)
-        return self.norm(x, use_kernel)
+                      weights, attention_mask, position_offset)
+        return self.norm(x, use_kernel,
+                         _bound(weights, "model.norm.weight",
+                                self.norm.weight))
 
 
 class LlamaForCausalLM(torch.nn.Module):
@@ -341,24 +519,39 @@ class LlamaForCausalLM(torch.nn.Module):
 
     def logits(self, hidden, use_kernel=None, weights=None):
         """The vocab matmul. A tied head is the embedding, which is
-        never quantized (the embed lookup is a gather, not a matmul)."""
+        never quantized or adapted (the embed lookup is a gather, not a
+        matmul)."""
         if self.lm_head is None:
-            return F.linear(hidden, self.model.embed_tokens.weight)
+            return F.linear(hidden, _bound(weights,
+                                           "model.embed_tokens.weight",
+                                           self.model.embed_tokens.weight))
         return _proj(self, "lm_head", hidden, weights, use_kernel)
 
     def forward(self, input_ids, past_key_values=None, rows=None,
-                use_kernel=None, weights=None):
-        """input_ids: (1, T) packed tokens; past_key_values: one
-        `RaggedKVCacheView` per layer (pools updated in place). Returns
-        logits (1, T, vocab), or with ``rows`` (a (n,) index tensor)
-        only those packed rows' logits, (n, vocab) — the engine asks for
-        the rows it samples and skips the rest of the vocab matmul.
-        ``use_kernel`` goes to every kernel wrapper on the path (None:
-        route by device). ``weights``: {parameter name, as in
-        `named_parameters()`: `QuantizedWeight`}; each Linear whose
-        weight is named there multiplies by it instead of its own
-        parameter (module docstring)."""
-        hidden = self.model(input_ids, past_key_values, use_kernel, weights)
+                use_kernel=None, weights=None, attention_mask=None,
+                position_offset=0):
+        """input_ids: (B, S) tokens; past_key_values: one entry per layer
+        (pools and caches updated in place) — a `RaggedKVCacheView` for
+        a packed (1, T) batch, a `PagedKVCacheView` for a (B, 1) decode
+        step at the (B,) positions ``position_offset``, or a (k, v)
+        cache pair for a prefill at an int ``position_offset`` under the
+        key-validity ``attention_mask`` (`LlamaAttention.forward`).
+        Returns logits (B, S, vocab), or with ``rows`` (a (n,) index
+        tensor into the packed axis of a (1, T) batch) only those rows'
+        logits, (n, vocab) — the engine asks for the rows it samples and
+        skips the rest of the vocab matmul. ``use_kernel`` goes to every
+        kernel wrapper on the path (None: route by device). ``weights``:
+        {parameter name, as in `named_parameters()`: value}; every
+        parameter read takes the value named there instead of the
+        module's own parameter (module docstring). A `LoraWeight` on the
+        vocab head carries one adapter row per packed token; with
+        ``rows`` it is cut to the sampled rows too."""
+        hidden = self.model(input_ids, past_key_values, use_kernel, weights,
+                            attention_mask, position_offset)
         if rows is not None:
-            hidden = hidden[0, rows.long()]
+            rows = rows.long()
+            hidden = hidden[0, rows]
+            head = None if weights is None else weights.get("lm_head.weight")
+            if isinstance(head, LoraWeight):
+                weights = {**weights, "lm_head.weight": head.take(rows)}
         return self.logits(hidden, use_kernel, weights)

@@ -1,28 +1,39 @@
-"""Continuous-batching greedy serving over a paged KV cache, ragged path.
+"""Continuous-batching greedy serving over a paged KV cache.
 
 ≙ `paddle_tpu/models/serving.py`: `EngineOverloaded` / `PoolExhausted` /
-`EngineInvariantError` :322-336, `Request` :457, and the parts of
-`ContinuousBatchingEngine` that serve greedy requests with its defaults,
-``kv_layout="paged"`` and ``attention_impl="ragged"``: construction
-:502-931 (paged subset), `add_request` / `run` / `step` :1307-1488, the
-paged `check_invariants` :2069-2176, `_finalize` / `_release_slot`
+`EngineInvariantError` / `ModelMismatch` :322-369, `Request` :457, and
+the parts of `ContinuousBatchingEngine` that serve greedy requests over
+``kv_layout="paged"``: construction :502-931 (paged subset),
+`add_request` / `run` / `step` :1307-1488, the paged `check_invariants`
+:2069-2176 with its adapter checks, `_finalize` / `_release_slot`
 :2284-2350, admission :2394-2470 and :2594-2763 (one packed ragged
 dispatch per batch, with `prefill_chunk` chunk continuations), the page
 allocator :2852-3110 (trash page 0, refcounts, worst-case reservation)
-and the synchronous ragged decode step with lazy page growth and
-preemption :3268-3565. Quantized serving (≙ `QUANT_MATMULS` /
-`QuantServingConfig` :401-453, the ``quant=`` check :561-571, the int8
-page and scale pools :668-693, `_build_quant_weights` :930-964 without
-tensor parallelism, and the paged part of `cache_memory_info`
-:2034-2060 without the prefix fields).
+and the synchronous decode step with lazy page growth and preemption
+:3268-3565. Quantized serving (≙ `QUANT_MATMULS` / `QuantServingConfig`
+:401-453, the ``quant=`` check :561-571, the int8 page and scale pools
+:668-693, `_build_quant_weights` :930-964 without tensor parallelism,
+and the paged part of `cache_memory_info` :2034-2060 without the prefix
+fields). Multi-model serving (≙ `install_adapter` / `evict_adapter` /
+`install_weights` / `reset_weights` / `_adapter_row` / `_lora_pv`
+:972-1304, `add_request(adapter=)` :1334-1339 and the slot-to-adapter
+map). The legacy paged path, ``attention_impl="legacy"`` (≙ `_bucket` /
+`_build_prefill` :2347-2392, the `_admit` loop :2472-2561 without its
+prefix-cache branch, `_paged_insert` / `_build_scatter` :3079-3102 and
+the paged `_build_decode` :3241-3266).
 
-Each admission batch and each decode step is ONE ragged dispatch: the
-packed token axis runs through `LlamaForCausalLM.forward` with one
-`RaggedKVCacheView` per layer, whose attention writes the new K/V rows
-into the page pools in place and launches the ragged paged attention
-kernel. PyTorch runs eagerly, so there is no program cache: the JAX
-engine's jit families keyed on (padded tokens, pages bound) have no
-counterpart here.
+With ``attention_impl="ragged"`` (the default) each admission batch and
+each decode step is ONE ragged dispatch: the packed token axis runs
+through `LlamaForCausalLM.forward` with one `RaggedKVCacheView` per
+layer, whose attention writes the new K/V rows into the page pools in
+place and launches the ragged paged attention kernel. With
+``"legacy"`` each admitted request gets its own prefill dispatch over
+its prompt padded to a ``prompt_pad`` bucket, whose K/V rows are then
+scattered into its pages, and a decode step is one dispatch of (B, 1)
+tokens whose attention launches the q = 1 paged attention kernel.
+PyTorch runs eagerly, so there is no program cache: the JAX engine's
+jit families keyed on (padded tokens, pages bound) and its prefill and
+scatter buckets have no counterpart here.
 
 Every constructor option outside this subset raises NotImplementedError
 naming the ROADMAP.md item that will port it.
@@ -38,10 +49,12 @@ import numpy as np
 import torch
 
 from ..ops import resolve_device
+from ..ops.lora_epilogue import LoraWeight
+from ..ops.paged_attention import paged_prefill_scatter
 from ..ops.quant_matmul import QuantizedWeight, quantize_weight_values
 from ..ops.ragged_paged_attention import pack_ragged_batch
 from .generation import RequestStatus, _sample_token
-from .llama import RaggedKVCacheView
+from .llama import PagedKVCacheView, RaggedKVCacheView
 
 
 class EngineOverloaded(RuntimeError):
@@ -59,6 +72,13 @@ class EngineInvariantError(AssertionError):
     """check_invariants() found inconsistent page accounting."""
 
 
+class ModelMismatch(ValueError):
+    """A request names a LoRA adapter that is not resident in this
+    engine's stacks. Raised by `add_request` before the request is
+    queued; the fleet model store (`serving.model_store`) installs the
+    adapter before it routes a request there."""
+
+
 @dataclass
 class Request:
     rid: int
@@ -74,6 +94,7 @@ class Request:
     arrival_time: float = 0.0                  # add_request tick
     request_id: str = ""
     priority: int = 0                          # lower admits first
+    adapter: Optional[str] = None              # resident LoRA adapter
 
 
 # constructor options of the JAX engine that this port does not have
@@ -135,6 +156,10 @@ class QuantServingConfig:
                 "drop the quant= argument instead")
 
 
+def _invariants_enabled() -> bool:
+    return os.environ.get("PDT_CHECK_INVARIANTS") == "1"
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md queue A, item {item})")
@@ -146,10 +171,12 @@ class ContinuousBatchingEngine:
     Runs on the CUDA card unless ``device`` names another device; the
     model must live on that device. The KV page pools take the model's
     parameter dtype, or int8 with f32 scale pools under
-    ``quant=QuantServingConfig(kv="int8")``. ``temperature`` /
-    ``top_k`` / ``top_p`` / ``seed`` act only with sampling, which is
-    not ported, so a greedy engine ignores them as the JAX engine
-    does."""
+    ``quant=QuantServingConfig(kv="int8")``. ``attention_impl`` picks
+    the ragged dispatch (default) or the legacy paged path (module
+    docstring); ``prompt_pad`` is the legacy prefill's bucket step and
+    the ragged admission's pad. ``temperature`` / ``top_k`` / ``top_p``
+    / ``seed`` act only with sampling, which is not ported, so a greedy
+    engine ignores them as the JAX engine does."""
 
     def __init__(self, model, max_batch_size: int = 8,
                  max_seq_len: Optional[int] = None,
@@ -195,9 +222,11 @@ class ContinuousBatchingEngine:
                 "attention_impl='ragged' — the quantized page layout "
                 "and the fused dequant epilogue thread through the "
                 "ragged dispatch family only")
-        if kv_layout != "paged" or attention_impl != "ragged":
-            _not_ported(f"kv_layout={kv_layout!r} with attention_impl="
-                        f"{attention_impl!r}",
+        if kv_layout != "paged":
+            _not_ported(f"kv_layout={kv_layout!r}",
+                        "3b (dense and legacy attention paths)")
+        if attention_impl == "legacy" and prefill_chunk:
+            _not_ported("attention_impl='legacy' with prefill_chunk",
                         "3b (dense and legacy attention paths)")
         for name, off, item in _UNPORTED_OPTIONS:
             if given[name] != off:
@@ -211,6 +240,8 @@ class ContinuousBatchingEngine:
                              f"on {mdev}")
         self.device = mdev
         self.model = model
+        self._params = dict(model.named_parameters())
+        self.attn_impl = attention_impl
         self.B = int(max_batch_size)
         self.S = int(max_seq_len or cfg.max_position_embeddings)
         if self.S > cfg.max_position_embeddings:
@@ -288,12 +319,31 @@ class ContinuousBatchingEngine:
         self._admit_seq = 0
         self._slot_seq = np.zeros(self.B, np.int64)
         self._ragged_block_q = 8
-        # dispatch accounting: every ragged dispatch runs each layer's
-        # attention once and every RMSNorm once
+        # multi-model serving: model_tag is None for the build-time
+        # weights; install_weights swaps in {name: value} for EVERY
+        # parameter (`_mpv`) and stamps the tag. Batched multi-LoRA:
+        # per adapted matmul a stacked (R, K, r) / (R, r, N) pair whose
+        # row 0 is the all-zeros no-adapter row; _slot_adapter maps each
+        # slot to its request's row and gives every dispatch its
+        # per-token adapter rows
+        self.model_tag: Optional[str] = None
+        self._mpv: Optional[Dict[str, object]] = None
+        self._lora: Optional[Dict[str, object]] = None
+        self._adapter_rows: Dict[str, int] = {}
+        self._lora_free_rows: List[int] = []
+        self._slot_adapter = np.zeros(self.B, np.int32)
+        # the JAX engine's ``pdt_lora_*`` counters (telemetry is not
+        # ported yet; the two gauges are the properties below)
+        self.lora_installs = 0
+        self.lora_evictions = 0
+        # dispatch accounting: every dispatch runs each layer's attention
+        # once and every RMSNorm once
         self.num_admission_dispatches = 0
         self.num_decode_dispatches = 0
         self.decode_seconds = 0.0      # host wall of decode dispatches,
         self.decode_tokens = 0         # each ending in its D2H token copy
+        self.admission_seconds = 0.0   # host wall of admission dispatches
+        self.admission_tokens = 0      # prompt tokens they prefilled
 
     # -- public API ----------------------------------------------------
     def add_request(self, prompt, max_new_tokens: int = 32,
@@ -304,16 +354,23 @@ class ContinuousBatchingEngine:
                     ) -> int:
         """Queue a request; returns its engine-local id. ``priority`` is
         the queue class (lower admits first, FIFO within a class).
-        Raises EngineOverloaded when the bounded queue is full
-        (`max_waiting`) or the admission policy rejects the request."""
+        ``adapter`` decodes the request under a resident LoRA adapter
+        (`install_adapter`); one that is not resident raises
+        ModelMismatch before anything is queued. Raises
+        EngineOverloaded when the bounded queue is full (`max_waiting`)
+        or the admission policy rejects the request."""
         if deadline is not None or max_queue_time is not None:
             _not_ported("per-request deadlines", "6b (deadlines and "
                         "timeouts)")
-        if adapter is not None:
-            _not_ported("LoRA adapters", "8 (multi-LoRA)")
         toks = [int(t) for t in np.asarray(prompt).ravel()]
         if not toks:
             raise ValueError("empty prompt")
+        if adapter is not None and adapter not in self._adapter_rows:
+            raise ModelMismatch(
+                f"adapter {adapter!r} is not resident in this engine "
+                f"(resident: {sorted(self._adapter_rows)}) — "
+                "install_adapter it first (the fleet model store does "
+                "this before dispatch)")
         if int(max_new_tokens) < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
@@ -330,7 +387,8 @@ class ContinuousBatchingEngine:
         r = Request(self._next_rid, toks, int(max_new_tokens),
                     enqueue_time=now, arrival_time=now,
                     request_id=request_id if request_id is not None
-                    else str(self._next_rid), priority=int(priority))
+                    else str(self._next_rid), priority=int(priority),
+                    adapter=adapter)
         need = self._worst_pages(r)
         if need > self.num_pages - 1:
             raise ValueError(
@@ -361,13 +419,15 @@ class ContinuousBatchingEngine:
 
     def step(self) -> List[Request]:
         """Admit waiting requests into free slots (one ragged dispatch
-        per admission batch), decode ONE token for every active slot
-        (one ragged dispatch), release finished slots. Returns the
-        requests that reached a terminal state this step."""
+        per admission batch; legacy: one prefill dispatch per request),
+        decode ONE token for every active slot (one dispatch), release
+        finished slots. Returns the requests that reached a terminal
+        state this step."""
         finished = self._finished_backlog
         self._finished_backlog = []
         try:
-            finished += self._admit_ragged()
+            finished += self._admit_ragged() if self.attn_impl == "ragged" \
+                else self._admit_legacy()
             active = [i for i, r in enumerate(self._slot_req)
                       if r is not None]
             if active:
@@ -388,7 +448,7 @@ class ContinuousBatchingEngine:
             # requests finalized this step are delivered by the next one
             self._finished_backlog = finished
             raise
-        if os.environ.get("PDT_CHECK_INVARIANTS") == "1":
+        if _invariants_enabled():
             self.check_invariants()
         return finished
 
@@ -430,6 +490,284 @@ class ContinuousBatchingEngine:
                     for name, p in self.model.named_parameters()
                     if p.ndim == 2
                     and any(k in name.lower() for k in QUANT_MATMULS)}
+
+    # -- multi-model serving -------------------------------------------
+    @property
+    def lora_adapters_resident(self) -> int:
+        """Adapters resident in the stacks (row 0 excluded): the JAX
+        engine's ``pdt_lora_adapters_resident`` gauge."""
+        return len(self._adapter_rows)
+
+    @property
+    def lora_adapter_bytes(self) -> int:
+        """Bytes of the adapter stacks (A + B + row scales) across every
+        adapted matmul: the ``pdt_lora_adapter_bytes`` gauge."""
+        return self._lora_nbytes()
+
+    def install_adapter(self, adapter_id: str, deltas: dict,
+                        scale: float = 1.0) -> None:
+        """Install one LoRA adapter into the stacked adapter tensors
+        (batched multi-LoRA decode, `ops.lora_epilogue`). ``deltas``
+        maps adapted parameter names (`named_parameters` keys of Linear
+        weights) to ``(A, B)`` pairs, numpy arrays or tensors, in the
+        JAX package's convention: A (K, r) and B (r, N) over the (K, N)
+        product, applied as ``x @ W + scale·(x@A)@B`` — the port stores
+        the weight itself (N, K).
+
+        Safe mid-flight: a new row never changes existing rows, and a
+        token reads only its own row. Every adapter in an engine must
+        adapt the SAME parameter set at the SAME rank (the fleet store
+        pads ranks to its ``max_rank``). Transactional: the new stacks
+        are built in full, in the model's dtype, before any engine
+        state changes. Requires the ragged dispatch; refuses to compose
+        with ``prefill_chunk``, as the JAX engine does (its prefix
+        caching and spec decode, which it also refuses, are not ported:
+        the constructor refuses them)."""
+        if self.attn_impl != "ragged":
+            raise ValueError(
+                "install_adapter requires kv_layout='paged' with "
+                "attention_impl='ragged' — the per-token adapter-row "
+                "vector threads through the ragged dispatch family only")
+        if self._chunk is not None:
+            raise ValueError(
+                "install_adapter does not compose with prefill_chunk (the "
+                "chunk program does not thread the per-token adapter-row "
+                "vector)")
+        if adapter_id in self._adapter_rows:
+            raise ValueError(f"adapter {adapter_id!r} already resident")
+        if not deltas:
+            raise ValueError("install_adapter with empty deltas")
+        names = self._params
+        rank = None
+        prepared = {}
+        for nm, (a, b) in sorted(deltas.items()):
+            p = names.get(nm)
+            if p is None:
+                raise ValueError(f"adapter {adapter_id!r} targets unknown "
+                                 f"parameter {nm!r}")
+            if p.ndim != 2 or "embed_tokens" in nm:
+                raise ValueError(
+                    f"adapter {adapter_id!r} targets non-matmul parameter "
+                    f"{nm!r} (the embedding lookup is a gather)")
+            a, b = torch.as_tensor(a), torch.as_tensor(b)
+            n, k = p.shape
+            if a.ndim != 2 or b.ndim != 2 or a.shape[0] != k \
+                    or b.shape[1] != n or a.shape[1] != b.shape[0]:
+                raise ValueError(
+                    f"adapter {adapter_id!r} delta for {nm!r}: A "
+                    f"{tuple(a.shape)} / B {tuple(b.shape)} do not factor "
+                    f"the ({k}, {n}) base")
+            if rank is None:
+                rank = int(a.shape[1])
+            elif int(a.shape[1]) != rank:
+                raise ValueError(
+                    f"adapter {adapter_id!r} mixes ranks ({rank} vs "
+                    f"{a.shape[1]} at {nm!r}) — one rank per adapter (the "
+                    "store pads to max_rank)")
+            prepared[nm] = (a, b)
+        lo = self._lora
+        if lo is not None:
+            if tuple(sorted(prepared)) != lo["names"]:
+                raise ValueError(
+                    f"adapter {adapter_id!r} adapts {sorted(prepared)} but "
+                    f"resident adapters adapt {list(lo['names'])} — every "
+                    "adapter in an engine must adapt the same parameter "
+                    "set (pad missing targets with zero deltas)")
+            if rank != lo["rank"]:
+                raise ValueError(
+                    f"adapter {adapter_id!r} rank {rank} != resident rank "
+                    f"{lo['rank']} — the store pads every adapter to one "
+                    "fixed max_rank")
+        dt = names[next(iter(prepared))].dtype
+        dev = self.device
+        # build the new stacks FULLY before committing any state
+        if lo is None:
+            row = 1
+            new_a, new_b = {}, {}
+            for nm, (a, b) in prepared.items():
+                za = torch.zeros((2,) + tuple(a.shape), dtype=dt, device=dev)
+                zb = torch.zeros((2,) + tuple(b.shape), dtype=dt, device=dev)
+                za[1] = a.to(dev, dt)
+                zb[1] = b.to(dev, dt)
+                new_a[nm], new_b[nm] = za, zb
+            new_scale = torch.tensor([0.0, float(scale)],
+                                     dtype=torch.float32, device=dev)
+            committed = {"rank": rank, "names": tuple(sorted(prepared)),
+                         "a": new_a, "b": new_b, "scale": new_scale}
+        else:
+            grow = not self._lora_free_rows
+            row = int(lo["scale"].shape[0]) if grow \
+                else self._lora_free_rows[-1]
+            new_a, new_b = {}, {}
+            for nm in lo["names"]:
+                a, b = prepared[nm]
+                sa, sb = lo["a"][nm], lo["b"][nm]
+                if grow:
+                    sa = torch.cat([sa, a.to(dev, dt)[None]])
+                    sb = torch.cat([sb, b.to(dev, dt)[None]])
+                else:
+                    sa, sb = sa.clone(), sb.clone()
+                    sa[row] = a.to(dev, dt)
+                    sb[row] = b.to(dev, dt)
+                new_a[nm], new_b[nm] = sa, sb
+            new_scale = lo["scale"].clone()
+            if grow:
+                new_scale = torch.cat([new_scale, new_scale.new_full(
+                    (1,), float(scale))])
+            else:
+                new_scale[row] = float(scale)
+            committed = dict(lo, a=new_a, b=new_b, scale=new_scale)
+        # commit
+        if lo is not None and self._lora_free_rows:
+            self._lora_free_rows.pop()
+        self._lora = committed
+        self._adapter_rows[adapter_id] = row
+        self.lora_installs += 1
+        if _invariants_enabled():
+            self.check_invariants()
+
+    def evict_adapter(self, adapter_id: str) -> None:
+        """Evict a resident adapter: its stack row is zeroed in place
+        and returns to the free-row list (stacks never shrink; a zeroed
+        row is inert by the row-0 argument). REFUSES while any queued or
+        running request decodes under the adapter, so an eviction never
+        strands a request. Dropping the last adapter drops the stacks,
+        and dispatches return to the unadapted weights."""
+        row = self._adapter_rows.get(adapter_id)
+        if row is None:
+            raise ValueError(f"adapter {adapter_id!r} is not resident")
+        live = [r.request_id for r in
+                list(self._queue) + [q for q in self._slot_req
+                                     if q is not None]
+                if r.adapter == adapter_id]
+        if live:
+            raise ValueError(
+                f"adapter {adapter_id!r} is in flight (requests {live}) — "
+                "evicting it would strand them; drain or migrate first")
+        del self._adapter_rows[adapter_id]
+        if not self._adapter_rows:
+            self._lora = None
+            self._lora_free_rows = []
+        else:
+            lo = self._lora
+            for nm in lo["names"]:
+                lo["a"][nm][row] = 0
+                lo["b"][nm][row] = 0
+            lo["scale"][row] = 0.0
+            self._lora_free_rows.append(row)
+        self.lora_evictions += 1
+        if _invariants_enabled():
+            self.check_invariants()
+
+    def _lora_nbytes(self) -> int:
+        lo = self._lora
+        if lo is None:
+            return 0
+        n = lo["scale"].numel() * lo["scale"].element_size()
+        for nm in lo["names"]:
+            for t in (lo["a"][nm], lo["b"][nm]):
+                n += t.numel() * t.element_size()
+        return n
+
+    def _require_idle(self, what: str):
+        if self._queue or any(r is not None for r in self._slot_req):
+            raise ValueError(
+                f"{what} on a busy engine: resident KV pages are a "
+                "function of the weights — drain or migrate in-flight "
+                "requests first")
+
+    def _drop_adapters(self):
+        self._lora = None
+        self._adapter_rows = {}
+        self._lora_free_rows = []
+        self._slot_adapter[:] = 0
+
+    def install_weights(self, values: dict, tag: str) -> None:
+        """Swap the engine's dispatch weights to another checkpoint of
+        the same shapes (a fleet store cold install): ``values`` maps
+        EVERY named parameter to its new value in the port's layout
+        (`models.convert.llama_state_from_numpy` gives one from a JAX
+        state dict) — a tensor or numpy array (cast to the parameter's
+        dtype and device; quantized on the fly under ``quant=`` weights
+        for the `QUANT_MATMULS`) or a pre-quantized `QuantizedWeight`.
+        The model object is not changed: every dispatch reads the new
+        values through its ``weights`` mapping, so `reset_weights` can
+        return to the build-time weights. Stamps ``model_tag``.
+        IDLE-ONLY, since every resident KV page is a function of the
+        weights. Resident adapters drop with the base they adapted."""
+        self._require_idle("install_weights")
+        named = list(self.model.named_parameters())
+        missing = [nm for nm, _ in named if nm not in values]
+        if missing:
+            raise ValueError(
+                f"install_weights({tag!r}): checkpoint is missing "
+                f"{len(missing)} parameters (first: {missing[:3]}) — full "
+                "checkpoints only; use install_adapter for deltas")
+        out = {}
+        with torch.no_grad():
+            for nm, p in named:
+                v = values[nm]
+                if isinstance(v, QuantizedWeight):
+                    if tuple(v.qw.shape) != tuple(p.shape):
+                        raise ValueError(
+                            f"install_weights({tag!r}): {nm!r} shape "
+                            f"{tuple(v.qw.shape)} != engine "
+                            f"{tuple(p.shape)}")
+                    w = QuantizedWeight(v.qw.to(self.device),
+                                        v.scale.to(self.device))
+                else:
+                    v = torch.as_tensor(v)
+                    if tuple(v.shape) != tuple(p.shape):
+                        raise ValueError(
+                            f"install_weights({tag!r}): {nm!r} shape "
+                            f"{tuple(v.shape)} != engine {tuple(p.shape)}")
+                    w = v.to(self.device, p.dtype)
+                    if self._qw_mode is not None and w.ndim == 2 \
+                            and any(k in nm.lower() for k in QUANT_MATMULS):
+                        w = QuantizedWeight(*quantize_weight_values(
+                            w, self._qw_mode))
+                out[nm] = w
+        # commit: the value mapping swaps at once; adapters over the old
+        # base die with it
+        self._mpv = out
+        self.model_tag = str(tag)
+        self._drop_adapters()
+
+    def reset_weights(self) -> None:
+        """Drop an install_weights override: dispatches return to the
+        build-time weights (``model_tag`` None). Idle-only, like
+        install_weights, and for the same reason."""
+        self._require_idle("reset_weights")
+        self._mpv = None
+        self.model_tag = None
+        self._drop_adapters()
+
+    def _adapter_row(self, req: Request) -> int:
+        if req.adapter is None:
+            return 0
+        row = self._adapter_rows.get(req.adapter)
+        if row is None:       # evict_adapter refuses while referenced
+            raise ModelMismatch(
+                f"request {req.request_id!r} decodes under adapter "
+                f"{req.adapter!r} which is no longer resident")
+        return row
+
+    def _dispatch_weights(self, adapter_ids=None):
+        """The ``weights`` mapping of one dispatch: the install_weights
+        override when another checkpoint is hosted, else the quantized
+        weights of a quantized engine, else None (the model's own); each
+        adapted matmul's value wrapped in a `LoraWeight` carrying
+        ``adapter_ids``, the dispatch's adapter row per packed token,
+        when adapters are resident."""
+        weights = self._mpv if self._mpv is not None else self._qweights
+        lo = self._lora
+        if lo is None:
+            return weights
+        out = dict(weights or {})
+        for nm in lo["names"]:
+            out[nm] = LoraWeight(out.get(nm, self._params[nm]), lo["a"][nm],
+                                 lo["b"][nm], lo["scale"], adapter_ids)
+        return out
 
     # -- invariants ----------------------------------------------------
     def check_invariants(self):
@@ -481,9 +819,42 @@ class ContinuousBatchingEngine:
                     errs.append(f"slot {i} block-table[{j}] = {p} outside "
                                 f"the live window [{lo}, {hi}) must "
                                 "trash-route to 0")
+        self._check_invariants_adapters(errs)
         if errs:
             raise EngineInvariantError(
                 "engine invariant violations:\n  " + "\n  ".join(errs))
+
+    def _check_invariants_adapters(self, errs: List[str]):
+        """The slot-to-adapter map mirrors slot ownership exactly (a
+        stale row would add ANOTHER adapter's delta to this slot's
+        stream), adapter rows are distinct, never row 0, inside the
+        stacks and off the free-row list."""
+        for i, r in enumerate(self._slot_req):
+            want = 0
+            if r is not None and r.adapter is not None:
+                want = self._adapter_rows.get(r.adapter, -1)
+            if int(self._slot_adapter[i]) != want:
+                errs.append(
+                    f"slot {i} adapter row {int(self._slot_adapter[i])} != "
+                    f"expected {want} (request "
+                    f"{r.request_id if r is not None else None!r})")
+        rows = list(self._adapter_rows.values())
+        if len(set(rows)) != len(rows) or 0 in rows:
+            errs.append(f"adapter row map corrupt (duplicate or reserved "
+                        f"row 0): {self._adapter_rows}")
+        if self._lora is not None:
+            cap = int(self._lora["scale"].shape[0])
+            for aid, row in self._adapter_rows.items():
+                if not 1 <= row < cap:
+                    errs.append(f"adapter {aid!r} row {row} outside the "
+                                f"stacks [1, {cap})")
+            taken = set(rows) & set(self._lora_free_rows)
+            if taken:
+                errs.append(f"adapter rows {sorted(taken)} both assigned "
+                            "and on the free-row list")
+        elif self._adapter_rows:
+            errs.append(f"adapter rows {self._adapter_rows} registered but "
+                        "no stacks resident")
 
     # -- request lifecycle ---------------------------------------------
     def _finalize(self, req: Request, status: str, error: Optional[str],
@@ -501,6 +872,7 @@ class ContinuousBatchingEngine:
 
     def _release_slot(self, slot: int):
         self._slot_req[slot] = None
+        self._slot_adapter[slot] = 0
         for p in self._slot_pages[slot]:
             self._decref(p)
         self._slot_pages[slot] = []
@@ -620,6 +992,7 @@ class ContinuousBatchingEngine:
         self._queue.pop(0)
         self._slot_req[slot] = req
         req.status = RequestStatus.RUNNING
+        self._slot_adapter[slot] = self._adapter_row(req)
         self._slot_seq[slot] = self._admit_seq
         self._admit_seq += 1
         return slot, req, self._effective_prompt(req)
@@ -700,10 +1073,13 @@ class ContinuousBatchingEngine:
              for p in batch], self.B, block_q=bq, pad_to=grid)
         bound = self._pages_bound(int(pk["context_len"][p["slot"]])
                                   for p in batch)
+        t0 = time.perf_counter()
         nxt = self._ragged_step(pk["ids"], pk["token_seq"],
                                 pk["positions"], pk["query_start"],
                                 pk["query_len"], pk["context_len"],
                                 pk["sample_rows"], bq, bound)
+        self.admission_seconds += time.perf_counter() - t0
+        self.admission_tokens += sum(len(p["tokens"]) for p in batch)
         self.num_admission_dispatches += 1
         freed = False
         for piece in batch:
@@ -724,6 +1100,100 @@ class ContinuousBatchingEngine:
                 freed = True
         return freed
 
+    # -- legacy admission ------------------------------------------------
+    def _bucket(self, n: int) -> int:
+        """The prefill length of an n-token prompt: n rounded up to a
+        multiple of ``prompt_pad``, clamped to the cache."""
+        return min(-(-n // self.pad) * self.pad, self.S)
+
+    def _admit_legacy(self) -> List[Request]:
+        """≙ `_admit` :2472-2561 without its prefix-cache branch: claim a
+        slot per queued request, run its own bucketed prefill dispatch,
+        reserve and allocate its pages and scatter its K/V rows into
+        them. A failed page allocation backs the slot out and requeues
+        the request (or starves it out)."""
+        finished: List[Request] = []
+        free = [i for i, r in enumerate(self._slot_req) if r is None]
+        while free and self._queue:
+            claim = self._claim_candidate(free)
+            if claim is None:
+                break                      # FIFO: wait for pages to free
+            slot, req, prompt = claim
+            p_len = len(prompt)
+            t0 = time.perf_counter()
+            tok, rows = self._legacy_prefill(prompt, self._bucket(p_len))
+            self.num_admission_dispatches += 1
+            try:
+                self._paged_insert(slot, req, p_len, rows)
+            except PoolExhausted:
+                self.admission_seconds += time.perf_counter() - t0
+                self._release_slot(slot)
+                free.insert(0, slot)
+                self._requeue_or_starve(req, finished)
+                if req.done:
+                    continue               # starved out: try the next
+                break
+            self.admission_seconds += time.perf_counter() - t0
+            self.admission_tokens += p_len
+            self._pos[slot] = p_len
+            self._tok[slot] = tok
+            req.output.append(tok)
+            if req.first_token_time is None:
+                req.first_token_time = self._clock()
+            if (self.eos is not None and tok == self.eos) \
+                    or len(req.output) >= req.max_new_tokens:
+                self._finalize(req, RequestStatus.FINISHED, None, finished)
+                self._release_slot(slot)
+                free.insert(0, slot)
+        return finished
+
+    def _legacy_prefill(self, prompt: List[int], bucket: int):
+        """≙ `_build_prefill`: a causal pass over the prompt padded to
+        ``bucket`` tokens, with the padded tail masked out as keys,
+        into per-layer (1, bucket, HK, D) caches. Returns the first
+        token (greedy, from the last real row; the step's sync point)
+        and each layer's (k_rows, v_rows), (bucket, HK, D)."""
+        p_len = len(prompt)
+        L, hk, hd, dt = self._kv_shape
+        ids = np.zeros(bucket, np.int32)
+        ids[:p_len] = prompt
+        ids_d, row_d = self._upload(ids, [p_len - 1])
+        with torch.no_grad():
+            caches = [tuple(torch.zeros(1, bucket, hk, hd, dtype=dt,
+                                        device=self.device)
+                            for _ in range(2)) for _ in range(L)]
+            valid = (torch.arange(bucket, device=self.device) < p_len)[None]
+            logits = self.model(ids_d[None], caches, rows=row_d,
+                                weights=self._dispatch_weights(),
+                                attention_mask=valid, position_offset=0)
+            tok = int(_sample_token(logits)[0])
+        return tok, [(k[0], v[0]) for k, v in caches]
+
+    def _paged_insert(self, slot: int, req: Request, p_len: int, rows):
+        """≙ `_paged_insert` / `_build_scatter`: reserve and allocate the
+        slot's pages, then scatter its prefilled rows into every layer's
+        pools (the bucket's padding rows to trash page 0)."""
+        self._reserve_and_alloc(slot, req, p_len)
+        (bt_row,) = self._upload(self._bt[slot])
+        with torch.no_grad():
+            for pools, (rk, rv) in zip(self._kv, rows):
+                paged_prefill_scatter(pools[0], pools[1], rk, rv, bt_row,
+                                      p_len)
+
+    def _legacy_decode_step(self, tok, pos) -> np.ndarray:
+        """≙ the paged `_build_decode`: ONE dispatch of (B, 1) tokens, each
+        slot at its own position, through a `PagedKVCacheView` per layer
+        (the attention appends the new K/V rows and launches the paged
+        attention kernel), greedy tokens copied to the host."""
+        tok_d, pos_d, bt_d = self._upload(tok, pos, self._bt)
+        with torch.no_grad():
+            views = [PagedKVCacheView(pools[0], pools[1], bt_d)
+                     for pools in self._kv]
+            logits = self.model(tok_d[:, None], views,
+                                weights=self._dispatch_weights(),
+                                position_offset=pos_d)
+            return _sample_token(logits[:, 0]).cpu().numpy()
+
     # -- the ragged dispatch ---------------------------------------------
     def _ragged_step(self, ids, token_seq, positions, query_start,
                      query_len, context_len, sample_rows, block_q,
@@ -734,15 +1204,14 @@ class ContinuousBatchingEngine:
         the host (the step's sync point). Rows whose ``sample_rows``
         entry is out of range are clamped and never read back."""
         t = len(ids)
+        # multi-LoRA: each packed row takes its owning slot's adapter row
+        # (a padding row's token_seq -1 takes the last slot's: inert, its
+        # output is never read and the epilogue sums across no tokens)
+        adapter_rows = self._slot_adapter[np.asarray(token_seq, np.int64)]
         # one host-to-device copy for every index array of the dispatch
-        parts = [ids, token_seq, positions, query_start, query_len,
-                 context_len, sample_rows, self._bt.ravel()]
-        flat = torch.from_numpy(np.concatenate(
-            [np.asarray(a, np.int32) for a in parts])).to(self.device)
-        cut = np.cumsum([0] + [len(a) for a in parts[:-1]])
-        (ids_d, seq_d, pos_d, qs_d, ql_d, cl_d, rows_d) = (
-            flat[a:b] for a, b in zip(cut[:-1], cut[1:]))
-        bt_d = flat[cut[-1]:].view(self.B, self.pps)
+        ids_d, seq_d, pos_d, qs_d, ql_d, cl_d, rows_d, ad_d, bt_d = \
+            self._upload(ids, token_seq, positions, query_start, query_len,
+                         context_len, sample_rows, adapter_rows, self._bt)
         with torch.no_grad():
             views = [RaggedKVCacheView(pools[0], pools[1], bt_d, seq_d,
                                        pos_d, qs_d, ql_d, cl_d, block_q,
@@ -750,13 +1219,26 @@ class ContinuousBatchingEngine:
                      for pools in self._kv]
             logits = self.model(ids_d[None], views,
                                 rows=rows_d.clamp(0, t - 1),
-                                weights=self._qweights)
+                                weights=self._dispatch_weights(ad_d))
             return _sample_token(logits).cpu().numpy()
+
+    def _upload(self, *arrays):
+        """Copy int32 host arrays to the device in ONE transfer; returns
+        a device view of each, in its shape."""
+        arrays = [np.asarray(a, np.int32) for a in arrays]
+        flat = torch.from_numpy(np.concatenate(
+            [a.ravel() for a in arrays])).to(self.device)
+        out, at = [], 0
+        for a in arrays:
+            out.append(flat[at:at + a.size].view(a.shape))
+            at += a.size
+        return out
 
     # -- decode ------------------------------------------------------------
     def _decode(self, finished: List[Request]):
         """One batched decode step for every slot: the same ragged
-        dispatch at block_q = 1, one query row per slot. Inactive slots
+        dispatch at block_q = 1, one query row per slot, or the legacy
+        (B, 1) dispatch through the paged attention. Inactive slots
         decode garbage at a clamped position; their block-table rows are
         all trash page, so their KV lands in page 0 (never read) and
         their tokens are never read back."""
@@ -783,8 +1265,12 @@ class ContinuousBatchingEngine:
         pos = np.clip(self._pos, 0, self.S - 1).astype(np.int32)
         idx = np.arange(self.B, dtype=np.int32)
         t0 = time.perf_counter()
-        nxt = self._ragged_step(self._tok, idx, pos, idx,
-                                np.ones(self.B, np.int32), pos + 1, idx, 1)
+        if self.attn_impl == "ragged":
+            nxt = self._ragged_step(self._tok, idx, pos, idx,
+                                    np.ones(self.B, np.int32), pos + 1, idx,
+                                    1)
+        else:
+            nxt = self._legacy_decode_step(self._tok, pos)
         self.decode_seconds += time.perf_counter() - t0
         self.decode_tokens += n_active
         self.num_decode_dispatches += 1

@@ -1,13 +1,14 @@
 """Functional layer math of the serving path.
 
 ≙ `paddle_tpu/nn/functional/norm.py` :52-70 (`rms_norm`),
-`nn/functional/common.py` :53-74 (`linear`, with its `QuantizedWeight`
-dispatch) and the `silu` activation.
+`nn/functional/common.py` :33-74 (`linear`, with its `LoraWeight` and
+`QuantizedWeight` dispatch) and the `silu` activation.
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops.lora_epilogue import LoraWeight, lora_matmul_values
 from ..ops.norm_kernels import rms_norm_values
 from ..ops.quant_matmul import QuantizedWeight, dequant_matmul_values
 
@@ -28,10 +29,15 @@ def linear(x, weight, bias=None, use_kernel=None):
     (out, in). The JAX package stores (in, out) and computes ``x @ W``;
     `models.convert` transposes when it carries weights across.
 
-    A `QuantizedWeight` goes to `dequant_matmul_values` (its kernel on
-    the card, its plain version on the CPU; ``use_kernel`` as there), so
-    the model code never forks on quantization. A full-width weight is
-    one `torch.nn.functional.linear` and ignores ``use_kernel``."""
+    A `LoraWeight` goes to `lora_matmul_values` (its base matmul, then
+    the per-token adapter delta) and a `QuantizedWeight` to
+    `dequant_matmul_values` (each its kernel on the card, its plain
+    version on the CPU; ``use_kernel`` as there), so the model code
+    never forks on adapters or quantization. A full-width weight is one
+    `torch.nn.functional.linear` and ignores ``use_kernel``."""
+    if isinstance(weight, LoraWeight):
+        y = lora_matmul_values(x, weight, use_kernel)
+        return y if bias is None else y + bias
     if isinstance(weight, QuantizedWeight):
         y = dequant_matmul_values(x, weight.qw, weight.scale, use_kernel)
         return y if bias is None else y + bias

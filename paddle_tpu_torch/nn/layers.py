@@ -20,8 +20,11 @@ class RMSNorm(torch.nn.Module):
         self.weight = torch.nn.Parameter(
             torch.ones(hidden_size, device=device, dtype=dtype))
 
-    def forward(self, x, use_kernel=None):
-        return F.rms_norm(x, self.weight, self.epsilon, use_kernel)
+    def forward(self, x, use_kernel=None, weight=None):
+        """``weight``: the scale to use in place of this module's own
+        (a checkpoint swapped in by the serving engine)."""
+        return F.rms_norm(x, self.weight if weight is None else weight,
+                          self.epsilon, use_kernel)
 
     def extra_repr(self):
         return f"{self.hidden_size}, eps={self.epsilon}"

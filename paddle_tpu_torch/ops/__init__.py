@@ -13,7 +13,8 @@ import torch
 # it launches the kernel (never by the plain version), so a run can show
 # that its path went through the kernels
 launch_counts = {"rms_norm": 0, "ragged_paged_attention": 0,
-                 "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0}
+                 "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
+                 "lora_epilogue": 0, "paged_attention": 0}
 
 
 def reset_launch_counts() -> None:

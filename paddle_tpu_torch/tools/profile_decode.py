@@ -1,15 +1,18 @@
-"""Where a decode step's time goes, full width and quantized, on one card.
+"""Where a decode step's time goes, per engine mode, on one card.
 
     python3 -m paddle_tpu_torch.tools.profile_decode [--steps 10]
 
 Builds `LlamaConfig.llama3_8b()` in bf16 from seed 0, and for each
-engine mode — full width, ``QuantServingConfig("int8", "int8")`` and
-``QuantServingConfig("fp8", "int8")`` — admits 8 seeded requests, warms
-up, and traces ``--steps`` decode steps with `torch.profiler`. Prints one
-``decode_profile {...}`` JSON line per mode: host wall per step, device
-time per step summed over kernels, the device's idle share of the wall,
-and device time per step by kernel family (the port's three CUDA kernels
-by name, PyTorch's matmuls, everything else).
+engine mode — full width, ``QuantServingConfig("int8", "int8")``,
+``QuantServingConfig("fp8", "int8")``, multi-LoRA (three seeded rank-16
+adapters on the seven matmuls of every layer, two of the 8 requests
+under each and two on the base) and ``attention_impl="legacy"`` — admits
+8 seeded requests, warms up, and traces ``--steps`` decode steps with
+`torch.profiler`. Prints one ``decode_profile {...}`` JSON line per
+mode: host wall per step, device time per step summed over kernels, the
+device's idle share of the wall, and device time per step by kernel
+family (the port's CUDA kernels by name, PyTorch's matmuls, everything
+else).
 
 Then, for each matmul shape of a decode step, the device time of one
 dequant matmul (int8 and fp8) and of the full-width ``F.linear`` from the
@@ -31,6 +34,8 @@ from torch.profiler import ProfilerActivity, profile
 
 FAMILIES = (("dequant_matmul", ("dequant",)),
             ("ragged_paged_attention", ("ragged_paged_attention",)),
+            ("paged_attention", ("paged_attention",)),
+            ("lora_epilogue", ("lora_",)),
             ("rms_norm", ("rms_norm",)),
             ("torch_matmul", ("gemm", "gemv", "cutlass", "sm90_xmma",
                               "nvjet", "cublas")))
@@ -66,15 +71,49 @@ def _kernel_times(prof):
     return out
 
 
-def profile_engine(model, quant, steps, seed=0):
-    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
-    eng = ContinuousBatchingEngine(model, max_batch_size=8,
-                                   max_seq_len=2048, quant=quant)
+LORA_MATMULS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
+                "mlp.down_proj")
+
+
+def seeded_lora_deltas(model, seed, rank=16):
+    """Rank-``rank`` deltas (A (K, r), B (r, N), f32 numpy) on the seven
+    matmuls of every layer, from ``seed``: A ~ N(0, 1/K), B ~ N(0,
+    0.25/r), so a delta is about half a base output's size."""
+    params = dict(model.named_parameters())
     rng = np.random.default_rng(seed)
-    for _ in range(8):
+    deltas = {}
+    for layer in range(model.config.num_hidden_layers):
+        for mm in LORA_MATMULS:
+            nm = f"model.layers.{layer}.{mm}.weight"
+            n, k = params[nm].shape
+            a = rng.standard_normal((k, rank), np.float32) \
+                / np.float32(np.sqrt(k))
+            b = rng.standard_normal((rank, n), np.float32) \
+                * np.float32(0.5 / np.sqrt(rank))
+            deltas[nm] = (a, b)
+    return deltas
+
+
+def profile_engine(model, mode, steps, seed=0):
+    """``mode``: a `QuantServingConfig`, None (full width), ``"lora"`` or
+    ``"legacy"``."""
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    quant = mode if not isinstance(mode, str) else None
+    eng = ContinuousBatchingEngine(
+        model, max_batch_size=8, max_seq_len=2048, quant=quant,
+        attention_impl="legacy" if mode == "legacy" else "ragged")
+    adapters = (None,)
+    if mode == "lora":
+        adapters += ("a1", "a2", "a3")
+        for i, name in enumerate(adapters[1:]):
+            eng.install_adapter(name, seeded_lora_deltas(model, 100 + i))
+    rng = np.random.default_rng(seed)
+    for i in range(8):
         eng.add_request(rng.integers(0, model.config.vocab_size,
                                      int(rng.integers(32, 1025))),
-                        max_new_tokens=steps + 8)
+                        max_new_tokens=steps + 8,
+                        adapter=adapters[i % len(adapters)])
     for _ in range(3):                   # admission, then warm decode
         eng.step()
     torch.cuda.synchronize()
@@ -93,8 +132,9 @@ def profile_engine(model, quant, steps, seed=0):
         f[1] += us
     dev_ms = sum(us for _, us in kernels.values()) / 1e3 / steps
     step_ms = 1e3 * wall / steps
-    rec = dict(mode="full width" if quant is None
-               else f"{quant.weights} weights, {quant.kv} KV",
+    label = mode if isinstance(mode, str) else "full width" \
+        if quant is None else f"{quant.weights} weights, {quant.kv} KV"
+    rec = dict(mode=label,
                steps=steps, step_ms=step_ms, device_ms_per_step=dev_ms,
                idle_share=max(0.0, 1 - dev_ms / step_ms),
                by_family={k: dict(launches_per_step=v[0] / steps,
@@ -162,9 +202,9 @@ def main(argv=None):
     profile_matmuls(cfg)
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                              seed=0)
-    for quant in (None, QuantServingConfig("int8", "int8"),
-                  QuantServingConfig("fp8", "int8")):
-        profile_engine(model, quant, args.steps)
+    for mode in (None, QuantServingConfig("int8", "int8"),
+                 QuantServingConfig("fp8", "int8"), "lora", "legacy"):
+        profile_engine(model, mode, args.steps)
     return 0
 
 

@@ -18,13 +18,21 @@ dequant matmul: f32 rtol 1e-5 plus atol 1e-5 of the largest |output|
 (f32 sums of up to 14336 exact products in another order), bf16 rtol
 2^-7 plus atol 2^-8 of the largest |output| (one bf16 rounding of sums
 that differ only in order: the widened weights and their products with
-bf16 x are exact in f32)."""
+bf16 x are exact in f32);
+BGMV LoRA epilogue: the same two tolerances as the dequant matmul (f32
+sums over K and over the rank in another order, then one rounding to
+x's dtype), and BITWISE where the kernel promises it: a token's delta
+alone equals its delta in any batch, row-0 tokens give exact zeros,
+zero rank columns change nothing;
+paged attention: as ragged attention (f32 1e-5, bf16 2e-2)."""
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import launch_counts
+from paddle_tpu_torch.ops import lora_epilogue as le
 from paddle_tpu_torch.ops import norm_kernels as nk
+from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import quant_matmul as qm
 from paddle_tpu_torch.ops import ragged_paged_attention as ra
 
@@ -279,3 +287,173 @@ def test_tiny_engine_on_card_matches_cpu(cuda):
         streams.append(eng.run())
         eng.check_invariants()
     assert streams[0] == streams[1]
+
+
+def _lora_operands(dev, t, k, n, r, dtype, stacks=4, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + t + k + n + r)
+    x = torch.randn(t, k, device=dev, generator=g).to(dtype)
+    a = (0.2 * torch.randn(stacks, k, r, device=dev, generator=g)).to(dtype)
+    b = (0.2 * torch.randn(stacks, r, n, device=dev, generator=g)).to(dtype)
+    a[0] = 0
+    b[0] = 0
+    scale = torch.linspace(0.0, 1.5, stacks, device=dev)
+    ids = torch.randint(0, stacks, (t,), device=dev, generator=g,
+                        dtype=torch.int32)
+    return x, a, b, scale, ids
+
+
+def _lora_tol(ref, dtype):
+    top = ref.float().abs().max().item()
+    return dict(rtol=2 ** -7, atol=2 ** -8 * top) \
+        if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5 * top)
+
+
+LORA_SHAPES = [(8, 4096, 14336, 16), (8, 14336, 4096, 16),
+               (300, 4096, 1024, 16), (9, 32, 64, 8), (5, 128, 130, 1),
+               (1, 70, 33, 3), (40, 256, 512, 64), (3, 1000, 300, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LORA_SHAPES,
+                         ids=["t{}_k{}_n{}_r{}".format(*s) for s in
+                              LORA_SHAPES])
+def test_lora_epilogue_kernel_matches_plain(cuda, shape, dtype):
+    t, k, n, r = shape
+    x, a, b, scale, ids = _lora_operands(cuda, t, k, n, r, dtype)
+    before = launch_counts["lora_epilogue"]
+    out = le.lora_epilogue_values(x, a, b, scale, ids)
+    assert launch_counts["lora_epilogue"] == before + 1
+    ref = le.lora_epilogue_ref(x, a, b, scale, ids)
+    assert out.dtype == dtype and out.shape == (t, n)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **_lora_tol(ref, dtype))
+    # the fused add: y + delta, the delta rounded first
+    y = torch.randn(t, n, device=cuda).to(dtype)
+    want = y + out
+    got = le.lora_epilogue_values(x, a, b, scale, ids, y=y.clone())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_epilogue_bitwise_batch_invariance(cuda, dtype):
+    """A token's delta alone equals its delta inside batches of 8 and of
+    300, bitwise; row-0 tokens give exact zeros; zero rank columns
+    padded onto the stacks change no bit."""
+    x, a, b, scale, ids = _lora_operands(cuda, 300, 4096, 1024, 8, dtype)
+    full = le.lora_epilogue_values(x, a, b, scale, ids)
+    eight = le.lora_epilogue_values(x[:8], a, b, scale, ids[:8])
+    assert torch.equal(eight, full[:8])
+    for i in (0, 5, 299):
+        alone = le.lora_epilogue_values(x[i:i + 1], a, b, scale,
+                                        ids[i:i + 1])
+        assert torch.equal(alone, full[i:i + 1])
+    assert bool((full[ids == 0] == 0).all())
+    zeros = le.lora_epilogue_values(x, a, b, scale, torch.zeros_like(ids))
+    assert bool((zeros == 0).all())
+    pad_a = torch.cat([a, torch.zeros_like(a)], 2)
+    pad_b = torch.cat([b, torch.zeros_like(b)], 1)
+    assert torch.equal(le.lora_epilogue_values(x, pad_a, pad_b, scale, ids),
+                       full)
+
+
+def test_lora_epilogue_wrapper_checks(cuda):
+    x, a, b, scale, ids = _lora_operands(cuda, 4, 64, 32, 4, torch.float32)
+    with pytest.raises(TypeError, match="dtype"):
+        le.lora_epilogue_values(x, a.to(torch.bfloat16), b, scale, ids)
+    with pytest.raises(TypeError, match="int32"):
+        le.lora_epilogue_values(x, a, b, scale, ids.long())
+    with pytest.raises(ValueError, match="shape"):
+        le.lora_epilogue_values(x, a, b, scale[:2], ids)
+    with pytest.raises(ValueError, match="CUDA device"):
+        le.lora_epilogue_values(x, a.cpu(), b, scale, ids)
+    # refused by the C entry (rank above 256): the wrapper raises
+    big = _lora_operands(cuda, 2, 16, 16, 300, torch.float32)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        le.lora_epilogue_values(*big)
+
+
+PAGED_CASES = [
+    # (name, hk, g, contexts, window, d)
+    ("g4_long", 8, 4, [1, 17, 300, 517, 1024, 1500, 2000, 2048], None, 128),
+    ("g4_window256", 8, 4, [1, 17, 300, 517, 1024, 1500, 2000, 2048], 256,
+     128),
+    ("g1", 4, 1, [1, 40, 600, 2048], None, 128),
+    ("g8_window100", 2, 8, [5, 400, 1300], 100, 128),
+    ("g8_d64", 2, 8, [3, 64, 65, 700], None, 64),
+    ("g2_d32_window7", 4, 2, [1, 7, 8, 33], 7, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_CASES,
+                         ids=[c[0] for c in PAGED_CASES])
+def test_paged_attention_kernel_matches_plain(cuda, case, dtype):
+    name, hk, g, ctx, window, d = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    arrays = _case(rng, hk, g, [1] * len(ctx), ctx, 1, 0, d=d)
+    q, kp, vp, _, _, cl, bt = [torch.from_numpy(a).to(cuda) for a in arrays]
+    q, kp, vp = (z.to(dtype) for z in (q, kp, vp))
+    before = launch_counts["paged_attention"]
+    out = pa.paged_attention_values(q, kp, vp, cl, bt, window=window)
+    assert launch_counts["paged_attention"] == before + 1
+    ref = pa.paged_attention_values(q, kp, vp, cl, bt, window=window,
+                                    use_kernel=False)
+    tol = dict(atol=2e-2, rtol=0) if dtype == torch.bfloat16 \
+        else dict(atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+def test_paged_attention_inactive_slot_and_refusals(cuda):
+    """An inactive slot (ctx 1 on an all-trash block-table row) reads
+    page 0 only; shapes the C entry refuses raise."""
+    rng = np.random.default_rng(3)
+    arrays = _case(rng, 2, 4, [1, 1], [1, 300], 1, 0, trash_rows=(0,))
+    q, kp, vp, _, _, cl, bt = [torch.from_numpy(a).to(cuda) for a in arrays]
+    out = pa.paged_attention_values(q, kp, vp, cl, bt)
+    ref = pa.paged_attention_values(q, kp, vp, cl, bt, use_kernel=False)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    with pytest.raises(TypeError, match="int32"):
+        pa.paged_attention_values(q, kp, vp, cl.long(), bt)
+    with pytest.raises(ValueError, match="shape"):
+        pa.paged_attention_values(q[:, :, :64].contiguous(), kp, vp, cl, bt)
+    # refused by the C entry (32 query heads per KV head): raises
+    q32 = torch.randn(2, 2 * 32, 128, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pa.paged_attention_values(q32, kp, vp, cl, bt)
+
+
+def _tiny_streams(dev, **engine_kw):
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, n) for n in (5, 20, 47, 3)]
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                             seed=3).to(dev)
+    adapters = engine_kw.pop("adapters", ())
+    eng = ContinuousBatchingEngine(model, max_batch_size=2, max_seq_len=64,
+                                   device=dev, **engine_kw)
+    params = dict(model.named_parameters())
+    for i, name in enumerate(adapters):
+        g = np.random.default_rng(i + 1)
+        deltas = {}
+        for nm in ("model.layers.0.self_attn.q_proj.weight",
+                   "model.layers.1.mlp.down_proj.weight", "lm_head.weight"):
+            n, k = params[nm].shape
+            deltas[nm] = (g.normal(size=(k, 8)).astype(np.float32) * 0.3,
+                          g.normal(size=(8, n)).astype(np.float32) * 0.3)
+        eng.install_adapter(name, deltas)
+    names = [None] + list(adapters)
+    for i, p in enumerate(prompts):
+        eng.add_request(p, max_new_tokens=8,
+                        adapter=names[i % len(names)])
+    out = eng.run()
+    eng.check_invariants()
+    return out
+
+
+@pytest.mark.parametrize("kw", [dict(adapters=("a1", "a2")),
+                                dict(attention_impl="legacy")],
+                         ids=["lora", "legacy"])
+def test_tiny_lora_and_legacy_engines_on_card_match_cpu(cuda, kw):
+    assert _tiny_streams("cuda", **dict(kw)) == _tiny_streams("cpu",
+                                                              **dict(kw))

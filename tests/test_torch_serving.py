@@ -15,7 +15,7 @@ from paddle_tpu_torch.models.convert import llama_state_from_numpy
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.models.serving import (_UNPORTED_OPTIONS,
                                              ContinuousBatchingEngine,
-                                             EngineOverloaded)
+                                             EngineOverloaded, ModelMismatch)
 
 S = 64
 # five requests for two slots; the 60-token prompt ends at the cache end
@@ -105,8 +105,11 @@ def test_unported_options_raise(models, name, off, item):
 
 
 @pytest.mark.parametrize("layout", [dict(kv_layout="dense"),
-                                    dict(attention_impl="legacy")])
+                                    dict(attention_impl="legacy",
+                                         prefill_chunk=16)])
 def test_dense_and_legacy_paths_raise(models, layout):
+    """The dense layout and the legacy path's chunked prefill are not
+    ported (the legacy path itself is: tests/test_torch_paged_attention.py)."""
     _, tm, _ = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port(tm, **layout)
@@ -116,8 +119,11 @@ def test_dense_and_legacy_paths_raise(models, layout):
                                 dict(max_queue_time=1.0),
                                 dict(adapter="a")])
 def test_unported_request_options_raise(models, kw):
+    """Deadlines are not ported; an adapter is, and one that is not
+    resident is refused before enqueue (tests/test_torch_lora.py)."""
     _, tm, prompts = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    exc = ModelMismatch if "adapter" in kw else NotImplementedError
+    with pytest.raises(exc, match="ROADMAP|not resident"):
         _port(tm).add_request(prompts[0], **kw)
 
 
