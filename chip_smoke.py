@@ -85,8 +85,48 @@ Multi-LoRA serving and the legacy paged path add, in the same run:
 6c. one admission dispatch with the LoRA weights (three sequences under
     three adapters), kernels against plain versions, as in phase 6.
 
-It prints a ``{"kernels": [...]}`` line (six kernels, each with its
-launches on its own serving run), the card line, and last
+Training adds, in the same run:
+
+3f. the flash attention kernels (forward: o and lse; backward: dQ and
+    dK/dV) against their plain versions in bf16 at the 8B training
+    slice's shape (B=2, S=2048, H=32, HK=8, D=128) and at the ``bench``
+    recipe's (B=8, S=2048, H=16, HK=8, D=64), with each one's time,
+    bound, plain time and the library's
+    (``torch.nn.functional.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)`` forward, and its backward), and on small edge
+    cases: tail tiles (S=1000), Sq < Sk, Sq > Sk (rows with no key give
+    exact zeros and zero gradient), a 256 window, non-causal, f32, D=32;
+    each output held to scale-free limits (the whole tensor's and the
+    worst row's relative error), which two planted faults of the plain
+    version must break: a skipped K tile and a wrong GQA head;
+3g. the RMSNorm backward kernel against its plain version (torch
+    autograd of `rms_norm_ref`) at (4096, 4096) bf16 and f32 and at a
+    ragged row count, beside the autograd backward of
+    ``torch.nn.functional.rms_norm``;
+4e. ``tiny_train_parity``: a tiny f32 Llama (D=32, GQA 4:2) on the card
+    (kernels) and on the CPU (plain versions), same weights, three
+    `TrainStep`s with `AdamW`: losses per step and parameters after
+    step 3 within a stated budget, and ``accumulate_steps=2`` against 1
+    on the card;
+5e. ``train_8b_width {...}``: `recipes.llama_pretrain.train_8b_config()`,
+    `LlamaConfig.llama3_8b()` cut to 4 decoder layers (full-depth AdamW
+    state does not fit one card), bf16, ``AdamW(lr=3e-4,
+    weight_decay=0.01, multi_precision=True)``, B=2, S=2048, one seeded
+    batch, 5 steps: step ms, tokens/s, MFU (with and without the input
+    embedding), peak memory, the losses (which must fall), exact
+    launches per step (L of each flash kernel, 2L+1 RMSNorms and RMSNorm
+    backwards); before it, one forward and backward with the kernels
+    and one with the plain versions (``use_kernel=False``) on the same
+    weights: the loss difference and named parameters' relative gradient
+    differences against their budgets, and the same readings of the
+    plain versions under a planted fault, which the gradients' budget
+    must catch;
+5f. ``train_recipe {...}``: the ported recipe in-process, ``--size bench
+    --bf16 --batch-size 8 --seq-len 2048 --steps 5``: step ms, tokens/s,
+    MFU (with and without the input embedding).
+
+It prints a ``{"kernels": [...]}`` line (ten kernels, each with its
+launches on its own main-path run), the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -132,6 +172,34 @@ TINY_LORA_LOGIT_BUDGET = 1e-3
 N_LEGACY_REQUESTS = 8
 LORA_RANK = 16
 LORA_ADAPTERS = ("a1", "a2", "a3")
+# flash attention, kernel against plain version: scale-free limits on
+# the whole tensor's and the worst row's relative error
+# (`ops.flash_attention.KERNEL_LIMITS`), shown to catch two planted
+# faults of the plain version: every q row skipping the K tile (the
+# kernels' 64 keys) that holds its last live key, and q head h reading
+# KV head h % HK instead of h // (H / HK)
+FLASH_TILE_K = 64
+# tiny f32 Llama training, card against CPU: f32 sums in another order
+# through every kernel and matmul; Adam's normalised step can move a
+# weight whose gradient is near zero by a visibly different amount (one
+# element measured 1.4e-4 off at lr 1e-3, H100), so the parameters'
+# budget is on each tensor's norm of the difference, relative
+TINY_TRAIN_LOSS_BUDGET = 1e-4
+TINY_TRAIN_PARAM_BUDGET = 1e-4
+# 8B-width bf16 training, kernels against plain versions on the same
+# weights: bf16 activations rounded at other places through 4 layers
+# (named gradients read 0.6-1.1% apart in norm on the H100). At random
+# init the loss is ~ln(vocab) whatever attention computes, so the loss
+# budget is a sanity check and the gradients' budget does the work;
+# the plain path under `_skip_tile` is the planted fault it must catch
+TRAIN_LOSS_REL_BUDGET = 1e-4
+TRAIN_GRAD_REL_BUDGET = 3e-2
+TRAIN_STEPS = 5
+# bench.py:1995-2000 over the H100's bf16 peak
+PEAK_BF16 = 989e12
+# the training kernels: never launched by a serving run
+NO_TRAINING = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+               "flash_attention_bwd_dkv": 0, "rms_norm_bwd": 0}
 
 
 def log(msg):
@@ -763,7 +831,7 @@ def serve_8b():
         raise AssertionError("pages still held after the run")
     want = {"ragged_paged_attention": L * nd, "rms_norm": (2 * L + 1) * nd,
             "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
-            "lora_epilogue": 0, "paged_attention": 0}
+            "lora_epilogue": 0, "paged_attention": 0, **NO_TRAINING}
     log(f"launches {counts} expected {want} over {nd} dispatches "
         f"({eng.num_admission_dispatches} admission, "
         f"{eng.num_decode_dispatches} decode)")
@@ -835,7 +903,7 @@ def serve_8b_quant(model, reqs, weights, n_requests):
     want = {"rms_norm": (2 * L + 1) * nd, "ragged_paged_attention": 0,
             "ragged_paged_attention_int8kv": L * nd,
             "dequant_matmul": (7 * L + 1) * nd, "lora_epilogue": 0,
-            "paged_attention": 0}
+            "paged_attention": 0, **NO_TRAINING}
     log(f"launches ({weights} weights, int8 KV) {counts} expected {want} "
         f"over {nd} dispatches ({eng.num_admission_dispatches} admission, "
         f"{eng.num_decode_dispatches} decode)")
@@ -905,7 +973,8 @@ def serve_8b_lora(model, reqs):
     nd = eng.num_dispatches
     want = {"rms_norm": (2 * L + 1) * nd, "ragged_paged_attention": L * nd,
             "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
-            "lora_epilogue": 7 * L * nd, "paged_attention": 0}
+            "lora_epilogue": 7 * L * nd, "paged_attention": 0,
+            **NO_TRAINING}
     log(f"launches (LoRA) {counts} expected {want} over {nd} dispatches "
         f"({eng.num_admission_dispatches} admission, "
         f"{eng.num_decode_dispatches} decode)")
@@ -958,7 +1027,8 @@ def serve_8b_legacy(model, reqs):
     want = {"rms_norm": (2 * L + 1) * nd, "ragged_paged_attention": 0,
             "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
             "lora_epilogue": 0,
-            "paged_attention": L * eng.num_decode_dispatches}
+            "paged_attention": L * eng.num_decode_dispatches,
+            **NO_TRAINING}
     log(f"launches (legacy) {counts} expected {want} over {nd} dispatches "
         f"({eng.num_admission_dispatches} prefill, "
         f"{eng.num_decode_dispatches} decode)")
@@ -1035,6 +1105,482 @@ def path_check(model, reqs, weights=None, lora_engine=None):
         raise AssertionError("kernel and plain paths disagree")
 
 
+def _sdpa_library(q, k, v, causal):
+    """The library's attention on the same (B, S, H, D) inputs, timed as
+    a yardstick (the port never calls it): (fwd ms, backward ms, fwd+bwd
+    ms)."""
+    import torch
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    kw = dict(is_causal=causal, enable_gqa=True)
+    out = sdpa(qh, kh, vh, **kw)
+    do = torch.randn_like(out)
+    fwd = time_ms(lambda: sdpa(qh, kh, vh, **kw), iters=10)
+    bwd = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), do,
+                                              retain_graph=True), iters=10)
+
+    def both():
+        o = sdpa(qh, kh, vh, **kw)
+        torch.autograd.grad(o, (qh, kh, vh), do)
+    return fwd, bwd, time_ms(both, iters=10)
+
+
+def _pairs(b, h, sq, sk, causal, window):
+    """(q head, key) pairs the mask keeps: the work of one matmul row."""
+    off = sk - sq
+    n = 0
+    for i in range(sq):
+        hi = min(sk - 1, i + off) if causal else sk - 1
+        lo = max(0, i + off - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return b * h * n
+
+
+# (label, B, Sq, Sk, H, HK, D, causal, window, dtype, timed)
+FLASH_CASES = [
+    ("slice_8b", 2, 2048, 2048, 32, 8, 128, True, None, "bfloat16", True),
+    ("bench", 8, 2048, 2048, 16, 8, 64, True, None, "bfloat16", True),
+    ("tail_1000", 1, 1000, 1000, 8, 2, 128, True, None, "bfloat16", False),
+    ("sq300_sk1000", 1, 300, 1000, 8, 2, 128, True, None, "bfloat16", False),
+    ("sq600_sk200", 1, 600, 200, 8, 2, 64, True, None, "bfloat16", False),
+    ("window_256", 1, 1000, 1000, 8, 2, 128, True, 256, "bfloat16", False),
+    ("noncausal", 2, 300, 500, 8, 8, 64, False, None, "bfloat16", False),
+    ("f32", 1, 300, 300, 8, 2, 64, True, None, "float32", False),
+    ("d32", 2, 1000, 1000, 4, 2, 32, True, None, "bfloat16", False)]
+
+
+def _skip_tile(live_fn):
+    """A planted fault for the plain versions' mask: every q row also
+    loses the `FLASH_TILE_K`-key tile that holds its last live key."""
+    import torch
+
+    def live(sq, sk, causal, window, device):
+        m = live_fn(sq, sk, causal, window, device)
+        j = torch.arange(sk, device=device)
+        last = torch.where(m, j, -1).amax(-1)
+        return m & (j[None, :] // FLASH_TILE_K !=
+                    (last // FLASH_TILE_K)[:, None])
+    return live
+
+
+def _flash_faults(fa, q, k, v, do, scale, causal, window):
+    """The plain versions' (o, dq, dk, dv) under the planted faults:
+    ``skip_tile`` (`_skip_tile`) and, where H > HK, ``wrong_gqa``: q head
+    h reads KV head h % HK (its q and dO moved to the slot of a head of
+    that group, its outputs read back from there)."""
+    import torch
+    from unittest import mock
+
+    def plain(qq, dd):
+        o, lse = fa.flash_attention_ref(qq, k, v, causal, scale, window)
+        return (o, *fa.flash_attention_bwd_ref(qq, k, v, o, lse, dd, causal,
+                                               scale, window))
+    with mock.patch.object(fa, "_live", _skip_tile(fa._live)):
+        faults = {"skip_tile": plain(q, do)}
+    h, hk = q.shape[2], k.shape[2]
+    if h > hk:
+        g = h // hk
+        pos = torch.tensor([(i % hk) * g + i // hk for i in range(h)],
+                           device=q.device)
+        qp, dp = torch.empty_like(q), torch.empty_like(do)
+        qp[:, :, pos], dp[:, :, pos] = q, do
+        o, dq, dk, dv = plain(qp, dp)
+        faults["wrong_gqa"] = (o[:, :, pos], dq[:, :, pos], dk, dv)
+    return faults
+
+
+def flash_phase(results):
+    """The three flash attention kernels against their plain versions:
+    timed at the two training shapes, checked on the edge cases; the
+    limits are shown to catch the planted faults of `_flash_faults`."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for (label, b, sq, sk, h, hk, d, causal, window, name,
+         timed) in FLASH_CASES:
+        dt = getattr(torch, name)
+        lim = fa.KERNEL_LIMITS[dt]
+        f = lambda *shape: torch.randn(*shape, device="cuda",
+                                       generator=gen).to(dt)
+        q, k, v, do = f(b, sq, h, d), f(b, sk, hk, d), f(b, sk, hk, d), \
+            f(b, sq, h, d)
+        scale = d ** -0.5
+        o, lse = fa._flash_fwd(q, k, v, scale, causal, window)
+        delta = fa._delta(o, do)
+        dq = fa._flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, window)
+        dk, dv = fa._flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal,
+                                   window)
+        ro, rlse = fa.flash_attention_ref(q, k, v, causal, scale, window)
+        want = (ro, *fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                                scale, window))
+        torch.cuda.synchronize()
+        names = ("o", "dq", "dk", "dv")
+        errs = {n: fa.kernel_errors(a, r)
+                for n, a, r in zip(names, (o, dq, dk, dv), want)}
+        abs_err = {n: (a.float() - r.float()).abs().max().item()
+                   for n, a, r in zip(names, (o, dq, dk, dv), want)}
+        faults = {fault: {n: fa.kernel_errors(a, r)
+                          for n, a, r in zip(names, outs, want)}
+                  for fault, outs in _flash_faults(
+                      fa, q, k, v, do, scale, causal, window).items()}
+
+        def passes(e):
+            return e[0] <= lim["rel"] and e[1] <= lim["row"]
+        lse_err = (lse - rlse).abs().max().item()
+        ok = all(passes(e) for e in errs.values()) and lse_err <= 1e-3
+        caught = not any(passes(e) for fe in faults.values()
+                         for e in fe.values())
+        if sq > sk and causal:
+            # rows 0..Sq-Sk-1 see no key: exact zeros, zero gradient
+            dead = sq - sk
+            ok = ok and not o[:, :dead].any() and not dq[:, :dead].any()
+        rec_base = dict(case=label, dtype=name, B=b, Sq=sq, Sk=sk, H=h,
+                        HK=hk, D=d, causal=causal, window=window,
+                        limits=lim, lse_max_abs_err=lse_err,
+                        rel_row_errors=errs, planted_faults=faults)
+        n_pairs = _pairs(b, h, sq, sk, causal, window)
+        isz = q.element_size()
+        qo_bytes = b * sq * h * d * isz
+        kv_bytes = b * sk * hk * d * isz
+        rows = 4 * b * h * sq
+        recs = {
+            "flash_attention_fwd": dict(
+                max_abs_err=abs_err["o"], nbytes=qo_bytes * 2 +
+                kv_bytes * 2 + rows, ops=4 * d * n_pairs),
+            "flash_attention_bwd_dq": dict(
+                max_abs_err=abs_err["dq"], nbytes=qo_bytes * 3 +
+                kv_bytes * 2 + 2 * rows, ops=6 * d * n_pairs),
+            "flash_attention_bwd_dkv": dict(
+                max_abs_err=max(abs_err["dk"], abs_err["dv"]),
+                nbytes=qo_bytes * 2 + kv_bytes * 4 + 2 * rows,
+                ops=8 * d * n_pairs)}
+        times = {}
+        if timed:
+            times["flash_attention_fwd"] = time_ms(
+                lambda: fa._flash_fwd(q, k, v, scale, causal, window))
+            times["flash_attention_bwd_dq"] = time_ms(
+                lambda: fa._flash_bwd_dq(q, k, v, do, lse, delta, scale,
+                                         causal, window))
+            times["flash_attention_bwd_dkv"] = time_ms(
+                lambda: fa._flash_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                          causal, window))
+            plain_fwd = time_ms(lambda: fa.flash_attention_ref(
+                q, k, v, causal, scale, window), iters=3, warmup=1)
+            plain_bwd = time_ms(lambda: fa.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, causal, scale, window), iters=3,
+                warmup=1)
+            lib_fwd, lib_bwd, lib_both = _sdpa_library(q, k, v, causal)
+        del ro, rlse, want
+        for kernel, r in recs.items():
+            b_ms, b_by = bound(r.pop("nbytes"), r.pop("ops"), name)
+            rec = dict(kernel=kernel, **rec_base, **r, bound_ms=b_ms,
+                       bound_by=b_by, ms=times.get(kernel),
+                       plain_ms=None, library_ms=None)
+            if timed:
+                fwd = kernel == "flash_attention_fwd"
+                rec.update(
+                    plain_ms=plain_fwd if fwd else plain_bwd,
+                    library_ms=lib_fwd if fwd else lib_bwd,
+                    library_fwd_bwd_ms=lib_both,
+                    library_note="scaled_dot_product_attention(is_causal, "
+                    "enable_gqa=True)",
+                    note=None if fwd else "plain_ms and library_ms are "
+                    "the whole backward (dq, dk and dv together)")
+            log("kernel " + json.dumps(rec))
+            results.append(rec)
+        if not ok:
+            raise AssertionError(f"flash attention kernels disagree on "
+                                 f"{label}: {errs}, lse {lse_err}")
+        if not caught:
+            raise AssertionError(f"the flash limits {lim} miss a planted "
+                                 f"fault on {label}: {faults}")
+        del q, k, v, do, o, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+
+
+def rms_bwd_phase(results):
+    """The RMSNorm backward kernel against torch autograd of its plain
+    version, beside the autograd backward of `F.rms_norm`."""
+    import torch
+    from paddle_tpu_torch.ops import norm_kernels as nk
+    lib = getattr(torch.nn.functional, "rms_norm", None)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    h, eps = 4096, 1e-5
+    for n, name in ((4096, "bfloat16"), (4096, "float32"),
+                    (3001, "bfloat16")):
+        dt = getattr(torch, name)
+        x = torch.randn(n, h, device="cuda", generator=gen).to(dt)
+        w = (1 + 0.1 * torch.randn(h, device="cuda", generator=gen)).to(dt)
+        g = torch.randn(n, h, device="cuda", generator=gen).to(dt)
+        _, rstd = nk._rms_fwd(x, w, eps)
+        dx, dw = nk._rms_bwd(x, w, rstd, g)
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = nk.rms_norm_ref(xr, wr, eps)
+        rdx, rdw = torch.autograd.grad(out, (xr, wr), g, retain_graph=True)
+        torch.cuda.synchronize()
+        err = max((dx.float() - rdx.float()).abs().max().item(),
+                  (dw.float() - rdw.float()).abs().max().item()
+                  / max(1.0, rdw.float().abs().max().item()))
+        tol = TOL[name]
+        ok = torch.allclose(dx.float(), rdx.float(), **tol) and \
+            torch.allclose(dw.float(), rdw.float(), rtol=tol["rtol"],
+                           atol=1e-3 * rdw.float().abs().max().item())
+        ms = time_ms(lambda: nk._rms_bwd(x, w, rstd, g))
+        plain = time_ms(lambda: torch.autograd.grad(
+            out, (xr, wr), g, retain_graph=True))
+        lib_ms = None
+        if lib is not None:
+            lout = lib(xr, (h,), wr, eps)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                lout, (xr, wr), g, retain_graph=True))
+        isz = x.element_size()
+        nbytes = 3 * n * h * isz + 2 * h * isz + 4 * n
+        b_ms, b_by = bound(nbytes, 10 * n * h, name)
+        rec = dict(kernel="rms_norm_bwd", case=f"rows={n}", dtype=name,
+                   max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   note="max_abs_err: dx's, or dw's relative to its "
+                   "largest |dw|; plain and library are autograd "
+                   "backwards")
+        log("kernel " + json.dumps(rec))
+        if not ok:
+            raise AssertionError(f"rms_norm backward kernel disagrees: "
+                                 f"{rec}")
+        results.append(rec)
+
+
+def _tiny_train(dev, ids, accumulate_steps=1, steps=3):
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                             seed=3).to(dev)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                weight_decay=0.01)
+    step = TrainStep(model, opt, loss_fn=lambda m, x, y: m(x, labels=y)[0],
+                     accumulate_steps=accumulate_steps)
+    t = torch.from_numpy(ids).to(dev)
+    losses = [float(step(t[:, :-1], t[:, 1:])) for _ in range(steps)]
+    return losses, {n: p.detach().float().cpu()
+                    for n, p in model.named_parameters()}
+
+
+def tiny_train_parity():
+    """A tiny f32 Llama trained three AdamW `TrainStep`s on the card
+    (kernels) and on the CPU (plain versions) from the same weights:
+    losses and final parameters within the budgets; on the card,
+    ``accumulate_steps=2`` against 1."""
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    ids = np.random.default_rng(5).integers(0, 512, (4, 65))
+    reset_launch_counts()
+    card, cparams = _tiny_train("cuda", ids)
+    counts = dict(launch_counts)
+    cpu, pparams = _tiny_train("cpu", ids)
+    acc, aparams = _tiny_train("cuda", ids, accumulate_steps=2)
+    def rel(a, b):
+        """largest ||a - b|| / ||b|| over the parameters, and max |a - b|"""
+        return (max(((a[n] - p).norm() / p.norm()).item()
+                    for n, p in b.items()),
+                max((a[n] - p).abs().max().item() for n, p in b.items()))
+    dl = max(abs(a - b) for a, b in zip(card, cpu))
+    dp, dp_max = rel(cparams, pparams)
+    dl_acc = max(abs(a - b) for a, b in zip(acc, card))
+    dp_acc, dp_acc_max = rel(aparams, cparams)
+    log(f"tiny train parity: losses card {card} cpu {cpu}; max |loss "
+        f"diff| {dl:.3g} (budget {TINY_TRAIN_LOSS_BUDGET}); parameters "
+        f"after 3 steps: relative diff {dp:.3g} (budget "
+        f"{TINY_TRAIN_PARAM_BUDGET}), max |diff| {dp_max:.3g}; "
+        f"accumulate_steps=2 vs 1 on the card: loss {dl_acc:.3g}, params "
+        f"relative {dp_acc:.3g}, max |diff| {dp_acc_max:.3g}; card "
+        f"launches {counts}")
+    # 2 layers x 3 steps; 5 norms per step
+    if counts["flash_attention_fwd"] != 6 or counts["rms_norm_bwd"] != 15:
+        raise AssertionError("tiny training did not run the kernels")
+    if max(dl, dl_acc) > TINY_TRAIN_LOSS_BUDGET or \
+            max(dp, dp_acc) > TINY_TRAIN_PARAM_BUDGET or card[-1] >= card[0]:
+        raise AssertionError("tiny Llama training: card and CPU disagree")
+
+
+def _train_flops(cfg, tokens, seq, embedding=True):
+    """bench.py:1995-1999: 6ND plus the attention term; with
+    ``embedding=False`` N leaves out the input embedding table, whose
+    lookup is no matmul (an untied table: the head's stays)."""
+    n = cfg.num_params()
+    if not embedding and not cfg.tie_word_embeddings:
+        n -= cfg.vocab_size * cfg.hidden_size
+    return 6.0 * n * tokens + \
+        12 * cfg.num_hidden_layers * cfg.hidden_size * seq * tokens
+
+
+def _mfu(cfg, tokens, seq, step_s):
+    """(MFU by the bench.py formula, MFU without the input embedding)
+    over the card's bf16 peak: the second is the share of the card the
+    step's matmuls use."""
+    return tuple(_train_flops(cfg, tokens, seq, e) / step_s / PEAK_BF16
+                 for e in (True, False))
+
+
+def train_8b_width():
+    """5 AdamW steps of Llama-3-8B at full width, cut to
+    `TRAIN_8B_LAYERS` decoder layers, on one seeded batch; returns the
+    launch counts of the 5 steps."""
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.recipes.llama_pretrain import (
+        TRAIN_8B_LAYERS, TRAIN_8B_SHAPE, train_8b_config)
+    full_params = LlamaConfig.llama3_8b().num_params()
+    cfg = train_8b_config()
+    L, (b, s) = TRAIN_8B_LAYERS, TRAIN_8B_SHAPE
+    log(f"train_8b_width: llama3_8b at full width cut to {L} of 32 decoder "
+        f"layers: AdamW with multi_precision holds 16 bytes a parameter "
+        f"(bf16 weight and grad, f32 master, m and v), "
+        f"{16 * full_params / 1e9:.0f} GB at full depth "
+        f"({full_params / 1e9:.2f}B parameters) against the card's 80 GB; "
+        f"{cfg.num_params() / 1e9:.2f}B parameters at {L} layers")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1))).cuda()
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    # kernels against plain versions, one forward and backward each; the
+    # plain versions under a planted fault show the budgets catch it
+    named = ("model.embed_tokens.weight",
+             "model.layers.0.input_layernorm.weight",
+             "model.layers.0.self_attn.q_proj.weight",
+             "model.layers.0.self_attn.k_proj.weight",
+             "model.layers.3.self_attn.v_proj.weight",
+             "model.layers.3.mlp.down_proj.weight", "model.norm.weight",
+             "lm_head.weight")
+    params = dict(model.named_parameters())
+
+    def fwd_bwd(use_kernel):
+        loss, _ = model(x, labels=y, use_kernel=use_kernel)
+        loss.backward()
+        out = (float(loss.detach()), {n: params[n].grad.float()
+                                      for n in named})
+        for p in model.parameters():
+            p.grad = None
+        del loss
+        torch.cuda.empty_cache()
+        return out
+
+    lp, gp = fwd_bwd(False)
+
+    def against_plain(run):
+        loss, grads = run
+        return abs(loss - lp) / abs(lp), {
+            n: ((grads[n] - gp[n]).norm() / gp[n].norm()).item()
+            for n in named}
+    kernel_run = fwd_bwd(True)
+    lk = kernel_run[0]
+    loss_rel, grad_rel = against_plain(kernel_run)
+    del kernel_run
+    with mock.patch.object(fa, "_live", _skip_tile(fa._live)):
+        fault_loss, fault_grad = against_plain(fwd_bwd(False))
+    del gp
+    torch.cuda.empty_cache()
+    log(f"train_8b_width path check: loss kernels {lk:.6f} plain {lp:.6f} "
+        f"(relative diff {loss_rel:.3g}, budget {TRAIN_LOSS_REL_BUDGET}); "
+        f"relative grad-norm differences {json.dumps(grad_rel)} (budget "
+        f"{TRAIN_GRAD_REL_BUDGET}); planted fault (every row skips the "
+        f"K tile of its last key, plain versions): loss {fault_loss:.3g}, "
+        f"grads {json.dumps(fault_grad)}")
+    if not (np.isfinite(lk) and loss_rel <= TRAIN_LOSS_REL_BUDGET
+            and max(grad_rel.values()) <= TRAIN_GRAD_REL_BUDGET):
+        raise AssertionError("8B-width training: kernels and plain "
+                             "versions disagree")
+    if max(fault_grad.values()) <= TRAIN_GRAD_REL_BUDGET:
+        raise AssertionError("8B-width training: the gradient budget "
+                             "misses the planted fault")
+
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, opt, loss_fn=lambda m, a, c: m(a, labels=c)[0])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(x, y)))   # waits for the step
+        times.append(time.perf_counter() - t0)
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: 0 for k in counts}
+    want.update(flash_attention_fwd=L * TRAIN_STEPS,
+                flash_attention_bwd_dq=L * TRAIN_STEPS,
+                flash_attention_bwd_dkv=L * TRAIN_STEPS,
+                rms_norm=(2 * L + 1) * TRAIN_STEPS,
+                rms_norm_bwd=(2 * L + 1) * TRAIN_STEPS)
+    log(f"launches (training) {counts} expected {want} over {TRAIN_STEPS} "
+        f"steps")
+    if counts != want:
+        raise AssertionError("training launch counts do not match the "
+                             "steps")
+    step_s = statistics.median(times[1:])
+    tokens = b * s
+    stats = dict(layers=L, batch=b, seq=s, params=cfg.num_params(),
+                 losses=losses, step_ms=1e3 * step_s,
+                 first_step_ms=1e3 * times[0],
+                 tokens_per_s=tokens / step_s,
+                 mfu=_mfu(cfg, tokens, s, step_s)[0],
+                 mfu_without_embedding=_mfu(cfg, tokens, s, step_s)[1],
+                 peak_mem_gib=peak, build_s=build_s,
+                 launches_per_step={k: v // TRAIN_STEPS
+                                    for k, v in counts.items() if v},
+                 path_check=dict(loss_rel_diff=loss_rel,
+                                 grad_rel_diff=grad_rel,
+                                 planted_fault_loss_rel_diff=fault_loss,
+                                 planted_fault_grad_rel_diff=fault_grad))
+    log("train_8b_width " + json.dumps(stats))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"8B-width training loss did not fall: "
+                             f"{losses}")
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_recipe():
+    """The ported pretraining recipe in-process at the bench shape."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.recipes import llama_pretrain
+    b, s = 8, 2048
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    r = llama_pretrain.main(["--size", "bench", "--bf16", "--batch-size",
+                             str(b), "--seq-len", str(s), "--steps",
+                             str(TRAIN_STEPS), "--log-every", "1"])
+    cfg = llama_pretrain.bench_config()
+    step_s = statistics.median(r.step_seconds[1:])
+    counts = {k: v for k, v in launch_counts.items() if v}
+    stats = dict(size="bench", batch=b, seq=s, params=cfg.num_params(),
+                 final_loss=r.final_loss, step_ms=1e3 * step_s,
+                 first_step_ms=1e3 * r.step_seconds[0],
+                 tokens_per_s=b * s / step_s,
+                 mfu=_mfu(cfg, b * s, s, step_s)[0],
+                 mfu_without_embedding=_mfu(cfg, b * s, s, step_s)[1],
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches=counts)
+    log("train_recipe " + json.dumps(stats))
+    L = cfg.num_hidden_layers
+    torch.cuda.empty_cache()
+    if not np.isfinite(r.final_loss) or \
+            counts.get("flash_attention_fwd") != L * TRAIN_STEPS:
+        raise AssertionError("the recipe did not train through the kernels")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1078,10 +1624,15 @@ def main():
     attn_phase(results, int8kv=True)
     lora_phase(t_adm, results)
     paged_phase(results)
+    flash_phase(results)
+    rms_bwd_phase(results)
     tiny_parity()
     tiny_quant_parity()
     tiny_lora_parity()
     tiny_legacy_parity()
+    tiny_train_parity()
+    tcounts = train_8b_width()
+    train_recipe()
     model, counts, reqs = serve_8b()
     path_check(model, reqs)
     qcounts, qweights = serve_8b_quant(model, reqs, "int8", N_REQUESTS)
@@ -1100,6 +1651,7 @@ def main():
         "ragged_paged_attention_int8kv", "dequant_matmul"))
     counts["lora_epilogue"] = lcounts["lora_epilogue"]
     counts["paged_attention"] = gcounts["paged_attention"]
+    counts.update((k, tcounts[k]) for k in NO_TRAINING)
 
     main_case = {"rms_norm": ("rows=8", "bfloat16", None),
                  "ragged_paged_attention": ("decode", "bfloat16", None),
@@ -1107,7 +1659,12 @@ def main():
                                                    None),
                  "dequant_matmul": ("decode_gate_up", "bfloat16", "int8"),
                  "lora_epilogue": ("decode_gate_up", "bfloat16", None),
-                 "paged_attention": ("decode", "bfloat16", None)}
+                 "paged_attention": ("decode", "bfloat16", None),
+                 "flash_attention_fwd": ("slice_8b", "bfloat16", None),
+                 "flash_attention_bwd_dq": ("slice_8b", "bfloat16", None),
+                 "flash_attention_bwd_dkv": ("slice_8b", "bfloat16", None),
+                 "rms_norm_bwd": ("rows=4096", "bfloat16", None)}
+    flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     attn_src = ("paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                 "paddle_tpu/ops/ragged_paged_attention.py:293")
     meta = {"rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
@@ -1119,7 +1676,15 @@ def main():
             "lora_epilogue": ("paddle_tpu_torch/csrc/lora_epilogue.cu",
                               "paddle_tpu/ops/lora_epilogue.py:111"),
             "paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
-                                "paddle_tpu/ops/paged_attention.py:53")}
+                                "paddle_tpu/ops/paged_attention.py:53"),
+            "flash_attention_fwd": (flash_src,
+                                    "paddle_tpu/ops/flash_attention.py:127"),
+            "flash_attention_bwd_dq": (
+                flash_src, "paddle_tpu/ops/flash_attention.py:223"),
+            "flash_attention_bwd_dkv": (
+                flash_src, "paddle_tpu/ops/flash_attention.py:270"),
+            "rms_norm_bwd": ("paddle_tpu_torch/csrc/rms_norm.cu",
+                             "paddle_tpu/ops/norm_kernels.py:53")}
     kernels = []
     for name, (case, dt, mode) in main_case.items():
         rec = next(r for r in results if r["kernel"] == name

@@ -10,7 +10,9 @@ module tree uses the same names, so the carry is a name check plus a
 transpose of every Linear weight: the JAX package stores (in, out),
 torch (out, in). The rope tables are non-persistent buffers on both
 sides and are recomputed, not carried. `quantized_weight_from_numpy`
-carries one quantized weight the same way.
+carries one quantized weight the same way. `llama_numpy_from_tensors`
+goes the other way, for parameters or their gradients: the JAX names,
+the (in, out) layout, f32 numpy arrays.
 """
 from __future__ import annotations
 
@@ -108,3 +110,38 @@ def quantized_weight_from_numpy(qw: np.ndarray, scale: np.ndarray):
                          f"float8_e4m3fn, got {qw.dtype}")
     return QuantizedWeight(t, torch.from_numpy(
         np.array(scale, np.float32, copy=True)))
+
+
+def _jax_layout(name: str, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().float().cpu().numpy()
+    if name.endswith("_proj.weight") or name == "lm_head.weight":
+        a = np.ascontiguousarray(a.T)
+    return a
+
+
+def llama_numpy_from_tensors(tensors: Dict[str, torch.Tensor]
+                             ) -> Dict[str, np.ndarray]:
+    """The inverse of `llama_state_from_numpy`: ``{port parameter name:
+    tensor}`` (the parameters, or their gradients) to ``{JAX name: f32
+    numpy array}`` in the JAX package's layout, every Linear weight
+    transposed back to (in, out). Raises ValueError on a name the JAX
+    Llama does not have."""
+    bad = sorted(set(tensors) - _expected_names(tensors))
+    if bad:
+        raise ValueError(f"not Llama parameter names: {bad}")
+    return {name: _jax_layout(name, t) for name, t in tensors.items()}
+
+
+def llama_grads_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """Every parameter's ``.grad`` of a port Llama, as
+    `llama_numpy_from_tensors` lays them out (a parameter without a
+    gradient is left out)."""
+    return llama_numpy_from_tensors({n: p.grad for n, p in
+                                     model.named_parameters()
+                                     if p.grad is not None})
+
+
+def llama_state_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """A port Llama's parameters, as `llama_numpy_from_tensors` lays them
+    out."""
+    return llama_numpy_from_tensors(dict(model.named_parameters()))

@@ -1,12 +1,13 @@
-"""Llama-3 family, serving path.
+"""Llama-3 family: the serving paths and the training forward.
 
 ≙ `paddle_tpu/models/llama.py` :28-105 (`LlamaConfig`, `precompute_rope`),
 :108-146 (`apply_rope`), :166-177 (`_window_band`), :212-286
-(`PagedKVCacheView`, `RaggedKVCacheView`), :304-433 (the paged decode
-branch and the tuple-cache prefill branch of `LlamaAttention.forward`),
-:475-652 (the ragged attention path with its quantized-page branch
-:507-531, MLP, decoder, model) and :653-694 (`LlamaForCausalLM`). The
-serving engine drives three paths:
+(`PagedKVCacheView`, `RaggedKVCacheView`), :304-473 (the paged decode
+branch, the tuple-cache prefill branch and the no-cache branches of
+`LlamaAttention.forward`), :475-652 (the ragged attention path with its
+quantized-page branch :507-531, MLP, decoder, model) and :653-694
+(`LlamaForCausalLM`, with ``labels=``). The serving engine drives three
+paths:
 - the ragged paged path: a packed (1, T) token axis of decode steps,
   prefills and chunk continuations, with the KV cache in page pools
   (one `RaggedKVCacheView` per layer);
@@ -16,8 +17,13 @@ serving engine drives three paths:
   into per-layer (k, v) caches with a key-validity ``attention_mask``,
   in plain PyTorch (the JAX package runs it through `_sdpa_xla`, outside
   any Pallas kernel).
-The dense-cache decode, the flash and the no-cache branches of the JAX
-`LlamaAttention.forward` raise `NotImplementedError`.
+Training runs the no-cache forward (``past_key_values=None``): causal
+flash attention over the whole (B, S) batch (`ops.flash_attention`, the
+CUDA kernels forward and backward on the card), windowed when the config
+has a ``sliding_window``, or the plain masked path under an
+``attention_mask``; ``labels=`` adds the mean cross entropy. The
+dense-cache decode and the context-parallel (``sep_strategy``) branch
+raise `NotImplementedError`; activation recompute is not ported.
 
 Linear weights are stored (out, in), the torch way; the JAX package
 stores (in, out) (`models.convert` transposes). RoPE pairs are
@@ -48,6 +54,7 @@ import torch
 from ..nn import functional as F
 from ..nn.layers import RMSNorm
 from ..ops import resolve_device
+from ..ops.flash_attention import flash_attention_values
 from ..ops.lora_epilogue import LoraWeight
 from ..ops.paged_attention import (paged_append_values,
                                    paged_attention_values)
@@ -60,10 +67,10 @@ from ..ops.rope import rope_rotate_values
 
 @dataclass
 class LlamaConfig:
-    """The serving fields of the JAX `LlamaConfig`. Its training-only
-    fields (``recompute``, ``recompute_policy``, ``sep_strategy``) and
-    ``dtype``, which no code reads (the dtype is the model's build
-    argument), are left out."""
+    """The JAX `LlamaConfig` without ``recompute`` / ``recompute_policy``
+    (activation recompute is not ported), ``sep_strategy`` (context
+    parallelism needs a mesh) and ``dtype``, which no code reads (the
+    dtype is the model's build argument)."""
 
     vocab_size: int = 128256
     hidden_size: int = 4096
@@ -131,11 +138,11 @@ def precompute_rope(head_dim: int, max_len: int, theta: float):
 def _unported(what: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md queue A, item 3b: the "
-        "dense-cache decode, flash and no-cache attention paths); the "
-        "port runs the ragged paged path (a RaggedKVCacheView per "
-        "layer), the legacy paged decode (a PagedKVCacheView per layer) "
-        "and the legacy prefill ((k, v) caches with an int "
-        "position_offset)")
+        "dense-cache decode); the port runs the ragged paged path (a "
+        "RaggedKVCacheView per layer), the legacy paged decode (a "
+        "PagedKVCacheView per layer), the legacy prefill ((k, v) caches "
+        "with an int position_offset) and the no-cache forward "
+        "(past_key_value None)")
 
 
 def apply_rope(x, cos, sin, position_offset=0):
@@ -174,26 +181,6 @@ def _window_band(s: int, n_keys: int, offset: int, window):
     if window is not None:
         band &= cols > rows - window
     return band
-
-
-def _sdpa(q, k, v, mask):
-    """Attention of (B, S, H, D) queries over (B, L, HK, D) keys and
-    values under a bool ``mask`` broadcastable to (B, H, S, L): ≙
-    `_sdpa_xla` with a mask and no causal flag. The logits are the
-    product in the inputs' dtype cast to f32, times 1/sqrt(D); masked
-    logits are -1e30; the softmax runs in f32 and its weights are cast
-    to q's dtype for the weighted sum. GQA repeats each KV head
-    H / HK times."""
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    rep = q.shape[1] // k.shape[1]
-    if rep != 1:
-        k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() \
-        * (1.0 / math.sqrt(q.shape[-1]))
-    logits = logits.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v).transpose(1, 2)
 
 
 class PagedKVCacheView:
@@ -282,6 +269,10 @@ class LlamaAttention(torch.nn.Module):
     def forward(self, x, cos, sin, past_key_value=None, use_kernel=None,
                 weights=None, attention_mask=None, position_offset=0):
         """x: (B, S, hidden). ``past_key_value`` picks the path:
+        - None: the no-cache forward of training (`_forward_full`), rope
+          at ``position_offset`` (an int), ``attention_mask`` None or a
+          mask broadcastable to (B, H, S, S) (a bool (B, S) key-validity
+          mask too, with a sliding window);
         - a `RaggedKVCacheView`: a packed (1, T) batch (`_forward_ragged`);
         - a `PagedKVCacheView`: one decode token per sequence, S == 1,
           at the (B,) positions ``position_offset`` (`_forward_paged`);
@@ -297,9 +288,11 @@ class LlamaAttention(torch.nn.Module):
         paged = isinstance(view, PagedKVCacheView)
         prefill = isinstance(view, tuple) and x.shape[1] > 1 \
             and isinstance(position_offset, int)
-        if not (paged or prefill):
+        full = view is None and isinstance(position_offset, int)
+        if not (paged or prefill or full):
             _unported("LlamaAttention without a RaggedKVCacheView, a "
-                      "PagedKVCacheView or a prefill into (k, v) caches")
+                      "PagedKVCacheView, a prefill into (k, v) caches or "
+                      "the no-cache forward")
         b, s = x.shape[0], x.shape[1]
         q = _proj(self, "q_proj", x, weights, use_kernel).reshape(
             b, s, self.num_heads, self.head_dim)
@@ -309,7 +302,9 @@ class LlamaAttention(torch.nn.Module):
             b, s, self.num_kv_heads, self.head_dim)
         q = apply_rope(q, cos, sin, position_offset)
         k = apply_rope(k, cos, sin, position_offset)
-        if paged:
+        if full:
+            out = self._forward_full(q, k, v, attention_mask, use_kernel)
+        elif paged:
             out = self._forward_paged(q, k, v, view, position_offset,
                                       use_kernel)
         else:
@@ -317,6 +312,33 @@ class LlamaAttention(torch.nn.Module):
                                         attention_mask)
         return _proj(self, "o_proj", out.reshape(b, s, -1), weights,
                      use_kernel)
+
+    def _forward_full(self, q, k, v, attention_mask, use_kernel):
+        """≙ the no-cache branches :445-473 (the ``sep_strategy`` ring
+        branch :434-444 needs a mesh and is not ported): causal
+        attention over the batch's own (B, S) keys. Without a mask it is
+        flash attention, windowed with a ``sliding_window``; with one,
+        the plain masked path, the window band ANDed into a bool mask
+        (a (B, S) one as key validity) or added as -1e30 to any other."""
+        if attention_mask is None:
+            return flash_attention_values(q, k, v, causal=True,
+                                          window_size=self.sliding_window,
+                                          use_kernel=use_kernel)
+        am = attention_mask
+        if self.sliding_window is not None:
+            s = q.shape[1]
+            band = torch.from_numpy(_window_band(s, s, 0,
+                                                 self.sliding_window))
+            band = band.to(q.device)[None, None]
+            if am.dtype == torch.bool:
+                if am.ndim == 2:
+                    am = am[:, None, None, :]
+                am = am & band
+            else:
+                am = am + torch.where(band, 0.0, NEG_INF).to(am.dtype)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                              is_causal=True,
+                                              use_kernel=use_kernel)
 
     def _forward_paged(self, q, k, v, view, positions, use_kernel):
         """≙ the paged branch :324-357: append each sequence's new K/V
@@ -353,7 +375,7 @@ class LlamaAttention(torch.nn.Module):
         mask = mask.to(q.device)[None, None]
         if attention_mask is not None:
             mask = mask & attention_mask[:, :cur].bool()[:, None, None, :]
-        return _sdpa(q, k_cache[:, :cur], v_cache[:, :cur], mask)
+        return F._sdpa(q, k_cache[:, :cur], v_cache[:, :cur], mask)
 
     def _forward_ragged(self, x, cos, sin, view, use_kernel, weights):
         """x: (1, T, hidden) packed tokens. Per-token RoPE, ONE scatter
@@ -466,11 +488,13 @@ class LlamaModel(torch.nn.Module):
 
     def forward(self, input_ids, past_key_values=None, use_kernel=None,
                 weights=None, attention_mask=None, position_offset=0):
-        if past_key_values is None:
-            _unported("LlamaModel.forward without past_key_values")
+        """``past_key_values`` None runs the no-cache forward of every
+        layer (training); the JAX ``recompute`` branch is not ported."""
         emb = _bound(weights, "model.embed_tokens.weight",
                      self.embed_tokens.weight)
         x = torch.nn.functional.embedding(input_ids.long(), emb)
+        if past_key_values is None:
+            past_key_values = [None] * len(self.layers)
         for layer, kv in zip(self.layers, past_key_values, strict=True):
             x = layer(x, self.rope_cos, self.rope_sin, kv, use_kernel,
                       weights, attention_mask, position_offset)
@@ -480,7 +504,7 @@ class LlamaModel(torch.nn.Module):
 
 
 class LlamaForCausalLM(torch.nn.Module):
-    """Greedy-serving Llama. Builds on the CUDA card unless ``device``
+    """Llama for serving and training. Builds on the CUDA card unless ``device``
     names another device (without CUDA and without a device it raises
     RuntimeError). ``dtype`` defaults to float32, as the JAX model's
     parameters do; ``seed`` seeds the `torch.Generator` (on the build
@@ -529,9 +553,10 @@ class LlamaForCausalLM(torch.nn.Module):
 
     def forward(self, input_ids, past_key_values=None, rows=None,
                 use_kernel=None, weights=None, attention_mask=None,
-                position_offset=0):
-        """input_ids: (B, S) tokens; past_key_values: one entry per layer
-        (pools and caches updated in place) — a `RaggedKVCacheView` for
+                position_offset=0, labels=None):
+        """input_ids: (B, S) tokens; past_key_values: None for the
+        no-cache forward (training), or one entry per layer (pools and
+        caches updated in place) — a `RaggedKVCacheView` for
         a packed (1, T) batch, a `PagedKVCacheView` for a (B, 1) decode
         step at the (B,) positions ``position_offset``, or a (k, v)
         cache pair for a prefill at an int ``position_offset`` under the
@@ -545,7 +570,11 @@ class LlamaForCausalLM(torch.nn.Module):
         parameter read takes the value named there instead of the
         module's own parameter (module docstring). A `LoraWeight` on the
         vocab head carries one adapter row per packed token; with
-        ``rows`` it is cut to the sampled rows too."""
+        ``rows`` it is cut to the sampled rows too.
+
+        With ``labels`` (B, S) integer targets (-100 ignored) it returns
+        ``(loss, logits)``: the mean cross entropy of the logits cast to
+        f32, as the JAX model does (its labels arrive already shifted)."""
         hidden = self.model(input_ids, past_key_values, use_kernel, weights,
                             attention_mask, position_offset)
         if rows is not None:
@@ -554,4 +583,10 @@ class LlamaForCausalLM(torch.nn.Module):
             head = None if weights is None else weights.get("lm_head.weight")
             if isinstance(head, LoraWeight):
                 weights = {**weights, "lm_head.weight": head.take(rows)}
-        return self.logits(hidden, use_kernel, weights)
+        logits = self.logits(hidden, use_kernel, weights)
+        if labels is not None:
+            loss = F.cross_entropy(
+                logits.reshape(-1, self.config.vocab_size).float(),
+                labels.reshape(-1), ignore_index=-100)
+            return loss, logits
+        return logits

@@ -14,7 +14,9 @@ import torch
 # that its path went through the kernels
 launch_counts = {"rms_norm": 0, "ragged_paged_attention": 0,
                  "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
-                 "lora_epilogue": 0, "paged_attention": 0}
+                 "lora_epilogue": 0, "paged_attention": 0,
+                 "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                 "flash_attention_bwd_dkv": 0, "rms_norm_bwd": 0}
 
 
 def reset_launch_counts() -> None:

@@ -58,12 +58,17 @@ def _device_us(evt) -> float:
 
 
 def _kernel_times(prof):
-    """{kernel name: (count, device microseconds)} from a trace."""
+    """{kernel name: (count, device microseconds)} from a trace. User
+    annotations (`record_function` ranges such as the
+    ``Optimizer.step#...`` that `torch.optim` wraps around a step) show
+    on the device timeline too; they are spans, not kernels, and are
+    left out."""
     out = {}
     for e in prof.key_averages():
         us = _device_us(e)
         if us > 0 and getattr(e, "device_type", None) is not None \
-                and "CUDA" in str(e.device_type):
+                and "CUDA" in str(e.device_type) \
+                and not getattr(e, "is_user_annotation", False):
             out[e.key] = (e.count, us)
     if not out:       # older layouts: device time on the CPU-side rows
         out = {e.key: (e.count, _device_us(e)) for e in prof.key_averages()

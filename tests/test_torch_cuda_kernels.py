@@ -24,11 +24,21 @@ sums over K and over the rank in another order, then one rounding to
 x's dtype), and BITWISE where the kernel promises it: a token's delta
 alone equals its delta in any batch, row-0 tokens give exact zeros,
 zero rank columns change nothing;
-paged attention: as ragged attention (f32 1e-5, bf16 2e-2)."""
+paged attention: as ragged attention (f32 1e-5, bf16 2e-2);
+RMSNorm backward: dx as the forward (f32 1e-5, bf16 one ulp), dw f32
+rtol/atol 1e-4 (a sum over up to 6432 rows in another order), bf16 one
+ulp plus 1e-3 of the largest |dw|; bitwise equal across runs;
+flash attention: f32 1e-4 (the same f32 math in another order, exp of
+the same logits), bf16 2e-2 of max(1, largest |reference|) for o, dq,
+dk and dv (both round P, and dS for dq, to bf16 but at other places:
+the kernel at each tile's running max, the plain version at the row
+max), lse 1e-4 in both; rows with no live key exact zeros; dK/dV
+bitwise equal across runs (no atomics)."""
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import launch_counts
 from paddle_tpu_torch.ops import lora_epilogue as le
 from paddle_tpu_torch.ops import norm_kernels as nk
@@ -457,3 +467,154 @@ def _tiny_streams(dev, **engine_kw):
 def test_tiny_lora_and_legacy_engines_on_card_match_cpu(cuda, kw):
     assert _tiny_streams("cuda", **dict(kw)) == _tiny_streams("cpu",
                                                               **dict(kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 300, 6432])
+@pytest.mark.parametrize("h", [64, 4096, 4100])
+def test_rms_norm_backward_kernel_matches_plain(cuda, rows, h, dtype):
+    g = torch.Generator(device=cuda).manual_seed(rows * h)
+    x = (3 * torch.randn(rows, h, device=cuda, generator=g)).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, device=cuda, generator=g)).to(dtype)
+    dy = torch.randn(rows, h, device=cuda, generator=g).to(dtype)
+    grads = []
+    for use_kernel in (True, False):
+        xx = x.clone().requires_grad_()
+        ww = w.clone().requires_grad_()
+        before = dict(launch_counts)
+        out = nk.rms_norm_values(xx, ww, 1e-5, use_kernel=use_kernel)
+        out.backward(dy)
+        n = int(use_kernel)
+        assert launch_counts["rms_norm"] == before["rms_norm"] + n
+        assert launch_counts["rms_norm_bwd"] == before["rms_norm_bwd"] + n
+        grads.append((xx.grad, ww.grad))
+    (dx, dw), (rdx, rdw) = grads
+    assert dx.dtype == dtype and dw.dtype == dtype
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(dx.float(), rdx.float(), rtol=2 ** -7,
+                                   atol=1e-3)
+        top = rdw.float().abs().max().item()
+        torch.testing.assert_close(dw.float(), rdw.float(), rtol=2 ** -7,
+                                   atol=1e-3 * top)
+    else:
+        torch.testing.assert_close(dx, rdx, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dw, rdw, rtol=1e-4, atol=1e-4)
+    # deterministic: the dw partials are added in block order
+    x2, w2 = x.reshape(-1, h), w
+    _, rstd = nk._rms_fwd(x2, w2, 1e-5)
+    a = nk._rms_bwd(x2, w2, rstd, dy)
+    b = nk._rms_bwd(x2, w2, rstd, dy)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# (label, B, Sq, Sk, H, HK, causal, window)
+FLASH_CASES = [("causal", 2, 300, 300, 4, 2, True, None),
+               ("gqa4", 1, 130, 130, 8, 2, True, None),
+               ("sq_lt_sk", 1, 100, 333, 4, 1, True, None),
+               ("sq_gt_sk", 1, 200, 70, 4, 2, True, None),
+               ("window", 1, 500, 500, 4, 2, True, 64),
+               ("noncausal", 2, 130, 190, 4, 4, False, None)]
+
+
+def _flash_inputs(cuda, case, d, dtype):
+    _, b, sq, sk, h, hk, _, _ = case
+    g = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)
+    f = lambda *s: torch.randn(*s, device=cuda, generator=g).to(dtype)
+    return f(b, sq, h, d), f(b, sk, hk, d), f(b, sk, hk, d), f(b, sq, h, d)
+
+
+def _flash_close(out, ref, dtype):
+    """Scale-free: the whole tensor's relative error and the worst
+    row's, within `fa.KERNEL_LIMITS` (chip_smoke.py shows those limits
+    catch a skipped K tile and a wrong GQA head); f32 also elementwise."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    rel, row = fa.kernel_errors(out, ref)
+    lim = fa.KERNEL_LIMITS[dtype]
+    assert rel <= lim["rel"] and row <= lim["row"], (rel, row)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_flash_attention_kernels_match_plain(cuda, case, d, dtype):
+    label, _, sq, sk, _, _, causal, window = case
+    q, k, v, do = _flash_inputs(cuda, case, d, dtype)
+    before = dict(launch_counts)
+    o, lse = fa._flash_fwd(q, k, v, d ** -0.5, causal, window)
+    ro, rlse = fa.flash_attention_ref(q, k, v, causal, None, window)
+    _flash_close(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    got = fa._flash_bwd(q, k, v, o, lse, do, d ** -0.5, causal, window)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, None,
+                                      window)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _flash_close(a, b, dtype)
+    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+        key = f"flash_attention_{name}"
+        assert launch_counts[key] == before[key] + 1
+    if label == "sq_gt_sk":
+        # rows 0..Sq-Sk-1 see no key: exact zeros, zero gradient
+        dead = sq - sk
+        assert torch.equal(o[:, :dead], torch.zeros_like(o[:, :dead]))
+        assert torch.equal(got[0][:, :dead],
+                           torch.zeros_like(got[0][:, :dead]))
+        assert bool((lse[..., :dead] == -1e30).all())
+    # dK/dV deterministic
+    again = fa._flash_bwd(q, k, v, o, lse, do, d ** -0.5, causal, window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_attention_autograd_and_refusals(cuda):
+    q, k, v, do = _flash_inputs(cuda, FLASH_CASES[1], 64, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(launch_counts)
+    out = fa.flash_attention_values(*leaves, causal=True)
+    out.backward(do)
+    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+        key = f"flash_attention_{name}"
+        assert launch_counts[key] == before[key] + 1
+    want = fa.flash_attention_bwd_ref(q, k, v, out.detach(),
+                                      fa.flash_attention_ref(
+                                          q, k, v, True)[1], do, True)
+    for leaf, w in zip(leaves, want):
+        _flash_close(leaf.grad, w, torch.bfloat16)
+    bad = torch.zeros(1, 8, 2, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_values(bad, bad, bad, causal=True)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_values(bad.half()[..., :32], bad.half()[..., :32],
+                                  bad.half()[..., :32])
+    with pytest.raises(ValueError, match="requires causal"):
+        fa.flash_attention_values(q, k, v, window_size=8)
+
+
+def test_tiny_train_steps_on_card_match_cpu(cuda):
+    """Three AdamW TrainSteps of the tiny f32 Llama (D = 32, GQA 4:2):
+    the card's losses equal the CPU's within 1e-4 and each parameter
+    within 1e-4 of its norm (f32 sums in another order through every
+    kernel and matmul; Adam's normalised step moves a weight whose
+    gradient is near zero by a visibly different amount, one element
+    of 32768 measured 1.4e-4 off with lr 1e-3, so the budget is on the
+    norm of the difference)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 512, (2, 65)).astype(np.int64))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                                 seed=3).to(dev)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+        step = TrainStep(model, opt,
+                         loss_fn=lambda m, x, y: m(x, labels=y)[0])
+        x, y = ids[:, :-1].to(dev), ids[:, 1:].to(dev)
+        losses = [float(step(x, y)) for _ in range(3)]
+        out[dev] = losses, {n: p.detach().cpu() for n, p in
+                            model.named_parameters()}
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-4)
+    for name, p in out["cpu"][1].items():
+        diff = (out["cuda"][1][name] - p).norm() / p.norm()
+        assert diff <= 1e-4, (name, diff.item())

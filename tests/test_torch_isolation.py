@@ -35,7 +35,9 @@ def test_no_jax_or_jax_package_import(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, paddle_tpu_torch.models.serving, "
-            "paddle_tpu_torch.models.convert, paddle_tpu_torch.ops._build;"
+            "paddle_tpu_torch.models.convert, paddle_tpu_torch.ops._build, "
+            "paddle_tpu_torch.recipes.llama_pretrain, "
+            "paddle_tpu_torch.tools.profile_train;"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -186,6 +186,11 @@ def test_carry_rejects_bad_state(models, edit):
 
 
 def test_unported_attention_paths_raise(models):
+    """The dense-cache decode (one token into (k, v) caches) still
+    raises; the no-cache forward runs (tests/test_torch_train.py)."""
     _, tm, _ = models
+    cfg = tm.config
+    cache = torch.zeros(1, 8, cfg.num_key_value_heads, cfg.head_dim)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(torch.zeros(1, 4, dtype=torch.int32))
+        tm(torch.zeros(1, 1, dtype=torch.int32),
+           [(cache, cache)] * cfg.num_hidden_layers, position_offset=4)
