@@ -125,7 +125,44 @@ Training adds, in the same run:
     --bf16 --batch-size 8 --seq-len 2048 --steps 5``: step ms, tokens/s,
     MFU (with and without the input embedding).
 
-It prints a ``{"kernels": [...]}`` line (ten kernels, each with its
+MoE and BERT training add, in the same run (after 5f):
+
+3h. ``ln_phase``: the LayerNorm kernels (forward; backward: dx, then dw
+    and db as per-block partials added in block order) against their
+    plain versions at BERT-base's (16384, 768) f32 and at (4096, 3584)
+    bf16, beside ``torch.nn.functional.layer_norm`` and its autograd
+    backward; scale-free limits (`ops.norm_kernels.LN_LIMITS`) that a
+    planted fault (dx without its mean(w·g) term) must break;
+4f. ``tiny moe train parity``: the tiny f32 MoE, dropless (the
+    grouped-matmul kernel) and capacity, 3 AdamW steps card vs CPU;
+4g. ``tiny bert train parity``: the tiny f32 BERT at dropout 0;
+5g. ``train_moe_a14b_width {...}``: `recipes.moe_train.
+    train_a14b_config()`, Qwen2-MoE-A14B at its published width (hidden
+    3584, 28 q / 4 KV heads, 64 experts, top-8, expert FFN 2560, shared
+    expert 20480, vocab 151936) cut to 1 of 28 layers, dropless, bf16,
+    ``AdamW(multi_precision=True)``, B=1, S=4096, one seeded batch, 5
+    steps: a kernels-vs-plain path check with a planted grouped-matmul
+    fault beside it, step ms, tokens/s, MFU over the active parameters,
+    peak memory, the losses, the grouped matmuls' and d(rhs)'s device ms
+    in a step, the drop count (0), exact launches (6 grouped matmuls,
+    1/1/1 flash, 3/3 RMSNorm a step); the flash phase has its
+    (H=28, HK=4, D=128) case;
+3i. ``gmm_phase``: the grouped-matmul kernel against its plain version
+    at the A14B expert shapes (gate/up and down, forward and the
+    transposed d(lhs) read) on the routed group sizes of 5g's first step
+    and on a skewed routing: ms, bound, plain ms, ``library_ms``
+    (``torch._grouped_mm`` where this torch has it) and ``mm_loop_ms``
+    (a `torch.mm` per expert); scale-free limits
+    (`ops.grouped_matmul.GMM_LIMITS`) that two planted faults (a
+    skipped last K step, a tile->group map off by one) must break;
+5h. ``train_bert_base {...}``: the BERT recipe at ``--size base
+    --batch-size 32 --seq-len 512 --steps 5``, f32, dropout as
+    configured: exactly 26/26 LayerNorm launches a step and no flash
+    (attention dropout takes the plain path, as in JAX);
+5i. ``train_moe_small {...}``: the MoE recipe at ``--size small --bf16``
+    on the capacity path: no grouped-matmul launch.
+
+It prints a ``{"kernels": [...]}`` line (thirteen kernels, each with its
 launches on its own main-path run), the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -199,7 +236,8 @@ TRAIN_STEPS = 5
 PEAK_BF16 = 989e12
 # the training kernels: never launched by a serving run
 NO_TRAINING = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-               "flash_attention_bwd_dkv": 0, "rms_norm_bwd": 0}
+               "flash_attention_bwd_dkv": 0, "rms_norm_bwd": 0,
+               "grouped_matmul": 0, "layer_norm": 0, "layer_norm_bwd": 0}
 
 
 def log(msg):
@@ -1147,7 +1185,9 @@ FLASH_CASES = [
     ("window_256", 1, 1000, 1000, 8, 2, 128, True, 256, "bfloat16", False),
     ("noncausal", 2, 300, 500, 8, 8, 64, False, None, "bfloat16", False),
     ("f32", 1, 300, 300, 8, 2, 64, True, None, "float32", False),
-    ("d32", 2, 1000, 1000, 4, 2, 32, True, None, "bfloat16", False)]
+    ("d32", 2, 1000, 1000, 4, 2, 32, True, None, "bfloat16", False),
+    ("gqa7_a14b", 1, 4096, 4096, 28, 4, 128, True, None, "bfloat16",
+     False)]
 
 
 def _skip_tile(live_fn):
@@ -1581,6 +1621,589 @@ def train_recipe():
         raise AssertionError("the recipe did not train through the kernels")
 
 
+# ---------------------------------------------------------------------------
+# MoE (grouped matmul) and BERT (LayerNorm) training
+# ---------------------------------------------------------------------------
+# the gmm kernel's K step: the planted "skipped last K tile" drops the
+# last GMM_TILE_K contraction terms; its m tile: the planted "tile->group
+# map off by one" gives the rows of a group that share a tile with the
+# group before it that group's matrix
+GMM_TILE_K = 32
+GMM_TILE_M = 128
+# A14B-width MoE training, kernels against plain versions: bf16 rounded at
+# other places through the layer, and a routed token whose top-8 holds a
+# near tie may pick another expert on the two paths (the router reads
+# activations rounded at other places), moving that expert's gradient
+MOE_GRAD_REL_BUDGET = 5e-2
+TINY_MOE_STEPS = 3
+
+
+def _gmm_boundary_fault(plain, lhs, rhs, sizes, trans=False):
+    """The plain grouped matmul (``plain``, `gmm_plain`) with its
+    tile->group map off by one: the rows of a group that share an m tile
+    with an earlier non-empty group take that group's matrix."""
+    import torch
+    sizes = [int(v) for v in torch.as_tensor(sizes).tolist()]
+    out = plain(lhs, rhs, sizes, trans)
+    start, prev = 0, None
+    for e, s in enumerate(sizes):
+        end = start + s
+        if s and prev is not None and start % GMM_TILE_M:
+            stop = min(end, (start // GMM_TILE_M + 1) * GMM_TILE_M)
+            w = rhs[prev].float()
+            out[start:stop] = (lhs[start:stop].float()
+                               @ (w.T if trans else w)).to(out.dtype)
+        if s:
+            prev = e
+        start = end
+    return out
+
+
+def _gmm_faults(gm, lhs, rhs, sizes, trans):
+    """The plain grouped matmul, and its outputs under the two planted
+    faults: the last `GMM_TILE_K` contraction terms skipped, and the
+    tile->group map off by one (`_gmm_boundary_fault`)."""
+    k = lhs.shape[1]
+    skip = gm.gmm_plain(
+        lhs[:, :k - GMM_TILE_K].contiguous(),
+        (rhs[:, :, :k - GMM_TILE_K] if trans
+         else rhs[:, :k - GMM_TILE_K]).contiguous(), sizes, trans)
+    return gm.gmm_plain(lhs, rhs, sizes, trans), {
+        "skip_last_k_tile": skip,
+        "tile_group_off_by_one": _gmm_boundary_fault(gm.gmm_plain, lhs, rhs,
+                                                     sizes, trans)}
+
+
+def _gmm_library(lhs, rhs, sizes, trans):
+    """One PyTorch call for the same grouped product where this torch has
+    it (`torch._grouped_mm`): (ms, its output, note), or (None, None,
+    why not); timed as a yardstick the port never calls."""
+    import torch
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, None, "this torch has no torch._grouped_mm"
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    b = rhs.transpose(1, 2) if trans else rhs
+    try:
+        out = fn(lhs, b, offs=offs)
+        torch.cuda.synchronize()
+    except Exception as e:     # the yardstick only: its refusal is printed
+        return None, None, f"torch._grouped_mm refused: {e}"[:300]
+    return time_ms(lambda: fn(lhs, b, offs=offs)), out, \
+        "torch._grouped_mm(lhs, rhs, offs=cumsum(group_sizes))"
+
+
+def _mm_loop(lhs, rhs, sizes, trans):
+    """The per-expert `torch.mm` loop in the inputs' dtype (cuBLAS), a
+    second yardstick."""
+    import torch
+    out = torch.empty(lhs.shape[0], rhs.shape[1] if trans else rhs.shape[2],
+                      dtype=lhs.dtype, device=lhs.device)
+    start = 0
+    for e, s in enumerate(sizes):
+        if s:
+            torch.mm(lhs[start:start + s], rhs[e].T if trans else rhs[e],
+                     out=out[start:start + s])
+        start += s
+    return out
+
+
+def gmm_phase(results, routed_sizes):
+    """The grouped-matmul kernel against its plain version at the A14B
+    expert shapes: gate/up and down, forward and transposed (the
+    backward's d(lhs)), on the routed group sizes of the a14b run's first
+    step, and gate/up on a skewed routing (half the rows to one expert,
+    most experts empty). Scale-free limits, shown to catch two planted
+    faults of the plain version."""
+    import torch
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    from paddle_tpu_torch.ops import kernel_errors
+    from paddle_tpu_torch.recipes.moe_train import train_a14b_config
+    cfg = train_a14b_config()
+    h, i, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    m = int(sum(routed_sizes))
+    # half the rows and 37 more to expert 0; 16 experts share the rest
+    # (1021 or 1032 rows: boundaries inside m tiles); 47 experts empty
+    skew = [0] * e
+    skew[0] = m // 2 + 37
+    rest = m - skew[0]
+    for j in range(3, e, 4):
+        skew[j] = rest // 16
+    skew[3] += rest - sum(skew[1:])
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    dt = torch.bfloat16
+    # (label, K, N, trans, sizes): K the contraction, N the output width
+    cases = [("a14b_gate_up", h, i, False, routed_sizes),
+             ("a14b_down", i, h, False, routed_sizes),
+             ("a14b_gate_up_dlhs", i, h, True, routed_sizes),
+             ("a14b_down_dlhs", h, i, True, routed_sizes),
+             ("skewed_gate_up", h, i, False, skew)]
+    lim = gm.GMM_LIMITS[dt]
+    for label, k, n, trans, sizes in cases:
+        lhs = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+        # the trans cases read rhs (E, N, K): the layer's (E, H, I) weight
+        # seen from d(lhs)
+        shape = (e, n, k) if trans else (e, k, n)
+        rhs = (0.02 * torch.randn(*shape, device="cuda",
+                                  generator=gen)).to(dt)
+        gs = torch.tensor(sizes, device="cuda", dtype=torch.int32)
+        out = gm.gmm(lhs, rhs, gs, trans)
+        ref, faults = _gmm_faults(gm, lhs, rhs, gs, trans)
+        torch.cuda.synchronize()
+        rel, row = kernel_errors(out, ref)
+        fault_err = {f: kernel_errors(v, ref) for f, v in faults.items()}
+        ok = rel <= lim["rel"] and row <= lim["row"] and \
+            bool(torch.isfinite(out).all())
+        caught = all(r > lim["rel"] or w > lim["row"]
+                     for r, w in fault_err.values())
+        del faults
+        ms = time_ms(lambda: gm.gmm(lhs, rhs, gs, trans))
+        plain = time_ms(lambda: gm.gmm_plain(lhs, rhs, gs, trans), iters=3,
+                        warmup=1)
+        lib_ms, lib_out, lib_note = _gmm_library(lhs, rhs, gs, trans)
+        lib_rel = None if lib_out is None else kernel_errors(lib_out, ref)
+        loop_ms = time_ms(lambda: _mm_loop(lhs, rhs, sizes, trans),
+                          iters=10)
+        # an empty group's matrix is never read
+        nbytes = 2 * (m * k + sum(1 for s in sizes if s) * k * n + m * n)
+        b_ms, b_by = bound(nbytes, 2 * m * k * n, "bfloat16")
+        rec = dict(kernel="grouped_matmul", case=label, dtype="bfloat16",
+                   M=m, K=k, N=n, E=e, trans=trans,
+                   nonempty_groups=sum(1 for s in sizes if s),
+                   largest_group=max(sizes),
+                   max_abs_err=(out.float() - ref.float()).abs().max()
+                   .item(), rel_row_errors=[rel, row], limits=lim,
+                   planted_faults=fault_err, ms=ms, plain_ms=plain,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   library_note=lib_note, library_rel_row_errors=lib_rel,
+                   mm_loop_ms=loop_ms,
+                   tflops=2 * m * k * n / ms / 1e9)
+        log("kernel " + json.dumps(rec))
+        if not ok:
+            raise AssertionError(f"grouped matmul kernel disagrees: {rec}")
+        if not caught:
+            raise AssertionError(f"the grouped matmul limits miss a planted "
+                                 f"fault: {fault_err}")
+        results.append(rec)
+        del lhs, rhs, out, ref, lib_out
+        torch.cuda.empty_cache()
+
+
+def ln_phase(results):
+    """The LayerNorm kernels against their plain versions (forward, and
+    torch autograd of it for the backward) at the BERT-base smoke batch
+    (16384, 768) f32 and at (4096, 3584) bf16, beside
+    `torch.nn.functional.layer_norm` and its autograd backward; a planted
+    fault (the backward without the mean(w·g) term) must break the
+    limits."""
+    import torch
+    from paddle_tpu_torch.ops import kernel_errors
+    from paddle_tpu_torch.ops import norm_kernels as nk
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    eps = 1e-12
+    for n, h, name in ((16384, 768, "float32"), (4096, 3584, "bfloat16")):
+        dt = getattr(torch, name)
+        lim = nk.LN_LIMITS[dt]
+        x = (torch.randn(n, h, device="cuda", generator=gen) + 0.5).to(dt)
+        w = (1 + 0.1 * torch.randn(h, device="cuda", generator=gen)).to(dt)
+        b = (0.1 * torch.randn(h, device="cuda", generator=gen)).to(dt)
+        g = torch.randn(n, h, device="cuda", generator=gen).to(dt)
+        y, mean, rstd = nk._ln_fwd(x, w, b, eps)
+        dx, dw, db = nk._ln_bwd(x, w, mean, rstd, g)
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        ref = nk.layer_norm_ref(*leaves, eps)
+        rdx, rdw, rdb = torch.autograd.grad(ref, leaves, g,
+                                            retain_graph=True)
+        # the planted fault: dx without its mean(w·g) term
+        xf = x.float()
+        xhat = (xf - mean[:, None]) * rstd[:, None]
+        wg = g.float() * w.float()
+        fault = (rstd[:, None] * (wg - xhat * (wg * xhat).mean(
+            -1, keepdim=True))).to(dt)
+        torch.cuda.synchronize()
+        errs = {k: kernel_errors(a, r) for k, a, r in (
+            ("y", y, ref), ("dx", dx, rdx), ("dw", dw[None], rdw[None]),
+            ("db", db[None], rdb[None]))}
+        fault_err = kernel_errors(fault, rdx)
+        del xf, xhat, wg, fault
+        ok = all(r <= lim["rel"] and w_ <= lim["row"]
+                 for r, w_ in errs.values())
+        caught = fault_err[0] > lim["rel"] or fault_err[1] > lim["row"]
+        lib = torch.nn.functional.layer_norm
+        lout = lib(*leaves[:1], (h,), leaves[1], leaves[2], eps)
+        times = dict(
+            fwd=time_ms(lambda: nk._ln_fwd(x, w, b, eps)),
+            bwd=time_ms(lambda: nk._ln_bwd(x, w, mean, rstd, g)),
+            plain_fwd=time_ms(lambda: nk.layer_norm_ref(x, w, b, eps)),
+            plain_bwd=time_ms(lambda: torch.autograd.grad(
+                ref, leaves, g, retain_graph=True)),
+            lib_fwd=time_ms(lambda: lib(x, (h,), w, b, eps)),
+            lib_bwd=time_ms(lambda: torch.autograd.grad(
+                lout, leaves, g, retain_graph=True)))
+        isz = x.element_size()
+        fwd_b = bound(2 * n * h * isz + 2 * h * isz + 8 * n, 7 * n * h,
+                      name)
+        bwd_b = bound(3 * n * h * isz + 4 * h * isz + 8 * n, 12 * n * h,
+                      name)
+        base = dict(case=f"rows={n}", dtype=name, N=n, H=h, limits=lim,
+                    rel_row_errors=errs)
+        for kernel, err_keys, bnd, pre in (
+                ("layer_norm", ("y",), fwd_b, "fwd"),
+                ("layer_norm_bwd", ("dx", "dw", "db"), bwd_b, "bwd")):
+            rec = dict(kernel=kernel, **base, max_abs_err=max(
+                (a.float() - r.float()).abs().max().item()
+                for k_, a, r in (("y", y, ref), ("dx", dx, rdx),
+                                 ("dw", dw, rdw), ("db", db, rdb))
+                if k_ in err_keys),
+                ms=times[pre], plain_ms=times[f"plain_{pre}"],
+                bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=times[f"lib_{pre}"],
+                library_note="torch.nn.functional.layer_norm" + (
+                    "" if pre == "fwd" else ", its autograd backward"))
+            if kernel == "layer_norm_bwd":
+                rec["planted_fault_dx_without_mean_wg"] = fault_err
+            log("kernel " + json.dumps(rec))
+            results.append(rec)
+        if not ok:
+            raise AssertionError(f"LayerNorm kernels disagree: {errs}")
+        if not caught:
+            raise AssertionError(f"the LayerNorm limits miss the planted "
+                                 f"fault: {fault_err}")
+        del x, g, y, dx, ref, rdx, leaves, lout
+        torch.cuda.empty_cache()
+
+
+def _tiny_run(dev, build, x, y, steps=TINY_MOE_STEPS):
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    model = build().to(dev)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                weight_decay=0.01)
+    step = TrainStep(model, opt, loss_fn=lambda m, a, b: m(a, labels=b)[0])
+    a, b = torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev)
+    losses = [float(step(a, b)) for _ in range(steps)]
+    return losses, {n: p.detach().float().cpu()
+                    for n, p in model.named_parameters()}
+
+
+def _card_vs_cpu(label, build, x, y, want_counts):
+    """Three AdamW steps of a tiny f32 model on the card (kernels) and on
+    the CPU (plain versions) from the same weights: losses and final
+    parameters within the tiny-training budgets."""
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    card, cparams = _tiny_run("cuda", build, x, y)
+    counts = {k: v for k, v in launch_counts.items() if v}
+    cpu, pparams = _tiny_run("cpu", build, x, y)
+    dl = max(abs(a - b) for a, b in zip(card, cpu))
+    # a key bias's true gradient is zero (softmax ignores q.b_k, the same
+    # for every key), so Adam's step there follows rounding noise
+    dp = max(((cparams[n] - p).norm() / p.norm().clamp_min(1e-12)).item()
+             for n, p in pparams.items() if not n.endswith("k_proj.bias"))
+    log(f"{label}: losses card {card} cpu {cpu}; max |loss diff| {dl:.3g} "
+        f"(budget {TINY_TRAIN_LOSS_BUDGET}); parameters after "
+        f"{TINY_MOE_STEPS} steps relative diff {dp:.3g} (budget "
+        f"{TINY_TRAIN_PARAM_BUDGET}); card launches {counts}")
+    if any(counts.get(k, 0) != v for k, v in want_counts.items()):
+        raise AssertionError(f"{label} did not run the kernels: {counts} "
+                             f"against {want_counts}")
+    if dl > TINY_TRAIN_LOSS_BUDGET or dp > TINY_TRAIN_PARAM_BUDGET or \
+            card[-1] >= card[0]:
+        raise AssertionError(f"{label}: card and CPU disagree")
+
+
+def tiny_moe_train_parity():
+    """The tiny f32 MoE (head dim 16), dropless (the grouped-matmul
+    kernel) and capacity (einsums), card against CPU."""
+    from paddle_tpu_torch.models.moe import MoEConfig, MoEForCausalLM
+    ids = np.random.default_rng(6).integers(0, 512, (2, 65))
+    for dropless in (True, False):
+        cfg = MoEConfig.tiny()
+        cfg.dropless = dropless
+        L = cfg.num_hidden_layers
+        # per step: 3 forward + 3 d(lhs) grouped matmuls a layer
+        want = {"grouped_matmul": 6 * L * TINY_MOE_STEPS * dropless,
+                "flash_attention_fwd": L * TINY_MOE_STEPS,
+                "rms_norm_bwd": (2 * L + 1) * TINY_MOE_STEPS}
+        mode = "dropless" if dropless else "capacity"
+        _card_vs_cpu(f"tiny moe train parity ({mode})",
+                     lambda: MoEForCausalLM(cfg, device="cpu", seed=4),
+                     ids[:, :-1], ids[:, 1:], want)
+
+
+def tiny_bert_train_parity():
+    """The tiny f32 BERT at dropout 0 (LayerNorm kernels; attention by
+    flash), card against CPU."""
+    import torch
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    cfg = BertConfig.tiny()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, 261, (2, 64))
+    y = np.where(rng.random((2, 64)) < 0.15, x, -100)
+    L = cfg.num_hidden_layers
+    n_ln = (2 * L + 2) * TINY_MOE_STEPS
+    _card_vs_cpu("tiny bert train parity (dropout 0)",
+                 lambda: BertForMaskedLM(cfg, device="cpu", seed=5),
+                 torch.from_numpy(x), torch.from_numpy(y),
+                 {"layer_norm": n_ln, "layer_norm_bwd": n_ln,
+                  "flash_attention_fwd": L * TINY_MOE_STEPS})
+
+
+def _moe_flops(cfg, tokens, seq):
+    """6 · active parameters · tokens plus the attention term
+    12 · L · h · S · tokens: the bench.py formula over the parameters a
+    token multiplies by (top-k routed experts, shared expert, attention,
+    router, lm_head)."""
+    return 6.0 * cfg.active_params() * tokens + \
+        12 * cfg.num_hidden_layers * cfg.hidden_size * seq * tokens
+
+
+def train_moe_a14b_width():
+    """5 AdamW steps of Qwen2-MoE-A14B at its published width cut to
+    `TRAIN_A14B_LAYERS` decoder layer, dropless, on one seeded batch;
+    returns (the 5 steps' launch counts, the first step's routed group
+    sizes)."""
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.incubate import moe as tmoe
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.moe import MoEConfig, MoEForCausalLM
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.recipes.moe_train import (
+        TRAIN_A14B_LAYERS, TRAIN_A14B_SHAPE, train_a14b_config)
+    full = MoEConfig.qwen2_moe_a14b()
+    cfg = train_a14b_config()
+    L, (b, s) = TRAIN_A14B_LAYERS, TRAIN_A14B_SHAPE
+    log(f"train_moe_a14b_width: qwen2_moe_a14b at full width cut to {L} of "
+        f"{full.num_hidden_layers} decoder layers, dropless: AdamW with "
+        f"multi_precision holds 16 bytes a parameter, "
+        f"{16 * full.num_params() / 1e12:.2f} TB at full depth "
+        f"({full.num_params() / 1e9:.1f}B parameters) against the card's "
+        f"80 GB; {cfg.num_params() / 1e9:.2f}B parameters at {L} layer, "
+        f"{cfg.active_params() / 1e9:.3f}B active a token")
+    t0 = time.perf_counter()
+    model = MoEForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1))).cuda()
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    # kernels against plain versions, one forward and backward each; the
+    # plain versions under a planted fault (the gmm's tile->group map off
+    # by one) show the budget catches it
+    named = ("model.layers.0.mlp.w_gate", "model.layers.0.mlp.w_up",
+             "model.layers.0.mlp.w_down", "model.layers.0.mlp.gate_weight",
+             "model.layers.0.mlp.shared_up.weight",
+             "model.layers.0.self_attn.q_proj.weight",
+             "model.layers.0.input_layernorm.weight", "model.norm.weight")
+    params = dict(model.named_parameters())
+
+    def fwd_bwd(use_kernel):
+        loss, _ = model(x, labels=y, use_kernel=use_kernel)
+        loss.backward()
+        out = (float(loss.detach()), {n: params[n].grad.clone()
+                                      for n in named})
+        for p in model.parameters():
+            p.grad = None
+        del loss
+        torch.cuda.empty_cache()
+        return out
+
+    lp, gp = fwd_bwd(False)
+
+    def against_plain(run):
+        loss, grads = run
+        return abs(loss - lp) / abs(lp), {
+            n: ((grads[n].float() - gp[n].float()).norm()
+                / gp[n].float().norm()).item() for n in named}
+    loss_rel, grad_rel = against_plain(fwd_bwd(True))
+
+    plain = gm.gmm_plain
+
+    def boundary_fault(lhs, rhs, sizes, trans=False):
+        return _gmm_boundary_fault(plain, lhs, rhs, sizes, trans)
+    with mock.patch.object(gm, "gmm_plain", boundary_fault):
+        fault_loss, fault_grad = against_plain(fwd_bwd(False))
+    del gp
+    torch.cuda.empty_cache()
+    log(f"train_moe_a14b_width path check: loss relative diff "
+        f"{loss_rel:.3g}; relative grad-norm differences "
+        f"{json.dumps(grad_rel)} (budget {MOE_GRAD_REL_BUDGET}); planted "
+        f"fault (plain gmm, the rows a group shares with the tile of the "
+        f"group before it take that group's matrix): loss "
+        f"{fault_loss:.3g}, grads {json.dumps(fault_grad)}")
+    if not (loss_rel <= TRAIN_LOSS_REL_BUDGET
+            and max(grad_rel.values()) <= MOE_GRAD_REL_BUDGET):
+        raise AssertionError("A14B-width MoE training: kernels and plain "
+                             "versions disagree")
+    if max(fault_grad.values()) <= MOE_GRAD_REL_BUDGET:
+        raise AssertionError("A14B-width MoE training: the gradient budget "
+                             "misses the planted fault")
+
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, opt, loss_fn=lambda m, a, c: m(a, labels=c)[0])
+    sizes = []
+    real_rows = tmoe._expert_ffn_rows
+
+    def record_sizes(xs_in, eid, *a, **k):
+        if not sizes:
+            sizes.append(torch.bincount(eid, minlength=cfg.num_experts)
+                         .tolist())
+        return real_rows(xs_in, eid, *a, **k)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    with mock.patch.object(tmoe, "_expert_ffn_rows", record_sizes):
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(x, y)))   # waits for the step
+            times.append(time.perf_counter() - t0)
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    drops = model.model.layers[0].mlp.last_drop_count
+    want = {k: 0 for k in counts}
+    want.update(grouped_matmul=6 * L * TRAIN_STEPS,
+                flash_attention_fwd=L * TRAIN_STEPS,
+                flash_attention_bwd_dq=L * TRAIN_STEPS,
+                flash_attention_bwd_dkv=L * TRAIN_STEPS,
+                rms_norm=(2 * L + 1) * TRAIN_STEPS,
+                rms_norm_bwd=(2 * L + 1) * TRAIN_STEPS)
+    log(f"launches (moe training) {counts} expected {want} over "
+        f"{TRAIN_STEPS} steps")
+    if counts != want:
+        raise AssertionError("MoE training launch counts do not match the "
+                             "steps")
+
+    # one more step with CUDA events around every grouped matmul and
+    # every d(rhs): their device time within a step
+    spans = {"gmm": [], "drhs": []}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            spans[key].append((e0, e1))
+            return out
+        return run
+    with mock.patch.object(gm, "_gmm_cuda", timed("gmm", gm._gmm_cuda)), \
+            mock.patch.object(gm, "drhs_plain",
+                              timed("drhs", gm.drhs_plain)):
+        float(step(x, y))
+    torch.cuda.synchronize()
+    span_ms = {k: sum(a.elapsed_time(c) for a, c in v)
+               for k, v in spans.items()}
+    step_s = statistics.median(times[1:])
+    tokens = b * s
+    stats = dict(layers=L, batch=b, seq=s, params=cfg.num_params(),
+                 active_params=cfg.active_params(), losses=losses,
+                 step_ms=1e3 * step_s, first_step_ms=1e3 * times[0],
+                 tokens_per_s=tokens / step_s,
+                 mfu_active=_moe_flops(cfg, tokens, s) / step_s / PEAK_BF16,
+                 mfu_note="6 x active parameters (top-8 routed experts, "
+                 "shared expert, attention, router, lm_head) x tokens plus "
+                 "12 L h S tokens, over 989 TFLOP/s bf16",
+                 peak_mem_gib=peak, build_s=build_s,
+                 gmm_ms_per_step=span_ms["gmm"],
+                 gmm_launches_timed=len(spans["gmm"]),
+                 drhs_ms_per_step=span_ms["drhs"],
+                 drops=drops, routed_rows=sum(sizes[0]),
+                 nonempty_experts=sum(1 for v in sizes[0] if v),
+                 largest_expert_rows=max(sizes[0]),
+                 launches_per_step={k: v // TRAIN_STEPS
+                                    for k, v in counts.items() if v},
+                 path_check=dict(loss_rel_diff=loss_rel,
+                                 grad_rel_diff=grad_rel,
+                                 planted_fault_loss_rel_diff=fault_loss,
+                                 planted_fault_grad_rel_diff=fault_grad))
+    log("train_moe_a14b_width " + json.dumps(stats))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"A14B-width MoE training loss did not fall: "
+                             f"{losses}")
+    if drops != 0:
+        raise AssertionError(f"the dropless path dropped {drops} slots")
+    del step, opt, model, params
+    torch.cuda.empty_cache()
+    return counts, sizes[0]
+
+
+def train_bert_base():
+    """The ported BERT recipe in-process at BERT-base, f32, with its
+    configured dropout; returns the 5 steps' launch counts."""
+    import torch
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.recipes import bert_mlm
+    b, s = 32, 512
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    r = bert_mlm.main(["--size", "base", "--batch-size", str(b),
+                       "--seq-len", str(s), "--steps", str(TRAIN_STEPS),
+                       "--log-every", "1"])
+    counts = dict(launch_counts)
+    cfg = BertConfig.base()
+    step_s = statistics.median(r.step_seconds[1:])
+    L = cfg.num_hidden_layers
+    n_ln = (2 * L + 2) * TRAIN_STEPS
+    stats = dict(size="base", batch=b, seq=s, dtype="float32",
+                 params=cfg.num_params(),
+                 dropout=[cfg.hidden_dropout_prob,
+                          cfg.attention_probs_dropout_prob],
+                 losses=r.losses, step_ms=1e3 * step_s,
+                 first_step_ms=1e3 * r.step_seconds[0],
+                 tokens_per_s=b * s / step_s,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches_per_step={k: v // TRAIN_STEPS
+                                    for k, v in counts.items() if v},
+                 note="attention dropout 0.1 sends attention to the plain "
+                 "masked path, as in JAX: no flash launches")
+    log("train_bert_base " + json.dumps(stats))
+    want = {k: 0 for k in counts}
+    want.update(layer_norm=n_ln, layer_norm_bwd=n_ln)
+    if counts != want or not np.isfinite(r.final_loss):
+        raise AssertionError(f"BERT training launches {counts}, expected "
+                             f"{want}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_moe_small():
+    """The ported MoE recipe in-process at ``--size small --bf16``: the
+    capacity path (MoEConfig's default) runs its experts as einsums, no
+    grouped-matmul launch."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.recipes import moe_train
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    r = moe_train.main(["--size", "small", "--bf16", "--steps",
+                        str(TRAIN_STEPS), "--log-every", "1"])
+    counts = {k: v for k, v in launch_counts.items() if v}
+    step_s = statistics.median(r.step_seconds[1:])
+    stats = dict(size="small", mode="capacity", batch=8, seq=128,
+                 losses=r.losses, step_ms=1e3 * step_s,
+                 tokens_per_s=8 * 128 / step_s,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches=counts,
+                 grouped_matmul_launches=launch_counts["grouped_matmul"],
+                 note="the capacity path computes its experts with einsums: "
+                 "no grouped-matmul launch, as in JAX")
+    log("train_moe_small " + json.dumps(stats))
+    if launch_counts["grouped_matmul"] != 0 or \
+            not np.isfinite(r.final_loss):
+        raise AssertionError("the capacity MoE recipe did not train as "
+                             "expected")
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1633,6 +2256,13 @@ def main():
     tiny_train_parity()
     tcounts = train_8b_width()
     train_recipe()
+    ln_phase(results)
+    tiny_moe_train_parity()
+    tiny_bert_train_parity()
+    mcounts, routed = train_moe_a14b_width()
+    gmm_phase(results, routed)
+    bcounts = train_bert_base()
+    train_moe_small()
     model, counts, reqs = serve_8b()
     path_check(model, reqs)
     qcounts, qweights = serve_8b_quant(model, reqs, "int8", N_REQUESTS)
@@ -1652,6 +2282,9 @@ def main():
     counts["lora_epilogue"] = lcounts["lora_epilogue"]
     counts["paged_attention"] = gcounts["paged_attention"]
     counts.update((k, tcounts[k]) for k in NO_TRAINING)
+    counts["grouped_matmul"] = mcounts["grouped_matmul"]
+    counts["layer_norm"] = bcounts["layer_norm"]
+    counts["layer_norm_bwd"] = bcounts["layer_norm_bwd"]
 
     main_case = {"rms_norm": ("rows=8", "bfloat16", None),
                  "ragged_paged_attention": ("decode", "bfloat16", None),
@@ -1663,7 +2296,10 @@ def main():
                  "flash_attention_fwd": ("slice_8b", "bfloat16", None),
                  "flash_attention_bwd_dq": ("slice_8b", "bfloat16", None),
                  "flash_attention_bwd_dkv": ("slice_8b", "bfloat16", None),
-                 "rms_norm_bwd": ("rows=4096", "bfloat16", None)}
+                 "rms_norm_bwd": ("rows=4096", "bfloat16", None),
+                 "grouped_matmul": ("a14b_gate_up", "bfloat16", None),
+                 "layer_norm": ("rows=16384", "float32", None),
+                 "layer_norm_bwd": ("rows=16384", "float32", None)}
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     attn_src = ("paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                 "paddle_tpu/ops/ragged_paged_attention.py:293")
@@ -1684,7 +2320,13 @@ def main():
             "flash_attention_bwd_dkv": (
                 flash_src, "paddle_tpu/ops/flash_attention.py:270"),
             "rms_norm_bwd": ("paddle_tpu_torch/csrc/rms_norm.cu",
-                             "paddle_tpu/ops/norm_kernels.py:53")}
+                             "paddle_tpu/ops/norm_kernels.py:53"),
+            "grouped_matmul": ("paddle_tpu_torch/csrc/grouped_matmul.cu",
+                               "paddle_tpu/ops/grouped_matmul.py:46"),
+            "layer_norm": ("paddle_tpu_torch/csrc/layer_norm.cu",
+                           "paddle_tpu/ops/norm_kernels.py:148"),
+            "layer_norm_bwd": ("paddle_tpu_torch/csrc/layer_norm.cu",
+                               "paddle_tpu/ops/norm_kernels.py:160")}
     kernels = []
     for name, (case, dt, mode) in main_case.items():
         rec = next(r for r in results if r["kernel"] == name

@@ -612,6 +612,8 @@ flash_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // f32: CUDA cores, one warp per row; lane holds elements lane + 32 e
+// (for D = 16, lanes 16-31 hold none: their loads read 0, they store
+// nothing, and they add 0 to every warp sum)
 // ---------------------------------------------------------------------------
 constexpr int kRowsF32 = kThreads / 32;
 
@@ -620,8 +622,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, Shape s) {
-  constexpr int E = D / 32;
+  constexpr int E = (D + 31) / 32;
   const int lane = threadIdx.x & 31;
+  auto in = [lane](int e) { return D % 32 == 0 || lane + 32 * e < D; };
   const int i = blockIdx.x * kRowsF32 + (threadIdx.x >> 5);
   if (i >= s.Sq) return;  // warp-uniform
   const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
@@ -633,7 +636,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float qv[E], acc[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    qv[e] = qr[lane + 32 * e];
+    qv[e] = (in(e) ? qr[lane + 32 * e] : 0.f);
     acc[e] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -642,20 +645,23 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = lo; j <= hi; ++j) {
     float dot = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) dot += qv[e] * kb[j * ks + lane + 32 * e];
+    for (int e = 0; e < E; ++e)
+      dot += qv[e] * (in(e) ? kb[j * ks + lane + 32 * e] : 0.f);
     const float x = warp_sum(dot) * s.scale;
     const float mn = fmaxf(m, x);
     const float alpha = expf(m - mn), p = expf(x - mn);
     l = l * alpha + p;
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      acc[e] = acc[e] * alpha + p * vb[j * ks + lane + 32 * e];
+      acc[e] = acc[e] * alpha +
+               p * (in(e) ? vb[j * ks + lane + 32 * e] : 0.f);
     m = mn;
   }
   float* orow = o + ((size_t(b) * s.Sq + i) * s.H + h) * D;
   const bool any = l > 0.f;
 #pragma unroll
-  for (int e = 0; e < E; ++e) orow[lane + 32 * e] = any ? acc[e] / l : 0.f;
+  for (int e = 0; e < E; ++e)
+    if (in(e)) orow[lane + 32 * e] = any ? acc[e] / l : 0.f;
   if (lane == 0) lse[size_t(bh) * s.Sq + i] = any ? m + logf(l) : kNegInf;
 }
 
@@ -665,8 +671,9 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              float* __restrict__ dq, Shape s) {
-  constexpr int E = D / 32;
+  constexpr int E = (D + 31) / 32;
   const int lane = threadIdx.x & 31;
+  auto in = [lane](int e) { return D % 32 == 0 || lane + 32 * e < D; };
   const int i = blockIdx.x * kRowsF32 + (threadIdx.x >> 5);
   if (i >= s.Sq) return;
   const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
@@ -680,8 +687,8 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   float qv[E], dov[E], acc[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    qv[e] = q[roff + lane + 32 * e];
-    dov[e] = dout[roff + lane + 32 * e];
+    qv[e] = (in(e) ? q[roff + lane + 32 * e] : 0.f);
+    dov[e] = (in(e) ? dout[roff + lane + 32 * e] : 0.f);
     acc[e] = 0.f;
   }
   int lo, hi;
@@ -690,16 +697,18 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     float dot = 0.f, dpp = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      dot += qv[e] * kb[j * ks + lane + 32 * e];
-      dpp += dov[e] * vb[j * ks + lane + 32 * e];
+      dot += qv[e] * (in(e) ? kb[j * ks + lane + 32 * e] : 0.f);
+      dpp += dov[e] * (in(e) ? vb[j * ks + lane + 32 * e] : 0.f);
     }
     const float p = expf(warp_sum(dot) * s.scale - lr);
     const float ds = p * (warp_sum(dpp) - dr) * s.scale;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] += ds * kb[j * ks + lane + 32 * e];
+    for (int e = 0; e < E; ++e)
+      acc[e] += ds * (in(e) ? kb[j * ks + lane + 32 * e] : 0.f);
   }
 #pragma unroll
-  for (int e = 0; e < E; ++e) dq[roff + lane + 32 * e] = acc[e];
+  for (int e = 0; e < E; ++e)
+    if (in(e)) dq[roff + lane + 32 * e] = acc[e];
 }
 
 template <int D>
@@ -709,8 +718,9 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ lse,
               const float* __restrict__ delta, float* __restrict__ dk,
               float* __restrict__ dv, Shape s) {
-  constexpr int E = D / 32;
+  constexpr int E = (D + 31) / 32;
   const int lane = threadIdx.x & 31;
+  auto in = [lane](int e) { return D % 32 == 0 || lane + 32 * e < D; };
   const int j = blockIdx.x * kRowsF32 + (threadIdx.x >> 5);
   if (j >= s.Sk) return;
   const int bhk = blockIdx.y, b = bhk / s.HK, kh = bhk % s.HK;
@@ -720,8 +730,8 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   float kv[E], vv[E], dka[E], dva[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    kv[e] = k[koff + lane + 32 * e];
-    vv[e] = v[koff + lane + 32 * e];
+    kv[e] = (in(e) ? k[koff + lane + 32 * e] : 0.f);
+    vv[e] = (in(e) ? v[koff + lane + 32 * e] : 0.f);
     dka[e] = dva[e] = 0.f;
   }
   int lo, hi;
@@ -736,22 +746,22 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
       float dot = 0.f, dpp = 0.f;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        dot += qb[i * qs + lane + 32 * e] * kv[e];
-        dpp += db[i * qs + lane + 32 * e] * vv[e];
+        dot += (in(e) ? qb[i * qs + lane + 32 * e] : 0.f) * kv[e];
+        dpp += (in(e) ? db[i * qs + lane + 32 * e] : 0.f) * vv[e];
       }
       const float p = expf(warp_sum(dot) * s.scale - lh[i]);
       const float ds = p * (warp_sum(dpp) - dh[i]) * s.scale;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        dva[e] += p * db[i * qs + lane + 32 * e];
-        dka[e] += ds * qb[i * qs + lane + 32 * e];
+        dva[e] += p * (in(e) ? db[i * qs + lane + 32 * e] : 0.f);
+        dka[e] += ds * (in(e) ? qb[i * qs + lane + 32 * e] : 0.f);
       }
     }
   }
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    dk[koff + lane + 32 * e] = dka[e];
-    dv[koff + lane + 32 * e] = dva[e];
+    if (in(e)) dk[koff + lane + 32 * e] = dka[e];
+    if (in(e)) dv[koff + lane + 32 * e] = dva[e];
   }
 }
 
@@ -858,7 +868,8 @@ bool shape_ok(int B, int Sq, int Sk, int H, int HK, int dtype) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs share it);
-// window <= 0: no window (a window needs causal). Head dims 32, 64, 128.
+// window <= 0: no window (a window needs causal). Head dims 16, 32, 64,
+// 128.
 extern "C" int pdt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int Sq, int Sk, int H,
                              int HK, int D, float scale, int causal,
@@ -869,6 +880,7 @@ extern "C" int pdt_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (D) {
+    case 16: return fwd<16>(q, k, v, o, l, s, dtype, st);
     case 32: return fwd<32>(q, k, v, o, l, s, dtype, st);
     case 64: return fwd<64>(q, k, v, o, l, s, dtype, st);
     case 128: return fwd<128>(q, k, v, o, l, s, dtype, st);
@@ -889,6 +901,7 @@ extern "C" int pdt_flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   switch (D) {
+    case 16: return bwd_dq<16>(q, k, v, dout, l, dl, dq, s, dtype, st);
     case 32: return bwd_dq<32>(q, k, v, dout, l, dl, dq, s, dtype, st);
     case 64: return bwd_dq<64>(q, k, v, dout, l, dl, dq, s, dtype, st);
     case 128: return bwd_dq<128>(q, k, v, dout, l, dl, dq, s, dtype, st);
@@ -909,6 +922,7 @@ extern "C" int pdt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   switch (D) {
+    case 16: return bwd_dkv<16>(q, k, v, dout, l, dl, dk, dv, s, dtype, st);
     case 32: return bwd_dkv<32>(q, k, v, dout, l, dl, dk, dv, s, dtype, st);
     case 64: return bwd_dkv<64>(q, k, v, dout, l, dl, dk, dv, s, dtype, st);
     case 128:

@@ -13,6 +13,13 @@ sides and are recomputed, not carried. `quantized_weight_from_numpy`
 carries one quantized weight the same way. `llama_numpy_from_tensors`
 goes the other way, for parameters or their gradients: the JAX names,
 the (in, out) layout, f32 numpy arrays.
+
+The MoE and BERT models carry the same way against a built model's own
+state dict (`moe_state_from_numpy`, `bert_state_from_numpy`; back with
+the ``*_grads_to_numpy`` / ``*_state_to_numpy`` helpers): their Linear
+weights transpose, and everything else — embeddings, norms, biases, the
+MoE router (H, E) and the stacked experts (E, H, I) / (E, I, H), which
+keep the JAX layout — crosses unchanged.
 """
 from __future__ import annotations
 
@@ -145,3 +152,90 @@ def llama_state_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     """A port Llama's parameters, as `llama_numpy_from_tensors` lays them
     out."""
     return llama_numpy_from_tensors(dict(model.named_parameters()))
+
+
+# ---------------------------------------------------------------------------
+# MoE and BERT: carried against the model's own state dict
+# ---------------------------------------------------------------------------
+_MOE_LINEAR = re.compile(r".*(_proj|shared_(gate|up|down))\.weight|"
+                         r"lm_head\.weight")
+_BERT_LINEAR = re.compile(r".*\.(q_proj|k_proj|v_proj|out_proj|linear1|"
+                          r"linear2|pooler|transform)\.weight")
+
+
+def _state_from_numpy(sd, model, linear_re):
+    ref = model.state_dict()
+    missing = sorted(set(ref) - set(sd))
+    unexpected = sorted(set(sd) - set(ref))
+    if missing or unexpected:
+        raise ValueError(f"state dict mismatch: missing {missing}, "
+                         f"unexpected {unexpected}")
+    out = {}
+    for name, arr in sd.items():
+        t = torch.from_numpy(np.array(arr, copy=True))
+        if linear_re.fullmatch(name):
+            t = t.T.contiguous()
+        out[name] = t
+    bad = [f"{k}: {tuple(t.shape)} vs model {tuple(ref[k].shape)}"
+           for k, t in out.items() if t.shape != ref[k].shape]
+    if bad:
+        raise ValueError("shape mismatch: " + "; ".join(bad))
+    return out
+
+
+def _numpy_from_tensors(tensors, model, linear_re):
+    """{parameter name: tensor} (the parameters or their gradients) to
+    f32 numpy arrays in the JAX layout, Linear weights transposed back."""
+    bad = sorted(set(tensors) - set(model.state_dict()))
+    if bad:
+        raise ValueError(f"not parameter names of the model: {bad}")
+    out = {}
+    for name, t in tensors.items():
+        a = t.detach().float().cpu().numpy()
+        out[name] = np.ascontiguousarray(a.T) if linear_re.fullmatch(name) \
+            else a
+    return out
+
+
+def _grads(model):
+    return {n: p.grad for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def moe_state_from_numpy(sd: Dict[str, np.ndarray], model: torch.nn.Module
+                         ) -> Dict[str, torch.Tensor]:
+    """Map a JAX `MoEForCausalLM` ``{name: numpy array}`` state dict onto
+    ``model``'s parameters (the names are the same), transposing the
+    Linear weights (attention projections, shared experts, lm_head).
+    Raises ValueError on a missing or unexpected key or a shape that
+    differs from the model's."""
+    return _state_from_numpy(sd, model, _MOE_LINEAR)
+
+
+def moe_grads_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """Every parameter's ``.grad`` as JAX-layout f32 numpy arrays (a
+    parameter without a gradient is left out)."""
+    return _numpy_from_tensors(_grads(model), model, _MOE_LINEAR)
+
+
+def moe_state_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    return _numpy_from_tensors(dict(model.named_parameters()), model,
+                               _MOE_LINEAR)
+
+
+def bert_state_from_numpy(sd: Dict[str, np.ndarray], model: torch.nn.Module
+                          ) -> Dict[str, torch.Tensor]:
+    """Map a JAX `BertForMaskedLM` state dict onto ``model``'s
+    parameters (the same names; the LM head's decoder is the word
+    embedding, one entry), transposing the Linear weights. Raises as
+    `moe_state_from_numpy`."""
+    return _state_from_numpy(sd, model, _BERT_LINEAR)
+
+
+def bert_grads_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    return _numpy_from_tensors(_grads(model), model, _BERT_LINEAR)
+
+
+def bert_state_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    return _numpy_from_tensors(dict(model.named_parameters()), model,
+                               _BERT_LINEAR)

@@ -1,11 +1,16 @@
 """Functional layer math of the serving and training paths.
 
-≙ `paddle_tpu/nn/functional/norm.py` :52-70 (`rms_norm`),
-`nn/functional/common.py` :33-74 (`linear`, with its `LoraWeight` and
-`QuantizedWeight` dispatch), the `silu` activation,
-`nn/functional/attention.py` :20-101 (`_sdpa_xla`,
-`scaled_dot_product_attention` without dropout) and
+≙ `paddle_tpu/nn/functional/norm.py` :18-70 (`layer_norm`, `rms_norm`),
+`nn/functional/common.py` :33-107 (`linear`, with its `LoraWeight` and
+`QuantizedWeight` dispatch, and `dropout`), the `silu` and `gelu`
+activations, `nn/functional/attention.py` :20-101 (`_sdpa_xla`,
+`scaled_dot_product_attention` with its dropout branch) and
 `nn/functional/loss.py` :23-69 (`cross_entropy` with hard labels).
+
+Dropout draws its keep mask from a `torch.Generator` (the caller's, else
+torch's default one on the tensor's device): the JAX package draws from
+`jax.random` keys, so the two keep the same rate and scaling but not the
+same bits.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import torch
 
 from ..ops.flash_attention import NEG_INF, flash_attention_values
 from ..ops.lora_epilogue import LoraWeight, lora_matmul_values
-from ..ops.norm_kernels import rms_norm_values
+from ..ops.norm_kernels import layer_norm_values, rms_norm_values
 from ..ops.quant_matmul import QuantizedWeight, dequant_matmul_values
 
 
@@ -26,8 +31,54 @@ def rms_norm(x, weight, epsilon=1e-6, use_kernel=None):
     return rms_norm_values(x, weight, epsilon, use_kernel=use_kernel)
 
 
+def layer_norm(x, normalized_shape, weight, bias, epsilon=1e-5,
+               use_kernel=None):
+    """LayerNorm over the last axis with a weight and a bias:
+    `ops.norm_kernels.layer_norm_values` (the CUDA kernels, forward and
+    backward, for CUDA tensors; any row count), as `F.layer_norm` routed
+    to the Pallas kernel on the TPU. The JAX functional's other cases
+    (several normalised axes, no weight or no bias) are not ported
+    (ROADMAP.md queue A, item 15)."""
+    ns = list(normalized_shape) if isinstance(normalized_shape,
+                                              (list, tuple)) \
+        else [normalized_shape]
+    if len(ns) != 1 or weight is None or bias is None:
+        raise NotImplementedError(
+            "layer_norm over several axes or without a weight and a bias "
+            "is not ported yet (ROADMAP.md queue A, item 15)")
+    return layer_norm_values(x, weight, bias, epsilon,
+                             use_kernel=use_kernel)
+
+
 def silu(x):
     return torch.nn.functional.silu(x)
+
+
+def gelu(x, approximate=False):
+    """GELU: the exact erf form, or the tanh approximation with
+    ``approximate=True`` (≙ `jax.nn.gelu`)."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
+
+
+def _keep_mask(shape, p, like, generator):
+    """Bernoulli(1 - p) keep mask of ``shape`` on ``like``'s device."""
+    u = torch.rand(shape, device=like.device, generator=generator)
+    return u < 1.0 - p
+
+
+def dropout(x, p=0.5, training=True, generator=None):
+    """Dropout in the ``upscale_in_train`` mode (≙ `F.dropout` without
+    ``axis``; the ``downscale_in_infer`` mode is not ported): in
+    training each element is kept with probability 1 - p and scaled by
+    1/(1 - p); at inference, the identity. The keep mask comes from
+    ``generator`` (else torch's default generator of x's device)."""
+    if not training or p == 0.0:
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    keep = _keep_mask(x.shape, p, x, generator)
+    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
 
 
 def linear(x, weight, bias=None, use_kernel=None):
@@ -50,7 +101,7 @@ def linear(x, weight, bias=None, use_kernel=None):
     return torch.nn.functional.linear(x, weight, bias)
 
 
-def _sdpa(q, k, v, mask=None, causal=False):
+def _sdpa(q, k, v, mask=None, causal=False, dropout_p=0.0, generator=None):
     """Attention of (B, S, H, D) queries over (B, L, HK, D) keys and
     values in plain PyTorch: ≙ `_sdpa_xla`. The logits are the product
     in the inputs' dtype cast to f32, times 1/sqrt(D); ``causal`` masks
@@ -58,7 +109,9 @@ def _sdpa(q, k, v, mask=None, causal=False):
     (B, H, S, L)) keeps its True entries, any other mask is added to the
     logits; masked logits are -1e30. The softmax runs in f32 and its
     weights are cast to q's dtype for the weighted sum. GQA repeats each
-    KV head H / HK times."""
+    KV head H / HK times. ``dropout_p`` > 0 drops softmax weights (keep
+    1 - p, kept ones scaled by 1/(1 - p), in f32 before the cast), as the
+    dropout branch of `scaled_dot_product_attention` does in JAX."""
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     rep = q.shape[1] // k.shape[1]
     if rep != 1:
@@ -76,27 +129,30 @@ def _sdpa(q, k, v, mask=None, causal=False):
             logits = logits.masked_fill(~mask, NEG_INF)
         else:
             logits = logits + mask.float()
-    p = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v).transpose(1, 2)
+    p = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0:
+        keep = _keep_mask(p.shape, dropout_p, p, generator)
+        p = torch.where(keep, p / (1.0 - dropout_p), 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v).transpose(1, 2)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 use_kernel=None):
-    """Attention in the (B, S, H, D) layout. Without a mask and without
-    dropout it is flash attention (`ops.flash_attention`: the CUDA
-    kernels for CUDA tensors, forward and backward; the plain versions
-    on the CPU), as `F.scaled_dot_product_attention` routed to the
-    Pallas kernel on the TPU; with a mask, the plain `_sdpa`. Dropout is
-    not ported."""
-    if dropout_p:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP.md queue A, item "
-            "15); pass dropout_p=0.0")
-    if attn_mask is None:
+                                 training=True, use_kernel=None,
+                                 generator=None):
+    """Attention in the (B, S, H, D) layout. Without a mask and with
+    ``dropout_p`` 0 it is flash attention (`ops.flash_attention`: the
+    CUDA kernels for CUDA tensors, forward and backward; the plain
+    versions on the CPU), as `F.scaled_dot_product_attention` routed to
+    the Pallas kernel on the TPU. Otherwise the plain `_sdpa`, as JAX
+    sends it to XLA: with a mask, or with ``dropout_p`` > 0 (dropout on
+    the softmax weights when ``training``, from ``generator``; none at
+    inference)."""
+    if attn_mask is None and dropout_p == 0.0:
         return flash_attention_values(query, key, value, causal=is_causal,
                                       use_kernel=use_kernel)
-    return _sdpa(query, key, value, attn_mask, is_causal)
+    return _sdpa(query, key, value, attn_mask, is_causal,
+                 dropout_p if training else 0.0, generator)
 
 
 def cross_entropy(input, label, ignore_index=-100):

@@ -7,6 +7,8 @@ PyTorch version for a CPU tensor — never one in place of the other.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 # one count per hand-written kernel, bumped by its wrapper exactly where
@@ -16,7 +18,8 @@ launch_counts = {"rms_norm": 0, "ragged_paged_attention": 0,
                  "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
                  "lora_epilogue": 0, "paged_attention": 0,
                  "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-                 "flash_attention_bwd_dkv": 0, "rms_norm_bwd": 0}
+                 "flash_attention_bwd_dkv": 0, "rms_norm_bwd": 0,
+                 "grouped_matmul": 0, "layer_norm": 0, "layer_norm_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -36,6 +39,26 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions of the kernels on the CPU")
     return torch.device("cuda")
+
+
+def kernel_errors(out, ref) -> tuple[float, float]:
+    """How far a kernel's output lies from its plain version, scale-free:
+    ``(rel, row)``. ``rel`` is ||out - ref|| / ||ref|| over the whole
+    tensor. ``row`` is the worst row (a vector along the last axis: one
+    head of one q row of attention, one output row of a grouped matmul or
+    a norm): ||out_r - ref_r|| over the larger of ||ref_r|| and 2^-6 of
+    the tensor's RMS row norm, so that a row whose true value cancels to
+    about 0 (dq of a row with one live key, a zero row past the last
+    group) is held to a small absolute limit instead. Rows equal in both
+    count 0; a non-finite output gives nan, which no limit passes."""
+    a, r = out.float(), ref.float()
+    diff = (a - r).norm(dim=-1)
+    rn = r.norm(dim=-1)
+    err, total = float(diff.norm()), float(r.norm())
+    rel = err / total if total > 0 else (0.0 if err == 0 else math.inf)
+    floor = 2 ** -6 * rn.square().mean().sqrt()
+    row = torch.where(diff == 0, 0.0, diff / torch.maximum(rn, floor))
+    return rel, float(row.max())
 
 
 def kernel_route(x: torch.Tensor, use_kernel) -> bool:

@@ -32,10 +32,10 @@ import math
 
 import torch
 
-from . import kernel_route, launch_counts
+from . import kernel_errors, kernel_route, launch_counts  # noqa: F401
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DIMS = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p]
@@ -120,26 +120,6 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=False, scale=None,
     return (dq.to(q.dtype).transpose(1, 2),
             per_kv_head(dk).to(k.dtype).transpose(1, 2),
             per_kv_head(dv).to(v.dtype).transpose(1, 2))
-
-
-def kernel_errors(out, ref) -> tuple[float, float]:
-    """How far a kernel's (B, S, H, D) output lies from its plain
-    version, scale-free: ``(rel, row)``. ``rel`` is ||out - ref|| /
-    ||ref|| over the whole tensor. ``row`` is the worst D-vector (one
-    head of one q row for o and dq, one KV head of one key for dk and
-    dv): ||out_r - ref_r|| over the larger of ||ref_r|| and 2^-6 of the
-    tensor's RMS row norm, so that a row whose true value cancels to
-    about 0 (dq of a row with one live key) is held to a small absolute
-    limit instead. Rows equal in both count 0; a non-finite output gives
-    nan, which no limit passes."""
-    a, r = out.float(), ref.float()
-    diff = (a - r).norm(dim=-1)
-    rn = r.norm(dim=-1)
-    err, total = float(diff.norm()), float(r.norm())
-    rel = err / total if total > 0 else (0.0 if err == 0 else math.inf)
-    floor = 2 ** -6 * rn.square().mean().sqrt()
-    row = torch.where(diff == 0, 0.0, diff / torch.maximum(rn, floor))
-    return rel, float(row.max())
 
 
 # limits on `kernel_errors` for the kernels against the plain versions.
@@ -279,7 +259,7 @@ def flash_attention_values(q, k, v, causal=False, scale=None,
     """Attention of (B, Sq, H, D) queries over (B, Sk, HK, D) keys and
     values (H a multiple of HK), differentiable in q, k and v. A CUDA
     tensor goes through the kernels, forward and backward (head dims
-    32, 64 and 128; any other raises); a CPU tensor, or
+    16, 32, 64 and 128; any other raises); a CPU tensor, or
     ``use_kernel=False``, through the plain versions."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B, Sq, H, D) and k, v (B, Sk, HK, D); "

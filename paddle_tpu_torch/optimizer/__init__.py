@@ -19,13 +19,18 @@ f32. `torch.optim.AdamW` applies its decay in another order and keeps
 no master weights, so it is not used. Every entry point takes the
 parameters where they lie (the card, or the CPU in the tests).
 
-Not ported (ROADMAP.md queue A, item 15): LR schedulers (the learning
-rate is a float), ``apply_decay_param_fun``, ``lr_ratio``, ``amsgrad``,
-``lazy_mode``, the other clip classes and the other optimizers.
+``learning_rate`` is a float or an `lr.LRScheduler`, which is read at
+every step (JAX's `get_lr`; the caller steps the scheduler). Not ported
+(ROADMAP.md queue A, item 15): the schedulers other than
+`lr.LinearWarmup`, ``apply_decay_param_fun``, ``lr_ratio``,
+``amsgrad``, ``lazy_mode``, the other clip classes and the other
+optimizers.
 """
 from __future__ import annotations
 
 import torch
+
+from .lr import LRScheduler
 
 
 class ClipGradByGlobalNorm:
@@ -56,6 +61,9 @@ class Adam(torch.optim.Optimizer):
                  grad_clip=None, multi_precision=False):
         if parameters is None:
             raise ValueError("parameters must be provided")
+        self._learning_rate = learning_rate
+        if isinstance(learning_rate, LRScheduler):
+            learning_rate = learning_rate()
         defaults = dict(lr=float(learning_rate), beta1=float(beta1),
                         beta2=float(beta2), epsilon=float(epsilon),
                         weight_decay=float(weight_decay or 0.0))
@@ -70,6 +78,13 @@ class Adam(torch.optim.Optimizer):
         # the JAX optimizer's `_step_count`: one count for every
         # parameter, bumped before the update; kept in the state dict
         self.state["@step"] = 0
+
+    def get_lr(self) -> float:
+        """The rate of the next step: the scheduler's current value, or
+        the float given."""
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
+        return float(self._learning_rate)
 
     def _use_master(self, p) -> bool:
         return self._multi_precision and p.dtype in (torch.bfloat16,
@@ -99,12 +114,15 @@ class Adam(torch.optim.Optimizer):
         t = self.state["@step"]
         group_of = {p: group for group in self.param_groups
                     for p in group["params"]}
+        sched = isinstance(self._learning_rate, LRScheduler)
         for p, grad in pairs:
-            self._update(p, grad, group_of[p], t)
+            group = group_of[p]
+            self._update(p, grad, group, t,
+                         self.get_lr() if sched else group["lr"])
         return loss
 
-    def _update(self, p, grad, group, t):
-        lr, b1, b2 = group["lr"], group["beta1"], group["beta2"]
+    def _update(self, p, grad, group, t, lr):
+        b1, b2 = group["beta1"], group["beta2"]
         wd = group["weight_decay"]
         st = self._param_state(p)
         w = st["master"] if "master" in st else p.detach().float()

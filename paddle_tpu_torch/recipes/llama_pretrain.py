@@ -1,7 +1,6 @@
 """Llama causal-LM pretraining on synthetic tokens.
 
-≙ `recipes/llama_pretrain.py` with the parts of `recipes/common.py` it
-uses (`std_parser`, `token_source`, `run_train`, `RecipeResult`): the
+≙ `recipes/llama_pretrain.py` (its shared plumbing in `common.py`): the
 same ``--size tiny|small|bench`` configurations and the same flags and
 defaults, over `LlamaForCausalLM(labels=)`, `TrainStep` and `AdamW`
 (``multi_precision`` with ``--bf16``). ``--device`` picks where it runs,
@@ -20,43 +19,15 @@ Not ported yet, and refused with `NotImplementedError`: ``--mesh``
 """
 from __future__ import annotations
 
-import argparse
-import itertools
-import time
-from dataclasses import dataclass, field
-
 import torch
 
 from ..jit import TrainStep
 from ..models.llama import LlamaConfig, LlamaForCausalLM
 from ..ops import resolve_device
 from ..optimizer import AdamW
-from ..text import LMBlockDataset, SyntheticTokens
-
-
-def std_parser(desc: str) -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=desc)
-    p.add_argument("--steps", type=int, default=20)
-    p.add_argument("--batch-size", type=int, default=8)
-    p.add_argument("--seq-len", type=int, default=128)
-    p.add_argument("--lr", type=float, default=3e-4)
-    p.add_argument("--data", type=str, default=None,
-                   help=".txt or .bin token file; default = synthetic")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--log-every", type=int, default=5)
-    p.add_argument("--accumulate-steps", type=int, default=1)
-    p.add_argument("--save", type=str, default=None,
-                   help="checkpoint path to save at the end")
-    return p
-
-
-@dataclass
-class RecipeResult:
-    final_loss: float
-    steps: int
-    # host seconds of each step, each ending in the loss's copy to the
-    # host (which waits for the device)
-    step_seconds: list = field(default_factory=list)
+from ..text import LMBlockDataset
+from .common import (RecipeResult, refuse_unported, run_train, std_parser,
+                     token_source, unported)
 
 
 def bench_config() -> LlamaConfig:
@@ -82,29 +53,6 @@ def train_8b_config() -> LlamaConfig:
     return cfg
 
 
-def run_train(step_fn, loader, steps: int, log_every: int):
-    """Drive ``steps`` train steps from an (endlessly cycled) loader;
-    returns (final loss, each step's host seconds)."""
-    it = itertools.cycle(loader)
-    loss = float("nan")
-    times = []
-    t0 = time.perf_counter()
-    for i in range(steps):
-        ts = time.perf_counter()
-        loss = float(step_fn(*next(it)))
-        times.append(time.perf_counter() - ts)
-        if log_every and (i % log_every == 0 or i == steps - 1):
-            dt = time.perf_counter() - t0
-            print(f"step {i:4d}  loss {loss:.4f}  "
-                  f"({dt / (i + 1):.3f}s/step)", flush=True)
-    return loss, times
-
-
-def _unported(flag: str, item: str):
-    raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md queue "
-                              f"A, item {item})")
-
-
 def main(argv=None) -> RecipeResult:
     p = std_parser("Llama causal-LM pretraining")
     p.add_argument("--size", choices=["tiny", "small", "bench"],
@@ -116,17 +64,14 @@ def main(argv=None) -> RecipeResult:
     p.add_argument("--resume-drill", action="store_true",
                    help="after training, run the save->corrupt->resume "
                         "durability drill and print its telemetry")
-    p.add_argument("--device", type=str, default=None,
-                   help="torch device to train on (default: the CUDA card)")
     args = p.parse_args(argv)
     if args.mesh:
-        _unported("--mesh", "15: the distributed stack")
-    if args.save or args.resume_drill:
-        _unported("--save / --resume-drill", "15: checkpoints")
+        unported("--mesh", "15: the distributed stack")
+    if args.resume_drill:
+        unported("--resume-drill", "15: checkpoints")
     if args.recompute:
-        _unported("--recompute", "15: activation recompute")
-    if args.data:
-        _unported("--data", "16: file token sources")
+        unported("--recompute", "15: activation recompute")
+    refuse_unported(args)
 
     if args.size == "bench":
         cfg = bench_config()
@@ -139,9 +84,7 @@ def main(argv=None) -> RecipeResult:
                              dtype=torch.bfloat16 if args.bf16 else None,
                              seed=args.seed)
 
-    need = args.batch_size * (args.seq_len + 1) * max(args.steps, 4)
-    ds = LMBlockDataset(SyntheticTokens(cfg.vocab_size, need,
-                                        seed=args.seed), args.seq_len)
+    ds = LMBlockDataset(token_source(args, cfg.vocab_size), args.seq_len)
     loader = torch.utils.data.DataLoader(
         ds, batch_size=args.batch_size, shuffle=True, drop_last=True,
         generator=torch.Generator().manual_seed(args.seed))
@@ -153,8 +96,7 @@ def main(argv=None) -> RecipeResult:
 
     def step_fn(x, y):
         return step(x.to(device), y.to(device))
-    final, times = run_train(step_fn, loader, args.steps, args.log_every)
-    return RecipeResult(final, args.steps, times)
+    return run_train(step_fn, loader, args.steps, args.log_every)
 
 
 if __name__ == "__main__":

@@ -2,15 +2,19 @@
 
     python3 -m paddle_tpu_torch.tools.profile_train [--steps 3]
 
-Two configurations, each trained with ``AdamW(lr=3e-4, weight_decay=0.01,
-multi_precision=True)`` in bf16 on one seeded batch, the step being what
-`TrainStep` runs (forward with ``labels=``, backward, ``optimizer.step()``,
-gradients cleared):
+Four configurations, each trained with ``AdamW(lr=3e-4,
+weight_decay=0.01, multi_precision=True)`` on one seeded batch, the step
+being what `TrainStep` runs (forward with ``labels=``, backward,
+``optimizer.step()``, gradients cleared):
 - ``8b_width``: `recipes.llama_pretrain.train_8b_config()`, Llama-3-8B
   at full width cut to 4 decoder layers (full-depth AdamW state does not
-  fit one card), B=2, S=2048;
-- ``bench``: the recipe's ``--size bench`` model (16 layers), B=8,
-  S=2048.
+  fit one card), bf16, B=2, S=2048;
+- ``bench``: the recipe's ``--size bench`` model (16 layers), bf16, B=8,
+  S=2048;
+- ``moe_a14b``: `recipes.moe_train.train_a14b_config()`, Qwen2-MoE-A14B
+  at full width cut to 1 decoder layer, dropless, bf16, B=1, S=4096;
+- ``bert_base``: `BertConfig.base()` with its dropout, f32, B=32,
+  S=512, masked-LM labels on 15% of the positions.
 After two warm-up steps it prints, per configuration:
 - ``train_phases {...}``: device milliseconds of the forward (to the
   loss), the backward and the optimizer step, by CUDA events that the
@@ -44,6 +48,9 @@ FAMILIES = (("flash_attention_fwd", ("flash_fwd",)),
             ("flash_attention_bwd_dkv", ("flash_dkv",)),
             ("rms_norm_bwd", ("rms_norm_bwd", "rms_norm_dw")),
             ("rms_norm", ("rms_norm_fwd",)),
+            ("grouped_matmul", ("gmm_mma", "gmm_f32", "gmm_plan")),
+            ("layer_norm_bwd", ("layer_norm_bwd", "layer_norm_dwdb")),
+            ("layer_norm", ("layer_norm_fwd",)),
             ("torch_matmul", ("gemm", "gemv", "cutlass", "sm90_xmma",
                               "nvjet", "cublas")),
             ("softmax_cross_entropy", ("softmax", "nll_loss",
@@ -59,10 +66,33 @@ def _family(name: str) -> str:
 
 
 def configs():
+    """{label: (config, model class, dtype, batch, seq)}."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.models.moe import MoEForCausalLM
     from paddle_tpu_torch.recipes.llama_pretrain import (
         TRAIN_8B_SHAPE, bench_config, train_8b_config)
-    return [("8b_width", train_8b_config(), *TRAIN_8B_SHAPE),
-            ("bench", bench_config(), 8, 2048)]
+    from paddle_tpu_torch.recipes.moe_train import (TRAIN_A14B_SHAPE,
+                                                    train_a14b_config)
+    bf16 = torch.bfloat16
+    return {"8b_width": (train_8b_config(), LlamaForCausalLM, bf16,
+                         *TRAIN_8B_SHAPE),
+            "bench": (bench_config(), LlamaForCausalLM, bf16, 8, 2048),
+            "moe_a14b": (train_a14b_config(), MoEForCausalLM, bf16,
+                         *TRAIN_A14B_SHAPE),
+            "bert_base": (BertConfig.base(), BertForMaskedLM, torch.float32,
+                          32, 512)}
+
+
+def _batch(cls, vocab, batch, seq):
+    """One seeded batch: next-token ids and labels, or for BERT masked-LM
+    labels (-100 but at 15% of the positions)."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab, (batch, seq + 1))
+    x, y = ids[:, :-1], ids[:, 1:]
+    if cls.__name__ == "BertForMaskedLM":
+        y = np.where(rng.random((batch, seq)) < 0.15, x, -100)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
 
 
 class PhaseEvents:
@@ -95,19 +125,15 @@ class PhaseEvents:
                 for i in range(0, len(ev), 4)]
 
 
-def profile_config(label, cfg, batch, seq, steps):
+def profile_config(label, cfg, cls, dtype, batch, seq, steps):
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
-    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                             seed=0)
+    model = cls(cfg, device="cuda", dtype=dtype, seed=0)
     opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
                 weight_decay=0.01, multi_precision=True)
     timer = PhaseEvents(opt)
     step = TrainStep(model, opt, loss_fn=timer.loss_fn)
-    ids = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (batch, seq + 1))).cuda()
-    x, y = ids[:, :-1], ids[:, 1:]
+    x, y = _batch(cls, cfg.vocab_size, batch, seq)
     for _ in range(2):
         float(step(x, y))
     timer.armed = True
@@ -163,8 +189,8 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
-    for label, cfg, batch, seq in configs():
-        profile_config(label, cfg, batch, seq, args.steps)
+    for label, spec in configs().items():
+        profile_config(label, *spec, args.steps)
     return 0
 
 

@@ -33,13 +33,25 @@ the same logits), bf16 2e-2 of max(1, largest |reference|) for o, dq,
 dk and dv (both round P, and dS for dq, to bf16 but at other places:
 the kernel at each tile's running max, the plain version at the row
 max), lse 1e-4 in both; rows with no live key exact zeros; dK/dV
-bitwise equal across runs (no atomics)."""
+bitwise equal across runs (no atomics);
+grouped matmul: `gmm.GMM_LIMITS` on the scale-free `kernel_errors` (bf16:
+one rounding of f32 sums that differ only in order, the bf16 products
+being exact in f32; f32 sums in another order), rows past the last
+group exact zeros, and f32 also elementwise rtol/atol 1e-5 of the
+largest |output|; its gradients as the outputs they are (d(lhs) through
+the kernel's transposed read, d(rhs) one matmul per group);
+LayerNorm: `nk.LN_LIMITS` on `kernel_errors` for y, dx, dw and db (both
+sides in f32, one rounding), dw and db bitwise equal across runs;
+the tiny MoE (dropless through the grouped-matmul kernel) and tiny BERT
+(LayerNorm kernels) train steps as the tiny Llama's: losses within
+1e-4, parameters within 1e-4 of their norm."""
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
-from paddle_tpu_torch.ops import launch_counts
+from paddle_tpu_torch.ops import grouped_matmul as gmm
+from paddle_tpu_torch.ops import kernel_errors, launch_counts
 from paddle_tpu_torch.ops import lora_epilogue as le
 from paddle_tpu_torch.ops import norm_kernels as nk
 from paddle_tpu_torch.ops import paged_attention as pa
@@ -513,7 +525,8 @@ FLASH_CASES = [("causal", 2, 300, 300, 4, 2, True, None),
                ("sq_lt_sk", 1, 100, 333, 4, 1, True, None),
                ("sq_gt_sk", 1, 200, 70, 4, 2, True, None),
                ("window", 1, 500, 500, 4, 2, True, 64),
-               ("noncausal", 2, 130, 190, 4, 4, False, None)]
+               ("noncausal", 2, 130, 190, 4, 4, False, None),
+               ("gqa7", 1, 300, 300, 28, 4, True, None)]
 
 
 def _flash_inputs(cuda, case, d, dtype):
@@ -535,7 +548,7 @@ def _flash_close(out, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
 def test_flash_attention_kernels_match_plain(cuda, case, d, dtype):
     label, _, sq, sk, _, _, causal, window = case
@@ -590,6 +603,29 @@ def test_flash_attention_autograd_and_refusals(cuda):
         fa.flash_attention_values(q, k, v, window_size=8)
 
 
+def _tiny_train_on(dev, build, ids, steps=3):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    model = build().to(dev)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+    step = TrainStep(model, opt, loss_fn=lambda m, x, y: m(x, labels=y)[0])
+    x, y = ids[0].to(dev), ids[1].to(dev)
+    losses = [float(step(x, y)) for _ in range(steps)]
+    return losses, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+
+def _same_training(card, cpu):
+    np.testing.assert_allclose(card[0], cpu[0], atol=1e-4)
+    for name, p in cpu[1].items():
+        if name.endswith("k_proj.bias"):
+            # its true gradient is zero (softmax ignores q.b_k, the same
+            # for every key): Adam's normalised step follows rounding
+            # noise, of either sign on either device
+            continue
+        diff = (card[1][name] - p).norm() / p.norm().clamp_min(1e-12)
+        assert diff <= 1e-4, (name, diff.item())
+
+
 def test_tiny_train_steps_on_card_match_cpu(cuda):
     """Three AdamW TrainSteps of the tiny f32 Llama (D = 32, GQA 4:2):
     the card's losses equal the CPU's within 1e-4 and each parameter
@@ -618,3 +654,157 @@ def test_tiny_train_steps_on_card_match_cpu(cuda):
     for name, p in out["cpu"][1].items():
         diff = (out["cuda"][1][name] - p).norm() / p.norm()
         assert diff <= 1e-4, (name, diff.item())
+
+
+def _gmm_inputs(cuda, m, k, n, sizes, dtype, trans, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lhs = torch.randn(m, k, device=cuda, generator=g).to(dtype)
+    shape = (len(sizes), n, k) if trans else (len(sizes), k, n)
+    rhs = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    return lhs, rhs, torch.tensor(sizes, device=cuda, dtype=torch.int32)
+
+
+# (label, M, K, N, group sizes): ragged groups with empty ones and rows
+# past the end, a skewed routing (half the rows to one expert, most
+# experts empty), groups under one tile, a sum past M, and edges that no
+# 16-byte chunk covers (K, N not multiples of 8)
+GMM_CASES = [
+    ("ragged", 1000, 256, 384, [130, 0, 7, 300, 1, 0, 250, 200]),
+    ("skewed", 2048, 512, 256, [1024, 0, 0, 500, 0, 0, 24, 0, 300, 0, 0, 0,
+                                 200, 0, 0, 0]),
+    ("tiny_groups", 300, 64, 128, [5, 3, 0, 17, 1, 90, 2, 100]),
+    ("sum_past_m", 500, 128, 136, [200, 250, 100]),
+    ("odd_edges", 333, 100, 36, [100, 0, 150, 50]),
+    ("single_row", 1, 64, 64, [1, 0])]
+
+
+@pytest.mark.parametrize("trans", [False, True], ids=["kn", "nk"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GMM_CASES, ids=[c[0] for c in GMM_CASES])
+def test_grouped_matmul_kernel_matches_plain(cuda, case, dtype, trans):
+    label, m, k, n, sizes = case
+    lhs, rhs, gs = _gmm_inputs(cuda, m, k, n, sizes, dtype, trans,
+                               seed=m + k + n)
+    before = launch_counts["grouped_matmul"]
+    out = gmm.gmm(lhs, rhs, gs, trans)
+    assert launch_counts["grouped_matmul"] == before + 1
+    ref = gmm.gmm_plain(lhs, rhs, gs, trans)
+    assert out.dtype == dtype and out.shape == (m, n)
+    end = min(m, sum(sizes))
+    assert torch.equal(out[end:], torch.zeros_like(out[end:]))
+    rel, row = kernel_errors(out, ref)
+    lim = gmm.GMM_LIMITS[dtype]
+    assert rel <= lim["rel"] and row <= lim["row"], (rel, row)
+    if dtype == torch.float32:
+        top = ref.abs().max().item()
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * top)
+    # deterministic: no atomics
+    assert torch.equal(out, gmm.gmm(lhs, rhs, gs, trans))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_autograd_matches_plain(cuda, dtype):
+    lhs, rhs, gs = _gmm_inputs(cuda, 700, 192, 320, [100, 0, 250, 3, 300],
+                               dtype, False, seed=1)
+    dout = torch.randn(700, 320, device=cuda).to(dtype)
+    grads = []
+    for use_kernel in (True, False):
+        a, b = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+        before = launch_counts["grouped_matmul"]
+        gmm.grouped_matmul_values(a, b, gs, use_kernel).backward(dout)
+        # forward and d(lhs)
+        assert launch_counts["grouped_matmul"] == before + 2 * use_kernel
+        grads.append((a.grad, b.grad))
+    lim = gmm.GMM_LIMITS[dtype]
+    for got, want in zip(grads[0], grads[1]):
+        assert got.dtype == dtype
+        rel, row = kernel_errors(got.reshape(-1, got.shape[-1]),
+                                  want.reshape(-1, want.shape[-1]))
+        assert rel <= lim["rel"] and row <= lim["row"], (rel, row)
+
+
+def test_grouped_matmul_wrapper_checks(cuda):
+    lhs, rhs, gs = _gmm_inputs(cuda, 64, 32, 32, [32, 32],
+                               torch.bfloat16, False, seed=2)
+    with pytest.raises(TypeError, match="one dtype"):
+        gmm.gmm(lhs, rhs.float(), gs)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gmm.gmm(lhs.half(), rhs.half(), gs)
+    with pytest.raises(ValueError, match="contraction"):
+        gmm.gmm(lhs[:, :16].contiguous(), rhs, gs)
+    with pytest.raises(ValueError, match="group_sizes"):
+        gmm.gmm(lhs, rhs, gs[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm.gmm(lhs.T.contiguous().T, rhs, gs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 300, 16384])
+@pytest.mark.parametrize("h", [100, 768, 3584])
+def test_layer_norm_kernels_match_plain(cuda, rows, h, dtype):
+    g = torch.Generator(device=cuda).manual_seed(rows * h)
+    x = (3 * torch.randn(rows, h, device=cuda, generator=g) + 1).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, device=cuda, generator=g)).to(dtype)
+    b = (0.1 * torch.randn(h, device=cuda, generator=g)).to(dtype)
+    dy = torch.randn(rows, h, device=cuda, generator=g).to(dtype)
+    outs = []
+    for use_kernel in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        before = dict(launch_counts)
+        y = nk.layer_norm_values(*leaves, 1e-12, use_kernel=use_kernel)
+        y.backward(dy)
+        n = int(use_kernel)
+        assert launch_counts["layer_norm"] == before["layer_norm"] + n
+        assert launch_counts["layer_norm_bwd"] == \
+            before["layer_norm_bwd"] + n
+        outs.append([y.detach()] + [t.grad for t in leaves])
+    lim = nk.LN_LIMITS[dtype]
+    for name, got, want in zip(("y", "dx", "dw", "db"), *outs):
+        assert got.dtype == dtype, name
+        rel, row = kernel_errors(got.reshape(-1, h), want.reshape(-1, h))
+        assert rel <= lim["rel"] and row <= lim["row"], (name, rel, row)
+    # the statistics, and dw/db deterministic (partials in block order)
+    _, mean, rstd = nk._ln_fwd(x, w, b, 1e-12)
+    xf = x.float()
+    torch.testing.assert_close(mean, xf.mean(-1), rtol=1e-5, atol=1e-5)
+    a = nk._ln_bwd(x, w, mean, rstd, dy)
+    c = nk._ln_bwd(x, w, mean, rstd, dy)
+    assert all(torch.equal(p, q) for p, q in zip(a, c))
+
+
+def test_tiny_moe_train_steps_on_card_match_cpu(cuda):
+    """The tiny f32 MoE (head dim 16), dropless (its expert matmuls
+    through the grouped-matmul kernel on the card) and capacity, three
+    AdamW steps: card against CPU as the tiny Llama's."""
+    from paddle_tpu_torch.models.moe import MoEConfig, MoEForCausalLM
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 512, (2, 65)).astype(np.int64))
+    for dropless in (True, False):
+        cfg = MoEConfig.tiny()
+        cfg.dropless = dropless
+        before = launch_counts["grouped_matmul"]
+        runs = {dev: _tiny_train_on(
+            dev, lambda: MoEForCausalLM(cfg, device="cpu", seed=4),
+            (ids[:, :-1], ids[:, 1:])) for dev in ("cuda", "cpu")}
+        # 2 layers x 3 steps x (3 forward + 3 d(lhs))
+        assert launch_counts["grouped_matmul"] - before == 36 * dropless
+        _same_training(runs["cuda"], runs["cpu"])
+
+
+def test_tiny_bert_train_steps_on_card_match_cpu(cuda):
+    """The tiny f32 BERT at dropout 0 (LayerNorm kernels forward and
+    backward on the card), three AdamW steps: card against CPU."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    cfg = BertConfig.tiny()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.integers(0, 261, (2, 64)).astype(np.int64))
+    y = torch.where(torch.from_numpy(rng.random((2, 64)) < 0.15), x, -100)
+    before = dict(launch_counts)
+    runs = {dev: _tiny_train_on(
+        dev, lambda: BertForMaskedLM(cfg, device="cpu", seed=5), (x, y))
+        for dev in ("cuda", "cpu")}
+    # embeddings 1, 2 a layer x 2, LM head 1: 6 a step
+    for key in ("layer_norm", "layer_norm_bwd"):
+        assert launch_counts[key] - before[key] == 18
+    _same_training(runs["cuda"], runs["cpu"])
