@@ -162,8 +162,39 @@ MoE and BERT training add, in the same run (after 5f):
 5i. ``train_moe_small {...}``: the MoE recipe at ``--size small --bf16``
     on the capacity path: no grouped-matmul launch.
 
-It prints a ``{"kernels": [...]}`` line (thirteen kernels, each with its
-launches on its own main-path run), the card line, and last
+Packed attention and rope add, in the same run (after 5i):
+
+3j. ``varlen_phase``: the varlen flash kernels (forward, dQ, dK/dV)
+    against their plain versions on packed cases: 4096 tokens at
+    Llama-3-8B attention width (H 32, HK 8, D 128) in bf16 and an f32
+    one, seeded documents ending in a padding tail (segments off the
+    64-row tiles), Sq != Sk (q the suffix of k's packing), one-token
+    segments, non-monotone ids, non-causal f16 and DiT's D 72; readings
+    held to `ops.flash_attention.KERNEL_LIMITS`, which two planted
+    faults must break (the segment mask ignored; the tile-skip test off
+    by one tile); timed at the 4096-token case with ``library_ms`` =
+    SDPA under an explicit block-diagonal causal mask and the per-
+    document SDPA loop beside it; then the rope kernel, forward and
+    backward, bitwise against its plain version at the packed
+    pretraining run's q and k shapes and in f32 and f16, with two
+    planted faults (a sign error in the backward, half-split pairs);
+5j. ``packed_sft_8b {...}``: `F.flash_attn_unpadded` over 16384 packed
+    tokens (seeded documents of 64-2048 tokens, a padding tail), bf16,
+    causal, forward and backward: exactly 1/1/1 varlen launches, and the
+    outputs and dQ/dK/dV within `KERNEL_LIMITS` of the same documents
+    run one at a time through the dense flash kernels;
+5k. ``packed_pretrain_8b {...}``: q/k/v projections, fused rope (theta
+    500000), document-masked varlen attention and o_proj at Llama-3-8B
+    width on x (2, 8192, 4096) bf16, 5 AdamW steps on a mean-square
+    loss: the loss falls; step ms, peak memory, the varlen and rope
+    device ms a step; exactly 1/1/1 varlen and 2 + 2 rope launches a
+    step.
+
+The flash phase (3f) also holds float16 and head dims from 8 to 256 to
+the kernels (72 and 136 zero-padded to tile widths 80 and 160).
+
+It prints a ``{"kernels": [...]}`` line (seventeen kernels, each with
+its launches on its own main-path run), the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -181,7 +212,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # operations/s by input type
 HBM_BPS = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # one bf16 ulp relative (8 significant bits); f32 sums in another order
 TOL = {"bfloat16": dict(rtol=2 ** -7, atol=1e-3),
        "float32": dict(rtol=1e-5, atol=1e-5)}
@@ -234,10 +265,13 @@ TRAIN_GRAD_REL_BUDGET = 3e-2
 TRAIN_STEPS = 5
 # bench.py:1995-2000 over the H100's bf16 peak
 PEAK_BF16 = 989e12
-# the training kernels: never launched by a serving run
+# the training and packed-attention kernels: never launched by a serving
+# run
 NO_TRAINING = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
                "flash_attention_bwd_dkv": 0, "rms_norm_bwd": 0,
-               "grouped_matmul": 0, "layer_norm": 0, "layer_norm_bwd": 0}
+               "grouped_matmul": 0, "layer_norm": 0, "layer_norm_bwd": 0,
+               "flash_varlen_fwd": 0, "flash_varlen_bwd_dq": 0,
+               "flash_varlen_bwd_dkv": 0, "rope": 0}
 
 
 def log(msg):
@@ -1187,7 +1221,25 @@ FLASH_CASES = [
     ("f32", 1, 300, 300, 8, 2, 64, True, None, "float32", False),
     ("d32", 2, 1000, 1000, 4, 2, 32, True, None, "bfloat16", False),
     ("gqa7_a14b", 1, 4096, 4096, 28, 4, 128, True, None, "bfloat16",
-     False)]
+     False),
+    # float16 and the head dims 72 (DiT-XL/2: 1152 / 16, 256 tokens,
+    # non-causal), 80, 96, 160, 192 and 256 (the reference's largest),
+    # all through the kernels; 8, 40, 112 and 136 each at the next tile
+    # width
+    ("slice_8b_f16", 2, 2048, 2048, 32, 8, 128, True, None, "float16",
+     True),
+    ("dit_xl2_d72", 32, 256, 256, 16, 16, 72, False, None, "bfloat16",
+     True),
+    ("d80", 2, 2048, 2048, 32, 8, 80, True, None, "bfloat16", True),
+    ("d96", 2, 2048, 2048, 32, 8, 96, True, None, "bfloat16", True),
+    ("d160", 2, 2048, 2048, 32, 8, 160, True, None, "bfloat16", True),
+    ("d192", 2, 2048, 2048, 32, 8, 192, True, None, "bfloat16", True),
+    ("d256", 2, 2048, 2048, 32, 8, 256, True, None, "bfloat16", True),
+    ("d256_f16", 1, 1000, 1000, 8, 2, 256, True, None, "float16", False),
+    ("d8", 1, 1000, 1000, 8, 2, 8, True, None, "bfloat16", False),
+    ("d40", 1, 1000, 1000, 8, 2, 40, True, None, "bfloat16", False),
+    ("d112", 1, 1000, 1000, 8, 2, 112, True, None, "bfloat16", False),
+    ("d136", 1, 1000, 1000, 8, 2, 136, True, None, "bfloat16", False)]
 
 
 def _skip_tile(live_fn):
@@ -2204,6 +2256,734 @@ def train_moe_small():
     torch.cuda.empty_cache()
 
 
+# packed (varlen) attention and rope: the kernels against their plain
+# versions (`varlen_phase`), then the two packed main paths at Llama-3-8B
+# attention width (`packed_sft_8b`, `packed_pretrain_8b`)
+VARLEN_TILE = 64          # q rows and keys per tile (csrc/flash_kernels.cuh)
+PACKED_DOC_LENS = (64, 2048)
+PACKED_SFT_TOKENS = 16384
+PACKED_SFT_TAIL = 213
+PACKED_PRETRAIN_SHAPE = (2, 8192)    # Llama 3's pretraining length
+PACKED_PRETRAIN_THETA = 500000.0     # LlamaConfig.llama3_8b().rope_theta
+# (label, B, Sq, Sk, H, HK, D, causal, dtype, packing, timed)
+VARLEN_CASES = [
+    ("packed_4096", 1, 4096, 4096, 32, 8, 128, True, "bfloat16", "docs",
+     True),
+    ("packed_4096_f32", 1, 4096, 4096, 8, 2, 128, True, "float32", "docs",
+     False),
+    ("sq1000_sk3000", 1, 1000, 3000, 8, 2, 128, True, "bfloat16", "suffix",
+     False),
+    ("single_tokens", 1, 700, 700, 8, 2, 64, True, "bfloat16", "singles",
+     False),
+    ("non_monotone", 2, 1000, 1000, 8, 2, 128, True, "bfloat16", "random",
+     False),
+    ("noncausal_f16", 1, 2000, 2000, 8, 2, 128, False, "float16", "docs",
+     False),
+    ("dit_d72", 2, 600, 600, 16, 16, 72, False, "bfloat16", "docs",
+     False)]
+
+
+def _doc_lengths(total, rng, lo=PACKED_DOC_LENS[0], hi=PACKED_DOC_LENS[1]):
+    """Seeded document lengths in [lo, hi] filling `total` tokens (the
+    last one cut to fit)."""
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(rng.integers(lo, hi + 1)))
+    lens[-1] -= sum(lens) - total
+    return lens
+
+
+def _packed_segments(lens, total):
+    """(total,) int32 ids: document n over its run, -1 past the last."""
+    seg = np.full(total, -1, np.int32)
+    seg[:sum(lens)] = np.repeat(np.arange(len(lens)), lens)
+    return seg
+
+
+def _varlen_case_segments(packing, b, sq, sk, rng):
+    """(seg_q, seg_k) int32 arrays of shape (B, Sq) / (B, Sk): ``docs``
+    packs seeded documents ending in a padding tail (segments do not
+    line up with the 64-row tiles); ``suffix`` makes q the last Sq
+    positions of k's packing (Sq != Sk, end-aligned); ``singles`` puts
+    40 one-token segments before two-token ones; ``random`` draws ids
+    in [-1, 3] per position (not monotone)."""
+    if packing == "docs":
+        seg = np.stack([_packed_segments(_doc_lengths(
+            sq - 100, rng, 64, sq // 3), sq) for _ in range(b)])
+        return seg, seg
+    if packing == "suffix":
+        seg_k = np.stack([_packed_segments(_doc_lengths(
+            sk - 37, rng, 64, 600), sk) for _ in range(b)])
+        return np.ascontiguousarray(seg_k[:, sk - sq:]), seg_k
+    if packing == "singles":
+        seg = np.repeat(np.arange(sq), 2)[None, :sq].astype(np.int32)
+        seg[:, :40] = np.arange(40)
+        seg[:, 40:] += 20
+        return seg, seg
+    seg = rng.integers(-1, 4, (b, sq)).astype(np.int32)
+    return seg, seg
+
+
+def _varlen_pairs(seg_q, seg_k, causal):
+    """(q row, key) pairs the mask keeps, summed over the batch: the work
+    of one head (the data-dependent count the bounds use)."""
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    return int(fv._live(seg_q, seg_k, causal).sum())
+
+
+def _tile_ranges(seg, tile):
+    """Per tile of `tile` rows: (lo, hi) of its non-padding ids, hi = -1
+    when it has none; (B, n_tiles) each."""
+    import torch
+    b, s = seg.shape
+    n = -(-s // tile)
+    pad = torch.full((b, n * tile - s), -1, dtype=seg.dtype,
+                     device=seg.device)
+    t = torch.cat([seg, pad], 1).reshape(b, n, tile)
+    big = torch.iinfo(seg.dtype).max
+    lo = torch.where(t >= 0, t, big).amin(-1)
+    return lo, t.amax(-1)
+
+
+def _skip_off_by_one(fv_live):
+    """A planted fault of the plain version's mask: a (q tile, key tile)
+    pair is visited when the q tile's segment range meets the range of
+    the NEXT key tile (the skip test off by one tile), as a kernel would
+    with that bug; keys of a skipped pair are dropped."""
+    import torch
+
+    def live(seg_q, seg_k, causal):
+        m = fv_live(seg_q, seg_k, causal)
+        qlo, qhi = _tile_ranges(seg_q, VARLEN_TILE)
+        klo, khi = _tile_ranges(seg_k, VARLEN_TILE)
+        # the next tile's range; past the last tile, none
+        klo = torch.cat([klo[:, 1:], torch.full_like(klo[:, :1],
+                                                     torch.iinfo(klo.dtype)
+                                                     .max)], 1)
+        khi = torch.cat([khi[:, 1:], torch.full_like(khi[:, :1], -1)], 1)
+        meet = (qhi[:, :, None] >= 0) & (khi[:, None, :] >= 0) & \
+            (qlo[:, :, None] <= khi[:, None, :]) & \
+            (klo[:, None, :] <= qhi[:, :, None])
+        sq, sk = seg_q.shape[1], seg_k.shape[1]
+        qt = torch.arange(sq, device=seg_q.device) // VARLEN_TILE
+        kt = torch.arange(sk, device=seg_q.device) // VARLEN_TILE
+        return m & meet[:, qt][:, :, kt][:, None]
+    return live
+
+
+def _varlen_faults(fv, q, k, v, do, seg_q, seg_k, scale, causal):
+    """The plain versions' (o, dq, dk, dv) under the planted faults:
+    ``one_segment`` (the segment mask ignored: every non-padding
+    position in one segment) and ``skip_off_by_one``."""
+    import torch
+    from unittest import mock
+
+    def plain(sq_, sk_):
+        o, lse = fv.flash_attention_varlen_ref(q, k, v, sq_, sk_, causal,
+                                               scale)
+        return (o, *fv.flash_attention_varlen_bwd_ref(
+            q, k, v, o, lse, do, sq_, sk_, causal, scale))
+    one = lambda s: torch.where(s >= 0, 0, -1).to(torch.int32)
+    faults = {"one_segment": plain(one(seg_q), one(seg_k))}
+    with mock.patch.object(fv, "_live", _skip_off_by_one(fv._live)):
+        faults["skip_off_by_one"] = plain(seg_q, seg_k)
+    return faults
+
+
+def _varlen_plain_by_group(q, k, v, do, seg_q, seg_k, causal, scale):
+    """The plain varlen forward and backward on full-size inputs, one
+    batch row and one KV head's group of query heads at a time, so that
+    only one group's dense (G, Sq, Sk) f32 scores are held (1 GiB at
+    G = 4 and 8192 tokens): ``((o, dq, dk, dv), fwd ms, bwd ms)``, the
+    times the device time of the pieces summed."""
+    import torch
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    b, h, hk = q.shape[0], q.shape[2], k.shape[2]
+    g = h // hk
+    o, dq = torch.empty_like(q), torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fwd_ms = bwd_ms = 0.0
+    for i in range(b):
+        rows = slice(i, i + 1)
+        for j in range(hk):
+            hs, ks = slice(j * g, (j + 1) * g), slice(j, j + 1)
+            qc, dc = q[rows, :, hs], do[rows, :, hs]
+            kc, vc = k[rows, :, ks], v[rows, :, ks]
+            sq_, sk_ = seg_q[rows], seg_k[rows]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            oc, lc = fv.flash_attention_varlen_ref(qc, kc, vc, sq_, sk_,
+                                                   causal, scale)
+            ev[1].record()
+            grads = fv.flash_attention_varlen_bwd_ref(
+                qc, kc, vc, oc, lc, dc, sq_, sk_, causal, scale)
+            ev[2].record()
+            ev[2].synchronize()
+            fwd_ms += ev[0].elapsed_time(ev[1])
+            bwd_ms += ev[1].elapsed_time(ev[2])
+            o[rows, :, hs], dq[rows, :, hs] = oc, grads[0]
+            dk[rows, :, ks], dv[rows, :, ks] = grads[1], grads[2]
+            del oc, lc, grads
+    torch.cuda.empty_cache()
+    return (o, dq, dk, dv), fwd_ms, bwd_ms
+
+
+def _masked_sdpa_library(q, k, v, seg_q, seg_k, causal, lens=None):
+    """The library's attention on the packed inputs, timed as a yardstick
+    (the port never calls it): SDPA with an explicit block-diagonal
+    (causal) bool mask, forward and whole backward; and, given the
+    document lengths of a B = 1 packing, the loop of per-document SDPA
+    ``is_causal`` calls (forward)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = fv._live(seg_q, seg_k, causal)
+    # K and V repeated to H heads (a mask with enable_gqa is not taken by
+    # every backend); padding rows give NaN there, and are not compared
+    g = q.shape[2] // k.shape[2]
+    qh, kh, vh = (t.transpose(1, 2).repeat_interleave(
+        1 if t is q else g, dim=1).detach().requires_grad_()
+        for t in (q, k, v))
+    kw = dict(attn_mask=mask)
+    out = sdpa(qh, kh, vh, **kw)
+    do = torch.randn_like(out)
+    fwd = time_ms(lambda: sdpa(qh, kh, vh, **kw), iters=10)
+    bwd = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), do,
+                                              retain_graph=True), iters=10)
+    loop = None
+    if lens is not None:
+        starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+
+        def per_doc():
+            for s0, n in zip(starts, lens):
+                sdpa(qh[:, :, s0:s0 + n], kh[:, :, s0:s0 + n],
+                     vh[:, :, s0:s0 + n], is_causal=causal)
+        loop = time_ms(per_doc, iters=10)
+    del out, mask
+    return fwd, bwd, loop
+
+
+def _rope_phase(results):
+    """The rope kernel (forward, and backward: sign -1) against its plain
+    version, bitwise, at the packed pretraining run's q and k shapes in
+    bf16 and small f32 / f16 cases; planted faults (a sign error in the
+    backward, half-split `rotate_half` pairs) must break the equality."""
+    import torch
+    from paddle_tpu_torch.models.llama import precompute_rope
+    from paddle_tpu_torch.ops import kernel_errors
+    from paddle_tpu_torch.ops import rope as rp
+    b, s = PACKED_PRETRAIN_SHAPE
+    cfg_h, cfg_hk, d = 32, 8, 128
+    cos, sin = (t.cuda() for t in precompute_rope(d, s, PACKED_PRETRAIN_THETA))
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    cases = [("pretrain_q", (b, s, cfg_h, d), "bfloat16", True),
+             ("pretrain_k", (b, s, cfg_hk, d), "bfloat16", False),
+             ("f32", (2, 1000, 4, 128), "float32", False),
+             ("f16_d72", (2, 999, 3, 72), "float16", False)]
+    for label, shape, name, timed in cases:
+        dt = getattr(torch, name)
+        x = torch.randn(*shape, device="cuda", generator=gen).to(dt)
+        c, sn = cos[:shape[1], :shape[3] // 2].contiguous(), \
+            sin[:shape[1], :shape[3] // 2].contiguous()
+        y = rp._rope_cuda(x, c, sn, 1)
+        gx = rp._rope_cuda(x, c, sn, -1)
+        ry, rgx = rp.rope_ref(x, c, sn, 1.0), rp.rope_ref(x, c, sn, -1.0)
+        torch.cuda.synchronize()
+        ok = torch.equal(y, ry) and torch.equal(gx, rgx)
+        half = shape[3] // 2
+        x1, x2 = x[..., :half].float(), x[..., half:].float()
+        cb, sb = c[None, :, None, :], sn[None, :, None, :]
+        rotate_half = torch.cat([x1 * cb - x2 * sb, x2 * cb + x1 * sb],
+                                -1).to(dt)
+        faults = {"backward_sign": kernel_errors(gx, rp.rope_ref(x, c, sn,
+                                                                 1.0)),
+                  "half_split_pairs": kernel_errors(y, rotate_half)}
+        caught = all(e[0] > 1e-2 for e in faults.values())
+        isz = x.element_size()
+        nbytes = 2 * x.numel() * isz + 2 * c.numel() * 4
+        b_ms, b_by = bound(nbytes, 6 * x.numel() // 2, name)
+        rec = dict(kernel="rope", case=label, dtype=name, shape=list(shape),
+                   bitwise_equal=ok, max_abs_err=max(
+                       (y.float() - ry.float()).abs().max().item(),
+                       (gx.float() - rgx.float()).abs().max().item()),
+                   planted_faults=faults, bound_ms=b_ms, bound_by=b_by,
+                   ms=None, bwd_ms=None, plain_ms=None, library_ms=None,
+                   library_note="none: no single PyTorch call computes "
+                   "RoPE")
+        if timed:
+            rec.update(ms=time_ms(lambda: rp._rope_cuda(x, c, sn, 1)),
+                       bwd_ms=time_ms(lambda: rp._rope_cuda(x, c, sn, -1)),
+                       plain_ms=time_ms(lambda: rp.rope_ref(x, c, sn, 1.0),
+                                        iters=5, warmup=1))
+        log("kernel " + json.dumps(rec))
+        results.append(rec)
+        if not ok:
+            raise AssertionError(f"rope kernel differs from its plain "
+                                 f"version on {label}")
+        if not caught:
+            raise AssertionError(f"rope check misses a planted fault on "
+                                 f"{label}: {faults}")
+        del x, y, gx, ry, rgx, rotate_half
+    torch.cuda.empty_cache()
+
+
+def varlen_phase(results):
+    """The three varlen kernels, through `flash_attention_varlen_values`
+    forward and backward, against their plain versions on packed cases
+    (`VARLEN_CASES`), timed at the packed 4096-token case with the
+    library's masked SDPA and per-document SDPA loop beside them; the
+    flash limits (`ops.flash_attention.KERNEL_LIMITS`) are shown to
+    catch the planted faults of `_varlen_faults`. Then the rope kernel
+    (`_rope_phase`)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for (label, b, sq, sk, h, hk, d, causal, name, packing,
+         timed) in VARLEN_CASES:
+        dt = getattr(torch, name)
+        lim = fa.KERNEL_LIMITS[dt]
+        rng = np.random.default_rng(len(label))
+        sq_np, sk_np = _varlen_case_segments(packing, b, sq, sk, rng)
+        seg_q = torch.from_numpy(np.ascontiguousarray(sq_np)).cuda()
+        seg_k = torch.from_numpy(np.ascontiguousarray(sk_np)).cuda()
+        f = lambda *shape: torch.randn(*shape, device="cuda",
+                                       generator=gen).to(dt)
+        q, k, v, do = f(b, sq, h, d), f(b, sk, hk, d), f(b, sk, hk, d), \
+            f(b, sq, h, d)
+        scale = d ** -0.5
+        # the wrapper, forward and backward, as a user calls it; the
+        # forward kernel once more for the lse it saves
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fv.flash_attention_varlen_values(*leaves, seg_q, seg_k, causal,
+                                             scale)
+        o.backward(do)
+        o = o.detach()
+        dq, dk, dv = (x.grad for x in leaves)
+        del leaves
+        _, lse = fv._varlen_fwd(q, k, v, seg_q, seg_k, scale, causal)
+        delta = fa._delta(o, do)
+        ro, rlse = fv.flash_attention_varlen_ref(q, k, v, seg_q, seg_k,
+                                                 causal, scale)
+        want = (ro, *fv.flash_attention_varlen_bwd_ref(
+            q, k, v, o, lse, do, seg_q, seg_k, causal, scale))
+        torch.cuda.synchronize()
+        names = ("o", "dq", "dk", "dv")
+        got = (o, dq, dk, dv)
+        errs = {n: fa.kernel_errors(a, r) for n, a, r in zip(names, got,
+                                                              want)}
+        abs_err = {n: (a.float() - r.float()).abs().max().item()
+                   for n, a, r in zip(names, got, want)}
+        faults = {fault: {n: fa.kernel_errors(a, r)
+                          for n, a, r in zip(names, outs, want)}
+                  for fault, outs in _varlen_faults(
+                      fv, q, k, v, do, seg_q, seg_k, scale, causal).items()}
+
+        def passes(e):
+            return e[0] <= lim["rel"] and e[1] <= lim["row"]
+        lse_err = (lse - rlse).abs().max().item()
+        pad_q, pad_k = seg_q < 0, seg_k < 0
+        ok = (all(passes(e) for e in errs.values()) and lse_err <= 1e-3
+              and not o[pad_q].any() and not dq[pad_q].any()
+              and not dk[pad_k].any() and not dv[pad_k].any())
+        caught = not any(passes(e) for fe in faults.values()
+                         for e in fe.values())
+        pairs = _varlen_pairs(seg_q, seg_k, causal) * h
+        isz = q.element_size()
+        qo_bytes = b * sq * h * d * isz
+        kv_bytes = b * sk * hk * d * isz
+        rows = 4 * b * h * sq
+        segs = 4 * b * (sq + sk)
+        recs = {
+            "flash_varlen_fwd": dict(
+                max_abs_err=abs_err["o"], nbytes=qo_bytes * 2 +
+                kv_bytes * 2 + rows + segs, ops=4 * d * pairs),
+            "flash_varlen_bwd_dq": dict(
+                max_abs_err=abs_err["dq"], nbytes=qo_bytes * 3 +
+                kv_bytes * 2 + 2 * rows + segs, ops=6 * d * pairs),
+            "flash_varlen_bwd_dkv": dict(
+                max_abs_err=max(abs_err["dk"], abs_err["dv"]),
+                nbytes=qo_bytes * 2 + kv_bytes * 4 + 2 * rows + segs,
+                ops=8 * d * pairs)}
+        times = {}
+        rec_base = dict(case=label, dtype=name, B=b, Sq=sq, Sk=sk, H=h,
+                        HK=hk, D=d, causal=causal, packing=packing,
+                        segments=int(seg_q.max()) + 1,
+                        padding_rows=int(pad_q.sum()), live_pairs=pairs,
+                        limits=lim, lse_max_abs_err=lse_err,
+                        rel_row_errors=errs, planted_faults=faults)
+        if timed:
+            times["flash_varlen_fwd"] = time_ms(
+                lambda: fv._varlen_fwd(q, k, v, seg_q, seg_k, scale,
+                                       causal))
+            times["flash_varlen_bwd_dq"] = time_ms(
+                lambda: fv._varlen_bwd_dq(q, k, v, do, lse, delta, seg_q,
+                                          seg_k, scale, causal))
+            times["flash_varlen_bwd_dkv"] = time_ms(
+                lambda: fv._varlen_bwd_dkv(q, k, v, do, lse, delta, seg_q,
+                                           seg_k, scale, causal))
+            plain_fwd = time_ms(lambda: fv.flash_attention_varlen_ref(
+                q, k, v, seg_q, seg_k, causal, scale), iters=3, warmup=1)
+            plain_bwd = time_ms(lambda: fv.flash_attention_varlen_bwd_ref(
+                q, k, v, o, lse, do, seg_q, seg_k, causal, scale), iters=3,
+                warmup=1)
+            lens = np.bincount(sq_np[0][sq_np[0] >= 0]).tolist() \
+                if b == 1 and packing == "docs" else None
+            lib_fwd, lib_bwd, lib_loop = _masked_sdpa_library(
+                q, k, v, seg_q, seg_k, causal, lens)
+        del ro, rlse, want
+        for kernel, r in recs.items():
+            b_ms, b_by = bound(r.pop("nbytes"), r.pop("ops"), name)
+            rec = dict(kernel=kernel, **rec_base, **r, bound_ms=b_ms,
+                       bound_by=b_by, ms=times.get(kernel),
+                       plain_ms=None, library_ms=None)
+            if timed:
+                fwd = kernel == "flash_varlen_fwd"
+                rec.update(
+                    plain_ms=plain_fwd if fwd else plain_bwd,
+                    library_ms=lib_fwd if fwd else lib_bwd,
+                    library_per_document_loop_fwd_ms=lib_loop,
+                    library_note="scaled_dot_product_attention with an "
+                    "explicit block-diagonal causal bool mask, K and V "
+                    "repeated to H heads",
+                    note=None if fwd else "plain_ms and library_ms are "
+                    "the whole backward (dq, dk and dv together)")
+            log("kernel " + json.dumps(rec))
+            results.append(rec)
+        if not ok:
+            raise AssertionError(f"varlen kernels disagree on {label}: "
+                                 f"{errs}, lse {lse_err}")
+        if not caught:
+            raise AssertionError(f"the flash limits {lim} miss a planted "
+                                 f"varlen fault on {label}: {faults}")
+        del q, k, v, do, o, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    _rope_phase(results)
+
+
+def packed_sft_8b():
+    """`F.flash_attn_unpadded` at Llama-3-8B attention width (H 32, HK 8,
+    D 128), bf16, causal, over `PACKED_SFT_TOKENS` packed tokens of
+    seeded document lengths ending in a padding tail: one forward and
+    backward through the varlen kernels (exactly 1/1/1 launches, no
+    plain version), held to `KERNEL_LIMITS` against the plain versions on
+    the same packed inputs (one KV-head group at a time) and against the
+    same documents one at a time through the dense flash kernels;
+    returns the run's launch counts."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg = LlamaConfig.llama3_8b()
+    h, hk, d = cfg.num_attention_heads, cfg.num_key_value_heads, \
+        cfg.head_dim
+    t = PACKED_SFT_TOKENS
+    rng = np.random.default_rng(61)
+    lens = _doc_lengths(t - PACKED_SFT_TAIL, rng)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                      dtype=torch.int32, device="cuda")
+    n = sum(lens)
+    gen = torch.Generator(device="cuda").manual_seed(62)
+    f = lambda *shape: torch.randn(*shape, device="cuda",
+                                   generator=gen).bfloat16()
+    q, k, v, do = f(t, h, d), f(t, hk, d), f(t, hk, d), f(t, h, d)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out, _ = F.flash_attn_unpadded(*leaves, cu, cu, max(lens), max(lens),
+                                   causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    want = {k_: 0 for k_ in counts}
+    want.update(flash_varlen_fwd=1, flash_varlen_bwd_dq=1,
+                flash_varlen_bwd_dkv=1)
+    log(f"launches (packed_sft_8b) {counts} expected {want}")
+    if counts != want:
+        raise AssertionError("packed SFT launch counts do not match one "
+                             "forward and backward")
+    got = (out.detach(), *(x.grad for x in leaves))
+
+    # the documents one at a time through the dense flash kernels
+    refs = [[], [], [], []]
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    for s0, ln in zip(starts, lens):
+        sl = slice(int(s0), int(s0 + ln))
+        part = [x[sl][None].clone().requires_grad_() for x in (q, k, v)]
+        o_i = fa.flash_attention_values(*part, causal=True)
+        o_i.backward(do[sl][None])
+        for acc, x in zip(refs, (o_i.detach(), *(p.grad for p in part))):
+            acc.append(x[0])
+    want_t = [torch.cat(r) for r in refs]
+    lim = fa.KERNEL_LIMITS[torch.bfloat16]
+    names = ("o", "dq", "dk", "dv")
+    errs = {name: fa.kernel_errors(a[:n], r)
+            for name, a, r in zip(names, got, want_t)}
+    tail_zero = all(not a[n:].any() for a in got)
+    # the plain versions on the same packed inputs, tail included
+    seg = fv.segments_from_cu_seqlens(cu, t)[None]
+    plain, _, _ = _varlen_plain_by_group(q[None], k[None], v[None],
+                                         do[None], seg, seg, True,
+                                         d ** -0.5)
+    plain_errs = {name: fa.kernel_errors(a, r[0])
+                  for name, a, r in zip(names, got, plain)}
+    plain_abs = {name: (a.float() - r[0].float()).abs().max().item()
+                 for name, a, r in zip(names, got, plain)}
+    del plain
+
+    def fwd_bwd():
+        ls = [x.detach().requires_grad_() for x in (q, k, v)]
+        F.flash_attn_unpadded(*ls, cu, cu, max(lens), max(lens),
+                              causal=True)[0].backward(do)
+
+    def per_doc():
+        for s0, ln in zip(starts, lens):
+            sl = slice(int(s0), int(s0 + ln))
+            ls = [x[sl][None].detach().requires_grad_() for x in (q, k, v)]
+            fa.flash_attention_values(*ls, causal=True).backward(
+                do[sl][None])
+    stats = dict(tokens=t, documents=len(lens), padding_tail=t - n,
+                 doc_len_min=min(lens), doc_len_max=max(lens), H=h, HK=hk,
+                 D=d, first_call_wall_ms=1e3 * wall,
+                 fwd_bwd_ms=time_ms(fwd_bwd, iters=5, warmup=1),
+                 per_document_dense_kernels_fwd_bwd_ms=time_ms(
+                     per_doc, iters=5, warmup=1),
+                 rel_row_errors=errs, rel_row_errors_plain=plain_errs,
+                 max_abs_err_plain=plain_abs, limits=lim,
+                 tail_zero=tail_zero, launches=counts)
+    log("packed_sft_8b " + json.dumps(stats))
+    within = lambda es: all(e[0] <= lim["rel"] and e[1] <= lim["row"]
+                            for e in es.values())
+    if not (within(errs) and within(plain_errs)) or not tail_zero:
+        raise AssertionError(f"packed SFT differs from the per-document "
+                             f"dense kernels ({errs}) or the plain "
+                             f"versions ({plain_errs}), tail zero "
+                             f"{tail_zero}")
+    del q, k, v, do, leaves, out, got, refs, want_t
+    torch.cuda.empty_cache()
+    return counts
+
+
+def packed_pretrain_8b(results):
+    """Document-masked pretraining attention at Llama-3-8B width: x (B,
+    S, 4096) bf16 -> q/k/v `F.linear` -> `fused_rotary_position_embedding`
+    (theta 500000) -> `incubate...flash_attention_varlen` under (B, S)
+    segment ids of seeded document lengths -> o_proj, mean-square loss
+    against a seeded target, 5 `AdamW` steps (the port's counterpart of
+    the reference's packed trainer, tests/test_flash_varlen.py:163-207).
+    Exact launches a step: 1/1/1 varlen, 2 rope in the forward and 2 in
+    the backward, nothing else. Then the varlen wrapper, forward and
+    backward, on the last step's own q, k, v and dO, held to
+    `KERNEL_LIMITS` against the plain versions (one KV-head group at a
+    time), and the three kernels timed there (the ``pretrain_8b``
+    records); returns the 5 steps' launch counts."""
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.models.llama import LlamaConfig, precompute_rope
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.ops import rope as rp
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig.llama3_8b()
+    e, h, hk, d = cfg.hidden_size, cfg.num_attention_heads, \
+        cfg.num_key_value_heads, cfg.head_dim
+    b, s = PACKED_PRETRAIN_SHAPE
+    rng = np.random.default_rng(71)
+    seg_np = np.stack([_packed_segments(_doc_lengths(s, rng), s)
+                       for _ in range(b)])
+    seg = torch.from_numpy(seg_np).cuda()
+    cos, sin = (x.cuda() for x in precompute_rope(d, s,
+                                                  PACKED_PRETRAIN_THETA))
+
+    class PackedAttention(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator().manual_seed(72)
+            lin = lambda o, i: torch.nn.Parameter(
+                (0.02 * torch.randn(o, i, generator=gen)).to(
+                    "cuda", torch.bfloat16))
+            self.wq, self.wk = lin(h * d, e), lin(hk * d, e)
+            self.wv, self.wo = lin(hk * d, e), lin(e, h * d)
+
+        def forward(self, x):
+            q = torch.nn.functional.linear(x, self.wq).reshape(b, s, h, d)
+            k = torch.nn.functional.linear(x, self.wk).reshape(b, s, hk, d)
+            v = torch.nn.functional.linear(x, self.wv).reshape(b, s, hk, d)
+            q, k = IF.fused_rotary_position_embedding(q, k, cos, sin)
+            o = IF.flash_attention_varlen(q, k, v, seg, seg, causal=True)
+            # the step's attention inputs and cotangent, for the check
+            # after the run
+            self.seen = [t.detach() for t in (q, k, v)]
+            if o.requires_grad:
+                o.register_hook(lambda g: self.seen.append(g.detach()))
+            return torch.nn.functional.linear(o.reshape(b, s, h * d),
+                                              self.wo)
+
+    model = PackedAttention()
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    x = torch.randn(b, s, e, device="cuda", generator=gen).bfloat16()
+    target = torch.randn(b, s, e, device="cuda", generator=gen).bfloat16()
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times, fwd_counts = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = (model(x).float() - target.float()).square().mean()
+        fwd_counts.append(launch_counts["rope"])
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(loss))          # waits for the step
+        times.append(time.perf_counter() - t0)
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k_: 0 for k_ in counts}
+    want.update(flash_varlen_fwd=TRAIN_STEPS, flash_varlen_bwd_dq=TRAIN_STEPS,
+                flash_varlen_bwd_dkv=TRAIN_STEPS, rope=4 * TRAIN_STEPS)
+    rope_fwd = [c - 4 * i for i, c in enumerate(fwd_counts)]
+    log(f"launches (packed_pretrain_8b) {counts} expected {want} over "
+        f"{TRAIN_STEPS} steps; rope launches in each step's forward "
+        f"{rope_fwd} (2 expected)")
+    if counts != want or rope_fwd != [2] * TRAIN_STEPS:
+        raise AssertionError("packed pretraining launch counts do not "
+                             "match the steps")
+
+    # one more step with CUDA events around every varlen and rope launch
+    spans = {"varlen": [], "rope": []}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            spans[key].append((e0, e1))
+            return out
+        return run
+    with mock.patch.object(fv, "_varlen_fwd", timed("varlen",
+                                                    fv._varlen_fwd)), \
+            mock.patch.object(fv, "_varlen_bwd_dq",
+                              timed("varlen", fv._varlen_bwd_dq)), \
+            mock.patch.object(fv, "_varlen_bwd_dkv",
+                              timed("varlen", fv._varlen_bwd_dkv)), \
+            mock.patch.object(rp, "_rope_cuda", timed("rope",
+                                                      rp._rope_cuda)):
+        loss = (model(x).float() - target.float()).square().mean()
+        loss.backward()
+        opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    span_ms = {k_: sum(a.elapsed_time(c) for a, c in v_)
+               for k_, v_ in spans.items()}
+    step_s = statistics.median(times[1:])
+    stats = dict(batch=b, seq=s, hidden=e, H=h, HK=hk, D=d,
+                 documents_per_row=[int(r.max()) + 1 for r in seg_np],
+                 losses=losses, step_ms=1e3 * step_s,
+                 first_step_ms=1e3 * times[0],
+                 tokens_per_s=b * s / step_s, peak_mem_gib=peak,
+                 varlen_ms_per_step=span_ms["varlen"],
+                 varlen_launches_timed=len(spans["varlen"]),
+                 rope_ms_per_step=span_ms["rope"],
+                 rope_launches_timed=len(spans["rope"]),
+                 launches_per_step={k_: v_ // TRAIN_STEPS
+                                    for k_, v_ in counts.items() if v_})
+    log("packed_pretrain_8b " + json.dumps(stats))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"packed pretraining loss did not fall: "
+                             f"{losses}")
+    q, k, v, do = model.seen
+    del model, opt, x, target, loss
+    torch.cuda.empty_cache()
+    _pretrain_varlen_check(q, k, v, do, seg, results)
+    return counts
+
+
+def _pretrain_varlen_check(q, k, v, do, seg, results):
+    """The varlen wrapper on the pretraining step's own (q, k, v, dO):
+    forward and backward against the plain versions one KV-head group at
+    a time, within `KERNEL_LIMITS`; each kernel timed on those inputs
+    beside its plain version (the group pieces' device time summed) and
+    the library's masked SDPA; the ``pretrain_8b`` kernel records."""
+    import torch
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    scale = d ** -0.5
+    lim = fa.KERNEL_LIMITS[torch.bfloat16]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = IF.flash_attention_varlen(*leaves, seg, seg, causal=True)
+    o.backward(do)
+    got = (o.detach(), *(t.grad for t in leaves))
+    del leaves, o
+    want, plain_fwd, plain_bwd = _varlen_plain_by_group(
+        q, k, v, do, seg, seg, True, scale)
+    names = ("o", "dq", "dk", "dv")
+    errs = {n: fa.kernel_errors(a, r) for n, a, r in zip(names, got, want)}
+    abs_err = {n: (a.float() - r.float()).abs().max().item()
+               for n, a, r in zip(names, got, want)}
+    del got, want
+    torch.cuda.empty_cache()
+    o, lse = fv._varlen_fwd(q, k, v, seg, seg, scale, True)
+    delta = fa._delta(o, do)
+    times = {
+        "flash_varlen_fwd": time_ms(
+            lambda: fv._varlen_fwd(q, k, v, seg, seg, scale, True)),
+        "flash_varlen_bwd_dq": time_ms(
+            lambda: fv._varlen_bwd_dq(q, k, v, do, lse, delta, seg, seg,
+                                      scale, True)),
+        "flash_varlen_bwd_dkv": time_ms(
+            lambda: fv._varlen_bwd_dkv(q, k, v, do, lse, delta, seg, seg,
+                                       scale, True))}
+    lib_fwd, lib_bwd, _ = _masked_sdpa_library(q, k, v, seg, seg, True)
+    pairs = _varlen_pairs(seg, seg, True) * h
+    isz = q.element_size()
+    qo_bytes, kv_bytes = b * s * h * d * isz, b * s * hk * d * isz
+    rows, segs = 4 * b * h * s, 8 * b * s
+    recs = {
+        "flash_varlen_fwd": (abs_err["o"], qo_bytes * 2 + kv_bytes * 2 +
+                             rows + segs, 4 * d * pairs),
+        "flash_varlen_bwd_dq": (abs_err["dq"], qo_bytes * 3 + kv_bytes * 2 +
+                                2 * rows + segs, 6 * d * pairs),
+        "flash_varlen_bwd_dkv": (max(abs_err["dk"], abs_err["dv"]),
+                                 qo_bytes * 2 + kv_bytes * 4 + 2 * rows +
+                                 segs, 8 * d * pairs)}
+    for kernel, (err, nbytes, ops) in recs.items():
+        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        fwd = kernel == "flash_varlen_fwd"
+        rec = dict(kernel=kernel, case="pretrain_8b", dtype="bfloat16",
+                   B=b, Sq=s, Sk=s, H=h, HK=hk, D=d, causal=True,
+                   live_pairs=pairs, limits=lim, rel_row_errors=errs,
+                   max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                   ms=times[kernel], plain_ms=plain_fwd if fwd else plain_bwd,
+                   library_ms=lib_fwd if fwd else lib_bwd,
+                   plain_note="the plain versions one batch row and one "
+                   "KV-head group at a time, device time summed",
+                   library_note="scaled_dot_product_attention with an "
+                   "explicit block-diagonal causal bool mask, K and V "
+                   "repeated to H heads",
+                   note=None if fwd else "plain_ms and library_ms are the "
+                   "whole backward (dq, dk and dv together)")
+        log("kernel " + json.dumps(rec))
+        results.append(rec)
+    del o, lse, delta
+    torch.cuda.empty_cache()
+    if not all(e[0] <= lim["rel"] and e[1] <= lim["row"]
+               for e in errs.values()):
+        raise AssertionError(f"the varlen wrapper on the pretraining "
+                             f"step's inputs differs from the plain "
+                             f"versions: {errs}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2263,6 +3043,9 @@ def main():
     gmm_phase(results, routed)
     bcounts = train_bert_base()
     train_moe_small()
+    varlen_phase(results)
+    packed_sft_8b()
+    pcounts = packed_pretrain_8b(results)
     model, counts, reqs = serve_8b()
     path_check(model, reqs)
     qcounts, qweights = serve_8b_quant(model, reqs, "int8", N_REQUESTS)
@@ -2285,6 +3068,10 @@ def main():
     counts["grouped_matmul"] = mcounts["grouped_matmul"]
     counts["layer_norm"] = bcounts["layer_norm"]
     counts["layer_norm_bwd"] = bcounts["layer_norm_bwd"]
+    # the varlen kernels and rope: the packed pretraining run
+    counts.update((k, pcounts[k]) for k in (
+        "flash_varlen_fwd", "flash_varlen_bwd_dq", "flash_varlen_bwd_dkv",
+        "rope"))
 
     main_case = {"rms_norm": ("rows=8", "bfloat16", None),
                  "ragged_paged_attention": ("decode", "bfloat16", None),
@@ -2299,7 +3086,12 @@ def main():
                  "rms_norm_bwd": ("rows=4096", "bfloat16", None),
                  "grouped_matmul": ("a14b_gate_up", "bfloat16", None),
                  "layer_norm": ("rows=16384", "float32", None),
-                 "layer_norm_bwd": ("rows=16384", "float32", None)}
+                 "layer_norm_bwd": ("rows=16384", "float32", None),
+                 "flash_varlen_fwd": ("pretrain_8b", "bfloat16", None),
+                 "flash_varlen_bwd_dq": ("pretrain_8b", "bfloat16", None),
+                 "flash_varlen_bwd_dkv": ("pretrain_8b", "bfloat16", None),
+                 "rope": ("pretrain_q", "bfloat16", None)}
+    varlen_src = "paddle_tpu_torch/csrc/flash_varlen.cu"
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     attn_src = ("paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                 "paddle_tpu/ops/ragged_paged_attention.py:293")
@@ -2326,7 +3118,15 @@ def main():
             "layer_norm": ("paddle_tpu_torch/csrc/layer_norm.cu",
                            "paddle_tpu/ops/norm_kernels.py:148"),
             "layer_norm_bwd": ("paddle_tpu_torch/csrc/layer_norm.cu",
-                               "paddle_tpu/ops/norm_kernels.py:160")}
+                               "paddle_tpu/ops/norm_kernels.py:160"),
+            "flash_varlen_fwd": (varlen_src,
+                                 "paddle_tpu/ops/flash_varlen.py:60"),
+            "flash_varlen_bwd_dq": (varlen_src,
+                                    "paddle_tpu/ops/flash_varlen.py:106"),
+            "flash_varlen_bwd_dkv": (varlen_src,
+                                     "paddle_tpu/ops/flash_varlen.py:149"),
+            "rope": ("paddle_tpu_torch/csrc/rope.cu",
+                     "paddle_tpu/ops/rope.py:27")}
     kernels = []
     for name, (case, dt, mode) in main_case.items():
         rec = next(r for r in results if r["kernel"] == name

@@ -6,7 +6,7 @@
 // package sends fp8 storage through XLA; here one kernel serves both
 // storage types as two template instances.
 //
-// Layout (the torch way): x is (M, K) f32 or bf16, row-major; w is (N, K)
+// Layout (the torch way): x is (M, K) f32, bf16 or f16, row-major; w is (N, K)
 // int8 or e4m3, row-major (a Linear weight, out x in); s is (N,) f32; y is
 // (M, N) in x's dtype. Any M, K, N: every edge is masked.
 //
@@ -24,9 +24,9 @@
 //    bf16 in registers by bit tricks (no conversion instructions), the
 //    block's warps split K, and the next chunk's loads are issued before the
 //    current one computes.
-//  * every other small M and every f32 x: CUDA cores. Each warp streams
-//    kRows weight rows with 16-byte loads (16 int8 / e4m3 values a lane),
-//    widens them to f32 in registers, multiplies them with up to 8
+//  * every other small M, and every f32 or f16 x: CUDA cores. Each warp
+//    streams kRows weight rows with 16-byte loads (16 int8 / e4m3 values a
+//    lane), widens them to f32 in registers, multiplies them with up to 8
 //    activation rows, and reduces with warp shuffles; the scale multiplies
 //    the reduced sum. f32 x never goes through TF32.
 //  * bf16 x with M > 16 (admission batches): tensor cores. A 128 x 128
@@ -48,6 +48,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
 
@@ -57,6 +58,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_f(int8_t v) {
   return static_cast<float>(v);  // int8_t is signed: sign-extends
 }
@@ -70,6 +72,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half(v);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -97,6 +102,15 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
     const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
     for (int j = 0; j < 8; ++j) f[8 * i + j] = __bfloat162float(e[j]);
+  }
+}
+__device__ __forceinline__ void load16(const __half* p, float* f) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + i);
+    const __half* e = reinterpret_cast<const __half*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[8 * i + j] = __half2float(e[j]);
   }
 }
 template <typename WT>
@@ -518,19 +532,21 @@ cudaError_t launch(const void* x, const void* w, const float* s, void* y,
     return launch_mma<WT>(x, w, s, y, M, K, N, stream);
   if (x_dtype == 1)
     return launch_gemv<__nv_bfloat16, WT>(x, w, s, y, M, K, N, stream);
+  if (x_dtype == 2)
+    return launch_gemv<__half, WT>(x, w, s, y, M, K, N, stream);
   return launch_gemv<float, WT>(x, w, s, y, M, K, N, stream);
 }
 
 }  // namespace
 
-// x_dtype: 0 = float32, 1 = bfloat16 (x and y share it).
+// x_dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x and y share it).
 // w_dtype: 0 = int8, 1 = float8_e4m3fn.
 extern "C" int pdt_dequant_matmul(const void* x, const void* w,
                                   const void* scale, void* y, int M, int K,
                                   int N, int x_dtype, int w_dtype,
                                   void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (K <= 0 || (x_dtype != 0 && x_dtype != 1))
+  if (K <= 0 || (x_dtype < 0 || x_dtype > 2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(scale);

@@ -10,7 +10,8 @@
 // Layout: lhs (M, K) row-major; rhs (E, K, N) row-major (the JAX layout,
 // `trans` = 0), or rhs (E, N, K) read as its transpose (`trans` = 1: the
 // backward's dout @ rhs[e]^T without writing rhs^T anywhere); out (M, N)
-// in lhs's dtype. bf16 or f32 (lhs, rhs and out share it), any M, K, N.
+// in lhs's dtype. bf16, f16 or f32 (lhs, rhs and out share it), any M, K,
+// N.
 //
 // Work list (megablox-style). The TPU kernel needs every group padded to a
 // multiple of its 128-row tile, so no tile straddles two groups; the MoE
@@ -35,7 +36,8 @@
 // with two stages the copy of one step had only one step of mma to hide
 // behind), fragments by ldmatrix (.trans for the (K, N) layout, so no
 // tile is transposed in shared memory), mma.sync.m16n8k16 bf16 with f32
-// accumulation, one rounding to bf16 in the epilogue. wgmma with TMA-fed
+// accumulation, one rounding to bf16 in the epilogue; f16 is the same
+// kernel on mma.sync's f16 form. wgmma with TMA-fed
 // stages is later work. f32 runs on CUDA cores (64 x 64 tiles, 4 x 4
 // outputs a thread, exact f32 FMAs, no TF32), as the JAX package's f32
 // matmul does.
@@ -45,11 +47,20 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half(v);
+}
 
 // item.y: the group, -1 for rows past the last group (zeros), -2 for an
 // unused slot at the end of the list
@@ -82,7 +93,7 @@ __global__ void gmm_plan_kernel(const int* __restrict__ sizes, int E, int M,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync on 128 x 128 tiles
+// bf16 and f16: mma.sync on 128 x 128 tiles
 // ---------------------------------------------------------------------------
 constexpr int kBM = 128, kBN = 128, kBK = 32, kThreads = 256;
 constexpr int kStages = 4;
@@ -93,14 +104,31 @@ constexpr int kLdBkn = kBN + 8;  // B tile [k][n]: 272-byte rows
 // ldmatrix reads fall in distinct banks, and every row starts 16-byte
 // aligned for cp.async
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
+__device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                    const uint32_t* b, const bf16*) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                    const uint32_t* b, const __half*) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two adjacent outputs, rounded once each, in one 4-byte store
+__device__ __forceinline__ void store2(bf16* o, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* o, float a, float b) {
+  *reinterpret_cast<__half2*>(o) = __floats2half2_rn(a, b);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
@@ -142,11 +170,10 @@ __device__ __forceinline__ void cp_wait() {
 // (other rows zero) and of the B tile at n0. kVec (K % 8 == 0, N % 8 == 0
 // and 16-byte aligned bases) copies 16-byte chunks with cp.async, which
 // lie wholly inside or wholly outside the matrix; otherwise element loads.
-template <bool kBnk, bool kVec>
+template <typename T, bool kBnk, bool kVec>
 __device__ __forceinline__ void gmm_stage(
-    const bf16* __restrict__ lhs, const bf16* __restrict__ B, bf16* As,
-    bf16* Bs, int m0, int r0, int r1, int n0, int k0, int K, int N,
-    int tid) {
+    const T* __restrict__ lhs, const T* __restrict__ B, T* As, T* Bs, int m0,
+    int r0, int r1, int n0, int k0, int K, int N, int tid) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int c = tid + i * kThreads;
@@ -155,7 +182,7 @@ __device__ __forceinline__ void gmm_stage(
       const int row = c >> 2, kc = (c & 3) * 8;
       const int gm = m0 + row, gk = k0 + kc;
       const bool rows_ok = gm >= r0 && gm < r1;
-      bf16* dst = As + row * kLdA + kc;
+      T* dst = As + row * kLdA + kc;
       if (kVec) {
         const bool ok = rows_ok && gk < K;
         cp_async16(dst, ok ? lhs + size_t(gm) * K + gk : lhs, ok);
@@ -163,14 +190,14 @@ __device__ __forceinline__ void gmm_stage(
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           dst[j] = rows_ok && gk + j < K ? lhs[size_t(gm) * K + gk + j]
-                                         : __float2bfloat16(0.f);
+                                         : from_f<T>(0.f);
       }
     }
     if (kBnk) {
       // B [n][k]: 128 rows of n x 4 chunks of 8 k
       const int n = c >> 2, kc = (c & 3) * 8;
       const int gn = n0 + n, gk = k0 + kc;
-      bf16* dst = Bs + n * kLdBnk + kc;
+      T* dst = Bs + n * kLdBnk + kc;
       if (kVec) {
         const bool ok = gn < N && gk < K;
         cp_async16(dst, ok ? B + size_t(gn) * K + gk : B, ok);
@@ -178,13 +205,13 @@ __device__ __forceinline__ void gmm_stage(
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           dst[j] = gn < N && gk + j < K ? B[size_t(gn) * K + gk + j]
-                                        : __float2bfloat16(0.f);
+                                        : from_f<T>(0.f);
       }
     } else {
       // B [k][n]: 32 rows of k x 16 chunks of 8 n
       const int k = c >> 4, nc = (c & 15) * 8;
       const int gk = k0 + k, gn = n0 + nc;
-      bf16* dst = Bs + k * kLdBkn + nc;
+      T* dst = Bs + k * kLdBkn + nc;
       if (kVec) {
         const bool ok = gk < K && gn < N;
         cp_async16(dst, ok ? B + size_t(gk) * N + gn : B, ok);
@@ -192,7 +219,7 @@ __device__ __forceinline__ void gmm_stage(
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           dst[j] = gk < K && gn + j < N ? B[size_t(gk) * N + gn + j]
-                                        : __float2bfloat16(0.f);
+                                        : from_f<T>(0.f);
       }
     }
   }
@@ -209,15 +236,15 @@ constexpr size_t gmm_smem() {
   return sizeof(bf16) * kStages * (kAStage + b_stage<kBnk>());
 }
 
-template <bool kBnk, bool kVec>
+template <typename T, bool kBnk, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-gmm_mma_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
+gmm_mma_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
                const int4* __restrict__ work, int wmax,
-               bf16* __restrict__ out, int K, int N) {
+               T* __restrict__ out, int K, int N) {
   constexpr int kBStage = b_stage<kBnk>();
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [kStages][kAStage]
-  bf16* Bs = As + kStages * kAStage;         // [kStages][kBStage]
+  T* As = reinterpret_cast<T*>(smem);  // [kStages][kAStage]
+  T* Bs = As + kStages * kAStage;      // [kStages][kBStage]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
@@ -229,11 +256,11 @@ gmm_mma_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
     if (item.y == kZeros) {
       for (int i = tid; i < (r1 - r0) * kBN; i += kThreads) {
         const int r = r0 + i / kBN, c = n0 + i % kBN;
-        if (c < N) out[size_t(r) * N + c] = __float2bfloat16(0.f);
+        if (c < N) out[size_t(r) * N + c] = from_f<T>(0.f);
       }
       continue;
     }
-    const bf16* B = rhs + size_t(item.y) * K * N;
+    const T* B = rhs + size_t(item.y) * K * N;
     float acc[4][4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -247,7 +274,7 @@ gmm_mma_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
 #pragma unroll
     for (int st = 0; st < kStages - 1; ++st) {
       if (st < tiles)
-        gmm_stage<kBnk, kVec>(lhs, B, As + st * kAStage, Bs + st * kBStage,
+        gmm_stage<T, kBnk, kVec>(lhs, B, As + st * kAStage, Bs + st * kBStage,
                               m0, r0, r1, n0, st * kBK, K, N, tid);
       cp_commit();
     }
@@ -260,12 +287,12 @@ gmm_mma_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
       __syncthreads();
       const int nxt = kt + kStages - 1;
       if (nxt < tiles)
-        gmm_stage<kBnk, kVec>(lhs, B, As + (nxt % kStages) * kAStage,
+        gmm_stage<T, kBnk, kVec>(lhs, B, As + (nxt % kStages) * kAStage,
                               Bs + (nxt % kStages) * kBStage, m0, r0, r1,
                               n0, nxt * kBK, K, N, tid);
       cp_commit();
-      const bf16* as = As + (kt % kStages) * kAStage;
-      const bf16* bs = Bs + (kt % kStages) * kBStage;
+      const T* as = As + (kt % kStages) * kAStage;
+      const T* bs = Bs + (kt % kStages) * kBStage;
 #pragma unroll
       for (int kk = 0; kk < kBK; kk += 16) {
         uint32_t a[4][4], b[4][2];
@@ -295,7 +322,7 @@ gmm_mma_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+          for (int j = 0; j < 4; ++j) mma(acc[i][j], a[i], b[j], as);
       }
     }
     // every warp is done with the ring before the next item's prologue
@@ -313,14 +340,13 @@ gmm_mma_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
         for (int h = 0; h < 2; ++h) {
           const int m = m0 + wm * 64 + i * 16 + g + 8 * h;
           if (m < r0 || m >= r1) continue;
-          bf16* o = out + size_t(m) * N + n;
+          T* o = out + size_t(m) * N + n;
           if ((N & 1) == 0 && n + 1 < N) {
-            *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(
-                acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+            store2(o, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
           } else {
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              if (n + e < N) o[e] = __float2bfloat16(acc[i][j][2 * h + e]);
+              if (n + e < N) o[e] = from_f<T>(acc[i][j][2 * h + e]);
           }
         }
       }
@@ -411,11 +437,10 @@ bool aligned16(const void* p) {
 // grid.y walks the work list; a block takes every gridDim.y-th item
 constexpr int kMaxGridY = 65535;
 
-template <bool kBnk, bool kVec>
-cudaError_t launch_mma(dim3 grid, cudaStream_t st, const bf16* a,
-                       const bf16* b, const int4* wk, int wmax, bf16* o,
-                       int K, int N) {
-  auto kernel = gmm_mma_kernel<kBnk, kVec>;
+template <typename T, bool kBnk, bool kVec>
+cudaError_t launch_mma(dim3 grid, cudaStream_t st, const T* a, const T* b,
+                       const int4* wk, int wmax, T* o, int K, int N) {
+  auto kernel = gmm_mma_kernel<T, kBnk, kVec>;
   constexpr size_t smem = gmm_smem<kBnk>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -425,42 +450,51 @@ cudaError_t launch_mma(dim3 grid, cudaStream_t st, const bf16* a,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_mma(dim3 grid, cudaStream_t st, const void* lhs,
+                       const void* rhs, const int4* wk, int wmax, void* out,
+                       int K, int N, bool trans, bool vec) {
+  const T* a = static_cast<const T*>(lhs);
+  const T* b = static_cast<const T*>(rhs);
+  T* o = static_cast<T*>(out);
+  if (trans && vec)
+    return launch_mma<T, true, true>(grid, st, a, b, wk, wmax, o, K, N);
+  if (trans)
+    return launch_mma<T, true, false>(grid, st, a, b, wk, wmax, o, K, N);
+  if (vec)
+    return launch_mma<T, false, true>(grid, st, a, b, wk, wmax, o, K, N);
+  return launch_mma<T, false, false>(grid, st, a, b, wk, wmax, o, K, N);
+}
+
 }  // namespace
 
 // lhs (M, K); rhs (E, K, N), or (E, N, K) with trans = 1; group_sizes (E,)
 // int32 on the device; work: 4 * wmax int32 of scratch, wmax = ceil(M /
-// tile_m) + E; out (M, N). dtype: 0 = float32, 1 = bfloat16 (lhs, rhs
-// and out share it).
+// tile_m) + E; out (M, N). dtype: 0 = float32, 1 = bfloat16, 2 = float16
+// (lhs, rhs and out share it).
 extern "C" int pdt_grouped_matmul(const void* lhs, const void* rhs,
                                   const void* group_sizes, void* work,
                                   void* out, int M, int K, int N, int E,
                                   int trans, int dtype, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (K <= 0 || E <= 0 || (dtype != 0 && dtype != 1))
+  if (K <= 0 || E <= 0 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bm = dtype == 1 ? kBM : kFBM;
+  const int bm = dtype != 0 ? kBM : kFBM;
   const int wmax = (M + bm - 1) / bm + E;
   int4* wk = static_cast<int4*>(work);
   gmm_plan_kernel<<<1, 256, sizeof(int) * size_t(E), st>>>(
       static_cast<const int*>(group_sizes), E, M, bm, wk, wmax);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dtype == 1) {
+  if (dtype != 0) {
     const dim3 grid((N + kBN - 1) / kBN, wmax < kMaxGridY ? wmax : kMaxGridY);
     const bool vec = K % 8 == 0 && N % 8 == 0 && aligned16(lhs) &&
                      aligned16(rhs);
-    const bf16* a = static_cast<const bf16*>(lhs);
-    const bf16* b = static_cast<const bf16*>(rhs);
-    bf16* o = static_cast<bf16*>(out);
-    if (trans && vec)
-      err = launch_mma<true, true>(grid, st, a, b, wk, wmax, o, K, N);
-    else if (trans)
-      err = launch_mma<true, false>(grid, st, a, b, wk, wmax, o, K, N);
-    else if (vec)
-      err = launch_mma<false, true>(grid, st, a, b, wk, wmax, o, K, N);
-    else
-      err = launch_mma<false, false>(grid, st, a, b, wk, wmax, o, K, N);
+    err = dtype == 1 ? launch_mma<bf16>(grid, st, lhs, rhs, wk, wmax, out, K,
+                                        N, trans != 0, vec)
+                     : launch_mma<__half>(grid, st, lhs, rhs, wk, wmax, out,
+                                          K, N, trans != 0, vec);
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     const dim3 grid((N + kFBN - 1) / kFBN,

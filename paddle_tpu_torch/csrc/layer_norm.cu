@@ -33,6 +33,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -43,6 +44,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -50,6 +52,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half(v);
 }
 
 // VEC elements of T make one 16-byte access
@@ -309,8 +314,8 @@ cudaError_t launch_bwd(const void* x, const void* w, const float* mean,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w, b and o share it); mean and rstd
-// are (n,) f32 outputs.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, w, b and o share it);
+// mean and rstd are (n,) f32 outputs.
 extern "C" int pdt_layer_norm_fwd(const void* x, const void* w,
                                   const void* b, void* o, void* mean,
                                   void* rstd, int n, int h, float eps,
@@ -324,13 +329,14 @@ extern "C" int pdt_layer_norm_fwd(const void* x, const void* w,
     case 0: return launch_fwd<float>(x, w, b, o, mu, r, n, h, eps, s);
     case 1:
       return launch_fwd<__nv_bfloat16>(x, w, b, o, mu, r, n, h, eps, s);
+    case 2: return launch_fwd<__half>(x, w, b, o, mu, r, n, h, eps, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// x, w, g, dx, dw and db share `dtype` (0 = float32, 1 = bfloat16); mean
-// and rstd are the forward's (n,) f32 outputs; part is 2 * ceil(n / 16) * h
-// f32 scratch (the dw partials, then the db partials).
+// x, w, g, dx, dw and db share `dtype` (0 = float32, 1 = bfloat16, 2 =
+// float16); mean and rstd are the forward's (n,) f32 outputs; part is
+// 2 * ceil(n / 16) * h f32 scratch (the dw partials, then the db partials).
 extern "C" int pdt_layer_norm_bwd(const void* x, const void* w,
                                   const void* mean, const void* rstd,
                                   const void* g, void* dx, void* part,
@@ -347,6 +353,8 @@ extern "C" int pdt_layer_norm_bwd(const void* x, const void* w,
     case 1:
       return launch_bwd<__nv_bfloat16>(x, w, mu, r, g, dx, p, dw, db, n, h,
                                        s);
+    case 2:
+      return launch_bwd<__half>(x, w, mu, r, g, dx, p, dw, db, n, h, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

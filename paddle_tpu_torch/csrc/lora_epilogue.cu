@@ -53,6 +53,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -66,6 +67,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -73,6 +75,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half(v);
 }
 
 __device__ __forceinline__ bool live_row(int id, int R) {
@@ -167,9 +172,9 @@ cudaError_t launch(const void* x, const void* a, const void* b,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, A, B and y share it). h: f32
-// scratch of T * ceil(K / kchunk) * r values. accumulate: 0 writes the
-// delta into y, 1 adds it into y.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, A, B and y share
+// it). h: f32 scratch of T * ceil(K / kchunk) * r values. accumulate: 0
+// writes the delta into y, 1 adds it into y.
 extern "C" int pdt_lora_epilogue(const void* x, const void* a, const void* b,
                                  const void* scale, const void* ids, void* h,
                                  void* y, int T, int K, int N, int R, int r,
@@ -189,6 +194,9 @@ extern "C" int pdt_lora_epilogue(const void* x, const void* a, const void* b,
     case 1:
       return launch<__nv_bfloat16>(x, a, b, sc, id, hh, y, T, K, N, R, r,
                                    kchunk, accumulate != 0, s);
+    case 2:
+      return launch<__half>(x, a, b, sc, id, hh, y, T, K, N, R, r, kchunk,
+                            accumulate != 0, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -38,6 +38,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -51,6 +52,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -58,6 +60,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half(v);
 }
 
 // butterfly sum: every lane ends with the same value (each step adds the
@@ -267,7 +272,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, o and the pages share it).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, o and the pages share it).
 // window <= 0: no sliding window.
 extern "C" int pdt_paged_attention(const void* q, const void* k_pages,
                                    const void* v_pages,
@@ -290,6 +295,9 @@ extern "C" int pdt_paged_attention(const void* q, const void* k_pages,
     case 1:
       return launch<__nv_bfloat16>(q, k_pages, v_pages, cl, bt, o, B, H, HK,
                                    D, P, page_size, pps, scale, window, s);
+    case 2:
+      return launch<__half>(q, k_pages, v_pages, cl, bt, o, B, H, HK, D, P,
+                            page_size, pps, scale, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

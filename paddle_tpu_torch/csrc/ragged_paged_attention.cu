@@ -52,6 +52,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -66,6 +67,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_f(int8_t v) {
   return static_cast<float>(v);  // int8_t is signed: sign-extends
 }
@@ -76,6 +78,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half(v);
 }
 
 template <typename T> struct Vec { static constexpr int n = 16 / sizeof(T); };
@@ -327,9 +332,10 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q and o share it). k_scale / v_scale:
-// null for full-width pages, which then share q's dtype; both non-null for
-// int8 pages, each a (P, page_size) f32 pool. window <= 0: no sliding window.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and o share it).
+// k_scale / v_scale: null for full-width pages, which then share q's dtype;
+// both non-null for int8 pages, each a (P, page_size) f32 pool. window <= 0:
+// no sliding window.
 extern "C" int pdt_ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale,
@@ -365,6 +371,14 @@ extern "C" int pdt_ragged_paged_attention(
           page_size, N, pps, block_q, scale, window, s);
     case 3:
       return launch<__nv_bfloat16, int8_t>(
+          q, k_pages, v_pages, ks, vs, qs, ql, cl, bt, o, T, H, HK, D, P,
+          page_size, N, pps, block_q, scale, window, s);
+    case 4:
+      return launch<__half, __half>(
+          q, k_pages, v_pages, ks, vs, qs, ql, cl, bt, o, T, H, HK, D, P,
+          page_size, N, pps, block_q, scale, window, s);
+    case 5:
+      return launch<__half, int8_t>(
           q, k_pages, v_pages, ks, vs, qs, ql, cl, bt, o, T, H, HK, D, P,
           page_size, N, pps, block_q, scale, window, s);
     default:

@@ -35,6 +35,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -45,6 +46,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -52,6 +54,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half(v);
 }
 
 // VEC elements of T make one 16-byte access
@@ -263,7 +268,7 @@ cudaError_t launch_bwd(const void* x, const void* w, const float* rstd,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and o share it)
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, w and o share it)
 extern "C" int pdt_rms_norm_fwd(const void* x, const void* w, void* o,
                                 void* rstd, int n, int h, float eps,
                                 int dtype, void* stream) {
@@ -273,12 +278,14 @@ extern "C" int pdt_rms_norm_fwd(const void* x, const void* w, void* o,
   switch (dtype) {
     case 0: return launch<float>(x, w, o, r, n, h, eps, s);
     case 1: return launch<__nv_bfloat16>(x, w, o, r, n, h, eps, s);
+    case 2: return launch<__half>(x, w, o, r, n, h, eps, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// x, w, g, dx and dw share `dtype` (0 = float32, 1 = bfloat16); rstd is the
-// forward's (n,) f32 output; dw_part is (ceil(n / 16), h) f32 scratch.
+// x, w, g, dx and dw share `dtype` (0 = float32, 1 = bfloat16, 2 =
+// float16); rstd is the forward's (n,) f32 output; dw_part is
+// (ceil(n / 16), h) f32 scratch.
 extern "C" int pdt_rms_norm_bwd(const void* x, const void* w,
                                 const void* rstd, const void* g, void* dx,
                                 void* dw_part, void* dw, int n, int h,
@@ -292,6 +299,8 @@ extern "C" int pdt_rms_norm_bwd(const void* x, const void* w,
       return launch_bwd<float>(x, w, r, g, dx, part, dw, n, h, s);
     case 1:
       return launch_bwd<__nv_bfloat16>(x, w, r, g, dx, part, dw, n, h, s);
+    case 2:
+      return launch_bwd<__half>(x, w, r, g, dx, part, dw, n, h, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,6 +20,12 @@ the ``*_grads_to_numpy`` / ``*_state_to_numpy`` helpers): their Linear
 weights transpose, and everything else — embeddings, norms, biases, the
 MoE router (H, E) and the stacked experts (E, H, I) / (E, I, H), which
 keep the JAX layout — crosses unchanged.
+
+The incubate `Fused*` layers keep the JAX layouts of every parameter
+((in, out) weights, the fused (3, H, head_dim, E) QKV weight), so
+`fused_layer_state_from_numpy` and its ``_to_numpy`` / grads helpers
+carry them under the same names with no transpose, checking names and
+shapes.
 """
 from __future__ import annotations
 
@@ -159,6 +165,7 @@ def llama_state_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 _MOE_LINEAR = re.compile(r".*(_proj|shared_(gate|up|down))\.weight|"
                          r"lm_head\.weight")
+_NO_LINEAR = re.compile(r"(?!)")   # matches no name
 _BERT_LINEAR = re.compile(r".*\.(q_proj|k_proj|v_proj|out_proj|linear1|"
                           r"linear2|pooler|transform)\.weight")
 
@@ -239,3 +246,23 @@ def bert_grads_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
 def bert_state_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     return _numpy_from_tensors(dict(model.named_parameters()), model,
                                _BERT_LINEAR)
+
+
+def fused_layer_state_from_numpy(sd: Dict[str, np.ndarray],
+                                 model: torch.nn.Module
+                                 ) -> Dict[str, torch.Tensor]:
+    """Map a JAX `Fused*` layer's state dict onto ``model``'s parameters:
+    the same names and layouts, nothing transposed. Raises as
+    `moe_state_from_numpy`."""
+    return _state_from_numpy(sd, model, _NO_LINEAR)
+
+
+def fused_layer_grads_to_numpy(model: torch.nn.Module
+                               ) -> Dict[str, np.ndarray]:
+    return _numpy_from_tensors(_grads(model), model, _NO_LINEAR)
+
+
+def fused_layer_state_to_numpy(model: torch.nn.Module
+                               ) -> Dict[str, np.ndarray]:
+    return _numpy_from_tensors(dict(model.named_parameters()), model,
+                               _NO_LINEAR)

@@ -3,7 +3,8 @@
 ≙ `paddle_tpu/ops/__init__.py` (`on_tpu`): there the platform decides
 between a Pallas kernel and its XLA fallback. Here the tensor decides:
 a wrapper launches its CUDA kernel for a CUDA tensor and runs the plain
-PyTorch version for a CPU tensor — never one in place of the other.
+PyTorch version for a CPU tensor — never one in place of the other. A
+CUDA input a kernel cannot take raises.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ launch_counts = {"rms_norm": 0, "ragged_paged_attention": 0,
                  "lora_epilogue": 0, "paged_attention": 0,
                  "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
                  "flash_attention_bwd_dkv": 0, "rms_norm_bwd": 0,
-                 "grouped_matmul": 0, "layer_norm": 0, "layer_norm_bwd": 0}
+                 "grouped_matmul": 0, "layer_norm": 0, "layer_norm_bwd": 0,
+                 "flash_varlen_fwd": 0, "flash_varlen_bwd_dq": 0,
+                 "flash_varlen_bwd_dkv": 0, "rope": 0}
 
 
 def reset_launch_counts() -> None:

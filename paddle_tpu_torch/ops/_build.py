@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface (``lib<name>-<hash>.so``), loaded with
-`ctypes`. The hash covers the source and the flags, so an edit rebuilds
-and an unchanged source is reused. Several sources build in parallel:
+`ctypes`. The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edit rebuilds and an unchanged
+source is reused. Several sources build in parallel:
 one ``nvcc`` process per source, all started together. Nothing is built
 when a module is imported — only when a kernel is first launched or
 `build` is called.
@@ -21,8 +22,11 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
+# --split-compile 0: nvcc optimises a source's many kernel instances (the
+# flash sources hold 63 each) in parallel on every host core
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0")
 
 _LIBS: dict = {}
 
@@ -47,6 +51,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

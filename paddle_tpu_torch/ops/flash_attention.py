@@ -22,8 +22,10 @@ plain versions (`flash_attention_ref`, `flash_attention_bwd_ref`), which
 keep the JAX kernels' precisions so that they match the interpret-mode
 kernels: QK^T in f32 and P cast to v's dtype for P.V; dP = dO.V^T in
 f32 and dS cast to k's dtype for dS.K; P, dO, dS and q in f32 for dK
-and dV. There is no counterpart of the TPU's `_aligned` fallback to
-XLA: every sequence length goes through the kernels.
+and dV. Every sequence length and every head dim up to `MAX_HEAD_DIM`
+(the reference's `_aligned` limit; a multiple of 8 in bf16 and f16) goes
+through the kernels; the TPU's tiling fallback to `_attention_xla` has no
+counterpart. A CUDA input the kernels cannot take raises.
 """
 from __future__ import annotations
 
@@ -35,8 +37,10 @@ import torch
 from . import kernel_errors, kernel_route, launch_counts  # noqa: F401
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# `csrc/flash_kernels.cuh` runs any head dim up to this one at the
+# smallest of its tile widths that holds it, the columns past D zero
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _DIMS = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p]
 # pdt_flash_fwd(q, k, v, o, lse, B, Sq, Sk, H, HK, D, scale, causal,
@@ -76,16 +80,10 @@ def _scores(qh, kh, scale, live):
     return s.masked_fill(~live, NEG_INF)
 
 
-def flash_attention_ref(q, k, v, causal=False, scale=None,
-                        window_size=None):
-    """Plain PyTorch forward: ``(o (B, Sq, H, D) in q's dtype, lse (B, H,
-    Sq) f32)``. Scores in f32, softmax weights cast to v's dtype for the
-    weighted sum (f32 accumulation), rows with no live key 0 and lse
-    -1e30, as the JAX `_fwd_kernel`."""
-    d = q.shape[-1]
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+def attend_ref(q, k, v, live, scale):
+    """The plain forward under a given mask ``live`` (broadcastable to
+    (B, H, Sq, Sk)): ``(o, lse)`` as `flash_attention_ref`."""
     qh, kh, vh = _heads_first(q, k, v)
-    live = _live(q.shape[1], k.shape[1], causal, window_size, q.device)
     s = _scores(qh, kh, scale, live)
     m = s.amax(-1, keepdim=True)
     p = torch.where(live, torch.exp(s - m), 0.0)
@@ -95,17 +93,25 @@ def flash_attention_ref(q, k, v, causal=False, scale=None,
     return o.to(q.dtype).transpose(1, 2), lse
 
 
-def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=False, scale=None,
-                            window_size=None):
-    """Plain PyTorch backward from the saved lse: ``(dq, dk, dv)`` in the
-    inputs' dtypes, dk and dv summed over the H / HK query heads of each
-    KV head. Precisions of `_bwd_dq_kernel` / `_bwd_dkv_kernel`."""
+def flash_attention_ref(q, k, v, causal=False, scale=None,
+                        window_size=None):
+    """Plain PyTorch forward: ``(o (B, Sq, H, D) in q's dtype, lse (B, H,
+    Sq) f32)``. Scores in f32, softmax weights cast to v's dtype for the
+    weighted sum (f32 accumulation), rows with no live key 0 and lse
+    -1e30, as the JAX `_fwd_kernel`."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    live = _live(q.shape[1], k.shape[1], causal, window_size, q.device)
+    return attend_ref(q, k, v, live, scale)
+
+
+def attend_bwd_ref(q, k, v, o, lse, do, live, scale):
+    """The plain backward under a given mask ``live``: ``(dq, dk, dv)``
+    as `flash_attention_bwd_ref`."""
     b, sq, h, d = q.shape
     hk = k.shape[2]
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     qh, kh, vh = _heads_first(q, k, v)
     doh = do.transpose(1, 2).float()
-    live = _live(sq, k.shape[1], causal, window_size, q.device)
     s = _scores(qh, kh, scale, live)
     p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2)[..., None]
@@ -122,27 +128,43 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=False, scale=None,
             per_kv_head(dv).to(v.dtype).transpose(1, 2))
 
 
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=False, scale=None,
+                            window_size=None):
+    """Plain PyTorch backward from the saved lse: ``(dq, dk, dv)`` in the
+    inputs' dtypes, dk and dv summed over the H / HK query heads of each
+    KV head. Precisions of `_bwd_dq_kernel` / `_bwd_dkv_kernel`."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    live = _live(q.shape[1], k.shape[1], causal, window_size, q.device)
+    return attend_bwd_ref(q, k, v, o, lse, do, live, scale)
+
+
 # limits on `kernel_errors` for the kernels against the plain versions.
 # bf16: both round P (and dS for dQ) to bf16, the kernel at each tile's
 # running max and the plain version at the row max, and the outputs once
 # more; f32: the same math summed in another order. On the H100 the
 # kernels read at most 2.2e-3 / 5.9e-3 (bf16) and 7.4e-7 / 1.3e-4 (f32,
 # a dQ row that cancels), a skipped K tile or a wrong GQA head at least
-# 0.196 / 0.76 (chip_smoke.py's flash phase, PERF.md)
+# 0.196 / 0.76 (chip_smoke.py's flash phase, PERF.md). f16 rounds at the
+# same places with 11 significant bits for bf16's 8, so bf16's limits
+# hold it with room to spare.
 KERNEL_LIMITS = {torch.bfloat16: dict(rel=8e-3, row=3e-2),
+                 torch.float16: dict(rel=8e-3, row=3e-2),
                  torch.float32: dict(rel=1e-5, row=1e-3)}
 
 
 def _check(q, k, v):
     if q.dtype not in _DTYPES:
-        raise TypeError(f"flash attention kernels take float32 or bfloat16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"flash attention kernels take float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     if not (k.dtype == v.dtype == q.dtype):
         raise ValueError("flash attention kernels want q, k and v of one "
                          "dtype")
-    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash attention kernels support head dims "
-                         f"{SUPPORTED_HEAD_DIMS}; got {q.shape[-1]}")
+    d = q.shape[-1]
+    if d > MAX_HEAD_DIM or (q.dtype != torch.float32 and d % 8):
+        raise ValueError(f"flash attention kernels take head dims up to "
+                         f"{MAX_HEAD_DIM}, multiples of 8 in bfloat16 and "
+                         f"float16; got {d} in {q.dtype}")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash attention kernels want q, k and v on one "
                          "CUDA device")
@@ -258,9 +280,9 @@ def flash_attention_values(q, k, v, causal=False, scale=None,
                            window_size=None, use_kernel=None):
     """Attention of (B, Sq, H, D) queries over (B, Sk, HK, D) keys and
     values (H a multiple of HK), differentiable in q, k and v. A CUDA
-    tensor goes through the kernels, forward and backward (head dims
-    16, 32, 64 and 128; any other raises); a CPU tensor, or
-    ``use_kernel=False``, through the plain versions."""
+    tensor goes through the kernels, forward and backward (a head dim
+    they cannot take raises); a CPU tensor, or ``use_kernel=False``,
+    through the plain versions."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B, Sq, H, D) and k, v (B, Sk, HK, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -33,10 +33,10 @@ import torch
 
 from . import kernel_route, launch_counts
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# rows per m tile of the kernel's bf16 and f32 paths (kBM / kFBM in
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# rows per m tile of the kernel's bf16/f16 and f32 paths (kBM / kFBM in
 # csrc/grouped_matmul.cu): the work list holds ceil(M / tile) + E items
-_TILE_M = {torch.bfloat16: 128, torch.float32: 64}
+_TILE_M = {torch.bfloat16: 128, torch.float16: 128, torch.float32: 64}
 # pdt_grouped_matmul(lhs, rhs, group_sizes, work, out, M, K, N, E, trans,
 #                    dtype, stream)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -46,8 +46,10 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # differ by the order of the f32 sums and one rounding of each output to
 # bf16 (2^-9 relative at most, ~1.1e-3 RMS); f32: sums of up to a few
 # thousand products in another order. A skipped 32-wide K step or a row
-# multiplied by the wrong group's weights reads above 0.05 (chip_smoke.py)
+# multiplied by the wrong group's weights reads above 0.05 (chip_smoke.py).
+# f16 rounds at the same place with 3 more significant bits: bf16's limits.
 GMM_LIMITS = {torch.bfloat16: dict(rel=4e-3, row=1.6e-2),
+              torch.float16: dict(rel=4e-3, row=1.6e-2),
               torch.float32: dict(rel=1e-5, row=1e-4)}
 
 
@@ -82,8 +84,8 @@ def _gmm_cuda(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes,
     """Launch `csrc/grouped_matmul.cu` (its work-list kernel, then the
     matmul)."""
     if lhs.dtype not in _DTYPES:
-        raise TypeError(f"grouped matmul kernel takes float32 or bfloat16, "
-                        f"got {lhs.dtype}")
+        raise TypeError(f"grouped matmul kernel takes float32, bfloat16 or "
+                        f"float16, got {lhs.dtype}")
     if rhs.dtype != lhs.dtype:
         raise TypeError(f"grouped matmul kernel wants lhs and rhs of one "
                         f"dtype, got {lhs.dtype} and {rhs.dtype}")

@@ -35,7 +35,7 @@ import torch
 from . import kernel_route, launch_counts
 from .quant_matmul import QuantizedWeight, dequant_matmul_values
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # pdt_lora_epilogue(x, a, b, scale, ids, h, y, T, K, N, R, r, kchunk,
 #   dtype, accumulate, stream)
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -98,8 +98,8 @@ def _lora_cuda(x2, a, b, scale, ids, y=None):
     new (T, N) tensor, or added into ``y`` (T, N) in place."""
     t, k = x2.shape
     if x2.dtype not in _DTYPES:
-        raise TypeError(f"lora epilogue kernel takes float32 or bfloat16, "
-                        f"got {x2.dtype}")
+        raise TypeError(f"lora epilogue kernel takes float32, bfloat16 or "
+                        f"float16, got {x2.dtype}")
     if a.dtype != x2.dtype or b.dtype != x2.dtype:
         raise TypeError(f"lora epilogue kernel wants the stacks in x's "
                         f"dtype {x2.dtype}, got {a.dtype} / {b.dtype}")

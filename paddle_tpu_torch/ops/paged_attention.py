@@ -27,7 +27,7 @@ from . import kernel_route, launch_counts
 from .ragged_paged_attention import (TRASH_PAGE, gather_pages,
                                      masked_page_attention)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # pdt_paged_attention(q, k_pages, v_pages, context_lens, block_tables, o,
 #   B, H, HK, D, P, page_size, pps, scale, window, dtype, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
@@ -59,8 +59,8 @@ def _paged_cuda(q, k_pages, v_pages, context_lens, block_tables, scale,
     b, h, d = q.shape
     hk, p, page_size, _ = k_pages.shape
     if q.dtype not in _DTYPES:
-        raise TypeError(f"paged attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"paged attention kernel takes float32, bfloat16 "
+                        f"or float16, got {q.dtype}")
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError("paged attention kernel wants q and the page pools "
                         "in one dtype")

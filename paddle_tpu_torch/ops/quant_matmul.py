@@ -37,7 +37,7 @@ from . import kernel_route, launch_counts
 WEIGHT_QMAX = 127.0          # int8 absmax lattice
 FP8_MAX = 448.0              # float8_e4m3fn finite max
 
-_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _W_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 # pdt_dequant_matmul(x, w, scale, y, M, K, N, x_dtype, w_dtype, stream)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -110,8 +110,8 @@ def _dequant_cuda(x2: torch.Tensor, qw: torch.Tensor,
     """Launch `csrc/dequant_matmul.cu` on (M, K) rows."""
     m, k = x2.shape
     if x2.dtype not in _X_DTYPES:
-        raise TypeError(f"dequant matmul kernel takes float32 or bfloat16 "
-                        f"activations, got {x2.dtype}")
+        raise TypeError(f"dequant matmul kernel takes float32, bfloat16 or "
+                        f"float16 activations, got {x2.dtype}")
     if qw.dtype not in _W_DTYPES:
         raise TypeError(f"dequant matmul kernel takes int8 or "
                         f"float8_e4m3fn weights, got {qw.dtype}")

@@ -36,7 +36,7 @@ DEFAULT_BLOCK_Q = 8
 TRASH_PAGE = 0
 KV_QMAX = 127.0     # int8 absmax lattice of a quantized KV page row
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # pdt_ragged_paged_attention(q, k_pages, v_pages, k_scale, v_scale,
 #   query_start, query_len, context_len, block_tables, o, T, H, HK, D, P,
 #   page_size, N, pps, block_q, scale, window, dtype, stream)
@@ -232,8 +232,8 @@ def _ragged_cuda(q, k_pages, v_pages, query_start, query_len, context_len,
     n, pps = block_tables.shape
     quant = k_scale is not None
     if q.dtype not in _DTYPES:
-        raise TypeError(f"ragged attention kernel takes float32 or "
-                        f"bfloat16, got {q.dtype}")
+        raise TypeError(f"ragged attention kernel takes float32, "
+                        f"bfloat16 or float16, got {q.dtype}")
     page_dt = torch.int8 if quant else q.dtype
     if k_pages.dtype != page_dt or v_pages.dtype != page_dt:
         raise TypeError(

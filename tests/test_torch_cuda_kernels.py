@@ -44,14 +44,28 @@ LayerNorm: `nk.LN_LIMITS` on `kernel_errors` for y, dx, dw and db (both
 sides in f32, one rounding), dw and db bitwise equal across runs;
 the tiny MoE (dropless through the grouped-matmul kernel) and tiny BERT
 (LayerNorm kernels) train steps as the tiny Llama's: losses within
-1e-4, parameters within 1e-4 of their norm."""
+1e-4, parameters within 1e-4 of their norm;
+float16 through every kernel above at bf16's limits (f16 rounds at the
+same places with 3 more significant bits);
+flash attention at every tile width's head dims, 8 to 256 (72 and 136
+zero-padded to 80 and 160), at `fa.KERNEL_LIMITS`; head dims past 256,
+bf16/f16 head dims that are not multiples of 8 and float64 raise;
+varlen flash attention: as flash attention (`fa.KERNEL_LIMITS`, f32
+also elementwise 1e-4), padding rows exact zeros with zero dQ and
+padding keys zero dK/dV, dK/dV bitwise equal across runs, one segment
+without padding equal to the dense kernels bitwise;
+rope: bitwise equal to its plain version in every dtype (the kernel
+rounds each product and the sum once, as the plain version's separate
+ops do), forward and backward."""
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import grouped_matmul as gmm
+from paddle_tpu_torch.ops import flash_varlen as fv
 from paddle_tpu_torch.ops import kernel_errors, launch_counts
+from paddle_tpu_torch.ops import rope as rp
 from paddle_tpu_torch.ops import lora_epilogue as le
 from paddle_tpu_torch.ops import norm_kernels as nk
 from paddle_tpu_torch.ops import paged_attention as pa
@@ -59,6 +73,8 @@ from paddle_tpu_torch.ops import quant_matmul as qm
 from paddle_tpu_torch.ops import ragged_paged_attention as ra
 
 pytestmark = pytest.mark.requires_cuda
+
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
 @pytest.fixture
@@ -71,7 +87,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows", [1, 8, 300, 6432])
 @pytest.mark.parametrize("h", [64, 4096, 4100])
 def test_rms_norm_kernel_matches_plain(cuda, rows, h, dtype):
@@ -82,7 +98,7 @@ def test_rms_norm_kernel_matches_plain(cuda, rows, h, dtype):
     out = nk.rms_norm_values(x, w, 1e-5)
     assert launch_counts["rms_norm"] == before + 1
     ref = nk.rms_norm_ref(x, w, 1e-5)
-    tol = dict(rtol=2 ** -7, atol=1e-3) if dtype == torch.bfloat16 \
+    tol = dict(rtol=2 ** -7, atol=1e-3) if dtype != torch.float32 \
         else dict(rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
     _, rstd = nk._rms_fwd(x, w, 1e-5)
@@ -133,7 +149,7 @@ ATTN_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", ATTN_CASES, ids=[c[0] for c in ATTN_CASES])
 def test_ragged_attention_kernel_matches_plain(cuda, case, dtype):
     name, hk, g, ql, cl, bq, tail, window, trash = case
@@ -148,7 +164,7 @@ def test_ragged_attention_kernel_matches_plain(cuda, case, dtype):
     assert launch_counts["ragged_paged_attention"] == before + 1
     ref = ra.ragged_paged_attention_values(*args, window=window,
                                            block_q=bq, use_kernel=False)
-    tol = dict(atol=2e-2, rtol=0) if dtype == torch.bfloat16 \
+    tol = dict(atol=2e-2, rtol=0) if dtype != torch.float32 \
         else dict(atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
     seq, _ = ra.token_arrays(arrays[3], arrays[4], arrays[5],
@@ -187,7 +203,7 @@ def _quantized(args):
     return pools
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", ATTN_CASES, ids=[c[0] for c in ATTN_CASES])
 def test_int8kv_attention_kernel_matches_plain(cuda, case, dtype):
     name, hk, g, ql, cl, bq, tail, window, trash = case
@@ -209,7 +225,7 @@ def test_int8kv_attention_kernel_matches_plain(cuda, case, dtype):
                                            block_q=bq, use_kernel=False,
                                            k_scale=ks, v_scale=vs)
     assert out.dtype == dtype
-    tol = dict(atol=2e-2, rtol=0) if dtype == torch.bfloat16 \
+    tol = dict(atol=2e-2, rtol=0) if dtype != torch.float32 \
         else dict(atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
     seq, _ = ra.token_arrays(arrays[3], arrays[4], arrays[5],
@@ -243,7 +259,7 @@ DQ_SHAPES = [(4096, 1024), (256, 384), (4100, 130), (70, 33)]
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m", [1, 8, 300, 6432])
 @pytest.mark.parametrize("kn", DQ_SHAPES, ids=[f"{k}x{n}" for k, n in
                                                DQ_SHAPES])
@@ -260,7 +276,7 @@ def test_dequant_matmul_kernel_matches_plain(cuda, kn, m, dtype, mode):
     assert out.dtype == dtype and out.shape == (m, n)
     top = ref.float().abs().max().item()
     tol = dict(rtol=2 ** -7, atol=2 ** -8 * top) \
-        if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5 * top)
+        if dtype != torch.float32 else dict(rtol=1e-5, atol=1e-5 * top)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
@@ -279,7 +295,7 @@ def test_dequant_matmul_wrapper_checks(cuda):
     qw, sc = qm.quantize_weight_values(torch.randn(16, 32, device=cuda))
     x = torch.randn(4, 32, device=cuda)
     with pytest.raises(TypeError, match="activations"):
-        qm.dequant_matmul_values(x.half(), qw, sc)
+        qm.dequant_matmul_values(x.double(), qw, sc)
     with pytest.raises(TypeError, match="weights"):
         qm.dequant_matmul_values(x, qw.float(), sc)
     with pytest.raises(TypeError, match="scale"):
@@ -327,7 +343,7 @@ def _lora_operands(dev, t, k, n, r, dtype, stacks=4, seed=0):
 def _lora_tol(ref, dtype):
     top = ref.float().abs().max().item()
     return dict(rtol=2 ** -7, atol=2 ** -8 * top) \
-        if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5 * top)
+        if dtype != torch.float32 else dict(rtol=1e-5, atol=1e-5 * top)
 
 
 LORA_SHAPES = [(8, 4096, 14336, 16), (8, 14336, 4096, 16),
@@ -335,7 +351,7 @@ LORA_SHAPES = [(8, 4096, 14336, 16), (8, 14336, 4096, 16),
                (1, 70, 33, 3), (40, 256, 512, 64), (3, 1000, 300, 5)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", LORA_SHAPES,
                          ids=["t{}_k{}_n{}_r{}".format(*s) for s in
                               LORA_SHAPES])
@@ -356,7 +372,7 @@ def test_lora_epilogue_kernel_matches_plain(cuda, shape, dtype):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_lora_epilogue_bitwise_batch_invariance(cuda, dtype):
     """A token's delta alone equals its delta inside batches of 8 and of
     300, bitwise; row-0 tokens give exact zeros; zero rank columns
@@ -406,7 +422,7 @@ PAGED_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", PAGED_CASES,
                          ids=[c[0] for c in PAGED_CASES])
 def test_paged_attention_kernel_matches_plain(cuda, case, dtype):
@@ -420,7 +436,7 @@ def test_paged_attention_kernel_matches_plain(cuda, case, dtype):
     assert launch_counts["paged_attention"] == before + 1
     ref = pa.paged_attention_values(q, kp, vp, cl, bt, window=window,
                                     use_kernel=False)
-    tol = dict(atol=2e-2, rtol=0) if dtype == torch.bfloat16 \
+    tol = dict(atol=2e-2, rtol=0) if dtype != torch.float32 \
         else dict(atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
 
@@ -481,7 +497,7 @@ def test_tiny_lora_and_legacy_engines_on_card_match_cpu(cuda, kw):
                                                               **dict(kw))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows", [1, 300, 6432])
 @pytest.mark.parametrize("h", [64, 4096, 4100])
 def test_rms_norm_backward_kernel_matches_plain(cuda, rows, h, dtype):
@@ -502,7 +518,7 @@ def test_rms_norm_backward_kernel_matches_plain(cuda, rows, h, dtype):
         grads.append((xx.grad, ww.grad))
     (dx, dw), (rdx, rdw) = grads
     assert dx.dtype == dtype and dw.dtype == dtype
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         torch.testing.assert_close(dx.float(), rdx.float(), rtol=2 ** -7,
                                    atol=1e-3)
         top = rdw.float().abs().max().item()
@@ -547,8 +563,9 @@ def _flash_close(out, ref, dtype):
     assert rel <= lim["rel"] and row <= lim["row"], (rel, row)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 64, 72, 80, 96, 112, 128, 136,
+                               160, 192, 256])
 @pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
 def test_flash_attention_kernels_match_plain(cuda, case, d, dtype):
     label, _, sq, sk, _, _, causal, window = case
@@ -593,12 +610,16 @@ def test_flash_attention_autograd_and_refusals(cuda):
                                           q, k, v, True)[1], do, True)
     for leaf, w in zip(leaves, want):
         _flash_close(leaf.grad, w, torch.bfloat16)
-    bad = torch.zeros(1, 8, 2, 48, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention_values(bad, bad, bad, causal=True)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        fa.flash_attention_values(bad.half()[..., :32], bad.half()[..., :32],
-                                  bad.half()[..., :32])
+    # head dims the kernels do not take, and float64, raise before launch
+    before = dict(launch_counts)
+    for d, dt in ((264, torch.float32), (100, torch.bfloat16),
+                  (36, torch.float16)):
+        bad = torch.zeros(1, 8, 2, d, device=cuda, dtype=dt)
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_attention_values(bad, bad, bad, causal=True)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        fa.flash_attention_values(*(bad.double()[..., :32],) * 3)
+    assert launch_counts == before
     with pytest.raises(ValueError, match="requires causal"):
         fa.flash_attention_values(q, k, v, window_size=8)
 
@@ -679,7 +700,7 @@ GMM_CASES = [
 
 
 @pytest.mark.parametrize("trans", [False, True], ids=["kn", "nk"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", GMM_CASES, ids=[c[0] for c in GMM_CASES])
 def test_grouped_matmul_kernel_matches_plain(cuda, case, dtype, trans):
     label, m, k, n, sizes = case
@@ -702,7 +723,7 @@ def test_grouped_matmul_kernel_matches_plain(cuda, case, dtype, trans):
     assert torch.equal(out, gmm.gmm(lhs, rhs, gs, trans))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_grouped_matmul_autograd_matches_plain(cuda, dtype):
     lhs, rhs, gs = _gmm_inputs(cuda, 700, 192, 320, [100, 0, 250, 3, 300],
                                dtype, False, seed=1)
@@ -728,8 +749,8 @@ def test_grouped_matmul_wrapper_checks(cuda):
                                torch.bfloat16, False, seed=2)
     with pytest.raises(TypeError, match="one dtype"):
         gmm.gmm(lhs, rhs.float(), gs)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        gmm.gmm(lhs.half(), rhs.half(), gs)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        gmm.gmm(lhs.double(), rhs.double(), gs)
     with pytest.raises(ValueError, match="contraction"):
         gmm.gmm(lhs[:, :16].contiguous(), rhs, gs)
     with pytest.raises(ValueError, match="group_sizes"):
@@ -738,7 +759,7 @@ def test_grouped_matmul_wrapper_checks(cuda):
         gmm.gmm(lhs.T.contiguous().T, rhs, gs)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows", [1, 300, 16384])
 @pytest.mark.parametrize("h", [100, 768, 3584])
 def test_layer_norm_kernels_match_plain(cuda, rows, h, dtype):
@@ -808,3 +829,151 @@ def test_tiny_bert_train_steps_on_card_match_cpu(cuda):
     for key in ("layer_norm", "layer_norm_bwd"):
         assert launch_counts[key] - before[key] == 18
     _same_training(runs["cuda"], runs["cpu"])
+
+
+def test_flash_head_dim_256_through_the_kernels(cuda):
+    """D = 256, the reference's largest, through `flash_attention_values`:
+    the kernels forward and backward, once each, at `fa.KERNEL_LIMITS`."""
+    q, k, v, do = _flash_inputs(cuda, FLASH_CASES[1], 256, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(launch_counts)
+    out = fa.flash_attention_values(*leaves, causal=True)
+    out.backward(do)
+    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+        key = f"flash_attention_{name}"
+        assert launch_counts[key] == before[key] + 1
+    ro, lse = fa.flash_attention_ref(q, k, v, True)
+    _flash_close(out.detach(), ro, torch.bfloat16)
+    want = fa.flash_attention_bwd_ref(q, k, v, out.detach(), lse, do, True)
+    for leaf, w in zip(leaves, want):
+        _flash_close(leaf.grad, w, torch.bfloat16)
+
+
+# (label, B, Sq, Sk, H, HK, causal, packing)
+VARLEN_CASES = [
+    ("packed_causal", 2, 300, 300, 4, 2, True, "runs"),
+    ("packed_noncausal", 2, 300, 300, 4, 2, False, "runs"),
+    ("sq_lt_sk", 1, 130, 333, 4, 1, True, "runs"),
+    ("sq_gt_sk", 1, 200, 70, 4, 2, True, "runs"),
+    ("single_tokens", 1, 190, 190, 4, 2, True, "singles"),
+    ("non_monotone", 2, 257, 257, 8, 2, True, "random"),
+    ("all_padding_tail", 1, 260, 260, 2, 2, True, "tail"),
+    ("gqa7", 1, 300, 300, 28, 4, True, "runs")]
+
+
+def _varlen_segments(packing, b, sq, sk, rng):
+    def runs(n):
+        seg = np.full((b, n), -1, np.int32)
+        for i in range(b):
+            cuts = np.sort(rng.choice(np.arange(1, n), 5, replace=False))
+            bounds = np.concatenate([[0], cuts, [n - rng.integers(0, 40)]])
+            for j in range(len(bounds) - 1):
+                seg[i, bounds[j]:bounds[j + 1]] = j
+        return seg
+    if packing == "runs":
+        return runs(sq), runs(sk)
+    if packing == "singles":     # one-token segments among longer ones
+        seg = np.repeat(np.arange(sq // 2), 2)[None, :sq].astype(np.int32)
+        seg[:, :40] = np.arange(40)
+        return seg, seg.copy()
+    if packing == "tail":        # a long padding tail past a tile
+        seg = np.zeros((b, sq), np.int32)
+        seg[:, 100:] = -1
+        return seg, seg.copy()
+    seg = rng.integers(-1, 4, (b, sq)).astype(np.int32)
+    return seg, seg.copy()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [16, 64, 72, 128, 256])
+@pytest.mark.parametrize("case", VARLEN_CASES,
+                         ids=[c[0] for c in VARLEN_CASES])
+def test_varlen_kernels_match_plain(cuda, case, d, dtype):
+    label, b, sq, sk, h, hk, causal, packing = case
+    rng = np.random.default_rng(sq + sk + d)
+    sgq, sgk = (torch.from_numpy(z).to(cuda) for z in
+                _varlen_segments(packing, b, sq, sk, rng))
+    q, k, v, do = _flash_inputs(cuda, (label, b, sq, sk, h, hk, causal,
+                                       None), d, dtype)
+    scale = d ** -0.5
+    before = dict(launch_counts)
+    o, lse = fv._varlen_fwd(q, k, v, sgq, sgk, scale, causal)
+    ro, rlse = fv.flash_attention_varlen_ref(q, k, v, sgq, sgk, causal)
+    _flash_close(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    got = fv._varlen_bwd(q, k, v, o, lse, do, sgq, sgk, scale, causal)
+    want = fv.flash_attention_varlen_bwd_ref(q, k, v, o, lse, do, sgq, sgk,
+                                             causal)
+    for a, b_ in zip(got, want):
+        assert a.dtype == dtype and a.shape == b_.shape
+        _flash_close(a, b_, dtype)
+    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+        key = f"flash_varlen_{name}"
+        assert launch_counts[key] == before[key] + 1
+    pad_q, pad_k = sgq < 0, sgk < 0
+    assert not o[pad_q].any() and not got[0][pad_q].any()
+    assert bool((lse.transpose(1, 2)[pad_q] == -1e30).all())
+    assert not got[1][pad_k].any() and not got[2][pad_k].any()
+    again = fv._varlen_bwd(q, k, v, o, lse, do, sgq, sgk, scale, causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_varlen_one_segment_equals_dense_kernels(cuda, dtype):
+    q, k, v, do = _flash_inputs(cuda, FLASH_CASES[0], 64, dtype)
+    seg = torch.zeros(q.shape[:2], dtype=torch.int32, device=cuda)
+    o, lse = fv._varlen_fwd(q, k, v, seg, seg, 0.125, True)
+    do_, dlse = fa._flash_fwd(q, k, v, 0.125, True, None)
+    assert torch.equal(o, do_) and torch.equal(lse, dlse)
+    got = fv._varlen_bwd(q, k, v, o, lse, do, seg, seg, 0.125, True)
+    want = fa._flash_bwd(q, k, v, o, lse, do, 0.125, True, None)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_varlen_autograd_and_refusals(cuda):
+    q, k, v, do = _flash_inputs(cuda, FLASH_CASES[1], 64, torch.bfloat16)
+    seg = torch.zeros(q.shape[:2], dtype=torch.int32, device=cuda)
+    seg[:, 60:] = 1
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(launch_counts)
+    out = fv.flash_attention_varlen_values(*leaves, seg, seg, causal=True)
+    out.backward(do)
+    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+        key = f"flash_varlen_{name}"
+        assert launch_counts[key] == before[key] + 1
+    ro, lse = fv.flash_attention_varlen_ref(q, k, v, seg, seg, True)
+    want = fv.flash_attention_varlen_bwd_ref(q, k, v, out.detach(), lse, do,
+                                             seg, seg, True)
+    for leaf, w in zip(leaves, want):
+        _flash_close(leaf.grad, w, torch.bfloat16)
+    with pytest.raises(ValueError, match="segment ids"):
+        fv._varlen_fwd(q, k, v, seg.long(), seg, 0.125, True)
+    wide = torch.zeros(1, 8, 2, 264, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        fv.flash_attention_varlen_values(wide, wide, wide, seg[:1, :8],
+                                         seg[:1, :8])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 300, 4, 128), (1, 7, 3, 72),
+                                   (3, 1, 2, 2)])
+def test_rope_kernel_matches_plain_bitwise(cuda, shape, dtype):
+    b, s, h, d = shape
+    g = torch.Generator(device=cuda).manual_seed(s * d)
+    x = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    inv = 1.0 / 500000.0 ** (torch.arange(0, d, 2, device=cuda) / d)
+    ang = torch.arange(s + 5, device=cuda)[:, None] * inv[None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    before = launch_counts["rope"]
+    for sign in (1, -1):
+        c, sn = cos[5:].contiguous(), sin[5:].contiguous()
+        out = rp._rope_cuda(x, c, sn, sign)
+        assert torch.equal(out, rp.rope_ref(x, c, sn, float(sign)))
+    assert launch_counts["rope"] == before + 2
+    leaf = x.clone().requires_grad_()
+    y = rp.rope_values(leaf, cos, sin, position_offset=5)
+    y.backward(x)
+    assert launch_counts["rope"] == before + 4
+    c, sn = cos[5:], sin[5:]
+    assert torch.equal(y.detach(), rp.rope_ref(x, c, sn))
+    assert torch.equal(leaf.grad, rp.rope_ref(x, c, sn, -1.0))

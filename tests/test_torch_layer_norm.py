@@ -94,17 +94,23 @@ def test_bf16_forward_and_grads_match_jax(case):
 
 
 def test_functional_and_layer_route_to_it():
-    """`F.layer_norm` with a weight and a bias over one axis is
-    `layer_norm_values` (the other cases raise: not ported); the
-    `LayerNorm` layer starts at ones and zeros."""
+    """`F.layer_norm` over one axis is `layer_norm_values`, a missing
+    weight or bias being ones or zeros (several axes raise: not ported);
+    the `LayerNorm` layer starts at ones and zeros."""
     x, w, b, _ = _inputs(12, 16, seed=1)
     xt, wt, bt = map(torch.from_numpy, (x, w, b))
     torch.testing.assert_close(TF.layer_norm(xt, 16, wt, bt, EPS),
                                tnk.layer_norm_ref(xt, wt, bt, EPS),
                                rtol=0, atol=0)
-    for args in (([16], None, bt), ([4, 16], wt, bt)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TF.layer_norm(xt.reshape(3, 4, 16), *args)
+    ones, zeros = torch.ones(16), torch.zeros(16)
+    torch.testing.assert_close(TF.layer_norm(xt, [16], None, bt, EPS),
+                               tnk.layer_norm_ref(xt, ones, bt, EPS),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(TF.layer_norm(xt, [16], wt, None, EPS),
+                               tnk.layer_norm_ref(xt, wt, zeros, EPS),
+                               rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TF.layer_norm(xt.reshape(3, 4, 16), [4, 16], wt, bt)
     layer = LayerNorm(16, EPS, device="cpu")
     assert layer.weight.eq(1).all() and not layer.bias.any()
     want = jax.nn.standardize(jnp.asarray(x), axis=-1, epsilon=EPS)
