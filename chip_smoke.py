@@ -191,7 +191,20 @@ Packed attention and rope add, in the same run (after 5i):
     step.
 
 The flash phase (3f) also holds float16 and head dims from 8 to 256 to
-the kernels (72 and 136 zero-padded to tile widths 80 and 160).
+the kernels (72 and 136 zero-padded to tile widths 80 and 160), head
+dims 100 (bf16) and 36 (f16), off the 16-byte chunks, and 264 (f32),
+past the kernels, through `attention_xla` (exactly one
+``flash_attention_xla`` count). The backward of bf16 and f16 at head
+dims 64 and 128 runs the wgmma kernels of `csrc/flash_bwd_sm90.cu`: the
+phase first counts ``HGMMA`` in their SASS (``sass_hgmma``, by
+``cuobjdump -sass``; none is a failure), then holds both backward
+designs to the limits (each record names its ``design``; the wgmma one
+bitwise equal on repeat) and, at ``slice_8b``, ``bench``,
+``slice_8b_f16`` and ``gqa7_a14b``, times them in turns (mma.sync,
+wgmma, wgmma, mma.sync) beside ``delta_ms`` (the PyTorch delta),
+``whole_bwd_ms`` (delta + dQ + dK/dV as `_flash_bwd` runs it) and SDPA's
+backward; 5e, 5f and 5g print ``flash_bwd_ms_per_step``, the flash
+backward's device time in a step (CUDA events around `_flash_bwd`).
 
 It prints a ``{"kernels": [...]}`` line (seventeen kernels, each with
 its launches on its own main-path run), the card line, and last
@@ -271,7 +284,8 @@ NO_TRAINING = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
                "flash_attention_bwd_dkv": 0, "rms_norm_bwd": 0,
                "grouped_matmul": 0, "layer_norm": 0, "layer_norm_bwd": 0,
                "flash_varlen_fwd": 0, "flash_varlen_bwd_dq": 0,
-               "flash_varlen_bwd_dkv": 0, "rope": 0}
+               "flash_varlen_bwd_dkv": 0, "rope": 0,
+               "flash_attention_xla": 0, "flash_varlen_xla": 0}
 
 
 def log(msg):
@@ -1198,6 +1212,22 @@ def _sdpa_library(q, k, v, causal):
     return fwd, bwd, time_ms(both, iters=10)
 
 
+def _event_spans(fn, spans):
+    """``fn`` with CUDA events recorded around each call, appended to
+    ``spans``: the device time of the call's work on the stream."""
+    import torch
+
+    def run(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*a, **k)
+        e1.record()
+        spans.append((e0, e1))
+        return out
+    return run
+
+
 def _pairs(b, h, sq, sk, causal, window):
     """(q head, key) pairs the mask keeps: the work of one matmul row."""
     off = sk - sq
@@ -1221,7 +1251,7 @@ FLASH_CASES = [
     ("f32", 1, 300, 300, 8, 2, 64, True, None, "float32", False),
     ("d32", 2, 1000, 1000, 4, 2, 32, True, None, "bfloat16", False),
     ("gqa7_a14b", 1, 4096, 4096, 28, 4, 128, True, None, "bfloat16",
-     False),
+     True),
     # float16 and the head dims 72 (DiT-XL/2: 1152 / 16, 256 tokens,
     # non-causal), 80, 96, 160, 192 and 256 (the reference's largest),
     # all through the kernels; 8, 40, 112 and 136 each at the next tile
@@ -1239,7 +1269,12 @@ FLASH_CASES = [
     ("d8", 1, 1000, 1000, 8, 2, 8, True, None, "bfloat16", False),
     ("d40", 1, 1000, 1000, 8, 2, 40, True, None, "bfloat16", False),
     ("d112", 1, 1000, 1000, 8, 2, 112, True, None, "bfloat16", False),
-    ("d136", 1, 1000, 1000, 8, 2, 136, True, None, "bfloat16", False)]
+    ("d136", 1, 1000, 1000, 8, 2, 136, True, None, "bfloat16", False),
+    # head dims off 8 through the kernels, and past 256 through
+    # `attention_xla` (the reference's `_attention_xla` branch)
+    ("d100", 1, 1000, 1000, 8, 2, 100, True, None, "bfloat16", False),
+    ("d36_f16", 1, 1000, 1000, 8, 2, 36, True, None, "float16", False),
+    ("d264_f32", 1, 300, 300, 8, 2, 264, True, None, "float32", False)]
 
 
 def _skip_tile(live_fn):
@@ -1282,12 +1317,82 @@ def _flash_faults(fa, q, k, v, do, scale, causal, window):
     return faults
 
 
+def _flash_xla_case(fa, label, q, k, v, do, causal, window):
+    """A head dim past the kernels': `flash_attention_values` takes
+    `attention_xla` (counted, no kernel launched), held forward and
+    backward to the plain flash versions at the dtype's limits."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(launch_counts)
+    out = fa.flash_attention_values(*leaves, causal=causal,
+                                    window_size=window)
+    out.backward(do)
+    torch.cuda.synchronize()
+    counted = {n: launch_counts[n] - before[n] for n in before
+               if launch_counts[n] != before[n]}
+    ro, lse = fa.flash_attention_ref(q, k, v, causal, None, window)
+    want = (ro, *fa.flash_attention_bwd_ref(q, k, v, ro, lse, do, causal,
+                                            None, window))
+    got = (out.detach(), *(t.grad for t in leaves))
+    errs = {n: fa.kernel_errors(a, r)
+            for n, a, r in zip(("o", "dq", "dk", "dv"), got, want)}
+    lim = fa.KERNEL_LIMITS[q.dtype]
+    rec = dict(case=label, dtype=str(q.dtype)[6:], D=q.shape[-1],
+               route="attention_xla", launches=counted, limits=lim,
+               rel_row_errors=errs)
+    log("xla_case " + json.dumps(rec))
+    if counted != {"flash_attention_xla": 1}:
+        raise AssertionError(f"head dim {q.shape[-1]} did not take "
+                             f"attention_xla alone: {counted}")
+    if not all(e[0] <= lim["rel"] and e[1] <= lim["row"]
+               for e in errs.values()):
+        raise AssertionError(f"attention_xla disagrees on {label}: {errs}")
+
+
+def _hgmma_counts(lib):
+    """{kernel function: HGMMA instructions} in the SASS of a built
+    library, by ``cuobjdump -sass`` (the CUDA toolkit's, else the copy in
+    Triton's package)."""
+    import shutil
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        import triton
+        tool = os.path.join(os.path.dirname(triton.__file__), "backends",
+                            "nvidia", "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=600).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def flash_phase(results):
     """The three flash attention kernels against their plain versions:
-    timed at the two training shapes, checked on the edge cases; the
-    limits are shown to catch the planted faults of `_flash_faults`."""
+    timed at the training shapes, checked on the edge cases; the limits
+    are shown to catch the planted faults of `_flash_faults`. Where the
+    backward's design is wgmma (bf16 and f16 at head dims 64 and 128),
+    the mma.sync design it replaced is held to the same limits beside it
+    and, at the timed shapes, timed in turns with it (previous, new, new,
+    previous), with `delta` alone, delta + dQ + dK/dV and SDPA's
+    backward. Each dQ and dK/dV record names its ``design``."""
     import torch
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
+    sass = _hgmma_counts(_build.build(["flash_bwd_sm90"])["flash_bwd_sm90"])
+    log("sass_hgmma " + json.dumps(sass))
+    for name in ("flash_dq_sm90", "flash_dkv_sm90"):
+        fns = [n for n in sass if name in n]
+        if not fns or not all(sass[n] for n in fns):
+            raise AssertionError(f"{name}: no HGMMA in {fns}")
     gen = torch.Generator(device="cuda").manual_seed(8)
     for (label, b, sq, sk, h, hk, d, causal, window, name,
          timed) in FLASH_CASES:
@@ -1298,20 +1403,31 @@ def flash_phase(results):
         q, k, v, do = f(b, sq, h, d), f(b, sk, hk, d), f(b, sk, hk, d), \
             f(b, sq, h, d)
         scale = d ** -0.5
+        if not fa.takes_head_dim(d):
+            _flash_xla_case(fa, label, q, k, v, do, causal, window)
+            continue
+        design = fa.bwd_design(dt, d)
+        designs = [design] + (["mma.sync"] if design == "wgmma" else [])
         o, lse = fa._flash_fwd(q, k, v, scale, causal, window)
         delta = fa._delta(o, do)
-        dq = fa._flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, window)
-        dk, dv = fa._flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal,
-                                   window)
+        # each design as `_FlashAttentionFn` runs it (the wgmma dQ kernel
+        # forms delta itself), and the path's design once more
+        grads = {des: fa._flash_bwd(q, k, v, o, lse, do, scale, causal,
+                                    window, _design=des) for des in designs}
+        again = fa._flash_bwd(q, k, v, o, lse, do, scale, causal, window,
+                              _design=design)
         ro, rlse = fa.flash_attention_ref(q, k, v, causal, scale, window)
         want = (ro, *fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
                                                 scale, window))
         torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, c) for a, c in zip(grads[design],
+                                                        again))
         names = ("o", "dq", "dk", "dv")
-        errs = {n: fa.kernel_errors(a, r)
-                for n, a, r in zip(names, (o, dq, dk, dv), want)}
-        abs_err = {n: (a.float() - r.float()).abs().max().item()
-                   for n, a, r in zip(names, (o, dq, dk, dv), want)}
+        errs = {des: {n: fa.kernel_errors(a, r) for n, a, r in
+                      zip(names, (o, *grads[des]), want)} for des in designs}
+        abs_err = {des: {n: (a.float() - r.float()).abs().max().item()
+                         for n, a, r in zip(names, (o, *grads[des]), want)}
+                   for des in designs}
         faults = {fault: {n: fa.kernel_errors(a, r)
                           for n, a, r in zip(names, outs, want)}
                   for fault, outs in _flash_faults(
@@ -1320,43 +1436,70 @@ def flash_phase(results):
         def passes(e):
             return e[0] <= lim["rel"] and e[1] <= lim["row"]
         lse_err = (lse - rlse).abs().max().item()
-        ok = all(passes(e) for e in errs.values()) and lse_err <= 1e-3
+        ok = all(passes(e) for de in errs.values() for e in de.values()) \
+            and lse_err <= 1e-3 and bitwise
         caught = not any(passes(e) for fe in faults.values()
                          for e in fe.values())
         if sq > sk and causal:
             # rows 0..Sq-Sk-1 see no key: exact zeros, zero gradient
             dead = sq - sk
-            ok = ok and not o[:, :dead].any() and not dq[:, :dead].any()
+            ok = ok and not o[:, :dead].any() and not any(
+                g[0][:, :dead].any() for g in grads.values())
         rec_base = dict(case=label, dtype=name, B=b, Sq=sq, Sk=sk, H=h,
                         HK=hk, D=d, causal=causal, window=window,
                         limits=lim, lse_max_abs_err=lse_err,
-                        rel_row_errors=errs, planted_faults=faults)
+                        planted_faults=faults)
         n_pairs = _pairs(b, h, sq, sk, causal, window)
         isz = q.element_size()
         qo_bytes = b * sq * h * d * isz
         kv_bytes = b * sk * hk * d * isz
         rows = 4 * b * h * sq
-        recs = {
+        work = {
             "flash_attention_fwd": dict(
-                max_abs_err=abs_err["o"], nbytes=qo_bytes * 2 +
-                kv_bytes * 2 + rows, ops=4 * d * n_pairs),
+                nbytes=qo_bytes * 2 + kv_bytes * 2 + rows,
+                ops=4 * d * n_pairs),
             "flash_attention_bwd_dq": dict(
-                max_abs_err=abs_err["dq"], nbytes=qo_bytes * 3 +
-                kv_bytes * 2 + 2 * rows, ops=6 * d * n_pairs),
+                nbytes=qo_bytes * 3 + kv_bytes * 2 + 2 * rows,
+                ops=6 * d * n_pairs),
             "flash_attention_bwd_dkv": dict(
-                max_abs_err=max(abs_err["dk"], abs_err["dv"]),
                 nbytes=qo_bytes * 2 + kv_bytes * 4 + 2 * rows,
                 ops=8 * d * n_pairs)}
-        times = {}
+        recs = [("flash_attention_fwd", "mma.sync",
+                 dict(max_abs_err=abs_err[design]["o"],
+                      rel_row_errors={"o": errs[design]["o"]}))]
+        for des in designs:
+            e, a = errs[des], abs_err[des]
+            recs.append(("flash_attention_bwd_dq", des, dict(
+                max_abs_err=a["dq"], rel_row_errors={"dq": e["dq"]})))
+            recs.append(("flash_attention_bwd_dkv", des, dict(
+                max_abs_err=max(a["dk"], a["dv"]),
+                rel_row_errors={"dk": e["dk"], "dv": e["dv"]})))
+        times, extra = {}, {}
         if timed:
-            times["flash_attention_fwd"] = time_ms(
+            times[("flash_attention_fwd", "mma.sync")] = time_ms(
                 lambda: fa._flash_fwd(q, k, v, scale, causal, window))
-            times["flash_attention_bwd_dq"] = time_ms(
-                lambda: fa._flash_bwd_dq(q, k, v, do, lse, delta, scale,
-                                         causal, window))
-            times["flash_attention_bwd_dkv"] = time_ms(
-                lambda: fa._flash_bwd_dkv(q, k, v, do, lse, delta, scale,
-                                          causal, window))
+            # in turns: the previous design, the new, the new, the
+            # previous (one design alone where there is no other)
+            runs = {}
+            for des in designs[::-1] + designs:
+                r = runs.setdefault(des, {"dq": [], "dkv": [], "bwd": []})
+                r["dq"].append(time_ms(lambda: fa._flash_bwd_dq(
+                    q, k, v, do, lse, delta, scale, causal, window,
+                    _design=des)))
+                r["dkv"].append(time_ms(lambda: fa._flash_bwd_dkv(
+                    q, k, v, do, lse, delta, scale, causal, window,
+                    _design=des)))
+                r["bwd"].append(time_ms(lambda: fa._flash_bwd(
+                    q, k, v, o, lse, do, scale, causal, window,
+                    _design=des)))
+            delta_ms = time_ms(lambda: fa._delta(o, do))
+            for des, r in runs.items():
+                times[("flash_attention_bwd_dq", des)] = \
+                    statistics.median(r["dq"])
+                times[("flash_attention_bwd_dkv", des)] = \
+                    statistics.median(r["dkv"])
+                extra[des] = dict(runs=r, delta_ms=delta_ms,
+                                  whole_bwd_ms=statistics.median(r["bwd"]))
             plain_fwd = time_ms(lambda: fa.flash_attention_ref(
                 q, k, v, causal, scale, window), iters=3, warmup=1)
             plain_bwd = time_ms(lambda: fa.flash_attention_bwd_ref(
@@ -1364,11 +1507,18 @@ def flash_phase(results):
                 warmup=1)
             lib_fwd, lib_bwd, lib_both = _sdpa_library(q, k, v, causal)
         del ro, rlse, want
-        for kernel, r in recs.items():
-            b_ms, b_by = bound(r.pop("nbytes"), r.pop("ops"), name)
-            rec = dict(kernel=kernel, **rec_base, **r, bound_ms=b_ms,
-                       bound_by=b_by, ms=times.get(kernel),
-                       plain_ms=None, library_ms=None)
+        for kernel, des, r in recs:
+            b_ms, b_by = bound(work[kernel]["nbytes"], work[kernel]["ops"],
+                               name)
+            rec = dict(kernel=kernel, design=des,
+                       path_design=des == (design if kernel !=
+                                           "flash_attention_fwd"
+                                           else "mma.sync"),
+                       **rec_base, **r, bound_ms=b_ms, bound_by=b_by,
+                       ms=times.get((kernel, des)), plain_ms=None,
+                       library_ms=None)
+            if kernel != "flash_attention_fwd":
+                rec["bitwise_repeat"] = bitwise if des == design else None
             if timed:
                 fwd = kernel == "flash_attention_fwd"
                 rec.update(
@@ -1378,16 +1528,25 @@ def flash_phase(results):
                     library_note="scaled_dot_product_attention(is_causal, "
                     "enable_gqa=True)",
                     note=None if fwd else "plain_ms and library_ms are "
-                    "the whole backward (dq, dk and dv together)")
+                    "the whole backward (dq, dk and dv together); "
+                    "whole_bwd_ms is delta + dQ + dK/dV of this design")
+                if not fwd:
+                    ex = extra[des]
+                    part = "dq" if kernel.endswith("_dq") else "dkv"
+                    rec.update(ms_runs=ex["runs"][part],
+                               delta_ms=ex["delta_ms"],
+                               whole_bwd_ms=ex["whole_bwd_ms"],
+                               whole_bwd_runs=ex["runs"]["bwd"])
             log("kernel " + json.dumps(rec))
             results.append(rec)
         if not ok:
             raise AssertionError(f"flash attention kernels disagree on "
-                                 f"{label}: {errs}, lse {lse_err}")
+                                 f"{label}: {errs}, lse {lse_err}, "
+                                 f"bitwise repeat {bitwise}")
         if not caught:
             raise AssertionError(f"the flash limits {lim} miss a planted "
                                  f"fault on {label}: {faults}")
-        del q, k, v, do, o, lse, delta, dq, dk, dv
+        del q, k, v, do, o, lse, delta, grads, again
         torch.cuda.empty_cache()
 
 
@@ -1619,6 +1778,14 @@ def train_8b_width():
     if counts != want:
         raise AssertionError("training launch counts do not match the "
                              "steps")
+    # one more step with CUDA events around each flash backward (delta,
+    # dQ and dK/dV): its device time within a step
+    spans = []
+    with mock.patch.object(fa, "_flash_bwd",
+                           _event_spans(fa._flash_bwd, spans)):
+        float(step(x, y))
+    torch.cuda.synchronize()
+    flash_bwd_ms = sum(a.elapsed_time(c) for a, c in spans)
     step_s = statistics.median(times[1:])
     tokens = b * s
     stats = dict(layers=L, batch=b, seq=s, params=cfg.num_params(),
@@ -1628,6 +1795,10 @@ def train_8b_width():
                  mfu=_mfu(cfg, tokens, s, step_s)[0],
                  mfu_without_embedding=_mfu(cfg, tokens, s, step_s)[1],
                  peak_mem_gib=peak, build_s=build_s,
+                 flash_bwd_ms_per_step=flash_bwd_ms,
+                 flash_bwd_calls_timed=len(spans),
+                 flash_bwd_design=fa.bwd_design(torch.bfloat16,
+                                                cfg.head_dim),
                  launches_per_step={k: v // TRAIN_STEPS
                                     for k, v in counts.items() if v},
                  path_check=dict(loss_rel_diff=loss_rel,
@@ -1646,15 +1817,26 @@ def train_8b_width():
 def train_recipe():
     """The ported pretraining recipe in-process at the bench shape."""
     import torch
+    from unittest import mock
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
     from paddle_tpu_torch.recipes import llama_pretrain
     b, s = 8, 2048
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    r = llama_pretrain.main(["--size", "bench", "--bf16", "--batch-size",
-                             str(b), "--seq-len", str(s), "--steps",
-                             str(TRAIN_STEPS), "--log-every", "1"])
+    # CUDA events around each flash backward (delta, dQ and dK/dV)
+    spans = []
+    with mock.patch.object(fa, "_flash_bwd",
+                           _event_spans(fa._flash_bwd, spans)):
+        r = llama_pretrain.main(["--size", "bench", "--bf16",
+                                 "--batch-size", str(b), "--seq-len",
+                                 str(s), "--steps", str(TRAIN_STEPS),
+                                 "--log-every", "1"])
+    torch.cuda.synchronize()
     cfg = llama_pretrain.bench_config()
+    L = cfg.num_hidden_layers
+    per_step = [sum(a.elapsed_time(c) for a, c in spans[i:i + L])
+                for i in range(0, len(spans), L)]
     step_s = statistics.median(r.step_seconds[1:])
     counts = {k: v for k, v in launch_counts.items() if v}
     stats = dict(size="bench", batch=b, seq=s, params=cfg.num_params(),
@@ -1664,9 +1846,12 @@ def train_recipe():
                  mfu=_mfu(cfg, b * s, s, step_s)[0],
                  mfu_without_embedding=_mfu(cfg, b * s, s, step_s)[1],
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 flash_bwd_ms_per_step=statistics.median(per_step[1:]),
+                 flash_bwd_ms_steps=per_step,
+                 flash_bwd_design=fa.bwd_design(torch.bfloat16,
+                                                cfg.head_dim),
                  launches=counts)
     log("train_recipe " + json.dumps(stats))
-    L = cfg.num_hidden_layers
     torch.cuda.empty_cache()
     if not np.isfinite(r.final_loss) or \
             counts.get("flash_attention_fwd") != L * TRAIN_STEPS:
@@ -2022,6 +2207,7 @@ def train_moe_a14b_width():
     from paddle_tpu_torch.incubate import moe as tmoe
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.moe import MoEConfig, MoEForCausalLM
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import grouped_matmul as gm
     from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
     from paddle_tpu_torch.optimizer import AdamW
@@ -2132,23 +2318,17 @@ def train_moe_a14b_width():
         raise AssertionError("MoE training launch counts do not match the "
                              "steps")
 
-    # one more step with CUDA events around every grouped matmul and
-    # every d(rhs): their device time within a step
-    spans = {"gmm": [], "drhs": []}
-
-    def timed(key, fn):
-        def run(*a, **k):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = fn(*a, **k)
-            e1.record()
-            spans[key].append((e0, e1))
-            return out
-        return run
-    with mock.patch.object(gm, "_gmm_cuda", timed("gmm", gm._gmm_cuda)), \
+    # one more step with CUDA events around every grouped matmul, every
+    # d(rhs) and every flash backward (delta, dQ and dK/dV): their device
+    # time within a step
+    spans = {"gmm": [], "drhs": [], "flash_bwd": []}
+    with mock.patch.object(gm, "_gmm_cuda",
+                           _event_spans(gm._gmm_cuda, spans["gmm"])), \
             mock.patch.object(gm, "drhs_plain",
-                              timed("drhs", gm.drhs_plain)):
+                              _event_spans(gm.drhs_plain, spans["drhs"])), \
+            mock.patch.object(fa, "_flash_bwd",
+                              _event_spans(fa._flash_bwd,
+                                           spans["flash_bwd"])):
         float(step(x, y))
     torch.cuda.synchronize()
     span_ms = {k: sum(a.elapsed_time(c) for a, c in v)
@@ -2167,6 +2347,9 @@ def train_moe_a14b_width():
                  gmm_ms_per_step=span_ms["gmm"],
                  gmm_launches_timed=len(spans["gmm"]),
                  drhs_ms_per_step=span_ms["drhs"],
+                 flash_bwd_ms_per_step=span_ms["flash_bwd"],
+                 flash_bwd_design=fa.bwd_design(torch.bfloat16,
+                                                cfg.head_dim),
                  drops=drops, routed_rows=sum(sizes[0]),
                  nonempty_experts=sum(1 for v in sizes[0] if v),
                  largest_expert_rows=max(sizes[0]),
@@ -3093,6 +3276,8 @@ def main():
                  "rope": ("pretrain_q", "bfloat16", None)}
     varlen_src = "paddle_tpu_torch/csrc/flash_varlen.cu"
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    # the main paths' backward (bf16, D 128 and 64): the wgmma design
+    bwd_src = "paddle_tpu_torch/csrc/flash_bwd_sm90.cu"
     attn_src = ("paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                 "paddle_tpu/ops/ragged_paged_attention.py:293")
     meta = {"rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
@@ -3108,9 +3293,9 @@ def main():
             "flash_attention_fwd": (flash_src,
                                     "paddle_tpu/ops/flash_attention.py:127"),
             "flash_attention_bwd_dq": (
-                flash_src, "paddle_tpu/ops/flash_attention.py:223"),
+                bwd_src, "paddle_tpu/ops/flash_attention.py:223"),
             "flash_attention_bwd_dkv": (
-                flash_src, "paddle_tpu/ops/flash_attention.py:270"),
+                bwd_src, "paddle_tpu/ops/flash_attention.py:270"),
             "rms_norm_bwd": ("paddle_tpu_torch/csrc/rms_norm.cu",
                              "paddle_tpu/ops/norm_kernels.py:53"),
             "grouped_matmul": ("paddle_tpu_torch/csrc/grouped_matmul.cu",
@@ -3131,7 +3316,7 @@ def main():
     for name, (case, dt, mode) in main_case.items():
         rec = next(r for r in results if r["kernel"] == name
                    and r["case"] == case and r["dtype"] == dt
-                   and r.get("mode") == mode)
+                   and r.get("mode") == mode and r.get("path_design", True))
         kernels.append(dict(
             name=name, route="cuda", source=meta[name][0],
             replaces=meta[name][1], launches=counts[name],

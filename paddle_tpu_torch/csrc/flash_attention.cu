@@ -4,7 +4,10 @@
 //
 // Replaces: paddle_tpu/ops/flash_attention.py:_fwd_kernel (:127, launched by
 // _flash_fwd, pallas_call at :190), _bwd_dq_kernel (:223, pallas_call at
-// :333) and _bwd_dkv_kernel (:270, pallas_call at :361).
+// :333) and _bwd_dkv_kernel (:270, pallas_call at :361). The backward of
+// bf16 and f16 at head dims 64 and 128 runs the wgmma kernels of
+// flash_bwd_sm90.cu instead; the entries here take every input all the
+// same.
 //
 // The kernels live in flash_kernels.cuh (shared with flash_varlen.cu, which
 // adds a segment mask); this file instantiates them without segments. What
@@ -17,7 +20,7 @@
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dO and the
 // outputs share it); window <= 0: no window (a window needs causal). Any
-// head dim up to 256, a multiple of 8 for bf16 and f16.
+// head dim up to 256.
 extern "C" int pdt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int Sq, int Sk, int H,
                              int HK, int D, float scale, int causal,

@@ -34,14 +34,16 @@
 // multiplies them in f32. Exponentials use __expf (ex2.approx): a few ulp of
 // f32, far inside the rounding of P.
 //
-// Head dims: any D up to 256 (the reference's own limit), a multiple of 8
-// on the tensor-core paths. The kernels are templated on the tile width DP
-// (16, 32, 48, 64, 80, 96, 112, 128, 160, 192, 256) and run a head dim at
-// the smallest width that holds it, D itself a template constant or given
-// at run time (which instances exist: `has_tc` below). Columns D..DP-1 are
-// zero in shared memory (the loads fill them with zeros, which change
-// neither q.k nor the first D columns of P.V), and the stores of o, dQ, dK
-// and dV skip them. So D = 72 (DiT-XL/2) runs at 80 and D = 136 at 160.
+// Head dims: any D up to 256 (the reference's own limit). The kernels are
+// templated on the tile width DP (16, 32, 48, 64, 80, 96, 112, 128, 160,
+// 192, 256) and run a head dim at the smallest width that holds it, D
+// itself a template constant or given at run time (which instances exist:
+// the launchers below). Columns D..DP-1 are zero in shared memory (the loads
+// fill them with zeros, which change neither q.k nor the first D columns
+// of P.V), and the stores of o, dQ, dK and dV skip them. So D = 72
+// (DiT-XL/2) runs at 80 and D = 136 at 160. A D that is not a multiple of
+// 8 (its rows off the 16-byte chunks) is staged element by element, and an
+// odd D stores its last column alone.
 // Widths past 128 hold one block a SM (255 registers a thread); at 256 the
 // accumulators (2 x 128 f32 a thread in dK/dV) spill to local memory.
 
@@ -306,8 +308,9 @@ __device__ __forceinline__ void acc_to_a_split(uint32_t* hi, uint32_t* lo,
 }
 
 // rows [r0, r0 + R) of one head into shared memory [R][DP + kPad]; rows at
-// or past S, and columns d..DP-1, are zero (d a multiple of 8). `base`
-// points at (row 0, this head, 0); rows are `stride` elements apart.
+// or past S, and columns d..DP-1, are zero. `base` points at (row 0, this
+// head, 0); rows are `stride` elements apart. A d that is not a multiple of
+// 8 leaves the rows off 16-byte boundaries: those load element by element.
 template <int DP, int R>
 __device__ __forceinline__ void stage_rows(u16* dst, const u16* base, int r0,
                                            int S, size_t stride, int d) {
@@ -315,10 +318,37 @@ __device__ __forceinline__ void stage_rows(u16* dst, const u16* base, int r0,
   for (int c = threadIdx.x; c < R * C; c += kThreads) {
     const int r = c / C, col = (c % C) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S && col < d)
-      v = *reinterpret_cast<const uint4*>(base + size_t(r0 + r) * stride +
-                                          col);
+    if (r0 + r < S && col < d) {
+      const u16* src = base + size_t(r0 + r) * stride + col;
+      if (d % 8 == 0) {
+        v = *reinterpret_cast<const uint4*>(src);
+      } else {
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t lo = col + 2 * i < d ? src[2 * i] : 0u;
+          const uint32_t hi = col + 2 * i + 1 < d ? src[2 * i + 1] : 0u;
+          w[i] = lo | hi << 16;
+        }
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
     *reinterpret_cast<uint4*>(dst + r * (DP + kPad) + col) = v;
+  }
+}
+
+// columns c and c + 1 of a row of d elements (c < d, c even): one 32-bit
+// store, or for an odd d (rows then start off 4-byte boundaries) one 16-bit
+// store each, the last column alone
+template <typename T>
+__device__ __forceinline__ void store_pair(u16* row, int c, int d, float x0,
+                                           float x1) {
+  const uint32_t v = Tc<T>::pack(x0, x1);
+  if (d % 2 == 0) {
+    *reinterpret_cast<uint32_t*>(row + c) = v;
+  } else {
+    row[c] = static_cast<u16>(v & 0xffffu);
+    if (c + 1 < d) row[c + 1] = static_cast<u16>(v >> 16);
   }
 }
 
@@ -505,8 +535,7 @@ flash_fwd_tc(const u16* __restrict__ q, const u16* __restrict__ k,
       if (DP != D && 8 * n + 2 * t >= D) continue;
       const float x0 = any ? acc[n][2 * r] / l[r] : 0.f;
       const float x1 = any ? acc[n][2 * r + 1] / l[r] : 0.f;
-      *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
-          Tc<T>::pack(x0, x1);
+      store_pair<T>(orow, 8 * n + 2 * t, D, x0, x1);
     }
     if (t == 0) lse[size_t(bh) * s.Sq + row] = any ? m[r] + logf(l[r])
                                                    : kNegInf;
@@ -649,8 +678,8 @@ flash_dq_tc(const u16* __restrict__ q, const u16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       if (DP != D && 8 * n + 2 * t >= D) continue;
-      *reinterpret_cast<uint32_t*>(drow + 8 * n + 2 * t) =
-          Tc<T>::pack(acc[n][2 * r], acc[n][2 * r + 1]);
+      store_pair<T>(drow, 8 * n + 2 * t, D, acc[n][2 * r],
+                    acc[n][2 * r + 1]);
     }
   }
 }
@@ -802,10 +831,10 @@ flash_dkv_tc(const u16* __restrict__ q, const u16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       if (DP != D && 8 * n + 2 * t >= D) continue;
-      *reinterpret_cast<uint32_t*>(krow + 8 * n + 2 * t) =
-          Tc<T>::pack(dka[n][2 * r], dka[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(vrow + 8 * n + 2 * t) =
-          Tc<T>::pack(dva[n][2 * r], dva[n][2 * r + 1]);
+      store_pair<T>(krow, 8 * n + 2 * t, D, dka[n][2 * r],
+                    dka[n][2 * r + 1]);
+      store_pair<T>(vrow, 8 * n + 2 * t, D, dva[n][2 * r],
+                    dva[n][2 * r + 1]);
     }
   }
 }
@@ -995,10 +1024,9 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 // compile-time constant) at width DP; DK = 0 takes D at run time. The
 // tensor-core kernels take every multiple of 8 up to 128 and 160, 192, 256
 // at compile time (a runtime D cost the D = 128 forward 20% and dK/dV at
-// D = 72-80 25-30% on the H100: `tools/time_flash.py`), the other
-// multiples of 8 past 128 at run time at width 160, 192 or 256; the f32
-// kernels take D at run time at every width.
-constexpr bool has_tc(int dp, int dk) { return dk > 0 || dp > 128; }
+// D = 72-80 25-30% on the H100: `tools/time_flash.py`), every other D at
+// run time at the width that holds it; the f32 kernels take D at run time
+// at every width.
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -1024,10 +1052,8 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
 template <int DP, int DK, bool SEG>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, const Shape& s, int dtype, cudaStream_t st) {
-  if constexpr (has_tc(DP, DK)) {
-    if (dtype == 1) return fwd_tc<bf16, DP, DK, SEG>(q, k, v, o, lse, s, st);
-    if (dtype == 2) return fwd_tc<f16, DP, DK, SEG>(q, k, v, o, lse, s, st);
-  }
+  if (dtype == 1) return fwd_tc<bf16, DP, DK, SEG>(q, k, v, o, lse, s, st);
+  if (dtype == 2) return fwd_tc<f16, DP, DK, SEG>(q, k, v, o, lse, s, st);
   dim3 grid((s.Sq + kRowsF32 - 1) / kRowsF32, s.B * s.H);
   flash_fwd_f32<DP, SEG><<<grid, kThreads, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1054,12 +1080,10 @@ template <int DP, int DK, bool SEG>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, const Shape& s, int dtype, cudaStream_t st) {
-  if constexpr (has_tc(DP, DK)) {
-    if (dtype == 1)
-      return dq_tc<bf16, DP, DK, SEG>(q, k, v, dout, lse, delta, dq, s, st);
-    if (dtype == 2)
-      return dq_tc<f16, DP, DK, SEG>(q, k, v, dout, lse, delta, dq, s, st);
-  }
+  if (dtype == 1)
+    return dq_tc<bf16, DP, DK, SEG>(q, k, v, dout, lse, delta, dq, s, st);
+  if (dtype == 2)
+    return dq_tc<f16, DP, DK, SEG>(q, k, v, dout, lse, delta, dq, s, st);
   dim3 grid((s.Sq + kRowsF32 - 1) / kRowsF32, s.B * s.H);
   flash_dq_f32<DP, SEG><<<grid, kThreads, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1088,14 +1112,12 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, const Shape& s, int dtype,
                     cudaStream_t st) {
-  if constexpr (has_tc(DP, DK)) {
-    if (dtype == 1)
-      return dkv_tc<bf16, DP, DK, SEG>(q, k, v, dout, lse, delta, dk, dv, s,
-                                       st);
-    if (dtype == 2)
-      return dkv_tc<f16, DP, DK, SEG>(q, k, v, dout, lse, delta, dk, dv, s,
-                                      st);
-  }
+  if (dtype == 1)
+    return dkv_tc<bf16, DP, DK, SEG>(q, k, v, dout, lse, delta, dk, dv, s,
+                                     st);
+  if (dtype == 2)
+    return dkv_tc<f16, DP, DK, SEG>(q, k, v, dout, lse, delta, dk, dv, s,
+                                    st);
   dim3 grid((s.Sk + kRowsF32 - 1) / kRowsF32, s.B * s.HK);
   flash_dkv_f32<DP, SEG><<<grid, kThreads, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1130,12 +1152,10 @@ inline int tile_width(int d) {
   return 0;
 }
 
-// any D up to 256; the tensor-core kernels (bf16, f16) stage rows in
-// 16-byte chunks, so there D is a multiple of 8
+// any D up to 256 in every dtype
 inline bool shape_ok(int B, int Sq, int Sk, int H, int HK, int D, int dtype) {
   return B > 0 && Sq > 0 && Sk > 0 && H > 0 && HK > 0 && H % HK == 0 &&
-         dtype >= 0 && dtype <= 2 && D > 0 && D <= 256 &&
-         (dtype == 0 || D % 8 == 0);
+         dtype >= 0 && dtype <= 2 && D > 0 && D <= 256;
 }
 
 #define PDT_FLASH_DISPATCH(D, CALL)                          \

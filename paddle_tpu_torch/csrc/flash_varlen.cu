@@ -20,8 +20,7 @@
 
 #include "flash_kernels.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Any head dim up to 256,
-// a multiple of 8 for bf16 and f16.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Any head dim up to 256.
 extern "C" int pdt_varlen_fwd(const void* q, const void* k, const void* v,
                               const void* seg_q, const void* seg_k, void* o,
                               void* lse, int B, int Sq, int Sk, int H,

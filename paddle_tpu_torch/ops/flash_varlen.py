@@ -25,7 +25,9 @@ runs the plain versions, which keep the Pallas kernels' precisions
 (`ops.flash_attention.attend_ref` / `attend_bwd_ref` under the segment
 mask). There is no counterpart of the TPU's unaligned fallback
 (``sq % block_q``, ``sk % block_k``): the kernels take any length and mask
-the tails, and head dims as the dense kernels (`MAX_HEAD_DIM`).
+the tails, and head dims as the dense kernels (`MAX_HEAD_DIM`). A head
+dim past it takes `varlen_xla` on either device, as the reference's
+``d <= 256`` test sends it to `_varlen_xla`.
 """
 from __future__ import annotations
 
@@ -36,8 +38,9 @@ import numpy as np
 import torch
 
 from . import kernel_route, launch_counts
-from .flash_attention import (_DTYPES, _aligned, _check, _delta,
-                              attend_bwd_ref, attend_ref)
+from .flash_attention import (_DTYPES, NEG_INF, _aligned, _check, _delta,
+                              _heads_first, attend_bwd_ref, attend_ref,
+                              takes_head_dim)
 
 _DIMS = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2 \
     + [ctypes.c_void_p]
@@ -96,6 +99,20 @@ def flash_attention_varlen_bwd_ref(q, k, v, o, lse, do, seg_q, seg_k,
     for dS.K) and `_bwd_dkv_kernel` (P, dO, dS and q in f32)."""
     return attend_bwd_ref(q, k, v, o, lse, do, _live(seg_q, seg_k, causal),
                           _scale(q, scale))
+
+
+def varlen_xla(q, k, v, seg_q, seg_k, scale, causal=False):
+    """≙ `_varlen_xla`, the reference's non-Pallas branch: f32 logits
+    (products of the inputs, summed in f32) times ``scale``, the segment
+    (and causal) mask at NEG_INF, a softmax in f32, rows with no live key
+    0, weights cast to v's dtype for the weighted sum. Plain PyTorch,
+    differentiable by autograd, on either device."""
+    qh, kh, vh = _heads_first(q, k, v)
+    live = _live(seg_q, seg_k, causal)
+    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    p = torch.softmax(s.masked_fill(~live, NEG_INF), dim=-1)
+    p = torch.where(live.any(-1, keepdim=True), p, 0.0).to(v.dtype)
+    return torch.matmul(p, vh).transpose(1, 2)
 
 
 def _dims(q, k, scale, causal):
@@ -211,7 +228,8 @@ def flash_attention_varlen_values(q, k, v, seg_q, seg_k, causal=False,
     and values under (B, Sq) / (B, Sk) segment ids (-1: padding),
     differentiable in q, k and v. A CUDA tensor goes through the kernels,
     forward and backward; a CPU tensor, or ``use_kernel=False``, through
-    the plain versions. ``use_kernel`` as in `ops.kernel_route`."""
+    the plain versions. ``use_kernel`` as in `ops.kernel_route`. A head
+    dim past `MAX_HEAD_DIM` takes `varlen_xla` on either device."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B, Sq, H, D) and k, v (B, Sk, HK, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -228,6 +246,10 @@ def flash_attention_varlen_values(q, k, v, seg_q, seg_k, causal=False,
                          f"{tuple(q.shape)} and k {tuple(k.shape)}")
     scale = _scale(q, scale)
     kernel = kernel_route(q, use_kernel)
+    if not takes_head_dim(d):
+        if kernel:
+            launch_counts["flash_varlen_xla"] += 1
+        return varlen_xla(q, k, v, seg_q, seg_k, scale, bool(causal))
     if kernel:
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
     return _FlashVarlenFn.apply(q, k, v, seg_q.contiguous(),

@@ -7,11 +7,14 @@ For each head dim, seeded bf16 inputs at the Llama-3-8B training slice
 (B=2, S=2048, H=32, HK=8, causal; D=72 at DiT-XL/2's B=32, S=256, H=16,
 non-causal) go through the forward, dQ and dK/dV kernels (the launchers
 of `ops.flash_attention`), each timed as the median of 20 launches by
-CUDA events. One ``time_flash {...}`` line a head dim. It uses nothing
-newer than the launchers' signatures, so the same file times an older
-checkout put first on ``PYTHONPATH`` (two trees in one call, alternated,
-compare on the same card). Needs one CUDA card; without one it exits
-non-zero.
+CUDA events, and ``delta`` (rowsum(o dO) in PyTorch) beside them. A
+head dim whose backward runs the wgmma kernels (`ops.flash_attention.
+bwd_design`) also times the mma.sync ones, in turns (mma.sync, wgmma,
+wgmma, mma.sync): ``dq_ms`` / ``dkv_ms`` are the path's design,
+``previous`` the other. One ``time_flash {...}`` line a head dim. To
+hold two trees against each other on one card, run each tree's own copy
+of this tool in one call, in turns. Needs one CUDA card; without one it
+exits non-zero.
 """
 from __future__ import annotations
 
@@ -53,14 +56,33 @@ def time_dim(d: int) -> dict:
     scale = d ** -0.5
     o, lse = fa._flash_fwd(q, k, v, scale, causal, None)
     delta = fa._delta(o, do)
-    return dict(
-        D=d, B=b, S=s, H=h, HK=hk, causal=causal,
-        fwd_ms=_time_ms(lambda: fa._flash_fwd(q, k, v, scale, causal,
-                                              None)),
-        dq_ms=_time_ms(lambda: fa._flash_bwd_dq(q, k, v, do, lse, delta,
-                                                scale, causal, None)),
-        dkv_ms=_time_ms(lambda: fa._flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                  scale, causal, None)))
+
+    def bwd(design):
+        return (_time_ms(lambda: fa._flash_bwd_dq(q, k, v, do, lse, delta,
+                                                  scale, causal, None,
+                                                  _design=design)),
+                _time_ms(lambda: fa._flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                   scale, causal, None,
+                                                   _design=design)))
+    out = dict(D=d, B=b, S=s, H=h, HK=hk, causal=causal,
+               fwd_ms=_time_ms(lambda: fa._flash_fwd(q, k, v, scale,
+                                                     causal, None)),
+               delta_ms=_time_ms(lambda: fa._delta(o, do)))
+    path = fa.bwd_design(q.dtype, d)
+    if path != "wgmma":
+        out["dq_ms"], out["dkv_ms"] = bwd(path)
+        return out
+    runs = {"mma.sync": [], "wgmma": []}
+    for design in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
+        runs[design].append(bwd(design))
+    med = {k: [statistics.median(r[i] for r in v) for i in (0, 1)]
+           for k, v in runs.items()}
+    out.update(design="wgmma", dq_ms=med["wgmma"][0],
+               dkv_ms=med["wgmma"][1],
+               previous=dict(design="mma.sync", dq_ms=med["mma.sync"][0],
+                             dkv_ms=med["mma.sync"][1]),
+               runs=runs)
+    return out
 
 
 def main(argv=None) -> int:

@@ -48,12 +48,18 @@ the tiny MoE (dropless through the grouped-matmul kernel) and tiny BERT
 float16 through every kernel above at bf16's limits (f16 rounds at the
 same places with 3 more significant bits);
 flash attention at every tile width's head dims, 8 to 256 (72 and 136
-zero-padded to 80 and 160), at `fa.KERNEL_LIMITS`; head dims past 256,
-bf16/f16 head dims that are not multiples of 8 and float64 raise;
+zero-padded to 80 and 160), at `fa.KERNEL_LIMITS`; bf16/f16 head dims
+that are not multiples of 8 (100, 36) through the kernels at those
+limits, head dims past 256 through `attention_xla` (counted), float64
+raises; the two backward designs (wgmma for bf16/f16 at D 64 and 128,
+mma.sync) each against the plain version and against each other at
+`fa.KERNEL_LIMITS`, bitwise equal across runs, and an input the wgmma
+entries refuse raising;
 varlen flash attention: as flash attention (`fa.KERNEL_LIMITS`, f32
 also elementwise 1e-4), padding rows exact zeros with zero dQ and
 padding keys zero dK/dV, dK/dV bitwise equal across runs, one segment
-without padding equal to the dense kernels bitwise;
+without padding equal to the dense mma.sync kernels bitwise, head dims
+past 256 through `varlen_xla` (counted);
 rope: bitwise equal to its plain version in every dtype (the kernel
 rounds each product and the sum once, as the plain version's separate
 ops do), forward and backward."""
@@ -610,18 +616,95 @@ def test_flash_attention_autograd_and_refusals(cuda):
                                           q, k, v, True)[1], do, True)
     for leaf, w in zip(leaves, want):
         _flash_close(leaf.grad, w, torch.bfloat16)
-    # head dims the kernels do not take, and float64, raise before launch
-    before = dict(launch_counts)
+    # head dims off 8 run the kernels; past 256, `attention_xla`, as the
+    # reference's `_aligned` sends them to `_attention_xla`
     for d, dt in ((264, torch.float32), (100, torch.bfloat16),
                   (36, torch.float16)):
-        bad = torch.zeros(1, 8, 2, d, device=cuda, dtype=dt)
-        with pytest.raises(ValueError, match="head dims"):
-            fa.flash_attention_values(bad, bad, bad, causal=True)
+        q, k, v, do = _flash_inputs(cuda, FLASH_CASES[1], d, dt)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = dict(launch_counts)
+        out = fa.flash_attention_values(*leaves, causal=True)
+        out.backward(do)
+        counted = {key: launch_counts[key] - before[key] for key in before
+                   if launch_counts[key] != before[key]}
+        if d > fa.MAX_HEAD_DIM:
+            assert counted == {"flash_attention_xla": 1}
+            ref = [t.clone().requires_grad_() for t in (q, k, v)]
+            ro = fa.attention_xla(*ref, d ** -0.5, True)
+            ro.backward(do)
+            ro = ro.detach()
+            want = [t.grad for t in ref]
+        else:
+            assert counted == {f"flash_attention_{n}": 1
+                               for n in ("fwd", "bwd_dq", "bwd_dkv")}
+            ro, lse = fa.flash_attention_ref(q, k, v, True)
+            want = fa.flash_attention_bwd_ref(q, k, v, out.detach(), lse,
+                                              do, True)
+        _flash_close(out.detach(), ro, dt)
+        for leaf, w in zip(leaves, want):
+            _flash_close(leaf.grad, w, dt)
+    # float64 raises before launch
+    before = dict(launch_counts)
+    bad = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
-        fa.flash_attention_values(*(bad.double()[..., :32],) * 3)
+        fa.flash_attention_values(bad, bad, bad, causal=True)
     assert launch_counts == before
     with pytest.raises(ValueError, match="requires causal"):
         fa.flash_attention_values(q, k, v, window_size=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_flash_bwd_designs_match_plain_and_each_other(cuda, case, d, dtype):
+    """The wgmma backward (`csrc/flash_bwd_sm90.cu`, the default at these
+    dtypes and head dims) and the mma.sync one it replaced, each against
+    the plain version at `fa.KERNEL_LIMITS`, against each other at the
+    same limits, and bitwise equal across runs."""
+    _, _, sq, sk, _, _, causal, window = case
+    assert fa.bwd_design(dtype, d) == "wgmma"
+    q, k, v, do = _flash_inputs(cuda, case, d, dtype)
+    scale = d ** -0.5
+    o, lse = fa._flash_fwd(q, k, v, scale, causal, window)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, None,
+                                      window)
+    got = {}
+    for design in ("wgmma", "mma.sync"):
+        before = dict(launch_counts)
+        got[design] = fa._flash_bwd(q, k, v, o, lse, do, scale, causal,
+                                    window, _design=design)
+        for name in ("bwd_dq", "bwd_dkv"):
+            key = f"flash_attention_{name}"
+            assert launch_counts[key] == before[key] + 1
+        for a, b in zip(got[design], want):
+            assert a.dtype == dtype and a.shape == b.shape
+            _flash_close(a, b, dtype)
+    for a, b in zip(got["wgmma"], got["mma.sync"]):
+        _flash_close(a, b, dtype)
+    again = fa._flash_bwd(q, k, v, o, lse, do, scale, causal, window,
+                          _design="wgmma")
+    assert all(torch.equal(a, b) for a, b in zip(got["wgmma"], again))
+    if sq > sk and causal:
+        dead = sq - sk   # rows with no key: zero gradient
+        assert not got["wgmma"][0][:, :dead].any()
+
+
+def test_flash_bwd_wgmma_entry_refusals_raise(cuda):
+    """An input the wgmma entries do not take (f32, a head dim other than
+    64 or 128) comes back as a CUDA error from the entry, and the
+    launcher raises: no quiet fall back to the other design."""
+    for d, dt in ((64, torch.float32), (72, torch.bfloat16)):
+        q, k, v, do = _flash_inputs(cuda, FLASH_CASES[1], d, dt)
+        o, lse = fa._flash_fwd(q, k, v, d ** -0.5, True, None)
+        delta = fa._delta(o, do)
+        before = dict(launch_counts)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa._flash_bwd_dq(q, k, v, do, lse, delta, d ** -0.5, True, None,
+                             _design="wgmma")
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa._flash_bwd_dkv(q, k, v, do, lse, delta, d ** -0.5, True,
+                              None, _design="wgmma")
+        assert launch_counts == before
 
 
 def _tiny_train_on(dev, build, ids, steps=3):
@@ -926,7 +1009,9 @@ def test_varlen_one_segment_equals_dense_kernels(cuda, dtype):
     do_, dlse = fa._flash_fwd(q, k, v, 0.125, True, None)
     assert torch.equal(o, do_) and torch.equal(lse, dlse)
     got = fv._varlen_bwd(q, k, v, o, lse, do, seg, seg, 0.125, True)
-    want = fa._flash_bwd(q, k, v, o, lse, do, 0.125, True, None)
+    # the dense kernels of the same header (the mma.sync design)
+    want = fa._flash_bwd(q, k, v, o, lse, do, 0.125, True, None,
+                         _design="mma.sync")
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
@@ -948,10 +1033,20 @@ def test_varlen_autograd_and_refusals(cuda):
         _flash_close(leaf.grad, w, torch.bfloat16)
     with pytest.raises(ValueError, match="segment ids"):
         fv._varlen_fwd(q, k, v, seg.long(), seg, 0.125, True)
-    wide = torch.zeros(1, 8, 2, 264, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dims"):
-        fv.flash_attention_varlen_values(wide, wide, wide, seg[:1, :8],
-                                         seg[:1, :8])
+    # past head dim 256, `varlen_xla`, as the reference's `_varlen_xla`
+    q, k, v, do = _flash_inputs(cuda, FLASH_CASES[1], 264, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(launch_counts)
+    out = fv.flash_attention_varlen_values(*leaves, seg, seg, causal=True)
+    out.backward(do)
+    assert {key: launch_counts[key] - before[key] for key in before
+            if launch_counts[key] != before[key]} == {"flash_varlen_xla": 1}
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    ro = fv.varlen_xla(*ref, seg, seg, 264 ** -0.5, True)
+    ro.backward(do)
+    assert torch.equal(out, ro)
+    for leaf, r in zip(leaves, ref):
+        assert torch.equal(leaf.grad, r.grad)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -374,14 +374,14 @@ def _assert_flash_takes(t):
     (96, torch.float32, True), (128, torch.float16, True),
     (48, torch.bfloat16, True), (136, torch.bfloat16, True),
     (256, torch.bfloat16, True), (100, torch.float32, True),
-    (100, torch.bfloat16, False), (36, torch.float16, False),
+    (100, torch.bfloat16, True), (36, torch.float16, True),
     (264, torch.float32, False), (320, torch.float32, False),
     (64, torch.float64, False)])
 def test_flash_kernels_take_head_dims_and_dtypes(d, dtype, takes):
     """Which inputs the flash kernels take, decided from dtype and head
-    dim before launch: any D up to 256 (the reference's limit; a multiple
-    of 8 in bf16 and f16, whose rows load in 16-byte chunks), in f32,
-    bf16 or f16; others raise."""
+    dim before launch: any D up to 256 (the reference's limit; past it
+    `flash_attention_values` takes `attention_xla` and never reaches the
+    kernels), in f32, bf16 or f16; others raise."""
     t = torch.zeros(1, 2, 2, d, dtype=dtype)
     if takes:
         _assert_flash_takes(t)
