@@ -206,6 +206,22 @@ wgmma, wgmma, mma.sync) beside ``delta_ms`` (the PyTorch delta),
 backward; 5e, 5f and 5g print ``flash_bwd_ms_per_step``, the flash
 backward's device time in a step (CUDA events around `_flash_bwd`).
 
+The forward of bf16 and f16 at head dims 64 and 128 runs the wgmma
+kernel of `csrc/flash_fwd_sm90.cu`, and the grouped matmul of bf16 / f16
+with K and N multiples of 8 the wgmma kernel of `csrc/grouped_matmul.cu`
+(`gm.gmm_design`). ``sass_hgmma`` (before the flash phase) counts
+``HGMMA`` in every wgmma kernel function: the forward, dQ, dK/dV and the
+grouped matmul. The flash phase holds both forward designs to the limits
+(o at `KERNEL_LIMITS`, lse within 1e-3, dead rows exact zeros; the wgmma
+one bitwise on repeat), times them in turns beside SDPA's forward and
+times the wgmma forward + backward as one pair (``fwd_bwd_ms``) beside
+SDPA's (``library_fwd_bwd_ms``); the backward reads the wgmma forward's
+lse. ``gmm_phase`` holds both grouped-matmul designs on its five cases,
+times them in turns, and checks four more: N off 8 (the mma.sync route),
+M off the 128-row tile with a one-row group, and K off the wgmma
+kernel's 64-wide k step with rhs read either way. 5e, 5f and 5g also print
+``flash_fwd_ms_per_step`` (CUDA events around `_flash_fwd`).
+
 It prints a ``{"kernels": [...]}`` line (seventeen kernels, each with
 its launches on its own main-path run), the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -1375,24 +1391,43 @@ def _hgmma_counts(lib):
     return counts
 
 
+# the wgmma kernels: (library, kernel function) whose SASS must hold HGMMA
+SM90_KERNELS = (("flash_fwd_sm90", "flash_fwd_sm90"),
+                ("flash_bwd_sm90", "flash_dq_sm90"),
+                ("flash_bwd_sm90", "flash_dkv_sm90"),
+                ("grouped_matmul", "gmm_wgmma_kernel"))
+
+
+def sass_phase():
+    """HGMMA instructions in the SASS of every wgmma kernel function (each
+    template instance); a function without any fails the run."""
+    from paddle_tpu_torch.ops import _build
+    libs = _build.build(sorted({lib for lib, _ in SM90_KERNELS}))
+    sass = {}
+    for lib, name in SM90_KERNELS:
+        counts = _hgmma_counts(libs[lib])
+        fns = {n: c for n, c in counts.items() if name in n}
+        sass.update(fns)
+        if not fns or not all(fns.values()):
+            raise AssertionError(f"{name}: no HGMMA in {fns}")
+    log("sass_hgmma " + json.dumps(sass))
+
+
 def flash_phase(results):
     """The three flash attention kernels against their plain versions:
     timed at the training shapes, checked on the edge cases; the limits
     are shown to catch the planted faults of `_flash_faults`. Where the
-    backward's design is wgmma (bf16 and f16 at head dims 64 and 128),
-    the mma.sync design it replaced is held to the same limits beside it
-    and, at the timed shapes, timed in turns with it (previous, new, new,
-    previous), with `delta` alone, delta + dQ + dK/dV and SDPA's
-    backward. Each dQ and dK/dV record names its ``design``."""
+    design is wgmma (bf16 and f16 at head dims 64 and 128, forward and
+    backward), the mma.sync design it replaced is held to the same limits
+    beside it and, at the timed shapes, timed in turns with it (previous,
+    new, new, previous): the forward beside SDPA's forward, and the wgmma
+    forward + backward as one pair (``fwd_bwd_ms``) beside SDPA's; the
+    backward with `delta` alone, delta + dQ + dK/dV and SDPA's backward.
+    Each record names its ``design``; the backward reads the lse of the
+    path's forward (the wgmma one where it runs)."""
     import torch
-    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
-    sass = _hgmma_counts(_build.build(["flash_bwd_sm90"])["flash_bwd_sm90"])
-    log("sass_hgmma " + json.dumps(sass))
-    for name in ("flash_dq_sm90", "flash_dkv_sm90"):
-        fns = [n for n in sass if name in n]
-        if not fns or not all(sass[n] for n in fns):
-            raise AssertionError(f"{name}: no HGMMA in {fns}")
+    sass_phase()
     gen = torch.Generator(device="cuda").manual_seed(8)
     for (label, b, sq, sk, h, hk, d, causal, window, name,
          timed) in FLASH_CASES:
@@ -1406,9 +1441,15 @@ def flash_phase(results):
         if not fa.takes_head_dim(d):
             _flash_xla_case(fa, label, q, k, v, do, causal, window)
             continue
-        design = fa.bwd_design(dt, d)
+        # the path's design (forward and backward alike) and, where it is
+        # wgmma, the mma.sync one it replaced
+        design = fa.sm90_design(dt, d)
         designs = [design] + (["mma.sync"] if design == "wgmma" else [])
-        o, lse = fa._flash_fwd(q, k, v, scale, causal, window)
+        fwds = {des: fa._flash_fwd(q, k, v, scale, causal, window,
+                                   _design=des) for des in designs}
+        fwd_again = fa._flash_fwd(q, k, v, scale, causal, window,
+                                  _design=design)
+        o, lse = fwds[design]
         delta = fa._delta(o, do)
         # each design as `_FlashAttentionFn` runs it (the wgmma dQ kernel
         # forms delta itself), and the path's design once more
@@ -1422,12 +1463,21 @@ def flash_phase(results):
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, c) for a, c in zip(grads[design],
                                                         again))
+        fwd_bitwise = all(torch.equal(a, c) for a, c in zip(fwds[design],
+                                                            fwd_again))
         names = ("o", "dq", "dk", "dv")
         errs = {des: {n: fa.kernel_errors(a, r) for n, a, r in
-                      zip(names, (o, *grads[des]), want)} for des in designs}
+                      zip(names[1:], grads[des], want[1:])}
+                for des in designs}
         abs_err = {des: {n: (a.float() - r.float()).abs().max().item()
-                         for n, a, r in zip(names, (o, *grads[des]), want)}
+                         for n, a, r in zip(names[1:], grads[des], want[1:])}
                    for des in designs}
+        ferrs = {des: fa.kernel_errors(fo, ro) for des, (fo, _) in
+                 fwds.items()}
+        fabs = {des: (fo.float() - ro.float()).abs().max().item()
+                for des, (fo, _) in fwds.items()}
+        lse_errs = {des: (fl - rlse).abs().max().item()
+                    for des, (_, fl) in fwds.items()}
         faults = {fault: {n: fa.kernel_errors(a, r)
                           for n, a, r in zip(names, outs, want)}
                   for fault, outs in _flash_faults(
@@ -1435,20 +1485,20 @@ def flash_phase(results):
 
         def passes(e):
             return e[0] <= lim["rel"] and e[1] <= lim["row"]
-        lse_err = (lse - rlse).abs().max().item()
         ok = all(passes(e) for de in errs.values() for e in de.values()) \
-            and lse_err <= 1e-3 and bitwise
+            and all(passes(e) for e in ferrs.values()) \
+            and max(lse_errs.values()) <= 1e-3 and bitwise and fwd_bitwise
         caught = not any(passes(e) for fe in faults.values()
                          for e in fe.values())
         if sq > sk and causal:
             # rows 0..Sq-Sk-1 see no key: exact zeros, zero gradient
             dead = sq - sk
-            ok = ok and not o[:, :dead].any() and not any(
+            ok = ok and not any(fo[:, :dead].any() for fo, _ in
+                                fwds.values()) and not any(
                 g[0][:, :dead].any() for g in grads.values())
         rec_base = dict(case=label, dtype=name, B=b, Sq=sq, Sk=sk, H=h,
                         HK=hk, D=d, causal=causal, window=window,
-                        limits=lim, lse_max_abs_err=lse_err,
-                        planted_faults=faults)
+                        limits=lim, planted_faults=faults)
         n_pairs = _pairs(b, h, sq, sk, causal, window)
         isz = q.element_size()
         qo_bytes = b * sq * h * d * isz
@@ -1464,9 +1514,11 @@ def flash_phase(results):
             "flash_attention_bwd_dkv": dict(
                 nbytes=qo_bytes * 2 + kv_bytes * 4 + 2 * rows,
                 ops=8 * d * n_pairs)}
-        recs = [("flash_attention_fwd", "mma.sync",
-                 dict(max_abs_err=abs_err[design]["o"],
-                      rel_row_errors={"o": errs[design]["o"]}))]
+        recs = [("flash_attention_fwd", des, dict(
+            max_abs_err=fabs[des], rel_row_errors={"o": ferrs[des]},
+            lse_max_abs_err=lse_errs[des],
+            bitwise_repeat=fwd_bitwise if des == design else None))
+            for des in designs]
         for des in designs:
             e, a = errs[des], abs_err[des]
             recs.append(("flash_attention_bwd_dq", des, dict(
@@ -1474,12 +1526,21 @@ def flash_phase(results):
             recs.append(("flash_attention_bwd_dkv", des, dict(
                 max_abs_err=max(a["dk"], a["dv"]),
                 rel_row_errors={"dk": e["dk"], "dv": e["dv"]})))
-        times, extra = {}, {}
+        times, extra, fruns = {}, {}, {}
         if timed:
-            times[("flash_attention_fwd", "mma.sync")] = time_ms(
-                lambda: fa._flash_fwd(q, k, v, scale, causal, window))
             # in turns: the previous design, the new, the new, the
             # previous (one design alone where there is no other)
+            for des in designs[::-1] + designs:
+                fruns.setdefault(des, []).append(time_ms(
+                    lambda: fa._flash_fwd(q, k, v, scale, causal, window,
+                                          _design=des)))
+            for des, r in fruns.items():
+                times[("flash_attention_fwd", des)] = statistics.median(r)
+
+            def fwd_bwd():
+                fo, fl = fa._flash_fwd(q, k, v, scale, causal, window)
+                fa._flash_bwd(q, k, v, fo, fl, do, scale, causal, window)
+            fwd_bwd_ms = time_ms(fwd_bwd)
             runs = {}
             for des in designs[::-1] + designs:
                 r = runs.setdefault(des, {"dq": [], "dkv": [], "bwd": []})
@@ -1510,27 +1571,29 @@ def flash_phase(results):
         for kernel, des, r in recs:
             b_ms, b_by = bound(work[kernel]["nbytes"], work[kernel]["ops"],
                                name)
+            fwd = kernel == "flash_attention_fwd"
             rec = dict(kernel=kernel, design=des,
-                       path_design=des == (design if kernel !=
-                                           "flash_attention_fwd"
-                                           else "mma.sync"),
+                       path_design=des == design,
                        **rec_base, **r, bound_ms=b_ms, bound_by=b_by,
                        ms=times.get((kernel, des)), plain_ms=None,
                        library_ms=None)
-            if kernel != "flash_attention_fwd":
+            if not fwd:
                 rec["bitwise_repeat"] = bitwise if des == design else None
             if timed:
-                fwd = kernel == "flash_attention_fwd"
                 rec.update(
                     plain_ms=plain_fwd if fwd else plain_bwd,
                     library_ms=lib_fwd if fwd else lib_bwd,
+                    fwd_bwd_ms=fwd_bwd_ms,
+                    fwd_bwd_design=design,
                     library_fwd_bwd_ms=lib_both,
                     library_note="scaled_dot_product_attention(is_causal, "
                     "enable_gqa=True)",
                     note=None if fwd else "plain_ms and library_ms are "
                     "the whole backward (dq, dk and dv together); "
                     "whole_bwd_ms is delta + dQ + dK/dV of this design")
-                if not fwd:
+                if fwd:
+                    rec["ms_runs"] = fruns[des]
+                else:
                     ex = extra[des]
                     part = "dq" if kernel.endswith("_dq") else "dkv"
                     rec.update(ms_runs=ex["runs"][part],
@@ -1541,12 +1604,13 @@ def flash_phase(results):
             results.append(rec)
         if not ok:
             raise AssertionError(f"flash attention kernels disagree on "
-                                 f"{label}: {errs}, lse {lse_err}, "
-                                 f"bitwise repeat {bitwise}")
+                                 f"{label}: {ferrs}, {errs}, lse "
+                                 f"{lse_errs}, bitwise repeat {bitwise}, "
+                                 f"forward {fwd_bitwise}")
         if not caught:
             raise AssertionError(f"the flash limits {lim} miss a planted "
                                  f"fault on {label}: {faults}")
-        del q, k, v, do, o, lse, delta, grads, again
+        del q, k, v, do, o, lse, delta, grads, again, fwds, fwd_again
         torch.cuda.empty_cache()
 
 
@@ -1778,14 +1842,18 @@ def train_8b_width():
     if counts != want:
         raise AssertionError("training launch counts do not match the "
                              "steps")
-    # one more step with CUDA events around each flash backward (delta,
-    # dQ and dK/dV): its device time within a step
-    spans = []
+    # one more step with CUDA events around each flash forward and each
+    # flash backward (delta, dQ and dK/dV): their device time within a
+    # step
+    spans, fspans = [], []
     with mock.patch.object(fa, "_flash_bwd",
-                           _event_spans(fa._flash_bwd, spans)):
+                           _event_spans(fa._flash_bwd, spans)), \
+            mock.patch.object(fa, "_flash_fwd",
+                              _event_spans(fa._flash_fwd, fspans)):
         float(step(x, y))
     torch.cuda.synchronize()
     flash_bwd_ms = sum(a.elapsed_time(c) for a, c in spans)
+    flash_fwd_ms = sum(a.elapsed_time(c) for a, c in fspans)
     step_s = statistics.median(times[1:])
     tokens = b * s
     stats = dict(layers=L, batch=b, seq=s, params=cfg.num_params(),
@@ -1795,10 +1863,10 @@ def train_8b_width():
                  mfu=_mfu(cfg, tokens, s, step_s)[0],
                  mfu_without_embedding=_mfu(cfg, tokens, s, step_s)[1],
                  peak_mem_gib=peak, build_s=build_s,
+                 flash_fwd_ms_per_step=flash_fwd_ms,
                  flash_bwd_ms_per_step=flash_bwd_ms,
                  flash_bwd_calls_timed=len(spans),
-                 flash_bwd_design=fa.bwd_design(torch.bfloat16,
-                                                cfg.head_dim),
+                 flash_design=fa.sm90_design(torch.bfloat16, cfg.head_dim),
                  launches_per_step={k: v // TRAIN_STEPS
                                     for k, v in counts.items() if v},
                  path_check=dict(loss_rel_diff=loss_rel,
@@ -1824,10 +1892,13 @@ def train_recipe():
     b, s = 8, 2048
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    # CUDA events around each flash backward (delta, dQ and dK/dV)
-    spans = []
+    # CUDA events around each flash forward and each flash backward
+    # (delta, dQ and dK/dV)
+    spans, fspans = [], []
     with mock.patch.object(fa, "_flash_bwd",
-                           _event_spans(fa._flash_bwd, spans)):
+                           _event_spans(fa._flash_bwd, spans)), \
+            mock.patch.object(fa, "_flash_fwd",
+                              _event_spans(fa._flash_fwd, fspans)):
         r = llama_pretrain.main(["--size", "bench", "--bf16",
                                  "--batch-size", str(b), "--seq-len",
                                  str(s), "--steps", str(TRAIN_STEPS),
@@ -1837,6 +1908,8 @@ def train_recipe():
     L = cfg.num_hidden_layers
     per_step = [sum(a.elapsed_time(c) for a, c in spans[i:i + L])
                 for i in range(0, len(spans), L)]
+    fwd_per_step = [sum(a.elapsed_time(c) for a, c in fspans[i:i + L])
+                    for i in range(0, len(fspans), L)]
     step_s = statistics.median(r.step_seconds[1:])
     counts = {k: v for k, v in launch_counts.items() if v}
     stats = dict(size="bench", batch=b, seq=s, params=cfg.num_params(),
@@ -1846,10 +1919,11 @@ def train_recipe():
                  mfu=_mfu(cfg, b * s, s, step_s)[0],
                  mfu_without_embedding=_mfu(cfg, b * s, s, step_s)[1],
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 flash_fwd_ms_per_step=statistics.median(fwd_per_step[1:]),
+                 flash_fwd_ms_steps=fwd_per_step,
                  flash_bwd_ms_per_step=statistics.median(per_step[1:]),
                  flash_bwd_ms_steps=per_step,
-                 flash_bwd_design=fa.bwd_design(torch.bfloat16,
-                                                cfg.head_dim),
+                 flash_design=fa.sm90_design(torch.bfloat16, cfg.head_dim),
                  launches=counts)
     log("train_recipe " + json.dumps(stats))
     torch.cuda.empty_cache()
@@ -1861,10 +1935,11 @@ def train_recipe():
 # ---------------------------------------------------------------------------
 # MoE (grouped matmul) and BERT (LayerNorm) training
 # ---------------------------------------------------------------------------
-# the gmm kernel's K step: the planted "skipped last K tile" drops the
-# last GMM_TILE_K contraction terms; its m tile: the planted "tile->group
-# map off by one" gives the rows of a group that share a tile with the
-# group before it that group's matrix
+# the mma.sync gmm kernel's K step (the wgmma one's is 64): the planted
+# "skipped last K tile" drops the last GMM_TILE_K contraction terms; the
+# m tile of both: the planted "tile->group map off by one" gives the rows
+# of a group that share a tile with the group before it that group's
+# matrix
 GMM_TILE_K = 32
 GMM_TILE_M = 128
 # A14B-width MoE training, kernels against plain versions: bf16 rounded at
@@ -1946,12 +2021,20 @@ def _mm_loop(lhs, rhs, sizes, trans):
 
 
 def gmm_phase(results, routed_sizes):
-    """The grouped-matmul kernel against its plain version at the A14B
+    """The grouped-matmul kernels against their plain version at the A14B
     expert shapes: gate/up and down, forward and transposed (the
     backward's d(lhs)), on the routed group sizes of the a14b run's first
     step, and gate/up on a skewed routing (half the rows to one expert,
-    most experts empty). Scale-free limits, shown to catch two planted
-    faults of the plain version."""
+    most experts empty). Both designs of these shapes (wgmma, the path's,
+    and the mma.sync one it replaced) are held to scale-free limits, shown
+    to catch two planted faults of the plain version, the wgmma one also
+    bitwise on repeat, and timed in turns (mma.sync, wgmma, wgmma,
+    mma.sync) beside ``torch._grouped_mm`` and a per-expert `torch.mm`
+    loop. More cases, checked on their path's design(s): N off the
+    multiples of 8 (the mma.sync route, by `gm.gmm_design`), M off the
+    128-row tile with a group of one row, and K off the 64-wide k step
+    (the wgmma kernel's last step reads TMA's zero fill past K) with rhs
+    read either way."""
     import torch
     from paddle_tpu_torch.ops import grouped_matmul as gm
     from paddle_tpu_torch.ops import kernel_errors
@@ -1967,62 +2050,93 @@ def gmm_phase(results, routed_sizes):
     for j in range(3, e, 4):
         skew[j] = rest // 16
     skew[3] += rest - sum(skew[1:])
+    # M off the 128-row tile: 4001 rows, a 1-row group straddling a tile
+    # boundary, rows past the last group
+    tail = [127, 1, 0, 1500, 1, 2000, 0, 300] + [0] * (e - 8)
     gen = torch.Generator(device="cuda").manual_seed(12)
     dt = torch.bfloat16
-    # (label, K, N, trans, sizes): K the contraction, N the output width
-    cases = [("a14b_gate_up", h, i, False, routed_sizes),
-             ("a14b_down", i, h, False, routed_sizes),
-             ("a14b_gate_up_dlhs", i, h, True, routed_sizes),
-             ("a14b_down_dlhs", h, i, True, routed_sizes),
-             ("skewed_gate_up", h, i, False, skew)]
+    # (label, M, K, N, trans, sizes, timed): K the contraction, N the
+    # output width
+    cases = [("a14b_gate_up", m, h, i, False, routed_sizes, True),
+             ("a14b_down", m, i, h, False, routed_sizes, True),
+             ("a14b_gate_up_dlhs", m, i, h, True, routed_sizes, True),
+             ("a14b_down_dlhs", m, h, i, True, routed_sizes, True),
+             ("skewed_gate_up", m, h, i, False, skew, True),
+             ("n_off_8", 4001, h, i - 4, False, tail, False),
+             ("m_tail_one_row", 4001, h, i, True, tail, False),
+             ("k_off_64", 4001, h + 40, i, False, tail, False),
+             ("k_off_64_dlhs", 4001, h + 40, i, True, tail, False)]
     lim = gm.GMM_LIMITS[dt]
-    for label, k, n, trans, sizes in cases:
-        lhs = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+    for label, mm, k, n, trans, sizes, timed in cases:
+        lhs = torch.randn(mm, k, device="cuda", generator=gen).to(dt)
         # the trans cases read rhs (E, N, K): the layer's (E, H, I) weight
         # seen from d(lhs)
         shape = (e, n, k) if trans else (e, k, n)
         rhs = (0.02 * torch.randn(*shape, device="cuda",
                                   generator=gen)).to(dt)
         gs = torch.tensor(sizes, device="cuda", dtype=torch.int32)
-        out = gm.gmm(lhs, rhs, gs, trans)
+        design = gm.gmm_design(dt, k, n)
+        designs = [design] + (["mma.sync"] if design == "wgmma" else [])
+        outs = {des: gm.gmm(lhs, rhs, gs, trans, _design=des)
+                for des in designs}
+        again = gm.gmm(lhs, rhs, gs, trans, _design=design)
         ref, faults = _gmm_faults(gm, lhs, rhs, gs, trans)
         torch.cuda.synchronize()
-        rel, row = kernel_errors(out, ref)
+        errs = {des: kernel_errors(out, ref) for des, out in outs.items()}
         fault_err = {f: kernel_errors(v, ref) for f, v in faults.items()}
-        ok = rel <= lim["rel"] and row <= lim["row"] and \
-            bool(torch.isfinite(out).all())
+        end = min(mm, sum(sizes))
+        bitwise = torch.equal(outs[design], again)
+        ok = all(r <= lim["rel"] and w <= lim["row"]
+                 and bool(torch.isfinite(out).all())
+                 and not out[end:].any()
+                 for (r, w), out in zip(errs.values(), outs.values())) \
+            and bitwise
         caught = all(r > lim["rel"] or w > lim["row"]
                      for r, w in fault_err.values())
-        del faults
-        ms = time_ms(lambda: gm.gmm(lhs, rhs, gs, trans))
-        plain = time_ms(lambda: gm.gmm_plain(lhs, rhs, gs, trans), iters=3,
-                        warmup=1)
-        lib_ms, lib_out, lib_note = _gmm_library(lhs, rhs, gs, trans)
-        lib_rel = None if lib_out is None else kernel_errors(lib_out, ref)
-        loop_ms = time_ms(lambda: _mm_loop(lhs, rhs, sizes, trans),
-                          iters=10)
+        del faults, again
+        runs = {}
+        for des in (designs[::-1] + designs if timed else designs):
+            runs.setdefault(des, []).append(time_ms(
+                lambda: gm.gmm(lhs, rhs, gs, trans, _design=des)))
+        lib_ms = lib_out = lib_rel = loop_ms = plain = None
+        lib_note = None
+        if timed:
+            plain = time_ms(lambda: gm.gmm_plain(lhs, rhs, gs, trans),
+                            iters=3, warmup=1)
+            lib_ms, lib_out, lib_note = _gmm_library(lhs, rhs, gs, trans)
+            lib_rel = None if lib_out is None else kernel_errors(lib_out,
+                                                                 ref)
+            loop_ms = time_ms(lambda: _mm_loop(lhs, rhs, sizes, trans),
+                              iters=10)
         # an empty group's matrix is never read
-        nbytes = 2 * (m * k + sum(1 for s in sizes if s) * k * n + m * n)
-        b_ms, b_by = bound(nbytes, 2 * m * k * n, "bfloat16")
-        rec = dict(kernel="grouped_matmul", case=label, dtype="bfloat16",
-                   M=m, K=k, N=n, E=e, trans=trans,
-                   nonempty_groups=sum(1 for s in sizes if s),
-                   largest_group=max(sizes),
-                   max_abs_err=(out.float() - ref.float()).abs().max()
-                   .item(), rel_row_errors=[rel, row], limits=lim,
-                   planted_faults=fault_err, ms=ms, plain_ms=plain,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                   library_note=lib_note, library_rel_row_errors=lib_rel,
-                   mm_loop_ms=loop_ms,
-                   tflops=2 * m * k * n / ms / 1e9)
-        log("kernel " + json.dumps(rec))
+        nbytes = 2 * (mm * k + sum(1 for s in sizes if s) * k * n + mm * n)
+        b_ms, b_by = bound(nbytes, 2 * end * k * n, "bfloat16")
+        for des in designs:
+            ms = statistics.median(runs[des])
+            rec = dict(kernel="grouped_matmul", case=label, design=des,
+                       path_design=des == design, dtype="bfloat16", M=mm,
+                       K=k, N=n, E=e, trans=trans,
+                       nonempty_groups=sum(1 for s in sizes if s),
+                       largest_group=max(sizes),
+                       max_abs_err=(outs[des].float() - ref.float()).abs()
+                       .max().item(), rel_row_errors=list(errs[des]),
+                       limits=lim, planted_faults=fault_err,
+                       bitwise_repeat=bitwise if des == design else None,
+                       ms=ms, ms_runs=runs[des], plain_ms=plain,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       library_note=lib_note, library_rel_row_errors=lib_rel,
+                       mm_loop_ms=loop_ms, tflops=2 * end * k * n / ms / 1e9)
+            log("kernel " + json.dumps(rec))
+            results.append(rec)
         if not ok:
-            raise AssertionError(f"grouped matmul kernel disagrees: {rec}")
+            raise AssertionError(f"grouped matmul kernels disagree on "
+                                 f"{label}: {errs}, bitwise {bitwise}")
         if not caught:
             raise AssertionError(f"the grouped matmul limits miss a planted "
                                  f"fault: {fault_err}")
-        results.append(rec)
-        del lhs, rhs, out, ref, lib_out
+        if label == "n_off_8" and design != "mma.sync":
+            raise AssertionError(f"N {n} took the {design} design")
+        del lhs, rhs, outs, ref, lib_out
         torch.cuda.empty_cache()
 
 
@@ -2321,11 +2435,14 @@ def train_moe_a14b_width():
     # one more step with CUDA events around every grouped matmul, every
     # d(rhs) and every flash backward (delta, dQ and dK/dV): their device
     # time within a step
-    spans = {"gmm": [], "drhs": [], "flash_bwd": []}
+    spans = {"gmm": [], "drhs": [], "flash_fwd": [], "flash_bwd": []}
     with mock.patch.object(gm, "_gmm_cuda",
                            _event_spans(gm._gmm_cuda, spans["gmm"])), \
             mock.patch.object(gm, "drhs_plain",
                               _event_spans(gm.drhs_plain, spans["drhs"])), \
+            mock.patch.object(fa, "_flash_fwd",
+                              _event_spans(fa._flash_fwd,
+                                           spans["flash_fwd"])), \
             mock.patch.object(fa, "_flash_bwd",
                               _event_spans(fa._flash_bwd,
                                            spans["flash_bwd"])):
@@ -2346,10 +2463,12 @@ def train_moe_a14b_width():
                  peak_mem_gib=peak, build_s=build_s,
                  gmm_ms_per_step=span_ms["gmm"],
                  gmm_launches_timed=len(spans["gmm"]),
+                 gmm_design=gm.gmm_design(torch.bfloat16, cfg.hidden_size,
+                                          cfg.moe_intermediate_size),
+                 flash_fwd_ms_per_step=span_ms["flash_fwd"],
                  drhs_ms_per_step=span_ms["drhs"],
                  flash_bwd_ms_per_step=span_ms["flash_bwd"],
-                 flash_bwd_design=fa.bwd_design(torch.bfloat16,
-                                                cfg.head_dim),
+                 flash_design=fa.sm90_design(torch.bfloat16, cfg.head_dim),
                  drops=drops, routed_rows=sum(sizes[0]),
                  nonempty_experts=sum(1 for v in sizes[0] if v),
                  largest_expert_rows=max(sizes[0]),
@@ -3275,8 +3394,9 @@ def main():
                  "flash_varlen_bwd_dkv": ("pretrain_8b", "bfloat16", None),
                  "rope": ("pretrain_q", "bfloat16", None)}
     varlen_src = "paddle_tpu_torch/csrc/flash_varlen.cu"
-    flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
-    # the main paths' backward (bf16, D 128 and 64): the wgmma design
+    # the main paths' forward and backward (bf16, D 128 and 64): the
+    # wgmma designs
+    flash_src = "paddle_tpu_torch/csrc/flash_fwd_sm90.cu"
     bwd_src = "paddle_tpu_torch/csrc/flash_bwd_sm90.cu"
     attn_src = ("paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                 "paddle_tpu/ops/ragged_paged_attention.py:293")
@@ -3319,6 +3439,7 @@ def main():
                    and r.get("mode") == mode and r.get("path_design", True))
         kernels.append(dict(
             name=name, route="cuda", source=meta[name][0],
+            design=rec.get("design"),
             replaces=meta[name][1], launches=counts[name],
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],

@@ -5,8 +5,9 @@
 // Replaces, at those dtypes and head dims: paddle_tpu/ops/flash_attention.py
 // _bwd_dq_kernel (:223, pallas_call at :333) and _bwd_dkv_kernel (:270,
 // pallas_call at :361). Every other input takes the mma.sync kernels of
-// flash_kernels.cuh (flash_attention.cu). This file is self-contained: it
-// shares no header with them, so neither rebuilds the other.
+// flash_kernels.cuh (flash_attention.cu). The Hopper building blocks
+// (sm90.cuh) and the shapes, masks and tensor maps (flash_sm90.cuh) are
+// shared with the wgmma forward (flash_fwd_sm90.cu).
 //
 // Semantics, layouts and results are those of flash_kernels.cuh: (B, S, H,
 // D) tensors read in place, lse and delta (B, H, Sq) f32, query head h reads
@@ -66,336 +67,9 @@
 // pointer not 16-byte aligned) or a tensor map the driver refuses, else
 // cudaGetLastError() after its launch.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_sm90.cuh"
 
 namespace pdt_sm90 {
-
-using bf16 = __nv_bfloat16;
-using f16 = __half;
-using u16 = uint16_t;  // a bf16 or f16 element in memory
-
-constexpr float kNegInf = -1e30f;  // the lse of a row with no live key
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kConsumers = 2;  // warpgroups of 64 rows
-constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kRows = 64;      // rows of a tile: a TMA box, a wgmma M or N
-constexpr int kBox = 8192;     // bytes of a 64 x 64 box of 16-bit elements
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
-
-struct Shape {
-  int B, Sq, Sk, H, HK;
-  float scale;
-  int causal;
-  int window;  // <= 0: none
-};
-
-// q row i sees key j; without branches (bitwise &), so the element loops
-// that mask with it compile to selects and stay free to interleave
-__device__ __forceinline__ bool is_live(const Shape& s, int i, int j) {
-  const int p = i + s.Sk - s.Sq;
-  const bool band = (j <= p) & ((s.window <= 0) | (j > p - s.window));
-  return (i < s.Sq) & (j < s.Sk) & ((s.causal == 0) | band);
-}
-
-// every (q row, key) of rows [i0, i1] x keys [j0, j1] is live
-__device__ __forceinline__ bool tile_full(const Shape& s, int i0, int i1,
-                                          int j0, int j1) {
-  if (i1 >= s.Sq || j1 >= s.Sk) return false;
-  if (!s.causal) return true;
-  const int off = s.Sk - s.Sq;
-  return j1 <= i0 + off && (s.window <= 0 || j0 > i1 + off - s.window);
-}
-
-// live keys of q rows [i0, i1]: [lo, hi] (empty when hi < lo)
-__device__ __forceinline__ void key_band(const Shape& s, int i0, int i1,
-                                         int& lo, int& hi) {
-  const int off = s.Sk - s.Sq;
-  lo = 0;
-  hi = s.Sk - 1;
-  if (s.causal) {
-    hi = min(hi, i1 + off);
-    if (s.window > 0) lo = max(0, i0 + off - s.window + 1);
-  }
-}
-
-// q rows that see some key of [j0, j1]: [lo, hi]
-__device__ __forceinline__ void query_band(const Shape& s, int j0, int j1,
-                                           int& lo, int& hi) {
-  const int off = s.Sk - s.Sq;
-  lo = 0;
-  hi = s.Sq - 1;
-  if (s.causal) {
-    lo = max(0, j0 - off);
-    if (s.window > 0) hi = min(hi, j1 - off + s.window - 1);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// PTX: mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map at coordinates (c0, c1, c2, c3) into shared
-// memory at `dst`, its bytes credited to `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from reading an accumulator before wg_wait_all
-template <int R>
-__device__ __forceinline__ void reg_fence(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (16-byte units)
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
-         (uint64_t(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// A tile is 64 rows x D of 16-bit elements as TMA lays it: D / 64 boxes of
-// [64 rows][64 columns], 128 bytes a row, 8-row atoms of 1024 bytes. The
-// descriptor of k step kk is the tile's plus a constant (the start address
-// field holds all of shared memory, so the sum never carries out of it).
-// K-major read (the product reduces along D): k step kk (16 columns) starts
-// 32 bytes into its box.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
-  return make_desc(tile, 16, 1024) +
-         uint64_t(((kk >> 2) * kBox + (kk & 3) * 32) >> 4);
-}
-
-// MN-major read (the product reduces along the rows, N runs along D): k step
-// kk (16 rows) starts 2048 bytes down; the next 64 columns are one box on.
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
-  return make_desc(tile, kBox, 1024) + uint64_t(kk * 2048 >> 4);
-}
-
-template <typename T>
-struct Wg;
-
-#define PDT_F8(i)                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-#define PDT_W8(i)                                                       \
-  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),          \
-      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
-
-#define PDT_WGMMA(CT, TY)                                                     \
-template <>                                                                   \
-struct Wg<CT> {                                                               \
-  /* d += A . B^T, A and B 64-row K-major tiles in smem: m64n64k16 */         \
-  static __device__ __forceinline__ void ss64(float (&d)[32], uint64_t a,     \
-                                              uint64_t b) {                   \
-    asm volatile(                                                             \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
-        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
-        "%26, %27, %28, %29, %30, %31}, "                                     \
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"                                       \
-        : PDT_F8(0), PDT_F8(8), PDT_F8(16), PDT_F8(24)                        \
-        : "l"(a), "l"(b), "r"(1));                                            \
-  }                                                                           \
-  /* d = A . B^T (d written, not read): the first k step of ss64 */           \
-  static __device__ __forceinline__ void ss64_init(float (&d)[32],            \
-                                                   uint64_t a, uint64_t b) {  \
-    asm volatile(                                                             \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
-        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
-        "%26, %27, %28, %29, %30, %31}, "                                     \
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"                                       \
-        : PDT_W8(0), PDT_W8(8), PDT_W8(16), PDT_W8(24)                        \
-        : "l"(a), "l"(b), "r"(0));                                            \
-  }                                                                           \
-  /* d += A . B^T; A in registers, B K-major: m64n64k16 */                    \
-  static __device__ __forceinline__ void rs64k(float (&d)[32],                \
-                                              const uint32_t (&a)[4],         \
-                                              uint64_t b) {                   \
-    asm volatile(                                                             \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
-        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
-        "%26, %27, %28, %29, %30, %31}, "                                     \
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"                         \
-        : PDT_F8(0), PDT_F8(8), PDT_F8(16), PDT_F8(24)                        \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));        \
-  }                                                                           \
-  /* d = A . B^T, d written only; A in registers, B K-major: m64n64k16 */     \
-  static __device__ __forceinline__ void rs64k_init(float (&d)[32],           \
-                                              const uint32_t (&a)[4],         \
-                                              uint64_t b) {                   \
-    asm volatile(                                                             \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
-        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
-        "%26, %27, %28, %29, %30, %31}, "                                     \
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"                         \
-        : PDT_W8(0), PDT_W8(8), PDT_W8(16), PDT_W8(24)                        \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));        \
-  }                                                                           \
-  /* d += A . B, A in registers, B MN-major in smem: m64n64k16 */             \
-  static __device__ __forceinline__ void rs64(float (&d)[32],                 \
-                                              const uint32_t (&a)[4],         \
-                                              uint64_t b) {                   \
-    asm volatile(                                                             \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
-        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
-        "%26, %27, %28, %29, %30, %31}, "                                     \
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                         \
-        : PDT_F8(0), PDT_F8(8), PDT_F8(16), PDT_F8(24)                        \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));        \
-  }                                                                           \
-  /* d += A . B, A in registers, B MN-major in smem: m64n128k16 */            \
-  static __device__ __forceinline__ void rs128(float (&d)[64],                \
-                                              const uint32_t (&a)[4],         \
-                                              uint64_t b) {                   \
-    asm volatile(                                                             \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                          \
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "          \
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
-        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
-        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "        \
-        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "        \
-        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "        \
-        "%62, %63}, "                                                         \
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                         \
-        : PDT_F8(0), PDT_F8(8), PDT_F8(16), PDT_F8(24), PDT_F8(32),           \
-        PDT_F8(40), PDT_F8(48), PDT_F8(56)                                    \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));        \
-  }                                                                           \
-};
-
-PDT_WGMMA(bf16, "bf16")
-PDT_WGMMA(f16, "f16")
-#undef PDT_WGMMA
-#undef PDT_F8
-#undef PDT_W8
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-
-template <>
-__device__ __forceinline__ uint32_t pack2<bf16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <>
-__device__ __forceinline__ uint32_t pack2<f16>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <typename T>
-__device__ __forceinline__ float2 unpack2(uint32_t u);
-
-template <>
-__device__ __forceinline__ float2 unpack2<bf16>(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-}
-
-template <>
-__device__ __forceinline__ float2 unpack2<f16>(uint32_t u) {
-  return __half22float2(*reinterpret_cast<__half2*>(&u));
-}
-
-// d += A . B over one k step, N = D
-template <typename T, int D>
-__device__ __forceinline__ void rs_mma(float (&d)[D / 2],
-                                       const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 64)
-    Wg<T>::rs64(d, a, b);
-  else
-    Wg<T>::rs128(d, a, b);
-}
-
-// The register A fragments of the four 16-wide k steps of a 64 x 64 f32
-// accumulator, rounded to T. Accumulator element i of a thread (lane: g =
-// lane / 4, t = lane % 4) is row g + 8 ((i >> 1) & 1) of its warp's 16,
-// column 8 (i >> 2) + 2t + (i & 1); the A fragment of k step kk takes
-// columns 16kk.. in the order of mma.m16n8k16's.
-template <typename T>
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4],
-                                     const float (&c)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      a[kk][j] = pack2<T>(c[8 * kk + 2 * j], c[8 * kk + 2 * j + 1]);
-}
 
 // ---------------------------------------------------------------------------
 // dQ: a block owns 128 q rows of one query head
@@ -434,24 +108,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The register A fragments of a warp's 16 rows of a (B, S, H, D) tensor,
-// every 16-column k step: rows at or past S are zero. `row` points at the
-// thread's row g (of the warp's 16); row g + 8 is 8 rows on.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const u16* p,
-                                       size_t row_stride, bool in0, bool in1,
-                                       int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const u16* c = p + 16 * kk + 2 * t;
-    a[kk][0] = in0 ? *reinterpret_cast<const uint32_t*>(c) : 0u;
-    a[kk][1] = in1 ? *reinterpret_cast<const uint32_t*>(c + 8 * row_stride)
-                   : 0u;
-    a[kk][2] = in0 ? *reinterpret_cast<const uint32_t*>(c + 8) : 0u;
-    a[kk][3] =
-        in1 ? *reinterpret_cast<const uint32_t*>(c + 8 * row_stride + 8) : 0u;
-  }
-}
 
 template <typename T, int D, int NS>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -565,12 +221,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         // S = Q K^T, dP = dO V^T
         float sc[32], dp[32];
         wg_fence();
-        Wg<T>::rs64k_init(sc, qf[0], desc_kmajor(kt, 0));
-        Wg<T>::rs64k_init(dp, df[0], desc_kmajor(vt, 0));
+        wg_rs<T, 64, 0, 0>(sc, qf[0], desc_kmajor(kt, 0));
+        wg_rs<T, 64, 0, 0>(dp, df[0], desc_kmajor(vt, 0));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk) {
-          Wg<T>::rs64k(sc, qf[kk], desc_kmajor(kt, kk));
-          Wg<T>::rs64k(dp, df[kk], desc_kmajor(vt, kk));
+          wg_rs<T, 64, 0>(sc, qf[kk], desc_kmajor(kt, kk));
+          wg_rs<T, 64, 0>(dp, df[kk], desc_kmajor(vt, kk));
         }
         wg_commit();
         wg_wait_all();
@@ -599,11 +255,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         // dQ += dS (rounded to T) K, K read MN-major
         uint32_t a[4][4];
-        to_a<T>(a, sc);
+        to_a<T, 4>(a, sc);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          rs_mma<T, D>(acc, a[kk], desc_mnmajor(kt, kk));
+          wg_rs<T, D, 1>(acc, a[kk], desc_mnmajor(kt, kk));
         wg_commit();
         wg_wait_all();
         reg_fence(acc);
@@ -774,20 +430,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         float sc[32], dp[32];
         wg_fence();
         if constexpr (kKvInRegisters<D>) {
-          Wg<T>::rs64k_init(sc, kf[0], desc_kmajor(qs, 0));
-          Wg<T>::rs64k_init(dp, vf[0], desc_kmajor(dos, 0));
+          wg_rs<T, 64, 0, 0>(sc, kf[0], desc_kmajor(qs, 0));
+          wg_rs<T, 64, 0, 0>(dp, vf[0], desc_kmajor(dos, 0));
 #pragma unroll
           for (int kk = 1; kk < D / 16; ++kk) {
-            Wg<T>::rs64k(sc, kf[kk], desc_kmajor(qs, kk));
-            Wg<T>::rs64k(dp, vf[kk], desc_kmajor(dos, kk));
+            wg_rs<T, 64, 0>(sc, kf[kk], desc_kmajor(qs, kk));
+            wg_rs<T, 64, 0>(dp, vf[kk], desc_kmajor(dos, kk));
           }
         } else {
-          Wg<T>::ss64_init(sc, desc_kmajor(kt, 0), desc_kmajor(qs, 0));
-          Wg<T>::ss64_init(dp, desc_kmajor(vt, 0), desc_kmajor(dos, 0));
+          wg_ss<T, 64, 0, 0>(sc, desc_kmajor(kt, 0), desc_kmajor(qs, 0));
+          wg_ss<T, 64, 0, 0>(dp, desc_kmajor(vt, 0), desc_kmajor(dos, 0));
 #pragma unroll
           for (int kk = 1; kk < D / 16; ++kk) {
-            Wg<T>::ss64(sc, desc_kmajor(kt, kk), desc_kmajor(qs, kk));
-            Wg<T>::ss64(dp, desc_kmajor(vt, kk), desc_kmajor(dos, kk));
+            wg_ss<T, 64, 0>(sc, desc_kmajor(kt, kk), desc_kmajor(qs, kk));
+            wg_ss<T, 64, 0>(dp, desc_kmajor(vt, kk), desc_kmajor(dos, kk));
           }
         }
         wg_commit();
@@ -828,13 +484,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         // dV += P^T dO, dK += dS^T Q: P and dS rounded to T, dO and Q read
         // MN-major
         uint32_t pa[4][4], sa[4][4];
-        to_a<T>(pa, sc);
-        to_a<T>(sa, dp);
+        to_a<T, 4>(pa, sc);
+        to_a<T, 4>(sa, dp);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          rs_mma<T, D>(dva, pa[kk], desc_mnmajor(dos, kk));
-          rs_mma<T, D>(dka, sa[kk], desc_mnmajor(qs, kk));
+          wg_rs<T, D, 1>(dva, pa[kk], desc_mnmajor(dos, kk));
+          wg_rs<T, D, 1>(dka, sa[kk], desc_mnmajor(qs, kk));
         }
         wg_commit();
         wg_wait_all();
@@ -896,54 +552,6 @@ __global__ void __launch_bounds__(256)
 // ---------------------------------------------------------------------------
 // host: tensor maps and launches
 // ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, reached through the runtime (no
-// -lcuda); null when the driver has none
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The (B, S, H, D) tensor at `ptr` as a 4-D map over (D, H, S, B): boxes of
-// 64 columns x 64 rows of one head, 128-byte swizzle, zero fill past S.
-inline bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
-                     int D, int dtype) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S),
-                              cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(H) * D * 2,
-                                 cuuint64_t(S) * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, kRows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map,
-            dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-            4, const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 struct Maps {
   CUtensorMap q, k, v, dout;
 };
@@ -1005,31 +613,6 @@ int launch_dkv(const Maps& m, const void* k, const void* v, const float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-// what the entries take: bf16 (1) or f16 (2), D 64 or 128, 16-byte aligned
-// tensors
-inline bool takes(int B, int Sq, int Sk, int H, int HK, int D, int dtype) {
-  return B > 0 && Sq > 0 && Sk > 0 && H > 0 && HK > 0 && H % HK == 0 &&
-         (dtype == 1 || dtype == 2) && (D == 64 || D == 128);
-}
-
-inline Shape make_shape(int B, int Sq, int Sk, int H, int HK, float scale,
-                        int causal, int window) {
-  Shape s;
-  s.B = B;
-  s.Sq = Sq;
-  s.Sk = Sk;
-  s.H = H;
-  s.HK = HK;
-  s.scale = scale;
-  s.causal = causal;
-  s.window = causal ? window : 0;
-  return s;
-}
-
 }  // namespace pdt_sm90
 
 // dtype: 1 = bfloat16, 2 = float16 (q, k, v, dO, o and the outputs share
@@ -1046,7 +629,8 @@ extern "C" int pdt_flash_bwd_dq_sm90(const void* q, const void* k,
                                      int dtype, void* stream) {
   using namespace pdt_sm90;
   if (!takes(B, Sq, Sk, H, HK, D, dtype) || !aligned16(q) || !aligned16(k) ||
-      !aligned16(v) || !aligned16(dout) || !aligned16(dq) || !aligned16(o))
+      !aligned16(v) || !aligned16(dout) || !aligned16(dq) || !aligned16(o) ||
+      !bind_device(q))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s = make_shape(B, Sq, Sk, H, HK, scale, causal, window);
   Maps m;
@@ -1077,7 +661,7 @@ extern "C" int pdt_flash_bwd_dkv_sm90(const void* q, const void* k,
   if (!takes(B, Sq, Sk, H, HK, D, dtype) || !aligned16(q) || !aligned16(k) ||
       !aligned16(v) || !aligned16(dout) || !aligned16(dk) || !aligned16(dv) ||
       splits < 1 || splits > H / HK ||
-      (splits > 1 && (ws == nullptr || !aligned16(ws))))
+      (splits > 1 && (ws == nullptr || !aligned16(ws))) || !bind_device(q))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s = make_shape(B, Sq, Sk, H, HK, scale, causal, window);
   Maps m;

@@ -1,0 +1,125 @@
+// What the wgmma / TMA flash attention kernels (flash_fwd_sm90.cu, the
+// forward; flash_bwd_sm90.cu, dQ and dK/dV) share: the attention's shape
+// and masks, the block layout (two consumer warpgroups and a producer), the
+// Q / K / V register operands and the (B, S, H, D) tensor maps.
+//
+// Semantics, as the JAX kernels and flash_kernels.cuh: (B, S, H, D) tensors
+// read in place, lse and delta (B, H, Sq) f32, query head h reads KV head
+// h / (H / HK), q row i sees key j iff j <= i + Sk - Sq when causal and
+// j > i + Sk - Sq - w under a window w; a row with no live key has lse
+// -1e30, output 0 and zero gradient; any Sq, Sk (TMA's zero fill takes the
+// tails, the masks drop them).
+#pragma once
+
+#include "sm90.cuh"
+
+namespace pdt_sm90 {
+
+constexpr float kNegInf = -1e30f;  // the lse of a row with no live key
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kConsumers = 2;  // warpgroups of 64 rows
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kRows = 64;      // rows of a tile: a TMA box, a wgmma M or N
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+struct Shape {
+  int B, Sq, Sk, H, HK;
+  float scale;
+  int causal;
+  int window;  // <= 0: none
+};
+
+// q row i sees key j; without branches (bitwise &), so the element loops
+// that mask with it compile to selects and stay free to interleave
+__device__ __forceinline__ bool is_live(const Shape& s, int i, int j) {
+  const int p = i + s.Sk - s.Sq;
+  const bool band = (j <= p) & ((s.window <= 0) | (j > p - s.window));
+  return (i < s.Sq) & (j < s.Sk) & ((s.causal == 0) | band);
+}
+
+// every (q row, key) of rows [i0, i1] x keys [j0, j1] is live
+__device__ __forceinline__ bool tile_full(const Shape& s, int i0, int i1,
+                                          int j0, int j1) {
+  if (i1 >= s.Sq || j1 >= s.Sk) return false;
+  if (!s.causal) return true;
+  const int off = s.Sk - s.Sq;
+  return j1 <= i0 + off && (s.window <= 0 || j0 > i1 + off - s.window);
+}
+
+// live keys of q rows [i0, i1]: [lo, hi] (empty when hi < lo)
+__device__ __forceinline__ void key_band(const Shape& s, int i0, int i1,
+                                         int& lo, int& hi) {
+  const int off = s.Sk - s.Sq;
+  lo = 0;
+  hi = s.Sk - 1;
+  if (s.causal) {
+    hi = min(hi, i1 + off);
+    if (s.window > 0) lo = max(0, i0 + off - s.window + 1);
+  }
+}
+
+// q rows that see some key of [j0, j1]: [lo, hi]
+__device__ __forceinline__ void query_band(const Shape& s, int j0, int j1,
+                                           int& lo, int& hi) {
+  const int off = s.Sk - s.Sq;
+  lo = 0;
+  hi = s.Sq - 1;
+  if (s.causal) {
+    lo = max(0, j0 - off);
+    if (s.window > 0) hi = min(hi, j1 - off + s.window - 1);
+  }
+}
+
+// The register A fragments of a warp's 16 rows of a (B, S, H, D) tensor,
+// every 16-column k step: rows at or past S are zero. `row` points at the
+// thread's row g (of the warp's 16); row g + 8 is 8 rows on.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const u16* p,
+                                       size_t row_stride, bool in0, bool in1,
+                                       int t) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const u16* c = p + 16 * kk + 2 * t;
+    a[kk][0] = in0 ? *reinterpret_cast<const uint32_t*>(c) : 0u;
+    a[kk][1] = in1 ? *reinterpret_cast<const uint32_t*>(c + 8 * row_stride)
+                   : 0u;
+    a[kk][2] = in0 ? *reinterpret_cast<const uint32_t*>(c + 8) : 0u;
+    a[kk][3] =
+        in1 ? *reinterpret_cast<const uint32_t*>(c + 8 * row_stride + 8) : 0u;
+  }
+}
+
+// The (B, S, H, D) tensor at `ptr` as a 4-D map over (D, H, S, B): boxes of
+// 64 columns x 64 rows of one head, 128-byte swizzle, zero fill past S.
+inline bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                     int D, int dtype) {
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(H) * D * 2,
+                                 cuuint64_t(S) * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, kRows, 1};
+  return make_tiled_map(map, ptr, 4, dims, strides, box, dtype);
+}
+
+// what the entries take: bf16 (1) or f16 (2), D 64 or 128
+inline bool takes(int B, int Sq, int Sk, int H, int HK, int D, int dtype) {
+  return B > 0 && Sq > 0 && Sk > 0 && H > 0 && HK > 0 && H % HK == 0 &&
+         (dtype == 1 || dtype == 2) && (D == 64 || D == 128);
+}
+
+inline Shape make_shape(int B, int Sq, int Sk, int H, int HK, float scale,
+                        int causal, int window) {
+  Shape s;
+  s.B = B;
+  s.Sq = Sq;
+  s.Sk = Sk;
+  s.H = H;
+  s.HK = HK;
+  s.scale = scale;
+  s.causal = causal;
+  s.window = causal ? window : 0;
+  return s;
+}
+
+}  // namespace pdt_sm90

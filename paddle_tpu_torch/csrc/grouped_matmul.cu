@@ -21,34 +21,44 @@
 // and lists every (m tile, group) pair that shares rows, as (tile, group,
 // first row, end row); the rows past the last group are one more
 // pseudo-group whose items write zeros. The main kernel runs one block per
-// (item, n tile): a tile that straddles a group boundary is computed once
-// for each group with the other group's rows zero-filled on load and
-// masked on store. Items past the list's end exit at once. Every output
-// row is written exactly once, by one block, with no atomics.
+// (item, n tile), the n tiles of an item next to each other in launch
+// order and the items of one group after each other (so a group's rhs
+// tiles are read from L2 after the first): a tile that straddles a group
+// boundary is computed once for each group and masked on store to that
+// group's rows. Items past the list's end exit at once. Every output row
+// is written exactly once, by one block, with no atomics.
 //
 // What bounds it on this card: operations. At the A14B expert shapes (M =
 // 32768 routed rows, (K, N) = (3584, 2560) and (2560, 3584), E = 64) the
 // product is 2 M K N = 601 GFLOP against ~0.47 GB of operands: ~0.61 ms of
-// bf16 tensor-core time, 0.14 ms of bytes. The bf16 path is a 128 x 128
-// output tile per block, 8 warps as 2 x 4 of 64 x 32, K in steps of 32
-// through a ring of four shared-memory stages fed by cp.async (three
-// steps' copies are in flight while the tensor cores work on the fourth;
-// with two stages the copy of one step had only one step of mma to hide
-// behind), fragments by ldmatrix (.trans for the (K, N) layout, so no
-// tile is transposed in shared memory), mma.sync.m16n8k16 bf16 with f32
-// accumulation, one rounding to bf16 in the epilogue; f16 is the same
-// kernel on mma.sync's f16 form. wgmma with TMA-fed
-// stages is later work. f32 runs on CUDA cores (64 x 64 tiles, 4 x 4
-// outputs a thread, exact f32 FMAs, no TF32), as the JAX package's f32
-// matmul does.
+// bf16 tensor-core time, 0.14 ms of bytes. Two designs:
+// - wgmma (gmm_wgmma_kernel; bf16 and f16 with K and N multiples of 8, the
+//   16-byte strides TMA wants): a 128 x 256 output tile a block (faster
+//   than 128 x 128 at the A14B shapes on the H100), two consumer
+//   warpgroups of 64 rows and one producer warp (setmaxnreg 240 / 24).
+//   lhs tiles of 128 rows x 64 k arrive by TMA from a 2-D map, rhs tiles
+//   of 64 k x 256 from a 3-D map over the experts
+//   (MN-major B for (E, K, N), K-major B for `trans`), 128-byte swizzle,
+//   through a ring of four stages (full / empty mbarriers); a last k step
+//   past K reads zeros (TMA's fill) on both sides. Each k step is
+//   four m64n256k16 wgmma a warpgroup from shared memory, one group in
+//   flight while the next step's wait runs; a warpgroup whose 64 rows hold
+//   none of the item's rows issues none. f32 accumulation, one rounding
+//   in the epilogue.
+// - mma.sync (gmm_mma_kernel; the other bf16 / f16 shapes, and the yardstick
+//   the wgmma design is timed against): 128 x 128 tiles, 8 warps as 2 x 4
+//   of 64 x 32, K in steps of 32 through a ring of four shared-memory
+//   stages fed by cp.async, fragments by ldmatrix (.trans for the (K, N)
+//   layout), mma.sync.m16n8k16 with f32 accumulation; the inner loop, not
+//   memory, sets its pace (four stages were no faster than two).
+// f32 runs on CUDA cores (64 x 64 tiles, 4 x 4 outputs a thread, exact f32
+// FMAs, no TF32), as the JAX package's f32 matmul does.
 //
-// C interface: device pointers on the caller's stream; the entry returns
+// C interface: device pointers on the caller's stream; each entry returns
+// cudaErrorInvalidValue for an input it does not take, else
 // cudaGetLastError() after its two launches.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
@@ -84,7 +94,8 @@ __global__ void gmm_plan_kernel(const int* __restrict__ sizes, int E, int M,
       const int s = ssz[e];
       end = s <= 0 ? start : (s >= M - start ? M : start + s);
     }
-    for (int t = start / bm; t * bm < end && w < wmax; ++t)
+    // an empty group lists no item (its start may lie inside a tile)
+    for (int t = start / bm; start < end && t * bm < end && w < wmax; ++t)
       work[w++] = make_int4(t, e < E ? e : kZeros, max(start, t * bm),
                             min(end, (t + 1) * bm));
     start = end;
@@ -468,10 +479,224 @@ cudaError_t launch_mma(dim3 grid, cudaStream_t st, const void* lhs,
 
 }  // namespace
 
-// lhs (M, K); rhs (E, K, N), or (E, N, K) with trans = 1; group_sizes (E,)
-// int32 on the device; work: 4 * wmax int32 of scratch, wmax = ceil(M /
-// tile_m) + E; out (M, N). dtype: 0 = float32, 1 = bfloat16, 2 = float16
-// (lhs, rhs and out share it).
+// ---------------------------------------------------------------------------
+// bf16 and f16: wgmma on 128 x 256 tiles fed by TMA
+// ---------------------------------------------------------------------------
+namespace pdt_sm90 {
+
+constexpr int kGmmBM = 128;  // rows an item: two consumer warpgroups of 64
+constexpr int kGmmBN = 256;  // output columns a block
+constexpr int kGmmBK = 64;   // k a step: one 128-byte swizzled row
+constexpr int kGmmThreads = 384;
+constexpr int kGmmStages = 4;
+
+struct GmmLayout {
+  static constexpr int kA = kGmmBM * 128;  // 128 rows x 64 k
+  static constexpr int kB = kGmmBN * 128;  // 64 k x 256, either layout
+  static constexpr int kStage = kA + kB;
+  static constexpr int kBars = kGmmStages * kStage;  // full, empty
+  static constexpr int kBytes = kBars + 8 * 2 * kGmmStages + 1024;
+};
+
+// One block per (work item, n tile): the producer warp's lane 0 streams the
+// item's k steps (lhs rows m0.., this n tile of group item.y's rhs) through
+// the ring; each consumer warpgroup multiplies its 64 rows, if they hold
+// any of the item's rows, and stores those rows. `it` counts k steps over
+// the block's items, so the ring's phases run on from one item to the next.
+template <typename T, bool TRANS>
+__global__ void __launch_bounds__(kGmmThreads, 1)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                     const __grid_constant__ CUtensorMap tb,
+                     const int4* __restrict__ work, int wmax,
+                     u16* __restrict__ out, int K, int N) {
+  using L = GmmLayout;
+  constexpr int NS = kGmmStages, BN = kGmmBN;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t full = base + L::kBars, empty = full + 8 * NS;
+  const int n0 = blockIdx.x * BN;
+  const int nk = (K + kGmmBK - 1) / kGmmBK;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 8);  // a warp of each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(24));
+    if (threadIdx.x != 256) return;
+    int it = 0;
+    for (int w = blockIdx.y; w < wmax; w += gridDim.y) {
+      const int4 item = work[w];
+      if (item.y == kUnused) break;
+      if (item.y == kZeros) continue;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int st = it % NS;
+        mbar_wait(empty + 8 * st, ((it / NS) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * st, L::kStage);
+        const uint32_t as = base + st * L::kStage, bs = as + L::kA;
+        tma_load_2d(as, &ta, full + 8 * st, kt * kGmmBK, item.x * kGmmBM);
+        if constexpr (TRANS) {
+          tma_load_3d(bs, &tb, full + 8 * st, kt * kGmmBK, n0, item.y);
+        } else {
+          for (int c = 0; c < BN / 64; ++c)
+            tma_load_3d(bs + c * kBox, &tb, full + 8 * st, n0 + 64 * c,
+                        kt * kGmmBK, item.y);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(240));
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  int it = 0;
+  for (int w = blockIdx.y; w < wmax; w += gridDim.y) {
+    const int4 item = work[w];
+    if (item.y == kUnused) break;
+    const int r0 = item.z, r1 = item.w;
+    if (item.y == kZeros) {
+      // rows past the last group: zeros, two outputs a store
+      for (int i = threadIdx.x; i < (r1 - r0) * (BN / 2); i += 256) {
+        const int c = n0 + 2 * (i % (BN / 2));
+        if (c < N)
+          *reinterpret_cast<uint32_t*>(
+              out + size_t(r0 + i / (BN / 2)) * N + c) = 0u;
+      }
+      continue;
+    }
+    const int w0 = item.x * kGmmBM + 64 * wg;  // this warpgroup's rows
+    const bool act = w0 < r1 && w0 + 64 > r0;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int st = it % NS;
+      mbar_wait(full + 8 * st, (it / NS) & 1);
+      if (act) {
+        const uint32_t as = base + st * L::kStage + wg * kBox;
+        const uint32_t bs = base + st * L::kStage + L::kA;
+        if (kt == 0) reg_fence(acc);  // the zeros are in place
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kGmmBK / 16; ++kk) {
+          if constexpr (TRANS)
+            wg_ss<T, BN, 0>(acc, desc_kmajor(as, kk), desc_kmajor(bs, kk));
+          else
+            wg_ss<T, BN, 1>(acc, desc_kmajor(as, kk), desc_mnmajor(bs, kk));
+        }
+        wg_commit();
+        // the previous step's products are done: its stage is free
+        wg_wait<1>();
+      }
+      if (kt > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % NS));
+      }
+    }
+    if (act) {
+      wg_wait<0>();
+      reg_fence(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % NS));
+    if (!act) continue;
+    // element i: row g + 8 ((i >> 1) & 1) of the warp's 16, column
+    // 8 (i >> 2) + 2t + (i & 1); only the item's rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = w0 + 16 * warp + g + 8 * r;
+      if (row < r0 || row >= r1) continue;
+      u16* o = out + size_t(row) * N + n0 + 2 * t;
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c)
+        if (n0 + 8 * c + 2 * t < N)
+          *reinterpret_cast<uint32_t*>(o + 8 * c) =
+              pack2<T>(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+    }
+  }
+}
+
+template <typename T, bool TRANS>
+cudaError_t launch_gmm(const CUtensorMap& ta, const CUtensorMap& tb,
+                       const int4* wk, int wmax, void* out, int K, int N,
+                       cudaStream_t st) {
+  auto kernel = gmm_wgmma_kernel<T, TRANS>;
+  constexpr int bytes = GmmLayout::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kGmmBN - 1) / kGmmBN,
+                  wmax < kMaxGridY ? wmax : kMaxGridY);
+  kernel<<<grid, kGmmThreads, bytes, st>>>(ta, tb, wk, wmax,
+                                           static_cast<u16*>(out), K, N);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_gmm(bool trans, const CUtensorMap& ta, const CUtensorMap& tb,
+                    const int4* wk, int wmax, void* out, int K, int N,
+                    cudaStream_t st) {
+  return trans ? launch_gmm<T, true>(ta, tb, wk, wmax, out, K, N, st)
+               : launch_gmm<T, false>(ta, tb, wk, wmax, out, K, N, st);
+}
+
+}  // namespace pdt_sm90
+
+// The wgmma design: lhs (M, K); rhs (E, K, N), or (E, N, K) with trans = 1;
+// group_sizes (E,) int32 on the device; work: 4 * wmax int32 of scratch,
+// wmax = ceil(M / 128) + E; out (M, N). dtype: 1 = bfloat16, 2 = float16;
+// K and N multiples of 8 and 16-byte aligned tensors (TMA's strides).
+extern "C" int pdt_grouped_matmul_sm90(const void* lhs, const void* rhs,
+                                       const void* group_sizes, void* work,
+                                       void* out, int M, int K, int N, int E,
+                                       int trans, int dtype, void* stream) {
+  namespace h = pdt_sm90;
+  if (M <= 0 || N <= 0) return 0;
+  if (K <= 0 || E <= 0 || (dtype != 1 && dtype != 2) || K % 8 != 0 ||
+      N % 8 != 0 ||
+      !h::aligned16(lhs) || !h::aligned16(rhs) || !h::aligned16(out) ||
+      !h::bind_device(lhs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;
+  const cuuint64_t adims[2] = {cuuint64_t(K), cuuint64_t(M)};
+  const cuuint64_t astr[1] = {cuuint64_t(K) * 2};
+  const cuuint32_t abox[2] = {64, h::kGmmBM};
+  bool ok = h::make_tiled_map(&ta, lhs, 2, adims, astr, abox, dtype);
+  if (trans) {
+    const cuuint64_t dims[3] = {cuuint64_t(K), cuuint64_t(N), cuuint64_t(E)};
+    const cuuint64_t str[2] = {cuuint64_t(K) * 2, cuuint64_t(N) * K * 2};
+    const cuuint32_t box[3] = {64, cuuint32_t(h::kGmmBN), 1};
+    ok = ok && h::make_tiled_map(&tb, rhs, 3, dims, str, box, dtype);
+  } else {
+    const cuuint64_t dims[3] = {cuuint64_t(N), cuuint64_t(K), cuuint64_t(E)};
+    const cuuint64_t str[2] = {cuuint64_t(N) * 2, cuuint64_t(K) * N * 2};
+    const cuuint32_t box[3] = {64, 64, 1};
+    ok = ok && h::make_tiled_map(&tb, rhs, 3, dims, str, box, dtype);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int wmax = (M + h::kGmmBM - 1) / h::kGmmBM + E;
+  int4* wk = static_cast<int4*>(work);
+  gmm_plan_kernel<<<1, 256, sizeof(int) * size_t(E), st>>>(
+      static_cast<const int*>(group_sizes), E, M, h::kGmmBM, wk, wmax);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = dtype == 1 ? h::run_gmm<h::bf16>(trans != 0, ta, tb, wk, wmax, out,
+                                         K, N, st)
+                   : h::run_gmm<h::f16>(trans != 0, ta, tb, wk, wmax, out, K,
+                                        N, st);
+  return static_cast<int>(err);
+}
+
+// The mma.sync and f32 designs: lhs (M, K); rhs (E, K, N), or (E, N, K)
+// with trans = 1; group_sizes (E,) int32 on the device; work: 4 * wmax
+// int32 of scratch, wmax = ceil(M / tile_m) + E; out (M, N). dtype: 0 =
+// float32, 1 = bfloat16, 2 = float16 (lhs, rhs and out share it).
 extern "C" int pdt_grouped_matmul(const void* lhs, const void* rhs,
                                   const void* group_sizes, void* work,
                                   void* out, int M, int K, int N, int E,

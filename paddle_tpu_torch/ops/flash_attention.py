@@ -18,12 +18,14 @@ The kernels read the (B, S, H, D) tensors in place and write o, the
 repeated K/V. `_FlashAttentionFn` is the custom VJP: its forward saves
 (q, k, v, o, lse), its backward runs the dQ and dK/dV kernels on
 delta = rowsum(o * dO) in f32. The backward has two designs
-(`bwd_design`): bf16 and f16 at head dims 64 and 128 run the wgmma /
+(`sm90_design`): bf16 and f16 at head dims 64 and 128 run the wgmma /
 TMA kernels of `csrc/flash_bwd_sm90.cu`, whose dQ kernel computes delta
 for its rows and hands it to the dK/dV kernel; every other input runs
-the mma.sync kernels of `csrc/flash_attention.cu` (which also hold the
-forward) on delta from PyTorch (`_delta`, outside the kernels, as JAX
-does). On the CPU the same function runs the
+the mma.sync kernels of `csrc/flash_attention.cu` on delta from PyTorch
+(`_delta`, outside the kernels, as JAX does). The forward likewise, by
+the same predicate: bf16 and f16 at head dims 64 and 128 run the wgmma /
+TMA kernel of `csrc/flash_fwd_sm90.cu`, every other input the mma.sync
+one of `csrc/flash_attention.cu`. On the CPU the same function runs the
 plain versions (`flash_attention_ref`, `flash_attention_bwd_ref`), which
 keep the JAX kernels' precisions so that they match the interpret-mode
 kernels: QK^T in f32 and P cast to v's dtype for P.V; dP = dO.V^T in
@@ -49,13 +51,14 @@ NEG_INF = -1e30
 # reference's `_aligned` limit) at the smallest of its tile widths that
 # holds it, the columns past D zero
 MAX_HEAD_DIM = 256
-# the head dims of the wgmma backward (`csrc/flash_bwd_sm90.cu`)
-SM90_BWD_DIMS = (64, 128)
+# the head dims of the wgmma forward and backward
+# (`csrc/flash_fwd_sm90.cu`, `csrc/flash_bwd_sm90.cu`)
+SM90_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _DIMS = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p]
 # pdt_flash_fwd(q, k, v, o, lse, B, Sq, Sk, H, HK, D, scale, causal,
-#               window, dtype, stream)
+#               window, dtype, stream); pdt_flash_fwd_sm90 alike
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + _DIMS
 # pdt_flash_bwd_dq(q, k, v, dO, lse, delta, dq, ...)
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + _DIMS
@@ -77,12 +80,13 @@ def takes_head_dim(d: int) -> bool:
     return d <= MAX_HEAD_DIM
 
 
-def bwd_design(dtype, d: int) -> str:
-    """Which backward kernels take (dtype, head dim) on the card:
-    ``"wgmma"`` (`csrc/flash_bwd_sm90.cu`) for bf16 and f16 at the head
-    dims in `SM90_BWD_DIMS`, else ``"mma.sync"``
-    (`csrc/flash_attention.cu`)."""
-    if dtype in (torch.bfloat16, torch.float16) and d in SM90_BWD_DIMS:
+def sm90_design(dtype, d: int) -> str:
+    """Which flash kernels take (dtype, head dim) on the card, forward
+    and backward alike: ``"wgmma"`` (`csrc/flash_fwd_sm90.cu`,
+    `csrc/flash_bwd_sm90.cu`) for bf16 and f16 at the head dims in
+    `SM90_DIMS`, else ``"mma.sync"`` (`csrc/flash_attention.cu`, which
+    takes every input)."""
+    if dtype in (torch.bfloat16, torch.float16) and d in SM90_DIMS:
         return "wgmma"
     return "mma.sync"
 
@@ -262,17 +266,31 @@ def _launch(symbol, argtypes, ptrs, dims, device, count,
     launch_counts[count] += 1
 
 
-def _flash_fwd(q, k, v, scale, causal, window):
-    """The forward kernel on contiguous (B, S, H, D) tensors: (o, lse)."""
+def _flash_fwd(q, k, v, scale, causal, window, _design=None):
+    """The forward kernel on contiguous (B, S, H, D) tensors: (o, lse).
+    The design of `sm90_design`, unless ``_design`` names one (private: it
+    lets a caller run the other design at the same shape). An input the
+    named design cannot take raises ValueError before any launch."""
+    d = q.shape[-1]
+    design = _design or sm90_design(q.dtype, d)
+    if design not in ("wgmma", "mma.sync"):
+        raise ValueError(f"no flash forward design {design!r}")
+    if design == "wgmma" and sm90_design(q.dtype, d) != "wgmma":
+        raise ValueError(f"the wgmma flash forward takes bfloat16 and "
+                         f"float16 at head dims {SM90_DIMS}; got "
+                         f"{q.dtype}, head dim {d}")
     _check(q, k, v)
     b, sq, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-    _launch("pdt_flash_fwd", _FWD_ARGTYPES,
+    source, symbol = (("flash_fwd_sm90", "pdt_flash_fwd_sm90")
+                      if design == "wgmma"
+                      else ("flash_attention", "pdt_flash_fwd"))
+    _launch(symbol, _FWD_ARGTYPES,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr()),
             _dims(q, k, scale, causal, window), q.device,
-            "flash_attention_fwd")
+            "flash_attention_fwd", source)
     return o, lse
 
 
@@ -283,10 +301,10 @@ def _delta(o, do):
 
 def _bwd_entry(name, q, design):
     """(library, C entry) of backward kernel ``name`` ("dq" or "dkv"):
-    the design of `bwd_design`, unless ``design`` names one (the private
+    the design of `sm90_design`, unless ``design`` names one (the private
     argument of the launchers, which lets a caller run the other design
     at the same shape)."""
-    design = design or bwd_design(q.dtype, q.shape[-1])
+    design = design or sm90_design(q.dtype, q.shape[-1])
     if design == "wgmma":
         return "flash_bwd_sm90", f"pdt_flash_bwd_{name}_sm90"
     if design == "mma.sync":
@@ -345,7 +363,7 @@ def _flash_bwd(q, k, v, o, lse, do, scale, causal, window, _design=None):
     """The dQ kernel, then the dK/dV kernel, on delta = rowsum(o * dO) in
     f32: computed by the wgmma dQ kernel, or by `_delta` for the mma.sync
     design."""
-    design = _design or bwd_design(q.dtype, q.shape[-1])
+    design = _design or sm90_design(q.dtype, q.shape[-1])
     if design == "wgmma":
         b, sq, h, _ = q.shape
         delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)

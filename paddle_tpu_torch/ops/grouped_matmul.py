@@ -14,8 +14,10 @@ A CUDA tensor goes through the kernel (`csrc/grouped_matmul.cu`), which
 takes unpadded groups (a tile that straddles two groups is computed once
 for each; the TPU kernel needs every group padded to its 128-row tile)
 and reads ``group_sizes`` on the device, so no launch waits for the host.
-A CPU tensor goes through `gmm_plain`. Under autograd (`_GmmFn`, ≙
-`_gmm_fwd` / `_gmm_bwd`):
+The kernel has three designs (`gmm_design`): bf16 and f16 with K and N
+multiples of 8 run on wgmma with TMA-fed tiles, other bf16 / f16 shapes on
+mma.sync, f32 on CUDA cores. A CPU tensor goes through `gmm_plain`. Under
+autograd (`_GmmFn`, ≙ `_gmm_fwd` / `_gmm_bwd`):
 
 * d(lhs) = the same kernel on rhs transposed: the kernel reads ``rhs``
   as (E, N, K) (``trans=True``), so ``swapaxes(rhs, 1, 2)``, a copy of
@@ -38,7 +40,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # csrc/grouped_matmul.cu): the work list holds ceil(M / tile) + E items
 _TILE_M = {torch.bfloat16: 128, torch.float16: 128, torch.float32: 64}
 # pdt_grouped_matmul(lhs, rhs, group_sizes, work, out, M, K, N, E, trans,
-#                    dtype, stream)
+#                    dtype, stream); pdt_grouped_matmul_sm90 alike
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 # limits on `ops.kernel_errors` for the kernel against `gmm_plain` on
@@ -79,10 +81,23 @@ def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes,
     return out
 
 
+def gmm_design(dtype, k: int, n: int) -> str:
+    """Which kernel of `csrc/grouped_matmul.cu` takes a grouped matmul of
+    contraction ``k`` and width ``n`` on the card: ``"wgmma"`` for bf16 and
+    f16 when K and N are multiples of 8 (TMA wants 16-byte strides),
+    ``"mma.sync"`` for the other bf16 / f16 shapes, ``"cuda_cores"`` for
+    f32."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return "wgmma" if k % 8 == 0 and n % 8 == 0 else "mma.sync"
+    return "cuda_cores"
+
+
 def _gmm_cuda(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes,
-              trans: bool) -> torch.Tensor:
+              trans: bool, _design=None) -> torch.Tensor:
     """Launch `csrc/grouped_matmul.cu` (its work-list kernel, then the
-    matmul)."""
+    matmul) in the design of `gmm_design`, unless ``_design`` names one
+    (private: it lets a caller run another design at the same shape). An
+    input the named design cannot take raises before any launch."""
     if lhs.dtype not in _DTYPES:
         raise TypeError(f"grouped matmul kernel takes float32, bfloat16 or "
                         f"float16, got {lhs.dtype}")
@@ -101,23 +116,39 @@ def _gmm_cuda(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes,
     gs = torch.as_tensor(group_sizes)
     if gs.shape != (e,):
         raise ValueError(f"want group_sizes ({e},), got {tuple(gs.shape)}")
+    design = _design or gmm_design(lhs.dtype, k, n)
+    takes = {"wgmma": gmm_design(lhs.dtype, k, n) == "wgmma",
+             "mma.sync": lhs.dtype != torch.float32,
+             "cuda_cores": lhs.dtype == torch.float32}
+    if design not in takes:
+        raise ValueError(f"no grouped matmul design {design!r}")
+    if not takes[design]:
+        raise ValueError(f"the {design} grouped matmul does not take "
+                         f"{lhs.dtype} with K {k}, N {n}")
     if not (lhs.is_cuda and rhs.device == lhs.device):
         raise ValueError("grouped matmul kernel wants lhs and rhs on one "
                          "CUDA device")
     if not (lhs.is_contiguous() and rhs.is_contiguous()):
         raise ValueError("grouped matmul kernel wants contiguous lhs and "
                          "rhs")
+    if design == "wgmma":
+        # TMA reads from 16-byte aligned bases (a copy only when a view is
+        # not)
+        lhs, rhs = (t if t.data_ptr() % 16 == 0 else t.clone()
+                    for t in (lhs, rhs))
     gs = gs.to(lhs.device, torch.int32).contiguous()
     from ._build import kernel_fn
-    fn = kernel_fn("grouped_matmul", "pdt_grouped_matmul", _ARGTYPES)
     out = torch.empty(m, n, dtype=lhs.dtype, device=lhs.device)
     wmax = -(-m // _TILE_M[lhs.dtype]) + e
     work = torch.empty(4 * wmax, dtype=torch.int32, device=lhs.device)
     stream = torch.cuda.current_stream(lhs.device).cuda_stream
+    args = [lhs.data_ptr(), rhs.data_ptr(), gs.data_ptr(), work.data_ptr(),
+            out.data_ptr(), m, k, n, e, int(trans), _DTYPES[lhs.dtype]]
+    symbol = ("pdt_grouped_matmul_sm90" if design == "wgmma"
+              else "pdt_grouped_matmul")
+    fn = kernel_fn("grouped_matmul", symbol, _ARGTYPES)
     with torch.cuda.device(lhs.device):
-        err = fn(lhs.data_ptr(), rhs.data_ptr(), gs.data_ptr(),
-                 work.data_ptr(), out.data_ptr(), m, k, n, e, int(trans),
-                 _DTYPES[lhs.dtype], stream)
+        err = fn(*args, stream)
     if err:
         raise RuntimeError(f"grouped matmul kernel launch failed: CUDA "
                            f"error {err}")
@@ -125,12 +156,12 @@ def _gmm_cuda(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes,
     return out
 
 
-def gmm(lhs, rhs, group_sizes, trans=False, use_kernel=None):
+def gmm(lhs, rhs, group_sizes, trans=False, use_kernel=None, _design=None):
     """The grouped matmul without autograd: the kernel for a CUDA
     ``lhs``, `gmm_plain` for a CPU one (``use_kernel`` as in
-    `ops.kernel_route`)."""
+    `ops.kernel_route`; ``_design`` as in `_gmm_cuda`)."""
     if kernel_route(lhs, use_kernel):
-        return _gmm_cuda(lhs, rhs, group_sizes, trans)
+        return _gmm_cuda(lhs, rhs, group_sizes, trans, _design)
     return gmm_plain(lhs, rhs, group_sizes, trans)
 
 

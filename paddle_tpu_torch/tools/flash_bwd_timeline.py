@@ -76,8 +76,10 @@ def _build_library():
     cu = _build.BUILD_DIR / "flash_bwd_timeline.cu"
     lib = _build.BUILD_DIR / "libflash_bwd_timeline.so"
     cu.write_text(src)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    str(cu)], check=True, capture_output=True)
+    # the copy includes the package's headers (csrc/*.cuh)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", str(lib), str(cu)], check=True,
+                   capture_output=True)
     return ctypes.CDLL(str(lib))
 
 

@@ -48,7 +48,7 @@ FAMILIES = (("flash_attention_fwd", ("flash_fwd",)),
             ("flash_attention_bwd_dkv", ("flash_dkv",)),
             ("rms_norm_bwd", ("rms_norm_bwd", "rms_norm_dw")),
             ("rms_norm", ("rms_norm_fwd",)),
-            ("grouped_matmul", ("gmm_mma", "gmm_f32", "gmm_plan")),
+            ("grouped_matmul", ("gmm_mma", "gmm_wgmma", "gmm_f32", "gmm_plan")),
             ("layer_norm_bwd", ("layer_norm_bwd", "layer_norm_dwdb")),
             ("layer_norm", ("layer_norm_fwd",)),
             ("torch_matmul", ("gemm", "gemv", "cutlass", "sm90_xmma",

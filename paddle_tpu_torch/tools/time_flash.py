@@ -9,7 +9,7 @@ non-causal) go through the forward, dQ and dK/dV kernels (the launchers
 of `ops.flash_attention`), each timed as the median of 20 launches by
 CUDA events, and ``delta`` (rowsum(o dO) in PyTorch) beside them. A
 head dim whose backward runs the wgmma kernels (`ops.flash_attention.
-bwd_design`) also times the mma.sync ones, in turns (mma.sync, wgmma,
+sm90_design`) also times the mma.sync ones, in turns (mma.sync, wgmma,
 wgmma, mma.sync): ``dq_ms`` / ``dkv_ms`` are the path's design,
 ``previous`` the other. One ``time_flash {...}`` line a head dim. To
 hold two trees against each other on one card, run each tree's own copy
@@ -68,7 +68,7 @@ def time_dim(d: int) -> dict:
                fwd_ms=_time_ms(lambda: fa._flash_fwd(q, k, v, scale,
                                                      causal, None)),
                delta_ms=_time_ms(lambda: fa._delta(o, do)))
-    path = fa.bwd_design(q.dtype, d)
+    path = fa.sm90_design(q.dtype, d)
     if path != "wgmma":
         out["dq_ms"], out["dkv_ms"] = bwd(path)
         return out

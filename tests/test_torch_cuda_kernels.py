@@ -39,7 +39,9 @@ one rounding of f32 sums that differ only in order, the bf16 products
 being exact in f32; f32 sums in another order), rows past the last
 group exact zeros, and f32 also elementwise rtol/atol 1e-5 of the
 largest |output|; its gradients as the outputs they are (d(lhs) through
-the kernel's transposed read, d(rhs) one matmul per group);
+the kernel's transposed read, d(rhs) one matmul per group); the wgmma
+design beside the mma.sync one (K off the 64-wide k step too), bitwise
+across runs, and K or N off 8 on the mma.sync route;
 LayerNorm: `nk.LN_LIMITS` on `kernel_errors` for y, dx, dw and db (both
 sides in f32, one rounding), dw and db bitwise equal across runs;
 the tiny MoE (dropless through the grouped-matmul kernel) and tiny BERT
@@ -54,7 +56,9 @@ limits, head dims past 256 through `attention_xla` (counted), float64
 raises; the two backward designs (wgmma for bf16/f16 at D 64 and 128,
 mma.sync) each against the plain version and against each other at
 `fa.KERNEL_LIMITS`, bitwise equal across runs, and an input the wgmma
-entries refuse raising;
+entries refuse raising; the two forward designs likewise (lse within
+1e-3), and the wgmma forward with
+the wgmma backward through autograd;
 varlen flash attention: as flash attention (`fa.KERNEL_LIMITS`, f32
 also elementwise 1e-4), padding rows exact zeros with zero dQ and
 padding keys zero dK/dV, dK/dV bitwise equal across runs, one segment
@@ -548,7 +552,14 @@ FLASH_CASES = [("causal", 2, 300, 300, 4, 2, True, None),
                ("sq_gt_sk", 1, 200, 70, 4, 2, True, None),
                ("window", 1, 500, 500, 4, 2, True, 64),
                ("noncausal", 2, 130, 190, 4, 4, False, None),
-               ("gqa7", 1, 300, 300, 28, 4, True, None)]
+               ("gqa7", 1, 300, 300, 28, 4, True, None),
+               # many unmasked key tiles in a row at both head dims: where
+               # a register A operand of wgmma lives across the key loop
+               # (Q in the dQ kernel), ptxas has given its registers to
+               # other values in the loop with no warning (the forward
+               # with a key tile as wide as the head dim read P in place
+               # of Q from the second tile on); this case shows it
+               ("noncausal_long", 1, 200, 2048, 4, 2, False, None)]
 
 
 def _flash_inputs(cuda, case, d, dtype):
@@ -662,7 +673,7 @@ def test_flash_bwd_designs_match_plain_and_each_other(cuda, case, d, dtype):
     the plain version at `fa.KERNEL_LIMITS`, against each other at the
     same limits, and bitwise equal across runs."""
     _, _, sq, sk, _, _, causal, window = case
-    assert fa.bwd_design(dtype, d) == "wgmma"
+    assert fa.sm90_design(dtype, d) == "wgmma"
     q, k, v, do = _flash_inputs(cuda, case, d, dtype)
     scale = d ** -0.5
     o, lse = fa._flash_fwd(q, k, v, scale, causal, window)
@@ -705,6 +716,123 @@ def test_flash_bwd_wgmma_entry_refusals_raise(cuda):
             fa._flash_bwd_dkv(q, k, v, do, lse, delta, d ** -0.5, True,
                               None, _design="wgmma")
         assert launch_counts == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_flash_fwd_designs_match_plain(cuda, case, d, dtype):
+    """The wgmma forward (`csrc/flash_fwd_sm90.cu`, the default at these
+    dtypes and head dims) and the mma.sync forward it replaced, each
+    against the plain version: o at `fa.KERNEL_LIMITS`, lse within 1e-3,
+    rows with no live key exact zeros with lse -1e30, the wgmma one
+    bitwise equal across runs."""
+    _, _, sq, sk, _, _, causal, window = case
+    assert fa.sm90_design(dtype, d) == "wgmma"
+    q, k, v, _ = _flash_inputs(cuda, case, d, dtype)
+    scale = d ** -0.5
+    ro, rlse = fa.flash_attention_ref(q, k, v, causal, None, window)
+    for design in ("wgmma", "mma.sync"):
+        before = launch_counts["flash_attention_fwd"]
+        o, lse = fa._flash_fwd(q, k, v, scale, causal, window,
+                               _design=design)
+        assert launch_counts["flash_attention_fwd"] == before + 1
+        assert o.dtype == dtype and lse.dtype == torch.float32
+        _flash_close(o, ro, dtype)
+        assert (lse - rlse).abs().max().item() <= 1e-3
+        if sq > sk and causal:
+            dead = sq - sk
+            assert not o[:, :dead].any()
+            assert bool((lse[..., :dead] == -1e30).all())
+    again = fa._flash_fwd(q, k, v, scale, causal, window, _design="wgmma")
+    o, lse = fa._flash_fwd(q, k, v, scale, causal, window, _design="wgmma")
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_forward_and_backward_under_autograd(cuda, d, dtype):
+    """`flash_attention_values` with autograd: the wgmma forward, then the
+    wgmma backward on its lse, one launch of each kernel, outputs and
+    grads against the plain versions; a negative scale too."""
+    for case, scale in ((FLASH_CASES[0], None), (FLASH_CASES[4], None),
+                        (FLASH_CASES[6], -0.05)):
+        _, _, _, _, _, _, causal, window = case
+        q, k, v, do = _flash_inputs(cuda, case, d, dtype)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = dict(launch_counts)
+        out = fa.flash_attention_values(*leaves, causal=causal, scale=scale,
+                                        window_size=window)
+        out.backward(do)
+        counted = {key: launch_counts[key] - before[key] for key in before
+                   if launch_counts[key] != before[key]}
+        assert counted == {f"flash_attention_{n}": 1
+                           for n in ("fwd", "bwd_dq", "bwd_dkv")}
+        ro, rlse = fa.flash_attention_ref(q, k, v, causal, scale, window)
+        want = fa.flash_attention_bwd_ref(q, k, v, ro, rlse, do, causal,
+                                          scale, window)
+        _flash_close(out.detach(), ro, dtype)
+        for leaf, w in zip(leaves, want):
+            _flash_close(leaf.grad, w, dtype)
+
+
+# (label, M, K, N, group sizes): a tile straddling three groups, empty
+# groups, an M tail with rows past the last group, a 1-row group on a
+# tile boundary, K off the 64-wide k step (the last step reads TMA's zero
+# fill past K on both sides)
+GMM_WGMMA_CASES = [
+    ("straddle", 700, 256, 384, [130, 0, 7, 300, 0, 0, 250]),
+    ("m_tail", 1000, 192, 200, [127, 1, 0, 600, 1, 200]),
+    ("single_row", 1, 64, 64, [1, 0]),
+    ("wide", 513, 512, 1024, [256, 256, 1]),
+    ("k_tail_72", 400, 72, 200, [100, 0, 250, 30]),
+    ("k_tail_96", 333, 96, 136, [64, 200, 0, 69])]
+
+
+@pytest.mark.parametrize("trans", [False, True], ids=["kn", "nk"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", GMM_WGMMA_CASES,
+                         ids=[c[0] for c in GMM_WGMMA_CASES])
+def test_grouped_matmul_wgmma_matches_plain(cuda, case, dtype, trans):
+    """The wgmma grouped matmul against `gmm_plain`
+    and beside the mma.sync design, at `gmm.GMM_LIMITS`; rows past the
+    last group exact zeros; bitwise equal across runs."""
+    label, m, k, n, sizes = case
+    assert gmm.gmm_design(dtype, k, n) == "wgmma"
+    lhs, rhs, gs = _gmm_inputs(cuda, m, k, n, sizes, dtype, trans,
+                               seed=m + k + n)
+    ref = gmm.gmm_plain(lhs, rhs, gs, trans)
+    lim = gmm.GMM_LIMITS[dtype]
+    end = min(m, sum(sizes))
+    before = launch_counts["grouped_matmul"]
+    out = gmm._gmm_cuda(lhs, rhs, gs, trans, "wgmma")
+    old = gmm._gmm_cuda(lhs, rhs, gs, trans, "mma.sync")
+    assert launch_counts["grouped_matmul"] == before + 2
+    for got in (out, old):
+        assert got.dtype == dtype and got.shape == (m, n)
+        assert not got[end:].any()
+        rel, row = kernel_errors(got, ref)
+        assert rel <= lim["rel"] and row <= lim["row"], (rel, row)
+    assert torch.equal(out, gmm._gmm_cuda(lhs, rhs, gs, trans, "wgmma"))
+
+
+def test_grouped_matmul_off_8_takes_mma_sync(cuda):
+    """K or N off the multiples of 8 routes to the mma.sync kernel, and
+    the wgmma design named for it raises before any launch."""
+    for k, n in ((100, 64), (64, 36)):
+        assert gmm.gmm_design(torch.bfloat16, k, n) == "mma.sync"
+        lhs, rhs, gs = _gmm_inputs(cuda, 300, k, n, [100, 0, 150, 50],
+                                   torch.bfloat16, False, seed=k + n)
+        before = launch_counts["grouped_matmul"]
+        out = gmm.gmm(lhs, rhs, gs)
+        assert launch_counts["grouped_matmul"] == before + 1
+        rel, row = kernel_errors(out, gmm.gmm_plain(lhs, rhs, gs))
+        lim = gmm.GMM_LIMITS[torch.bfloat16]
+        assert rel <= lim["rel"] and row <= lim["row"]
+        with pytest.raises(ValueError, match="wgmma grouped matmul does "
+                           "not take"):
+            gmm.gmm(lhs, rhs, gs, _design="wgmma")
+        assert launch_counts["grouped_matmul"] == before + 1
 
 
 def _tiny_train_on(dev, build, ids, steps=3):
@@ -1006,10 +1134,11 @@ def test_varlen_one_segment_equals_dense_kernels(cuda, dtype):
     q, k, v, do = _flash_inputs(cuda, FLASH_CASES[0], 64, dtype)
     seg = torch.zeros(q.shape[:2], dtype=torch.int32, device=cuda)
     o, lse = fv._varlen_fwd(q, k, v, seg, seg, 0.125, True)
-    do_, dlse = fa._flash_fwd(q, k, v, 0.125, True, None)
+    # the dense kernels of the same header (the mma.sync design)
+    do_, dlse = fa._flash_fwd(q, k, v, 0.125, True, None,
+                              _design="mma.sync")
     assert torch.equal(o, do_) and torch.equal(lse, dlse)
     got = fv._varlen_bwd(q, k, v, o, lse, do, seg, seg, 0.125, True)
-    # the dense kernels of the same header (the mma.sync design)
     want = fa._flash_bwd(q, k, v, o, lse, do, 0.125, True, None,
                          _design="mma.sync")
     assert all(torch.equal(a, b) for a, b in zip(got, want))

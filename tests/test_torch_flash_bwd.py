@@ -2,7 +2,7 @@
 the PyTorch port (`paddle_tpu_torch.ops.flash_attention`, `.flash_varlen`)
 on the CPU.
 
-- `bwd_design` picks the wgmma kernels (`csrc/flash_bwd_sm90.cu`) for
+- `sm90_design` picks the wgmma kernels (`csrc/flash_bwd_sm90.cu`) for
   bf16 and f16 at head dims 64 and 128 and the mma.sync kernels
   (`csrc/flash_attention.cu`) for every other input; the card tests
   (tests/test_torch_cuda_kernels.py) hold both against the plain version.
@@ -43,7 +43,7 @@ TOL = dict(atol=2e-5, rtol=1e-5)
 def test_bwd_design_by_dtype_and_head_dim(dtype, d):
     want = "wgmma" if dtype != torch.float32 and d in (64, 128) \
         else "mma.sync"
-    assert tfa.bwd_design(dtype, d) == want
+    assert tfa.sm90_design(dtype, d) == want
     lib, symbol = tfa._bwd_entry("dq", torch.zeros(1, 1, 1, d, dtype=dtype),
                                  None)
     assert (lib == "flash_bwd_sm90") == (want == "wgmma")
