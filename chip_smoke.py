@@ -11,11 +11,19 @@ no result. Phases, in order (any failure raises):
 2. build every kernel of `paddle_tpu_torch/csrc/` (one ``nvcc`` per
    source, in parallel, into ``build/paddle_tpu_torch/``);
 3. hold each kernel against its plain PyTorch version on the card, in
-   bf16 and f32, at the serving path's shapes (RMSNorm rows of a decode
-   step and of an admission batch; ragged attention over a decode batch
-   of 8 slots with contexts 1..2048, a mixed admission batch, and a
-   windowed batch), with each one's time (CUDA events), its bound, and
-   for RMSNorm the time of ``torch.nn.functional.rms_norm``;
+   bf16 and f32, at the serving path's shapes (ragged attention over a
+   decode batch of 8 slots with contexts 1..2048, a mixed admission
+   batch, and a windowed batch), with each one's time (CUDA events) and
+   its bound; the RMSNorm forward's two designs (`nk.norm_design`: the
+   row in registers, and a block a row) at every main path's shape (a
+   decode step's 8 rows and an admission batch at 4096, bf16 and f32;
+   the 8B-width, bench and A14B-width training rows in bf16), with a
+   planted fault (rstd without eps), timed in turns with
+   ``torch.nn.functional.rms_norm`` three ways: ``ms`` (one call between
+   two events, the wrapper's host time included), ``device_ms`` (CUDA
+   graphs of 20 launches, inputs rotated over sets past 150 MB so none
+   comes from the L2) and ``host_us`` (200 calls back to back on the
+   host clock);
 4. a tiny Llama served on the card and on the CPU gives equal greedy
    streams;
 5. serve 16 seeded requests on `LlamaConfig.llama3_8b()` at full width
@@ -127,12 +135,15 @@ Training adds, in the same run:
 
 MoE and BERT training add, in the same run (after 5f):
 
-3h. ``ln_phase``: the LayerNorm kernels (forward; backward: dx, then dw
-    and db as per-block partials added in block order) against their
-    plain versions at BERT-base's (16384, 768) f32 and at (4096, 3584)
-    bf16, beside ``torch.nn.functional.layer_norm`` and its autograd
-    backward; scale-free limits (`ops.norm_kernels.LN_LIMITS`) that a
-    planted fault (dx without its mean(w·g) term) must break;
+3h. ``ln_phase``: the LayerNorm kernels (forward in both designs, as
+    3.; backward: dx, then dw and db as per-block partials added in
+    block order) against their plain versions at BERT-base's (16384,
+    768) f32 and at (4096, 3584) bf16, beside
+    ``torch.nn.functional.layer_norm`` and its autograd backward;
+    scale-free limits (`ops.norm_kernels.LN_LIMITS`) that two planted
+    faults (the forward without the mean, dx without its mean(w·g)
+    term) must break; the forward's designs and the library timed in
+    turns as in 3.;
 4f. ``tiny moe train parity``: the tiny f32 MoE, dropless (the
     grouped-matmul kernel) and capacity, 3 AdamW steps card vs CPU;
 4g. ``tiny bert train parity``: the tiny f32 BERT at dropout 0;
@@ -332,39 +343,252 @@ def bound(nbytes, ops, dtype_name):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def rms_phase(rows_list, results):
+# device time apart from host time: a call's launches captured
+# GRAPH_LAUNCHES to a CUDA graph and the graph replayed between two events
+# (the host's wrapper does not run then), the inputs rotating over sets
+# whose bytes total more than ROTATE_BYTES, so no launch reads its
+# operands from the 50 MB L2; host time: HOST_CALLS calls back to back
+# without a synchronise, on the host clock
+GRAPH_LAUNCHES = 20
+ROTATE_BYTES = 150e6
+HOST_CALLS = 200
+
+
+def rotation_sets(call_bytes):
+    """How many input sets to rotate over: their bytes past
+    ROTATE_BYTES, and at least two."""
+    return max(2, math.ceil(ROTATE_BYTES / call_bytes))
+
+
+def device_ms(calls, reps=3):
+    """Median device ms of one call: ``calls[i]()`` runs the call on the
+    i-th input set; graphs of GRAPH_LAUNCHES calls, taking the sets in
+    turn, each replayed between two events, time over the count."""
     import torch
-    from paddle_tpu_torch.ops import norm_kernels as nk
-    lib = getattr(torch.nn.functional, "rms_norm", None)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    h, eps = 4096, 1e-5
-    for n in rows_list:
-        for dt in (torch.bfloat16, torch.float32):
-            name = str(dt).split(".")[1]
-            x = torch.randn(n, h, device="cuda", generator=gen).to(dt)
-            w = (1 + 0.1 * torch.randn(h, device="cuda",
-                                       generator=gen)).to(dt)
-            out = nk.rms_norm_values(x, w, eps, use_kernel=True)
-            ref = nk.rms_norm_ref(x, w, eps)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls[:3]:
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    pool = torch.cuda.graph_pool_handle()
+    graphs, keep = [], []
+    n_graphs = -(-len(calls) // GRAPH_LAUNCHES)
+    for gi in range(n_graphs):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=pool):
+            keep.append([calls[(gi * GRAPH_LAUNCHES + i) % len(calls)]()
+                         for i in range(GRAPH_LAUNCHES)])
+        graphs.append(g)
+    for g in graphs:
+        g.replay()
+    events = []
+    for _ in range(reps):
+        for g in graphs:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            g.replay()
+            b.record()
+            events.append((a, b))
+    torch.cuda.synchronize()
+    ms = statistics.median(a.elapsed_time(b) for a, b in events)
+    del graphs, keep
+    torch.cuda.synchronize()
+    return ms / GRAPH_LAUNCHES
+
+
+def host_batch_s(call, n=HOST_CALLS):
+    """Host seconds of ``n`` calls back to back without a synchronise
+    (the device's queue drained before and after)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t
+
+
+def timed_in_turns(named, sets_calls, turns=2, reps=7):
+    """``named``: {name: fn(x_set) -> output}; every name's device_ms
+    (`device_ms` over the sets, the names in turns A B C, C B A, the mean
+    of the turns), and its ms (one call between two events, as
+    `time_ms`) and host_us (HOST_CALLS calls back to back on the host
+    clock, over the count), the names interleaved rep by rep so that
+    other work on the host's cores falls on all of them alike: medians
+    over ``reps`` reps (3 single calls a rep for ms)."""
+    import torch
+    names = list(named)
+    got = {k: {"ms": [], "device_ms": [], "host_us": []} for k in names}
+    for turn in range(turns):
+        for k in (names if turn % 2 == 0 else names[::-1]):
+            fn = named[k]
+            got[k]["device_ms"].append(device_ms(
+                [(lambda s=s: fn(s)) for s in sets_calls]))
+    x = sets_calls[0]
+    for k in names:
+        for _ in range(5):
+            named[k](x)
+    for rep in range(reps):
+        for k in (names if rep % 2 == 0 else names[::-1]):
+            fn = named[k]
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            ok = torch.allclose(out.float(), ref.float(), **TOL[name])
-            ms = time_ms(lambda: nk.rms_norm_values(x, w, eps,
-                                                    use_kernel=True))
-            plain = time_ms(lambda: nk.rms_norm_ref(x, w, eps))
-            lib_ms = None if lib is None else time_ms(
-                lambda: lib(x, (h,), w, eps))
-            isz = x.element_size()
-            nbytes = 2 * n * h * isz + h * isz + 4 * n
-            b_ms, b_by = bound(nbytes, 4 * n * h, name)
-            rec = dict(kernel="rms_norm", case=f"rows={n}", dtype=name,
-                       max_abs_err=err, tol=TOL[name], ms=ms,
-                       plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=lib_ms)
+            for _ in range(3):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn(x)
+                b.record()
+                b.synchronize()
+                got[k]["ms"].append(a.elapsed_time(b))
+            got[k]["host_us"].append(
+                host_batch_s(lambda: fn(x)) / HOST_CALLS * 1e6)
+    return {k: dict(ms=statistics.median(r["ms"]),
+                    device_ms=statistics.fmean(r["device_ms"]),
+                    host_us=statistics.median(r["host_us"]))
+            for k, r in got.items()}
+
+
+# the RMSNorm forward on the main paths (rows, width, dtype): a decode
+# step's 8 rows and the first admission batch of the 8B serving runs, the
+# 8B-width and bench training runs and the A14B-width MoE cut (B x S rows)
+def rms_shapes(t_adm):
+    return [("decode", 8, 4096, "bfloat16"),
+            ("admission", t_adm, 4096, "bfloat16"),
+            ("train_8b_width", 4096, 4096, "bfloat16"),
+            ("train_recipe", 16384, 1024, "bfloat16"),
+            ("train_moe_a14b_width", 4096, 3584, "bfloat16"),
+            ("decode", 8, 4096, "float32"),
+            ("admission", t_adm, 4096, "float32")]
+
+
+def host_parts_us(nk, x, w, eps, reps=7):
+    """Where the RMSNorm entry's host time goes at a small shape: host us
+    of the bare C entry (the ctypes call and the launch, outputs made
+    once), of `torch.empty_like` (the output), and of the whole entry,
+    interleaved rep by rep, medians."""
+    import torch
+    n, h = x.shape
+    code = nk._code(x)
+    wpr, nv = nk._route(x.dtype, h, x.data_ptr() | w.data_ptr(), None)
+    fn = nk.kernel_fn("rms_norm", "pdt_rms_norm_fwd", nk._ARGTYPES)
+    o = torch.empty_like(x)
+    dev = x.get_device()
+    args = (x.data_ptr(), w.data_ptr(), o.data_ptr(), 0, n, h, eps, code,
+            wpr, nv, dev, nk._stream(dev))
+    parts = {"c_entry": lambda: fn(*args),
+             "empty_like": lambda: torch.empty_like(x),
+             "entry": lambda: nk.rms_norm_values(x, w, eps)}
+    got = {k: [] for k in parts}
+    for rep in range(reps):
+        for k, call in parts.items():
+            got[k].append(host_batch_s(call) / HOST_CALLS * 1e6)
+    return {k: statistics.median(v) for k, v in got.items()}
+
+
+def rms_phase(shapes, results):
+    """The RMSNorm forward kernel's two designs (`nk.norm_design`: the
+    row in registers, and a block a row) against the plain version at
+    the main paths' shapes: o within TOL, rstd within rtol 1e-5 of its
+    formula, bitwise on repeat, a planted fault (rstd without eps, on
+    rows small enough that eps matters) outside TOL, and the entry point
+    launching the registers design exactly once. At fewer rows than SMs,
+    the entry's host time in parts (`host_parts_us`). Then both designs
+    (as the entry runs them without a backward: no rstd stored),
+    ``torch.nn.functional.rms_norm``, the entry point (`rms_norm_values`)
+    and a copy of x (a yardstick) timed by `timed_in_turns`: ms (one call
+    between two events: the wrapper's host time included), device_ms
+    (graphs, inputs rotated past the L2) and host_us."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops import norm_kernels as nk
+    lib = torch.nn.functional.rms_norm
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    eps = 1e-5
+    for label, n, h, name in shapes:
+        dt = getattr(torch, name)
+        isz = torch.empty((), dtype=dt).element_size()
+        sets = [torch.randn(n, h, device="cuda", generator=gen).to(dt)
+                for _ in range(rotation_sets(2 * n * h * isz))]
+        x = sets[0]
+        w = (1 + 0.1 * torch.randn(h, device="cuda", generator=gen)).to(dt)
+        small = (x.float() * 1e-3).to(dt)
+        ref = nk.rms_norm_ref(x, w, eps)
+        want_rstd = torch.rsqrt(x.float().square().mean(-1) + eps)
+        fault = (small.float() * torch.rsqrt(small.float().square().mean(
+            -1, keepdim=True)) * w.float()).to(dt)
+        path = nk.norm_design(dt, h)
+        designs = ("strided", "registers") if path == "registers" \
+            else ("strided",)
+        checks = {}
+        for d in designs:
+            o, rstd = nk._rms_fwd(x, w, eps, _design=d)
+            o2, rstd2 = nk._rms_fwd(x, w, eps, _design=d)
+            os_, _ = nk._rms_fwd(small, w, eps, _design=d)
+            torch.cuda.synchronize()
+            checks[d] = dict(
+                max_abs_err=(o.float() - ref.float()).abs().max().item(),
+                ok=torch.allclose(o.float(), ref.float(), **TOL[name]),
+                rstd_ok=torch.allclose(rstd, want_rstd, rtol=1e-5, atol=0),
+                bitwise_repeat=bool(torch.equal(o, o2)
+                                    and torch.equal(rstd, rstd2)),
+                small_ok=torch.allclose(os_.float(), nk.rms_norm_ref(
+                    small, w, eps).float(), **TOL[name]),
+                planted_fault_rstd_without_eps_caught=not torch.allclose(
+                    os_.float(), fault.float(), **TOL[name]))
+        before = launch_counts["rms_norm"]
+        entry = nk.rms_norm_values(x, w, eps, use_kernel=True)
+        torch.cuda.synchronize()
+        entry_ok = launch_counts["rms_norm"] == before + 1 and torch.equal(
+            entry, nk._rms_fwd(x, w, eps, _design=path)[0])
+        # the designs as the entry runs them without a backward: no rstd
+        named = {d: (lambda xs, d=d: nk._rms_fwd(xs, w, eps, _design=d,
+                                                  stats=False))
+                 for d in designs}
+        named["library"] = lambda xs: lib(xs, (h,), w, eps)
+        named["entry"] = lambda xs: nk.rms_norm_values(xs, w, eps,
+                                                       use_kernel=True)
+        # a yardstick: the card's own copy of x (read once, written once)
+        named["copy"] = lambda xs: xs.clone()
+        times = timed_in_turns(named, sets)
+        plain = time_ms(lambda: nk.rms_norm_ref(x, w, eps))
+        host_parts = host_parts_us(nk, x, w, eps) if n < 132 else None
+        # the timed calls store no rstd: x read, o written, w read once
+        b_ms, b_by = bound(2 * n * h * isz + h * isz, 4 * n * h, name)
+        lt = times["library"]
+        for d in designs:
+            t = times[d]
+            rec = dict(kernel="rms_norm", case=f"rows={n}_h={h}",
+                       shape_of=label, N=n, H=h, dtype=name, design=d,
+                       path_design=d == path, row_class=nk.row_class(dt, h)
+                       if d == "registers" else None, **checks[d],
+                       tol=TOL[name], ms=t["ms"], device_ms=t["device_ms"],
+                       host_us=t["host_us"], plain_ms=plain, bound_ms=b_ms,
+                       bound_by=b_by,
+                       bound_fraction=b_ms / t["device_ms"],
+                       library_ms=lt["ms"],
+                       library_device_ms=lt["device_ms"],
+                       library_host_us=lt["host_us"],
+                       library_bound_fraction=b_ms / lt["device_ms"],
+                       library_note="torch.nn.functional.rms_norm",
+                       entry_ms=times["entry"]["ms"],
+                       entry_host_us=times["entry"]["host_us"],
+                       entry_launches_once=entry_ok,
+                       copy_device_ms=times["copy"]["device_ms"],
+                       host_parts_us=host_parts, rotation_sets=len(sets))
             log("kernel " + json.dumps(rec))
-            if not ok:
-                raise AssertionError(f"rms_norm kernel disagrees: {rec}")
             results.append(rec)
+            if not (rec["ok"] and rec["rstd_ok"] and rec["bitwise_repeat"]
+                    and rec["small_ok"] and entry_ok):
+                raise AssertionError(f"rms_norm kernel disagrees: {rec}")
+            if not rec["planted_fault_rstd_without_eps_caught"]:
+                raise AssertionError(f"the RMSNorm tolerance misses the "
+                                     f"planted fault: {rec}")
+        del sets, x, small, ref, fault
+        torch.cuda.empty_cache()
 
 
 def attn_case(seqs, block_q, tail_pad, dtype, window, gen, int8kv=False):
@@ -2144,83 +2368,153 @@ def ln_phase(results):
     """The LayerNorm kernels against their plain versions (forward, and
     torch autograd of it for the backward) at the BERT-base smoke batch
     (16384, 768) f32 and at (4096, 3584) bf16, beside
-    `torch.nn.functional.layer_norm` and its autograd backward; a planted
-    fault (the backward without the mean(w·g) term) must break the
-    limits."""
+    `torch.nn.functional.layer_norm` and its autograd backward. The
+    forward's two designs (`nk.norm_design`) each within the limits,
+    bitwise on repeat, mean and rstd within f32 rounding of each other,
+    and a planted fault (the mean left out) outside the limits; the
+    backward fed the path design's statistics, and a planted fault (the
+    backward without the mean(w·g) term) must break the limits. The
+    forward's designs and the library timed in turns as in `rms_phase`
+    (ms, device_ms, host_us)."""
     import torch
     from paddle_tpu_torch.ops import kernel_errors
     from paddle_tpu_torch.ops import norm_kernels as nk
     gen = torch.Generator(device="cuda").manual_seed(13)
     eps = 1e-12
+    lib = torch.nn.functional.layer_norm
     for n, h, name in ((16384, 768, "float32"), (4096, 3584, "bfloat16")):
         dt = getattr(torch, name)
         lim = nk.LN_LIMITS[dt]
-        x = (torch.randn(n, h, device="cuda", generator=gen) + 0.5).to(dt)
+        isz = torch.empty((), dtype=dt).element_size()
+        sets = [(torch.randn(n, h, device="cuda", generator=gen) + 0.5)
+                .to(dt) for _ in range(rotation_sets(2 * n * h * isz))]
+        x = sets[0]
         w = (1 + 0.1 * torch.randn(h, device="cuda", generator=gen)).to(dt)
         b = (0.1 * torch.randn(h, device="cuda", generator=gen)).to(dt)
         g = torch.randn(n, h, device="cuda", generator=gen).to(dt)
-        y, mean, rstd = nk._ln_fwd(x, w, b, eps)
-        dx, dw, db = nk._ln_bwd(x, w, mean, rstd, g)
+        path = nk.norm_design(dt, h)
+        designs = ("strided", "registers") if path == "registers" \
+            else ("strided",)
         leaves = [t.clone().requires_grad_() for t in (x, w, b)]
         ref = nk.layer_norm_ref(*leaves, eps)
         rdx, rdw, rdb = torch.autograd.grad(ref, leaves, g,
                                             retain_graph=True)
-        # the planted fault: dx without its mean(w·g) term
         xf = x.float()
+        # the planted forward fault: the mean left out
+        fwd_fault = (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True)
+                                      + eps) * w.float() + b.float()).to(dt)
+        fwd = {}
+        for d in designs:
+            y, mean, rstd = nk._ln_fwd(x, w, b, eps, _design=d)
+            y2, mean2, rstd2 = nk._ln_fwd(x, w, b, eps, _design=d)
+            torch.cuda.synchronize()
+            fwd[d] = dict(
+                y=y, mean=mean, rstd=rstd,
+                y_errors=kernel_errors(y, ref),
+                max_abs_err=(y.float() - ref.float()).abs().max().item(),
+                bitwise_repeat=bool(torch.equal(y, y2) and torch.equal(
+                    mean, mean2) and torch.equal(rstd, rstd2)),
+                planted_fault_mean_left_out=kernel_errors(y, fwd_fault))
+            del y2, mean2, rstd2
+        y, mean, rstd = (fwd[path][k] for k in ("y", "mean", "rstd"))
+        stats_apart = None
+        if len(designs) == 2:
+            r, s_ = fwd["registers"], fwd["strided"]
+            stats_apart = dict(
+                mean=float(((r["mean"] - s_["mean"]).abs()
+                            / xf.abs().mean(-1)).max()),
+                rstd=float(((r["rstd"] - s_["rstd"]).abs()
+                            / s_["rstd"]).max()))
+        dx, dw, db = nk._ln_bwd(x, w, mean, rstd, g)
+        # the planted backward fault: dx without its mean(w·g) term
         xhat = (xf - mean[:, None]) * rstd[:, None]
         wg = g.float() * w.float()
         fault = (rstd[:, None] * (wg - xhat * (wg * xhat).mean(
             -1, keepdim=True))).to(dt)
         torch.cuda.synchronize()
         errs = {k: kernel_errors(a, r) for k, a, r in (
-            ("y", y, ref), ("dx", dx, rdx), ("dw", dw[None], rdw[None]),
+            ("dx", dx, rdx), ("dw", dw[None], rdw[None]),
             ("db", db[None], rdb[None]))}
         fault_err = kernel_errors(fault, rdx)
-        del xf, xhat, wg, fault
-        ok = all(r <= lim["rel"] and w_ <= lim["row"]
-                 for r, w_ in errs.values())
-        caught = fault_err[0] > lim["rel"] or fault_err[1] > lim["row"]
-        lib = torch.nn.functional.layer_norm
+        del xhat, wg, fault
+        within = lambda e: e[0] <= lim["rel"] and e[1] <= lim["row"]
+        ok = all(within(e) for e in errs.values()) and all(
+            within(f["y_errors"]) and f["bitwise_repeat"]
+            for f in fwd.values())
+        caught = not within(fault_err) and not any(
+            within(f["planted_fault_mean_left_out"]) for f in fwd.values())
+        stats_ok = stats_apart is None or max(stats_apart.values()) <= \
+            2 ** -18
         lout = lib(*leaves[:1], (h,), leaves[1], leaves[2], eps)
-        times = dict(
-            fwd=time_ms(lambda: nk._ln_fwd(x, w, b, eps)),
+        named = {d: (lambda xs, d=d: nk._ln_fwd(xs, w, b, eps, _design=d,
+                                                 stats=False))
+                 for d in designs}
+        named["library"] = lambda xs: lib(xs, (h,), w, b, eps)
+        named["entry"] = lambda xs: nk.layer_norm_values(xs, w, b, eps,
+                                                         use_kernel=True)
+        named["copy"] = lambda xs: xs.clone()
+        times = timed_in_turns(named, sets)
+        bwd_times = dict(
             bwd=time_ms(lambda: nk._ln_bwd(x, w, mean, rstd, g)),
             plain_fwd=time_ms(lambda: nk.layer_norm_ref(x, w, b, eps)),
             plain_bwd=time_ms(lambda: torch.autograd.grad(
                 ref, leaves, g, retain_graph=True)),
-            lib_fwd=time_ms(lambda: lib(x, (h,), w, b, eps)),
             lib_bwd=time_ms(lambda: torch.autograd.grad(
                 lout, leaves, g, retain_graph=True)))
-        isz = x.element_size()
-        fwd_b = bound(2 * n * h * isz + 2 * h * isz + 8 * n, 7 * n * h,
-                      name)
+        # the timed forwards store no statistics
+        fwd_b = bound(2 * n * h * isz + 2 * h * isz, 7 * n * h, name)
         bwd_b = bound(3 * n * h * isz + 4 * h * isz + 8 * n, 12 * n * h,
                       name)
-        base = dict(case=f"rows={n}", dtype=name, N=n, H=h, limits=lim,
-                    rel_row_errors=errs)
-        for kernel, err_keys, bnd, pre in (
-                ("layer_norm", ("y",), fwd_b, "fwd"),
-                ("layer_norm_bwd", ("dx", "dw", "db"), bwd_b, "bwd")):
-            rec = dict(kernel=kernel, **base, max_abs_err=max(
-                (a.float() - r.float()).abs().max().item()
-                for k_, a, r in (("y", y, ref), ("dx", dx, rdx),
-                                 ("dw", dw, rdw), ("db", db, rdb))
-                if k_ in err_keys),
-                ms=times[pre], plain_ms=times[f"plain_{pre}"],
-                bound_ms=bnd[0], bound_by=bnd[1],
-                library_ms=times[f"lib_{pre}"],
-                library_note="torch.nn.functional.layer_norm" + (
-                    "" if pre == "fwd" else ", its autograd backward"))
-            if kernel == "layer_norm_bwd":
-                rec["planted_fault_dx_without_mean_wg"] = fault_err
+        base = dict(case=f"rows={n}", dtype=name, N=n, H=h, limits=lim)
+        lt = times["library"]
+        for d in designs:
+            f, t = fwd[d], times[d]
+            rec = dict(kernel="layer_norm", **base, design=d,
+                       path_design=d == path,
+                       row_class=nk.row_class(dt, h)
+                       if d == "registers" else None,
+                       rel_row_errors={"y": f["y_errors"]},
+                       max_abs_err=f["max_abs_err"],
+                       bitwise_repeat=f["bitwise_repeat"],
+                       planted_fault_mean_left_out=f[
+                           "planted_fault_mean_left_out"],
+                       stats_apart=stats_apart, ms=t["ms"],
+                       device_ms=t["device_ms"], host_us=t["host_us"],
+                       plain_ms=bwd_times["plain_fwd"], bound_ms=fwd_b[0],
+                       bound_by=fwd_b[1],
+                       bound_fraction=fwd_b[0] / t["device_ms"],
+                       library_ms=lt["ms"],
+                       library_device_ms=lt["device_ms"],
+                       library_host_us=lt["host_us"],
+                       library_bound_fraction=fwd_b[0] / lt["device_ms"],
+                       library_note="torch.nn.functional.layer_norm",
+                       entry_ms=times["entry"]["ms"],
+                       entry_host_us=times["entry"]["host_us"],
+                       copy_device_ms=times["copy"]["device_ms"],
+                       rotation_sets=len(sets))
             log("kernel " + json.dumps(rec))
             results.append(rec)
-        if not ok:
-            raise AssertionError(f"LayerNorm kernels disagree: {errs}")
+        rec = dict(kernel="layer_norm_bwd", **base, rel_row_errors=errs,
+                   stats_from=path,
+                   max_abs_err=max((a.float() - r.float()).abs().max().item()
+                                   for a, r in ((dx, rdx), (dw, rdw),
+                                                (db, rdb))),
+                   ms=bwd_times["bwd"], plain_ms=bwd_times["plain_bwd"],
+                   bound_ms=bwd_b[0], bound_by=bwd_b[1],
+                   library_ms=bwd_times["lib_bwd"],
+                   library_note="torch.nn.functional.layer_norm, its "
+                                "autograd backward",
+                   planted_fault_dx_without_mean_wg=fault_err)
+        log("kernel " + json.dumps(rec))
+        results.append(rec)
+        if not (ok and stats_ok):
+            raise AssertionError(f"LayerNorm kernels disagree: {errs}, "
+                                 f"{[f['y_errors'] for f in fwd.values()]},"
+                                 f" stats apart {stats_apart}")
         if not caught:
-            raise AssertionError(f"the LayerNorm limits miss the planted "
+            raise AssertionError(f"the LayerNorm limits miss a planted "
                                  f"fault: {fault_err}")
-        del x, g, y, dx, ref, rdx, leaves, lout
+        del sets, x, g, y, dx, ref, rdx, leaves, lout, fwd, xf, fwd_fault
         torch.cuda.empty_cache()
 
 
@@ -3323,7 +3617,7 @@ def main():
     first = [{"seq": s, "tokens": p, "offset": 0}
              for s, (p, _) in enumerate(make_requests(LLAMA_VOCAB)[:8])]
     t_adm = pack_ragged_batch(first, 8, block_q=8, pad_to=16)["t_pad"]
-    rms_phase([8, t_adm], results)
+    rms_phase(rms_shapes(t_adm), results)
     attn_phase(results)
     dq_phase(t_adm, results)
     attn_phase(results, int8kv=True)
@@ -3375,7 +3669,7 @@ def main():
         "flash_varlen_fwd", "flash_varlen_bwd_dq", "flash_varlen_bwd_dkv",
         "rope"))
 
-    main_case = {"rms_norm": ("rows=8", "bfloat16", None),
+    main_case = {"rms_norm": ("rows=8_h=4096", "bfloat16", None),
                  "ragged_paged_attention": ("decode", "bfloat16", None),
                  "ragged_paged_attention_int8kv": ("decode", "bfloat16",
                                                    None),

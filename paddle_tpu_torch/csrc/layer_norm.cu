@@ -1,32 +1,42 @@
 // LayerNorm for Hopper (sm_90a). Forward: y = (x - mu) * rstd * w + b with
 // mu and var = mean((x - mu)^2) over the row in f32 (two passes, as the TPU
-// kernel computes them), rstd = rsqrt(var + eps), y stored in x's type, and
-// mu and rstd kept as (n,) f32 outputs. Backward: with xhat = (x - mu) *
-// rstd and wg = w * g, dx = rstd * (wg - mean(wg) - xhat * mean(wg * xhat))
-// in x's type; dw = sum over rows of g * xhat and db = sum of g, in f32,
-// cast to w's type.
+// kernel computes them: no Welford, which would round the saved mu and
+// rstd otherwise), rstd = rsqrt(var + eps), y stored in x's type, and mu
+// and rstd kept as (n,) f32 outputs. Backward: with xhat = (x - mu) * rstd
+// and wg = w * g, dx = rstd * (wg - mean(wg) - xhat * mean(wg * xhat)) in
+// x's type; dw = sum over rows of g * xhat and db = sum of g, in f32, cast
+// to w's type.
 //
 // Replaces: paddle_tpu/ops/norm_kernels.py:_ln_fwd_kernel (:148, launched
 // by _ln_fwd, pallas_call at :188) and _ln_bwd_kernel (:160, launched by
 // _ln_bwd_rule, pallas_call at :216).
 //
-// What bounds them on this card: bytes. The forward reads each row three
-// times (sum, centred sum of squares, the scaled store; the second and
-// third reads hit L1/L2) and writes it once, at about 6 operations per
-// element; the backward reads x and g twice and writes dx, about 12
-// operations per element. At BERT-base's (16384, 768) f32 the forward's
-// bytes take ~30 us of device-memory time.
+// What bounds them on this card: bytes. The forward reads x, w and b and
+// writes y, mean and rstd, at about 7 operations per element; the backward
+// reads x and g twice and writes dx, about 12 operations per element. At
+// BERT-base's (16384, 768) f32 the forward's bytes take ~30 us of
+// device-memory time.
 //
-// What the design does about that: one block of 256 threads per row
-// (forward) or per 16 rows (backward), 16-byte vector loads and stores
-// where the row allows them, the row reductions in warp shuffles plus one
-// shared-memory step, no second pass over device memory for the
-// statistics. dw and db need sums over all rows, which the TPU kernel
-// carried from one grid step to the next in revisited output blocks; here
-// blocks run in parallel, so each block writes its rows' f32 partial sums
-// (each thread owns fixed columns in shared memory, no atomics) and a
-// second small kernel adds the partials in block order: the result is
-// deterministic, run to run. The same design as csrc/rms_norm.cu.
+// Two forward designs, picked by `ops.norm_kernels.norm_design`:
+// - "registers" (layer_norm_fwd_rows, the register-row design of
+//   norm_rows.cuh): the row in registers, device memory read once; the
+//   mean, the centred sum of squares and the output all come from the
+//   registers; a warp or a few warps a row (a block holds up to four
+//   warps' rows, a row a block when the rows do not fill the SMs). For rows
+//   of whole 16-byte vectors, 16-byte-aligned, up to 4 warps x 8 vectors a
+//   lane (4096 f32, 8192 bf16 / f16 elements).
+// - "strided" (layer_norm_fwd_kernel): one block of 256 threads a row, a
+//   strided loop that reads the row three times (the second and third
+//   reads from L1/L2), two block reductions; it takes every row.
+//
+// The backward: one block of 256 threads per 16 rows, 16-byte vector loads
+// and stores where the row allows them, the row reductions in warp shuffles
+// plus one shared-memory step. dw and db need sums over all rows, which the
+// TPU kernel carried from one grid step to the next in revisited output
+// blocks; here blocks run in parallel, so each block writes its rows' f32
+// partial sums (each thread owns fixed columns in shared memory, no
+// atomics) and a second small kernel adds the partials in block order: the
+// result is deterministic, run to run. The same design as csrc/rms_norm.cu.
 //
 // C interface: pointers are device pointers on the caller's current stream;
 // each function returns cudaGetLastError() after its launches.
@@ -36,46 +46,11 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include "norm_rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) {
-  return __float2half(v);
-}
-
-// VEC elements of T make one 16-byte access
-template <typename T> struct Vec { static constexpr int n = 16 / sizeof(T); };
-
-template <typename T>
-__device__ __forceinline__ void load_vec(const T* p, float* f) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < Vec<T>::n; ++i) f[i] = to_f(e[i]);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_vec(T* p, const float* f) {
-  uint4 raw;
-  T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < Vec<T>::n; ++i) e[i] = from_f<T>(f[i]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
 
 // the block's sum of (a, b); `red` holds 2 * kThreads / 32 floats and is
 // free again when this returns
@@ -155,20 +130,16 @@ layer_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = threadIdx.x; i < h; i += kThreads)
       orow[i] = from_f<T>((to_f(xr[i]) - mu) * r * to_f(w[i]) + to_f(b[i]));
   }
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && mean != nullptr) {
     mean[row] = mu;
     rstd[row] = r;
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 template <typename T>
-cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* o,
-                       float* mean, float* rstd, int n, int h, float eps,
-                       cudaStream_t stream) {
+cudaError_t launch_strided(const void* x, const void* w, const void* b,
+                           void* o, float* mean, float* rstd, int n, int h,
+                           float eps, cudaStream_t stream) {
   constexpr int V = Vec<T>::n;
   const bool vec = h % V == 0 && aligned16(x) && aligned16(w) &&
                    aligned16(b) && aligned16(o);
@@ -178,6 +149,136 @@ cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* o,
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(b), static_cast<T*>(o), mean, rstd, h, eps);
   return cudaGetLastError();
+}
+
+// The register-row forward (norm_rows.cuh): lane t of a row's TPR lanes
+// holds its NV vectors of x, w and b in registers, raw.
+template <typename T, int WPR, int NV>
+__global__ void __launch_bounds__(kRowBlock)
+layer_norm_fwd_rows(const T* __restrict__ x, const T* __restrict__ w,
+                    const T* __restrict__ b, T* __restrict__ o,
+                    float* __restrict__ mean, float* __restrict__ rstd, int n,
+                    int h, float eps) {
+  constexpr int V = Vec<T>::n, TPR = 32 * WPR;
+  // one buffer for each of the row's two sums: a warp that writes the
+  // second never overwrites the first while a slower warp reads it
+  __shared__ float red[2][kRowBlock / 32];
+  const int groups = blockDim.x / TPR;
+  const int group = threadIdx.x / TPR, t = threadIdx.x % TPR;
+  const int row = blockIdx.x * groups + group;
+  if (row >= n) return;  // the row's warps leave together
+  const int nvec = h / V;
+  const size_t base = size_t(row) * nvec;
+  uint4 xv[NV], wv[NV], bv[NV];
+  load_row<NV, TPR>(xv, reinterpret_cast<const uint4*>(x) + base, t, nvec);
+  load_row<NV, TPR>(wv, reinterpret_cast<const uint4*>(w), t, nvec);
+  load_row<NV, TPR>(bv, reinterpret_cast<const uint4*>(b), t, nvec);
+  keep_raw(wv);
+  keep_raw(bv);
+  // the mean: masked slots hold zeros and add nothing
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    float f[V];
+    unpack<T>(xv[j], f);
+#pragma unroll
+    for (int e = 0; e < V; ++e) s += f[e];
+  }
+  keep_raw(xv);
+  const float mu = row_sum<WPR>(s, red[0], group) / h;
+  // the centred sum of squares, over the row's own slots only
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (j * TPR + t >= nvec) continue;
+    float f[V];
+    unpack<T>(xv[j], f);
+#pragma unroll
+    for (int e = 0; e < V; ++e) ss += (f[e] - mu) * (f[e] - mu);
+  }
+  keep_raw(xv);
+  const float r = rsqrtf(row_sum<WPR>(ss, red[1], group) / h + eps);
+  uint4* orow = reinterpret_cast<uint4*>(o) + base;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (j * TPR + t >= nvec) continue;
+    float f[V], wf[V], bf[V];
+    unpack<T>(xv[j], f);
+    unpack<T>(wv[j], wf);
+    unpack<T>(bv[j], bf);
+#pragma unroll
+    for (int e = 0; e < V; ++e) f[e] = (f[e] - mu) * r * wf[e] + bf[e];
+    orow[j * TPR + t] = pack<T>(f);
+  }
+  if (t == 0 && mean != nullptr) {
+    mean[row] = mu;
+    rstd[row] = r;
+  }
+}
+
+template <typename T, int WPR, int NV>
+cudaError_t launch_rows(const void* x, const void* w, const void* b, void* o,
+                        float* mean, float* rstd, int n, int h, float eps,
+                        int device, cudaStream_t stream) {
+  auto kernel = layer_norm_fwd_rows<T, WPR, NV>;
+  const RowGrid g = row_grid<WPR>(n, sm_count(device));
+  kernel<<<g.blocks, g.threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(b), static_cast<T*>(o), mean, rstd, n, h, eps);
+  return cudaGetLastError();
+}
+
+#define PDT_LN_ROWS(N)                                                      \
+  case N:                                                                   \
+    return launch_rows<T, WPR, N>(x, w, b, o, mean, rstd, n, h, eps, device, \
+                                  s)
+
+// the instance of (WPR, nv): nv 1-8 at one warp a row, 5-8 past it (the
+// classes `ops.norm_kernels.row_class` gives)
+template <typename T, int WPR>
+cudaError_t rows_nv(int nv, const void* x, const void* w, const void* b,
+                    void* o, float* mean, float* rstd, int n, int h,
+                    float eps, int device, cudaStream_t s) {
+  if constexpr (WPR == 1) {
+    switch (nv) {
+      PDT_LN_ROWS(1);
+      PDT_LN_ROWS(2);
+      PDT_LN_ROWS(3);
+      PDT_LN_ROWS(4);
+      default: break;
+    }
+  }
+  switch (nv) {
+    PDT_LN_ROWS(5);
+    PDT_LN_ROWS(6);
+    PDT_LN_ROWS(7);
+    PDT_LN_ROWS(8);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+#undef PDT_LN_ROWS
+
+// wpr 0: the strided design; else the register-row class (wpr, nv), which
+// must cover the row's vectors
+template <typename T>
+cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* o,
+                       float* mean, float* rstd, int n, int h, float eps,
+                       int wpr, int nv, int device, cudaStream_t s) {
+  if (wpr == 0) return launch_strided<T>(x, w, b, o, mean, rstd, n, h, eps, s);
+  constexpr int V = Vec<T>::n;
+  if (h % V != 0 || h / V > 32 * wpr * nv || !aligned16(x) || !aligned16(w) ||
+      !aligned16(b) || !aligned16(o))
+    return cudaErrorInvalidValue;
+  switch (wpr) {
+    case 1:
+      return rows_nv<T, 1>(nv, x, w, b, o, mean, rstd, n, h, eps, device, s);
+    case 2:
+      return rows_nv<T, 2>(nv, x, w, b, o, mean, rstd, n, h, eps, device, s);
+    case 4:
+      return rows_nv<T, 4>(nv, x, w, b, o, mean, rstd, n, h, eps, device, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // rows per block of the backward; fixes the order of the dw/db partials
@@ -315,21 +416,32 @@ cudaError_t launch_bwd(const void* x, const void* w, const float* mean,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, w, b and o share it);
-// mean and rstd are (n,) f32 outputs.
+// mean and rstd are (n,) f32 outputs, both null for none; wpr 0 runs the
+// strided design, else the register-row design with wpr warps a row and nv
+// vectors a lane; device is the pointers' device, made current for the
+// launch only.
 extern "C" int pdt_layer_norm_fwd(const void* x, const void* w,
                                   const void* b, void* o, void* mean,
                                   void* rstd, int n, int h, float eps,
-                                  int dtype, void* stream) {
+                                  int dtype, int wpr, int nv, int device,
+                                  void* stream) {
   if (n <= 0) return 0;
   if (h <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* mu = static_cast<float*>(mean);
   float* r = static_cast<float*>(rstd);
   switch (dtype) {
-    case 0: return launch_fwd<float>(x, w, b, o, mu, r, n, h, eps, s);
+    case 0:
+      return launch_fwd<float>(x, w, b, o, mu, r, n, h, eps, wpr, nv, device,
+                               s);
     case 1:
-      return launch_fwd<__nv_bfloat16>(x, w, b, o, mu, r, n, h, eps, s);
-    case 2: return launch_fwd<__half>(x, w, b, o, mu, r, n, h, eps, s);
+      return launch_fwd<__nv_bfloat16>(x, w, b, o, mu, r, n, h, eps, wpr, nv,
+                                       device, s);
+    case 2:
+      return launch_fwd<__half>(x, w, b, o, mu, r, n, h, eps, wpr, nv, device,
+                                s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

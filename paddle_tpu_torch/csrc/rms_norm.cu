@@ -1,34 +1,42 @@
 // RMSNorm for Hopper (sm_90a). Forward: o = x * rsqrt(mean(x^2) + eps) * w,
-// computed in f32 and stored in x's type, plus rstd as an (n,) f32 output.
-// Backward: dx = rstd * (w*g - xhat * mean(w*g * xhat)) with xhat = x * rstd,
-// stored in x's type, and dw = sum over rows of g * xhat in f32, cast to
-// w's type.
+// computed in f32 in that order and stored in x's type, plus rstd as an
+// (n,) f32 output. Backward: dx = rstd * (w*g - xhat * mean(w*g * xhat))
+// with xhat = x * rstd, stored in x's type, and dw = sum over rows of g *
+// xhat in f32, cast to w's type.
 //
-// Replaces: paddle_tpu/ops/norm_kernels.py:_rms_fwd_kernel (launched by
-// _rms_fwd, pallas_call at :75) and _rms_bwd_kernel (:53, launched by
+// Replaces: paddle_tpu/ops/norm_kernels.py:_rms_fwd_kernel (:45, launched
+// by _rms_fwd, pallas_call at :75) and _rms_bwd_kernel (:53, launched by
 // _rms_bwd_rule, pallas_call at :106).
 //
-// What bounds them on this card: bytes. The forward reads each row twice
-// (sum of squares, then the scaled store; the second read hits L1/L2) and
-// writes it once, at about 4 operations per element. At the decode shape of
-// the serving path (8 rows x 4096) the work is a few microseconds of memory
-// traffic, so each of the 2L+1 launches per dispatch is bound by launch
-// latency, not by the card. At admission and in training (thousands of
-// rows) it is bound by device-memory bandwidth. The backward reads x and g
-// twice (the second pass from L1/L2) and writes dx, about 10 operations per
-// element: bytes again.
+// What bounds them on this card: bytes. The forward reads x and w and
+// writes o and rstd, at about 4 operations per element. At the decode
+// shape of the serving path (8 rows x 4096) the bytes take 0.04 us, so each
+// of the 2L+1 launches per dispatch is bound by the launch and one trip to
+// memory. At admission and in training (thousands of rows) it is bound by
+// device-memory bandwidth. The backward reads x and g twice (the second
+// pass from L1/L2) and writes dx, about 10 operations per element: bytes
+// again.
 //
-// What the design does about that: one block of 256 threads per row
-// (forward) or per 16 rows (backward), 16-byte vector loads and stores where
-// the row allows them, the row reductions in warp shuffles plus one
-// shared-memory step, and no second pass over device memory for the
-// statistics. dw needs a sum over all rows, which the TPU kernel carried
-// from one grid step to the next in a revisited output block; here blocks
-// run in parallel, so each block writes its rows' f32 partial sums (each
-// thread owns fixed columns in shared memory, no atomics) and a second small
-// kernel adds the partials in block order: the result is deterministic.
-// Launch latency is left to a later change (CUDA graphs, or fusing the norm
-// into the neighbouring matmul).
+// Two forward designs, picked by `ops.norm_kernels.norm_design`:
+// - "registers" (rms_norm_fwd_rows, the register-row design of
+//   norm_rows.cuh): the row in registers, device memory read once, a warp
+//   or a few warps a row (a block holds up to four warps' rows, a row a
+//   block when the rows do not fill the SMs), the sum of squares in
+//   shuffles (plus one shared-memory step between the warps of a row). For
+//   rows of whole 16-byte vectors, 16-byte-aligned, up to 4 warps x 8
+//   vectors a lane (4096 f32, 8192 bf16 / f16 elements).
+// - "strided" (rms_norm_fwd_kernel): one block of 256 threads a row, a
+//   strided loop over the row, read twice (the second read from L1/L2),
+//   one block reduction; it takes every row, vectorised where it can.
+//
+// The backward: one block of 256 threads per 16 rows, 16-byte vector loads
+// and stores where the row allows them, the row reductions in warp shuffles
+// plus one shared-memory step. dw needs a sum over all rows, which the TPU
+// kernel carried from one grid step to the next in a revisited output
+// block; here blocks run in parallel, so each block writes its rows' f32
+// partial sums (each thread owns fixed columns in shared memory, no
+// atomics) and a second small kernel adds the partials in block order: the
+// result is deterministic.
 //
 // C interface: pointers are device pointers on the caller's current stream;
 // each function returns cudaGetLastError() after its launches.
@@ -38,46 +46,11 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include "norm_rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) {
-  return __float2half(v);
-}
-
-// VEC elements of T make one 16-byte access
-template <typename T> struct Vec { static constexpr int n = 16 / sizeof(T); };
-
-template <typename T>
-__device__ __forceinline__ void load_vec(const T* p, float* f) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < Vec<T>::n; ++i) f[i] = to_f(e[i]);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_vec(T* p, const float* f) {
-  uint4 raw;
-  T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < Vec<T>::n; ++i) e[i] = from_f<T>(f[i]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
@@ -135,7 +108,7 @@ rms_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = threadIdx.x; i < h; i += kThreads)
       orow[i] = from_f<T>(to_f(xr[i]) * r * to_f(w[i]));
   }
-  if (threadIdx.x == 0) rstd[row] = r;
+  if (threadIdx.x == 0 && rstd != nullptr) rstd[row] = r;
 }
 
 template <typename T>
@@ -155,6 +128,110 @@ cudaError_t launch(const void* x, const void* w, void* o, float* rstd, int n,
         static_cast<const T*>(x), static_cast<const T*>(w),
         static_cast<T*>(o), rstd, h, eps);
   return cudaGetLastError();
+}
+
+// The register-row forward (norm_rows.cuh): lane t of a row's TPR lanes
+// holds its NV vectors of x and of w in registers, raw.
+template <typename T, int WPR, int NV>
+__global__ void __launch_bounds__(kRowBlock)
+rms_norm_fwd_rows(const T* __restrict__ x, const T* __restrict__ w,
+                  T* __restrict__ o, float* __restrict__ rstd, int n, int h,
+                  float eps) {
+  constexpr int V = Vec<T>::n, TPR = 32 * WPR;
+  __shared__ float red[kRowBlock / 32];
+  const int groups = blockDim.x / TPR;
+  const int group = threadIdx.x / TPR, t = threadIdx.x % TPR;
+  const int row = blockIdx.x * groups + group;
+  if (row >= n) return;  // the row's warps leave together
+  const int nvec = h / V;
+  const size_t base = size_t(row) * nvec;
+  uint4 xv[NV], wv[NV];
+  load_row<NV, TPR>(xv, reinterpret_cast<const uint4*>(x) + base, t, nvec);
+  load_row<NV, TPR>(wv, reinterpret_cast<const uint4*>(w), t, nvec);
+  keep_raw(wv);
+  // masked slots hold zeros and add nothing
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    float f[V];
+    unpack<T>(xv[j], f);
+#pragma unroll
+    for (int e = 0; e < V; ++e) ss += f[e] * f[e];
+  }
+  keep_raw(xv);
+  const float r = rsqrtf(row_sum<WPR>(ss, red, group) / h + eps);
+  uint4* orow = reinterpret_cast<uint4*>(o) + base;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (j * TPR + t >= nvec) continue;
+    float f[V], g[V];
+    unpack<T>(xv[j], f);
+    unpack<T>(wv[j], g);
+#pragma unroll
+    for (int e = 0; e < V; ++e) f[e] = f[e] * r * g[e];
+    orow[j * TPR + t] = pack<T>(f);
+  }
+  if (t == 0 && rstd != nullptr) rstd[row] = r;
+}
+
+template <typename T, int WPR, int NV>
+cudaError_t launch_rows(const void* x, const void* w, void* o, float* rstd,
+                        int n, int h, float eps, int device,
+                        cudaStream_t stream) {
+  auto kernel = rms_norm_fwd_rows<T, WPR, NV>;
+  const RowGrid g = row_grid<WPR>(n, sm_count(device));
+  kernel<<<g.blocks, g.threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(o),
+      rstd, n, h, eps);
+  return cudaGetLastError();
+}
+
+#define PDT_RMS_ROWS(N) \
+  case N: return launch_rows<T, WPR, N>(x, w, o, rstd, n, h, eps, device, s)
+
+// the instance of (WPR, nv): nv 1-8 at one warp a row, 5-8 past it (the
+// classes `ops.norm_kernels.row_class` gives)
+template <typename T, int WPR>
+cudaError_t rows_nv(int nv, const void* x, const void* w, void* o,
+                    float* rstd, int n, int h, float eps, int device,
+                    cudaStream_t s) {
+  if constexpr (WPR == 1) {
+    switch (nv) {
+      PDT_RMS_ROWS(1);
+      PDT_RMS_ROWS(2);
+      PDT_RMS_ROWS(3);
+      PDT_RMS_ROWS(4);
+      default: break;
+    }
+  }
+  switch (nv) {
+    PDT_RMS_ROWS(5);
+    PDT_RMS_ROWS(6);
+    PDT_RMS_ROWS(7);
+    PDT_RMS_ROWS(8);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+#undef PDT_RMS_ROWS
+
+// wpr 0: the strided design; else the register-row class (wpr, nv), which
+// must cover the row's vectors
+template <typename T>
+cudaError_t launch_fwd(const void* x, const void* w, void* o, float* rstd,
+                       int n, int h, float eps, int wpr, int nv, int device,
+                       cudaStream_t s) {
+  if (wpr == 0) return launch<T>(x, w, o, rstd, n, h, eps, s);
+  constexpr int V = Vec<T>::n;
+  if (h % V != 0 || h / V > 32 * wpr * nv || !aligned16(x) || !aligned16(w) ||
+      !aligned16(o))
+    return cudaErrorInvalidValue;
+  switch (wpr) {
+    case 1: return rows_nv<T, 1>(nv, x, w, o, rstd, n, h, eps, device, s);
+    case 2: return rows_nv<T, 2>(nv, x, w, o, rstd, n, h, eps, device, s);
+    case 4: return rows_nv<T, 4>(nv, x, w, o, rstd, n, h, eps, device, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 
@@ -268,17 +345,28 @@ cudaError_t launch_bwd(const void* x, const void* w, const float* rstd,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, w and o share it)
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, w and o share it);
+// wpr 0 runs the strided design, else the register-row design with wpr
+// warps a row and nv vectors a lane; device is the pointers' device, made
+// current for the launch only; rstd may be null (no statistics stored).
 extern "C" int pdt_rms_norm_fwd(const void* x, const void* w, void* o,
                                 void* rstd, int n, int h, float eps,
-                                int dtype, void* stream) {
+                                int dtype, int wpr, int nv, int device,
+                                void* stream) {
   if (n <= 0) return 0;
+  if (wpr != 0 && h <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* r = static_cast<float*>(rstd);
   switch (dtype) {
-    case 0: return launch<float>(x, w, o, r, n, h, eps, s);
-    case 1: return launch<__nv_bfloat16>(x, w, o, r, n, h, eps, s);
-    case 2: return launch<__half>(x, w, o, r, n, h, eps, s);
+    case 0:
+      return launch_fwd<float>(x, w, o, r, n, h, eps, wpr, nv, device, s);
+    case 1:
+      return launch_fwd<__nv_bfloat16>(x, w, o, r, n, h, eps, wpr, nv,
+                                       device, s);
+    case 2:
+      return launch_fwd<__half>(x, w, o, r, n, h, eps, wpr, nv, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -11,6 +11,14 @@ path (differentiated by torch autograd) and the on-card comparison use.
 On the card each forward saves x, w and its statistics (``rstd``, and
 ``mean`` for LayerNorm), and the backward kernel recomputes x̂ from them
 (`_RmsNormFn`, `_LayerNormFn`), as the JAX custom VJPs do.
+
+Each forward has two designs on the card, picked by `norm_design`: the
+row held in registers and read once (`row_class`, `csrc/norm_rows.cuh`),
+and a block a row that reads the row again (for the rows the first cannot
+take). The launch path is kept thin for the decode step's many small
+calls: the stream is read raw, a call without a backward stores no
+statistics and reshapes nothing, and the C entry makes the tensors'
+device current only when it is not.
 """
 from __future__ import annotations
 
@@ -19,12 +27,13 @@ import ctypes
 import torch
 
 from . import kernel_route, launch_counts
+from ._build import kernel_fn
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# pdt_rms_norm_fwd(x, w, o, rstd, n, h, eps, dtype, stream)
+# pdt_rms_norm_fwd(x, w, o, rstd, n, h, eps, dtype, wpr, nv, device, stream)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_void_p]
+                                     ctypes.c_float] + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
 # pdt_rms_norm_bwd(x, w, rstd, g, dx, dw_part, dw, n, h, dtype, stream)
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p]
@@ -33,6 +42,77 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
 _BWD_ROWS = 16
 # the backward keeps one f32 row of dw partials in shared memory
 _BWD_MAX_H = 49152
+
+# The forwards' register-row design (`csrc/norm_rows.cuh`): a row is h / V
+# 16-byte vectors (V = 4 f32, 8 bf16 / f16) spread over the lanes of a few
+# warps, at most ROW_VECS a lane, held in registers; the classes of warps
+# a row that the kernels are built for (to Llama-3-8B's 4096 in f32; wider
+# rows take the strided design).
+ROW_WARPS = (1, 2, 4)
+ROW_VECS = 8
+
+
+def row_class(dtype, h: int):
+    """The register-row design's class for rows of ``h`` elements of
+    ``dtype``: ``(warps a row, vectors a lane)``, the fewest warps whose
+    lanes hold the row's 16-byte vectors at most `ROW_VECS` each (lane t
+    holds vectors t, t + 32 w, ..., so lanes differ by at most one), or
+    None: h not a whole number of vectors, or past the largest class
+    (4 warps x 8 vectors: 4096 f32, 8192 bf16 / f16 elements)."""
+    if dtype not in _DTYPES or h <= 0:
+        return None
+    v = 16 // dtype.itemsize
+    if h % v:
+        return None
+    nvec = h // v
+    for wpr in ROW_WARPS:
+        if nvec <= 32 * wpr * ROW_VECS:
+            return wpr, -(-nvec // (32 * wpr))
+    return None
+
+
+def norm_design(dtype, h: int) -> str:
+    """Which forward kernel of `csrc/rms_norm.cu` / `csrc/layer_norm.cu`
+    takes rows of ``h`` elements of ``dtype`` on the card:
+    ``"registers"`` (the row in registers, read once: `row_class`) where a
+    class holds the row, else ``"strided"`` (a block a row, read twice or
+    three times; it takes every row). A pointer off 16 bytes also goes to
+    the strided kernel."""
+    return "strided" if row_class(dtype, h) is None else "registers"
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(dev: int) -> int:
+    """The current CUDA stream of device ``dev``, as an int."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(dev)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _route(dtype, h: int, ptrs: int, design):
+    """``(warps a row, vectors a lane)`` of the forward that runs, (0, 0)
+    for the strided one: ``design`` when the caller names one (private: it
+    lets a caller run the other design at the same shape; an input it
+    cannot take raises ValueError), else `norm_design`'s, and the strided
+    design when a pointer (``ptrs``: the pointers or-ed) is off 16
+    bytes."""
+    if design is None:
+        return (0, 0) if ptrs & 15 else (row_class(dtype, h) or (0, 0))
+    if design == "strided":
+        return 0, 0
+    if design != "registers":
+        raise ValueError(f"no norm forward design {design!r}; want "
+                         f"'registers' or 'strided'")
+    cls = row_class(dtype, h)
+    if cls is None or ptrs & 15:
+        raise ValueError(
+            f"the registers norm design takes rows of whole 16-byte vectors "
+            f"(up to {32 * ROW_WARPS[-1] * ROW_VECS} vectors) at 16-byte-"
+            f"aligned pointers; got h={h} {dtype}"
+            + (", a pointer off 16 bytes" if ptrs & 15 else ""))
+    return cls
 
 
 def rms_norm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
@@ -43,11 +123,19 @@ def rms_norm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     return (xf * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
 
 
-def _check(x2: torch.Tensor, w: torch.Tensor):
-    h = x2.shape[1]
-    if x2.dtype not in _DTYPES:
+def _code(x2: torch.Tensor) -> int:
+    """x2's dtype code for the C entries; TypeError for another dtype."""
+    code = _DTYPES.get(x2.dtype)
+    if code is None:
         raise TypeError(f"norm kernels take float32, bfloat16 or float16, "
                         f"got {x2.dtype}")
+    return code
+
+
+def _check(x2: torch.Tensor, w: torch.Tensor) -> int:
+    """Raise on what the kernels do not take; return x2's device index."""
+    h = x2.shape[-1]
+    _code(x2)
     if w.dtype != x2.dtype or w.shape != (h,):
         raise ValueError(f"norm kernels want w of shape ({h},) and "
                          f"dtype {x2.dtype}; got {tuple(w.shape)} "
@@ -56,20 +144,26 @@ def _check(x2: torch.Tensor, w: torch.Tensor):
         raise ValueError("norm kernels want x and w on one CUDA device")
     if not (x2.is_contiguous() and w.is_contiguous()):
         raise ValueError("norm kernels want contiguous x and w")
+    return x2.get_device()
 
 
-def _rms_fwd(x2: torch.Tensor, w: torch.Tensor, eps: float):
-    """Launch the CUDA kernel on (n, h) rows: returns (o, rstd (n,) f32)."""
-    _check(x2, w)
-    n, h = x2.shape
-    from ._build import kernel_fn
-    fn = kernel_fn("rms_norm", "pdt_rms_norm_fwd", _ARGTYPES)
+def _rms_fwd(x2: torch.Tensor, w: torch.Tensor, eps: float, _design=None,
+             stats=True):
+    """Launch the forward kernel on the rows of contiguous ``x2`` (any
+    rank; rows along the last axis): returns (o of x2's shape, rstd (n,)
+    f32, or None without ``stats``: then the kernel stores none). The
+    design is `norm_design`'s unless ``_design`` names one."""
+    h = x2.shape[-1]
+    xp, wp = x2.data_ptr(), w.data_ptr()
+    code, (wpr, nv) = _code(x2), _route(x2.dtype, h, xp | wp, _design)
+    dev = _check(x2, w)
+    n = x2.numel() // h if h else 0
     o = torch.empty_like(x2)
-    rstd = torch.empty(n, dtype=torch.float32, device=x2.device)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    with torch.cuda.device(x2.device):
-        err = fn(x2.data_ptr(), w.data_ptr(), o.data_ptr(), rstd.data_ptr(),
-                 n, h, float(eps), _DTYPES[x2.dtype], stream)
+    rstd = torch.empty(n, dtype=torch.float32, device=x2.device) \
+        if stats else None
+    err = kernel_fn("rms_norm", "pdt_rms_norm_fwd", _ARGTYPES)(
+        xp, wp, o.data_ptr(), rstd.data_ptr() if stats else 0, n, h, eps,
+        code, wpr, nv, dev, _stream(dev))
     if err:
         raise RuntimeError(f"rms_norm kernel launch failed: CUDA error "
                            f"{err}")
@@ -92,7 +186,6 @@ def _rms_bwd(x2, w, rstd, g2):
     if rstd.shape != (n,) or rstd.dtype != torch.float32:
         raise ValueError("rms_norm backward wants the forward's (n,) f32 "
                          "rstd")
-    from ._build import kernel_fn
     fn = kernel_fn("rms_norm", "pdt_rms_norm_bwd", _BWD_ARGTYPES)
     dx = torch.empty_like(x2)
     dw = torch.empty_like(w)
@@ -137,19 +230,22 @@ def rms_norm_values(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     ``use_kernel=False``, through `rms_norm_ref` and torch autograd."""
     if not kernel_route(x, use_kernel):
         return rms_norm_ref(x, w, eps)
-    shape = x.shape
-    x2 = x.reshape(-1, shape[-1]).contiguous()
-    w = w.contiguous()
-    if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
-        return _RmsNormFn.apply(x2, w, float(eps)).reshape(shape)
-    return _rms_fwd(x2, w, eps)[0].reshape(shape)
+    x, w = x.contiguous(), w.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        shape = x.shape
+        return _RmsNormFn.apply(x.reshape(-1, shape[-1]), w,
+                                float(eps)).reshape(shape)
+    # no reshape: the kernel takes the rows of x in any rank; no rstd
+    # without a backward
+    return _rms_fwd(x, w, eps, stats=False)[0]
 
 
 # -- layernorm ---------------------------------------------------------------
-# pdt_layer_norm_fwd(x, w, b, o, mean, rstd, n, h, eps, dtype, stream)
+# pdt_layer_norm_fwd(x, w, b, o, mean, rstd, n, h, eps, dtype, wpr, nv,
+#                    device, stream)
 _LN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_float, ctypes.c_int,
-                                        ctypes.c_void_p]
+                                        ctypes.c_float] \
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # pdt_layer_norm_bwd(x, w, mean, rstd, g, dx, part, dw, db, n, h, dtype,
 #                    stream)
 _LN_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 \
@@ -183,35 +279,41 @@ def layer_norm_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             + b.float()).to(x.dtype)
 
 
-def _ln_check(x2, w, b):
-    _check(x2, w)
+def _ln_check(x2, w, b) -> int:
+    dev = _check(x2, w)
     if b.dtype != x2.dtype or b.shape != w.shape or not b.is_contiguous() \
             or b.device != x2.device:
         raise ValueError(f"layer_norm kernel wants a contiguous bias like w "
                          f"({tuple(w.shape)}, {w.dtype}) on x's device; got "
                          f"{tuple(b.shape)} {b.dtype}")
+    return dev
 
 
-def _ln_fwd(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
-    """Launch the forward kernel on (n, h) rows: (o, mean (n,) f32, rstd
-    (n,) f32)."""
-    _ln_check(x2, w, b)
-    n, h = x2.shape
-    from ._build import kernel_fn
-    fn = kernel_fn("layer_norm", "pdt_layer_norm_fwd", _LN_ARGTYPES)
+def _ln_fwd(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float,
+            _design=None, stats=True):
+    """Launch the forward kernel on the rows of contiguous ``x2`` (any
+    rank; rows along the last axis): (o of x2's shape, mean (n,) f32,
+    rstd (n,) f32), the two statistics rows of one (2, n) tensor, or
+    None for both without ``stats`` (the kernel stores none). The design
+    is `norm_design`'s unless ``_design`` names one."""
+    h = x2.shape[-1]
+    xp, wp, bp = x2.data_ptr(), w.data_ptr(), b.data_ptr()
+    code, (wpr, nv) = _code(x2), _route(x2.dtype, h, xp | wp | bp,
+                                        _design)
+    dev = _ln_check(x2, w, b)
+    n = x2.numel() // h if h else 0
     o = torch.empty_like(x2)
-    mean = torch.empty(n, dtype=torch.float32, device=x2.device)
-    rstd = torch.empty(n, dtype=torch.float32, device=x2.device)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    with torch.cuda.device(x2.device):
-        err = fn(x2.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
-                 mean.data_ptr(), rstd.data_ptr(), n, h, float(eps),
-                 _DTYPES[x2.dtype], stream)
+    st = torch.empty(2, n, dtype=torch.float32, device=x2.device) \
+        if stats else None
+    sp = st.data_ptr() if stats else 0
+    err = kernel_fn("layer_norm", "pdt_layer_norm_fwd", _LN_ARGTYPES)(
+        xp, wp, bp, o.data_ptr(), sp, sp + 4 * n if stats else 0, n, h, eps,
+        code, wpr, nv, dev, _stream(dev))
     if err:
         raise RuntimeError(f"layer_norm kernel launch failed: CUDA error "
                            f"{err}")
     launch_counts["layer_norm"] += 1
-    return o, mean, rstd
+    return (o, st[0], st[1]) if stats else (o, None, None)
 
 
 def _ln_bwd(x2, w, mean, rstd, g2):
@@ -231,7 +333,6 @@ def _ln_bwd(x2, w, mean, rstd, g2):
         if t.shape != (n,) or t.dtype != torch.float32:
             raise ValueError("layer_norm backward wants the forward's (n,) "
                              "f32 mean and rstd")
-    from ._build import kernel_fn
     fn = kernel_fn("layer_norm", "pdt_layer_norm_bwd", _LN_BWD_ARGTYPES)
     dx = torch.empty_like(x2)
     dw = torch.empty_like(w)
@@ -279,10 +380,12 @@ def layer_norm_values(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     torch autograd."""
     if not kernel_route(x, use_kernel):
         return layer_norm_ref(x, w, b, eps)
-    shape = x.shape
-    x2 = x.reshape(-1, shape[-1]).contiguous()
-    w, b = w.contiguous(), b.contiguous()
-    if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad
+    x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
                                     or b.requires_grad):
-        return _LayerNormFn.apply(x2, w, b, float(eps)).reshape(shape)
-    return _ln_fwd(x2, w, b, eps)[0].reshape(shape)
+        shape = x.shape
+        return _LayerNormFn.apply(x.reshape(-1, shape[-1]), w, b,
+                                  float(eps)).reshape(shape)
+    # no reshape: the kernel takes the rows of x in any rank; no
+    # statistics without a backward
+    return _ln_fwd(x, w, b, eps, stats=False)[0]

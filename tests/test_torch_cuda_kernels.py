@@ -44,6 +44,14 @@ design beside the mma.sync one (K off the 64-wide k step too), bitwise
 across runs, and K or N off 8 on the mma.sync route;
 LayerNorm: `nk.LN_LIMITS` on `kernel_errors` for y, dx, dw and db (both
 sides in f32, one rounding), dw and db bitwise equal across runs;
+the norm forwards' two designs (`nk.norm_design`: the row in registers,
+a block a row) each at those limits and bitwise on repeat, their
+statistics within 2^-18 of each other (f32 sums of the same terms in
+another order: a few dozen roundings), the backward kernels fed either
+design's statistics within their limits of autograd, and a planted fault
+(rstd without eps on rows where eps matters; the mean left out) outside
+them; every register-row class the C entries build, at its widest and
+narrowest row; rows off 16 bytes take the strided design;
 the tiny MoE (dropless through the grouped-matmul kernel) and tiny BERT
 (LayerNorm kernels) train steps as the tiny Llama's: losses within
 1e-4, parameters within 1e-4 of their norm;
@@ -1201,3 +1209,241 @@ def test_rope_kernel_matches_plain_bitwise(cuda, shape, dtype):
     c, sn = cos[5:], sin[5:]
     assert torch.equal(y.detach(), rp.rope_ref(x, c, sn))
     assert torch.equal(leaf.grad, rp.rope_ref(x, c, sn, -1.0))
+
+
+# the norm forwards' two designs (`nk.norm_design`): the main paths' widths
+# and two off-class ones (100 and 4100: whole 16-byte vectors in f32 only)
+NORM_ROWS = [1, 8, 300, 16384]
+NORM_H = [768, 1024, 3584, 4096, 100, 4100]
+# two designs' statistics: f32 sums of the same terms in another order,
+# a few dozen f32 roundings apart at most
+STATS_RTOL = 2 ** -18
+
+
+def _norm_designs(dtype, h):
+    if nk.norm_design(dtype, h) == "registers":
+        return ("registers", "strided")
+    return ("strided",)
+
+
+def _refuses_registers(fwd, *args):
+    before = dict(launch_counts)
+    with pytest.raises(ValueError, match="registers norm design"):
+        fwd(*args, _design="registers")
+    assert launch_counts == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h", NORM_H)
+@pytest.mark.parametrize("rows", NORM_ROWS)
+def test_rms_norm_forward_designs(cuda, rows, h, dtype):
+    """Each design against the plain version (o at the forward's
+    tolerances, rstd rtol 1e-5 of its formula), bitwise on repeat, the
+    two designs' rstd within f32 rounding of each other, the backward
+    kernel fed each design's rstd within the backward's tolerances of
+    autograd of the plain version, and a planted fault (rstd without
+    eps, on rows small enough that eps matters) outside the forward's
+    tolerances."""
+    g = torch.Generator(device=cuda).manual_seed(7 * rows + h)
+    x = (3 * torch.randn(rows, h, device=cuda, generator=g)).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, device=cuda, generator=g)).to(dtype)
+    dy = torch.randn(rows, h, device=cuda, generator=g).to(dtype)
+    small = (x.float() * 1e-3).to(dtype)
+    tol = dict(rtol=2 ** -7, atol=1e-3) if dtype != torch.float32 \
+        else dict(rtol=1e-5, atol=1e-5)
+    ref = nk.rms_norm_ref(x, w, 1e-5)
+    want = torch.rsqrt(x.float().square().mean(-1) + 1e-5)
+    leaves = [t.clone().requires_grad_() for t in (x, w)]
+    rdx, rdw = torch.autograd.grad(nk.rms_norm_ref(*leaves, 1e-5), leaves,
+                                   dy)
+    fault = (small.float() * torch.rsqrt(small.float().square().mean(
+        -1, keepdim=True)) * w.float()).to(dtype)
+    designs = _norm_designs(dtype, h)
+    rstds = {}
+    for design in designs:
+        before = launch_counts["rms_norm"]
+        o, rstd = nk._rms_fwd(x, w, 1e-5, _design=design)
+        assert launch_counts["rms_norm"] == before + 1
+        assert o.dtype == dtype and rstd.shape == (rows,)
+        torch.testing.assert_close(o.float(), ref.float(), **tol)
+        torch.testing.assert_close(rstd, want, rtol=1e-5, atol=0)
+        o2, rstd2 = nk._rms_fwd(x, w, 1e-5, _design=design)
+        assert torch.equal(o, o2) and torch.equal(rstd, rstd2), design
+        rstds[design] = rstd
+        dx, dw = nk._rms_bwd(x, w, rstd, dy)
+        if dtype != torch.float32:
+            torch.testing.assert_close(dx.float(), rdx.float(),
+                                       rtol=2 ** -7, atol=1e-3)
+            top = rdw.float().abs().max().item()
+            torch.testing.assert_close(dw.float(), rdw.float(),
+                                       rtol=2 ** -7, atol=1e-3 * top)
+        else:
+            torch.testing.assert_close(dx, rdx, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(dw, rdw, rtol=1e-4, atol=1e-4)
+        os_, _ = nk._rms_fwd(small, w, 1e-5, _design=design)
+        torch.testing.assert_close(os_.float(), nk.rms_norm_ref(
+            small, w, 1e-5).float(), **tol)
+        assert not torch.allclose(os_.float(), fault.float(), **tol), design
+    if len(designs) == 2:
+        torch.testing.assert_close(rstds["registers"], rstds["strided"],
+                                   rtol=STATS_RTOL, atol=0)
+    else:
+        _refuses_registers(nk._rms_fwd, x, w, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h", NORM_H)
+@pytest.mark.parametrize("rows", NORM_ROWS)
+def test_layer_norm_forward_designs(cuda, rows, h, dtype):
+    """Each design against the plain version at `nk.LN_LIMITS`, bitwise on
+    repeat, mean and rstd against their formulas and the two designs'
+    within f32 rounding of each other, the backward kernel fed each
+    design's statistics within `nk.LN_LIMITS` of autograd of the plain
+    version, and a planted fault (the mean left out) outside them."""
+    g = torch.Generator(device=cuda).manual_seed(11 * rows + h)
+    x = (3 * torch.randn(rows, h, device=cuda, generator=g) + 1).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, device=cuda, generator=g)).to(dtype)
+    b = (0.1 * torch.randn(h, device=cuda, generator=g)).to(dtype)
+    dy = torch.randn(rows, h, device=cuda, generator=g).to(dtype)
+    lim = nk.LN_LIMITS[dtype]
+    ref = nk.layer_norm_ref(x, w, b, 1e-12)
+    xf = x.float()
+    mu = xf.mean(-1)
+    scale = xf.abs().mean(-1)
+    want_rstd = torch.rsqrt((xf - mu[:, None]).square().mean(-1) + 1e-12)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    rgrads = torch.autograd.grad(nk.layer_norm_ref(*leaves, 1e-12), leaves,
+                                 dy)
+    fault = (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-12)
+             * w.float() + b.float()).to(dtype)
+
+    def within(got, want):
+        rel, row = kernel_errors(got.reshape(-1, h), want.reshape(-1, h))
+        return rel <= lim["rel"] and row <= lim["row"]
+
+    designs = _norm_designs(dtype, h)
+    stats = {}
+    for design in designs:
+        before = launch_counts["layer_norm"]
+        y, mean, rstd = nk._ln_fwd(x, w, b, 1e-12, _design=design)
+        assert launch_counts["layer_norm"] == before + 1
+        assert y.dtype == dtype and mean.shape == rstd.shape == (rows,)
+        assert within(y, ref), design
+        torch.testing.assert_close(mean, mu, rtol=0,
+                                   atol=float(STATS_RTOL * scale.max()))
+        torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+        y2, mean2, rstd2 = nk._ln_fwd(x, w, b, 1e-12, _design=design)
+        assert torch.equal(y, y2) and torch.equal(mean, mean2) \
+            and torch.equal(rstd, rstd2), design
+        stats[design] = mean, rstd
+        for name, got, want in zip(("dx", "dw", "db"),
+                                   nk._ln_bwd(x, w, mean, rstd, dy), rgrads):
+            assert got.dtype == dtype and within(got, want), (design, name)
+        assert not within(y, fault), design
+    if len(designs) == 2:
+        (m1, r1), (m2, r2) = stats["registers"], stats["strided"]
+        assert ((m1 - m2).abs() <= STATS_RTOL * scale).all()
+        torch.testing.assert_close(r1, r2, rtol=STATS_RTOL, atol=0)
+    else:
+        _refuses_registers(nk._ln_fwd, x, w, b, 1e-12)
+
+
+# every instance of the register-row kernels (`nk.row_class`'s classes: NV
+# 1-8 vectors a lane at one warp a row, 5-8 at two and four), at the widest
+# row of each class and at the narrowest (its last slot live in one lane)
+ROW_CLASSES = [(wpr, nv, widest) for wpr in nk.ROW_WARPS
+               for nv in range(1 if wpr == 1 else nk.ROW_VECS // 2 + 1,
+                               nk.ROW_VECS + 1)
+               for widest in (True, False)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("wpr,nv,widest", ROW_CLASSES)
+def test_norm_forwards_every_row_class(cuda, wpr, nv, widest, dtype):
+    """Both forwards on the default route at each class the C entries
+    build, over 8 rows (a row a block) and 1001 (rows sharing blocks, a
+    last block part empty): the register-row kernel launched once, o
+    against the plain version (RMSNorm at the forward's tolerances,
+    LayerNorm at `nk.LN_LIMITS`), the statistics against their formulas,
+    bitwise on repeat."""
+    v = 16 // torch.empty((), dtype=dtype).element_size()
+    h = v * 32 * wpr * (nv if widest else nv - 1) + (0 if widest else v)
+    assert nk.row_class(dtype, h) == (wpr, nv)
+    assert nk.norm_design(dtype, h) == "registers"
+    tol = dict(rtol=2 ** -7, atol=1e-3) if dtype != torch.float32 \
+        else dict(rtol=1e-5, atol=1e-5)
+    lim = nk.LN_LIMITS[dtype]
+    for rows in (8, 1001):
+        g = torch.Generator(device=cuda).manual_seed(rows + h)
+        x = (3 * torch.randn(rows, h, device=cuda, generator=g) + 1).to(dtype)
+        w = (1 + 0.1 * torch.randn(h, device=cuda, generator=g)).to(dtype)
+        b = (0.1 * torch.randn(h, device=cuda, generator=g)).to(dtype)
+        xf = x.float()
+        mu = xf.mean(-1)
+        before = dict(launch_counts)
+        o, rstd = nk._rms_fwd(x, w, 1e-5)
+        y, mean, lrstd = nk._ln_fwd(x, w, b, 1e-12)
+        assert launch_counts["rms_norm"] == before["rms_norm"] + 1
+        assert launch_counts["layer_norm"] == before["layer_norm"] + 1
+        torch.testing.assert_close(
+            o.float(), nk.rms_norm_ref(x, w, 1e-5).float(), **tol)
+        torch.testing.assert_close(
+            rstd, torch.rsqrt(xf.square().mean(-1) + 1e-5), rtol=1e-5,
+            atol=0)
+        rel, row = kernel_errors(y, nk.layer_norm_ref(x, w, b, 1e-12))
+        assert rel <= lim["rel"] and row <= lim["row"], (rows, rel, row)
+        torch.testing.assert_close(
+            mean, mu, rtol=0,
+            atol=float(STATS_RTOL * xf.abs().mean(-1).max()))
+        torch.testing.assert_close(
+            lrstd, torch.rsqrt((xf - mu[:, None]).square().mean(-1)
+                               + 1e-12), rtol=1e-5, atol=0)
+        o2, rstd2 = nk._rms_fwd(x, w, 1e-5)
+        y2, mean2, lrstd2 = nk._ln_fwd(x, w, b, 1e-12)
+        assert torch.equal(o, o2) and torch.equal(rstd, rstd2)
+        assert torch.equal(y, y2) and torch.equal(mean, mean2) \
+            and torch.equal(lrstd, lrstd2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_norm_forwards_off_16_bytes_take_the_strided_design(cuda, dtype):
+    """A row that starts off 16 bytes: the default route launches the
+    strided kernel (right, counted once), the registers design
+    refuses it before any launch."""
+    rows, h = 8, 4096
+    g = torch.Generator(device=cuda).manual_seed(3)
+    buf = torch.randn(rows * h + 1, device=cuda, generator=g).to(dtype)
+    x = buf[1:].view(rows, h)
+    w = torch.ones(h, device=cuda, dtype=dtype)
+    b = torch.zeros(h, device=cuda, dtype=dtype)
+    assert x.data_ptr() % 16 != 0
+    tol = dict(rtol=2 ** -7, atol=1e-3) if dtype != torch.float32 \
+        else dict(rtol=1e-5, atol=1e-5)
+    before = dict(launch_counts)
+    o, _ = nk._rms_fwd(x, w, 1e-5)
+    y, _, _ = nk._ln_fwd(x, w, b, 1e-5)
+    assert launch_counts["rms_norm"] == before["rms_norm"] + 1
+    assert launch_counts["layer_norm"] == before["layer_norm"] + 1
+    torch.testing.assert_close(o.float(), nk.rms_norm_ref(x, w, 1e-5).float(),
+                               **tol)
+    assert kernel_errors(y, nk.layer_norm_ref(x, w, b, 1e-5))[0] <= \
+        nk.LN_LIMITS[dtype]["rel"]
+    _refuses_registers(nk._rms_fwd, x, w, 1e-5)
+    _refuses_registers(nk._ln_fwd, x, w, b, 1e-5)
+
+
+def test_norm_values_take_rows_in_any_rank(cuda):
+    """The no-grad entries hand x to the kernel without a reshape: a
+    (2, 4, h) input gives the (8, h) result bitwise, in its own shape."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, 4, 4096, device=cuda, generator=g).bfloat16()
+    w = (1 + 0.1 * torch.randn(4096, device=cuda, generator=g)).bfloat16()
+    b = (0.1 * torch.randn(4096, device=cuda, generator=g)).bfloat16()
+    with torch.no_grad():
+        o = nk.rms_norm_values(x, w, 1e-5)
+        y = nk.layer_norm_values(x, w, b, 1e-5)
+    assert o.shape == y.shape == x.shape
+    assert torch.equal(o.reshape(8, 4096), nk._rms_fwd(
+        x.reshape(8, 4096), w, 1e-5)[0])
+    assert torch.equal(y.reshape(8, 4096), nk._ln_fwd(
+        x.reshape(8, 4096), w, b, 1e-5)[0])
