@@ -13,8 +13,12 @@ no result. Phases, in order (any failure raises):
 3. hold each kernel against its plain PyTorch version on the card, in
    bf16 and f32, at the serving path's shapes (ragged attention over a
    decode batch of 8 slots with contexts 1..2048, a mixed admission
-   batch, and a windowed batch), with each one's time (CUDA events) and
-   its bound; the RMSNorm forward's two designs (`nk.norm_design`: the
+   batch, and a windowed batch: both designs, ``ra.DESIGNS``, the
+   "split" one that every path runs bitwise on repeat and launched once
+   by the entry, its tickets left zero, timed in turns
+   with the "serial" one and a copy of the case's live pages by
+   ``timed_in_turns`` below), with each one's time and its bound; the
+   RMSNorm forward's two designs (`nk.norm_design`: the
    row in registers, and a block a row) at every main path's shape (a
    decode step's 8 rows and an admission batch at 4096, bf16 and f32;
    the 8B-width, bench and A14B-width training rows in bf16), with a
@@ -29,6 +33,10 @@ no result. Phases, in order (any failure raises):
 5. serve 16 seeded requests on `LlamaConfig.llama3_8b()` at full width
    and depth in bf16 through `ContinuousBatchingEngine`, with the
    kernels' launch counts set to 0 before the run and read after it;
+   then 10 decode steps of a second engine on the same model under
+   ``torch.profiler`` (`tools.profile_decode.profile_engine`): the
+   split attention's device ms a decode step beside the run's decode
+   step ms, decode tokens/s and TTFT p50 (``serving {...}``);
 6. one admission dispatch of the 8B model through the kernels and
    through the plain versions (``use_kernel=True`` / ``False``).
 
@@ -37,14 +45,16 @@ Quantized serving adds, in the same run:
 3b. the dequant matmul kernel against its plain version at the serving
     shapes (decode (8, 4096)->14336, (8, 14336)->4096, (8, 4096)->128256
     and the first admission batch's (t_adm, 4096)->14336), int8 and fp8
-    storage, bf16 activations, plus one small f32 case: error, ms,
+    storage, bf16 activations, plus one small f32 case: error, ms (at
+    the first two decode shapes also device_ms and host_us, in turns
+    with the bf16 ``F.linear``, weights rotated past the L2),
     bound, plain ms, ``library_ms`` (``torch._weight_int8pack_mm`` for
     int8 where the installed torch runs it on CUDA, else null with the
     reason) and ``bf16_linear_ms``, the full-width ``F.linear`` the
     quantized path has to beat;
 3c. the int8-KV branch of ragged attention on the four attention cases
     of phase 3, over int8 pools and scales written by
-    `ragged_scatter_quantized`, bf16 q;
+    `ragged_scatter_quantized`, bf16 q, both designs as in phase 3;
 4b. a tiny f32 Llama under ``QuantServingConfig(weights="int8" / "fp8",
     kv="int8")`` served on the card and on the CPU: equal greedy streams
     and every dispatch's logits within a stated budget (after a
@@ -62,16 +72,19 @@ Multi-LoRA serving and the legacy paged path add, in the same run:
     the 8B decode shapes (8 tokens; q/o 4096->4096, k/v 4096->1024,
     gate/up 4096->14336, down 14336->4096), at the first admission
     batch's (t_adm, 4096)->14336 and one small f32 case, rank 16, ids
-    mixing rows 0..3: error, ms, bound, plain ms and ``bmm_ref_ms``
+    mixing rows 0..3: error, ms (at the decode shapes also device_ms
+    and host_us, adapter stacks rotated past the L2), bound, plain ms
+    and ``bmm_ref_ms``
     (the gather plus two ``torch.bmm``, a labelled yardstick: no single
     PyTorch call computes the function, so ``library_ms`` is null); and
     bitwise on the card: row-0 tokens give exact zeros, a token's delta
     alone equals its delta inside the batch of 8 and of t_adm;
-3e. the q = 1 paged attention kernel against its plain version on the
-    decode case of phase 3 (8 slots, contexts 1..2048) in bf16 and f32
-    and windowed (w=256) in bf16: ms, bound, plain ms and
-    ``ragged_bq1_ms``, the ragged kernel at block_q = 1 on the same
-    pages (the same work);
+3e. the q = 1 paged attention kernel's two designs against its plain
+    version on the decode case of phase 3 (8 slots, contexts 1..2048)
+    in bf16 and f32 and windowed (w=256) in bf16, as in phase 3: ms,
+    device_ms, host_us, bound, plain ms, a copy of the live pages and
+    ``ragged_bq1_ms`` / ``ragged_bq1_device_ms``, the ragged split
+    design at block_q = 1 on the same pages (the same work);
 4c. a tiny f32 Llama with two adapters (plus base requests) served on
     the card and on the CPU: equal greedy streams and every dispatch's
     logits within a stated budget, full width and over an int8 base
@@ -234,8 +247,9 @@ kernel's 64-wide k step with rhs read either way. 5e, 5f and 5g also print
 ``flash_fwd_ms_per_step`` (CUDA events around `_flash_fwd`).
 
 It prints a ``{"kernels": [...]}`` line (seventeen kernels, each with
-its launches on its own main-path run), the card line, and last
-``{"ok": true, "device": {...}}``.
+its launches on its own main-path run, and device_ms / host_us where the
+phase measured them), the card line, and last ``{"ok": true, "device":
+{...}}``.
 """
 import json
 import math
@@ -649,52 +663,138 @@ def attn_case(seqs, block_q, tail_pad, dtype, window, gen, int8kv=False):
     return (q, kp, vp, *dev), scales, nbytes, ops
 
 
+# the decode batch of the serving runs (8 slots, contexts 1..2048) and a
+# mixed admission batch (prefills, a continuation, a decode row, empty
+# slots)
+DECODE_SEQS = [(1, c) for c in (1, 33, 300, 517, 1024, 1500, 2000, 2048)]
+MIXED_SEQS = [(600, 600), (300, 1100), (1, 900), (0, 0), (37, 37), (1, 1),
+              (0, 0), (0, 0)]
+ATTN_CASES = [("decode", DECODE_SEQS, 1, 0, None),
+              ("admission", MIXED_SEQS, 8, 16, None),
+              ("windowed", MIXED_SEQS, 8, 16, 256),
+              ("decode_windowed", DECODE_SEQS, 1, 0, 256)]
+
+
+def live_pages(args, window, ps=16):
+    """The page ids a case's attention reads (each live page of each
+    sequence once), as an int64 tensor on the card."""
+    import torch
+    _, _, _, _, ql, cl, bt = args
+    ql, cl, bt = ql.tolist(), cl.tolist(), bt.cpu().numpy()
+    ids = []
+    for s, (qlen, ctx) in enumerate(zip(ql, cl)):
+        if qlen <= 0:
+            continue
+        lo = 0 if window is None else max(0, ctx - qlen - window + 1)
+        ids += bt[s, lo // ps:(ctx - 1) // ps + 1].tolist()
+    return torch.tensor(ids, dtype=torch.int64, device="cuda")
+
+
+def tickets_left_zero(ra):
+    """Whether every launch of the split designs left their tickets (the
+    counters of `ra.split_tickets`) zero, as the next launch needs."""
+    return all(bool((t == 0).all()) for t in ra._TICKETS.values())
+
+
+def copy_live(kp, vp, idx, scales=()):
+    """A yardstick: the live K/V pages (and their scales) copied out by
+    `index_select`, each byte read once and written once."""
+    return ([kp.index_select(1, idx), vp.index_select(1, idx)]
+            + [x.index_select(0, idx) for x in scales])
+
+
 def attn_phase(results, int8kv=False):
     """The attention cases over full-width pools in bf16 and f32, or
-    with ``int8kv`` over int8 pools and their scales with bf16 q."""
+    with ``int8kv`` over int8 pools and their scales with bf16 q: both
+    designs (`ra.DESIGNS`) against the plain version (within ATTN_ATOL,
+    the split design bitwise on repeat), the entry point launching the
+    split design once and the tickets left zero; then both
+    designs and a copy of the case's live pages (a yardstick) timed by
+    `timed_in_turns` over input sets rotated past the L2."""
     import torch
-    from paddle_tpu_torch.ops.ragged_paged_attention import (
-        ragged_paged_attention_ref, ragged_paged_attention_values)
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops import ragged_paged_attention as ra
     gen = torch.Generator(device="cuda").manual_seed(5 if int8kv else 2)
     kernel = "ragged_paged_attention_int8kv" if int8kv \
         else "ragged_paged_attention"
     dtypes = (torch.bfloat16,) if int8kv else (torch.bfloat16, torch.float32)
-    decode = [(1, c) for c in (1, 33, 300, 517, 1024, 1500, 2000, 2048)]
-    mixed = [(600, 600), (300, 1100), (1, 900), (0, 0), (37, 37),
-             (1, 1), (0, 0), (0, 0)]
-    cases = [("decode", decode, 1, 0, None),
-             ("admission", mixed, 8, 16, None),
-             ("windowed", mixed, 8, 16, 256),
-             ("decode_windowed", decode, 1, 0, 256)]
-    for label, seqs, bq, tail, win in cases:
+    scale = 1.0 / math.sqrt(128)
+    for label, seqs, bq, tail, win in ATTN_CASES:
         for dt in dtypes:
             name = str(dt).split(".")[1]
-            args, scales, nbytes, ops = attn_case(seqs, bq, tail, dt, win,
-                                                  gen, int8kv)
-            scale = 1.0 / math.sqrt(128)
-            kw = dict(k_scale=scales[0], v_scale=scales[1]) if int8kv \
-                else {}
-            run = lambda: ragged_paged_attention_values(
-                *args, window=win, block_q=bq, use_kernel=True, **kw)
-            plain_fn = lambda: ragged_paged_attention_ref(
-                *args, scale, win, None, *scales)
-            out = run()
-            ref = plain_fn()
+            first = attn_case(seqs, bq, tail, dt, win, gen, int8kv)
+            nbytes, ops = first[2], first[3]
+            sets = [first] + [attn_case(seqs, bq, tail, dt, win, gen, int8kv)
+                              for _ in range(rotation_sets(nbytes) - 1)]
+            sets = [(a, sc, live_pages(a, win)) for a, sc, _, _ in sets]
+            args, scales, idx = sets[0]
+
+            def run(st, design):
+                a, sc, _ = st
+                return ra._ragged_cuda(*a, scale, win, bq,
+                                       *(sc or (None, None)),
+                                       _design=design)
+            ref = ra.ragged_paged_attention_ref(*args, scale, win, None,
+                                                *scales)
+            outs = {d: run(sets[0], d) for d in ra.DESIGNS}
+            again = run(sets[0], "split")
+            t, h, d = args[0].shape
+            hk, _, ps, _ = args[1].shape
+            plan = ra.split_plan(t // bq, hk, bq * (h // hk),
+                                 args[6].shape[1], ps,
+                                 ra.split_kernel(dt, bq, d),
+                                 ra.sm_count("cuda"))
+            before = dict(launch_counts)
+            entry = ra.ragged_paged_attention_values(
+                *args, window=win, block_q=bq, use_kernel=True,
+                **(dict(k_scale=scales[0], v_scale=scales[1])
+                   if int8kv else {}))
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            ms = time_ms(run)
-            plain = time_ms(plain_fn, iters=5, warmup=1)
+            entry_ok = (launch_counts[kernel] == before[kernel] + 1
+                        and torch.equal(entry, outs["split"]))
+            named = {dsg: (lambda st, dsg=dsg: run(st, dsg))
+                     for dsg in ra.DESIGNS}
+            named["copy"] = lambda st: copy_live(st[0][1], st[0][2], st[2],
+                                                 st[1])
+            times = timed_in_turns(named, sets)
+            tickets_zero = tickets_left_zero(ra)
+            plain = time_ms(lambda: ra.ragged_paged_attention_ref(
+                *args, scale, win, None, *scales), iters=5, warmup=1)
             b_ms, b_by = bound(nbytes, ops, name)
-            rec = dict(kernel=kernel, case=label,
-                       dtype=name, block_q=bq, window=win,
-                       max_abs_err=err, tol=ATTN_ATOL[name], ms=ms,
-                       plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None)
-            log("kernel " + json.dumps(rec))
-            if not (err <= ATTN_ATOL[name] and torch.isfinite(out).all()):
-                raise AssertionError(f"ragged attention kernel disagrees: "
-                                     f"{rec}")
-            results.append(rec)
+            for dsg in ra.DESIGNS:
+                out, tm = outs[dsg], times[dsg]
+                err = (out.float() - ref.float()).abs().max().item()
+                rec = dict(kernel=kernel, case=label, dtype=name,
+                           block_q=bq, window=win, design=dsg,
+                           path_design=dsg == "split",
+                           split_plan=plan._asdict() if dsg == "split"
+                           else None,
+                           max_abs_err=err, tol=ATTN_ATOL[name],
+                           bitwise_repeat=bool(torch.equal(again, out))
+                           if dsg == "split" else None,
+                           entry_launches_ok=entry_ok,
+                           tickets_left_zero=tickets_zero, ms=tm["ms"],
+                           device_ms=tm["device_ms"], host_us=tm["host_us"],
+                           plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                           bound_fraction=b_ms / tm["device_ms"],
+                           copy_device_ms=times["copy"]["device_ms"],
+                           serial_over_split_device=times["serial"][
+                               "device_ms"] / times["split"]["device_ms"],
+                           library_ms=None, rotation_sets=len(sets))
+                log("kernel " + json.dumps(rec))
+                results.append(rec)
+                if not (err <= ATTN_ATOL[name]
+                        and torch.isfinite(out).all()):
+                    raise AssertionError(f"ragged attention kernel "
+                                         f"disagrees: {rec}")
+                if dsg == "split" and not (rec["bitwise_repeat"]
+                                           and entry_ok and tickets_zero):
+                    raise AssertionError(f"ragged attention: not bitwise "
+                                         f"on repeat, the entry's "
+                                         f"launches off, or tickets left "
+                                         f"set: {rec}")
+            del sets, args, scales, outs, again, entry, ref
+            torch.cuda.empty_cache()
 
 
 def dq_library(x, qw, sc, mode):
@@ -725,7 +825,10 @@ def dq_library(x, qw, sc, mode):
 
 def dq_phase(t_adm, results):
     """The dequant matmul kernel against its plain version at the
-    serving path's shapes, int8 and fp8 storage."""
+    serving path's shapes, int8 and fp8 storage. At the decode gate/up
+    and down shapes the kernel and the bf16 ``F.linear`` are also timed
+    by `timed_in_turns` over weight sets rotated past the L2 (device_ms,
+    host_us)."""
     import torch
     from paddle_tpu_torch.ops.quant_matmul import (dequant_matmul_ref,
                                                    dequant_matmul_values,
@@ -741,6 +844,7 @@ def dq_phase(t_adm, results):
         w = (0.02 * torch.randn(n, k, device="cuda", generator=gen)).to(dt)
         x = torch.randn(m, k, device="cuda", generator=gen).to(dt)
         lin_ms = time_ms(lambda: torch.nn.functional.linear(x, w))
+        turns = label in ("decode_gate_up", "decode_down")
         for mode in ("int8", "fp8"):
             qw, sc = quantize_weight_values(w, mode)
             run = lambda: dequant_matmul_values(x, qw, sc, use_kernel=True)
@@ -759,10 +863,33 @@ def dq_phase(t_adm, results):
             isz = x.element_size()
             nbytes = m * k * isz + n * k + 4 * n + m * n * isz
             b_ms, b_by = bound(nbytes, 2 * m * n * k, name)
+            timed = {}
+            if turns:
+                # weight sets (quantized and bf16) rotated past the L2
+                sets = [(x, qw, sc, w)]
+                for _ in range(rotation_sets(n * k) - 1):
+                    ws = (0.02 * torch.randn(n, k, device="cuda",
+                                             generator=gen)).to(dt)
+                    sets.append((x, *quantize_weight_values(ws, mode), ws))
+                t = timed_in_turns(
+                    {"kernel": lambda st: dequant_matmul_values(
+                        st[0], st[1], st[2], use_kernel=True),
+                     "bf16_linear": lambda st: torch.nn.functional.linear(
+                         st[0], st[3])}, sets)
+                ms = t["kernel"]["ms"]
+                timed = dict(device_ms=t["kernel"]["device_ms"],
+                             host_us=t["kernel"]["host_us"],
+                             bound_fraction=b_ms / t["kernel"]["device_ms"],
+                             bf16_linear_device_ms=t["bf16_linear"][
+                                 "device_ms"],
+                             bf16_linear_host_us=t["bf16_linear"]["host_us"],
+                             rotation_sets=len(sets))
+                del sets
             rec = dict(kernel="dequant_matmul", case=label, mode=mode,
                        dtype=name, M=m, K=k, N=n, max_abs_err=err,
                        max_abs_out=top,
                        tol=dict(rtol=rtol, atol=atol_rel * top), ms=ms,
+                       **timed,
                        plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib_ms, library_max_abs_diff=lib_diff,
                        library_note=lib_note,
@@ -775,12 +902,15 @@ def dq_phase(t_adm, results):
             results.append(rec)
             del qw, sc, out, ref
         del w, x
+        torch.cuda.empty_cache()
 
 
 def lora_phase(t_adm, results):
     """The BGMV LoRA epilogue kernel against its plain version at the 8B
     serving shapes (rank 16, four stack rows, ids mixing rows 0..3),
-    with bitwise checks of row 0 and of batch invariance."""
+    with bitwise checks of row 0 and of batch invariance. At the decode
+    shapes the kernel is also timed by `timed_in_turns` over adapter
+    stacks rotated past the L2 (device_ms, host_us)."""
     import torch
     from paddle_tpu_torch.ops.lora_epilogue import (lora_epilogue_ref,
                                                     lora_epilogue_values)
@@ -829,6 +959,20 @@ def lora_phase(t_adm, results):
         in8 = torch.equal(lora_epilogue_values(
             x[:8], a, b, scale, ids[:8], use_kernel=True), out[:8])
         ms = time_ms(run)
+        timed = {}
+        if label.startswith("decode"):
+            sets = [(x, a, b)]
+            for _ in range(rotation_sets((k * r + r * n) * n_rows
+                                         * x.element_size()) - 1):
+                sets.append((x, a.clone().normal_(generator=gen),
+                             b.clone().normal_(generator=gen)))
+            tt = timed_in_turns({"kernel": lambda st: lora_epilogue_values(
+                st[0], st[1], st[2], scale, ids, use_kernel=True)}, sets)
+            ms = tt["kernel"]["ms"]
+            timed = dict(device_ms=tt["kernel"]["device_ms"],
+                         host_us=tt["kernel"]["host_us"],
+                         rotation_sets=len(sets))
+            del sets
         plain = time_ms(plain_fn, iters=5, warmup=1)
         bmm_ms = time_ms(bmm_ref, iters=5, warmup=1)
         isz = x.element_size()
@@ -837,11 +981,14 @@ def lora_phase(t_adm, results):
         nbytes = (rows_used * (k * r + r * n) * isz + t * k * isz
                   + t * n * isz + 4 * t + 4 * n_rows)
         b_ms, b_by = bound(nbytes, len(live) * 2 * (k * r + r * n), name)
+        if timed:
+            timed["bound_fraction"] = b_ms / timed["device_ms"]
         rec = dict(kernel="lora_epilogue", case=label, dtype=name, T=t, K=k,
                    N=n, rank=r, max_abs_err=err, max_abs_out=top,
                    tol=dict(rtol=rtol, atol=atol_rel * top),
                    row0_exact_zero=zeros, alone_equals_batch=alone,
-                   batch8_equals_batch=in8, ms=ms, plain_ms=plain,
+                   batch8_equals_batch=in8, ms=ms, **timed,
+                   plain_ms=plain,
                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
                    library_note="no single PyTorch call computes a "
                    "per-token gathered low-rank product",
@@ -855,44 +1002,92 @@ def lora_phase(t_adm, results):
 
 
 def paged_phase(results):
-    """The q = 1 paged attention kernel against its plain version on the
-    decode case of `attn_phase`, with the ragged kernel at block_q = 1
-    on the same pages beside it."""
+    """The q = 1 paged attention kernel's two designs against its plain
+    version on the decode case of `attn_phase`, bf16 and f32, and
+    windowed (w=256) in bf16 (the split design bitwise on repeat, the
+    entry launching it once, the tickets left zero); then both
+    designs, the ragged split design at block_q = 1 on the same pages
+    (the same work) and a copy of the live pages timed by
+    `timed_in_turns`."""
     import torch
-    from paddle_tpu_torch.ops.paged_attention import (paged_attention_ref,
-                                                      paged_attention_values)
-    from paddle_tpu_torch.ops.ragged_paged_attention import \
-        ragged_paged_attention_values
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import ragged_paged_attention as ra
     gen = torch.Generator(device="cuda").manual_seed(6)
-    decode = [(1, c) for c in (1, 33, 300, 517, 1024, 1500, 2000, 2048)]
     scale = 1.0 / math.sqrt(128)
     for label, dt, win in (("decode", torch.bfloat16, None),
                            ("decode", torch.float32, None),
                            ("decode_windowed", torch.bfloat16, 256)):
         name = str(dt).split(".")[1]
-        args, _, nbytes, ops = attn_case(decode, 1, 0, dt, win, gen)
+        first = attn_case(DECODE_SEQS, 1, 0, dt, win, gen)
+        nbytes, ops = first[2], first[3]
+        sets = [first] + [attn_case(DECODE_SEQS, 1, 0, dt, win, gen)
+                          for _ in range(rotation_sets(nbytes) - 1)]
+        sets = [(a, live_pages(a, win)) for a, _, _, _ in sets]
+        args = sets[0][0]
         q, kp, vp, _, _, cl, bt = args
-        run = lambda: paged_attention_values(q, kp, vp, cl, bt, window=win,
-                                             use_kernel=True)
-        plain_fn = lambda: paged_attention_ref(q, kp, vp, cl, bt, scale, win)
-        ragged = lambda: ragged_paged_attention_values(
-            *args, window=win, block_q=1, use_kernel=True)
-        out = run()
-        ref = plain_fn()
+
+        def run(st, design):
+            qq, kk, vv, _, _, cc, bb = st[0]
+            return pa._paged_cuda(qq, kk, vv, cc, bb, scale, win,
+                                  _design=design)
+        ref = pa.paged_attention_ref(q, kp, vp, cl, bt, scale, win)
+        outs = {d: run(sets[0], d) for d in ra.DESIGNS}
+        again = run(sets[0], "split")
+        plan = ra.split_plan(q.shape[0], kp.shape[0],
+                             q.shape[1] // kp.shape[0], bt.shape[1],
+                             kp.shape[2], "cuda_cores", ra.sm_count("cuda"))
+        before = dict(launch_counts)
+        entry = pa.paged_attention_values(q, kp, vp, cl, bt, window=win,
+                                          use_kernel=True)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        ms = time_ms(run)
-        plain = time_ms(plain_fn, iters=5, warmup=1)
-        ragged_ms = time_ms(ragged)
+        entry_ok = (launch_counts["paged_attention"]
+                    == before["paged_attention"] + 1
+                    and torch.equal(entry, outs["split"]))
+        named = {dsg: (lambda st, dsg=dsg: run(st, dsg))
+                 for dsg in ra.DESIGNS}
+        named["ragged_bq1"] = lambda st: ra._ragged_cuda(
+            *st[0], scale, win, 1)
+        named["copy"] = lambda st: copy_live(st[0][1], st[0][2], st[1])
+        times = timed_in_turns(named, sets)
+        tickets_zero = tickets_left_zero(ra)
+        plain = time_ms(lambda: pa.paged_attention_ref(q, kp, vp, cl, bt,
+                                                       scale, win),
+                        iters=5, warmup=1)
         b_ms, b_by = bound(nbytes, ops, name)
-        rec = dict(kernel="paged_attention", case=label, dtype=name,
-                   window=win, max_abs_err=err, tol=ATTN_ATOL[name], ms=ms,
-                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None, ragged_bq1_ms=ragged_ms)
-        log("kernel " + json.dumps(rec))
-        if not (err <= ATTN_ATOL[name] and torch.isfinite(out).all()):
-            raise AssertionError(f"paged attention kernel disagrees: {rec}")
-        results.append(rec)
+        for dsg in ra.DESIGNS:
+            out, tm = outs[dsg], times[dsg]
+            err = (out.float() - ref.float()).abs().max().item()
+            rec = dict(kernel="paged_attention", case=label, dtype=name,
+                       window=win, design=dsg, path_design=dsg == "split",
+                       split_plan=plan._asdict() if dsg == "split" else None,
+                       max_abs_err=err, tol=ATTN_ATOL[name],
+                       bitwise_repeat=bool(torch.equal(again, out))
+                       if dsg == "split" else None,
+                       entry_launches_ok=entry_ok,
+                       tickets_left_zero=tickets_zero, ms=tm["ms"],
+                       device_ms=tm["device_ms"], host_us=tm["host_us"],
+                       plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                       bound_fraction=b_ms / tm["device_ms"],
+                       copy_device_ms=times["copy"]["device_ms"],
+                       serial_over_split_device=times["serial"]["device_ms"]
+                       / times["split"]["device_ms"],
+                       library_ms=None,
+                       ragged_bq1_ms=times["ragged_bq1"]["ms"],
+                       ragged_bq1_device_ms=times["ragged_bq1"]["device_ms"],
+                       rotation_sets=len(sets))
+            log("kernel " + json.dumps(rec))
+            results.append(rec)
+            if not (err <= ATTN_ATOL[name] and torch.isfinite(out).all()):
+                raise AssertionError(f"paged attention kernel disagrees: "
+                                     f"{rec}")
+            if dsg == "split" and not (rec["bitwise_repeat"] and entry_ok
+                                       and tickets_zero):
+                raise AssertionError(f"paged attention: not bitwise on "
+                                     f"repeat, the entry's launches off, "
+                                     f"or tickets left set: {rec}")
+        del sets, args, outs, again, entry, ref
+        torch.cuda.empty_cache()
 
 
 def tiny_parity():
@@ -1157,13 +1352,27 @@ def serve_8b():
         raise AssertionError("pages still held after the run")
     want = {"ragged_paged_attention": L * nd, "rms_norm": (2 * L + 1) * nd,
             "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
-            "lora_epilogue": 0, "paged_attention": 0, **NO_TRAINING}
+            "lora_epilogue": 0, "paged_attention": 0,
+**NO_TRAINING}
     log(f"launches {counts} expected {want} over {nd} dispatches "
         f"({eng.num_admission_dispatches} admission, "
         f"{eng.num_decode_dispatches} decode)")
     if counts != want:
         raise AssertionError("launch counts do not match the dispatches")
-    log("serving " + json.dumps(serving_stats(eng, done, wall)))
+    stats = serving_stats(eng, done, wall)
+    del eng
+    # the attention's device time a decode step, by torch.profiler over 10
+    # decode steps of a second engine on the same model (8 seeded prompts
+    # of 32-1024 tokens; tools/profile_decode.py), beside the run's numbers
+    from paddle_tpu_torch.tools.profile_decode import profile_engine
+    prof = profile_engine(model, None, 10)
+    fam = prof["by_family"].get("split_attention", {})
+    stats.update(attention_device_ms_per_step=fam.get("device_ms_per_step"),
+                 attention_launches_per_step=fam.get("launches_per_step"),
+                 profiled_device_ms_per_step=prof["device_ms_per_step"],
+                 profiled_step_ms=prof["step_ms"],
+                 profiled_idle_share=prof["idle_share"])
+    log("serving " + json.dumps(stats))
     return model, counts, reqs
 
 
@@ -1229,7 +1438,8 @@ def serve_8b_quant(model, reqs, weights, n_requests):
     want = {"rms_norm": (2 * L + 1) * nd, "ragged_paged_attention": 0,
             "ragged_paged_attention_int8kv": L * nd,
             "dequant_matmul": (7 * L + 1) * nd, "lora_epilogue": 0,
-            "paged_attention": 0, **NO_TRAINING}
+            "paged_attention": 0,
+**NO_TRAINING}
     log(f"launches ({weights} weights, int8 KV) {counts} expected {want} "
         f"over {nd} dispatches ({eng.num_admission_dispatches} admission, "
         f"{eng.num_decode_dispatches} decode)")
@@ -1300,7 +1510,7 @@ def serve_8b_lora(model, reqs):
     want = {"rms_norm": (2 * L + 1) * nd, "ragged_paged_attention": L * nd,
             "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
             "lora_epilogue": 7 * L * nd, "paged_attention": 0,
-            **NO_TRAINING}
+**NO_TRAINING}
     log(f"launches (LoRA) {counts} expected {want} over {nd} dispatches "
         f"({eng.num_admission_dispatches} admission, "
         f"{eng.num_decode_dispatches} decode)")
@@ -3660,6 +3870,7 @@ def main():
         "ragged_paged_attention_int8kv", "dequant_matmul"))
     counts["lora_epilogue"] = lcounts["lora_epilogue"]
     counts["paged_attention"] = gcounts["paged_attention"]
+
     counts.update((k, tcounts[k]) for k in NO_TRAINING)
     counts["grouped_matmul"] = mcounts["grouped_matmul"]
     counts["layer_norm"] = bcounts["layer_norm"]
@@ -3692,7 +3903,8 @@ def main():
     # wgmma designs
     flash_src = "paddle_tpu_torch/csrc/flash_fwd_sm90.cu"
     bwd_src = "paddle_tpu_torch/csrc/flash_bwd_sm90.cu"
-    attn_src = ("paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+    # the split design the main paths run: its kernels live in the header
+    attn_src = ("paddle_tpu_torch/csrc/decode_attention.cuh",
                 "paddle_tpu/ops/ragged_paged_attention.py:293")
     meta = {"rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
                          "paddle_tpu/ops/norm_kernels.py:45"),
@@ -3702,7 +3914,7 @@ def main():
                                "paddle_tpu/ops/quant_matmul.py:130"),
             "lora_epilogue": ("paddle_tpu_torch/csrc/lora_epilogue.cu",
                               "paddle_tpu/ops/lora_epilogue.py:111"),
-            "paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
+            "paged_attention": ("paddle_tpu_torch/csrc/decode_attention.cuh",
                                 "paddle_tpu/ops/paged_attention.py:53"),
             "flash_attention_fwd": (flash_src,
                                     "paddle_tpu/ops/flash_attention.py:127"),
@@ -3736,6 +3948,7 @@ def main():
             design=rec.get("design"),
             replaces=meta[name][1], launches=counts[name],
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            device_ms=rec.get("device_ms"), host_us=rec.get("host_us"),
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
     print(json.dumps({"kernels": kernels}))

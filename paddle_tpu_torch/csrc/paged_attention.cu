@@ -11,9 +11,22 @@
 // Layout (the JAX package's, unchanged): q and o (B, H, D); k/v pages (HK, P,
 // page_size, D); context_lens (B,) int32; block_tables (B, pps) int32.
 //
-// Design. The TPU grid (b, kv head, page) walks all pps pages of the table in
-// order, masks the dead ones, and carries the online-softmax state across the
-// page axis in VMEM. Blocks on Hopper run in no order, so one block of 8 warps
+// Two designs, two C entries:
+// - "split" (pdt_paged_attention_split; the legacy engine's decode): the
+//   decode case of ragged attention's split design, one row a sequence,
+//   from the same device code (decode_attention.cuh, where what bounds it
+//   and how it is built is described): the context split across blocks,
+//   pages fed to shared memory in their own type by the copy engine, a warp
+//   taking keys with 16-byte slices a lane, the splits merged in order by
+//   the last to finish.
+// - "serial" (pdt_paged_attention, below; the first design), kept so that the
+//   two can be timed in turns on one card, until the split design's numbers
+//   stand. It is described here.
+//
+// The serial design. The TPU grid (b, kv head, page) walks all pps pages of
+// the table in order, masks the dead ones, and carries the online-softmax
+// state across the page axis in VMEM. Blocks on Hopper run in no order, so
+// one block of 8 warps
 // takes one (b, kv head) and walks only the LIVE pages, from the window's
 // first page to the page of key ctx - 1 (never past pps); warp w takes pages
 // lo + w, lo + w + 8, ..., so eight pages are read at once. A warp keeps its
@@ -27,19 +40,21 @@
 //
 // What bounds it on this card: bytes. Each live K/V row is read once for G
 // query rows, about G / 2 operations a byte in bf16, far below the ~295 where
-// the tensor cores become the limit. This first version is latency-bound:
+// the tensor cores become the limit. The serial design is latency-bound:
 // B * HK blocks walk their pages serially, so a long context with few
-// sequences leaves SMs idle. Splitting a long context across blocks with a
-// merge pass (flash-decoding) is later work.
+// sequences leaves SMs idle, and lanes load K and V rows element by element.
 //
-// C interface: device pointers on the caller's stream; the entry returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for shapes it
-// does not take (head_dim above 256, more than 16 query heads per KV head).
+// C interface: device pointers on the caller's stream; each entry returns
+// cudaGetLastError() after its launches, or cudaErrorInvalidValue for shapes
+// it does not take (head_dim above 256, more than 16 query heads per KV
+// head).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+
+#include "decode_attention.cuh"
 
 namespace {
 
@@ -298,6 +313,45 @@ extern "C" int pdt_paged_attention(const void* q, const void* k_pages,
     case 2:
       return launch<__half>(q, k_pages, v_pages, cl, bt, o, B, H, HK, D, P,
                             page_size, pps, scale, window, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The split design (decode_attention.cuh), the ragged decode case with one
+// row a sequence. rows_per_block, split_pages and n_splits: the wrapper's
+// split plan (ops/ragged_paged_attention.py:split_plan); partials: its f32
+// scratch (B, HK, n_splits, H / HK, D + 2) and tickets: B x HK int32
+// counters, zero (the kernel leaves them zero), both null when n_splits is
+// 1. dtype and window as pdt_paged_attention's.
+extern "C" int pdt_paged_attention_split(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* context_lens, const void* block_tables, void* o,
+    void* partials, void* tickets, int B, int H, int HK, int D, int P,
+    int page_size,
+    int pps, int rows_per_block, int split_pages, int n_splits, float scale,
+    int window, int dtype, void* stream) {
+  if (B <= 0 || HK <= 0) return 0;
+  if (H % HK != 0 || H / HK > 16 || D <= 0 || D > 256 || page_size <= 0 ||
+      pps <= 0 || P <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const pdt_decode::Desc d{
+      q, k_pages, v_pages, nullptr, nullptr, nullptr, nullptr,
+      static_cast<const int*>(context_lens),
+      static_cast<const int*>(block_tables), o,
+      static_cast<float*>(partials), static_cast<int*>(tickets), B, H, HK, D,
+      P, page_size, B, pps, 1, split_pages, n_splits, scale, window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using pdt_decode::launch_split;
+  switch (dtype) {
+    case 0:
+      return launch_split<float, float, false>(d, rows_per_block, false, s);
+    case 1:
+      return launch_split<__nv_bfloat16, __nv_bfloat16, false>(
+          d, rows_per_block, false, s);
+    case 2:
+      return launch_split<__half, __half, false>(d, rows_per_block, false,
+                                                 s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,29 +12,36 @@
 // position context_len[s] - query_len[s] + j. Rows that no sequence owns,
 // and rows with no valid key, are written as zeros.
 //
-// Design. The TPU kernel walks a grid of (q block, kv head, page) in order
-// and carries the online-softmax state across the page axis in VMEM. Blocks
-// on Hopper run in no order, so the page axis becomes a loop inside one
-// thread block: one block per (q block, kv head). The block finds its
-// owning sequence from the descriptors itself (starts are block_q-aligned,
-// so a q block has at most one owner), then walks only the LIVE pages of
-// that sequence — from the first page inside the window to the page of its
-// last row's causal frontier — so dead pages cost neither loads nor math.
-// Each K/V page tile (16 x 128 bf16 = 4 KB at the defaults) is staged in
-// shared memory as f32; the block_q*G query rows of the block (4 at decode,
-// 32 at admission for G = 4) share it, which is what GQA buys: one KV read
-// for G query heads. Running max, sum and the output accumulator stay in
-// shared memory in f32 for the whole walk; the output leaves once, as
-// acc / l in q's type.
+// Two designs, two C entries:
+// - "split" (pdt_ragged_attention_split; the engine and every main path):
+//   the context split across blocks, pages fed to shared memory in their
+//   own type by the copy engine, decode rows on CUDA cores and admission
+//   tiles on tensor cores, the splits merged in order by the last to
+//   finish. It lives in decode_attention.cuh, shared with
+//   paged_attention.cu; what bounds it and how it is built is described
+//   there.
+// - "serial" (pdt_ragged_paged_attention, below; the first design), kept
+//   so that the two can be timed in turns on one card, until the split
+//   design's numbers stand. It is described here.
 //
-// What bounds it on this card: bytes. At decode every live K/V byte is read
-// once for 4 query rows (about 1 flop per byte), far below the ~295 flop
-// per byte where H100 tensor cores become the limit. This first version
-// computes on the CUDA cores and does not overlap a page's load with the
-// previous page's math, so it runs well below the memory bound when few
-// blocks are in flight (decode: N x HK blocks). Splitting long contexts
-// across blocks, cp.async/TMA double buffering and wgmma for admission
-// tiles are later changes.
+// The serial design. The TPU kernel walks a grid of (q block, kv head,
+// page) in order and carries the online-softmax state across the page axis
+// in VMEM. Blocks on Hopper run in no order, so the page axis becomes a
+// loop inside one thread block: one block per (q block, kv head). The block
+// finds its owning sequence from the descriptors itself (starts are
+// block_q-aligned, so a q block has at most one owner), then walks only the
+// LIVE pages of that sequence — from the first page inside the window to
+// the page of its last row's causal frontier — so dead pages cost neither
+// loads nor math. Each K/V page tile (16 x 128 bf16 = 4 KB at the defaults)
+// is staged in shared memory as f32; the block_q*G query rows of the block
+// (4 at decode, 32 at admission for G = 4) share it, which is what GQA
+// buys: one KV read for G query heads. Running max, sum and the output
+// accumulator stay in shared memory in f32 for the whole walk; the output
+// leaves once, as acc / l in q's type. It is bound by latency, not bytes:
+// at decode only N x HK blocks walk their pages one after another (the
+// longest context's block is the kernel's time), four block barriers a
+// page, no overlap of a page's load with the previous page's math, and
+// each logit one thread's serial dot product.
 //
 // Quantized pages. int8 pools carry two (P, page_size) f32 scale pools, one
 // DEQUANT multiplier per page row, shared by the KV heads (written by
@@ -47,8 +54,8 @@
 // Dead pages are still never read, so trash page 0's scales never reach a
 // live row.
 //
-// C interface: device pointers on the caller's stream; the entry returns
-// cudaGetLastError() after the launch.
+// C interface: device pointers on the caller's stream; each entry returns
+// cudaGetLastError() after its launches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -56,6 +63,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "decode_attention.cuh"
 
 namespace {
 
@@ -381,6 +390,60 @@ extern "C" int pdt_ragged_paged_attention(
       return launch<__half, int8_t>(
           q, k_pages, v_pages, ks, vs, qs, ql, cl, bt, o, T, H, HK, D, P,
           page_size, N, pps, block_q, scale, window, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The split design (decode_attention.cuh). rows_per_block, split_pages and
+// n_splits: the wrapper's split plan (ops/ragged_paged_attention.py:
+// split_plan); partials: its f32 scratch (T / block_q, HK, n_splits,
+// block_q * H / HK, D + 2) and tickets: (T / block_q) x HK int32 counters,
+// zero (the kernels leave them zero), both null when n_splits is 1;
+// tensor_cores: the admission kernel (bf16 / f16 q, block_q > 1, D 64, 128
+// or 256, 16-byte-aligned q and pools) in place of the CUDA-core one.
+// dtype, k_scale / v_scale and window as pdt_ragged_paged_attention's.
+// Head dims up to 256.
+extern "C" int pdt_ragged_attention_split(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* query_start,
+    const void* query_len, const void* context_len, const void* block_tables,
+    void* o, void* partials, void* tickets, int T, int H, int HK, int D,
+    int P,
+    int page_size, int N, int pps, int block_q, int rows_per_block,
+    int split_pages, int n_splits, int tensor_cores, float scale, int window,
+    int dtype, void* stream) {
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  if ((ks == nullptr) != (vs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const pdt_decode::Desc d{
+      q, k_pages, v_pages, ks, vs,
+      static_cast<const int*>(query_start),
+      static_cast<const int*>(query_len),
+      static_cast<const int*>(context_len),
+      static_cast<const int*>(block_tables), o,
+      static_cast<float*>(partials), static_cast<int*>(tickets), T, H, HK,
+      D, P, page_size, N, pps, block_q, split_pages, n_splits, scale,
+      window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tc = tensor_cores != 0;
+  using pdt_decode::launch_split;
+  switch (dtype * 2 + (ks != nullptr)) {
+    case 0:
+      return launch_split<float, float, true>(d, rows_per_block, tc, s);
+    case 1:
+      return launch_split<float, int8_t, true>(d, rows_per_block, tc, s);
+    case 2:
+      return launch_split<__nv_bfloat16, __nv_bfloat16, true>(
+          d, rows_per_block, tc, s);
+    case 3:
+      return launch_split<__nv_bfloat16, int8_t, true>(d, rows_per_block,
+                                                        tc, s);
+    case 4:
+      return launch_split<__half, __half, true>(d, rows_per_block, tc, s);
+    case 5:
+      return launch_split<__half, int8_t, true>(d, rows_per_block, tc, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

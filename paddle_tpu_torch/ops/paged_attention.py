@@ -15,6 +15,13 @@ window), ctx)``.
 for CUDA tensors and runs `paged_attention_ref`, the decode case of the
 ragged path's masked-attention core, for CPU tensors. The two writes
 update the pools in place (the JAX versions return new pools).
+
+On the card the kernel runs the "split" design: the ragged attention's
+decode kernel with one row a sequence (`csrc/decode_attention.cuh`),
+the context split by the same `split_plan`, the splits merged in order
+by the last to finish. The "serial" design (a block walks a sequence's
+pages) stays behind the private ``_design`` of `_paged_cuda`, for timing
+the two in turns.
 """
 from __future__ import annotations
 
@@ -24,14 +31,21 @@ import math
 import torch
 
 from . import kernel_route, launch_counts
-from .ragged_paged_attention import (TRASH_PAGE, gather_pages,
-                                     masked_page_attention)
+from .ragged_paged_attention import (DESIGNS, TRASH_PAGE, gather_pages,
+                                     masked_page_attention, sm_count,
+                                     split_plan, split_tickets)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # pdt_paged_attention(q, k_pages, v_pages, context_lens, block_tables, o,
 #   B, H, HK, D, P, page_size, pps, scale, window, dtype, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# pdt_paged_attention_split(q, k_pages, v_pages, context_lens,
+#   block_tables, o, partials, tickets, B, H, HK, D, P, page_size, pps,
+#   rows_per_block, split_pages, n_splits, scale, window, dtype, stream)
+_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
 
 
 def paged_attention_ref(q, k_pages, v_pages, context_lens, block_tables,
@@ -54,10 +68,15 @@ def paged_attention_ref(q, k_pages, v_pages, context_lens, block_tables,
 
 
 def _paged_cuda(q, k_pages, v_pages, context_lens, block_tables, scale,
-                window):
-    """Launch `csrc/paged_attention.cu` on the current stream."""
+                window, _design="split"):
+    """Launch `csrc/paged_attention.cu` on the current stream. ``_design``
+    (private: it lets a caller time the designs in turns) names one of
+    `DESIGNS`."""
     b, h, d = q.shape
     hk, p, page_size, _ = k_pages.shape
+    if _design not in DESIGNS:
+        raise ValueError(f"no paged attention design {_design!r}; want "
+                         f"one of {DESIGNS}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"paged attention kernel takes float32, bfloat16 "
                         f"or float16, got {q.dtype}")
@@ -80,15 +99,33 @@ def _paged_cuda(q, k_pages, v_pages, context_lens, block_tables, scale,
     if any(not x.is_contiguous() for x in tensors):
         raise ValueError("paged attention kernel wants contiguous inputs")
     from ._build import kernel_fn
-    fn = kernel_fn("paged_attention", "pdt_paged_attention", _ARGTYPES)
+    pps = block_tables.shape[1]
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 context_lens.data_ptr(), block_tables.data_ptr(),
-                 o.data_ptr(), b, h, hk, d, p, page_size,
-                 block_tables.shape[1], float(scale),
-                 int(window) if window else 0, _DTYPES[q.dtype], stream)
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            context_lens.data_ptr(), block_tables.data_ptr(), o.data_ptr())
+    win = int(window) if window else 0
+    if _design == "serial":
+        fn = kernel_fn("paged_attention", "pdt_paged_attention", _ARGTYPES)
+        with torch.cuda.device(q.device):
+            err = fn(*ptrs, b, h, hk, d, p, page_size, pps, float(scale),
+                     win, _DTYPES[q.dtype], stream)
+    else:
+        plan = split_plan(b, hk, h // hk, pps, page_size, "cuda_cores",
+                          sm_count(q.device))
+        part = tickets = None
+        if plan.n_splits > 1:
+            part = torch.empty(b * h * plan.n_splits * (d + 2),
+                               dtype=torch.float32, device=q.device)
+            tickets = split_tickets(q.device, b * hk)
+        fn = kernel_fn("paged_attention", "pdt_paged_attention_split",
+                       _SPLIT_ARGTYPES)
+        with torch.cuda.device(q.device):
+            err = fn(*ptrs, part.data_ptr() if part is not None else None,
+                     tickets.data_ptr() if tickets is not None else None, b,
+                     h, hk, d, p, page_size, pps, plan.rows_per_block,
+                     plan.split_pages, plan.n_splits, float(scale), win,
+                     _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA "
                            f"error {err}")

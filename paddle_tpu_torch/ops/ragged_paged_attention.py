@@ -9,10 +9,20 @@ Row ``j`` of a sequence sits at global position ``context_len[s] -
 query_len[s] + j``. Rows that no sequence owns are padding: their
 output is zero and their KV goes to the trash page.
 
-`ragged_paged_attention_values` launches the hand-written CUDA kernel
-(`csrc/ragged_paged_attention.cu`, which replaces the TPU's
+`ragged_paged_attention_values` launches the hand-written CUDA kernels
+(`csrc/ragged_paged_attention.cu`, which replace the TPU's
 `_ragged_kernel`) for CUDA tensors and runs `ragged_paged_attention_ref`,
 the plain PyTorch version of the same function, for CPU tensors.
+
+On the card the kernels run the "split" design (`csrc/
+decode_attention.cuh`, shared with the q = 1 paged attention): the
+context split across blocks by `split_plan`, decode rows on CUDA cores
+and admission q blocks on tensor cores (`split_kernel`); where a q
+block's keys span several splits, the last split block to finish merges
+the partial states in split order (counters in `split_tickets`). The
+"serial" design (a block walks its q block's pages one after another)
+stays behind the private ``_design`` of `_ragged_cuda`, so that the two
+can be timed in turns.
 
 Quantized pages (≙ :63, :183-190, :259-265, :582-583 and :627-666): int8
 page pools ride with (P, page_size) f32 scale pools, one DEQUANT
@@ -24,7 +34,9 @@ version right after its gather, the kernel per page in flight.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,6 +55,114 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p])
+# pdt_ragged_attention_split(q, k_pages, v_pages, k_scale, v_scale,
+#   query_start, query_len, context_len, block_tables, o, partials,
+#   tickets, T, H, HK, D, P, page_size, N, pps, block_q, rows_per_block,
+#   split_pages, n_splits, tensor_cores, scale, window, dtype, stream)
+_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 13
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+
+# the kernel designs on the card: "split" (every main path), "serial" (the
+# first design, kept for timing the two in turns)
+DESIGNS = ("split", "serial")
+# The split design's geometry (csrc/decode_attention.cuh): keys a stage of
+# both kernels (kStageKeys, kTcKeys), rows a block of the tensor-core
+# kernel (kTcRows) and its head dims, and the blocks an SM the split plan
+# aims for when every context fills the block table.
+STAGE_KEYS = 32
+TC_ROWS = 64
+TC_HEAD_DIMS = (64, 128, 256)
+SPLIT_BLOCKS_PER_SM = 4
+
+
+class SplitPlan(NamedTuple):
+    """How the split design cuts one launch: the kernel (`split_kernel`),
+    the rows of a q block that one block takes (``rows_per_block``;
+    ``row_groups`` blocks cover them), and the context cut into
+    ``n_splits`` runs of ``split_pages`` whole pages (the last may be
+    short). The grid is (q blocks, KV heads x row groups, n_splits); with
+    ``n_splits`` > 1 the launch takes a partials scratch and
+    `split_tickets`."""
+    kernel: str
+    rows_per_block: int
+    row_groups: int
+    split_pages: int
+    n_splits: int
+
+
+def split_kernel(dtype, block_q: int, head_dim: int, aligned=True) -> str:
+    """Which kernel of the split design takes a launch: "tensor_cores"
+    (mma.sync tiles of up to 64 rows) for bf16 / f16 q blocks of more
+    than one token at head dims 64, 128 or 256 with 16-byte-aligned q and
+    pools (``aligned``); else "cuda_cores" (decode rows, f32, other head
+    dims)."""
+    if dtype in (torch.bfloat16, torch.float16) and block_q > 1 \
+            and head_dim in TC_HEAD_DIMS and aligned:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(n_qblocks: int, hk: int, rows: int, pps: int,
+               page_size: int, kernel: str, sm_count: int) -> SplitPlan:
+    """The split plan of a launch over ``n_qblocks`` q blocks of ``rows``
+    query rows each (block_q x G) and ``hk`` KV heads, with block tables
+    ``pps`` pages wide, on a card of ``sm_count`` SMs.
+
+    The host knows the table's width, not the contexts, so the plan sizes
+    the grid as if every context filled the table: about
+    `SPLIT_BLOCKS_PER_SM` blocks an SM, with splits of whole stages (a
+    multiple of the kernel's stage in pages, where pages divide it). A
+    split past a q block's causal frontier, or wholly below its window,
+    exits at once on the card."""
+    if kernel == "tensor_cores":
+        rpb = TC_ROWS
+    else:
+        rpb = 4 if rows <= 4 else 8
+    groups = -(-rows // rpb)
+    base = max(1, n_qblocks * hk * groups)
+    want = max(1, -(-SPLIT_BLOCKS_PER_SM * sm_count // base))
+    unit = max(1, STAGE_KEYS // page_size)
+    split_pages = -(-pps // want)
+    split_pages = -(-split_pages // unit) * unit
+    return SplitPlan(kernel, rpb, groups, split_pages,
+                     -(-pps // split_pages))
+
+
+# per CUDA device index: its SM count, its split tickets
+_SM_COUNT: dict = {}
+_TICKETS: dict = {}
+
+
+def _index(device) -> int:
+    idx = torch.device(device).index
+    return torch.cuda.current_device() if idx is None else idx
+
+
+def split_tickets(device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters on a CUDA device, zero: the split
+    design's tickets, one a (q block, KV head). Kept across calls; every
+    launch leaves them zero (the last split block of each resets its
+    counter), so two launches must not use them at once: the wrappers
+    launch on the caller's current stream, one launch after another."""
+    idx = _index(device)
+    buf = _TICKETS.get(idx)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32,
+                          device=torch.device("cuda", idx))
+        _TICKETS[idx] = buf
+    return buf
+
+
+def sm_count(device) -> int:
+    """SMs of a CUDA device (read once a device)."""
+    idx = _index(device)
+    n = _SM_COUNT.get(idx)
+    if n is None:
+        n = _SM_COUNT[idx] = \
+            torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -223,14 +343,18 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, query_start,
 # ---------------------------------------------------------------------------
 def _ragged_cuda(q, k_pages, v_pages, query_start, query_len, context_len,
                  block_tables, scale, window, block_q, k_scale=None,
-                 v_scale=None):
+                 v_scale=None, _design="split"):
     """Launch `csrc/ragged_paged_attention.cu` on the current stream:
-    full-width pages in q's dtype, or int8 pages with their scale
-    pools."""
+    full-width pages in q's dtype, or int8 pages with their scale pools.
+    ``_design`` (private: it lets a caller time the designs in turns)
+    names one of `DESIGNS`."""
     t, h, d = q.shape
     hk, p, page_size, _ = k_pages.shape
     n, pps = block_tables.shape
     quant = k_scale is not None
+    if _design not in DESIGNS:
+        raise ValueError(f"no ragged attention design {_design!r}; want "
+                         f"one of {DESIGNS}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"ragged attention kernel takes float32, "
                         f"bfloat16 or float16, got {q.dtype}")
@@ -267,19 +391,40 @@ def _ragged_cuda(q, k_pages, v_pages, query_start, query_len, context_len,
         raise ValueError(f"packed length {t} not a multiple of block_q "
                          f"{block_q}")
     from ._build import kernel_fn
-    fn = kernel_fn("ragged_paged_attention", "pdt_ragged_paged_attention",
-                   _ARGTYPES)
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 k_scale.data_ptr() if quant else None,
-                 v_scale.data_ptr() if quant else None,
-                 query_start.data_ptr(), query_len.data_ptr(),
-                 context_len.data_ptr(), block_tables.data_ptr(),
-                 o.data_ptr(), t, h, hk, d, p, page_size, n, pps, block_q,
-                 float(scale), int(window) if window else 0,
-                 _DTYPES[q.dtype], stream)
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None,
+            query_start.data_ptr(), query_len.data_ptr(),
+            context_len.data_ptr(), block_tables.data_ptr(), o.data_ptr())
+    win = int(window) if window else 0
+    if _design == "serial":
+        fn = kernel_fn("ragged_paged_attention",
+                       "pdt_ragged_paged_attention", _ARGTYPES)
+        with torch.cuda.device(q.device):
+            err = fn(*ptrs, t, h, hk, d, p, page_size, n, pps, block_q,
+                     float(scale), win, _DTYPES[q.dtype], stream)
+    else:
+        aligned = (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0
+        plan = split_plan(t // block_q, hk, block_q * (h // hk), pps,
+                          page_size, split_kernel(q.dtype, block_q, d,
+                                                  aligned),
+                          sm_count(q.device))
+        part = tickets = None
+        if plan.n_splits > 1:
+            part = torch.empty(t * h * plan.n_splits * (d + 2),
+                               dtype=torch.float32, device=q.device)
+            tickets = split_tickets(q.device, (t // block_q) * hk)
+        fn = kernel_fn("ragged_paged_attention",
+                       "pdt_ragged_attention_split", _SPLIT_ARGTYPES)
+        with torch.cuda.device(q.device):
+            err = fn(*ptrs, part.data_ptr() if part is not None else None,
+                     tickets.data_ptr() if tickets is not None else None,
+                     t, h, hk, d, p, page_size, n, pps, block_q,
+                     plan.rows_per_block, plan.split_pages, plan.n_splits,
+                     int(plan.kernel == "tensor_cores"), float(scale), win,
+                     _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"ragged attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -303,8 +448,9 @@ def ragged_paged_attention_values(q, k_pages, v_pages, query_start,
     runs `ragged_paged_attention_ref` for CPU tensors; True demands the
     kernel; False runs the plain version on either device. The kernel
     needs ``query_start`` aligned to ``block_q`` (`pack_ragged_starts`;
-    decode batches pass block_q=1) and ``T % block_q == 0``.
-    ``pages_bound`` caps the plain version's gather; the kernel walks
+    decode batches pass block_q=1), ``T % block_q == 0`` and a head dim
+    up to 256 (the C entry refuses more: RuntimeError).
+    ``pages_bound`` caps the plain version's gather; the kernel reads
     only each q block's live pages and ignores it.
 
     ``k_scale``/``v_scale``: (P, page_size) f32 DEQUANT multipliers of

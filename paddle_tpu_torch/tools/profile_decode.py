@@ -33,6 +33,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 FAMILIES = (("dequant_matmul", ("dequant",)),
+            # the split design's kernels (csrc/decode_attention.cuh), ragged
+            # or paged by the engine's mode
+            ("split_attention", ("split_cc_kernel", "split_tc_kernel")),
             ("ragged_paged_attention", ("ragged_paged_attention",)),
             ("paged_attention", ("paged_attention",)),
             ("lora_epilogue", ("lora_",)),
@@ -102,7 +105,7 @@ def seeded_lora_deltas(model, seed, rank=16):
 
 def profile_engine(model, mode, steps, seed=0):
     """``mode``: a `QuantServingConfig`, None (full width), ``"lora"`` or
-    ``"legacy"``."""
+    ``"legacy"``. Prints and returns the ``decode_profile`` record."""
     from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
     quant = mode if not isinstance(mode, str) else None
     eng = ContinuousBatchingEngine(
@@ -147,6 +150,7 @@ def profile_engine(model, mode, steps, seed=0):
                           for k, v in sorted(fam.items())})
     print("decode_profile " + json.dumps(rec), flush=True)
     del eng
+    return rec
 
 
 def matmul_shapes(cfg):

@@ -202,6 +202,155 @@ def test_ragged_attention_wrapper_checks(cuda):
         ra.ragged_paged_attention_values(*args64, block_q=1)
 
 
+# The split design (csrc/decode_attention.cuh), every instance: q dtype x
+# full-width / int8 pages x decode (block_q 1, CUDA cores) / admission
+# (block_q 8: tensor cores for bf16 / f16 at these head dims, CUDA cores
+# for f32) x G x D, over contexts that straddle page and split boundaries
+# (the split from the card's own plan), the longest context at the block
+# table's width, with and without a window.
+SPLIT_PATHS = [("decode", 1, None), ("decode_window", 1, 100),
+               ("admission", 8, None), ("admission_window", 8, 37)]
+
+
+def _split_case(rng, path, g, d, split_keys, hk=2, ps=16, pps=40,
+                tail=None):
+    """A batch for `test_split_design_instances`: decode rows at
+    contexts 1, a page +- 1, a split +- 1, two splits and a half, and the
+    table's width; or admission pieces (prefills, continuations and a
+    decode row) ending at such contexts; then ``tail`` padding rows
+    (default one q block)."""
+    s = split_keys
+    full = pps * ps
+    ctx = [1, ps - 1, ps + 1, s - 1, s, s + 1, 2 * s + s // 2, full]
+    ctx = [min(max(c, 1), full) for c in ctx]
+    ql = [1] * len(ctx) if path.startswith("decode") \
+        else [1, ps - 1, 3, 33, s, 5, 40, 17]
+    ql = [min(q, c) for q, c in zip(ql, ctx)]
+    bq = 1 if path.startswith("decode") else 8
+    arrays = _case(rng, hk, g, ql, ctx, bq, bq if tail is None else tail,
+                   d=d, ps=ps)
+    return arrays[:6] + (np.pad(arrays[6], ((0, 0), (0, pps - arrays[6]
+                                                     .shape[1]))),)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 4, 8, 16])
+@pytest.mark.parametrize("path", SPLIT_PATHS, ids=[p[0] for p in SPLIT_PATHS])
+@pytest.mark.parametrize("kv", ["full", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_design_instances(cuda, dtype, kv, path, g, d):
+    """Each instance against the plain version (f32 1e-5, bf16 / f16
+    2e-2), padding rows exact zeros, bitwise on repeat, one launch, and
+    the split tickets left zero (where the plan splits these contexts,
+    the last split block of each q block merges)."""
+    label, bq, window = path
+    hk, ps, pps = 2, 16, 40
+    rng = np.random.default_rng(d * 100 + g * 10 + bq)
+    kern = ra.split_kernel(dtype, bq, d)
+    probe = ra.split_plan(1, hk, bq * g, pps, ps, kern, ra.sm_count(cuda))
+    arrays = _split_case(rng, label, g, d, probe.split_pages * ps, hk, ps,
+                         pps)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    kw = {}
+    if kv == "int8":
+        kq, vq, ks, vs = _quantized(args)
+        args[1:3] = [kq, vq]
+        kw = dict(k_scale=ks, v_scale=vs)
+    args[0] = args[0].to(dtype)
+    if kv == "full":
+        args[1:3] = [a.to(dtype) for a in args[1:3]]
+    t = args[0].shape[0]
+    plan = ra.split_plan(t // bq, hk, bq * g, pps, ps, kern,
+                         ra.sm_count(cuda))
+    count = "ragged_paged_attention_int8kv" if kv == "int8" \
+        else "ragged_paged_attention"
+    before = dict(launch_counts)
+    out = ra.ragged_paged_attention_values(*args, window=window,
+                                           block_q=bq, **kw)
+    assert launch_counts[count] == before[count] + 1
+    torch.cuda.synchronize()
+    assert bool((ra.split_tickets(cuda, 1) == 0).all())
+    again = ra.ragged_paged_attention_values(*args, window=window,
+                                             block_q=bq, **kw)
+    assert torch.equal(out, again)
+    ref = ra.ragged_paged_attention_values(*args, window=window,
+                                           block_q=bq, use_kernel=False,
+                                           **kw)
+    tol = dict(atol=2e-2, rtol=0) if dtype != torch.float32 \
+        else dict(atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    seq, _ = ra.token_arrays(arrays[3], arrays[4], arrays[5], t)
+    assert bool((out[torch.from_numpy(seq < 0).to(cuda)] == 0).all())
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 4, 8, 16])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_split_design_instances(cuda, dtype, window, g, d):
+    """The q = 1 paged attention's split design at every G and D, as
+    above (its contexts split too); and equal, bitwise, to the ragged
+    split design at block_q 1 on the same pages (one device code)."""
+    hk, ps, pps = 2, 16, 40
+    rng = np.random.default_rng(d * 10 + g)
+    probe = ra.split_plan(1, hk, g, pps, ps, "cuda_cores", ra.sm_count(cuda))
+    arrays = _split_case(rng, "decode", g, d, probe.split_pages * ps, hk,
+                         ps, pps, tail=0)
+    q, kp, vp, qs, ql, cl, bt = [torch.from_numpy(a).to(cuda)
+                                 for a in arrays]
+    q, kp, vp = (z.to(dtype) for z in (q, kp, vp))
+    plan = ra.split_plan(q.shape[0], hk, g, pps, ps, "cuda_cores",
+                         ra.sm_count(cuda))
+    before = dict(launch_counts)
+    out = pa.paged_attention_values(q, kp, vp, cl, bt, window=window)
+    assert launch_counts["paged_attention"] == before["paged_attention"] + 1
+    assert plan.n_splits > 1
+    torch.cuda.synchronize()
+    assert bool((ra.split_tickets(cuda, 1) == 0).all())
+    assert torch.equal(out, pa.paged_attention_values(q, kp, vp, cl, bt,
+                                                      window=window))
+    ref = pa.paged_attention_values(q, kp, vp, cl, bt, window=window,
+                                    use_kernel=False)
+    tol = dict(atol=2e-2, rtol=0) if dtype != torch.float32 \
+        else dict(atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    ragged = ra.ragged_paged_attention_values(q, kp, vp, qs, ql, cl, bt,
+                                              window=window, block_q=1)
+    assert torch.equal(out, ragged)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_serial_design_matches_plain(cuda, dtype):
+    """The serial design (kept for timing the two in turns): ragged full
+    width and int8 pages, and paged attention, against the plain
+    versions and against the split design."""
+    rng = np.random.default_rng(11)
+    arrays = _case(rng, 8, 4, [1] * 8, [1, 17, 300, 517, 1024, 1500, 2000,
+                                        2048], 1, 0)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    q, kp, vp = (z.to(dtype) for z in args[:3])
+    rest = args[3:]
+    tol = dict(atol=2e-2, rtol=0) if dtype != torch.float32 \
+        else dict(atol=1e-5, rtol=1e-5)
+    scale = 1 / 128 ** 0.5
+    serial = ra._ragged_cuda(q, kp, vp, *rest, scale, None, 1,
+                             _design="serial")
+    ref = ra.ragged_paged_attention_ref(q, kp, vp, *rest, scale)
+    torch.testing.assert_close(serial.float(), ref.float(), **tol)
+    split = ra._ragged_cuda(q, kp, vp, *rest, scale, None, 1)
+    torch.testing.assert_close(serial.float(), split.float(), **tol)
+    kq, vq, ks, vs = _quantized(args)
+    s8 = ra._ragged_cuda(q, kq, vq, *rest, scale, None, 1, ks, vs,
+                         _design="serial")
+    r8 = ra.ragged_paged_attention_ref(q, kq, vq, *rest, scale, None, None,
+                                       ks, vs)
+    torch.testing.assert_close(s8.float(), r8.float(), **tol)
+    cl, bt = rest[2], rest[3]
+    ps_ = pa._paged_cuda(q, kp, vp, cl, bt, scale, 256, _design="serial")
+    pr = pa.paged_attention_ref(q, kp, vp, cl, bt, scale, 256)
+    torch.testing.assert_close(ps_.float(), pr.float(), **tol)
+
+
 def _quantized(args):
     """int8 pools and scales of a case's f32 pools, written by
     `ragged_scatter_quantized` (every row of every page)."""
