@@ -196,23 +196,37 @@ Packed attention and rope add, in the same run (after 5i):
     segments, non-monotone ids, non-causal f16 and DiT's D 72; readings
     held to `ops.flash_attention.KERNEL_LIMITS`, which two planted
     faults must break (the segment mask ignored; the tile-skip test off
-    by one tile); timed at the 4096-token case with ``library_ms`` =
-    SDPA under an explicit block-diagonal causal mask and the per-
+    by one tile). Both designs (`fv.varlen_design`: "sm90", wgmma + TMA
+    over the segment tile plan, for bf16 / f16 at D 64 and 128;
+    "mma.sync" for the rest) where sm90 applies, each record naming its
+    ``design``; the plan kernel equal to `fv.varlen_tile_plan`
+    (``flash_varlen_plan`` records); the sm90 design bitwise on repeat
+    and equal to the wrapper's. Timed at the 4096-token case
+    (`_varlen_timed`: device_ms by graphs of 20 launches over inputs
+    rotated past the L2, the mma.sync design, the sm90 one in the plan's
+    block order, `fv.SM90_ORDER`, and in the other, in turns) with
+    ``library_ms`` = PyTorch's one call, `torch.nn.attention.varlen.
+    varlen_attn` on the rows flattened with cumulative lengths
+    (``library_call``, ``library_torch``), SDPA under an explicit
+    block-diagonal causal mask (``masked_sdpa_ms``) and the per-
     document SDPA loop beside it; then the rope kernel, forward and
     backward, bitwise against its plain version at the packed
     pretraining run's q and k shapes and in f32 and f16, with two
     planted faults (a sign error in the backward, half-split pairs);
 5j. ``packed_sft_8b {...}``: `F.flash_attn_unpadded` over 16384 packed
     tokens (seeded documents of 64-2048 tokens, a padding tail), bf16,
-    causal, forward and backward: exactly 1/1/1 varlen launches, and the
-    outputs and dQ/dK/dV within `KERNEL_LIMITS` of the same documents
-    run one at a time through the dense flash kernels;
+    causal, forward and backward: exactly 1/1/1 varlen launches and one
+    plan launch, and the outputs and dQ/dK/dV within `KERNEL_LIMITS` of
+    the same documents run one at a time through the dense flash
+    kernels;
 5k. ``packed_pretrain_8b {...}``: q/k/v projections, fused rope (theta
     500000), document-masked varlen attention and o_proj at Llama-3-8B
     width on x (2, 8192, 4096) bf16, 5 AdamW steps on a mean-square
-    loss: the loss falls; step ms, peak memory, the varlen and rope
-    device ms a step; exactly 1/1/1 varlen and 2 + 2 rope launches a
-    step.
+    loss: the loss falls; step ms, peak memory, the varlen, plan and
+    rope device ms a step; exactly 1/1/1 varlen, 1 plan and 2 + 2 rope
+    launches a step; then both varlen designs on the last step's own
+    inputs against the plain versions and timed as in 3j (the
+    ``pretrain_8b`` records the kernels line reports).
 
 The flash phase (3f) also holds float16 and head dims from 8 to 256 to
 the kernels (72 and 136 zero-padded to tile widths 80 and 160), head
@@ -246,7 +260,11 @@ M off the 128-row tile with a one-row group, and K off the wgmma
 kernel's 64-wide k step with rhs read either way. 5e, 5f and 5g also print
 ``flash_fwd_ms_per_step`` (CUDA events around `_flash_fwd`).
 
-It prints a ``{"kernels": [...]}`` line (seventeen kernels, each with
+The decode case of 3 also tries `varlen_attn` over the pages
+(``block_table=``, ``seqused_k=``) as the paged attention's one-call
+library (``paged_library``: its time, or its refusal in its own words).
+
+It prints a ``{"kernels": [...]}`` line (eighteen kernels, each with
 its launches on its own main-path run, and device_ms / host_us where the
 phase measured them), the card line, and last ``{"ok": true, "device":
 {...}}``.
@@ -325,8 +343,8 @@ NO_TRAINING = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
                "flash_attention_bwd_dkv": 0, "rms_norm_bwd": 0,
                "grouped_matmul": 0, "layer_norm": 0, "layer_norm_bwd": 0,
                "flash_varlen_fwd": 0, "flash_varlen_bwd_dq": 0,
-               "flash_varlen_bwd_dkv": 0, "rope": 0,
-               "flash_attention_xla": 0, "flash_varlen_xla": 0}
+               "flash_varlen_bwd_dkv": 0, "flash_varlen_plan": 0,
+               "rope": 0, "flash_attention_xla": 0, "flash_varlen_xla": 0}
 
 
 def log(msg):
@@ -426,14 +444,15 @@ def host_batch_s(call, n=HOST_CALLS):
     return t
 
 
-def timed_in_turns(named, sets_calls, turns=2, reps=7):
+def timed_in_turns(named, sets_calls, turns=2, reps=7, host=True):
     """``named``: {name: fn(x_set) -> output}; every name's device_ms
     (`device_ms` over the sets, the names in turns A B C, C B A, the mean
     of the turns), and its ms (one call between two events, as
     `time_ms`) and host_us (HOST_CALLS calls back to back on the host
-    clock, over the count), the names interleaved rep by rep so that
-    other work on the host's cores falls on all of them alike: medians
-    over ``reps`` reps (3 single calls a rep for ms)."""
+    clock, over the count; None without ``host``), the names interleaved
+    rep by rep so that other work on the host's cores falls on all of
+    them alike: medians over ``reps`` reps (3 single calls a rep for
+    ms)."""
     import torch
     names = list(named)
     got = {k: {"ms": [], "device_ms": [], "host_us": []} for k in names}
@@ -458,11 +477,14 @@ def timed_in_turns(named, sets_calls, turns=2, reps=7):
                 b.record()
                 b.synchronize()
                 got[k]["ms"].append(a.elapsed_time(b))
-            got[k]["host_us"].append(
-                host_batch_s(lambda: fn(x)) / HOST_CALLS * 1e6)
+            if host:
+                got[k]["host_us"].append(
+                    host_batch_s(lambda: fn(x)) / HOST_CALLS * 1e6)
     return {k: dict(ms=statistics.median(r["ms"]),
                     device_ms=statistics.fmean(r["device_ms"]),
-                    host_us=statistics.median(r["host_us"]))
+                    device_ms_turns=r["device_ms"],
+                    host_us=statistics.median(r["host_us"]) if host
+                    else None)
             for k, r in got.items()}
 
 
@@ -703,6 +725,44 @@ def copy_live(kp, vp, idx, scales=()):
             + [x.index_select(0, idx) for x in scales])
 
 
+def _paged_library(args, scale):
+    """PyTorch's one call over paged K/V, a yardstick for the decode case
+    (the port never calls it): `torch.nn.attention.varlen.varlen_attn`
+    with ``block_table=`` and ``seqused_k=`` over the case's pages (laid
+    out (pages, page size, HK, D)), one query row a sequence, GQA native:
+    its ms (events around one call), or its refusal in its own words,
+    with the page size and the torch version."""
+    import inspect
+    import torch
+    q, kp, vp, qs, ql, cl, bt = args
+    rec = dict(torch=torch.__version__, page_size=int(kp.shape[2]),
+               library_ms=None)
+    try:
+        from torch.nn.attention import varlen as tv
+        fn = tv.varlen_attn
+        params = inspect.signature(fn).parameters
+        n = len(ql)
+        rows = q[qs.long()]
+        cu_q = torch.arange(n + 1, dtype=torch.int32, device="cuda")
+        cu_k = torch.cat([cl.new_zeros(1), cl.cumsum(0).to(cl.dtype)])
+        kk, vv = (t.permute(1, 2, 0, 3).contiguous() for t in (kp, vp))
+        kw = dict(block_table=bt, seqused_k=cl.to(torch.int32), scale=scale)
+        if "enable_gqa" in params:
+            kw["enable_gqa"] = True
+        rec["call"] = "torch.nn.attention.varlen.varlen_attn(block_table=, " \
+            "seqused_k=, enable_gqa=True)"
+
+        def call():
+            return fn(rows, kk, vv, cu_q, cu_k, 1, int(cl.max()), **kw)
+        call()
+        rec["library_ms"] = time_ms(call)
+    except (ImportError, AttributeError, RuntimeError, TypeError,
+            ValueError, NotImplementedError) as e:
+        rec["refused"] = f"{type(e).__name__}: {e}"[:400]
+    log("paged_library " + json.dumps(rec))
+    return rec
+
+
 def attn_phase(results, int8kv=False):
     """The attention cases over full-width pools in bf16 and f32, or
     with ``int8kv`` over int8 pools and their scales with bf16 q: both
@@ -760,6 +820,9 @@ def attn_phase(results, int8kv=False):
             tickets_zero = tickets_left_zero(ra)
             plain = time_ms(lambda: ra.ragged_paged_attention_ref(
                 *args, scale, win, None, *scales), iters=5, warmup=1)
+            lib = _paged_library(args, scale) if (
+                label == "decode" and dt == torch.bfloat16
+                and not int8kv) else {}
             b_ms, b_by = bound(nbytes, ops, name)
             for dsg in ra.DESIGNS:
                 out, tm = outs[dsg], times[dsg]
@@ -780,7 +843,9 @@ def attn_phase(results, int8kv=False):
                            copy_device_ms=times["copy"]["device_ms"],
                            serial_over_split_device=times["serial"][
                                "device_ms"] / times["split"]["device_ms"],
-                           library_ms=None, rotation_sets=len(sets))
+                           library_ms=lib.get("library_ms"),
+                           library_paged=lib or None,
+                           rotation_sets=len(sets))
                 log("kernel " + json.dumps(rec))
                 results.append(rec)
                 if not (err <= ATTN_ATOL[name]
@@ -1829,7 +1894,10 @@ def _hgmma_counts(lib):
 SM90_KERNELS = (("flash_fwd_sm90", "flash_fwd_sm90"),
                 ("flash_bwd_sm90", "flash_dq_sm90"),
                 ("flash_bwd_sm90", "flash_dkv_sm90"),
-                ("grouped_matmul", "gmm_wgmma_kernel"))
+                ("grouped_matmul", "gmm_wgmma_kernel"),
+                ("flash_varlen_sm90", "varlen_fwd_sm90"),
+                ("flash_varlen_sm90", "varlen_dq_sm90"),
+                ("flash_varlen_sm90", "varlen_dkv_sm90"))
 
 
 def sass_phase():
@@ -3333,18 +3401,282 @@ def _rope_phase(results):
     torch.cuda.empty_cache()
 
 
+def _doc_runs(seg_np):
+    """Lengths of the runs of equal ids of each row of a (B, S) packing,
+    rows one after the other: the sequences of the flattened buffer that a
+    cumulative-length library call takes (segments of different rows never
+    pair, so this is exact for the documents; a run of padding is a
+    sequence of its own there, where the kernels give it no key)."""
+    lens = []
+    for row in np.asarray(seg_np):
+        cut = np.flatnonzero(np.diff(row)) + 1
+        lens += np.diff(np.concatenate([[0], cut, [len(row)]])).tolist()
+    return lens
+
+
+def _varlen_library(q, k, v, do, seg_np, causal):
+    """PyTorch's one call for packed attention, on the same packing (a
+    yardstick; the port never calls it): `torch.nn.attention.varlen.
+    varlen_attn` (GQA native, causal as window (-1, 0)) over the B rows
+    flattened into one buffer with the cumulative lengths of `_doc_runs`,
+    else the aten `_flash_attention_forward` / `_backward` with the same
+    lengths (K and V repeated to H heads): the forward's and the whole
+    backward's ms (events around one call, median of 20), the call and
+    the torch version. A refusal is recorded in its own words."""
+    import inspect
+    import torch
+    b, s, h, _ = q.shape
+    hk = k.shape[2]
+    lens = _doc_runs(seg_np)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                      dtype=torch.int32, device="cuda")
+    mx = int(max(lens))
+    qf, kf, vf, dof = (t.reshape(b * s, *t.shape[2:]).detach()
+                       for t in (q, k, v, do))
+    rec = dict(torch=torch.__version__, sequences=len(lens), max_len=mx,
+               library_fwd_ms=None, library_bwd_ms=None)
+    try:
+        from torch.nn.attention import varlen as tv
+        fn = tv.varlen_attn
+    except (ImportError, AttributeError):
+        fn = None
+    try:
+        if fn is not None:
+            params = inspect.signature(fn).parameters
+            kw = {}
+            if "window_size" in params:
+                kw["window_size"] = (-1, 0) if causal else (-1, -1)
+            else:
+                kw["is_causal"] = causal
+            if "enable_gqa" in params:
+                kw["enable_gqa"] = True
+            elif hk != h:
+                kf, vf = (t.repeat_interleave(h // hk, dim=1)
+                          for t in (kf, vf))
+            rec["call"] = "torch.nn.attention.varlen.varlen_attn(" + \
+                ", ".join(f"{k_}={v_!r}" for k_, v_ in kw.items()) + ")"
+            leaves = [t.clone().requires_grad_() for t in (qf, kf, vf)]
+            out = fn(*leaves, cu, cu, mx, mx, **kw)
+            rec["library_fwd_ms"] = time_ms(
+                lambda: fn(qf, kf, vf, cu, cu, mx, mx, **kw))
+            rec["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                out, leaves, dof, retain_graph=True))
+        else:
+            aten = torch.ops.aten
+            kf, vf = (t.repeat_interleave(h // hk, dim=1) for t in (kf, vf))
+            rec["call"] = "torch.ops.aten._flash_attention_forward / " \
+                "_flash_attention_backward (cum_seq_q, cum_seq_k)"
+            fwd = lambda: aten._flash_attention_forward(
+                qf, kf, vf, cu, cu, mx, mx, 0.0, causal, False)
+            out, lse, rng, unused, _ = fwd()
+            rec["library_fwd_ms"] = time_ms(fwd)
+            rec["library_bwd_ms"] = time_ms(
+                lambda: aten._flash_attention_backward(
+                    dof, qf, kf, vf, out, lse, cu, cu, mx, mx, 0.0, causal,
+                    rng, unused))
+    except (RuntimeError, TypeError, ValueError, NotImplementedError) as e:
+        rec["refused"] = f"{type(e).__name__}: {e}"[:400]
+    torch.cuda.empty_cache()
+    return rec
+
+
+VARLEN_VARIANTS = ("mma.sync", "sm90", "sm90_other_order")
+
+
+def _varlen_timed(q, k, v, do, seg_q, seg_k, scale, causal, o, lse):
+    """The varlen kernels at one case, every variant in turns (the
+    mma.sync design, the sm90 design in its block order,
+    `fv.SM90_ORDER`, and in the other one; A B C, C B A) by
+    `timed_in_turns` over input sets rotated past the L2 (device_ms:
+    graphs of 20 launches; ms: one call between two events), the plan
+    kernel and `_delta` (the mma.sync dQ reads it; the sm90 dQ, given o,
+    forms it): {(kernel, variant): times}."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    delta = fa._delta(o, do)
+    base = dict(q=q, k=k, v=v, do=do, o=o, lse=lse, delta=delta, sq=seg_q,
+                sk=seg_k, plan=fv._varlen_plan(seg_q, seg_k, causal))
+    nbytes = sum(t.numel() * t.element_size() for t in base.values())
+    sets = [base] + [{n: t.clone() for n, t in base.items()}
+                     for _ in range(rotation_sets(nbytes) - 1)]
+
+    def kw(var, part, st):
+        if var == "mma.sync":
+            return dict(_design="mma.sync")
+        out = dict(_design="sm90", plan=st["plan"])
+        if var == "sm90_other_order":
+            out["_order"] = _other_order(fv, part)
+        if part == "dq":
+            out["o"] = st["o"]   # the path's dQ: it forms delta
+        return out
+    named = {}
+    for var in VARLEN_VARIANTS:
+        named[("flash_varlen_fwd", var)] = lambda st, var=var: \
+            fv._varlen_fwd(st["q"], st["k"], st["v"], st["sq"], st["sk"],
+                           scale, causal, **kw(var, "fwd", st))
+        named[("flash_varlen_bwd_dq", var)] = lambda st, var=var: \
+            fv._varlen_bwd_dq(st["q"], st["k"], st["v"], st["do"],
+                              st["lse"], st["delta"], st["sq"], st["sk"],
+                              scale, causal, **kw(var, "dq", st))
+        named[("flash_varlen_bwd_dkv", var)] = lambda st, var=var: \
+            fv._varlen_bwd_dkv(st["q"], st["k"], st["v"], st["do"],
+                               st["lse"], st["delta"], st["sq"], st["sk"],
+                               scale, causal, **kw(var, "dkv", st))
+    named[("flash_varlen_plan", "sm90")] = lambda st: fv._varlen_plan(
+        st["sq"], st["sk"], causal)
+    named[("delta", "torch")] = lambda st: fa._delta(st["o"], st["do"])
+    times = timed_in_turns(named, sets, host=False)
+    del sets, base
+    return times
+
+
+def _other_order(fv, part):
+    """The block order the sm90 kernel ``part`` ("fwd", "dq", "dkv") does
+    not launch in (`fv.SM90_ORDER`), timed beside its own."""
+    return "plan" if fv.SM90_ORDER[part] == "dense" else "dense"
+
+
+def _plan_record(fv, seg_q, seg_k, causal, label, times):
+    """The plan kernel against `varlen_tile_plan` on the card (every
+    field equal; max_abs_err the largest difference), its bound (the ids
+    read once, the plan written once), and its times."""
+    import torch
+    b, sq = seg_q.shape
+    sk = seg_k.shape[1]
+    got = fv.unpack_plan(fv._varlen_plan(seg_q, seg_k, causal), b, sq, sk)
+    want = fv.varlen_tile_plan(seg_q, seg_k, causal)
+    err = max(int((x.to(torch.int64) - want[n].to(torch.int64)).abs().max())
+              if x.numel() else 0 for n, x in got.items())
+    words = fv._plan_layout(b, sq, sk)["words"]
+    b_ms, b_by = bound(4 * (b * (sq + sk) + words), 0, "float32")
+    rec = dict(kernel="flash_varlen_plan", case=label, dtype="int32",
+               design="sm90", path_design=True, causal=causal,
+               plan_equal=err == 0, max_abs_err=err, bound_ms=b_ms,
+               bound_by=b_by, ms=None, device_ms=None, plain_ms=None,
+               library_ms=None, library_note="none: no PyTorch call "
+               "computes a segment tile plan",
+               sorted=got["sorted"].tolist(),
+               q_tiles_walked=int(got["q_count"].sum()),
+               k_tiles_walked=int(got["k_count"].sum()))
+    if times is not None:
+        t = times[("flash_varlen_plan", "sm90")]
+        rec.update(ms=t["ms"], device_ms=t["device_ms"],
+                   plain_ms=time_ms(lambda: fv.varlen_tile_plan(
+                       seg_q, seg_k, causal), iters=5, warmup=1))
+    return rec
+
+
+def _varlen_work(q, k, seg_q, seg_k, causal):
+    """Bytes and operations of the three varlen kernels at these inputs:
+    each input read once and each output written once (lse and delta
+    rows, the ids), 4D, 6D and 8D flops a live (q row, key) pair of one
+    head times H."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    pairs = _varlen_pairs(seg_q, seg_k, causal) * h
+    isz = q.element_size()
+    qo, kv = b * sq * h * d * isz, b * sk * hk * d * isz
+    rows, segs = 4 * b * h * sq, 4 * b * (sq + sk)
+    return pairs, {
+        "flash_varlen_fwd": (qo * 2 + kv * 2 + rows + segs, 4 * d * pairs),
+        "flash_varlen_bwd_dq": (qo * 3 + kv * 2 + 2 * rows + segs,
+                                6 * d * pairs),
+        "flash_varlen_bwd_dkv": (qo * 2 + kv * 4 + 2 * rows + segs,
+                                 8 * d * pairs)}
+
+
+def _varlen_records(label, name, designs, design, errs, abs_err, work,
+                    times, extra):
+    """The kernel records of one case: one a kernel and design (the sm90
+    records with their block order and the other order's time beside);
+    ``times`` from `_varlen_timed` or None."""
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    recs = []
+    parts = {"flash_varlen_fwd": ("o",), "flash_varlen_bwd_dq": ("dq",),
+             "flash_varlen_bwd_dkv": ("dk", "dv")}
+    for kernel, (nbytes, ops) in work.items():
+        b_ms, b_by = bound(nbytes, ops, name)
+        for des in designs:
+            rec = dict(kernel=kernel, case=label, dtype=name, design=des,
+                       path_design=des == design,
+                       rel_row_errors={p: errs[des][p]
+                                       for p in parts[kernel]},
+                       max_abs_err=max(abs_err[des][p]
+                                       for p in parts[kernel]),
+                       bound_ms=b_ms, bound_by=b_by, ms=None,
+                       device_ms=None, plain_ms=None, library_ms=None,
+                       **extra)
+            if times is not None:
+                t = times[(kernel, des)]
+                rec.update(ms=t["ms"], device_ms=t["device_ms"],
+                           device_ms_turns=t["device_ms_turns"],
+                           bound_fraction=b_ms / t["device_ms"])
+                if kernel == "flash_varlen_bwd_dq":
+                    rec.update(delta_ms=times[("delta", "torch")][
+                        "device_ms"], delta_note="the sm90 dQ forms delta "
+                        "from o; the mma.sync dQ reads `_delta`'s "
+                        "(delta_ms)")
+                if des == "sm90":
+                    part = kernel.rsplit("_", 1)[1]
+                    other = times[(kernel, "sm90_other_order")]
+                    rec.update(order=fv.SM90_ORDER[part],
+                               other_order=_other_order(fv, part),
+                               other_order_device_ms=other["device_ms"],
+                               other_order_ms=other["ms"],
+                               mma_sync_over_sm90_device=times[
+                                   (kernel, "mma.sync")]["device_ms"]
+                               / t["device_ms"])
+            recs.append(rec)
+    return recs
+
+
+def _varlen_libraries(recs, q, k, v, do, seg_q, seg_k, seg_np, causal,
+                      plain_fwd, plain_bwd, lens=None):
+    """The yardsticks beside the timed records: the plain versions' ms,
+    the one-call library (`_varlen_library`: ``library_ms``), SDPA under
+    the explicit block-diagonal mask and, given B = 1 document lengths,
+    the per-document SDPA loop."""
+    lib = _varlen_library(q, k, v, do, seg_np, causal)
+    m_fwd, m_bwd, m_loop = _masked_sdpa_library(q, k, v, seg_q, seg_k,
+                                                causal, lens)
+    log("varlen_library " + json.dumps(lib))
+    for rec in recs:
+        if rec["kernel"] == "flash_varlen_plan":
+            continue
+        fwd = rec["kernel"] == "flash_varlen_fwd"
+        lib_ms = lib["library_fwd_ms" if fwd else "library_bwd_ms"]
+        rec.update(
+            plain_ms=plain_fwd if fwd else plain_bwd, library_ms=lib_ms,
+            library_call=lib.get("call"), library_torch=lib["torch"],
+            library_refused=lib.get("refused"),
+            masked_sdpa_ms=m_fwd if fwd else m_bwd,
+            library_per_document_loop_fwd_ms=m_loop,
+            library_note="library_ms: one call on the B rows flattened "
+            "with cumulative lengths (varlen_library); masked_sdpa_ms: "
+            "scaled_dot_product_attention under an explicit block-diagonal "
+            "causal bool mask, K and V repeated to H heads",
+            note=None if fwd else "plain_ms, library_ms and masked_sdpa_ms "
+            "are the whole backward (dq, dk and dv together)")
+
+
 def varlen_phase(results):
-    """The three varlen kernels, through `flash_attention_varlen_values`
-    forward and backward, against their plain versions on packed cases
-    (`VARLEN_CASES`), timed at the packed 4096-token case with the
-    library's masked SDPA and per-document SDPA loop beside them; the
-    flash limits (`ops.flash_attention.KERNEL_LIMITS`) are shown to
-    catch the planted faults of `_varlen_faults`. Then the rope kernel
-    (`_rope_phase`)."""
+    """The varlen kernels, through `flash_attention_varlen_values`
+    forward and backward (the path's design, `fv.varlen_design`) and
+    through their launchers in both designs (sm90: wgmma + TMA over the
+    device plan; mma.sync), against their plain versions on packed cases
+    (`VARLEN_CASES`): the flash limits (`ops.flash_attention.
+    KERNEL_LIMITS`), lse within 1e-3, padding rows and keys exactly zero,
+    the plan kernel equal to `varlen_tile_plan`, the sm90 design bitwise
+    on repeat and equal to the wrapper's; the limits are shown to catch
+    the planted faults of `_varlen_faults`. The packed 4096-token case is
+    timed (`_varlen_timed`: both designs and both block orders in turns)
+    beside the plain versions, the one-call library, masked SDPA and the
+    per-document SDPA loop. Then the rope kernel (`_rope_phase`)."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_varlen as fv
     gen = torch.Generator(device="cuda").manual_seed(9)
+    names = ("o", "dq", "dk", "dv")
     for (label, b, sq, sk, h, hk, d, causal, name, packing,
          timed) in VARLEN_CASES:
         dt = getattr(torch, name)
@@ -3358,111 +3690,107 @@ def varlen_phase(results):
         q, k, v, do = f(b, sq, h, d), f(b, sk, hk, d), f(b, sk, hk, d), \
             f(b, sq, h, d)
         scale = d ** -0.5
-        # the wrapper, forward and backward, as a user calls it; the
-        # forward kernel once more for the lse it saves
+        design = fv.varlen_design(dt, d)
+        designs = [design] + (["mma.sync"] if design == "sm90" else [])
+        # the wrapper, forward and backward, as a user calls it
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         o = fv.flash_attention_varlen_values(*leaves, seg_q, seg_k, causal,
                                              scale)
         o.backward(do)
-        o = o.detach()
-        dq, dk, dv = (x.grad for x in leaves)
-        del leaves
-        _, lse = fv._varlen_fwd(q, k, v, seg_q, seg_k, scale, causal)
-        delta = fa._delta(o, do)
+        wrapper = (o.detach(), *(x.grad for x in leaves))
+        del leaves, o
+        # each design through its launchers; the path's twice
+        plan = fv._varlen_plan(seg_q, seg_k, causal) \
+            if design == "sm90" else None
+
+        def run(des):
+            p = plan if des == "sm90" else None
+            od, ld = fv._varlen_fwd(q, k, v, seg_q, seg_k, scale, causal,
+                                    des, p)
+            return (od, *fv._varlen_bwd(q, k, v, od, ld, do, seg_q, seg_k,
+                                        scale, causal, des, p)), ld
+        runs = {des: run(des) for des in designs}
+        again, _ = run(design)
+        outs = {des: r[0] for des, r in runs.items()}
+        o, lse = outs[design][0], runs[design][1]
         ro, rlse = fv.flash_attention_varlen_ref(q, k, v, seg_q, seg_k,
                                                  causal, scale)
         want = (ro, *fv.flash_attention_varlen_bwd_ref(
             q, k, v, o, lse, do, seg_q, seg_k, causal, scale))
         torch.cuda.synchronize()
-        names = ("o", "dq", "dk", "dv")
-        got = (o, dq, dk, dv)
-        errs = {n: fa.kernel_errors(a, r) for n, a, r in zip(names, got,
-                                                              want)}
-        abs_err = {n: (a.float() - r.float()).abs().max().item()
-                   for n, a, r in zip(names, got, want)}
+        errs = {des: {n: fa.kernel_errors(a, r) for n, a, r in
+                      zip(names, outs[des], want)} for des in designs}
+        abs_err = {des: {n: (a.float() - r.float()).abs().max().item()
+                         for n, a, r in zip(names, outs[des], want)}
+                   for des in designs}
+        lse_err = {des: (runs[des][1] - rlse).abs().max().item()
+                   for des in designs}
         faults = {fault: {n: fa.kernel_errors(a, r)
-                          for n, a, r in zip(names, outs, want)}
-                  for fault, outs in _varlen_faults(
+                          for n, a, r in zip(names, fouts, want)}
+                  for fault, fouts in _varlen_faults(
                       fv, q, k, v, do, seg_q, seg_k, scale, causal).items()}
 
         def passes(e):
             return e[0] <= lim["rel"] and e[1] <= lim["row"]
-        lse_err = (lse - rlse).abs().max().item()
         pad_q, pad_k = seg_q < 0, seg_k < 0
-        ok = (all(passes(e) for e in errs.values()) and lse_err <= 1e-3
-              and not o[pad_q].any() and not dq[pad_q].any()
-              and not dk[pad_k].any() and not dv[pad_k].any())
-        caught = not any(passes(e) for fe in faults.values()
-                         for e in fe.values())
-        pairs = _varlen_pairs(seg_q, seg_k, causal) * h
-        isz = q.element_size()
-        qo_bytes = b * sq * h * d * isz
-        kv_bytes = b * sk * hk * d * isz
-        rows = 4 * b * h * sq
-        segs = 4 * b * (sq + sk)
-        recs = {
-            "flash_varlen_fwd": dict(
-                max_abs_err=abs_err["o"], nbytes=qo_bytes * 2 +
-                kv_bytes * 2 + rows + segs, ops=4 * d * pairs),
-            "flash_varlen_bwd_dq": dict(
-                max_abs_err=abs_err["dq"], nbytes=qo_bytes * 3 +
-                kv_bytes * 2 + 2 * rows + segs, ops=6 * d * pairs),
-            "flash_varlen_bwd_dkv": dict(
-                max_abs_err=max(abs_err["dk"], abs_err["dv"]),
-                nbytes=qo_bytes * 2 + kv_bytes * 4 + 2 * rows + segs,
-                ops=8 * d * pairs)}
-        times = {}
-        rec_base = dict(case=label, dtype=name, B=b, Sq=sq, Sk=sk, H=h,
-                        HK=hk, D=d, causal=causal, packing=packing,
-                        segments=int(seg_q.max()) + 1,
-                        padding_rows=int(pad_q.sum()), live_pairs=pairs,
-                        limits=lim, lse_max_abs_err=lse_err,
-                        rel_row_errors=errs, planted_faults=faults)
+        pads_zero = {des: not (out[0][pad_q].any() or out[1][pad_q].any()
+                               or out[2][pad_k].any()
+                               or out[3][pad_k].any())
+                     for des, out in outs.items()}
+        bitwise = all(torch.equal(a, c) for a, c in zip(outs[design],
+                                                        again))
+        wrapper_equal = all(torch.equal(a, c) for a, c in
+                            zip(wrapper, outs[design]))
+        times = None
         if timed:
-            times["flash_varlen_fwd"] = time_ms(
-                lambda: fv._varlen_fwd(q, k, v, seg_q, seg_k, scale,
-                                       causal))
-            times["flash_varlen_bwd_dq"] = time_ms(
-                lambda: fv._varlen_bwd_dq(q, k, v, do, lse, delta, seg_q,
-                                          seg_k, scale, causal))
-            times["flash_varlen_bwd_dkv"] = time_ms(
-                lambda: fv._varlen_bwd_dkv(q, k, v, do, lse, delta, seg_q,
-                                           seg_k, scale, causal))
+            times = _varlen_timed(q, k, v, do, seg_q, seg_k, scale, causal,
+                                  o, lse)
             plain_fwd = time_ms(lambda: fv.flash_attention_varlen_ref(
                 q, k, v, seg_q, seg_k, causal, scale), iters=3, warmup=1)
             plain_bwd = time_ms(lambda: fv.flash_attention_varlen_bwd_ref(
                 q, k, v, o, lse, do, seg_q, seg_k, causal, scale), iters=3,
                 warmup=1)
+        plan_rec = None if plan is None else _plan_record(
+            fv, seg_q, seg_k, causal, label, times)
+        ok = (all(passes(e) for de in errs.values() for e in de.values())
+              and max(lse_err.values()) <= 1e-3 and all(pads_zero.values())
+              and wrapper_equal and (plan_rec is None
+                                     or plan_rec["plan_equal"]))
+        ok = ok and (bitwise or design != "sm90")
+        caught = not any(passes(e) for fe in faults.values()
+                         for e in fe.values())
+        pairs, work = _varlen_work(q, k, seg_q, seg_k, causal)
+        del ro, rlse, want
+        extra = dict(B=b, Sq=sq, Sk=sk, H=h, HK=hk, D=d, causal=causal,
+                     packing=packing, segments=int(seg_q.max()) + 1,
+                     padding_rows=int(pad_q.sum()), live_pairs=pairs,
+                     limits=lim, planted_faults=faults,
+                     bitwise_repeat=bitwise if design == "sm90" else None,
+                     wrapper_equal=wrapper_equal)
+        recs = _varlen_records(label, name, designs, design, errs, abs_err,
+                               work, times, extra)
+        for rec in recs:
+            rec.update(lse_max_abs_err=lse_err[rec["design"]],
+                       padding_zero=pads_zero[rec["design"]])
+        if timed:
             lens = np.bincount(sq_np[0][sq_np[0] >= 0]).tolist() \
                 if b == 1 and packing == "docs" else None
-            lib_fwd, lib_bwd, lib_loop = _masked_sdpa_library(
-                q, k, v, seg_q, seg_k, causal, lens)
-        del ro, rlse, want
-        for kernel, r in recs.items():
-            b_ms, b_by = bound(r.pop("nbytes"), r.pop("ops"), name)
-            rec = dict(kernel=kernel, **rec_base, **r, bound_ms=b_ms,
-                       bound_by=b_by, ms=times.get(kernel),
-                       plain_ms=None, library_ms=None)
-            if timed:
-                fwd = kernel == "flash_varlen_fwd"
-                rec.update(
-                    plain_ms=plain_fwd if fwd else plain_bwd,
-                    library_ms=lib_fwd if fwd else lib_bwd,
-                    library_per_document_loop_fwd_ms=lib_loop,
-                    library_note="scaled_dot_product_attention with an "
-                    "explicit block-diagonal causal bool mask, K and V "
-                    "repeated to H heads",
-                    note=None if fwd else "plain_ms and library_ms are "
-                    "the whole backward (dq, dk and dv together)")
+            _varlen_libraries(recs, q, k, v, do, seg_q, seg_k, sq_np,
+                              causal, plain_fwd, plain_bwd, lens)
+        if plan_rec is not None:
+            recs.append(plan_rec)
+        for rec in recs:
             log("kernel " + json.dumps(rec))
             results.append(rec)
         if not ok:
             raise AssertionError(f"varlen kernels disagree on {label}: "
-                                 f"{errs}, lse {lse_err}")
+                                 f"{errs}, lse {lse_err}, padding zero "
+                                 f"{pads_zero}, bitwise {bitwise}, wrapper "
+                                 f"equal {wrapper_equal}, plan {plan_rec}")
         if not caught:
             raise AssertionError(f"the flash limits {lim} miss a planted "
                                  f"varlen fault on {label}: {faults}")
-        del q, k, v, do, o, lse, delta, dq, dk, dv
+        del q, k, v, do, o, lse, outs, runs, again, wrapper, plan
         torch.cuda.empty_cache()
     _rope_phase(results)
 
@@ -3507,7 +3835,7 @@ def packed_sft_8b():
     counts = dict(launch_counts)
     want = {k_: 0 for k_ in counts}
     want.update(flash_varlen_fwd=1, flash_varlen_bwd_dq=1,
-                flash_varlen_bwd_dkv=1)
+                flash_varlen_bwd_dkv=1, flash_varlen_plan=1)
     log(f"launches (packed_sft_8b) {counts} expected {want}")
     if counts != want:
         raise AssertionError("packed SFT launch counts do not match one "
@@ -3653,7 +3981,8 @@ def packed_pretrain_8b(results):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = {k_: 0 for k_ in counts}
     want.update(flash_varlen_fwd=TRAIN_STEPS, flash_varlen_bwd_dq=TRAIN_STEPS,
-                flash_varlen_bwd_dkv=TRAIN_STEPS, rope=4 * TRAIN_STEPS)
+                flash_varlen_bwd_dkv=TRAIN_STEPS,
+                flash_varlen_plan=TRAIN_STEPS, rope=4 * TRAIN_STEPS)
     rope_fwd = [c - 4 * i for i, c in enumerate(fwd_counts)]
     log(f"launches (packed_pretrain_8b) {counts} expected {want} over "
         f"{TRAIN_STEPS} steps; rope launches in each step's forward "
@@ -3662,8 +3991,9 @@ def packed_pretrain_8b(results):
         raise AssertionError("packed pretraining launch counts do not "
                              "match the steps")
 
-    # one more step with CUDA events around every varlen and rope launch
-    spans = {"varlen": [], "rope": []}
+    # one more step with CUDA events around every varlen, plan and rope
+    # launch
+    spans = {"varlen": [], "plan": [], "rope": []}
 
     def timed(key, fn):
         def run(*a, **kw):
@@ -3681,6 +4011,8 @@ def packed_pretrain_8b(results):
                               timed("varlen", fv._varlen_bwd_dq)), \
             mock.patch.object(fv, "_varlen_bwd_dkv",
                               timed("varlen", fv._varlen_bwd_dkv)), \
+            mock.patch.object(fv, "_varlen_plan",
+                              timed("plan", fv._varlen_plan)), \
             mock.patch.object(rp, "_rope_cuda", timed("rope",
                                                       rp._rope_cuda)):
         loss = (model(x).float() - target.float()).square().mean()
@@ -3695,8 +4027,11 @@ def packed_pretrain_8b(results):
                  losses=losses, step_ms=1e3 * step_s,
                  first_step_ms=1e3 * times[0],
                  tokens_per_s=b * s / step_s, peak_mem_gib=peak,
+                 varlen_design=fv.varlen_design(torch.bfloat16, d),
                  varlen_ms_per_step=span_ms["varlen"],
                  varlen_launches_timed=len(spans["varlen"]),
+                 plan_ms_per_step=span_ms["plan"],
+                 plan_launches_timed=len(spans["plan"]),
                  rope_ms_per_step=span_ms["rope"],
                  rope_launches_timed=len(spans["rope"]),
                  launches_per_step={k_: v_ // TRAIN_STEPS
@@ -3708,86 +4043,73 @@ def packed_pretrain_8b(results):
     q, k, v, do = model.seen
     del model, opt, x, target, loss
     torch.cuda.empty_cache()
-    _pretrain_varlen_check(q, k, v, do, seg, results)
+    _pretrain_varlen_check(q, k, v, do, seg, seg_np, results)
     return counts
 
 
-def _pretrain_varlen_check(q, k, v, do, seg, results):
-    """The varlen wrapper on the pretraining step's own (q, k, v, dO):
-    forward and backward against the plain versions one KV-head group at
-    a time, within `KERNEL_LIMITS`; each kernel timed on those inputs
-    beside its plain version (the group pieces' device time summed) and
-    the library's masked SDPA; the ``pretrain_8b`` kernel records."""
+def _pretrain_varlen_check(q, k, v, do, seg, seg_np, results):
+    """The varlen wrapper on the pretraining step's own (q, k, v, dO),
+    and the mma.sync design through its launchers: forward and backward
+    against the plain versions one KV-head group at a time, within
+    `KERNEL_LIMITS`; the plan kernel against `varlen_tile_plan`; every
+    kernel of both designs timed on those inputs in turns
+    (`_varlen_timed`), beside the plain versions (the group pieces'
+    device time summed), the one-call library, masked SDPA; the
+    ``pretrain_8b`` kernel records."""
     import torch
     from paddle_tpu_torch.incubate.nn import functional as IF
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_varlen as fv
-    b, s, h, d = q.shape
-    hk = k.shape[2]
+    d = q.shape[3]
     scale = d ** -0.5
     lim = fa.KERNEL_LIMITS[torch.bfloat16]
+    design = fv.varlen_design(q.dtype, d)
+    designs = [design] + (["mma.sync"] if design == "sm90" else [])
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     o = IF.flash_attention_varlen(*leaves, seg, seg, causal=True)
     o.backward(do)
-    got = (o.detach(), *(t.grad for t in leaves))
+    got = {design: (o.detach(), *(t.grad for t in leaves))}
     del leaves, o
+    for des in designs[1:]:
+        od, ld = fv._varlen_fwd(q, k, v, seg, seg, scale, True, des)
+        got[des] = (od, *fv._varlen_bwd(q, k, v, od, ld, do, seg, seg,
+                                        scale, True, des))
     want, plain_fwd, plain_bwd = _varlen_plain_by_group(
         q, k, v, do, seg, seg, True, scale)
     names = ("o", "dq", "dk", "dv")
-    errs = {n: fa.kernel_errors(a, r) for n, a, r in zip(names, got, want)}
-    abs_err = {n: (a.float() - r.float()).abs().max().item()
-               for n, a, r in zip(names, got, want)}
+    errs = {des: {n: fa.kernel_errors(a, r) for n, a, r in
+                  zip(names, got[des], want)} for des in designs}
+    abs_err = {des: {n: (a.float() - r.float()).abs().max().item()
+                     for n, a, r in zip(names, got[des], want)}
+               for des in designs}
     del got, want
     torch.cuda.empty_cache()
     o, lse = fv._varlen_fwd(q, k, v, seg, seg, scale, True)
-    delta = fa._delta(o, do)
-    times = {
-        "flash_varlen_fwd": time_ms(
-            lambda: fv._varlen_fwd(q, k, v, seg, seg, scale, True)),
-        "flash_varlen_bwd_dq": time_ms(
-            lambda: fv._varlen_bwd_dq(q, k, v, do, lse, delta, seg, seg,
-                                      scale, True)),
-        "flash_varlen_bwd_dkv": time_ms(
-            lambda: fv._varlen_bwd_dkv(q, k, v, do, lse, delta, seg, seg,
-                                       scale, True))}
-    lib_fwd, lib_bwd, _ = _masked_sdpa_library(q, k, v, seg, seg, True)
-    pairs = _varlen_pairs(seg, seg, True) * h
-    isz = q.element_size()
-    qo_bytes, kv_bytes = b * s * h * d * isz, b * s * hk * d * isz
-    rows, segs = 4 * b * h * s, 8 * b * s
-    recs = {
-        "flash_varlen_fwd": (abs_err["o"], qo_bytes * 2 + kv_bytes * 2 +
-                             rows + segs, 4 * d * pairs),
-        "flash_varlen_bwd_dq": (abs_err["dq"], qo_bytes * 3 + kv_bytes * 2 +
-                                2 * rows + segs, 6 * d * pairs),
-        "flash_varlen_bwd_dkv": (max(abs_err["dk"], abs_err["dv"]),
-                                 qo_bytes * 2 + kv_bytes * 4 + 2 * rows +
-                                 segs, 8 * d * pairs)}
-    for kernel, (err, nbytes, ops) in recs.items():
-        b_ms, b_by = bound(nbytes, ops, "bfloat16")
-        fwd = kernel == "flash_varlen_fwd"
-        rec = dict(kernel=kernel, case="pretrain_8b", dtype="bfloat16",
-                   B=b, Sq=s, Sk=s, H=h, HK=hk, D=d, causal=True,
-                   live_pairs=pairs, limits=lim, rel_row_errors=errs,
-                   max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-                   ms=times[kernel], plain_ms=plain_fwd if fwd else plain_bwd,
-                   library_ms=lib_fwd if fwd else lib_bwd,
-                   plain_note="the plain versions one batch row and one "
-                   "KV-head group at a time, device time summed",
-                   library_note="scaled_dot_product_attention with an "
-                   "explicit block-diagonal causal bool mask, K and V "
-                   "repeated to H heads",
-                   note=None if fwd else "plain_ms and library_ms are the "
-                   "whole backward (dq, dk and dv together)")
+    times = _varlen_timed(q, k, v, do, seg, seg, scale, True, o, lse)
+    pairs, work = _varlen_work(q, k, seg, seg, True)
+    b, s, h, _ = q.shape
+    recs = _varlen_records(
+        "pretrain_8b", "bfloat16", designs, design, errs, abs_err, work,
+        times, dict(B=b, Sq=s, Sk=s, H=h, HK=k.shape[2], D=d, causal=True,
+                    live_pairs=pairs, limits=lim,
+                    plain_note="the plain versions one batch row and one "
+                    "KV-head group at a time, device time summed"))
+    _varlen_libraries(recs, q, k, v, do, seg, seg, seg_np, True, plain_fwd,
+                      plain_bwd)
+    plan_rec = _plan_record(fv, seg, seg, True, "pretrain_8b", times)
+    for rec in recs + [plan_rec]:
         log("kernel " + json.dumps(rec))
         results.append(rec)
-    del o, lse, delta
+    del o, lse
     torch.cuda.empty_cache()
     if not all(e[0] <= lim["rel"] and e[1] <= lim["row"]
-               for e in errs.values()):
-        raise AssertionError(f"the varlen wrapper on the pretraining "
-                             f"step's inputs differs from the plain "
+               for de in errs.values() for e in de.values()):
+        raise AssertionError(f"the varlen kernels on the pretraining "
+                             f"step's inputs differ from the plain "
                              f"versions: {errs}")
+    if not plan_rec["plan_equal"]:
+        raise AssertionError(f"the plan kernel differs from "
+                             f"varlen_tile_plan: {plan_rec}")
 
 
 def main():
@@ -3878,7 +4200,7 @@ def main():
     # the varlen kernels and rope: the packed pretraining run
     counts.update((k, pcounts[k]) for k in (
         "flash_varlen_fwd", "flash_varlen_bwd_dq", "flash_varlen_bwd_dkv",
-        "rope"))
+        "flash_varlen_plan", "rope"))
 
     main_case = {"rms_norm": ("rows=8_h=4096", "bfloat16", None),
                  "ragged_paged_attention": ("decode", "bfloat16", None),
@@ -3897,8 +4219,10 @@ def main():
                  "flash_varlen_fwd": ("pretrain_8b", "bfloat16", None),
                  "flash_varlen_bwd_dq": ("pretrain_8b", "bfloat16", None),
                  "flash_varlen_bwd_dkv": ("pretrain_8b", "bfloat16", None),
+                 "flash_varlen_plan": ("pretrain_8b", "int32", None),
                  "rope": ("pretrain_q", "bfloat16", None)}
-    varlen_src = "paddle_tpu_torch/csrc/flash_varlen.cu"
+    # the packed path's design (bf16, D 128): sm90, plan included
+    varlen_src = "paddle_tpu_torch/csrc/flash_varlen_sm90.cu"
     # the main paths' forward and backward (bf16, D 128 and 64): the
     # wgmma designs
     flash_src = "paddle_tpu_torch/csrc/flash_fwd_sm90.cu"
@@ -3936,6 +4260,9 @@ def main():
                                     "paddle_tpu/ops/flash_varlen.py:106"),
             "flash_varlen_bwd_dkv": (varlen_src,
                                      "paddle_tpu/ops/flash_varlen.py:149"),
+            # the tile-level part of `_mask` and the kernels' skip tests
+            "flash_varlen_plan": (varlen_src,
+                                  "paddle_tpu/ops/flash_varlen.py:47"),
             "rope": ("paddle_tpu_torch/csrc/rope.cu",
                      "paddle_tpu/ops/rope.py:27")}
     kernels = []

@@ -83,32 +83,6 @@ struct DqLayout {
   static constexpr int kBytes = kBars + 8 * 2 * NS + 1024;  // + alignment
 };
 
-// rowsum(o dO) of one row, this lane's D / 32 elements (a warp sums)
-template <typename T, int D>
-__device__ __forceinline__ float row_dot(const u16* o, const u16* dout) {
-  float v = 0.f;
-  if constexpr (D == 128) {
-    const uint2 a = *reinterpret_cast<const uint2*>(o);
-    const uint2 c = *reinterpret_cast<const uint2*>(dout);
-    const float2 a0 = unpack2<T>(a.x), a1 = unpack2<T>(a.y);
-    const float2 c0 = unpack2<T>(c.x), c1 = unpack2<T>(c.y);
-    v = a0.x * c0.x + a0.y * c0.y + a1.x * c1.x + a1.y * c1.y;
-  } else {
-    const float2 a0 = unpack2<T>(*reinterpret_cast<const uint32_t*>(o));
-    const float2 c0 = unpack2<T>(*reinterpret_cast<const uint32_t*>(dout));
-    v = a0.x * c0.x + a0.y * c0.y;
-  }
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-
 template <typename T, int D, int NS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_dq_sm90(const __grid_constant__ CUtensorMap tk,
@@ -523,29 +497,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-  }
-}
-
-// dK and dV from the f32 partial sums of `splits` blocks, added in split
-// order (deterministic), rounded once to T; n elements each, two a thread
-template <typename T>
-__global__ void __launch_bounds__(256)
-    flash_dkv_sum_sm90(const float* __restrict__ ws, int splits, size_t n,
-                       u16* __restrict__ dk, u16* __restrict__ dv) {
-  const float2* w = reinterpret_cast<const float2*>(ws);
-  const size_t m = n / 2;
-  for (size_t i = size_t(blockIdx.x) * 256 + threadIdx.x; i < m;
-       i += size_t(gridDim.x) * 256) {
-    float2 a = w[i], c = w[splits * m + i];
-    for (int sp = 1; sp < splits; ++sp) {
-      const float2 x = w[sp * m + i], y = w[(splits + sp) * m + i];
-      a.x += x.x;
-      a.y += x.y;
-      c.x += y.x;
-      c.y += y.y;
-    }
-    reinterpret_cast<uint32_t*>(dk)[i] = pack2<T>(a.x, a.y);
-    reinterpret_cast<uint32_t*>(dv)[i] = pack2<T>(c.x, c.y);
   }
 }
 

@@ -87,50 +87,6 @@ constexpr int fwd_stages() {
   return n < 4 ? n : 4;
 }
 
-// One key tile's online softmax for this thread's two rows (g and g + 8 of
-// its warp's 16): the raw scores `sc` (64 x BN accumulator layout) become
-// P in place; m (running row max, base 2, scaled) and l (this thread's
-// share of the row sums) move on, and acc is rescaled. MASK: the tile is
-// cut by the band; its dead elements leave the max and give P = 0 (selects
-// after the arithmetic).
-template <bool MASK, int BN, int D>
-__device__ __forceinline__ void online_softmax(
-    float (&sc)[BN / 2], float (&acc)[D / 2], float (&m)[2], float (&l)[2],
-    float sl2, const Shape& s, int row0, int col0) {
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) {
-    const int r = (i >> 1) & 1;
-    float x = sc[i];
-    if constexpr (MASK)
-      x = is_live(s, row0 + 8 * r, col0 + 8 * (i >> 2) + (i & 1)) ? x
-                                                                  : -INFINITY;
-    mx[r] = fmaxf(mx[r], x);
-  }
-  float mref[2], alpha[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float mn = fmaxf(m[r], mx[r] * sl2);
-    mref[r] = mn == -INFINITY ? 0.f : mn;
-    alpha[r] = fast_exp2(m[r] - mref[r]);
-    m[r] = mn;
-    l[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) {
-    const int r = (i >> 1) & 1;
-    float p = fast_exp2(fmaf(sc[i], sl2, -mref[r]));
-    if constexpr (MASK)
-      p = is_live(s, row0 + 8 * r, col0 + 8 * (i >> 2) + (i & 1)) ? p : 0.f;
-    sc[i] = p;
-    l[r] += p;
-  }
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-}
-
 template <typename T, int D, int BN, int NS>
 __global__ void __launch_bounds__(128 * (fwd_consumers<D>() + 1), 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
@@ -243,12 +199,14 @@ __global__ void __launch_bounds__(128 * (fwd_consumers<D>() + 1), 1)
         wg_commit();
         wg_wait_all();
         reg_fence(sc);
+        const auto live = [&](int i) {
+          return is_live(s, row0 + 8 * ((i >> 1) & 1),
+                         k0 + 2 * t + 8 * (i >> 2) + (i & 1));
+        };
         if (tile_full(s, r0, r0 + kRows - 1, k0, k0 + BN - 1))
-          online_softmax<false, BN, D>(sc, acc, m, l, sl2, s, row0,
-                                       k0 + 2 * t);
+          online_softmax<false, BN, D>(sc, acc, m, l, sl2, live);
         else
-          online_softmax<true, BN, D>(sc, acc, m, l, sl2, s, row0,
-                                      k0 + 2 * t);
+          online_softmax<true, BN, D>(sc, acc, m, l, sl2, live);
         // O += P (rounded to T) V, V read MN-major
         uint32_t pa[BN / 16][4];
         to_a<T, BN / 16>(pa, sc);

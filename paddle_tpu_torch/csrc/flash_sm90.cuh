@@ -1,6 +1,8 @@
 // What the wgmma / TMA flash attention kernels (flash_fwd_sm90.cu, the
-// forward; flash_bwd_sm90.cu, dQ and dK/dV) share: the attention's shape
-// and masks, the block layout (two consumer warpgroups and a producer), the
+// forward; flash_bwd_sm90.cu, dQ and dK/dV; flash_varlen_sm90.cu, the
+// packed ones) share: the attention's shape and masks, the block layout
+// (two consumer warpgroups and a producer), the dQ kernels' delta rows,
+// the forward's online softmax, the ordered sum of dK/dV partials, the
 // Q / K / V register operands and the (B, S, H, D) tensor maps.
 //
 // Semantics, as the JAX kernels and flash_kernels.cuh: (B, S, H, D) tensors
@@ -68,6 +70,97 @@ __device__ __forceinline__ void query_band(const Shape& s, int j0, int j1,
   if (s.causal) {
     lo = max(0, j0 - off);
     if (s.window > 0) hi = min(hi, j1 - off + s.window - 1);
+  }
+}
+
+// rowsum(o dO) of one row, this lane's D / 32 elements (a warp sums)
+template <typename T, int D>
+__device__ __forceinline__ float row_dot(const u16* o, const u16* dout) {
+  float v = 0.f;
+  if constexpr (D == 128) {
+    const uint2 a = *reinterpret_cast<const uint2*>(o);
+    const uint2 c = *reinterpret_cast<const uint2*>(dout);
+    const float2 a0 = unpack2<T>(a.x), a1 = unpack2<T>(a.y);
+    const float2 c0 = unpack2<T>(c.x), c1 = unpack2<T>(c.y);
+    v = a0.x * c0.x + a0.y * c0.y + a1.x * c1.x + a1.y * c1.y;
+  } else {
+    const float2 a0 = unpack2<T>(*reinterpret_cast<const uint32_t*>(o));
+    const float2 c0 = unpack2<T>(*reinterpret_cast<const uint32_t*>(dout));
+    v = a0.x * c0.x + a0.y * c0.y;
+  }
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// One key tile's online softmax for this thread's two rows (g and g + 8 of
+// its warp's 16): the raw scores `sc` (64 x BN accumulator layout) become
+// P in place; m (running row max, base 2, scaled) and l (this thread's
+// share of the row sums) move on, and acc is rescaled. MASK: the tile is
+// cut by a mask, and live(i) says whether accumulator element i is live;
+// its dead elements leave the max and give P = 0 (selects after the
+// arithmetic).
+template <bool MASK, int BN, int D, class Live>
+__device__ __forceinline__ void online_softmax(float (&sc)[BN / 2],
+                                               float (&acc)[D / 2],
+                                               float (&m)[2], float (&l)[2],
+                                               float sl2, const Live& live) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    float x = sc[i];
+    if constexpr (MASK) x = live(i) ? x : -INFINITY;
+    mx[r] = fmaxf(mx[r], x);
+  }
+  float mref[2], alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r] * sl2);
+    mref[r] = mn == -INFINITY ? 0.f : mn;
+    alpha[r] = fast_exp2(m[r] - mref[r]);
+    m[r] = mn;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    float p = fast_exp2(fmaf(sc[i], sl2, -mref[r]));
+    if constexpr (MASK) p = live(i) ? p : 0.f;
+    sc[i] = p;
+    l[r] += p;
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+}
+
+// dK and dV from the f32 partial sums of `splits` blocks, added in split
+// order (deterministic), rounded once to T; n elements each, two a thread
+template <typename T>
+__global__ void __launch_bounds__(256)
+    flash_dkv_sum_sm90(const float* __restrict__ ws, int splits, size_t n,
+                       u16* __restrict__ dk, u16* __restrict__ dv) {
+  const float2* w = reinterpret_cast<const float2*>(ws);
+  const size_t m = n / 2;
+  for (size_t i = size_t(blockIdx.x) * 256 + threadIdx.x; i < m;
+       i += size_t(gridDim.x) * 256) {
+    float2 a = w[i], c = w[splits * m + i];
+    for (int sp = 1; sp < splits; ++sp) {
+      const float2 x = w[sp * m + i], y = w[(splits + sp) * m + i];
+      a.x += x.x;
+      a.y += x.y;
+      c.x += y.x;
+      c.y += y.y;
+    }
+    reinterpret_cast<uint32_t*>(dk)[i] = pack2<T>(a.x, a.y);
+    reinterpret_cast<uint32_t*>(dv)[i] = pack2<T>(c.x, c.y);
   }
 }
 

@@ -5,7 +5,9 @@
 //
 // Replaces: paddle_tpu/ops/flash_varlen.py:_fwd_kernel (:60, pallas_call
 // at :212), _bwd_dq_kernel (:106, pallas_call at :254) and _bwd_dkv_kernel
-// (:149, pallas_call at :285).
+// (:149, pallas_call at :285), for every input the wgmma / TMA kernels of
+// flash_varlen_sm90.cu do not take (bf16 and f16 at head dims 64 and 128
+// go there: ops/flash_varlen.py `varlen_design`).
 //
 // The kernels are those of flash_kernels.cuh with the segment mask on:
 // q row i and key j pair only if seg_q[i] == seg_k[j] >= 0 (and, causal,

@@ -22,7 +22,8 @@ launch_counts = {"rms_norm": 0, "ragged_paged_attention": 0,
                  "flash_attention_bwd_dkv": 0, "rms_norm_bwd": 0,
                  "grouped_matmul": 0, "layer_norm": 0, "layer_norm_bwd": 0,
                  "flash_varlen_fwd": 0, "flash_varlen_bwd_dq": 0,
-                 "flash_varlen_bwd_dkv": 0, "rope": 0,
+                 "flash_varlen_bwd_dkv": 0, "flash_varlen_plan": 0,
+                 "rope": 0,
                  # not kernels: CUDA inputs past the kernels' head dims,
                  # sent to the counterparts of the reference's XLA
                  # branches

@@ -70,8 +70,12 @@ the wgmma backward through autograd;
 varlen flash attention: as flash attention (`fa.KERNEL_LIMITS`, f32
 also elementwise 1e-4), padding rows exact zeros with zero dQ and
 padding keys zero dK/dV, dK/dV bitwise equal across runs, one segment
-without padding equal to the dense mma.sync kernels bitwise, head dims
-past 256 through `varlen_xla` (counted);
+without padding equal to the dense kernels of the same design bitwise,
+head dims past 256 through `varlen_xla` (counted); both designs
+(`fv.varlen_design`: sm90 for bf16/f16 at D 64 and 128, mma.sync) on
+every case there, the device plan equal to `fv.varlen_tile_plan`, the
+sm90 design bitwise across runs and block orders, and inputs a design
+refuses raising before any launch;
 rope: bitwise equal to its plain version in every dtype (the kernel
 rounds each product and the sum once, as the plain version's separate
 ops do), forward and backward."""
@@ -1226,7 +1230,13 @@ VARLEN_CASES = [
     ("single_tokens", 1, 190, 190, 4, 2, True, "singles"),
     ("non_monotone", 2, 257, 257, 8, 2, True, "random"),
     ("all_padding_tail", 1, 260, 260, 2, 2, True, "tail"),
-    ("gqa7", 1, 300, 300, 28, 4, True, "runs")]
+    ("gqa7", 1, 300, 300, 28, 4, True, "runs"),
+    # one segment, non-causal, 32 unmasked key tiles in a row: where a
+    # register A operand of wgmma lives across the key loop, ptxas has
+    # given its registers to other values in the loop (FLASH_CASES
+    # "noncausal_long"); the sm90 varlen kernels hold none, and this case
+    # would show it
+    ("noncausal_long", 1, 200, 2048, 4, 2, False, "one")]
 
 
 def _varlen_segments(packing, b, sq, sk, rng):
@@ -1248,6 +1258,8 @@ def _varlen_segments(packing, b, sq, sk, rng):
         seg = np.zeros((b, sq), np.int32)
         seg[:, 100:] = -1
         return seg, seg.copy()
+    if packing == "one":         # one segment, no padding
+        return np.zeros((b, sq), np.int32), np.zeros((b, sk), np.int32)
     seg = rng.integers(-1, 4, (b, sq)).astype(np.int32)
     return seg, seg.copy()
 
@@ -1286,19 +1298,87 @@ def test_varlen_kernels_match_plain(cuda, case, d, dtype):
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
+@pytest.mark.parametrize("design", ["sm90", "mma.sync"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", VARLEN_CASES,
+                         ids=[c[0] for c in VARLEN_CASES])
+def test_varlen_designs_match_plain(cuda, case, d, dtype, design):
+    """Both designs at the sm90 design's dtypes and head dims, against the
+    plain versions at `fa.KERNEL_LIMITS`; the device plan equal to
+    `varlen_tile_plan`; the sm90 design bitwise equal across runs and
+    across its two block orders."""
+    label, b, sq, sk, h, hk, causal, packing = case
+    rng = np.random.default_rng(sq + sk + d)
+    sgq, sgk = (torch.from_numpy(z).to(cuda) for z in
+                _varlen_segments(packing, b, sq, sk, rng))
+    q, k, v, do = _flash_inputs(cuda, (label, b, sq, sk, h, hk, causal,
+                                       None), d, dtype)
+    scale = d ** -0.5
+    plan = None
+    if design == "sm90":
+        before = launch_counts["flash_varlen_plan"]
+        plan = fv._varlen_plan(sgq, sgk, causal)
+        assert launch_counts["flash_varlen_plan"] == before + 1
+        got = fv.unpack_plan(plan, b, sq, sk)
+        want = fv.varlen_tile_plan(sgq, sgk, causal)
+        for key, x in got.items():
+            assert torch.equal(x.to(torch.int64), want[key].to(torch.int64)), \
+                key
+    o, lse = fv._varlen_fwd(q, k, v, sgq, sgk, scale, causal, design, plan)
+    ro, rlse = fv.flash_attention_varlen_ref(q, k, v, sgq, sgk, causal)
+    _flash_close(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    got = fv._varlen_bwd(q, k, v, o, lse, do, sgq, sgk, scale, causal,
+                         design, plan)
+    want = fv.flash_attention_varlen_bwd_ref(q, k, v, o, lse, do, sgq, sgk,
+                                             causal)
+    for a, b_ in zip(got, want):
+        _flash_close(a, b_, dtype)
+    pad_q, pad_k = sgq < 0, sgk < 0
+    assert not o[pad_q].any() and not got[0][pad_q].any()
+    assert not got[1][pad_k].any() and not got[2][pad_k].any()
+    if design == "sm90":
+        # the dQ kernel forms delta from o (as `_varlen_bwd`), or reads it
+        delta = torch.empty_like(lse)
+        dq = fv._varlen_bwd_dq(q, k, v, do, lse, delta, sgq, sgk, scale,
+                               causal, design, plan, o=o)
+        torch.testing.assert_close(delta, fa._delta(o, do), rtol=1e-5,
+                                   atol=1e-5)
+        assert torch.equal(dq, fv._varlen_bwd_dq(
+            q, k, v, do, lse, delta, sgq, sgk, scale, causal, design, plan))
+        runs = [(*fv._varlen_fwd(q, k, v, sgq, sgk, scale, causal, design,
+                                 plan, _order=order),
+                 fv._varlen_bwd_dq(q, k, v, do, lse, delta, sgq, sgk, scale,
+                                   causal, design, plan, _order=order),
+                 *fv._varlen_bwd_dkv(q, k, v, do, lse, delta, sgq, sgk,
+                                     scale, causal, design, plan,
+                                     _order=order))
+                for order in ("plan", "plan", "dense")]
+        want_bits = (o, lse, *got)
+        assert all(torch.equal(x, y) for r in runs
+                   for x, y in zip(r, want_bits))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_varlen_one_segment_equals_dense_kernels(cuda, dtype):
+    """One segment without padding: each varlen design bitwise equal to
+    the dense kernels of the same design (mma.sync: the same header;
+    sm90: the same tiles, masks and products, both dQ kernels forming
+    delta the same way)."""
     q, k, v, do = _flash_inputs(cuda, FLASH_CASES[0], 64, dtype)
     seg = torch.zeros(q.shape[:2], dtype=torch.int32, device=cuda)
-    o, lse = fv._varlen_fwd(q, k, v, seg, seg, 0.125, True)
-    # the dense kernels of the same header (the mma.sync design)
-    do_, dlse = fa._flash_fwd(q, k, v, 0.125, True, None,
-                              _design="mma.sync")
-    assert torch.equal(o, do_) and torch.equal(lse, dlse)
-    got = fv._varlen_bwd(q, k, v, o, lse, do, seg, seg, 0.125, True)
-    want = fa._flash_bwd(q, k, v, o, lse, do, 0.125, True, None,
-                         _design="mma.sync")
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    designs = [("mma.sync", "mma.sync")]
+    if dtype != torch.float32:
+        designs.append(("sm90", "wgmma"))
+    for vdes, ddes in designs:
+        o, lse = fv._varlen_fwd(q, k, v, seg, seg, 0.125, True, vdes)
+        do_, dlse = fa._flash_fwd(q, k, v, 0.125, True, None, _design=ddes)
+        assert torch.equal(o, do_) and torch.equal(lse, dlse)
+        got = fv._varlen_bwd(q, k, v, o, lse, do, seg, seg, 0.125, True, vdes)
+        want = fa._flash_bwd(q, k, v, o, lse, do, 0.125, True, None,
+                             _design=ddes)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), vdes
 
 
 def test_varlen_autograd_and_refusals(cuda):
@@ -1309,7 +1389,8 @@ def test_varlen_autograd_and_refusals(cuda):
     before = dict(launch_counts)
     out = fv.flash_attention_varlen_values(*leaves, seg, seg, causal=True)
     out.backward(do)
-    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+    # the sm90 design: one plan, shared by the forward and the backward
+    for name in ("fwd", "bwd_dq", "bwd_dkv", "plan"):
         key = f"flash_varlen_{name}"
         assert launch_counts[key] == before[key] + 1
     ro, lse = fv.flash_attention_varlen_ref(q, k, v, seg, seg, True)
@@ -1319,6 +1400,27 @@ def test_varlen_autograd_and_refusals(cuda):
         _flash_close(leaf.grad, w, torch.bfloat16)
     with pytest.raises(ValueError, match="segment ids"):
         fv._varlen_fwd(q, k, v, seg.long(), seg, 0.125, True)
+    # a design that does not take the input raises before any launch
+    before = dict(launch_counts)
+    with pytest.raises(ValueError, match="sm90"):
+        fv._varlen_fwd(q.float(), k.float(), v.float(), seg, seg, 0.125,
+                       True, "sm90")
+    q72 = torch.zeros(*q.shape[:3], 72, dtype=q.dtype, device=cuda)
+    k72 = torch.zeros(*k.shape[:3], 72, dtype=q.dtype, device=cuda)
+    with pytest.raises(ValueError, match="sm90"):
+        fv._varlen_bwd_dkv(q72, k72, k72, q72, None, None, seg, seg, 0.125,
+                           True, "sm90")
+    with pytest.raises(ValueError, match="no plan"):
+        fv._varlen_fwd(q, k, v, seg, seg, 0.125, True, "mma.sync",
+                       fv._varlen_plan(seg, seg, True))
+    with pytest.raises(ValueError, match="no varlen flash design"):
+        fv._varlen_fwd(q, k, v, seg, seg, 0.125, True, "wgmma")
+    lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1], device=cuda)
+    with pytest.raises(ValueError, match="reads delta"):
+        fv._varlen_bwd_dq(q, k, v, q, lse, lse, seg, seg, 0.125, True,
+                          "mma.sync", o=q)
+    assert launch_counts == {**before, "flash_varlen_plan":
+                             before["flash_varlen_plan"] + 1}
     # past head dim 256, `varlen_xla`, as the reference's `_varlen_xla`
     q, k, v, do = _flash_inputs(cuda, FLASH_CASES[1], 264, torch.bfloat16)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
