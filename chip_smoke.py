@@ -45,10 +45,12 @@ Quantized serving adds, in the same run:
 3b. the dequant matmul kernel against its plain version at the serving
     shapes (decode (8, 4096)->14336, (8, 14336)->4096, (8, 4096)->128256
     and the first admission batch's (t_adm, 4096)->14336), int8 and fp8
-    storage, bf16 activations, plus one small f32 case: error, ms (at
-    the first two decode shapes also device_ms and host_us, in turns
-    with the bf16 ``F.linear``, weights rotated past the L2),
-    bound, plain ms, ``library_ms`` (``torch._weight_int8pack_mm`` for
+    storage, bf16 activations, the decode and admission gate/up in f16
+    too (an output rounded through bf16 must break f16's limits), plus
+    one small f32 case: error, ms (at the first two decode shapes also
+    device_ms and host_us, in turns with the bf16 ``F.linear``, weights
+    rotated past the L2; at the admission gate/up the wgmma design, the
+    parent's mma.sync design and ``F.linear`` so), bound, plain ms, ``library_ms`` (``torch._weight_int8pack_mm`` for
     int8 where the installed torch runs it on CUDA, else null with the
     reason) and ``bf16_linear_ms``, the full-width ``F.linear`` the
     quantized path has to beat;
@@ -68,13 +70,14 @@ Quantized serving adds, in the same run:
 
 Multi-LoRA serving and the legacy paged path add, in the same run:
 
-3d. the BGMV LoRA epilogue kernel against its plain version in bf16 at
+3d. the LoRA epilogue kernel against its plain version in bf16 at
     the 8B decode shapes (8 tokens; q/o 4096->4096, k/v 4096->1024,
     gate/up 4096->14336, down 14336->4096), at the first admission
-    batch's (t_adm, 4096)->14336 and one small f32 case, rank 16, ids
-    mixing rows 0..3: error, ms (at the decode shapes also device_ms
-    and host_us, adapter stacks rotated past the L2), bound, plain ms
-    and ``bmm_ref_ms``
+    batch's (t_adm, 4096)->14336 with ids mixing rows 0..3 and with the
+    batch's own segmented ids, and one small f32 case, rank 16: error,
+    ms (in bf16 also device_ms, SGMV and the parent's BGMV in turns over
+    adapter stacks rotated past the L2, and host_us at decode), bound,
+    plain ms and ``bmm_ref_ms``
     (the gather plus two ``torch.bmm``, a labelled yardstick: no single
     PyTorch call computes the function, so ``library_ms`` is null); and
     bitwise on the card: row-0 tokens give exact zeros, a token's delta
@@ -299,7 +302,13 @@ LLAMA_VOCAB = 128256      # LlamaConfig.llama3_8b().vocab_size
 # their products with bf16 x are exact in f32, so the two differ by the
 # order of the f32 sums and one final bf16 rounding (bf16: one bf16 ulp
 # relative plus 2^-8 of the largest |output|); f32: sums in another order
-DQ_TOL = {"bfloat16": (2 ** -7, 2 ** -8), "float32": (1e-5, 1e-5)}
+DQ_TOL = {"bfloat16": (2 ** -7, 2 ** -8), "float32": (1e-5, 1e-5),
+          # f16 x: the widened weights and their products are exact in f32
+          # as with bf16, and the one final rounding to f16 keeps 3 more
+          # significant bits than bf16's: the same limits 8x tighter (one
+          # f16 ulp relative plus 2^-11 of the largest |output|), which an
+          # output rounded through bf16 breaks (`dq_phase` checks that)
+          "float16": (2 ** -10, 2 ** -11)}
 # tiny quantized Llama, card against CPU: logits of f32 sums in another
 # order, and an int8 K/V element on a lattice midpoint may round one
 # step apart (one such step moved the CPU port's logits 7.2e-4 from
@@ -514,7 +523,7 @@ def host_parts_us(nk, x, w, eps, reps=7):
     o = torch.empty_like(x)
     dev = x.get_device()
     args = (x.data_ptr(), w.data_ptr(), o.data_ptr(), 0, n, h, eps, code,
-            wpr, nv, dev, nk._stream(dev))
+            wpr, nv, dev, nk.current_stream(dev))
     parts = {"c_entry": lambda: fn(*args),
              "empty_like": lambda: torch.empty_like(x),
              "entry": lambda: nk.rms_norm_values(x, w, eps)}
@@ -870,8 +879,9 @@ def dq_library(x, qw, sc, mode):
     from paddle_tpu_torch.ops.quant_matmul import dequant_matmul_ref
     if mode != "int8":
         return None, None, ("no PyTorch call takes bf16 x with e4m3 "
-                            "weights and per-channel scales "
-                            "(torch._scaled_mm wants both operands fp8)")
+                            "weights and per-channel scales: "
+                            "torch._scaled_mm multiplies two fp8 operands, "
+                            "and quantising x would change the function")
     fn = getattr(torch, "_weight_int8pack_mm", None)
     if fn is None:
         return None, None, "torch._weight_int8pack_mm is not in this torch"
@@ -890,12 +900,17 @@ def dq_library(x, qw, sc, mode):
 
 def dq_phase(t_adm, results):
     """The dequant matmul kernel against its plain version at the
-    serving path's shapes, int8 and fp8 storage. At the decode gate/up
-    and down shapes the kernel and the bf16 ``F.linear`` are also timed
-    by `timed_in_turns` over weight sets rotated past the L2 (device_ms,
-    host_us)."""
+    serving path's shapes, int8 and fp8 storage, bf16 and f16 x. At the
+    decode gate/up and down shapes the kernel and the bf16 ``F.linear``
+    are also timed by `timed_in_turns` over weight sets rotated past the
+    L2 (device_ms, host_us); at the admission gate/up shape the path's
+    design (`dequant_design`: wgmma), the parent's mma.sync design and the
+    bf16 ``F.linear`` are timed in turns the same way (device_ms). An f16
+    case also rounds the kernel's output through bf16 as a control, which
+    must break the f16 limits of `DQ_TOL`."""
     import torch
-    from paddle_tpu_torch.ops.quant_matmul import (dequant_matmul_ref,
+    from paddle_tpu_torch.ops.quant_matmul import (dequant_design,
+                                                   dequant_matmul_ref,
                                                    dequant_matmul_values,
                                                    quantize_weight_values)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -903,15 +918,20 @@ def dq_phase(t_adm, results):
              ("decode_down", 8, 14336, 4096, torch.bfloat16),
              ("decode_lm_head", 8, 4096, LLAMA_VOCAB, torch.bfloat16),
              ("admission_gate_up", t_adm, 4096, 14336, torch.bfloat16),
+             ("decode_gate_up", 8, 4096, 14336, torch.float16),
+             ("admission_gate_up", t_adm, 4096, 14336, torch.float16),
              ("small_f32", 8, 128, 256, torch.float32)]
     for label, m, k, n, dt in cases:
         name = str(dt).split(".")[1]
         w = (0.02 * torch.randn(n, k, device="cuda", generator=gen)).to(dt)
         x = torch.randn(m, k, device="cuda", generator=gen).to(dt)
         lin_ms = time_ms(lambda: torch.nn.functional.linear(x, w))
-        turns = label in ("decode_gate_up", "decode_down")
+        turns = label in ("decode_gate_up", "decode_down",
+                          "admission_gate_up") and dt == torch.bfloat16
+        admission = label.startswith("admission")
         for mode in ("int8", "fp8"):
             qw, sc = quantize_weight_values(w, mode)
+            design = dequant_design(dt, m, k, n)
             run = lambda: dequant_matmul_values(x, qw, sc, use_kernel=True)
             out = run()
             ref = dequant_matmul_ref(x, qw, sc)
@@ -921,6 +941,7 @@ def dq_phase(t_adm, results):
             top = ref.float().abs().max().item()
             ok = torch.allclose(out.float(), ref.float(), rtol=rtol,
                                 atol=atol_rel * top)
+            repeat = torch.equal(run(), out)
             ms = time_ms(run)
             plain = time_ms(lambda: dequant_matmul_ref(x, qw, sc), iters=5,
                             warmup=1)
@@ -928,40 +949,65 @@ def dq_phase(t_adm, results):
             isz = x.element_size()
             nbytes = m * k * isz + n * k + 4 * n + m * n * isz
             b_ms, b_by = bound(nbytes, 2 * m * n * k, name)
-            timed = {}
+            timed, control = {}, None
+            if dt == torch.float16:
+                ctl = out.to(torch.bfloat16).to(dt).float()
+                control = dict(
+                    max_abs_err=(ctl - ref.float()).abs().max().item(),
+                    within_tol=torch.allclose(ctl, ref.float(), rtol=rtol,
+                                              atol=atol_rel * top))
+                ok = ok and not control["within_tol"]
+                del ctl
             if turns:
-                # weight sets (quantized and bf16) rotated past the L2
+                # weight sets (quantized and 16-bit) rotated past the L2
                 sets = [(x, qw, sc, w)]
                 for _ in range(rotation_sets(n * k) - 1):
                     ws = (0.02 * torch.randn(n, k, device="cuda",
                                              generator=gen)).to(dt)
                     sets.append((x, *quantize_weight_values(ws, mode), ws))
-                t = timed_in_turns(
-                    {"kernel": lambda st: dequant_matmul_values(
-                        st[0], st[1], st[2], use_kernel=True),
-                     "bf16_linear": lambda st: torch.nn.functional.linear(
-                         st[0], st[3])}, sets)
-                ms = t["kernel"]["ms"]
-                timed = dict(device_ms=t["kernel"]["device_ms"],
-                             host_us=t["kernel"]["host_us"],
-                             bound_fraction=b_ms / t["kernel"]["device_ms"],
-                             bf16_linear_device_ms=t["bf16_linear"][
-                                 "device_ms"],
-                             bf16_linear_host_us=t["bf16_linear"]["host_us"],
+                named = {design: (lambda st, d=design: dequant_matmul_values(
+                    st[0], st[1], st[2], use_kernel=True, _design=d))}
+                if admission:
+                    named["mma.sync"] = lambda st: dequant_matmul_values(
+                        st[0], st[1], st[2], use_kernel=True,
+                        _design="mma.sync")
+                named["linear"] = lambda st: torch.nn.functional.linear(
+                    st[0], st[3])
+                t = timed_in_turns(named, sets, host=not admission)
+                ms = t[design]["ms"]
+                timed = dict(device_ms=t[design]["device_ms"],
+                             host_us=t[design]["host_us"],
+                             bound_fraction=b_ms / t[design]["device_ms"],
+                             designs={d: t[d] for d in named
+                                      if d != "linear"},
+                             bf16_linear_device_ms=t["linear"]["device_ms"],
+                             bf16_linear_host_us=t["linear"]["host_us"],
                              rotation_sets=len(sets))
+                for d in named:
+                    if d not in (design, "linear"):
+                        o = dequant_matmul_values(x, qw, sc, _design=d)
+                        timed["designs"][d]["max_abs_err"] = \
+                            (o.float() - ref.float()).abs().max().item()
+                        ok = ok and torch.allclose(
+                            o.float(), ref.float(), rtol=rtol,
+                            atol=atol_rel * top)
+                        del o
                 del sets
             rec = dict(kernel="dequant_matmul", case=label, mode=mode,
-                       dtype=name, M=m, K=k, N=n, max_abs_err=err,
-                       max_abs_out=top,
-                       tol=dict(rtol=rtol, atol=atol_rel * top), ms=ms,
-                       **timed,
+                       dtype=name, design=design, M=m, K=k, N=n,
+                       max_abs_err=err, max_abs_out=top,
+                       tol=dict(rtol=rtol, atol=atol_rel * top),
+                       bitwise_repeat=repeat, ms=ms, **timed,
+                       bf16_rounded_control=control,
                        plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib_ms, library_max_abs_diff=lib_diff,
                        library_note=lib_note,
                        bf16_linear_ms=lin_ms if dt == torch.bfloat16
+                       else None,
+                       f16_linear_ms=lin_ms if dt == torch.float16
                        else None)
             log("kernel " + json.dumps(rec))
-            if not (ok and torch.isfinite(out).all()):
+            if not (ok and repeat and torch.isfinite(out).all()):
                 raise AssertionError(f"dequant matmul kernel disagrees: "
                                      f"{rec}")
             results.append(rec)
@@ -970,14 +1016,20 @@ def dq_phase(t_adm, results):
         torch.cuda.empty_cache()
 
 
-def lora_phase(t_adm, results):
-    """The BGMV LoRA epilogue kernel against its plain version at the 8B
-    serving shapes (rank 16, four stack rows, ids mixing rows 0..3),
-    with bitwise checks of row 0 and of batch invariance. At the decode
-    shapes the kernel is also timed by `timed_in_turns` over adapter
-    stacks rotated past the L2 (device_ms, host_us)."""
+def lora_phase(t_adm, results, seg_ids):
+    """The LoRA epilogue kernel against its plain version at the 8B
+    serving shapes (rank 16, four stack rows), with bitwise checks of row
+    0 and of batch invariance. Ids at decode and in the ``admission_gate_up``
+    case interleave rows 0..3 token by token; ``admission_segmented`` takes
+    ``seg_ids``, the rows of the first admission batch's own prompts (a
+    sequence's tokens together, sequence s under row s % 4, as
+    `serve_8b_lora` assigns them). The path's design (`lora_design`: SGMV
+    for bf16) and the parent's BGMV design are timed in turns by
+    `timed_in_turns` over adapter stacks rotated past the L2 (device_ms;
+    host_us at decode)."""
     import torch
-    from paddle_tpu_torch.ops.lora_epilogue import (lora_epilogue_ref,
+    from paddle_tpu_torch.ops.lora_epilogue import (lora_design,
+                                                    lora_epilogue_ref,
                                                     lora_epilogue_values)
     gen = torch.Generator(device="cuda").manual_seed(7)
     r, n_rows = LORA_RANK, 4
@@ -987,6 +1039,7 @@ def lora_phase(t_adm, results):
              ("decode_gate_up", 8, 4096, 14336, torch.bfloat16),
              ("decode_down", 8, 14336, 4096, torch.bfloat16),
              ("admission_gate_up", t_adm, 4096, 14336, torch.bfloat16),
+             ("admission_segmented", t_adm, 4096, 14336, torch.bfloat16),
              ("small_f32", 8, 128, 256, torch.float32)]
     for label, t, k, n, dt in cases:
         name = str(dt).split(".")[1]
@@ -997,8 +1050,12 @@ def lora_phase(t_adm, results):
                                generator=gen)).to(dt)
         a[0] = 0
         b[0] = 0
-        ids = (torch.arange(t, device="cuda", dtype=torch.int32) * 3) \
-            % n_rows
+        if label == "admission_segmented":
+            ids = seg_ids.to("cuda", torch.int32)
+        else:
+            ids = (torch.arange(t, device="cuda", dtype=torch.int32) * 3) \
+                % n_rows
+        design = lora_design(dt, r)
         run = lambda: lora_epilogue_values(x, a, b, scale, ids,
                                            use_kernel=True)
         plain_fn = lambda: lora_epilogue_ref(x, a, b, scale, ids)
@@ -1020,24 +1077,33 @@ def lora_phase(t_adm, results):
         zeros = bool((out[ids == 0] == 0).all())
         alone = all(torch.equal(lora_epilogue_values(
             x[i:i + 1], a, b, scale, ids[i:i + 1], use_kernel=True),
-            out[i:i + 1]) for i in (0, 1, 2, 3, t - 1))
+            out[i:i + 1]) for i in (0, 1, 2, 3, t // 2, t - 1))
         in8 = torch.equal(lora_epilogue_values(
             x[:8], a, b, scale, ids[:8], use_kernel=True), out[:8])
         ms = time_ms(run)
         timed = {}
-        if label.startswith("decode"):
+        if dt == torch.bfloat16:
             sets = [(x, a, b)]
             for _ in range(rotation_sets((k * r + r * n) * n_rows
                                          * x.element_size()) - 1):
                 sets.append((x, a.clone().normal_(generator=gen),
                              b.clone().normal_(generator=gen)))
-            tt = timed_in_turns({"kernel": lambda st: lora_epilogue_values(
-                st[0], st[1], st[2], scale, ids, use_kernel=True)}, sets)
-            ms = tt["kernel"]["ms"]
-            timed = dict(device_ms=tt["kernel"]["device_ms"],
-                         host_us=tt["kernel"]["host_us"],
+            named = {d: (lambda st, d=d: lora_epilogue_values(
+                st[0], st[1], st[2], scale, ids, use_kernel=True,
+                _design=d)) for d in (design, "bgmv")}
+            tt = timed_in_turns(named, sets,
+                                host=label.startswith("decode"))
+            ms = tt[design]["ms"]
+            parent = lora_epilogue_values(x, a, b, scale, ids,
+                                          use_kernel=True, _design="bgmv")
+            ok = ok and torch.allclose(parent.float(), ref.float(),
+                                       rtol=rtol, atol=atol_rel * top)
+            timed = dict(device_ms=tt[design]["device_ms"],
+                         host_us=tt[design]["host_us"], designs=tt,
+                         parent_max_abs_err=(parent.float() - ref.float())
+                         .abs().max().item(),
                          rotation_sets=len(sets))
-            del sets
+            del sets, parent
         plain = time_ms(plain_fn, iters=5, warmup=1)
         bmm_ms = time_ms(bmm_ref, iters=5, warmup=1)
         isz = x.element_size()
@@ -1048,12 +1114,12 @@ def lora_phase(t_adm, results):
         b_ms, b_by = bound(nbytes, len(live) * 2 * (k * r + r * n), name)
         if timed:
             timed["bound_fraction"] = b_ms / timed["device_ms"]
-        rec = dict(kernel="lora_epilogue", case=label, dtype=name, T=t, K=k,
-                   N=n, rank=r, max_abs_err=err, max_abs_out=top,
-                   tol=dict(rtol=rtol, atol=atol_rel * top),
-                   row0_exact_zero=zeros, alone_equals_batch=alone,
-                   batch8_equals_batch=in8, ms=ms, **timed,
-                   plain_ms=plain,
+        rec = dict(kernel="lora_epilogue", case=label, dtype=name,
+                   design=design, T=t, K=k, N=n, rank=r, max_abs_err=err,
+                   max_abs_out=top, tol=dict(rtol=rtol, atol=atol_rel * top),
+                   distinct_ids=rows_used, row0_exact_zero=zeros,
+                   alone_equals_batch=alone, batch8_equals_batch=in8, ms=ms,
+                   **timed, plain_ms=plain,
                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
                    library_note="no single PyTorch call computes a "
                    "per-token gathered low-rank product",
@@ -1512,6 +1578,10 @@ def serve_8b_quant(model, reqs, weights, n_requests):
         raise AssertionError("quantized launch counts do not match the "
                              "dispatches")
     stats = serving_stats(eng, done, wall)
+    # every dispatch makes the same launches: split by the dispatch kind
+    stats.update(dequant_matmul_launches=dict(
+        admission=(7 * L + 1) * eng.num_admission_dispatches,
+        decode=(7 * L + 1) * eng.num_decode_dispatches))
     info = eng.cache_memory_info()
     stats.update(weights=weights, kv="int8", page_bytes=info["page_bytes"],
                  kv_pool_gib=info["bytes_pool"] / 2 ** 30,
@@ -1583,6 +1653,9 @@ def serve_8b_lora(model, reqs):
         raise AssertionError("LoRA launch counts do not match the "
                              "dispatches")
     stats = serving_stats(eng, done, wall)
+    stats.update(lora_epilogue_launches=dict(
+        admission=7 * L * eng.num_admission_dispatches,
+        decode=7 * L * eng.num_decode_dispatches))
     stats.update(adapters=len(LORA_ADAPTERS), rank=LORA_RANK,
                  adapted_matmuls=7 * L,
                  lora_adapter_bytes=eng.lora_adapter_bytes,
@@ -1895,6 +1968,7 @@ SM90_KERNELS = (("flash_fwd_sm90", "flash_fwd_sm90"),
                 ("flash_bwd_sm90", "flash_dq_sm90"),
                 ("flash_bwd_sm90", "flash_dkv_sm90"),
                 ("grouped_matmul", "gmm_wgmma_kernel"),
+                ("dequant_matmul", "dequant_wgmma_kernel"),
                 ("flash_varlen_sm90", "varlen_fwd_sm90"),
                 ("flash_varlen_sm90", "varlen_dq_sm90"),
                 ("flash_varlen_sm90", "varlen_dkv_sm90"))
@@ -4148,12 +4222,18 @@ def main():
     # the first admission batch of the serving phase: its 8 prompts
     first = [{"seq": s, "tokens": p, "offset": 0}
              for s, (p, _) in enumerate(make_requests(LLAMA_VOCAB)[:8])]
-    t_adm = pack_ragged_batch(first, 8, block_q=8, pad_to=16)["t_pad"]
+    packed = pack_ragged_batch(first, 8, block_q=8, pad_to=16)
+    t_adm = packed["t_pad"]
+    # the first admission batch's sequences under the LoRA run's rows:
+    # sequence s under row s % 4 (0: the base), padding rows none
+    seq = np.asarray(packed["token_seq"])
+    seg_ids = torch.from_numpy(np.where(seq >= 0, seq % 4, 0)
+                               .astype(np.int32))
     rms_phase(rms_shapes(t_adm), results)
     attn_phase(results)
     dq_phase(t_adm, results)
     attn_phase(results, int8kv=True)
-    lora_phase(t_adm, results)
+    lora_phase(t_adm, results, seg_ids)
     paged_phase(results)
     flash_phase(results)
     rms_bwd_phase(results)

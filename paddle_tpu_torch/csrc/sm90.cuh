@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the wgmma / TMA kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, grouped_matmul.cu): mbarriers,
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, grouped_matmul.cu,
+// dequant_matmul.cu): mbarriers,
 // TMA tile loads, warpgroup matrix multiplies (wgmma) on shared-memory
 // descriptors of 128-byte-swizzled tiles, the register layout of a wgmma
 // accumulator, and the driver's tensor-map encoder reached through the
@@ -267,14 +268,21 @@ struct Wg;
         else                                                                \
           PDT_RS(TY, 64, "32", "33", "34", "35", "36", "37", "38",         \
                  PDT_R32("=f"));                                            \
-      } else {                                                              \
-        static_assert(N == 128, "m64n64 or m64n128");                       \
+      } else if constexpr (N == 128) {                                      \
         if constexpr (ACC)                                                  \
           PDT_RS(TY, 128, "64", "65", "66", "67", "68", "69", "70",        \
                  PDT_R64("+f"));                                            \
         else                                                                \
           PDT_RS(TY, 128, "64", "65", "66", "67", "68", "69", "70",        \
                  PDT_R64("=f"));                                            \
+      } else {                                                              \
+        static_assert(N == 256, "m64n64, m64n128 or m64n256");             \
+        if constexpr (ACC)                                                  \
+          PDT_RS(TY, 256, "128", "129", "130", "131", "132", "133", "134", \
+                 PDT_R128("+f"));                                           \
+        else                                                                \
+          PDT_RS(TY, 256, "128", "129", "130", "131", "132", "133", "134", \
+                 PDT_R128("=f"));                                           \
       }                                                                     \
     }                                                                       \
   };
@@ -374,23 +382,32 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map of a 16-bit tensor (dtype 1 = bf16, 2 = f16) of `rank` dims,
-// innermost first, `strides` the byte strides of dims 1.., boxes of `box`
-// elements, 128-byte swizzle (the box's inner dim is 64 elements), zero
-// fill past the edges. False when the driver refuses it.
-inline bool make_tiled_map(CUtensorMap* map, const void* ptr, int rank,
-                           const cuuint64_t* dims, const cuuint64_t* strides,
-                           const cuuint32_t* box, int dtype) {
+// A map of a tensor of element type `type` and `rank` dims, innermost
+// first, `strides` the byte strides of dims 1.., boxes of `box` elements,
+// the given swizzle, zero fill past the edges. False when the driver
+// refuses it.
+inline bool make_map(CUtensorMap* map, const void* ptr, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides,
+                     const cuuint32_t* box, CUtensorMapDataType type,
+                     CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return fn(map,
-            dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-            rank, const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map of a 16-bit tensor (dtype 1 = bf16, 2 = f16), 128-byte swizzle
+// (the box's inner dim is 64 elements).
+inline bool make_tiled_map(CUtensorMap* map, const void* ptr, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box, int dtype) {
+  return make_map(map, ptr, rank, dims, strides, box,
+                  dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Binds the current thread to the primary context of the device that holds

@@ -30,6 +30,17 @@ launch_counts = {"rms_norm": 0, "ragged_paged_attention": 0,
                  "flash_attention_xla": 0, "flash_varlen_xla": 0}
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(dev: int) -> int:
+    """The current CUDA stream of device index ``dev``, as an int (the
+    raw handle, without building a `torch.cuda.Stream`)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(dev)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0

@@ -24,7 +24,11 @@ deltas drives both packages although the port stores the base weight
 (`csrc/lora_epilogue.cu`, which replaces the TPU's
 `_lora_epilogue_kernel`) for CUDA tensors, at every shape (the JAX
 package sends shapes off the TPU's (8, 128) grid to XLA), and runs
-`lora_epilogue_ref` for CPU tensors. Serving only: no backward.
+`lora_epilogue_ref` for CPU tensors. The source holds two designs, which
+`lora_design` picks: SGMV (bf16 / f16 up to rank 64: one launch, a tile
+of consecutive tokens reading each adapter's A and B once, the shrink on
+tensor cores) and BGMV (f32 and larger ranks: two launches over an f32 scratch,
+CUDA cores). Serving only: no backward.
 """
 from __future__ import annotations
 
@@ -32,16 +36,22 @@ import ctypes
 
 import torch
 
-from . import kernel_route, launch_counts
+from . import current_stream, kernel_route, launch_counts
 from .quant_matmul import QuantizedWeight, dequant_matmul_values
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # pdt_lora_epilogue(x, a, b, scale, ids, h, y, T, K, N, R, r, kchunk,
 #   dtype, accumulate, stream)
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-# rows of A one shrink block sums: K splits into ceil(K / _K_CHUNK)
+# pdt_lora_sgmv(x, a, b, scale, ids, y, T, K, N, R, r, dtype, accumulate,
+#   stream)
+_SGMV_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+    + [ctypes.c_void_p]
+# rows of A one BGMV shrink block sums: K splits into ceil(K / _K_CHUNK)
 # blocks per token, whose partial sums the expand adds in order
 _K_CHUNK = 512
+# the SGMV design's largest rank (kSMaxRank)
+SGMV_MAX_RANK = 64
 
 
 class LoraWeight:
@@ -93,8 +103,22 @@ def lora_epilogue_ref(x2: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return (d * scale[ids][:, None]).to(x2.dtype)
 
 
-def _lora_cuda(x2, a, b, scale, ids, y=None):
-    """Launch `csrc/lora_epilogue.cu` on (T, K) rows: the delta into a
+def lora_design(dtype, rank: int) -> str:
+    """Which design of `csrc/lora_epilogue.cu` takes stacks of ``dtype``
+    and ``rank`` on the card: ``"sgmv"`` for bf16 and f16 up to rank
+    `SGMV_MAX_RANK` (tensor cores for the shrink, one launch),
+    ``"bgmv"`` for f32 (CUDA cores without TF32, as the reference) and
+    for larger ranks. A token's delta depends on the design, never on the
+    batch: every token of a call takes the same one."""
+    if dtype in (torch.bfloat16, torch.float16) and rank <= SGMV_MAX_RANK:
+        return "sgmv"
+    return "bgmv"
+
+
+def _lora_cuda(x2, a, b, scale, ids, y=None, _design=None):
+    """Launch `csrc/lora_epilogue.cu` on (T, K) rows in the design of
+    `lora_design`, unless ``_design`` names one (private: it lets a
+    caller time the other design at the same shape): the delta into a
     new (T, N) tensor, or added into ``y`` (T, N) in place."""
     t, k = x2.shape
     if x2.dtype not in _DTYPES:
@@ -118,24 +142,42 @@ def _lora_cuda(x2, a, b, scale, ids, y=None):
     n = b.shape[2]
     if y is not None and (y.shape != (t, n) or y.dtype != x2.dtype):
         raise ValueError(f"y must be ({t}, {n}) in {x2.dtype}")
-    tensors = (x2, a, b, scale, ids) + (() if y is None else (y,))
-    if any(not z.is_cuda or z.device != x2.device for z in tensors):
+    tensors = (x2, a, b, scale, ids) if y is None else \
+        (x2, a, b, scale, ids, y)
+    dv = x2.device
+    if not x2.is_cuda or any(z.device != dv for z in tensors):
         raise ValueError("lora epilogue kernel wants every input on one "
                          "CUDA device")
-    if any(not z.is_contiguous() for z in tensors):
+    if not all(z.is_contiguous() for z in tensors):
         raise ValueError("lora epilogue kernel wants contiguous inputs")
+    design = _design or lora_design(x2.dtype, r)
+    if design not in ("sgmv", "bgmv"):
+        raise ValueError(f"no lora epilogue design {design!r}")
+    if design == "sgmv" and lora_design(x2.dtype, r) != "sgmv":
+        raise ValueError(f"the sgmv lora epilogue does not take {x2.dtype} "
+                         f"at rank {r}")
     from ._build import kernel_fn
-    fn = kernel_fn("lora_epilogue", "pdt_lora_epilogue", _ARGTYPES)
+    dev = x2.get_device()
     out = torch.empty(t, n, dtype=x2.dtype, device=x2.device) \
         if y is None else y
-    h = torch.empty(t, -(-k // _K_CHUNK), r, dtype=torch.float32,
-                    device=x2.device)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    with torch.cuda.device(x2.device):
-        err = fn(x2.data_ptr(), a.data_ptr(), b.data_ptr(), scale.data_ptr(),
-                 ids.data_ptr(), h.data_ptr(), out.data_ptr(), t, k, n,
-                 r_stack, r, _K_CHUNK, _DTYPES[x2.dtype], int(y is not None),
-                 stream)
+    if design == "sgmv":
+        fn = kernel_fn("lora_epilogue", "pdt_lora_sgmv", _SGMV_ARGTYPES)
+        args = (x2.data_ptr(), a.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                ids.data_ptr(), out.data_ptr(), t, k, n, r_stack, r,
+                _DTYPES[x2.dtype], int(y is not None), current_stream(dev))
+    else:
+        fn = kernel_fn("lora_epilogue", "pdt_lora_epilogue", _ARGTYPES)
+        h = torch.empty(t, -(-k // _K_CHUNK), r, dtype=torch.float32,
+                        device=x2.device)
+        args = (x2.data_ptr(), a.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                ids.data_ptr(), h.data_ptr(), out.data_ptr(), t, k, n,
+                r_stack, r, _K_CHUNK, _DTYPES[x2.dtype], int(y is not None),
+                current_stream(dev))
+    if dev == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     if err:
         raise RuntimeError(f"lora epilogue kernel launch failed: CUDA "
                            f"error {err}")
@@ -143,7 +185,8 @@ def _lora_cuda(x2, a, b, scale, ids, y=None):
     return out
 
 
-def lora_epilogue_values(x, a, b, scale, ids, use_kernel=None, y=None):
+def lora_epilogue_values(x, a, b, scale, ids, use_kernel=None, y=None,
+                         _design=None):
     """The per-token adapter delta: ``x`` (..., K) with T tokens in all;
     stacked ``a`` (R, K, r) / ``b`` (R, r, N) in x's dtype, ``scale``
     (R,) f32; ``ids`` (T,) int32, the adapter row of each token (0:
@@ -154,7 +197,8 @@ def lora_epilogue_values(x, a, b, scale, ids, use_kernel=None, y=None):
     ``use_kernel`` None launches the CUDA kernel for a CUDA ``x`` and
     runs `lora_epilogue_ref` for a CPU ``x``; True demands the kernel;
     False runs the plain version on either device. An id outside
-    [0, R) is an error of the caller: the kernel treats it as row 0."""
+    [0, R) is an error of the caller: the kernel treats it as row 0.
+    ``_design`` as in `_lora_cuda`."""
     lead = x.shape[:-1]
     n = b.shape[2]
     x2 = x.reshape(-1, x.shape[-1])
@@ -162,7 +206,7 @@ def lora_epilogue_values(x, a, b, scale, ids, use_kernel=None, y=None):
         d = lora_epilogue_ref(x2, a, b, scale, ids).reshape(*lead, n)
         return d if y is None else y + d.to(y.dtype)
     out = _lora_cuda(x2.contiguous(), a, b, scale, ids,
-                     None if y is None else y.reshape(-1, n))
+                     None if y is None else y.reshape(-1, n), _design)
     return out.reshape(*lead, n)
 
 

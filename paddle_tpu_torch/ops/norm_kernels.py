@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import kernel_route, launch_counts
+from . import current_stream, kernel_route, launch_counts
 from ._build import kernel_fn
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -79,16 +79,6 @@ def norm_design(dtype, h: int) -> str:
     three times; it takes every row). A pointer off 16 bytes also goes to
     the strided kernel."""
     return "strided" if row_class(dtype, h) is None else "registers"
-
-
-_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def _stream(dev: int) -> int:
-    """The current CUDA stream of device ``dev``, as an int."""
-    if _RAW_STREAM is not None:
-        return _RAW_STREAM(dev)
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _route(dtype, h: int, ptrs: int, design):
@@ -163,7 +153,7 @@ def _rms_fwd(x2: torch.Tensor, w: torch.Tensor, eps: float, _design=None,
         if stats else None
     err = kernel_fn("rms_norm", "pdt_rms_norm_fwd", _ARGTYPES)(
         xp, wp, o.data_ptr(), rstd.data_ptr() if stats else 0, n, h, eps,
-        code, wpr, nv, dev, _stream(dev))
+        code, wpr, nv, dev, current_stream(dev))
     if err:
         raise RuntimeError(f"rms_norm kernel launch failed: CUDA error "
                            f"{err}")
@@ -308,7 +298,7 @@ def _ln_fwd(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float,
     sp = st.data_ptr() if stats else 0
     err = kernel_fn("layer_norm", "pdt_layer_norm_fwd", _LN_ARGTYPES)(
         xp, wp, bp, o.data_ptr(), sp, sp + 4 * n if stats else 0, n, h, eps,
-        code, wpr, nv, dev, _stream(dev))
+        code, wpr, nv, dev, current_stream(dev))
     if err:
         raise RuntimeError(f"layer_norm kernel launch failed: CUDA error "
                            f"{err}")

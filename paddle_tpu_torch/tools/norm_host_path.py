@@ -147,7 +147,7 @@ def main(argv=None) -> int:
                                                          argtypes),
             "current_stream": lambda: torch.cuda.current_stream(
                 dev).cuda_stream,
-            "raw_stream": lambda: now._stream(dev),
+            "raw_stream": lambda: now.current_stream(dev),
             "reshape_to_rows_and_back": lambda: x.reshape(-1, h).reshape(
                 x.shape),
             "cuda_device_enter_leave": enter_device,

@@ -14,16 +14,23 @@ bf16 attention 2e-2 (the kernel keeps softmax weights in f32, the plain
 version rounds them to bf16 before the weighted sum, as the JAX core
 does); int8-KV attention the same (both keep f32 weights there, so the
 bf16 outputs differ by the final rounding);
-dequant matmul: f32 rtol 1e-5 plus atol 1e-5 of the largest |output|
-(f32 sums of up to 14336 exact products in another order), bf16 rtol
-2^-7 plus atol 2^-8 of the largest |output| (one bf16 rounding of sums
-that differ only in order: the widened weights and their products with
-bf16 x are exact in f32);
-BGMV LoRA epilogue: the same two tolerances as the dequant matmul (f32
-sums over K and over the rank in another order, then one rounding to
-x's dtype), and BITWISE where the kernel promises it: a token's delta
-alone equals its delta in any batch, row-0 tokens give exact zeros,
-zero rank columns change nothing;
+dequant matmul (`_kernel_tol`): f32 rtol 1e-5 plus atol 1e-5 of the
+largest |output| (f32 sums of up to 14336 exact products in another
+order), bf16 rtol 2^-7 plus atol 2^-8 of the largest |output| (one bf16
+rounding of sums that differ only in order: the widened weights and
+their products with bf16 x are exact in f32), f16 the same 8x tighter,
+rtol 2^-10 plus atol 2^-11 (f16 keeps 3 more significant bits), which
+an output rounded through bf16 breaks;
+the dequant matmul's designs (`qm.dequant_design`: decode, wgmma,
+mma.sync) each at those limits at admission, long-K, K-off-the-k-step
+and odd shapes, bf16 and f16, bitwise on repeat; HGMMA in every wgmma
+instance's SASS; a design refusing an input raises before any launch;
+LoRA epilogue (both designs, `le.lora_design`: SGMV, BGMV): the same two
+tolerances as the dequant matmul (f32 sums over K and over the rank in
+another order, then one rounding to x's dtype), and BITWISE where the
+kernel promises it: a token's delta alone equals its delta in any batch
+(decode 8, admission 6432, at any position), row-0 tokens give exact
+zeros, zero rank columns change nothing;
 paged attention: as ragged attention (f32 1e-5, bf16 2e-2);
 RMSNorm backward: dx as the forward (f32 1e-5, bf16 one ulp), dw f32
 rtol/atol 1e-4 (a sum over up to 6432 rows in another order), bf16 one
@@ -56,7 +63,8 @@ the tiny MoE (dropless through the grouped-matmul kernel) and tiny BERT
 (LayerNorm kernels) train steps as the tiny Llama's: losses within
 1e-4, parameters within 1e-4 of their norm;
 float16 through every kernel above at bf16's limits (f16 rounds at the
-same places with 3 more significant bits);
+same places with 3 more significant bits), the dequant matmul and the
+LoRA epilogue at f16's own;
 flash attention at every tile width's head dims, 8 to 256 (72 and 136
 zero-padded to 80 and 160), at `fa.KERNEL_LIMITS`; bf16/f16 head dims
 that are not multiples of 8 (100, 36) through the kernels at those
@@ -426,6 +434,18 @@ def test_int8kv_attention_wrapper_checks(cuda):
                                          k_scale=ks.cpu(), v_scale=vs)
 
 
+def _kernel_tol(ref, dtype):
+    """The dequant matmul's and LoRA epilogue's limits: one rounding to
+    x's dtype of f32 sums that differ only in order (one ulp of x's dtype
+    relative plus half an ulp of the largest |output|); f32 sums in
+    another order."""
+    top = ref.float().abs().max().item()
+    if dtype == torch.float32:
+        return dict(rtol=1e-5, atol=1e-5 * top)
+    ulp = 2 ** -7 if dtype == torch.bfloat16 else 2 ** -10
+    return dict(rtol=ulp, atol=ulp / 2 * top)
+
+
 DQ_SHAPES = [(4096, 1024), (256, 384), (4100, 130), (70, 33)]
 
 
@@ -445,10 +465,8 @@ def test_dequant_matmul_kernel_matches_plain(cuda, kn, m, dtype, mode):
     assert launch_counts["dequant_matmul"] == before + 1
     ref = qm.dequant_matmul_ref(x, qw, sc)
     assert out.dtype == dtype and out.shape == (m, n)
-    top = ref.float().abs().max().item()
-    tol = dict(rtol=2 ** -7, atol=2 ** -8 * top) \
-        if dtype != torch.float32 else dict(rtol=1e-5, atol=1e-5 * top)
-    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **_kernel_tol(ref, dtype))
 
 
 def test_dequant_matmul_leading_dims(cuda):
@@ -477,6 +495,115 @@ def test_dequant_matmul_wrapper_checks(cuda):
         qm.dequant_matmul_values(x, qw, sc[:8])
     with pytest.raises(ValueError, match="CUDA device"):
         qm.dequant_matmul_values(x, qw.cpu(), sc)
+
+
+# the designs of `qm.dequant_design` at shapes each takes: admission
+# gate/up, the down projection's long K, K off the 64-wide k step (a
+# multiple of 16, as TMA wants), odd M and N
+DQ_DESIGN_CASES = [(6432, 4096, 14336), (1170, 4096, 14336),
+                   (300, 14336, 4096), (257, 4112, 130), (9, 48, 33),
+                   (40, 14336, 1000)]
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("design", ["wgmma", "mma.sync"])
+@pytest.mark.parametrize("mkn", DQ_DESIGN_CASES,
+                         ids=["m{}_k{}_n{}".format(*c) for c in
+                              DQ_DESIGN_CASES])
+def test_dequant_designs_match_plain(cuda, mkn, design, dtype, mode):
+    """Every tensor-core design within the tolerance of the plain version,
+    bitwise equal from run to run (the sum order is fixed by the
+    tiling)."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    w = torch.randn(n, k, device=cuda, generator=g) * 0.02
+    qw, sc = qm.quantize_weight_values(w, mode)
+    x = torch.randn(m, k, device=cuda, generator=g).to(dtype)
+    out = qm.dequant_matmul_values(x, qw, sc, _design=design)
+    ref = qm.dequant_matmul_ref(x, qw, sc)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **_kernel_tol(ref, dtype))
+    assert torch.equal(out, qm.dequant_matmul_values(x, qw, sc,
+                                                     _design=design))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_dequant_decode_design_in_f16_and_bf16(cuda, dtype, mode):
+    """The decode kernel at the serving decode shapes, bf16 and f16."""
+    for m, k, n in ((8, 4096, 14336), (8, 14336, 4096), (3, 4096, 1024)):
+        assert qm.dequant_design(dtype, m, k, n) == "decode"
+        g = torch.Generator(device=cuda).manual_seed(m + k)
+        qw, sc = qm.quantize_weight_values(
+            torch.randn(n, k, device=cuda, generator=g) * 0.02, mode)
+        x = torch.randn(m, k, device=cuda, generator=g).to(dtype)
+        out = qm.dequant_matmul_values(x, qw, sc)
+        ref = qm.dequant_matmul_ref(x, qw, sc)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **_kernel_tol(ref, dtype))
+
+
+def test_f16_limits_reject_an_output_rounded_through_bf16(cuda):
+    """f16's limits are f16's own: the dequant matmul's and the LoRA
+    epilogue's f16 outputs meet them, the same outputs rounded through
+    bf16 do not (bf16's limits would pass both)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(300, 4096, device=cuda, generator=g).half()
+    qw, sc = qm.quantize_weight_values(
+        torch.randn(1024, 4096, device=cuda, generator=g) * 0.02, "int8")
+    xl, a, b, scale, ids = _lora_operands(cuda, 300, 4096, 1024, 16,
+                                          torch.float16)
+    for out, ref in ((qm.dequant_matmul_values(x, qw, sc),
+                      qm.dequant_matmul_ref(x, qw, sc)),
+                     (le.lora_epilogue_values(xl, a, b, scale, ids),
+                      le.lora_epilogue_ref(xl, a, b, scale, ids))):
+        tol = _kernel_tol(ref, torch.float16)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+        rounded = out.to(torch.bfloat16).float()
+        assert not torch.allclose(rounded, ref.float(), **tol)
+        assert torch.allclose(rounded, ref.float(),
+                              **_kernel_tol(ref, torch.bfloat16))
+
+
+def test_dequant_design_refusals_raise_before_launch(cuda):
+    qw, sc = qm.quantize_weight_values(torch.randn(64, 72, device=cuda))
+    x = torch.randn(9, 72, device=cuda, dtype=torch.bfloat16)
+    before = launch_counts["dequant_matmul"]
+    with pytest.raises(ValueError, match="does not take"):
+        qm.dequant_matmul_values(x, qw, sc, _design="wgmma")   # K % 16
+    with pytest.raises(ValueError, match="does not take"):
+        qm.dequant_matmul_values(x, qw, sc, _design="decode")  # M 9
+    with pytest.raises(ValueError, match="does not take"):
+        qm.dequant_matmul_values(x.float(), qw, sc, _design="mma.sync")
+    with pytest.raises(ValueError, match="no dequant matmul design"):
+        qm.dequant_matmul_values(x, qw, sc, _design="tiles")
+    assert launch_counts["dequant_matmul"] == before
+
+
+def test_dequant_wgmma_sass_holds_hgmma(cuda):
+    """Every instance of the wgmma kernel issues HGMMA (cuobjdump -sass
+    of the built library)."""
+    import os
+    import shutil
+    import subprocess
+    from paddle_tpu_torch.ops import _build
+    lib = _build.build(["dequant_matmul"])["dequant_matmul"]
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    wg = {f: c for f, c in counts.items() if "dequant_wgmma_kernel" in f}
+    assert len(wg) == 4 and all(wg.values()), wg
 
 
 def test_tiny_engine_on_card_matches_cpu(cuda):
@@ -511,12 +638,6 @@ def _lora_operands(dev, t, k, n, r, dtype, stacks=4, seed=0):
     return x, a, b, scale, ids
 
 
-def _lora_tol(ref, dtype):
-    top = ref.float().abs().max().item()
-    return dict(rtol=2 ** -7, atol=2 ** -8 * top) \
-        if dtype != torch.float32 else dict(rtol=1e-5, atol=1e-5 * top)
-
-
 LORA_SHAPES = [(8, 4096, 14336, 16), (8, 14336, 4096, 16),
                (300, 4096, 1024, 16), (9, 32, 64, 8), (5, 128, 130, 1),
                (1, 70, 33, 3), (40, 256, 512, 64), (3, 1000, 300, 5)]
@@ -535,7 +656,7 @@ def test_lora_epilogue_kernel_matches_plain(cuda, shape, dtype):
     ref = le.lora_epilogue_ref(x, a, b, scale, ids)
     assert out.dtype == dtype and out.shape == (t, n)
     torch.testing.assert_close(out.float(), ref.float(),
-                               **_lora_tol(ref, dtype))
+                               **_kernel_tol(ref, dtype))
     # the fused add: y + delta, the delta rounded first
     y = torch.randn(t, n, device=cuda).to(dtype)
     want = y + out
@@ -563,6 +684,92 @@ def test_lora_epilogue_bitwise_batch_invariance(cuda, dtype):
     pad_b = torch.cat([b, torch.zeros_like(b)], 1)
     assert torch.equal(le.lora_epilogue_values(x, pad_a, pad_b, scale, ids),
                        full)
+
+
+# (T, K, N, r, ids): decode, the admission gate/up with segmented ids (a
+# sequence's rows together) and interleaved ids, a ragged last tile, rank
+# 64, K and N off every tile
+LORA_DESIGN_CASES = [(8, 4096, 14336, 16, "interleaved"),
+                     (8, 14336, 4096, 16, "interleaved"),
+                     (6432, 4096, 14336, 16, "segmented"),
+                     (6432, 4096, 14336, 16, "interleaved"),
+                     (1170, 4096, 1024, 16, "segmented"),
+                     (65, 1000, 300, 64, "random"),
+                     (3, 70, 33, 5, "random")]
+
+
+def _lora_ids(cuda, kind, t, stacks=4, seed=0):
+    if kind == "interleaved":
+        return (torch.arange(t, device=cuda, dtype=torch.int32) * 3) % stacks
+    if kind == "segmented":
+        return (torch.arange(t, device=cuda) * stacks // t).to(torch.int32)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randint(0, stacks, (t,), device=cuda, generator=g,
+                         dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("design", ["sgmv", "bgmv"])
+@pytest.mark.parametrize("case", LORA_DESIGN_CASES,
+                         ids=["t{}_k{}_n{}_r{}_{}".format(*c) for c in
+                              LORA_DESIGN_CASES])
+def test_lora_designs_match_plain(cuda, case, design, dtype):
+    """Both designs within the tolerance of the plain version, the fused
+    add as `y + delta`, bitwise on repeat."""
+    t, k, n, r, kind = case
+    x, a, b, scale, _ = _lora_operands(cuda, t, k, n, r, dtype)
+    ids = _lora_ids(cuda, kind, t)
+    out = le.lora_epilogue_values(x, a, b, scale, ids, _design=design)
+    ref = le.lora_epilogue_ref(x, a, b, scale, ids)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **_kernel_tol(ref, dtype))
+    assert torch.equal(out, le.lora_epilogue_values(x, a, b, scale, ids,
+                                                    _design=design))
+    y = torch.randn(t, n, device=cuda).to(dtype)
+    got = le.lora_epilogue_values(x, a, b, scale, ids, y=y.clone(),
+                                  _design=design)
+    assert torch.equal(got, y + out)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kind", ["segmented", "interleaved"])
+def test_sgmv_bitwise_across_decode_and_admission(cuda, dtype, kind):
+    """A token's SGMV delta alone (T = 1), in a decode batch of 8 and in
+    an admission batch of 6432 is the same bitwise, at any position; row-0
+    tokens are exact zeros; zero rank columns change no bit."""
+    t, k, n, r = 6432, 4096, 1024, 16
+    x, a, b, scale, _ = _lora_operands(cuda, t, k, n, r, dtype)
+    ids = _lora_ids(cuda, kind, t)
+    full = le.lora_epilogue_values(x, a, b, scale, ids)
+    for lo in (0, 3000, t - 8):
+        eight = le.lora_epilogue_values(x[lo:lo + 8], a, b, scale,
+                                        ids[lo:lo + 8])
+        assert torch.equal(eight, full[lo:lo + 8])
+    for i in (0, 1, 63, 64, 4999, t - 1):
+        alone = le.lora_epilogue_values(x[i:i + 1], a, b, scale,
+                                        ids[i:i + 1])
+        assert torch.equal(alone, full[i:i + 1])
+    perm = torch.roll(torch.arange(t, device=cuda), 37)
+    moved = le.lora_epilogue_values(x[perm], a, b, scale, ids[perm])
+    assert torch.equal(moved, full[perm])
+    assert bool((full[ids == 0] == 0).all())
+    pad_a = torch.cat([a, torch.zeros_like(a)], 2)
+    pad_b = torch.cat([b, torch.zeros_like(b)], 1)
+    assert torch.equal(le.lora_epilogue_values(x, pad_a, pad_b, scale, ids),
+                       full)
+
+
+def test_lora_design_refusals_raise_before_launch(cuda):
+    x, a, b, scale, ids = _lora_operands(cuda, 4, 64, 32, 4, torch.float32)
+    before = launch_counts["lora_epilogue"]
+    with pytest.raises(ValueError, match="does not take"):
+        le.lora_epilogue_values(x, a, b, scale, ids, _design="sgmv")
+    xb, ab, bb, sb, ib = _lora_operands(cuda, 4, 64, 32, 65, torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):
+        le.lora_epilogue_values(xb, ab, bb, sb, ib, _design="sgmv")
+    with pytest.raises(ValueError, match="no lora epilogue design"):
+        le.lora_epilogue_values(x, a, b, scale, ids, _design="tiles")
+    assert launch_counts["lora_epilogue"] == before
 
 
 def test_lora_epilogue_wrapper_checks(cuda):
