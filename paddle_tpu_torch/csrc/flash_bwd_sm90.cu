@@ -20,14 +20,18 @@
 // key) pair against a few bytes a row). The design keeps the tensor cores
 // fed:
 // - Products on wgmma, 64 rows a warpgroup. S = Q.K^T and dP = dO.V^T
-//   (dQ) take Q and dO as register A operands, loaded once, and K and V
-//   tiles from shared memory, K-major. S^T = K.Q^T and dP^T = V.dO^T
-//   (dK/dV) take K and V from shared memory (from registers at D 64) and
-//   the Q and dO tiles K-major. dS (dQ) and P^T, dS^T (dK/dV) are formed
-//   in the accumulator registers, rounded once to T and fed back as the
-//   register A operand of dQ += dS.K, dV += P^T.dO and dK += dS^T.Q, whose
-//   B operand is the same shared tile read MN-major through the
-//   descriptor's transpose bit: no tile is ever transposed or copied.
+//   (dQ) take the block's Q and dO tiles, landed once by TMA, and the K
+//   and V tiles, all from shared memory, K-major. S^T = K.Q^T and dP^T =
+//   V.dO^T (dK/dV) take the resident K and V and the streamed Q and dO
+//   tiles from shared memory, K-major. dS (dQ) and P^T, dS^T (dK/dV) are
+//   formed in the accumulator registers, rounded once to T and fed back
+//   as the register A operand of dQ += dS.K, dV += P^T.dO and dK +=
+//   dS^T.Q, whose B operand is the same shared tile read MN-major through
+//   the descriptor's transpose bit: no tile is ever transposed or copied.
+//   No register A operand lives across the key or q loop: ptxas has given
+//   such loop-invariant fragments' registers to other values of the loop
+//   with no warning (the forward's Q once), so every A operand that
+//   outlives one product is a shared-memory descriptor.
 // - Tiles arrive by TMA: 4-D tensor maps over (D, H, S, B) with a 64 x 64
 //   box (128 bytes a row) and the 128-byte swizzle that wgmma reads; D 128
 //   takes two boxes a row. A producer warp keeps a ring of NS stages in
@@ -45,8 +49,8 @@
 //   per element, each element's exp2 latency was exposed in turn, and
 //   the element work took most of each tile: tools/flash_bwd_timeline.py
 //   times the phases.)
-// - dQ: a block owns 128 q rows of one head; K and V tiles of 64 keys
-//   stream through the ring. The dQ kernel also forms delta = rowsum(o dO)
+// - dQ: a block owns 128 q rows of one head, its Q and dO tiles resident;
+//   K and V tiles of 64 keys stream through the ring. The dQ kernel also forms delta = rowsum(o dO)
 //   of its rows (given o) and writes it for the dK/dV kernel. Blocks run
 //   the longest causal q tiles first.
 // - dK/dV: a block owns 128 keys of one KV head, K and V resident; it walks
@@ -79,21 +83,26 @@ struct DqLayout {
   static constexpr int kTile = (D / 64) * kBox;  // one 64-row tile
   static constexpr int kRing = 0;                // NS x (K, V)
   static constexpr int kStage = 2 * kTile;
-  static constexpr int kBars = kRing + NS * kStage;  // full, empty
-  static constexpr int kBytes = kBars + 8 * 2 * NS + 1024;  // + alignment
+  static constexpr int kQ = kRing + NS * kStage;       // Q of both warpgroups
+  static constexpr int kDo = kQ + kConsumers * kTile;  // dO of both
+  static constexpr int kBars = kDo + kConsumers * kTile;  // full, empty, q
+  static constexpr int kBytes = kBars + 8 * (2 * NS + 1) + 1024;  // + align
 };
 
 template <typename T, int D, int NS>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_dq_sm90(const __grid_constant__ CUtensorMap tk,
+    flash_dq_sm90(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
-                  const u16* __restrict__ q, const u16* __restrict__ dout,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const u16* __restrict__ dout,
                   const u16* __restrict__ o, const float* __restrict__ lse,
                   float* __restrict__ delta, u16* __restrict__ dq, Shape s) {
   using L = DqLayout<D, NS>;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_addr(smem) + 1023) & ~1023u;
   const uint32_t full = base + L::kBars, empty = full + 8 * NS;
+  const uint32_t qfull = empty + 8 * NS;
   // blocks in launch order take the q tiles from the last (the most live
   // keys under a causal mask) back to the first, all heads of a tile
   // together
@@ -113,6 +122,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(full + 8 * i, 1);
       mbar_init(empty + 8 * i, 4 * kConsumers);  // a warp each
     }
+    mbar_init(qfull, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -121,6 +131,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     // producer: one thread issues every copy
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 128 * kConsumers) {
+      // Q and dO of both warpgroups, rows past Sq zero
+      mbar_expect_tx(qfull, 2 * kConsumers * L::kTile);
+      for (int w = 0; w < kConsumers; ++w)
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(base + L::kQ + w * L::kTile + c * kBox, &tq, qfull, 64 * c,
+                   h, q0 + kRows * w, b);
+          tma_load(base + L::kDo + w * L::kTile + c * kBox, &tdo, qfull,
+                   64 * c, h, q0 + kRows * w, b);
+        }
       for (int it = 0; it < ntiles; ++it) {
         const int st = it % NS;
         mbar_wait(empty + 8 * st, ((it / NS) & 1) ^ 1);
@@ -177,14 +196,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     const float drs[2] = {dr[0] * s.scale, dr[1] * s.scale};
-    // Q and dO of this warp's rows stay in registers as wgmma A operands
     const size_t roff = ((size_t(b) * s.Sq + row0) * s.H + h) * D;
-    uint32_t qf[D / 16][4], df[D / 16][4];
-    load_a<D>(qf, q + roff, rs, row0 < s.Sq, row0 + 8 < s.Sq, t);
-    load_a<D>(df, dout + roff, rs, row0 < s.Sq, row0 + 8 < s.Sq, t);
+    const uint32_t qs = base + L::kQ + wg * L::kTile;
+    const uint32_t dos = base + L::kDo + wg * L::kTile;
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(qfull, 0);
     for (int it = 0; it < ntiles; ++it) {
       const int st = it % NS;
       const int k0 = (kt0 + it) * kRows;
@@ -192,15 +210,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (k0 <= whi && k0 + kRows - 1 >= wlo) {
         const uint32_t kt = base + L::kRing + st * L::kStage;
         const uint32_t vt = kt + L::kTile;
-        // S = Q K^T, dP = dO V^T
+        // S = Q K^T, dP = dO V^T, every operand from shared memory
         float sc[32], dp[32];
         wg_fence();
-        wg_rs<T, 64, 0, 0>(sc, qf[0], desc_kmajor(kt, 0));
-        wg_rs<T, 64, 0, 0>(dp, df[0], desc_kmajor(vt, 0));
+        wg_ss<T, 64, 0, 0>(sc, desc_kmajor(qs, 0), desc_kmajor(kt, 0));
+        wg_ss<T, 64, 0, 0>(dp, desc_kmajor(dos, 0), desc_kmajor(vt, 0));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk) {
-          wg_rs<T, 64, 0>(sc, qf[kk], desc_kmajor(kt, kk));
-          wg_rs<T, 64, 0>(dp, df[kk], desc_kmajor(vt, kk));
+          wg_ss<T, 64, 0>(sc, desc_kmajor(qs, kk), desc_kmajor(kt, kk));
+          wg_ss<T, 64, 0>(dp, desc_kmajor(dos, kk), desc_kmajor(vt, kk));
         }
         wg_commit();
         wg_wait_all();
@@ -258,17 +276,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 // dK/dV: a block owns 128 keys of one KV head and walks the G query heads
 // of its group and their live q tiles in order
 // ---------------------------------------------------------------------------
-// K and V of a warpgroup's keys as wgmma A operands in registers (D 64,
-// where they fit beside the accumulators: half the shared-memory reads of
-// S^T and dP^T) or resident in shared memory (D 128)
-template <int D>
-constexpr bool kKvInRegisters = D == 64;
-
+// K and V of both warpgroups' keys stay resident in shared memory, read as
+// wgmma's shared-memory A operands at every q tile
 template <int D, int NS>
 struct DkvLayout {
   static constexpr int kTile = (D / 64) * kBox;
-  // K, then V, of both warpgroups (none when they live in registers)
-  static constexpr int kKv = kKvInRegisters<D> ? 0 : kConsumers * kTile;
+  // K, then V, of both warpgroups
+  static constexpr int kKv = kConsumers * kTile;
   static constexpr int kK = 0;
   static constexpr int kV = kK + kKv;
   // NS x (Q, dO, then lse in base 2 and delta: 64 f32 each)
@@ -285,7 +299,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap tdo,
-                   const u16* __restrict__ k, const u16* __restrict__ v,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, u16* __restrict__ dk,
                    u16* __restrict__ dv, float* __restrict__ ws, int splits,
@@ -328,7 +341,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x / 32 == 4 * kConsumers) {
       const int lane = threadIdx.x % 32;
-      if (lane == 0 && !kKvInRegisters<D>) {
+      if (lane == 0) {
         const int nk = min(kConsumers, (s.Sk - k0 + kRows - 1) / kRows);
         mbar_expect_tx(kvbar, 2 * nk * L::kTile);
         for (int w = 0; w < nk; ++w)
@@ -381,16 +394,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
     const uint32_t kt = base + L::kK + wg * L::kTile;
     const uint32_t vt = base + L::kV + wg * L::kTile;
-    uint32_t kf[D / 16][4], vf[D / 16][4];
-    if constexpr (kKvInRegisters<D>) {
-      const int key0 = kw + 16 * warp + g;
-      const size_t koff = ((size_t(b) * s.Sk + key0) * s.HK + kh) * D;
-      const size_t ks = size_t(s.HK) * D;
-      load_a<D>(kf, k + koff, ks, key0 < s.Sk, key0 + 8 < s.Sk, t);
-      load_a<D>(vf, v + koff, ks, key0 < s.Sk, key0 + 8 < s.Sk, t);
-    } else {
-      mbar_wait(kvbar, 0);
-    }
+    mbar_wait(kvbar, 0);
     for (int it = 0; it < nh * nqt; ++it) {
       const int q0 = (qt0 + it % nqt) * kRows;
       const int st = it % NS;
@@ -403,22 +407,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         // S^T = K Q^T, dP^T = V dO^T: 64 keys x 64 q rows
         float sc[32], dp[32];
         wg_fence();
-        if constexpr (kKvInRegisters<D>) {
-          wg_rs<T, 64, 0, 0>(sc, kf[0], desc_kmajor(qs, 0));
-          wg_rs<T, 64, 0, 0>(dp, vf[0], desc_kmajor(dos, 0));
+        wg_ss<T, 64, 0, 0>(sc, desc_kmajor(kt, 0), desc_kmajor(qs, 0));
+        wg_ss<T, 64, 0, 0>(dp, desc_kmajor(vt, 0), desc_kmajor(dos, 0));
 #pragma unroll
-          for (int kk = 1; kk < D / 16; ++kk) {
-            wg_rs<T, 64, 0>(sc, kf[kk], desc_kmajor(qs, kk));
-            wg_rs<T, 64, 0>(dp, vf[kk], desc_kmajor(dos, kk));
-          }
-        } else {
-          wg_ss<T, 64, 0, 0>(sc, desc_kmajor(kt, 0), desc_kmajor(qs, 0));
-          wg_ss<T, 64, 0, 0>(dp, desc_kmajor(vt, 0), desc_kmajor(dos, 0));
-#pragma unroll
-          for (int kk = 1; kk < D / 16; ++kk) {
-            wg_ss<T, 64, 0>(sc, desc_kmajor(kt, kk), desc_kmajor(qs, kk));
-            wg_ss<T, 64, 0>(dp, desc_kmajor(vt, kk), desc_kmajor(dos, kk));
-          }
+        for (int kk = 1; kk < D / 16; ++kk) {
+          wg_ss<T, 64, 0>(sc, desc_kmajor(kt, kk), desc_kmajor(qs, kk));
+          wg_ss<T, 64, 0>(dp, desc_kmajor(vt, kk), desc_kmajor(dos, kk));
         }
         wg_commit();
         wg_wait_all();
@@ -522,7 +516,7 @@ constexpr int stages() {
 }
 
 template <typename T, int D>
-int launch_dq(const Maps& m, const void* q, const void* dout, const void* o,
+int launch_dq(const Maps& m, const void* dout, const void* o,
               const float* lse, float* delta, void* dq, const Shape& s,
               cudaStream_t st) {
   constexpr int NS = stages<D>();
@@ -533,15 +527,15 @@ int launch_dq(const Maps& m, const void* q, const void* dout, const void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nqb = (s.Sq + 2 * kRows - 1) / (2 * kRows);
   flash_dq_sm90<T, D, NS><<<nqb * s.B * s.H, kThreads, bytes, st>>>(
-      m.k, m.v, static_cast<const u16*>(q), static_cast<const u16*>(dout),
+      m.q, m.k, m.v, m.dout, static_cast<const u16*>(dout),
       static_cast<const u16*>(o), lse, delta, static_cast<u16*>(dq), s);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-int launch_dkv(const Maps& m, const void* k, const void* v, const float* lse,
-               const float* delta, void* dk, void* dv, float* ws, int splits,
-               const Shape& s, cudaStream_t st) {
+int launch_dkv(const Maps& m, const float* lse, const float* delta, void* dk,
+               void* dv, float* ws, int splits, const Shape& s,
+               cudaStream_t st) {
   constexpr int NS = stages<D>();
   constexpr int bytes = DkvLayout<D, NS>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -551,8 +545,7 @@ int launch_dkv(const Maps& m, const void* k, const void* v, const float* lse,
   const int nkb = (s.Sk + 2 * kRows - 1) / (2 * kRows);
   flash_dkv_sm90<T, D, NS>
       <<<nkb * s.B * s.HK * splits, kThreads, bytes, st>>>(
-          m.q, m.k, m.v, m.dout, static_cast<const u16*>(k),
-          static_cast<const u16*>(v), lse, delta, static_cast<u16*>(dk),
+          m.q, m.k, m.v, m.dout, lse, delta, static_cast<u16*>(dk),
           static_cast<u16*>(dv), ws, splits, s);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
@@ -591,10 +584,10 @@ extern "C" int pdt_flash_bwd_dq_sm90(const void* q, const void* k,
   float* dl = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return D == 64 ? launch_dq<bf16, 64>(m, q, dout, o, l, dl, dq, s, st)
-                   : launch_dq<bf16, 128>(m, q, dout, o, l, dl, dq, s, st);
-  return D == 64 ? launch_dq<f16, 64>(m, q, dout, o, l, dl, dq, s, st)
-                 : launch_dq<f16, 128>(m, q, dout, o, l, dl, dq, s, st);
+    return D == 64 ? launch_dq<bf16, 64>(m, dout, o, l, dl, dq, s, st)
+                   : launch_dq<bf16, 128>(m, dout, o, l, dl, dq, s, st);
+  return D == 64 ? launch_dq<f16, 64>(m, dout, o, l, dl, dq, s, st)
+                 : launch_dq<f16, 128>(m, dout, o, l, dl, dq, s, st);
 }
 
 // splits: how many blocks share a KV head's query heads (1..H / HK); past 1,
@@ -623,11 +616,8 @@ extern "C" int pdt_flash_bwd_dkv_sm90(const void* q, const void* k,
   float* w = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return D == 64
-               ? launch_dkv<bf16, 64>(m, k, v, l, dl, dk, dv, w, splits, s, st)
-               : launch_dkv<bf16, 128>(m, k, v, l, dl, dk, dv, w, splits, s,
-                                       st);
-  return D == 64
-             ? launch_dkv<f16, 64>(m, k, v, l, dl, dk, dv, w, splits, s, st)
-             : launch_dkv<f16, 128>(m, k, v, l, dl, dk, dv, w, splits, s, st);
+    return D == 64 ? launch_dkv<bf16, 64>(m, l, dl, dk, dv, w, splits, s, st)
+                   : launch_dkv<bf16, 128>(m, l, dl, dk, dv, w, splits, s, st);
+  return D == 64 ? launch_dkv<f16, 64>(m, l, dl, dk, dv, w, splits, s, st)
+                 : launch_dkv<f16, 128>(m, l, dl, dk, dv, w, splits, s, st);
 }

@@ -164,25 +164,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The register A fragments of a warp's 16 rows of a (B, S, H, D) tensor,
-// every 16-column k step: rows at or past S are zero. `row` points at the
-// thread's row g (of the warp's 16); row g + 8 is 8 rows on.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const u16* p,
-                                       size_t row_stride, bool in0, bool in1,
-                                       int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const u16* c = p + 16 * kk + 2 * t;
-    a[kk][0] = in0 ? *reinterpret_cast<const uint32_t*>(c) : 0u;
-    a[kk][1] = in1 ? *reinterpret_cast<const uint32_t*>(c + 8 * row_stride)
-                   : 0u;
-    a[kk][2] = in0 ? *reinterpret_cast<const uint32_t*>(c + 8) : 0u;
-    a[kk][3] =
-        in1 ? *reinterpret_cast<const uint32_t*>(c + 8 * row_stride + 8) : 0u;
-  }
-}
-
 // The (B, S, H, D) tensor at `ptr` as a 4-D map over (D, H, S, B): boxes of
 // 64 columns x 64 rows of one head, 128-byte swizzle, zero fill past S.
 inline bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,

@@ -13,7 +13,7 @@
 //
 // What bounds them on this card: bytes. The forward reads x, w and b and
 // writes y, mean and rstd, at about 7 operations per element; the backward
-// reads x and g twice and writes dx, about 12 operations per element. At
+// reads x and g and writes dx, about 12 operations per element. At
 // BERT-base's (16384, 768) f32 the forward's bytes take ~30 us of
 // device-memory time.
 //
@@ -29,14 +29,17 @@
 //   strided loop that reads the row three times (the second and third
 //   reads from L1/L2), two block reductions; it takes every row.
 //
-// The backward: one block of 256 threads per 16 rows, 16-byte vector loads
-// and stores where the row allows them, the row reductions in warp shuffles
-// plus one shared-memory step. dw and db need sums over all rows, which the
-// TPU kernel carried from one grid step to the next in revisited output
-// blocks; here blocks run in parallel, so each block writes its rows' f32
-// partial sums (each thread owns fixed columns in shared memory, no
-// atomics) and a second small kernel adds the partials in block order: the
-// result is deterministic, run to run. The same design as csrc/rms_norm.cu.
+// dw and db need sums over all rows, which the TPU kernel carried from one
+// grid step to the next in revisited output blocks; here blocks run in
+// parallel, so each block writes f32 partial sums of its rows and a second
+// kernel adds them in a fixed order (no atomics): the results are the same
+// bitwise run to run. Two backward designs, as csrc/rms_norm.cu's, picked
+// by `ops.norm_kernels.norm_bwd_design`: "registers" (norm_bwd_rows and
+// norm_cols_sum of norm_rows.cuh: x and g read once into registers, both
+// row means from them, persistent row groups keeping w and their dw / db
+// partials in registers) and "rowblock" (layer_norm_bwd_kernel,
+// layer_norm_dwdb_kernel: a block per 16 rows, a row at a time behind
+// block barriers, x and g read twice; rows up to 24576 elements).
 //
 // C interface: pointers are device pointers on the caller's current stream;
 // each function returns cudaGetLastError() after its launches.
@@ -281,7 +284,8 @@ cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* o,
   }
 }
 
-// rows per block of the backward; fixes the order of the dw/db partials
+// The rowblock backward: rows per block; fixes the order of the dw/db
+// partials
 constexpr int kBwdRows = 16;
 
 template <typename T, bool kVec>
@@ -393,7 +397,8 @@ cudaError_t launch_bwd(const void* x, const void* w, const float* mean,
                    aligned16(g) && aligned16(dx);
   auto kernel = vec ? layer_norm_bwd_kernel<T, true>
                     : layer_norm_bwd_kernel<T, false>;
-  if (smem > 48 * 1024) {
+  // past 48 KB with the static row-sum scratch, the kernel must opt in
+  if (smem + sizeof(float) * 2 * kThreads / 32 > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -447,18 +452,42 @@ extern "C" int pdt_layer_norm_fwd(const void* x, const void* w,
 }
 
 // x, w, g, dx, dw and db share `dtype` (0 = float32, 1 = bfloat16, 2 =
-// float16); mean and rstd are the forward's (n,) f32 outputs; part is
-// 2 * ceil(n / 16) * h f32 scratch (the dw partials, then the db partials).
+// float16); mean and rstd are the forward's (n,) f32 outputs. wpr 0 runs
+// the rowblock design (part: 2 * ceil(n / 16) * h f32 scratch, the dw
+// partials, then the db partials), else the register-row design of class
+// (wpr, nv) (part: two planes of part_rows x h f32, at most part_rows
+// blocks); device is the pointers' device, made current for the launch
+// only.
 extern "C" int pdt_layer_norm_bwd(const void* x, const void* w,
                                   const void* mean, const void* rstd,
                                   const void* g, void* dx, void* part,
                                   void* dw, void* db, int n, int h,
-                                  int dtype, void* stream) {
+                                  int dtype, int wpr, int nv,
+                                  int part_rows, int device, void* stream) {
   if (n <= 0 || h <= 0) return 0;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* mu = static_cast<const float*>(mean);
   const float* r = static_cast<const float*>(rstd);
   float* p = static_cast<float*>(part);
+  if (wpr != 0) {
+    switch (dtype) {
+      case 0:
+        return launch_bwd_registers<float, true>(
+            x, w, mu, r, g, dx, p, part_rows, dw, db, n, h, wpr, nv, device,
+            s);
+      case 1:
+        return launch_bwd_registers<__nv_bfloat16, true>(
+            x, w, mu, r, g, dx, p, part_rows, dw, db, n, h, wpr, nv, device,
+            s);
+      case 2:
+        return launch_bwd_registers<__half, true>(
+            x, w, mu, r, g, dx, p, part_rows, dw, db, n, h, wpr, nv, device,
+            s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (dtype) {
     case 0:
       return launch_bwd<float>(x, w, mu, r, g, dx, p, dw, db, n, h, s);

@@ -13,9 +13,8 @@
 // shape of the serving path (8 rows x 4096) the bytes take 0.04 us, so each
 // of the 2L+1 launches per dispatch is bound by the launch and one trip to
 // memory. At admission and in training (thousands of rows) it is bound by
-// device-memory bandwidth. The backward reads x and g twice (the second
-// pass from L1/L2) and writes dx, about 10 operations per element: bytes
-// again.
+// device-memory bandwidth. The backward reads x and g and writes dx, about
+// 10 operations per element: bytes again.
 //
 // Two forward designs, picked by `ops.norm_kernels.norm_design`:
 // - "registers" (rms_norm_fwd_rows, the register-row design of
@@ -29,14 +28,23 @@
 //   strided loop over the row, read twice (the second read from L1/L2),
 //   one block reduction; it takes every row, vectorised where it can.
 //
-// The backward: one block of 256 threads per 16 rows, 16-byte vector loads
-// and stores where the row allows them, the row reductions in warp shuffles
-// plus one shared-memory step. dw needs a sum over all rows, which the TPU
-// kernel carried from one grid step to the next in a revisited output
-// block; here blocks run in parallel, so each block writes its rows' f32
-// partial sums (each thread owns fixed columns in shared memory, no
-// atomics) and a second small kernel adds the partials in block order: the
-// result is deterministic.
+// dw needs a sum over all rows, which the TPU kernel carried from one grid
+// step to the next in a revisited output block; here blocks run in
+// parallel, so each block writes f32 partial sums of its rows and a second
+// kernel adds them in a fixed order (no atomics): dw is the same bitwise
+// run to run. Two backward designs, picked by
+// `ops.norm_kernels.norm_bwd_design`:
+// - "registers" (norm_bwd_rows and norm_cols_sum, the register-row
+//   backward of norm_rows.cuh): x and g read once into registers, a warp
+//   or a few warps a row with no block barrier a row, persistent row
+//   groups keeping w and their dw partials in registers, one partial row
+//   a block, the column sums spread over h / 32 blocks. For rows of whole
+//   16-byte vectors, 16-byte-aligned, up to 8 warps x 4 vectors a lane
+//   (4096 f32, 8192 bf16 / f16 elements).
+// - "rowblock" (rms_norm_bwd_kernel, rms_norm_dw_kernel): one block of 256
+//   threads per 16 rows, a row at a time behind block barriers, x and g
+//   read twice, a partial row per block summed by one thread a column; it
+//   takes every row up to 49152 elements.
 //
 // C interface: pointers are device pointers on the caller's current stream;
 // each function returns cudaGetLastError() after its launches.
@@ -235,7 +243,8 @@ cudaError_t launch_fwd(const void* x, const void* w, void* o, float* rstd,
 }
 
 
-// rows per block of the backward; fixes the order of the dw partial sums
+// The rowblock backward: rows per block; fixes the order of the dw partial
+// sums
 constexpr int kBwdRows = 16;
 
 template <typename T, bool kVec>
@@ -327,7 +336,8 @@ cudaError_t launch_bwd(const void* x, const void* w, const float* rstd,
                    (reinterpret_cast<uintptr_t>(dx) % 16) == 0;
   auto kernel = vec ? rms_norm_bwd_kernel<T, true>
                     : rms_norm_bwd_kernel<T, false>;
-  if (smem > 48 * 1024) {
+  // past 48 KB with the static row-sum scratch, the kernel must opt in
+  if (smem + sizeof(float) * kThreads / 32 > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -372,16 +382,39 @@ extern "C" int pdt_rms_norm_fwd(const void* x, const void* w, void* o,
 }
 
 // x, w, g, dx and dw share `dtype` (0 = float32, 1 = bfloat16, 2 =
-// float16); rstd is the forward's (n,) f32 output; dw_part is
-// (ceil(n / 16), h) f32 scratch.
+// float16); rstd is the forward's (n,) f32 output. wpr 0 runs the rowblock
+// design (dw_part: ceil(n / 16) x h f32 scratch), else the register-row
+// design of class (wpr, nv) (dw_part: part_rows x h f32 scratch, at
+// most part_rows blocks); device is the pointers' device, made current for
+// the launch only.
 extern "C" int pdt_rms_norm_bwd(const void* x, const void* w,
                                 const void* rstd, const void* g, void* dx,
                                 void* dw_part, void* dw, int n, int h,
-                                int dtype, void* stream) {
+                                int dtype, int wpr, int nv,
+                                int part_rows, int device, void* stream) {
   if (n <= 0 || h <= 0) return 0;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rstd);
   float* part = static_cast<float*>(dw_part);
+  if (wpr != 0) {
+    switch (dtype) {
+      case 0:
+        return launch_bwd_registers<float, false>(
+            x, w, nullptr, r, g, dx, part, part_rows, dw, nullptr, n, h, wpr,
+            nv, device, s);
+      case 1:
+        return launch_bwd_registers<__nv_bfloat16, false>(
+            x, w, nullptr, r, g, dx, part, part_rows, dw, nullptr, n, h, wpr,
+            nv, device, s);
+      case 2:
+        return launch_bwd_registers<__half, false>(
+            x, w, nullptr, r, g, dx, part, part_rows, dw, nullptr, n, h, wpr,
+            nv, device, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (dtype) {
     case 0:
       return launch_bwd<float>(x, w, r, g, dx, part, dw, n, h, s);

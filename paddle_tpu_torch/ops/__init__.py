@@ -41,6 +41,21 @@ def current_stream(dev: int) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+_SM_COUNT: dict = {}
+
+
+def sm_count(device) -> int:
+    """SMs of a CUDA device (read once a device)."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    n = _SM_COUNT.get(idx)
+    if n is None:
+        n = _SM_COUNT[idx] = \
+            torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
+
+
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0

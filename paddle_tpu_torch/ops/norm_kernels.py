@@ -19,6 +19,14 @@ take). The launch path is kept thin for the decode step's many small
 calls: the stream is read raw, a call without a backward stores no
 statistics and reshapes nothing, and the C entry makes the tensors'
 device current only when it is not.
+
+Each backward has two designs too, picked by `norm_bwd_design`: the
+register-row backward (`bwd_row_class`; x and g read once into
+registers, persistent row groups over fixed runs of rows keeping w and
+their dw / db partials in registers, one f32 partial row a block, then
+the columns summed in a fixed order: `bwd_grid`, `group_rows` and
+`norm_bwd_plan` model it in plain PyTorch), and the row-block backward
+(a block per 16 rows, for the rows no class holds).
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import ctypes
 
 import torch
 
-from . import current_stream, kernel_route, launch_counts
+from . import current_stream, kernel_route, launch_counts, sm_count
 from ._build import kernel_fn
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -34,13 +42,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_float] + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p]
-# pdt_rms_norm_bwd(x, w, rstd, g, dx, dw_part, dw, n, h, dtype, stream)
-_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
+# pdt_rms_norm_bwd(x, w, rstd, g, dx, dw_part, dw, n, h, dtype, wpr, nv,
+#                  part_rows, device, stream)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
     + [ctypes.c_void_p]
-# rows per block of the backward kernel (kBwdRows in csrc/rms_norm.cu):
+# rows per block of the rowblock backward (kBwdRows in csrc/rms_norm.cu):
 # one f32 row of dw partial sums per block
 _BWD_ROWS = 16
-# the backward keeps one f32 row of dw partials in shared memory
+# the rowblock backward keeps one f32 row of dw partials in shared memory
 _BWD_MAX_H = 49152
 
 # The forwards' register-row design (`csrc/norm_rows.cuh`): a row is h / V
@@ -52,6 +61,22 @@ ROW_WARPS = (1, 2, 4)
 ROW_VECS = 8
 
 
+def _class(dtype, h: int, warps, vecs):
+    """``(warps a row, vectors a lane)``: the fewest of ``warps`` whose
+    lanes hold the row's 16-byte vectors at most ``vecs`` each, or None
+    (a row not of whole vectors, or wider than the largest)."""
+    if dtype not in _DTYPES or h <= 0:
+        return None
+    v = 16 // dtype.itemsize
+    if h % v:
+        return None
+    nvec = h // v
+    for wpr in warps:
+        if nvec <= 32 * wpr * vecs:
+            return wpr, -(-nvec // (32 * wpr))
+    return None
+
+
 def row_class(dtype, h: int):
     """The register-row design's class for rows of ``h`` elements of
     ``dtype``: ``(warps a row, vectors a lane)``, the fewest warps whose
@@ -59,16 +84,7 @@ def row_class(dtype, h: int):
     holds vectors t, t + 32 w, ..., so lanes differ by at most one), or
     None: h not a whole number of vectors, or past the largest class
     (4 warps x 8 vectors: 4096 f32, 8192 bf16 / f16 elements)."""
-    if dtype not in _DTYPES or h <= 0:
-        return None
-    v = 16 // dtype.itemsize
-    if h % v:
-        return None
-    nvec = h // v
-    for wpr in ROW_WARPS:
-        if nvec <= 32 * wpr * ROW_VECS:
-            return wpr, -(-nvec // (32 * wpr))
-    return None
+    return _class(dtype, h, ROW_WARPS, ROW_VECS)
 
 
 def norm_design(dtype, h: int) -> str:
@@ -103,6 +119,153 @@ def _route(dtype, h: int, ptrs: int, design):
             f"aligned pointers; got h={h} {dtype}"
             + (", a pointer off 16 bytes" if ptrs & 15 else ""))
     return cls
+
+
+# The backwards' register-row design (`csrc/norm_rows.cuh`): the forward's
+# lane map, at most BWD_ROW_VECS vectors a lane (a row group holds x, g,
+# w and f32 dw / db partials of its columns), so wider rows take more
+# warps: to 4096 f32, 8192 bf16 / f16 elements. A row group loads its next
+# row while it computes the current one (a second register set).
+BWD_ROW_WARPS = (1, 2, 4, 8)
+BWD_ROW_VECS = 4
+# kBwdBlock: threads of a backward block; kBwdMaxBlocksPerSm: blocks an
+# SM at most, so the partial rows a call allocates an SM; kSumWarps: warps
+# of a column-sum block, which sums 32 columns
+BWD_BLOCK = 256
+BWD_BLOCKS_PER_SM = 8
+BWD_SUM_WARPS = 16
+
+
+def bwd_row_class(dtype, h: int):
+    """The register-row backward's class for rows of ``h`` elements of
+    ``dtype``: ``(warps a row, vectors a lane)``, the fewest warps whose
+    lanes hold the row's 16-byte vectors at most `BWD_ROW_VECS` each
+    (lane t holds vectors t, t + 32 w, ..., as in `row_class`), or None:
+    h not a whole number of vectors, or past the largest class (8 warps
+    x 4 vectors: 4096 f32, 8192 bf16 / f16 elements)."""
+    return _class(dtype, h, BWD_ROW_WARPS, BWD_ROW_VECS)
+
+
+def norm_bwd_design(dtype, h: int) -> str:
+    """Which backward kernels of `csrc/rms_norm.cu` / `csrc/layer_norm.cu`
+    take rows of ``h`` elements of ``dtype`` on the card:
+    ``"registers"`` (the register-row backward: `bwd_row_class`) where a
+    class holds the row, else ``"rowblock"`` (a block per 16 rows, x and
+    g read twice). A pointer off 16 bytes also goes to the rowblock
+    kernels."""
+    return "rowblock" if bwd_row_class(dtype, h) is None else "registers"
+
+
+def _bwd_route(dtype, h: int, ptrs: int, design, max_h: int):
+    """``(warps a row, vectors a lane)`` of the backward that runs, (0, 0)
+    for the rowblock one: ``design`` when the caller names one (private;
+    an input it cannot take raises ValueError), else `norm_bwd_design`'s,
+    and the rowblock design when a pointer (``ptrs``: the pointers
+    or-ed) is off 16 bytes. A row neither design takes raises."""
+    if design not in (None, "registers", "rowblock"):
+        raise ValueError(f"no norm backward design {design!r}; want "
+                         f"'registers' or 'rowblock'")
+    cls = bwd_row_class(dtype, h)
+    if design == "registers" and (cls is None or ptrs & 15):
+        raise ValueError(
+            f"the registers norm backward takes rows of whole 16-byte "
+            f"vectors (up to {32 * BWD_ROW_WARPS[-1] * BWD_ROW_VECS} "
+            f"vectors) at 16-byte-aligned pointers; got h={h} {dtype}"
+            + (", a pointer off 16 bytes" if ptrs & 15 else ""))
+    if design == "registers" or (design is None and cls is not None
+                                 and not ptrs & 15):
+        return cls
+    if h > max_h:
+        raise ValueError(f"the rowblock norm backward takes h <= {max_h}; "
+                         f"got {h}")
+    return 0, 0
+
+
+def bwd_grid(n: int, wpr: int, sms: int, blocks_per_sm: int):
+    """``(blocks, row groups a block)`` of the register-row backward over
+    ``n`` rows with ``wpr`` warps a row (`launch_bwd_rows` in
+    `csrc/norm_rows.cuh`): `BWD_BLOCK` threads a block, unless the rows
+    would then not fill the ``sms`` SMs (a row group a block then); one
+    wave of the blocks an SM holds (``blocks_per_sm``, the occupancy,
+    at most `BWD_BLOCKS_PER_SM`)."""
+    groups = BWD_BLOCK // (32 * wpr)
+    if -(-n // groups) < sms:
+        groups = 1
+    return min(-(-n // groups), blocks_per_sm * sms), groups
+
+
+def group_rows(n: int, groups_total: int):
+    """The contiguous run ``[lo, hi)`` of rows that each of the grid's
+    ``groups_total`` row groups walks, in group order (group i of block
+    b is ``b * groups + i``)."""
+    return [(n * i // groups_total, n * (i + 1) // groups_total)
+            for i in range(groups_total)]
+
+
+def _sum_rows_in_order(parts: torch.Tensor, runs) -> torch.Tensor:
+    """f32 sums of ``parts`` (rows, h) over each run ``[lo, hi)`` of rows,
+    row after row in order (one run a row group)."""
+    out = torch.zeros(len(runs), parts.shape[1], dtype=torch.float32)
+    longest = max((hi - lo for lo, hi in runs), default=0)
+    lo = torch.tensor([r[0] for r in runs])
+    hi = torch.tensor([r[1] for r in runs])
+    for k in range(longest):
+        live = (lo + k) < hi
+        rows = torch.where(live, lo + k, 0)
+        out += torch.where(live[:, None], parts[rows], 0.0)
+    return out
+
+
+def norm_bwd_plan(x, w, g, rstd, mean=None, *, sms: int,
+                  blocks_per_sm: int):
+    """The register-row backward's plan in plain PyTorch, in its orders:
+    ``(dx, dw, db)`` (db None without ``mean``: RMSNorm) for (n, h) rows
+    of x and g, w, and the forward's f32 statistics. dx row by row in f32
+    (dx = rstd (w g - mean(w g) - x̂ mean(w g x̂)), the mean(w g) term for
+    LayerNorm only); dw = Σ g x̂ and db = Σ g: each row group of
+    `bwd_grid` / `group_rows` sums its run of rows in order, a block's
+    groups add in group order into its partial row, and each column's
+    partial rows are summed as `norm_cols_sum` does (warp k of
+    `BWD_SUM_WARPS` takes rows k, k + BWD_SUM_WARPS, ..., then the warps
+    in order). The card's kernel rounds in the same places; its f32
+    products may fuse into FMAs, so the two agree within f32 rounding,
+    not bitwise."""
+    n, h = x.shape
+    wpr, _ = bwd_row_class(x.dtype, h)
+    xf, gf, wf = x.float(), g.float(), w.float()
+    mu = mean.float()[:, None] if mean is not None else 0.0
+    r = rstd.float()[:, None]
+    xh = (xf - mu) * r
+    wg = gf * wf
+    m2 = (wg * xh).mean(-1, keepdim=True)
+    m1 = wg.mean(-1, keepdim=True) if mean is not None else 0.0
+    dx = (r * (wg - m1 - xh * m2)).to(x.dtype)
+    blocks, groups = bwd_grid(n, wpr, sms, blocks_per_sm)
+    runs = group_rows(n, blocks * groups)
+
+    def total(parts):
+        per_group = _sum_rows_in_order(parts, runs)
+        per_block = per_group[0::groups].clone()
+        for k in range(1, groups):
+            per_block += per_group[k::groups]
+        # the column sums: warp k's rows k, k + BWD_SUM_WARPS, ... in order
+        nb = per_block.shape[0]
+        taken = [list(range(k, nb, BWD_SUM_WARPS))
+                 for k in range(BWD_SUM_WARPS)]
+        starts = [0]
+        for rows in taken:
+            starts.append(starts[-1] + len(rows))
+        per_warp = _sum_rows_in_order(
+            per_block[[i for rows in taken for i in rows]],
+            list(zip(starts[:-1], starts[1:])))
+        out = torch.zeros(h, dtype=torch.float32)
+        for k in range(BWD_SUM_WARPS):
+            out += per_warp[k]
+        return out.to(w.dtype)
+
+    dw = total(gf * xh)
+    db = total(gf) if mean is not None else None
+    return dx, dw, db
 
 
 def rms_norm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
@@ -161,15 +324,27 @@ def _rms_fwd(x2: torch.Tensor, w: torch.Tensor, eps: float, _design=None,
     return o, rstd
 
 
-def _rms_bwd(x2, w, rstd, g2):
-    """Launch the backward kernel on (n, h) rows: ``(dx, dw)``, dx in x's
-    dtype, dw summed over the rows in f32 (per-block partials added in
-    block order by a second kernel) and cast to w's dtype."""
-    _check(x2, w)
+def _bwd_part(x2, planes: int, wpr: int, n: int, h: int):
+    """f32 scratch for the backward's partial rows and its row count:
+    `BWD_BLOCKS_PER_SM` rows an SM for the register-row design (it
+    launches at most that many blocks), ceil(n / 16) for the rowblock
+    one."""
+    rows = sm_count(x2.device) * BWD_BLOCKS_PER_SM if wpr \
+        else -(-n // _BWD_ROWS)
+    return torch.empty(planes, rows, h, dtype=torch.float32,
+                       device=x2.device), rows
+
+
+def _rms_bwd(x2, w, rstd, g2, _design=None):
+    """Launch the backward kernels on (n, h) rows: ``(dx, dw)``, dx in x's
+    dtype, dw summed over the rows in f32 (partial rows added in a fixed
+    order by a second kernel) and cast to w's dtype. The design is
+    `norm_bwd_design`'s unless ``_design`` names one (private: it lets a
+    caller time the other at the same shape)."""
     n, h = x2.shape
-    if h > _BWD_MAX_H:
-        raise ValueError(f"rms_norm backward kernel takes h <= "
-                         f"{_BWD_MAX_H}; got {h}")
+    wpr, nv = _bwd_route(x2.dtype, h, x2.data_ptr() | w.data_ptr()
+                         | g2.data_ptr(), _design, _BWD_MAX_H)
+    dev = _check(x2, w)
     if g2.shape != x2.shape or g2.dtype != x2.dtype or not g2.is_contiguous():
         raise ValueError("rms_norm backward wants a contiguous gradient of "
                          "x's shape and dtype")
@@ -179,13 +354,10 @@ def _rms_bwd(x2, w, rstd, g2):
     fn = kernel_fn("rms_norm", "pdt_rms_norm_bwd", _BWD_ARGTYPES)
     dx = torch.empty_like(x2)
     dw = torch.empty_like(w)
-    part = torch.empty(-(-n // _BWD_ROWS), h, dtype=torch.float32,
-                       device=x2.device)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    with torch.cuda.device(x2.device):
-        err = fn(x2.data_ptr(), w.data_ptr(), rstd.data_ptr(),
-                 g2.data_ptr(), dx.data_ptr(), part.data_ptr(),
-                 dw.data_ptr(), n, h, _DTYPES[x2.dtype], stream)
+    part, rows = _bwd_part(x2, 1, wpr, n, h)
+    err = fn(x2.data_ptr(), w.data_ptr(), rstd.data_ptr(), g2.data_ptr(),
+             dx.data_ptr(), part.data_ptr(), dw.data_ptr(), n, h,
+             _DTYPES[x2.dtype], wpr, nv, rows, dev, current_stream(dev))
     if err:
         raise RuntimeError(f"rms_norm backward kernel launch failed: CUDA "
                            f"error {err}")
@@ -237,11 +409,11 @@ _LN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
                                         ctypes.c_float] \
     + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # pdt_layer_norm_bwd(x, w, mean, rstd, g, dx, part, dw, db, n, h, dtype,
-#                    stream)
-_LN_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 \
+#                    wpr, nv, part_rows, device, stream)
+_LN_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
     + [ctypes.c_void_p]
-# the backward keeps one f32 row of dw and one of db partials in shared
-# memory
+# the rowblock backward keeps one f32 row of dw and one of db partials in
+# shared memory
 _LN_BWD_MAX_H = 24576
 
 # limits on `ops.kernel_errors` for the LayerNorm kernels against their
@@ -306,15 +478,15 @@ def _ln_fwd(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float,
     return (o, st[0], st[1]) if stats else (o, None, None)
 
 
-def _ln_bwd(x2, w, mean, rstd, g2):
-    """Launch the backward kernel on (n, h) rows: ``(dx, dw, db)``, dx in
-    x's dtype, dw and db summed over the rows in f32 (per-block partials
-    added in block order by a second kernel) and cast to w's dtype."""
-    _check(x2, w)
+def _ln_bwd(x2, w, mean, rstd, g2, _design=None):
+    """Launch the backward kernels on (n, h) rows: ``(dx, dw, db)``, dx in
+    x's dtype, dw and db summed over the rows in f32 (partial rows added
+    in a fixed order by a second kernel) and cast to w's dtype. The
+    design as `_rms_bwd`'s."""
     n, h = x2.shape
-    if h > _LN_BWD_MAX_H:
-        raise ValueError(f"layer_norm backward kernel takes h <= "
-                         f"{_LN_BWD_MAX_H}; got {h}")
+    wpr, nv = _bwd_route(x2.dtype, h, x2.data_ptr() | w.data_ptr()
+                         | g2.data_ptr(), _design, _LN_BWD_MAX_H)
+    dev = _check(x2, w)
     if g2.shape != x2.shape or g2.dtype != x2.dtype or \
             not g2.is_contiguous():
         raise ValueError("layer_norm backward wants a contiguous gradient "
@@ -327,14 +499,11 @@ def _ln_bwd(x2, w, mean, rstd, g2):
     dx = torch.empty_like(x2)
     dw = torch.empty_like(w)
     db = torch.empty_like(w)
-    part = torch.empty(2, -(-n // _BWD_ROWS), h, dtype=torch.float32,
-                       device=x2.device)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    with torch.cuda.device(x2.device):
-        err = fn(x2.data_ptr(), w.data_ptr(), mean.data_ptr(),
-                 rstd.data_ptr(), g2.data_ptr(), dx.data_ptr(),
-                 part.data_ptr(), dw.data_ptr(), db.data_ptr(), n, h,
-                 _DTYPES[x2.dtype], stream)
+    part, rows = _bwd_part(x2, 2, wpr, n, h)
+    err = fn(x2.data_ptr(), w.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+             g2.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(),
+             db.data_ptr(), n, h, _DTYPES[x2.dtype], wpr, nv, rows, dev,
+             current_stream(dev))
     if err:
         raise RuntimeError(f"layer_norm backward kernel launch failed: CUDA "
                            f"error {err}")

@@ -41,7 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import kernel_route, launch_counts
+from . import current_stream, kernel_route, launch_counts, sm_count
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_Q = 8
@@ -130,8 +130,7 @@ def split_plan(n_qblocks: int, hk: int, rows: int, pps: int,
                      -(-pps // split_pages))
 
 
-# per CUDA device index: its SM count, its split tickets
-_SM_COUNT: dict = {}
+# per (CUDA device index, stream handle): its split tickets
 _TICKETS: dict = {}
 
 
@@ -141,28 +140,32 @@ def _index(device) -> int:
 
 
 def split_tickets(device, n: int) -> torch.Tensor:
-    """At least ``n`` int32 counters on a CUDA device, zero: the split
-    design's tickets, one a (q block, KV head). Kept across calls; every
-    launch leaves them zero (the last split block of each resets its
-    counter), so two launches must not use them at once: the wrappers
-    launch on the caller's current stream, one launch after another."""
+    """At least ``n`` int32 counters, zero, for a launch on the current
+    stream of a CUDA device: the split design's tickets, one a (q block,
+    KV head). A buffer belongs to one (device, stream) pair and is kept
+    across calls; every launch leaves it zero (the last split block of
+    each q block and head resets its counter). Launches on one stream run
+    one after another, so they never share a counter while one is in
+    flight; launches on two streams take two buffers and may overlap. A
+    buffer is made (or grown) before the first launch that needs it on
+    its stream: during a CUDA-graph capture this raises instead of
+    allocating, so capture on a stream that has launched the same call
+    once before."""
     idx = _index(device)
-    buf = _TICKETS.get(idx)
+    key = (idx, current_stream(idx))
+    buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "split tickets: no counters for this stream yet, and none "
+                "are made during a CUDA-graph capture; launch once on the "
+                "capturing stream before the capture")
         buf = torch.zeros(max(n, 4096), dtype=torch.int32,
                           device=torch.device("cuda", idx))
-        _TICKETS[idx] = buf
+        _TICKETS[key] = buf
     return buf
 
 
-def sm_count(device) -> int:
-    """SMs of a CUDA device (read once a device)."""
-    idx = _index(device)
-    n = _SM_COUNT.get(idx)
-    if n is None:
-        n = _SM_COUNT[idx] = \
-            torch.cuda.get_device_properties(idx).multi_processor_count
-    return n
 
 
 # ---------------------------------------------------------------------------

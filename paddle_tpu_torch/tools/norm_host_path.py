@@ -37,18 +37,19 @@ CALLS = 200
 REPS = 7
 
 
-def _before_norm_kernels(root: Path):
-    """The earlier checkout's `ops.norm_kernels`, its package loaded as
+def before_ops(root: Path, module: str):
+    """The earlier checkout's `ops.<module>`, its package loaded once as
     ``_before_ops`` (its relative imports, `_build` included, resolve
-    inside the earlier checkout)."""
-    ops = root / "paddle_tpu_torch" / "ops"
-    spec = importlib.util.spec_from_file_location(
-        "_before_ops", ops / "__init__.py",
-        submodule_search_locations=[str(ops)])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules["_before_ops"] = pkg
-    spec.loader.exec_module(pkg)
-    return importlib.import_module("_before_ops.norm_kernels")
+    inside the earlier checkout, which builds its own ``csrc/``)."""
+    if "_before_ops" not in sys.modules:
+        ops = root / "paddle_tpu_torch" / "ops"
+        spec = importlib.util.spec_from_file_location(
+            "_before_ops", ops / "__init__.py",
+            submodule_search_locations=[str(ops)])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules["_before_ops"] = pkg
+        spec.loader.exec_module(pkg)
+    return importlib.import_module(f"_before_ops.{module}")
 
 
 def _host_us(call) -> float:
@@ -100,7 +101,7 @@ def main(argv=None) -> int:
         return 2
     from ..ops import _build
     from ..ops import norm_kernels as now
-    before = _before_norm_kernels(args.before.resolve())
+    before = before_ops(args.before.resolve(), "norm_kernels")
     F = torch.nn.functional
     card = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",

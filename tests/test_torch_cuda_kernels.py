@@ -59,6 +59,15 @@ design's statistics within their limits of autograd, and a planted fault
 (rstd without eps on rows where eps matters; the mean left out) outside
 them; every register-row class the C entries build, at its widest and
 narrowest row; rows off 16 bytes take the strided design;
+the norm backwards' two designs (`nk.norm_bwd_design`: the register-row
+backward, a block per 16 rows) at the main paths' shapes and at rows 1,
+300 and 3001, every register-row class, at those limits and bitwise on
+repeat, rows off 16 bytes on the rowblock route, and partial rows of
+exactly 48 KB of shared memory on both routes;
+two ragged decode attentions racing on two streams, bitwise equal to the
+same calls one after the other (the split tickets are per stream);
+the dense flash backward's wgmma kernels at the 8B slice, the bench
+shape and the A14B shape against the plain backward;
 the tiny MoE (dropless through the grouped-matmul kernel) and tiny BERT
 (LayerNorm kernels) train steps as the tiny Llama's: losses within
 1e-4, parameters within 1e-4 of their norm;
@@ -922,11 +931,12 @@ FLASH_CASES = [("causal", 2, 300, 300, 4, 2, True, None),
                ("noncausal", 2, 130, 190, 4, 4, False, None),
                ("gqa7", 1, 300, 300, 28, 4, True, None),
                # many unmasked key tiles in a row at both head dims: where
-               # a register A operand of wgmma lives across the key loop
-               # (Q in the dQ kernel), ptxas has given its registers to
-               # other values in the loop with no warning (the forward
-               # with a key tile as wide as the head dim read P in place
-               # of Q from the second tile on); this case shows it
+               # a register A operand of wgmma lives across the key loop,
+               # ptxas has given its registers to other values in the
+               # loop with no warning (the forward with a key tile as
+               # wide as the head dim read P in place of Q from the
+               # second tile on); the wgmma kernels hold no such operand,
+               # and this case would show one
                ("noncausal_long", 1, 200, 2048, 4, 2, False, None)]
 
 
@@ -1905,3 +1915,241 @@ def test_norm_values_take_rows_in_any_rank(cuda):
         x.reshape(8, 4096), w, 1e-5)[0])
     assert torch.equal(y.reshape(8, 4096), nk._ln_fwd(
         x.reshape(8, 4096), w, b, 1e-5)[0])
+
+
+# the norm backwards' two designs (`nk.norm_bwd_design`): the main paths'
+# shapes (the RMSNorm backward of train_8b_width, train_recipe and the
+# A14B-width cut; the LayerNorm backward of BERT-base and at the A14B
+# width), then rows 1, 300 and a ragged 3001 at two widths in every dtype
+NORM_BWD_MAIN = [("rms", 4096, 4096, torch.bfloat16),
+                 ("rms", 16384, 1024, torch.bfloat16),
+                 ("rms", 4096, 3584, torch.bfloat16),
+                 ("ln", 16384, 768, torch.float32),
+                 ("ln", 4096, 3584, torch.bfloat16)]
+NORM_BWD_CASES = NORM_BWD_MAIN + [
+    (kind, rows, h, dtype) for kind in ("rms", "ln")
+    for rows in (1, 300, 3001) for h in (768, 4096) for dtype in DTYPES]
+
+
+def _norm_bwd_inputs(cuda, kind, rows, h, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (3 * torch.randn(rows, h, device=cuda, generator=g) + 1).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, device=cuda, generator=g)).to(dtype)
+    b = (0.1 * torch.randn(h, device=cuda, generator=g)).to(dtype)
+    dy = torch.randn(rows, h, device=cuda, generator=g).to(dtype)
+    if kind == "rms":
+        stats = (nk._rms_fwd(x, w, 1e-5)[1],)
+        leaves = [t.clone().requires_grad_() for t in (x, w)]
+        ref = nk.rms_norm_ref(*leaves, 1e-5)
+    else:
+        stats = nk._ln_fwd(x, w, b, 1e-12)[1:]
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        ref = nk.layer_norm_ref(*leaves, 1e-12)
+    want = torch.autograd.grad(ref, leaves, dy)
+    return x, w, dy, stats, want
+
+
+def _norm_bwd_close(kind, got, want, dtype, h):
+    """RMSNorm: dx at the forward's tolerances, dw at rtol 2^-7 and 1e-3
+    of the largest |dw| (f32: 1e-5 / 1e-4), as the backward's test above;
+    LayerNorm: dx, dw, db within `nk.LN_LIMITS`."""
+    if kind == "ln":
+        lim = nk.LN_LIMITS[dtype]
+        for name, a, r in zip(("dx", "dw", "db"), got, want):
+            assert a.dtype == dtype, name
+            rel, row = kernel_errors(a.reshape(-1, h), r.reshape(-1, h))
+            assert rel <= lim["rel"] and row <= lim["row"], (name, rel, row)
+        return
+    (dx, dw), (rdx, rdw) = got, want
+    assert dx.dtype == dtype and dw.dtype == dtype
+    if dtype != torch.float32:
+        torch.testing.assert_close(dx.float(), rdx.float(), rtol=2 ** -7,
+                                   atol=1e-3)
+        top = rdw.float().abs().max().item()
+        torch.testing.assert_close(dw.float(), rdw.float(), rtol=2 ** -7,
+                                   atol=1e-3 * top)
+    else:
+        torch.testing.assert_close(dx, rdx, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dw, rdw, rtol=1e-4, atol=1e-4)
+
+
+def _norm_bwd_call(kind, x, w, dy, stats, **kw):
+    if kind == "rms":
+        return nk._rms_bwd(x, w, stats[0], dy, **kw)
+    return nk._ln_bwd(x, w, *stats, dy, **kw)
+
+
+@pytest.mark.parametrize("kind,rows,h,dtype", NORM_BWD_CASES,
+                         ids=[f"{k}-{r}x{h}-{str(d)[6:]}"
+                              for k, r, h, d in NORM_BWD_CASES])
+def test_norm_bwd_designs_match_plain(cuda, kind, rows, h, dtype):
+    """Each design (the register-row one, the rowblock one) against
+    autograd of the plain version, one launch counted a call, dx and dw /
+    db bitwise on a repeat; the default route takes the register-row
+    design here."""
+    x, w, dy, stats, want = _norm_bwd_inputs(cuda, kind, rows, h, dtype,
+                                             rows + h)
+    assert nk.norm_bwd_design(dtype, h) == "registers"
+    key = "rms_norm_bwd" if kind == "rms" else "layer_norm_bwd"
+    for kw in (dict(_design="registers"), dict(_design="rowblock"), {}):
+        before = launch_counts[key]
+        got = _norm_bwd_call(kind, x, w, dy, stats, **kw)
+        assert launch_counts[key] == before + 1, kw
+        _norm_bwd_close(kind, got, want, dtype, h)
+        again = _norm_bwd_call(kind, x, w, dy, stats, **kw)
+        assert all(torch.equal(a, c) for a, c in zip(got, again)), kw
+    # the default route is the registers design, bitwise
+    default = _norm_bwd_call(kind, x, w, dy, stats)
+    chosen = _norm_bwd_call(kind, x, w, dy, stats, _design="registers")
+    assert all(torch.equal(a, c) for a, c in zip(default, chosen))
+
+
+# every instance of the register-row backward (`nk.bwd_row_class`'s
+# classes: 1-4 vectors a lane at one warp a row, 3-4 at 2, 4 and 8), at
+# the widest row of each class and at the narrowest (its last slot live in
+# one lane)
+BWD_ROW_CLASSES = [(wpr, nv, widest) for wpr in nk.BWD_ROW_WARPS
+                   for nv in range(1 if wpr == 1 else 3, nk.BWD_ROW_VECS + 1)
+                   for widest in (True, False)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("wpr,nv,widest", BWD_ROW_CLASSES)
+def test_norm_bwd_every_row_class(cuda, wpr, nv, widest, dtype):
+    """Both backwards on the default route at each class the C entries
+    build, over 8 rows (a row group a block) and 1001 (groups sharing
+    blocks, runs of several rows): against autograd of the plain version,
+    bitwise on a repeat."""
+    v = 16 // torch.empty((), dtype=dtype).element_size()
+    h = v * 32 * wpr * (nv if widest else nv - 1) + (0 if widest else v)
+    assert nk.bwd_row_class(dtype, h) == (wpr, nv)
+    for rows in (8, 1001):
+        for kind in ("rms", "ln"):
+            x, w, dy, stats, want = _norm_bwd_inputs(cuda, kind, rows, h,
+                                                     dtype, rows + h)
+            got = _norm_bwd_call(kind, x, w, dy, stats)
+            _norm_bwd_close(kind, got, want, dtype, h)
+            again = _norm_bwd_call(kind, x, w, dy, stats)
+            assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_norm_bwd_off_16_bytes_takes_the_rowblock_design(cuda, dtype):
+    """Rows that start off 16 bytes: the default route launches the
+    rowblock kernels (right, counted once), the registers design refuses
+    them before any launch."""
+    rows, h = 300, 768
+    g = torch.Generator(device=cuda).manual_seed(4)
+    buf = (3 * torch.randn(rows * h + 1, device=cuda, generator=g)).to(dtype)
+    x = buf[1:].view(rows, h)
+    assert x.data_ptr() % 16 != 0
+    w = (1 + 0.1 * torch.randn(h, device=cuda, generator=g)).to(dtype)
+    b = torch.zeros(h, device=cuda, dtype=dtype)
+    dy = torch.randn(rows, h, device=cuda, generator=g).to(dtype)
+    for kind in ("rms", "ln"):
+        if kind == "rms":
+            stats = (nk._rms_fwd(x, w, 1e-5)[1],)
+            leaves = [t.clone().requires_grad_() for t in (x, w)]
+            want = torch.autograd.grad(nk.rms_norm_ref(*leaves, 1e-5),
+                                       leaves, dy)
+        else:
+            stats = nk._ln_fwd(x, w, b, 1e-12)[1:]
+            leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+            want = torch.autograd.grad(nk.layer_norm_ref(*leaves, 1e-12),
+                                       leaves, dy)
+        key = "rms_norm_bwd" if kind == "rms" else "layer_norm_bwd"
+        before = dict(launch_counts)
+        got = _norm_bwd_call(kind, x, w, dy, stats)
+        assert launch_counts[key] == before[key] + 1
+        _norm_bwd_close(kind, got, want, dtype, h)
+        rowblock = _norm_bwd_call(kind, x, w, dy, stats, _design="rowblock")
+        assert all(torch.equal(a, c) for a, c in zip(got, rowblock))
+        before = dict(launch_counts)
+        with pytest.raises(ValueError, match="registers norm backward"):
+            _norm_bwd_call(kind, x, w, dy, stats, _design="registers")
+        assert launch_counts == before
+
+
+@pytest.mark.parametrize("kind,h,dtype,design", [
+    ("ln", 6144, torch.bfloat16, "registers"),
+    ("ln", 6144, torch.float32, "rowblock"),
+    ("rms", 12288, torch.float32, "rowblock")])
+def test_norm_bwd_at_48_kb_of_shared_memory(cuda, kind, h, dtype, design):
+    """Widths whose partial rows fill exactly 48 KB of shared memory: with
+    the static row-sum scratch the kernel needs the opt-in past 48 KB
+    (without it the launch is refused), on the route the width takes."""
+    assert nk.norm_bwd_design(dtype, h) == design
+    x, w, dy, stats, want = _norm_bwd_inputs(cuda, kind, 300, h, dtype, h)
+    got = _norm_bwd_call(kind, x, w, dy, stats)
+    _norm_bwd_close(kind, got, want, dtype, h)
+
+
+def test_split_tickets_per_stream_two_launches_at_once(cuda):
+    """Two ragged decode attentions over different pages, launched at
+    once on two streams (both streams wait on one event recorded after a
+    spin on the default stream, so both launches are queued before
+    either starts): each stream takes its own ticket buffer, and both
+    outputs are bitwise those of the same calls one after the other."""
+    cases = []
+    for seed in (1, 2):
+        rng = np.random.default_rng(seed)
+        arrays = _case(rng, 8, 4, [1] * 8,
+                       [2048, 1500, 2000, 1024, 517, 300, 2048, 1777], 1, 0)
+        args = [torch.from_numpy(a).to(cuda) for a in arrays]
+        args[:3] = [a.bfloat16() for a in args[:3]]
+        cases.append(args)
+    pps = cases[0][6].shape[1]
+    plan = ra.split_plan(8, 8, 4, pps, 16,
+                         ra.split_kernel(torch.bfloat16, 1, 128),
+                         ra.sm_count(cuda))
+    assert plan.n_splits > 1      # the launches merge on tickets
+    call = lambda a: ra._ragged_cuda(*a, 128 ** -0.5, None, 1)
+    want = [call(a) for a in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:       # each stream's tickets made before the race
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            call(cases[0])
+    torch.cuda.synchronize()
+    bufs = [ra._TICKETS[(cuda.index or 0, s.cuda_stream)] for s in streams]
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+    go = torch.cuda.Event()
+    for _ in range(5):
+        torch.cuda._sleep(20_000_000)
+        go.record()
+        outs = []
+        for s, args in zip(streams, cases):
+            s.wait_event(go)
+            with torch.cuda.stream(s):
+                outs.append(call(args))
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+    assert all(bool((t == 0).all()) for t in ra._TICKETS.values())
+
+
+# the dense flash backward's main shapes (the Llama-3-8B training slice,
+# the bench recipe's D 64, Qwen2-MoE-A14B's 7 query heads a KV head): the
+# wgmma kernels, every operand that outlives a product read from shared
+# memory, against the plain backward
+FLASH_BWD_MAIN = [("slice_8b", 2, 2048, 32, 8, 128),
+                  ("bench", 8, 2048, 16, 8, 64),
+                  ("gqa7_a14b", 1, 4096, 28, 4, 128)]
+
+
+@pytest.mark.parametrize("shape", FLASH_BWD_MAIN,
+                         ids=[s[0] for s in FLASH_BWD_MAIN])
+def test_flash_bwd_wgmma_at_the_main_shapes(cuda, shape):
+    _, b, s, h, hk, d = shape
+    assert fa.sm90_design(torch.bfloat16, d) == "wgmma"
+    g = torch.Generator(device=cuda).manual_seed(s + h + d)
+    f = lambda *sh: torch.randn(*sh, device=cuda, generator=g).bfloat16()
+    q, k, v, do = f(b, s, h, d), f(b, s, hk, d), f(b, s, hk, d), \
+        f(b, s, h, d)
+    o, lse = fa._flash_fwd(q, k, v, d ** -0.5, True, None)
+    got = fa._flash_bwd(q, k, v, o, lse, do, d ** -0.5, True, None)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, True)
+    for a, r in zip(got, want):
+        _flash_close(a, r, torch.bfloat16)
+    again = fa._flash_bwd(q, k, v, o, lse, do, d ** -0.5, True, None)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
