@@ -217,10 +217,17 @@ Packed attention and rope add, in the same run (after 5i):
     varlen_attn` on the rows flattened with cumulative lengths
     (``library_call``, ``library_torch``), SDPA under an explicit
     block-diagonal causal mask (``masked_sdpa_ms``) and the per-
-    document SDPA loop beside it; then the rope kernel, forward and
-    backward, bitwise against its plain version at the packed
-    pretraining run's q and k shapes and in f32 and f16, with two
-    planted faults (a sign error in the backward, half-split pairs);
+    document SDPA loop beside it; then the rope kernels (`_rope_phase`),
+    forward and backward, both designs (`rp.rope_design`: rope_vec, q and
+    k in one launch, and the pair design) bitwise against the plain
+    version at the packed pretraining run's q, k and q + k shapes, in
+    f32, f16 at D 72 and on a view off 16 bytes (the pair design by
+    rule), with three planted faults (a sign error in the backward,
+    half-split pairs, trig one position off); rope_vec, the pair design,
+    two single rope_vec launches (q + k) and ``clone`` of the same
+    tensors (the same bytes read and written) timed in turns at q, k and
+    q + k, forward and backward (device_ms, host_us, ms), and ptxas's
+    spills (one fails the run);
 5j. ``packed_sft_8b {...}``: `F.flash_attn_unpadded` over 16384 packed
     tokens (seeded documents of 64-2048 tokens, a padding tail), bf16,
     causal, forward and backward: exactly 1/1/1 varlen launches and one
@@ -231,8 +238,8 @@ Packed attention and rope add, in the same run (after 5i):
     500000), document-masked varlen attention and o_proj at Llama-3-8B
     width on x (2, 8192, 4096) bf16, 5 AdamW steps on a mean-square
     loss: the loss falls; step ms, peak memory, the varlen, plan and
-    rope device ms a step; exactly 1/1/1 varlen, 1 plan and 2 + 2 rope
-    launches a step; then both varlen designs on the last step's own
+    rope device ms a step; exactly 1/1/1 varlen, 1 plan and 1 + 1 rope
+    launches a step (q and k in one launch each way); then both varlen designs on the last step's own
     inputs against the plain versions and timed as in 3j (the
     ``pretrain_8b`` records the kernels line reports).
 
@@ -3570,58 +3577,140 @@ def _masked_sdpa_library(q, k, v, seg_q, seg_k, causal, lens=None):
     return fwd, bwd, loop
 
 
+# the rope phase's cases (label, B, S, H, HK, D, dtype, timed, bytes off
+# 16 of q's pointer, the design `rp.rope_design` must pick): the packed
+# pretraining run's q, k and q + k (HK 0: a single tensor), f32, f16 at D
+# 72 with k, D 2 and a view off 16 bytes (both the pair design by rule)
+def _rope_cases():
+    b, s = PACKED_PRETRAIN_SHAPE
+    return [("pretrain_q", b, s, 32, 0, 128, "bfloat16", True, 0, "vec"),
+            ("pretrain_k", b, s, 8, 0, 128, "bfloat16", True, 0, "vec"),
+            ("pretrain_qk", b, s, 32, 8, 128, "bfloat16", True, 0, "vec"),
+            ("f32", 2, 1000, 4, 0, 128, "float32", False, 0, "vec"),
+            ("f16_d72", 2, 999, 3, 1, 72, "float16", False, 0, "vec"),
+            ("d2", 3, 17, 2, 1, 2, "bfloat16", False, 0, "pair"),
+            ("view_off16", 2, 300, 4, 2, 128, "bfloat16", False, 8, "pair")]
+
+
+def _rope_timed(rp, xs, c, sn, nbytes):
+    """rope_vec, the pair design, ``clone`` of the same tensors (the same
+    bytes read and written) and, for q + k, two single rope_vec launches,
+    forward and backward (sign -1), in turns by `timed_in_turns` over
+    input sets rotated past the L2 (the first set the case's own)."""
+    import torch
+    sets = [tuple(xs) + (None,) * (2 - len(xs))]
+    for _ in range(rotation_sets(nbytes) - 1):
+        sets.append(tuple(torch.randn_like(x, dtype=torch.float32)
+                          .to(x.dtype) for x in xs) + (None,) * (2 - len(xs)))
+    named = {}
+    for sign, tag in ((1, ""), (-1, "_bwd")):
+        named["vec" + tag] = lambda st, sg=sign: rp._launch(
+            st[0], st[1], c, sn, sg)
+        named["pair" + tag] = lambda st, sg=sign: rp._launch(
+            st[0], st[1], c, sn, sg, _design="pair")
+        if len(xs) == 2:
+            named["vec_two" + tag] = lambda st, sg=sign: (
+                rp._rope_cuda(st[0], c, sn, sg),
+                rp._rope_cuda(st[1], c, sn, sg))
+    named["clone"] = lambda st: [x.clone() for x in st if x is not None]
+    return timed_in_turns(named, sets)
+
+
 def _rope_phase(results):
-    """The rope kernel (forward, and backward: sign -1) against its plain
-    version, bitwise, at the packed pretraining run's q and k shapes in
-    bf16 and small f32 / f16 cases; planted faults (a sign error in the
-    backward, half-split `rotate_half` pairs) must break the equality."""
+    """The rope kernels (forward, and backward: sign -1) against their
+    plain version, bitwise: both designs (`rp.rope_design`: rope_vec, q
+    and k in one launch; the pair design) at the packed pretraining run's
+    q, k and q + k shapes in bf16, in f32, f16 at D 72, D 2 and on a view
+    off 16 bytes; planted faults (a sign error in the backward, half-split
+    `rotate_half` pairs, trig one position off) must break the equality.
+    The packed cases timed in turns (`_rope_timed`). ptxas's registers
+    and spills of every rope kernel (a spill fails the run)."""
     import torch
     from paddle_tpu_torch.models.llama import precompute_rope
     from paddle_tpu_torch.ops import kernel_errors
     from paddle_tpu_torch.ops import rope as rp
-    b, s = PACKED_PRETRAIN_SHAPE
-    cfg_h, cfg_hk, d = 32, 8, 128
-    cos, sin = (t.cuda() for t in precompute_rope(d, s, PACKED_PRETRAIN_THETA))
+    usage = ptxas_usage("rope")
+    log("rope ptxas " + json.dumps({k: dict(registers=v[0],
+                                            spill_stores=v[1],
+                                            spill_loads=v[2])
+                                    for k, v in usage.items()}))
+    if not usage or any(v[1] or v[2] for v in usage.values()):
+        raise AssertionError(f"rope kernels spill (or ptxas printed no "
+                             f"usage): {usage}")
     gen = torch.Generator(device="cuda").manual_seed(27)
-    cases = [("pretrain_q", (b, s, cfg_h, d), "bfloat16", True),
-             ("pretrain_k", (b, s, cfg_hk, d), "bfloat16", False),
-             ("f32", (2, 1000, 4, 128), "float32", False),
-             ("f16_d72", (2, 999, 3, 72), "float16", False)]
-    for label, shape, name, timed in cases:
+    for label, b, s, h, hk, d, name, timed, off, want in _rope_cases():
         dt = getattr(torch, name)
-        x = torch.randn(*shape, device="cuda", generator=gen).to(dt)
-        c, sn = cos[:shape[1], :shape[3] // 2].contiguous(), \
-            sin[:shape[1], :shape[3] // 2].contiguous()
-        y = rp._rope_cuda(x, c, sn, 1)
-        gx = rp._rope_cuda(x, c, sn, -1)
-        ry, rgx = rp.rope_ref(x, c, sn, 1.0), rp.rope_ref(x, c, sn, -1.0)
+        cos, sin = (t.cuda() for t in precompute_rope(
+            d, s + 1, PACKED_PRETRAIN_THETA))
+        c, sn = cos[:s].contiguous(), sin[:s].contiguous()
+        shift = off // dt.itemsize
+        q = torch.randn(b * s * h * d + shift, device="cuda",
+                        generator=gen).to(dt)[shift:].view(b, s, h, d)
+        xs = [q]
+        if hk:
+            xs.append(torch.randn(b, s, hk, d, device="cuda",
+                                  generator=gen).to(dt))
+        k = xs[1] if hk else None
+        design = rp.rope_design(dt, d, c.data_ptr(), sn.data_ptr(),
+                                *(x.data_ptr() for x in xs))
+        if design != want:
+            raise AssertionError(f"rope_design picked {design} for {label}; "
+                                 f"{want} expected")
+        ok, err, outs = True, 0.0, {}
+        for des in (("vec", "pair") if design == "vec" else ("pair",)):
+            for sign in (1, -1):
+                ys = rp._launch(q, k, c, sn, sign, _design=des)
+                for x, y in zip(xs, ys):
+                    r = rp.rope_ref(x, c, sn, float(sign))
+                    ok = ok and torch.equal(y, r)
+                    err = max(err, (y.float() - r.float()).abs().max().item())
+                outs[des, sign] = ys[0]
         torch.cuda.synchronize()
-        ok = torch.equal(y, ry) and torch.equal(gx, rgx)
-        half = shape[3] // 2
-        x1, x2 = x[..., :half].float(), x[..., half:].float()
+        y, gx = outs[design, 1], outs[design, -1]
+        half = d // 2
+        x1, x2 = q[..., :half].float(), q[..., half:].float()
         cb, sb = c[None, :, None, :], sn[None, :, None, :]
         rotate_half = torch.cat([x1 * cb - x2 * sb, x2 * cb + x1 * sb],
                                 -1).to(dt)
-        faults = {"backward_sign": kernel_errors(gx, rp.rope_ref(x, c, sn,
+        faults = {"backward_sign": kernel_errors(gx, rp.rope_ref(q, c, sn,
                                                                  1.0)),
-                  "half_split_pairs": kernel_errors(y, rotate_half)}
+                  "trig_one_position_off": kernel_errors(
+                      y, rp.rope_ref(q, cos[1:s + 1], sin[1:s + 1], 1.0))}
+        # at D 2 the half-split pair is the interleaved one
+        if d > 2:
+            faults["half_split_pairs"] = kernel_errors(y, rotate_half)
         caught = all(e[0] > 1e-2 for e in faults.values())
-        isz = x.element_size()
-        nbytes = 2 * x.numel() * isz + 2 * c.numel() * 4
-        b_ms, b_by = bound(nbytes, 6 * x.numel() // 2, name)
-        rec = dict(kernel="rope", case=label, dtype=name, shape=list(shape),
-                   bitwise_equal=ok, max_abs_err=max(
-                       (y.float() - ry.float()).abs().max().item(),
-                       (gx.float() - rgx.float()).abs().max().item()),
+        numel = sum(x.numel() for x in xs)
+        nbytes = 2 * numel * dt.itemsize + 2 * c.numel() * 4
+        # four f32 multiplies and two adds a pair, on the CUDA cores
+        b_ms, b_by = bound(nbytes, 3 * numel, "float32")
+        rec = dict(kernel="rope", case=label, dtype=name, shape=[b, s, h, d],
+                   hk=hk, design=design, bitwise_equal=ok, max_abs_err=err,
                    planted_faults=faults, bound_ms=b_ms, bound_by=b_by,
                    ms=None, bwd_ms=None, plain_ms=None, library_ms=None,
                    library_note="none: no single PyTorch call computes "
-                   "RoPE")
+                   "RoPE; clone_device_ms is a copy of the same bytes")
         if timed:
-            rec.update(ms=time_ms(lambda: rp._rope_cuda(x, c, sn, 1)),
-                       bwd_ms=time_ms(lambda: rp._rope_cuda(x, c, sn, -1)),
-                       plain_ms=time_ms(lambda: rp.rope_ref(x, c, sn, 1.0),
-                                        iters=5, warmup=1))
+            t = _rope_timed(rp, xs, c, sn, nbytes)
+            dev = t["vec"]["device_ms"]
+            rec.update(
+                ms=t["vec"]["ms"], bwd_ms=t["vec_bwd"]["ms"],
+                device_ms=dev, bwd_device_ms=t["vec_bwd"]["device_ms"],
+                host_us=t["vec"]["host_us"],
+                bwd_host_us=t["vec_bwd"]["host_us"],
+                bound_fraction=b_ms / dev,
+                bwd_bound_fraction=b_ms / t["vec_bwd"]["device_ms"],
+                pair_device_ms=t["pair"]["device_ms"],
+                pair_bwd_device_ms=t["pair_bwd"]["device_ms"],
+                pair_ms=t["pair"]["ms"],
+                clone_device_ms=t["clone"]["device_ms"],
+                over_clone=dev / t["clone"]["device_ms"],
+                vec_two_device_ms=t.get("vec_two", {}).get("device_ms"),
+                vec_two_bwd_device_ms=t.get("vec_two_bwd", {}).get(
+                    "device_ms"),
+                timings=t,
+                plain_ms=time_ms(lambda: [rp.rope_ref(x, c, sn, 1.0)
+                                          for x in xs], iters=5, warmup=1))
         log("kernel " + json.dumps(rec))
         results.append(rec)
         if not ok:
@@ -3630,7 +3719,7 @@ def _rope_phase(results):
         if not caught:
             raise AssertionError(f"rope check misses a planted fault on "
                                  f"{label}: {faults}")
-        del x, y, gx, ry, rgx, rotate_half
+        del q, k, xs, y, gx, outs, rotate_half
     torch.cuda.empty_cache()
 
 
@@ -4142,8 +4231,8 @@ def packed_pretrain_8b(results):
     segment ids of seeded document lengths -> o_proj, mean-square loss
     against a seeded target, 5 `AdamW` steps (the port's counterpart of
     the reference's packed trainer, tests/test_flash_varlen.py:163-207).
-    Exact launches a step: 1/1/1 varlen, 2 rope in the forward and 2 in
-    the backward, nothing else. Then the varlen wrapper, forward and
+    Exact launches a step: 1/1/1 varlen, 1 rope in the forward (q and k
+    in one) and 1 in the backward, nothing else. Then the varlen wrapper, forward and
     backward, on the last step's own q, k, v and dO, held to
     `KERNEL_LIMITS` against the plain versions (one KV-head group at a
     time), and the three kernels timed there (the ``pretrain_8b``
@@ -4215,12 +4304,12 @@ def packed_pretrain_8b(results):
     want = {k_: 0 for k_ in counts}
     want.update(flash_varlen_fwd=TRAIN_STEPS, flash_varlen_bwd_dq=TRAIN_STEPS,
                 flash_varlen_bwd_dkv=TRAIN_STEPS,
-                flash_varlen_plan=TRAIN_STEPS, rope=4 * TRAIN_STEPS)
-    rope_fwd = [c - 4 * i for i, c in enumerate(fwd_counts)]
+                flash_varlen_plan=TRAIN_STEPS, rope=2 * TRAIN_STEPS)
+    rope_fwd = [c - 2 * i for i, c in enumerate(fwd_counts)]
     log(f"launches (packed_pretrain_8b) {counts} expected {want} over "
         f"{TRAIN_STEPS} steps; rope launches in each step's forward "
-        f"{rope_fwd} (2 expected)")
-    if counts != want or rope_fwd != [2] * TRAIN_STEPS:
+        f"{rope_fwd} (1 expected: q and k in one)")
+    if counts != want or rope_fwd != [1] * TRAIN_STEPS:
         raise AssertionError("packed pretraining launch counts do not "
                              "match the steps")
 
@@ -4246,8 +4335,7 @@ def packed_pretrain_8b(results):
                               timed("varlen", fv._varlen_bwd_dkv)), \
             mock.patch.object(fv, "_varlen_plan",
                               timed("plan", fv._varlen_plan)), \
-            mock.patch.object(rp, "_rope_cuda", timed("rope",
-                                                      rp._rope_cuda)):
+            mock.patch.object(rp, "_launch", timed("rope", rp._launch)):
         loss = (model(x).float() - target.float()).square().mean()
         loss.backward()
         opt.zero_grad(set_to_none=True)
@@ -4459,7 +4547,7 @@ def main():
                  "flash_varlen_bwd_dq": ("pretrain_8b", "bfloat16", None),
                  "flash_varlen_bwd_dkv": ("pretrain_8b", "bfloat16", None),
                  "flash_varlen_plan": ("pretrain_8b", "int32", None),
-                 "rope": ("pretrain_q", "bfloat16", None)}
+                 "rope": ("pretrain_qk", "bfloat16", None)}
     # the packed path's design (bf16, D 128): sm90, plan included
     varlen_src = "paddle_tpu_torch/csrc/flash_varlen_sm90.cu"
     # the main paths' forward and backward (bf16, D 128 and 64): the

@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_scope.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -161,22 +163,6 @@ inline int sm_count(int device) {
   if (device >= 0 && device < 64) cache[device] = v;
   return v > 0 ? v : 1;
 }
-
-// Makes `device` current for the launch and puts the caller's device back
-// after it, calling cudaSetDevice only when they differ (autograd's device
-// thread may start with no current device of its own).
-struct DeviceScope {
-  int prev = -1, want = -1;
-  cudaError_t err = cudaSuccess;
-  explicit DeviceScope(int device) : want(device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != want) err = cudaSetDevice(want);
-  }
-  ~DeviceScope() {
-    if (prev >= 0 && prev != want) cudaSetDevice(prev);
-  }
-};
-
 
 // -- the register-row backward ------------------------------------------------
 //

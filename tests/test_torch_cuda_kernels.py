@@ -95,7 +95,10 @@ sm90 design bitwise across runs and block orders, and inputs a design
 refuses raising before any launch;
 rope: bitwise equal to its plain version in every dtype (the kernel
 rounds each product and the sum once, as the plain version's separate
-ops do), forward and backward."""
+ops do), forward and backward; both designs (`rp.rope_design`: rope_vec
+for heads of whole 16-byte vectors on 16 bytes, q and k in one launch;
+the pair design for the rest, a view off 16 bytes too) bitwise, the
+fused op one launch each way under autograd, and no ptxas spills."""
 import numpy as np
 import pytest
 import torch
@@ -1677,6 +1680,156 @@ def test_rope_kernel_matches_plain_bitwise(cuda, shape, dtype):
     c, sn = cos[5:], sin[5:]
     assert torch.equal(y.detach(), rp.rope_ref(x, c, sn))
     assert torch.equal(leaf.grad, rp.rope_ref(x, c, sn, -1.0))
+
+
+def _rope_tables(cuda, s, d, extra=0):
+    inv = 1.0 / 500000.0 ** (torch.arange(0, d, 2, device=cuda) / d)
+    ang = torch.arange(s + extra, device=cuda)[:, None] * inv[None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+# (B, S, H, HK, D): the rope_vec design's cases; the packed pretraining
+# shapes cut to S 512
+ROPE_VEC_SHAPES = [(2, 300, 4, 2, 128), (1, 7, 3, 1, 72),
+                   (2, 512, 32, 8, 128), (1, 999, 8, 2, 64)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", ROPE_VEC_SHAPES,
+                         ids=["x".join(map(str, s)) for s in ROPE_VEC_SHAPES])
+@pytest.mark.parametrize("which", ["q", "k", "qk"])
+@pytest.mark.parametrize("sign", [1, -1])
+def test_rope_vec_matches_plain_bitwise(cuda, shape, dtype, which, sign):
+    """rope_vec on q alone, k alone and q + k in one launch, both signs,
+    bitwise equal to the plain version."""
+    b, s, h, hk, d = shape
+    g = torch.Generator(device=cuda).manual_seed(s * d + h)
+    q = torch.randn(b, s, h, d, device=cuda, generator=g).to(dtype)
+    k = torch.randn(b, s, hk, d, device=cuda, generator=g).to(dtype)
+    cos, sin = _rope_tables(cuda, s, d, 3)
+    c, sn = cos[3:].contiguous(), sin[3:].contiguous()
+    assert rp.rope_design(dtype, d, q.data_ptr(), k.data_ptr(),
+                          c.data_ptr(), sn.data_ptr()) == "vec"
+    before = launch_counts["rope"]
+    if which == "qk":
+        yq, yk = rp._launch(q, k, c, sn, sign)
+        assert torch.equal(yq, rp.rope_ref(q, c, sn, float(sign)))
+        assert torch.equal(yk, rp.rope_ref(k, c, sn, float(sign)))
+    else:
+        x = q if which == "q" else k
+        y = rp._rope_cuda(x, c, sn, sign)
+        assert torch.equal(y, rp.rope_ref(x, c, sn, float(sign)))
+    assert launch_counts["rope"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rope_view_off_16_bytes_takes_the_pair_design(cuda, dtype):
+    """An input 8 bytes off 16 goes to the pair design (no copy), bitwise
+    equal; naming the vector design for it raises before any launch; a
+    view off its element pairs raises."""
+    b, s, h, hk, d = 2, 33, 4, 2, 64
+    cos, sin = _rope_tables(cuda, s, d)
+    c, sn = cos.contiguous(), sin.contiguous()
+    off = 8 // torch.tensor([], dtype=dtype).element_size()
+    g = torch.Generator(device=cuda).manual_seed(5)
+    buf = torch.randn(b * s * h * d + off, device=cuda, generator=g).to(dtype)
+    x = buf[off:].view(b, s, h, d)
+    k = torch.randn(b, s, hk, d, device=cuda, generator=g).to(dtype)
+    assert x.data_ptr() % 16 == 8
+    assert rp.rope_design(dtype, d, x.data_ptr()) == "pair"
+    before = launch_counts["rope"]
+    for sign in (1, -1):
+        assert torch.equal(rp._rope_cuda(x, c, sn, sign),
+                           rp.rope_ref(x, c, sn, float(sign)))
+    # q off 16 and k on 16: both on the pair design, a launch each
+    yq, yk = rp._launch(x, k, c, sn, 1)
+    assert torch.equal(yq, rp.rope_ref(x, c, sn))
+    assert torch.equal(yk, rp.rope_ref(k, c, sn))
+    assert launch_counts["rope"] == before + 4
+    with pytest.raises(ValueError, match="rope_vec takes"):
+        rp._rope_cuda(x, c, sn, 1, _design="vec")
+    odd = buf[1:1 + b * s * h * d].view(b, s, h, d)
+    with pytest.raises(ValueError, match="no rope kernel takes"):
+        rp._rope_cuda(odd, c, sn, 1)
+    assert launch_counts["rope"] == before + 4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rope_pair_design_named_on_vector_inputs(cuda, dtype):
+    """The pair design, named on inputs rope_vec takes (the yardstick the
+    smoke times in turns): a launch a tensor, bitwise equal."""
+    b, s, h, hk, d = 2, 300, 4, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn(b, s, h, d, device=cuda, generator=g).to(dtype)
+    k = torch.randn(b, s, hk, d, device=cuda, generator=g).to(dtype)
+    c, sn = _rope_tables(cuda, s, d)
+    before = launch_counts["rope"]
+    yq, yk = rp._launch(q, k, c, sn, -1, _design="pair")
+    assert launch_counts["rope"] == before + 2
+    assert torch.equal(yq, rp.rope_ref(q, c, sn, -1.0))
+    assert torch.equal(yk, rp.rope_ref(k, c, sn, -1.0))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reaches", ["both", "q", "k"])
+def test_fused_rope_under_autograd_one_launch_each_way(cuda, dtype,
+                                                       reaches):
+    """`fused_rotary_position_embedding`: 1 launch forward and 1 backward
+    (on the one cotangent when only q' or k' reaches the loss), outputs
+    and gradients bitwise equal to the plain version."""
+    b, s, h, hk, d = 2, 256, 8, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(b, s, h, d, device=cuda, generator=g).to(dtype)
+    k = torch.randn(b, s, hk, d, device=cuda, generator=g).to(dtype)
+    gq = torch.randn(b, s, h, d, device=cuda, generator=g).to(dtype)
+    gk = torch.randn(b, s, hk, d, device=cuda, generator=g).to(dtype)
+    cos, sin = _rope_tables(cuda, s, d, 9)
+    lq, lk = q.clone().requires_grad_(), k.clone().requires_grad_()
+    before = launch_counts["rope"]
+    yq, yk = rp.fused_rotary_position_embedding(lq, lk, cos, sin, 9)
+    assert launch_counts["rope"] == before + 1
+    outs = {"both": ([yq, yk], [gq, gk]), "q": ([yq], [gq]),
+            "k": ([yk], [gk])}[reaches]
+    torch.autograd.backward(*outs)
+    assert launch_counts["rope"] == before + 2
+    c, sn = cos[9:], sin[9:]
+    assert torch.equal(yq.detach(), rp.rope_ref(q, c, sn))
+    assert torch.equal(yk.detach(), rp.rope_ref(k, c, sn))
+    if reaches != "k":
+        assert torch.equal(lq.grad, rp.rope_ref(gq, c, sn, -1.0))
+    else:
+        assert lq.grad is None
+    if reaches != "q":
+        assert torch.equal(lk.grad, rp.rope_ref(gk, c, sn, -1.0))
+    else:
+        assert lk.grad is None
+
+
+def test_fused_rope_mixed_dtypes_two_launches_each_way(cuda):
+    b, s, h, hk, d = 1, 64, 4, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(b, s, h, d, device=cuda, generator=g)
+    k = torch.randn(b, s, hk, d, device=cuda, generator=g).bfloat16()
+    cos, sin = _rope_tables(cuda, s, d)
+    lq, lk = q.clone().requires_grad_(), k.clone().requires_grad_()
+    before = launch_counts["rope"]
+    yq, yk = rp.fused_rotary_position_embedding(lq, lk, cos, sin)
+    assert launch_counts["rope"] == before + 2
+    torch.autograd.backward([yq, yk], [q, k])
+    assert launch_counts["rope"] == before + 4
+    assert torch.equal(yq.detach(), rp.rope_values(q, cos, sin))
+    assert torch.equal(yk.detach(), rp.rope_values(k, cos, sin))
+    assert torch.equal(lk.grad, rp.rope_ref(k, cos, sin, -1.0))
+
+
+def test_rope_kernels_do_not_spill(cuda):
+    from paddle_tpu_torch.ops import _build
+    _build.build(["rope"])
+    lines = [ln for ln in _build.build_log("rope").splitlines()
+             if "spill" in ln]
+    assert lines, "ptxas printed no spill lines for csrc/rope.cu"
+    for ln in lines:
+        assert "0 bytes spill stores, 0 bytes spill loads" in ln, ln
 
 
 # the norm forwards' two designs (`nk.norm_design`): the main paths' widths

@@ -3,7 +3,7 @@ rope`) against the JAX package's `rope_values`: its Pallas kernel in
 interpret mode (``paddle_tpu.ops.rope._FORCE_PALLAS`` set through
 monkeypatch, as the JAX tests do; the lengths tile by its 256-row block)
 and its XLA branch. The port's CPU path is its plain version under
-`_RopeFn`; the CUDA kernel is held against that plain version on the
+`_FusedRopeFn`; the CUDA kernel is held against that plain version on the
 card in tests/test_torch_cuda_kernels.py.
 
 Inputs from a numpy seed; tables from `precompute_rope`-style numpy f32
