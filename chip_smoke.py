@@ -40,6 +40,35 @@ no result. Phases, in order (any failure raises):
 6. one admission dispatch of the 8B model through the kernels and
    through the plain versions (``use_kernel=True`` / ``False``).
 
+Pipelined decode and the prefix cache add, in the same run (after 6):
+
+5l. ``serve_8b_pipelined``: the 16 requests of 5 at ``harvest_every=4``
+    (the sampled tokens stay on the card and feed the next dispatch, one
+    copy to the host a window): greedy streams bitwise equal to 5's,
+    launch counts by 5's formula; then k = 1 and k = 4 again in turns
+    (1, 4, 4, 1), every run's streams equal; one full window of 4 decode
+    dispatches of another engine under
+    ``torch.cuda.set_sync_debug_mode("error")``
+    (any synchronizing call fails the run); decode step ms, decode
+    tokens/s and TTFT p50 of every run (``serving_k1`` /
+    ``serving_k4``), and `tools.profile_decode.profile_engine`'s step ms,
+    device ms a step and idle share over 12 decode steps at k = 1 and
+    k = 4 (``serving_pipelined {...}``);
+5m. ``serve_8b_prefix``: a seeded 512-token prefix (32 pages, the
+    default ``max_prefix_entries``) with seeded suffixes of 32-512
+    tokens; one warm request, then 8 more, on an engine with
+    ``enable_prefix_caching=True`` and on one without: exactly 8 hits
+    reusing 4096 tokens, 4096 fewer admission tokens, launch counts by
+    5's formula, the hit round's admission logits (one dispatch, a row a
+    request) within a tenth of `path_check`'s bound of the uncached
+    engine's (max |diff| <= 0.01 x max |logit|) and with equal argmax on
+    every row, while one planted wrong shared page (a hit slot's block
+    table pointing one prefix page at the trash page) must break that
+    check; equal streams counted and where the
+    others first part, TTFT p50 and admission tokens/s of both
+    (``serving_prefix {...}``), and every page free once the trie is
+    drained.
+
 Quantized serving adds, in the same run:
 
 3b. the dequant matmul kernel against its plain version at the serving
@@ -1486,7 +1515,6 @@ def serve_8b():
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
     L = cfg.num_hidden_layers
-    nd = eng.num_dispatches
     by_rid = {r.rid: r for r in done}
     for rid, (_, new) in enumerate(reqs):
         r = by_rid[rid]
@@ -1496,15 +1524,8 @@ def serve_8b():
     eng.check_invariants()
     if len(eng._free) != eng.num_pages - 1:
         raise AssertionError("pages still held after the run")
-    want = {"ragged_paged_attention": L * nd, "rms_norm": (2 * L + 1) * nd,
-            "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
-            "lora_epilogue": 0, "paged_attention": 0,
-**NO_TRAINING}
-    log(f"launches {counts} expected {want} over {nd} dispatches "
-        f"({eng.num_admission_dispatches} admission, "
-        f"{eng.num_decode_dispatches} decode)")
-    if counts != want:
-        raise AssertionError("launch counts do not match the dispatches")
+    check_serving_counts(eng, counts, L)
+    streams = [by_rid[rid].output for rid in range(N_REQUESTS)]
     stats = serving_stats(eng, done, wall)
     del eng
     # the attention's device time a decode step, by torch.profiler over 10
@@ -1519,7 +1540,21 @@ def serve_8b():
                  profiled_step_ms=prof["step_ms"],
                  profiled_idle_share=prof["idle_share"])
     log("serving " + json.dumps(stats))
-    return model, counts, reqs
+    return model, counts, reqs, streams, stats
+
+
+def check_serving_counts(eng, counts, L):
+    """A full-width bf16 serving run's launches: every dispatch runs each
+    layer's attention once and every RMSNorm once, and nothing else."""
+    nd = eng.num_dispatches
+    want = {"ragged_paged_attention": L * nd, "rms_norm": (2 * L + 1) * nd,
+            "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
+            "lora_epilogue": 0, "paged_attention": 0, **NO_TRAINING}
+    log(f"launches {counts} expected {want} over {nd} dispatches "
+        f"({eng.num_admission_dispatches} admission, "
+        f"{eng.num_decode_dispatches} decode)")
+    if counts != want:
+        raise AssertionError("launch counts do not match the dispatches")
 
 
 def serving_stats(eng, done, wall):
@@ -1538,6 +1573,292 @@ def serving_stats(eng, done, wall):
                 admission_dispatches=eng.num_admission_dispatches,
                 decode_dispatches=eng.num_decode_dispatches,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+# the pipelined window of `serve_8b_pipelined` and the profiled steps of
+# both loops (a multiple of the window, so the profile ends on one)
+HARVEST_EVERY = 4
+PROFILE_STEPS = 12
+# `serve_8b_prefix`: a 512-token shared prefix (32 pages of 16, the
+# default max_prefix_entries) and seeded suffixes; one warm request
+# registers it, then N_PREFIX_HITS more hit it
+PREFIX_LEN = 512
+PREFIX_SUFFIX = (32, 512)
+N_PREFIX_HITS = 8
+
+
+def step_summary(stats):
+    return {k: stats[k] for k in ("decode_step_ms", "decode_tokens_per_s",
+                                  "ttft_p50_s")}
+
+
+def sync_free_window(model):
+    """One full window of `HARVEST_EVERY` decode dispatches of an 8B
+    engine at ``harvest_every=HARVEST_EVERY``, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for
+    the card inside the window (a host read of a device value, a
+    pageable copy) raises. The window is then drained; returns the
+    dispatches it held."""
+    import torch
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
+                                   harvest_every=HARVEST_EVERY)
+    rng = np.random.default_rng(2)
+    for _ in range(8):
+        eng.add_request(rng.integers(0, model.config.vocab_size,
+                                     int(rng.integers(32, 1025))),
+                        max_new_tokens=64)
+    eng.step()                    # admission (its copy syncs) + dispatch 1
+    eng.step()                    # dispatch 2: pinned buffers warmed
+    eng.quiesce()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(HARVEST_EVERY):
+            eng.step()
+        held = len(eng._pending)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    drained = eng.quiesce()
+    eng.check_invariants()
+    log(f"sync-free window: {held} decode dispatches with no synchronizing "
+        f"call under set_sync_debug_mode('error'), {drained} harvested "
+        "in one copy")
+    if held != HARVEST_EVERY or drained != HARVEST_EVERY:
+        raise AssertionError("the window did not hold its dispatches")
+
+
+def serve_run(model, reqs, k):
+    """Serve ``reqs`` on a fresh 8B engine at ``harvest_every=k`` with the
+    launch counts set to 0 before: (engine, streams, counts, stats)."""
+    import torch
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
+                                   harvest_every=k)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for p, new in reqs:
+        eng.add_request(p, max_new_tokens=new)
+    done = []
+    while len(done) < len(reqs):
+        done += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    by_rid = {r.rid: r for r in done}
+    streams = [by_rid[rid].output for rid in range(len(reqs))]
+    return eng, streams, counts, serving_stats(eng, done, wall)
+
+
+def serve_8b_pipelined(model, reqs, want_streams, k1_stats):
+    """The 16 requests of `serve_8b` again at ``harvest_every=4``: greedy
+    streams bitwise equal to the k = 1 run's, launch counts by
+    `check_serving_counts`; then k = 1 and k = 4 in turns (1, 4, 4, 1),
+    each run's streams equal too; a window free of synchronizing calls;
+    every run's decode step ms, tokens/s and TTFT p50, and
+    `profile_engine`'s idle share and device ms a step at k = 1 and
+    k = 4."""
+    from paddle_tpu_torch.tools.profile_decode import profile_engine
+    eng, streams, counts, stats = serve_run(model, reqs, HARVEST_EVERY)
+    same = sum(a == b for a, b in zip(streams, want_streams))
+    log(f"pipelined k={HARVEST_EVERY}: {same} of {N_REQUESTS} streams "
+        "bitwise equal to k=1")
+    if streams != want_streams:
+        raise AssertionError("pipelined streams differ from k=1's")
+    eng.check_invariants()
+    if len(eng._free) != eng.num_pages - 1:
+        raise AssertionError("pages still held after the pipelined run")
+    check_serving_counts(eng, counts, model.config.num_hidden_layers)
+    del eng
+    turns = {1: [step_summary(k1_stats)], HARVEST_EVERY: [step_summary(stats)]}
+    for k in (1, HARVEST_EVERY, HARVEST_EVERY, 1):
+        _, streams, _, st = serve_run(model, reqs, k)
+        if streams != want_streams:
+            raise AssertionError(f"k={k} streams differ from the first run's")
+        turns[k].append(step_summary(st))
+    sync_free_window(model)
+    for k, runs in turns.items():
+        log(f"serving_k{k} " + json.dumps(runs))
+    prof = {k: profile_engine(model, None, PROFILE_STEPS, harvest_every=k)
+            for k in (1, HARVEST_EVERY)}
+    stats.update(turns={f"k{k}": runs for k, runs in turns.items()},
+                 profiled={f"k{k}": {f: p[f] for f in (
+                     "step_ms", "device_ms_per_step", "idle_share")}
+                     for k, p in prof.items()})
+    log("serving_pipelined " + json.dumps(stats))
+
+
+def prefix_requests(vocab):
+    """`N_PREFIX_HITS` + 1 seeded prompts: the shared prefix and a
+    suffix of 32..512 tokens each, asking for 32..64 new tokens."""
+    rng = np.random.default_rng(16)
+    prefix = rng.integers(0, vocab, PREFIX_LEN)
+    reqs = []
+    for _ in range(N_PREFIX_HITS + 1):
+        n = int(rng.integers(PREFIX_SUFFIX[0], PREFIX_SUFFIX[1] + 1))
+        reqs.append((np.concatenate([prefix, rng.integers(0, vocab, n)]),
+                     int(rng.integers(32, 65))))
+    return reqs
+
+
+def prefix_run(model, reqs, cached):
+    """Serve the warm request to completion, then the hit requests on an
+    engine with or without the prefix cache, recording the hit round's
+    admission logits (one row per slot: the round admits all of them in
+    one dispatch). Returns (engine, streams, admission logits, the
+    round's TTFT p50, admission tokens, admission seconds)."""
+    import torch
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
+                                   enable_prefix_caching=cached)
+    eng.add_request(reqs[0][0], max_new_tokens=reqs[0][1])
+    eng.run()
+    rec, head, decode = [], model.logits, eng._decode
+    decoding = [False]
+
+    def logits(h, *a, **kw):
+        out = head(h, *a, **kw)
+        if not decoding[0]:
+            rec.append(out.float())
+        return out
+
+    def traced(finished):
+        decoding[0] = True
+        try:
+            return decode(finished)
+        finally:
+            decoding[0] = False
+    tok0, sec0 = eng.admission_tokens, eng.admission_seconds
+    model.logits, eng._decode = logits, traced
+    try:
+        rids = [eng.add_request(p, max_new_tokens=n) for p, n in reqs[1:]]
+        done = []
+        while len(done) < N_PREFIX_HITS:
+            done += eng.step()
+    finally:
+        del model.logits, eng._decode
+    torch.cuda.synchronize()
+    by_rid = {r.rid: r for r in done}
+    if len(rec) != 1:
+        raise AssertionError(f"the hit round took {len(rec)} admission "
+                             "dispatches, not one")
+    ttft = statistics.median(r.first_token_time - r.arrival_time
+                             for r in done)
+    return (eng, [by_rid[r].output for r in rids], rec[0], ttft,
+            eng.admission_tokens - tok0, eng.admission_seconds - sec0)
+
+
+def planted_prefix_logits(model, reqs):
+    """The hit round's admission logits on a cached engine with ONE wrong
+    shared page: the first hit slot's middle prefix page reads the trash
+    page, as a stale or unset block-table entry would (swapping two
+    shared pages would not do: attention does not see the order of its
+    keys). Returns (logits, that slot); the engine is dropped after the
+    round's first step."""
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
+                                   enable_prefix_caching=True)
+    eng.add_request(reqs[0][0], max_new_tokens=reqs[0][1])
+    eng.run()
+    attach, head, rec, planted = eng._attach_shared, model.logits, [], []
+
+    def attach_wrong(slot, shared):
+        n = attach(slot, shared)
+        if not planted:
+            planted.append(slot)
+            eng._bt[slot, len(shared) // 2] = 0
+        return n
+
+    def logits(h, *a, **kw):
+        out = head(h, *a, **kw)
+        rec.append(out.float())
+        return out
+    eng._attach_shared, model.logits = attach_wrong, logits
+    try:
+        for p, n in reqs[1:]:
+            eng.add_request(p, max_new_tokens=n)
+        eng.step()
+    finally:
+        del model.logits
+    return rec[0], planted[0]
+
+
+def logits_disagree(a, b):
+    """Which rows of the cached engine's admission logits ``a`` break the
+    check against the uncached engine's ``b``: max |diff| <= 0.01 x
+    max |logit| and equal argmax. Both engines run the same kernels and
+    only the batch that a row's projections ran in differs, so the bound
+    is a tenth of `path_check`'s (kernels against plain versions), which
+    one wrong shared page stays under at 8B width."""
+    scale = b.abs().max()
+    return ((a - b).abs().amax(-1) > 0.01 * scale) \
+        | (a.argmax(-1) != b.argmax(-1))
+
+
+def serve_8b_prefix(model):
+    """The prefix cache at 8B width: one warm request, then 8 requests
+    sharing its 512-token prefix, on an engine with the cache and on one
+    without. Exactly 8 hits reusing 4096 tokens, 4096 fewer admission
+    tokens, the hit round's admission logits within `logits_disagree`'s
+    bound of the uncached engine's and with equal argmax on every row,
+    and every page free once the trie is drained. A planted wrong shared
+    page must break that check."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    reqs = prefix_requests(model.config.vocab_size)
+    reset_launch_counts()
+    cached = prefix_run(model, reqs, True)
+    counts = dict(launch_counts)
+    plain = prefix_run(model, reqs, False)
+    eng = cached[0]
+    check_serving_counts(eng, counts, model.config.num_hidden_layers)
+    reused = N_PREFIX_HITS * PREFIX_LEN
+    saved = plain[4] - cached[4]
+    a, b = cached[2], plain[2]
+    diff = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    agree = (a.argmax(-1) == b.argmax(-1)).tolist()
+    same = [x == y for x, y in zip(cached[1], plain[1])]
+    bad, slot = planted_prefix_logits(model, reqs)
+    planted_diff = (bad[slot] - b[slot]).abs().max().item()
+    planted_caught = bool(logits_disagree(bad, b)[slot])
+    parts = {i: next((j for j, (x, y) in enumerate(zip(p, q)) if x != y),
+                     min(len(p), len(q)))
+             for i, (p, q, eq) in enumerate(zip(cached[1], plain[1], same))
+             if not eq}
+    rec = dict(prefix_hits=eng.prefix_hits,
+               prefix_tokens_reused=eng.prefix_tokens_reused,
+               admission_tokens_cached=cached[4],
+               admission_tokens_uncached=plain[4],
+               ttft_p50_s_cached=cached[3], ttft_p50_s_uncached=plain[3],
+               admission_tokens_per_s_cached=cached[4] / cached[5],
+               admission_tokens_per_s_uncached=plain[4] / plain[5],
+               max_abs_logit_diff=diff, max_abs_logit=scale,
+               argmax_agrees=agree, streams_equal=sum(same),
+               first_parting_token=parts,
+               planted_wrong_page_diff=planted_diff,
+               planted_argmax_agrees=bool(bad[slot].argmax()
+                                          == b[slot].argmax()),
+               planted_caught=planted_caught)
+    log("serving_prefix " + json.dumps(rec))
+    if eng.prefix_hits != N_PREFIX_HITS or eng.prefix_tokens_reused != reused:
+        raise AssertionError("prefix cache hits or reused tokens off")
+    if saved != reused:
+        raise AssertionError(f"cached admission saved {saved} tokens, not "
+                             f"{reused}")
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()) \
+            or a.shape != (N_PREFIX_HITS, model.config.vocab_size) \
+            or logits_disagree(a, b).any():
+        raise AssertionError("cached and uncached admission logits "
+                             "disagree")
+    if not planted_caught:
+        raise AssertionError("a wrong shared page passes the logits check")
+    while eng._evict_one():
+        pass
+    eng.check_invariants()
+    if len(eng._free) != eng.num_pages - 1 or eng._page_rc[1:].any():
+        raise AssertionError("pages held after the trie was drained")
+
 
 
 def serve_8b_quant(model, reqs, weights, n_requests):
@@ -4501,8 +4822,10 @@ def main():
     varlen_phase(results)
     packed_sft_8b()
     pcounts = packed_pretrain_8b(results)
-    model, counts, reqs = serve_8b()
+    model, counts, reqs, streams, stats = serve_8b()
     path_check(model, reqs)
+    serve_8b_pipelined(model, reqs, streams, stats)
+    serve_8b_prefix(model)
     qcounts, qweights = serve_8b_quant(model, reqs, "int8", N_REQUESTS)
     path_check(model, reqs, qweights)
     del qweights

@@ -21,8 +21,8 @@ Routing ties: `jax.lax.top_k` puts the lower index first among equal
 values; `_top_k` sorts by (value descending, index ascending) with a
 stable sort, so both pick the same experts in the same order.
 
-Not ported (ROADMAP.md queue A, items 12 and 15: no mesh exists in the
-port): the expert-parallel paths `moe_ffn_dropless_ep_values` (:228),
+Not ported (ROADMAP.md queue A, item 9: no mesh exists in the port):
+the expert-parallel paths `moe_ffn_dropless_ep_values` (:228),
 `_moe_ep_ragged` and `shard_moe` (:535), which raise.
 """
 from __future__ import annotations
@@ -142,7 +142,7 @@ def moe_ffn_dropless_values(x2, gate_w, w_gate, w_up, w_down, top_k: int,
 def _unported_ep(what: str):
     raise NotImplementedError(
         f"{what} is not ported yet: expert parallelism needs a mesh "
-        "(ROADMAP.md queue A, items 12 and 15: tensor parallelism and the "
+        "(ROADMAP.md queue A, item 9: tensor parallelism and the "
         "distributed stack)")
 
 

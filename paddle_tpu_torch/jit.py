@@ -7,7 +7,7 @@ same sequence of calls without the compile: gradients cleared, the
 micro-batches' losses (each scaled by 1/k) back-propagated into the
 parameters' ``.grad``, one ``optimizer.step()``, gradients cleared again.
 Capturing the step in a CUDA graph is later work (ROADMAP.md queue A,
-item 15).
+item 6).
 """
 from __future__ import annotations
 

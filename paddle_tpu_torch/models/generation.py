@@ -11,11 +11,12 @@ import torch
 class RequestStatus:
     """Request lifecycle states. A request is QUEUED on entry to the
     admission queue, RUNNING while it owns a slot, and ends in exactly
-    one terminal state: FINISHED (eos / max_new_tokens / cache end) or
-    PREEMPTED (evicted for pool pressure more than `max_preemptions`
-    times). TIMEOUT and FAILED belong to engine features this port does
-    not have yet; they are kept so that the states read as the JAX
-    package's do."""
+    one terminal state: FINISHED (eos / max_new_tokens / cache end),
+    TIMEOUT (its deadline or queue-time budget passed), or PREEMPTED
+    (evicted for pool pressure more than `max_preemptions` times).
+    FAILED belongs to the engine's failure isolation, which this port
+    does not have yet (ROADMAP.md queue A, item 4); it is kept so that
+    the states read as the JAX package's do."""
 
     QUEUED = "queued"
     RUNNING = "running"

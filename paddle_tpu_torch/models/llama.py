@@ -137,7 +137,7 @@ def precompute_rope(head_dim: int, max_len: int, theta: float):
 
 def _unported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A, item 3b: the "
+        f"{what} is not ported yet (ROADMAP.md queue A, item 3: the "
         "dense-cache decode); the port runs the ragged paged path (a "
         "RaggedKVCacheView per layer), the legacy paged decode (a "
         "PagedKVCacheView per layer), the legacy prefill ((k, v) caches "

@@ -9,7 +9,7 @@ on the card); the MLP is `incubate.moe.MoELayer`, whose dropless path
 runs the grouped-matmul kernel. Weights are random from a seed with the
 JAX initialisers; `models.convert.moe_state_from_numpy` carries a JAX
 model's. ``shard_moe_model`` needs a mesh and is not ported (ROADMAP.md
-queue A, items 12 and 15).
+queue A, item 9).
 """
 from __future__ import annotations
 

@@ -4,17 +4,20 @@
 `EngineInvariantError` / `ModelMismatch` :322-369, `Request` :457, and
 the parts of `ContinuousBatchingEngine` that serve greedy requests over
 ``kv_layout="paged"``: construction :502-931 (paged subset),
-`add_request` / `run` / `step` :1307-1488, the paged `check_invariants`
-:2069-2176 with its adapter checks, `_finalize` / `_release_slot`
-:2284-2350, admission :2394-2470 and :2594-2763 (one packed ragged
-dispatch per batch, with `prefill_chunk` chunk continuations), the page
-allocator :2852-3110 (trash page 0, refcounts, worst-case reservation)
-and the synchronous decode step with lazy page growth and preemption
-:3268-3565. Quantized serving (≙ `QUANT_MATMULS` / `QuantServingConfig`
-:401-453, the ``quant=`` check :561-571, the int8 page and scale pools
-:668-693, `_build_quant_weights` :930-964 without tensor parallelism,
-and the paged part of `cache_memory_info` :2034-2060 without the prefix
-fields). Multi-model serving (≙ `install_adapter` / `evict_adapter` /
+`add_request` / `run` / `step` / `lifecycle_info` :1307-1512, `_expire`
+:2002, the paged `check_invariants` :2069-2176 with its adapter checks,
+`_finalize` / `_release_slot` :2284-2350, admission :2394-2470 and
+:2594-2763 (one packed ragged dispatch per batch, with `prefill_chunk`
+chunk continuations and prefix-cache suffixes), the page allocator and
+the prefix cache's page trie :2852-3110 (trash page 0, refcounts,
+worst-case reservation, LRU eviction of childless nodes) and the decode
+step with lazy page growth and preemption :3268-3565, synchronous or
+pipelined (``harvest_every=k``: `_harvest_due` / `_harvest_pending` /
+`quiesce` :3573-3730). Quantized serving (≙ `QUANT_MATMULS` /
+`QuantServingConfig` :401-453, the ``quant=`` check :561-571, the int8
+page and scale pools :668-693, `_build_quant_weights` :930-964 without
+tensor parallelism, and the paged part of `cache_memory_info`
+:2034-2066). Multi-model serving (≙ `install_adapter` / `evict_adapter` /
 `install_weights` / `reset_weights` / `_adapter_row` / `_lora_pv`
 :972-1304, `add_request(adapter=)` :1334-1339 and the slot-to-adapter
 map). The legacy paged path, ``attention_impl="legacy"`` (≙ `_bucket` /
@@ -26,14 +29,19 @@ With ``attention_impl="ragged"`` (the default) each admission batch and
 each decode step is ONE ragged dispatch: the packed token axis runs
 through `LlamaForCausalLM.forward` with one `RaggedKVCacheView` per
 layer, whose attention writes the new K/V rows into the page pools in
-place and launches the ragged paged attention kernel. With
-``"legacy"`` each admitted request gets its own prefill dispatch over
-its prompt padded to a ``prompt_pad`` bucket, whose K/V rows are then
-scattered into its pages, and a decode step is one dispatch of (B, 1)
-tokens whose attention launches the q = 1 paged attention kernel.
-PyTorch runs eagerly, so there is no program cache: the JAX engine's
-jit families keyed on (padded tokens, pages bound) and its prefill and
-scatter buckets have no counterpart here.
+place and launches the ragged paged attention kernel. A prefix-cache hit
+attaches the cached pages to the slot's block table and admits only the
+prompt's suffix, at an offset, through the same dispatch. With
+``harvest_every=k > 1`` a decode dispatch's greedy tokens stay on the
+device and feed the next dispatch; the host reads them back once every k
+dispatches (or sooner, when host work needs them). With ``"legacy"``
+each admitted request gets its own prefill dispatch over its prompt
+padded to a ``prompt_pad`` bucket, whose K/V rows are then scattered
+into its pages, and a decode step is one dispatch of (B, 1) tokens whose
+attention launches the q = 1 paged attention kernel. PyTorch runs
+eagerly, so there is no program cache: the JAX engine's jit families
+keyed on (padded tokens, pages bound) and its prefill and scatter
+buckets have no counterpart here.
 
 Every constructor option outside this subset raises NotImplementedError
 naming the ROADMAP.md item that will port it.
@@ -42,6 +50,8 @@ from __future__ import annotations
 
 import os
 import time
+import warnings
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
@@ -95,21 +105,23 @@ class Request:
     request_id: str = ""
     priority: int = 0                          # lower admits first
     adapter: Optional[str] = None              # resident LoRA adapter
+    deadline: Optional[float] = None           # absolute engine clock
+    max_queue_time: Optional[float] = None     # seconds waiting for a slot
+    # tokens the device has produced, counting dispatches of a pipelined
+    # window not harvested yet: >= len(output), resynced to it at every
+    # harvest (at harvest_every=1, every step). The JAX engine leaves it
+    # at 0 at k = 1: read it as max(device_len, len(output)) there
+    device_len: int = 0
 
 
 # constructor options of the JAX engine that this port does not have
 # yet: (argument, the value that means "off", ROADMAP.md queue A item)
 _UNPORTED_OPTIONS = (
-    ("do_sample", False, "9 (sampling)"),
-    ("enable_prefix_caching", False, "6a (prefix caching)"),
-    ("max_prefix_entries", 32, "6a (prefix caching)"),
-    ("request_timeout", None, "6b (deadlines and timeouts)"),
-    ("max_queue_time", None, "6b (deadlines and timeouts)"),
-    ("harvest_every", 1, "6c (pipelined decode)"),
-    ("max_prefill_programs", 8, "6d (CUDA-graph dispatch cache)"),
-    ("max_decode_retries", 3, "5 (fault points and telemetry)"),
-    ("spec_decode", None, "9 (speculative decoding)"),
-    ("submesh", None, "12 (tensor parallelism)"),
+    ("do_sample", False, "5 (sampling)"),
+    ("max_prefill_programs", 8, "1 (the decode step as CUDA graphs)"),
+    ("max_decode_retries", 3, "4 (fault points and telemetry)"),
+    ("spec_decode", None, "5 (speculative decoding)"),
+    ("submesh", None, "9 (tensor parallelism)"),
 )
 
 
@@ -210,6 +222,29 @@ class ContinuousBatchingEngine:
                  harvest_every: int = 1,
                  device=None):
         given = dict(locals())
+        # pipelined decode (≙ :539-560): the JAX engine's checks, before
+        # any other option is looked at
+        self.harvest_every = int(harvest_every)
+        if self.harvest_every < 1:
+            raise ValueError(
+                f"harvest_every must be >= 1, got {harvest_every}")
+        if self.harvest_every > 1:
+            if kv_layout != "paged" or attention_impl != "ragged":
+                raise ValueError(
+                    "harvest_every > 1 requires kv_layout='paged' with "
+                    "attention_impl='ragged' — the deferred-harvest "
+                    "window feeds the device token vector back through "
+                    "the ragged dispatch only")
+            if do_sample:
+                raise ValueError(
+                    "harvest_every > 1 is greedy-only: a window "
+                    "dispatched past another slot's EOS would draw "
+                    "random numbers the synchronous loop never draws")
+            if spec_decode is not None:
+                raise ValueError(
+                    "harvest_every > 1 does not compose with "
+                    "spec_decode — a speculative round's verify pass "
+                    "is its synchronous harvest")
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"kv_layout {kv_layout!r}: paged|dense")
         if attention_impl not in ("ragged", "legacy"):
@@ -224,14 +259,25 @@ class ContinuousBatchingEngine:
                 "ragged dispatch family only")
         if kv_layout != "paged":
             _not_ported(f"kv_layout={kv_layout!r}",
-                        "3b (dense and legacy attention paths)")
+                        "3 (the dense KV layout)")
         if attention_impl == "legacy" and prefill_chunk:
             _not_ported("attention_impl='legacy' with prefill_chunk",
-                        "3b (dense and legacy attention paths)")
+                        "3 (the legacy path's chunked prefill)")
         for name, off, item in _UNPORTED_OPTIONS:
             if given[name] != off:
                 _not_ported(f"{name}={given[name]!r}", item)
         cfg = model.config
+        if cfg.sliding_window is not None and enable_prefix_caching:
+            # ≙ :610-620: slid-out pages are reclaimed and trash-routed,
+            # so a window model's prompt pages are not stable shared KV
+            warnings.warn(
+                "sliding_window model: prefix caching is DISABLED "
+                "(window reclamation invalidates cached prompt pages)")
+            enable_prefix_caching = False
+        if attention_impl == "legacy" and enable_prefix_caching:
+            _not_ported("attention_impl='legacy' with "
+                        "enable_prefix_caching", "3 (the legacy path's "
+                        "suffix prefill)")
         dev = resolve_device(device)
         mdev = model.device
         if dev.type != mdev.type or (dev.index is not None
@@ -294,6 +340,17 @@ class ContinuousBatchingEngine:
         self._slot_next_idx = np.zeros(self.B, np.int64)
         self._slot_freed = np.zeros(self.B, np.int64)
         self._page_rc = np.zeros(self.num_pages, np.int32)
+        # the prefix cache (≙ :704-727): a page trie, one node per
+        # (parent key, page of tokens) in LRU order, each holding one
+        # reference on its page; a slot attaches matched pages read-only
+        # and holds one reference on each in _slot_shared_pages
+        self._prefix_enabled = bool(enable_prefix_caching)
+        self._max_prefix_entries = int(max_prefix_entries)
+        self._prefix_nodes: "OrderedDict[tuple, dict]" = OrderedDict()
+        self._slot_shared_pages: List[List[int]] = [[] for _ in
+                                                    range(self.B)]
+        self.prefix_hits = 0
+        self.prefix_tokens_reused = 0
         self._chunk = int(prefill_chunk) if prefill_chunk else None
         if self._chunk is not None:
             if self._chunk % self.page_size:
@@ -311,14 +368,26 @@ class ContinuousBatchingEngine:
         self._queue: List[Request] = []
         self._next_rid = 0
         self.max_waiting = None if max_waiting is None else int(max_waiting)
+        self.request_timeout = request_timeout
+        self.max_queue_time = max_queue_time
         self.max_preemptions = int(max_preemptions)
         self.admission_policy = admission_policy
         self._clock = clock if clock is not None else time.monotonic
+        self.num_timeouts = 0
         self.num_preemptions = 0
         self._finished_backlog: List[Request] = []
         self._admit_seq = 0
         self._slot_seq = np.zeros(self.B, np.int64)
         self._ragged_block_q = 8
+        # the decode window: one entry per decode dispatch not harvested
+        # yet (at harvest_every=1, harvested in the same step), {nxt: its
+        # device tokens, act: the active slots (constant within a
+        # window), pos: _pos after it};
+        # _tok_dev is the last dispatch's device tokens, the next one's
+        # input; _window_wall sums the window's dispatch walls
+        self._pending: List[dict] = []
+        self._tok_dev: Optional[torch.Tensor] = None
+        self._window_wall = 0.0
         # multi-model serving: model_tag is None for the build-time
         # weights; install_weights swaps in {name: value} for EVERY
         # parameter (`_mpv`) and stamps the tag. Batched multi-LoRA:
@@ -340,8 +409,11 @@ class ContinuousBatchingEngine:
         # once and every RMSNorm once
         self.num_admission_dispatches = 0
         self.num_decode_dispatches = 0
-        self.decode_seconds = 0.0      # host wall of decode dispatches,
-        self.decode_tokens = 0         # each ending in its D2H token copy
+        # host wall of decode dispatches with their D2H token copies (a
+        # window's dispatch walls plus its one harvest copy at k > 1),
+        # and the tokens they committed
+        self.decode_seconds = 0.0
+        self.decode_tokens = 0
         self.admission_seconds = 0.0   # host wall of admission dispatches
         self.admission_tokens = 0      # prompt tokens they prefilled
 
@@ -352,16 +424,17 @@ class ContinuousBatchingEngine:
                     request_id: Optional[str] = None,
                     priority: int = 0, adapter: Optional[str] = None
                     ) -> int:
-        """Queue a request; returns its engine-local id. ``priority`` is
-        the queue class (lower admits first, FIFO within a class).
-        ``adapter`` decodes the request under a resident LoRA adapter
-        (`install_adapter`); one that is not resident raises
-        ModelMismatch before anything is queued. Raises
-        EngineOverloaded when the bounded queue is full (`max_waiting`)
-        or the admission policy rejects the request."""
-        if deadline is not None or max_queue_time is not None:
-            _not_ported("per-request deadlines", "6b (deadlines and "
-                        "timeouts)")
+        """Queue a request; returns its engine-local id. ``deadline`` is
+        a completion budget in seconds from now on the engine's clock
+        (default: the engine's ``request_timeout``); ``max_queue_time``
+        bounds the time spent waiting for a slot (default: the
+        engine's). An expired request finalizes with status ``timeout``
+        at the next step. ``priority`` is the queue class (lower admits
+        first, FIFO within a class). ``adapter`` decodes the request
+        under a resident LoRA adapter (`install_adapter`); one that is
+        not resident raises ModelMismatch before anything is queued.
+        Raises EngineOverloaded when the bounded queue is full
+        (`max_waiting`) or the admission policy rejects the request."""
         toks = [int(t) for t in np.asarray(prompt).ravel()]
         if not toks:
             raise ValueError("empty prompt")
@@ -384,11 +457,15 @@ class ContinuousBatchingEngine:
                 f"admission queue full ({self.max_waiting} waiting) — "
                 "shed load or retry after in-flight requests drain")
         now = self._clock()
+        budget = deadline if deadline is not None else self.request_timeout
         r = Request(self._next_rid, toks, int(max_new_tokens),
                     enqueue_time=now, arrival_time=now,
                     request_id=request_id if request_id is not None
                     else str(self._next_rid), priority=int(priority),
-                    adapter=adapter)
+                    adapter=adapter,
+                    deadline=None if budget is None else now + budget,
+                    max_queue_time=max_queue_time
+                    if max_queue_time is not None else self.max_queue_time)
         need = self._worst_pages(r)
         if need > self.num_pages - 1:
             raise ValueError(
@@ -418,39 +495,46 @@ class ContinuousBatchingEngine:
         return results
 
     def step(self) -> List[Request]:
-        """Admit waiting requests into free slots (one ragged dispatch
-        per admission batch; legacy: one prefill dispatch per request),
+        """Expire requests past their deadline or queue-time budget,
+        admit waiting requests into free slots (one ragged dispatch per
+        admission batch; legacy: one prefill dispatch per request),
         decode ONE token for every active slot (one dispatch), release
         finished slots. Returns the requests that reached a terminal
-        state this step."""
+        state this step (finished, timeout or preempted: see
+        ``status``).
+
+        Pipelined (``harvest_every`` = k > 1): a due window is
+        harvested FIRST, before expiry, admission and the next dispatch,
+        so that each of them acts on committed tokens as the
+        synchronous loop would; the decode dispatch then leaves its
+        tokens on the device."""
         finished = self._finished_backlog
         self._finished_backlog = []
         try:
+            if self._pending and self._harvest_due():
+                self._harvest_pending(finished)
+            finished += self._expire()
             finished += self._admit_ragged() if self.attn_impl == "ragged" \
                 else self._admit_legacy()
-            active = [i for i, r in enumerate(self._slot_req)
-                      if r is not None]
-            if active:
-                self._decode(finished)
-                for i in active:
-                    r = self._slot_req[i]
-                    if r is None:
-                        continue        # preempted during decode
-                    tok = int(self._tok[i])
-                    r.output.append(tok)
-                    if (self.eos is not None and tok == self.eos) \
-                            or len(r.output) >= r.max_new_tokens \
-                            or int(self._pos[i]) >= self.S - 1:
-                        self._finalize(r, RequestStatus.FINISHED, None,
-                                       finished)
-                        self._release_slot(i)
+            self._decode(finished)
         except BaseException:
             # requests finalized this step are delivered by the next one
             self._finished_backlog = finished
             raise
         if _invariants_enabled():
-            self.check_invariants()
+            self._check_invariants()      # mid-window: no quiesce
         return finished
+
+    def lifecycle_info(self) -> Dict[str, int]:
+        """Queue depth and the robustness counters, keyed as the JAX
+        engine's. The port has no failure isolation or decode retries
+        yet (ROADMAP.md queue A, item 4), so those two read 0."""
+        return {"waiting": len(self._queue),
+                "running": sum(r is not None for r in self._slot_req),
+                "timeouts": self.num_timeouts,
+                "failures": 0,
+                "preemptions": self.num_preemptions,
+                "decode_retries": 0}
 
     @property
     def num_dispatches(self) -> int:
@@ -458,10 +542,11 @@ class ContinuousBatchingEngine:
 
     def cache_memory_info(self) -> Dict[str, object]:
         """KV-cache device-memory accounting of the page pools:
-        ``bytes_in_use`` is proportional to the pages allocated. With
-        int8 pages ``page_bytes`` is the honest bill of one page across
-        all layers: int8 storage plus the f32 scale rows of both
-        pools."""
+        ``bytes_in_use`` is proportional to the pages allocated (prefix
+        cache pages included). With int8 pages ``page_bytes`` is the
+        honest bill of one page across all layers: int8 storage plus the
+        f32 scale rows of both pools. With prefix caching on it adds the
+        trie's size, its hits and the prompt tokens they reused."""
         L, hk, hd, dt = self._kv_shape
         if self._qkv:
             page_bytes = self.page_size * hk * hd * 2 * L \
@@ -471,12 +556,19 @@ class ContinuousBatchingEngine:
             page_bytes = self.page_size * hk * hd * itemsize * 2 * L
         usable = self.num_pages - 1
         in_use = usable - len(self._free)
-        return {"layout": "paged", "page_bytes": page_bytes,
+        info = {"layout": "paged", "page_bytes": page_bytes,
                 "kv_quant": self._qkv,
                 "total_pages": usable, "pages_in_use": in_use,
                 "bytes_pool": self.num_pages * page_bytes,
                 "bytes_in_use": in_use * page_bytes,
                 "utilization": in_use / max(usable, 1)}
+        if self._prefix_enabled:
+            cached = {n["page"] for n in self._prefix_nodes.values()}
+            info.update(prefix_entries=len(self._prefix_nodes),
+                        prefix_pages=len(cached),
+                        prefix_hits=self.prefix_hits,
+                        prefix_tokens_reused=self.prefix_tokens_reused)
+        return info
 
     # -- quantized weights ---------------------------------------------
     def _build_quant_weights(self) -> Dict[str, QuantizedWeight]:
@@ -520,14 +612,22 @@ class ContinuousBatchingEngine:
         pads ranks to its ``max_rank``). Transactional: the new stacks
         are built in full, in the model's dtype, before any engine
         state changes. Requires the ragged dispatch; refuses to compose
-        with ``prefill_chunk``, as the JAX engine does (its prefix
-        caching and spec decode, which it also refuses, are not ported:
-        the constructor refuses them)."""
+        with prefix caching and ``prefill_chunk``, as the JAX engine
+        does (its spec decode, which it also refuses, is not ported:
+        the constructor refuses it). Drains a pipelined window first."""
+        self.quiesce()
         if self.attn_impl != "ragged":
             raise ValueError(
                 "install_adapter requires kv_layout='paged' with "
                 "attention_impl='ragged' — the per-token adapter-row "
                 "vector threads through the ragged dispatch family only")
+        if self._prefix_enabled:
+            raise ValueError(
+                "install_adapter refuses to compose with prefix "
+                "caching: cached KV pages are a function of the "
+                "weights, so a shared trie would alias KV across "
+                "adapters — build the engine with "
+                "enable_prefix_caching=False to serve multi-LoRA")
         if self._chunk is not None:
             raise ValueError(
                 "install_adapter does not compose with prefill_chunk (the "
@@ -632,7 +732,10 @@ class ContinuousBatchingEngine:
         row is inert by the row-0 argument). REFUSES while any queued or
         running request decodes under the adapter, so an eviction never
         strands a request. Dropping the last adapter drops the stacks,
-        and dispatches return to the unadapted weights."""
+        and dispatches return to the unadapted weights. Drains a
+        pipelined window first, so that a request whose last token is
+        still on the device no longer counts as in flight."""
+        self.quiesce()
         row = self._adapter_rows.get(adapter_id)
         if row is None:
             raise ValueError(f"adapter {adapter_id!r} is not resident")
@@ -670,6 +773,7 @@ class ContinuousBatchingEngine:
         return n
 
     def _require_idle(self, what: str):
+        self.quiesce()
         if self._queue or any(r is not None for r in self._slot_req):
             raise ValueError(
                 f"{what} on a busy engine: resident KV pages are a "
@@ -694,8 +798,16 @@ class ContinuousBatchingEngine:
         values through its ``weights`` mapping, so `reset_weights` can
         return to the build-time weights. Stamps ``model_tag``.
         IDLE-ONLY, since every resident KV page is a function of the
-        weights. Resident adapters drop with the base they adapted."""
+        weights; refuses to compose with prefix caching for the same
+        reason (the trie outlives requests). Resident adapters drop with
+        the base they adapted."""
         self._require_idle("install_weights")
+        if self._prefix_enabled:
+            raise ValueError(
+                "install_weights refuses to compose with prefix "
+                "caching: the trie's cached KV pages were produced "
+                "under the OLD weights and would silently poison "
+                "future prefills")
         named = list(self.model.named_parameters())
         missing = [nm for nm, _ in named if nm not in values]
         if missing:
@@ -772,11 +884,17 @@ class ContinuousBatchingEngine:
     # -- invariants ----------------------------------------------------
     def check_invariants(self):
         """Page accounting: every page's refcount equals its holder
-        count, the free list is duplicate-free and is exactly the rc==0
-        pages, released slots hold nothing, and each active slot's live
-        block-table window points only at allocated pages while all else
-        trash-routes to page 0. Raises EngineInvariantError listing
-        every violation."""
+        count (the pages a slot owns, the prefix-cache pages it attaches
+        and the trie's nodes), the free list is duplicate-free and is
+        exactly the rc==0 pages, released slots hold nothing, and each
+        active slot's live block-table window points only at allocated
+        pages while all else trash-routes to page 0. Drains a pipelined
+        window first. Raises EngineInvariantError listing every
+        violation."""
+        self.quiesce()
+        self._check_invariants()
+
+    def _check_invariants(self):
         errs: List[str] = []
         free = list(self._free)
         free_set = set(free)
@@ -787,17 +905,22 @@ class ContinuousBatchingEngine:
         expected = np.zeros(self.num_pages, np.int64)
         for i, r in enumerate(self._slot_req):
             if r is None and (self._slot_pages[i]
+                              or self._slot_shared_pages[i]
                               or np.any(self._bt[i] != 0)):
                 errs.append(f"released slot {i} still holds pages "
-                            f"{self._slot_pages[i]} or a nonzero "
+                            f"{self._slot_pages[i]} shared "
+                            f"{self._slot_shared_pages[i]} or a nonzero "
                             "block-table row")
-            for p in self._slot_pages[i]:
+            for p in self._slot_pages[i] + self._slot_shared_pages[i]:
                 expected[p] += 1
+        for node in self._prefix_nodes.values():
+            expected[node["page"]] += 1
         for p in range(1, self.num_pages):
             rc = int(self._page_rc[p])
             if rc != int(expected[p]):
                 errs.append(f"page {p}: refcount {rc} != "
-                            f"{int(expected[p])} holders")
+                            f"{int(expected[p])} holders (slots + prefix "
+                            "nodes)")
             if rc == 0 and p not in free_set:
                 errs.append(f"page {p} LEAKED: refcount 0 but absent "
                             "from the free list")
@@ -865,17 +988,56 @@ class ContinuousBatchingEngine:
         req.error = error
         finished.append(req)
 
+    def _expire(self) -> List[Request]:
+        """≙ `_expire` :2002: finalize TIMEOUT the queued requests whose
+        deadline or queue-time budget has passed and the running ones
+        whose deadline has passed (releasing their slots). One engine
+        step is the granularity: a request never decodes past the step
+        in which its deadline elapsed."""
+        now = self._clock()
+        finished: List[Request] = []
+        keep: List[Request] = []
+        for req in self._queue:
+            if (req.deadline is not None and now >= req.deadline) \
+                    or (req.max_queue_time is not None
+                        and now - req.enqueue_time >= req.max_queue_time):
+                self.num_timeouts += 1
+                self._finalize(req, RequestStatus.TIMEOUT,
+                               "expired while waiting for a slot",
+                               finished)
+            else:
+                keep.append(req)
+        self._queue = keep
+        for i, req in enumerate(self._slot_req):
+            if req is not None and req.deadline is not None \
+                    and now >= req.deadline:
+                self.num_timeouts += 1
+                self._finalize(req, RequestStatus.TIMEOUT,
+                               "deadline expired mid-decode", finished)
+                self._release_slot(i)
+        return finished
+
     def _effective_prompt(self, req: Request) -> List[int]:
         """What admission prefills: the prompt plus everything already
         generated (a preempted request resumes by re-prefilling)."""
         return req.prompt + req.output if req.output else req.prompt
 
-    def _release_slot(self, slot: int):
+    def _release_slot(self, slot: int, register: bool = True):
+        """Free ``slot``: its prompt's full pages enter the prefix cache
+        first (unless ``register`` is False: a failed admission leaves
+        garbage KV, which must never be shared), then every page it owns
+        or attaches loses the slot's reference."""
+        req = self._slot_req[slot]
         self._slot_req[slot] = None
         self._slot_adapter[slot] = 0
-        for p in self._slot_pages[slot]:
+        if self._prefix_enabled and req is not None and register:
+            # before the decrefs, so the prompt pages never pass through
+            # the free list
+            self._register_prefix(slot, req)
+        for p in self._slot_pages[slot] + self._slot_shared_pages[slot]:
             self._decref(p)
         self._slot_pages[slot] = []
+        self._slot_shared_pages[slot] = []
         self._slot_reserved[slot] = 0
         self._slot_next_idx[slot] = 0
         self._slot_freed[slot] = 0
@@ -903,8 +1065,9 @@ class ContinuousBatchingEngine:
 
     def _preempt_youngest(self, finished: List[Request]) -> Optional[int]:
         """Release the most recently admitted running slot; its request
-        re-enters the queue with its tokens folded into the prompt.
-        Returns the released slot, or None if nothing runs."""
+        re-enters the queue with its tokens folded into the prompt (its
+        prompt pages stay in the prefix cache when it is on). Returns
+        the released slot, or None if nothing runs."""
         running = [i for i, r in enumerate(self._slot_req)
                    if r is not None]
         if not running:
@@ -920,14 +1083,17 @@ class ContinuousBatchingEngine:
         worst_len = min(len(req.prompt) + req.max_new_tokens, self.S)
         return -(-worst_len // self.page_size)
 
-    def _reserve_ok(self, req: Request) -> bool:
-        """Admit only if the request's worst-case page demand fits the
-        pool net of the other slots' reserved-but-unallocated pages, so
-        lazy growth can never fail mid-flight."""
+    def _reserve_ok(self, req: Request, shared_pages: int = 0) -> bool:
+        """Admit only if the request's worst-case page demand, net of the
+        prefix pages it attaches, fits the pool net of the other slots'
+        reserved-but-unallocated pages, so lazy growth can never fail
+        mid-flight. Evicts prefix-cache entries when that frees
+        enough."""
         outstanding = int(sum(
             self._slot_reserved[i] - self._slot_next_idx[i]
             for i, r in enumerate(self._slot_req) if r is not None))
-        return len(self._free) >= self._worst_pages(req) + outstanding
+        need = self._worst_pages(req) - shared_pages + outstanding
+        return len(self._free) >= need or self._ensure_free(need)
 
     def _incref(self, page: int):
         self._page_rc[page] += 1
@@ -939,9 +1105,11 @@ class ContinuousBatchingEngine:
 
     def _alloc_page(self, slot: int) -> int:
         if not self._free:
+            self._ensure_free(1)
+        if not self._free:
             raise PoolExhausted(
                 f"KV page pool exhausted ({self.num_pages - 1} usable "
-                "pages, none free)")
+                "pages, none free after prefix-cache eviction)")
         page = self._free.pop()
         self._page_rc[page] = 1
         self._slot_pages[slot].append(page)
@@ -951,7 +1119,7 @@ class ContinuousBatchingEngine:
 
     def _reserve_and_alloc(self, slot: int, req: Request, p_len: int):
         """Record the slot's worst-case reservation and allocate the
-        pages covering the prompt."""
+        pages covering the prompt past any attached prefix pages."""
         self._slot_reserved[slot] = self._worst_pages(req)
         while self._slot_next_idx[slot] * self.page_size < p_len:
             self._alloc_page(slot)
@@ -965,14 +1133,21 @@ class ContinuousBatchingEngine:
     def _grow_slot(self, slot: int, finished: List[Request]) -> bool:
         """Lazy page growth for `slot`'s next decode write. On pool
         exhaustion (reachable only through an accounting fault, since
-        admission reserves the worst case) preempt the youngest running
-        request and retry. Returns False if `slot` itself was
-        preempted."""
+        admission reserves the worst case) harvest a pipelined window
+        first (the victim keeps every token the device made, and an EOS
+        in the window may free the pages), else preempt the youngest
+        running request, and retry. Returns False if `slot` itself was
+        finalized or preempted."""
         while self._slot_next_idx[slot] * self.page_size \
                 <= int(self._pos[slot]):
             try:
                 self._alloc_page(slot)
             except PoolExhausted:
+                if self._pending:
+                    self._harvest_pending(finished)
+                    if self._slot_req[slot] is None:
+                        return False
+                    continue
                 victim = self._preempt_youngest(finished)
                 if victim is None:
                     raise
@@ -980,13 +1155,117 @@ class ContinuousBatchingEngine:
                     return False
         return True
 
+    # -- prefix cache ------------------------------------------------------
+    def _evict_one(self) -> bool:
+        """Evict the least recently used CHILDLESS trie node (an inner
+        node's page must outlive its descendants' references)."""
+        for key, node in self._prefix_nodes.items():        # LRU order
+            if node["children"] == 0:
+                del self._prefix_nodes[key]
+                if node["parent"] is not None:
+                    self._prefix_nodes[node["parent"]]["children"] -= 1
+                self._decref(node["page"])
+                return True
+        return False
+
+    def _cache_only_pages(self) -> int:
+        """Pages whose every reference comes from trie nodes: the most
+        that eviction can return to the free list."""
+        holds: Dict[int, int] = {}
+        for node in self._prefix_nodes.values():
+            holds[node["page"]] = holds.get(node["page"], 0) + 1
+        return sum(1 for p, n in holds.items() if self._page_rc[p] == n)
+
+    def _ensure_free(self, n: int) -> bool:
+        if len(self._free) >= n:
+            return True
+        # feasibility first: draining the whole cache for a request that
+        # still cannot fit would destroy every shared prefix for nothing
+        if len(self._free) + self._cache_only_pages() < n:
+            return False
+        while len(self._free) < n and self._evict_one():
+            pass
+        return len(self._free) >= n
+
+    def _match_prefix(self, toks: List[int]) -> Optional[List[int]]:
+        """The pages of the longest cached full-page prefix of ``toks``,
+        capped so that at least one prompt token remains to prefill (its
+        logits give the first token) and cut to a power-of-two page
+        count, as the JAX engine does (there each distinct shared length
+        is a compiled program); None on a miss."""
+        max_pages = (len(toks) - 1) // self.page_size
+        pages, parent = [], None
+        for f in range(max_pages):
+            key = (parent, tuple(toks[f * self.page_size:
+                                      (f + 1) * self.page_size]))
+            node = self._prefix_nodes.get(key)
+            if node is None:
+                break
+            self._prefix_nodes.move_to_end(key)      # most recently used
+            pages.append(node["page"])
+            parent = key
+        if not pages:
+            return None
+        return pages[:1 << (len(pages).bit_length() - 1)]
+
+    def _register_prefix(self, slot: int, req: Request):
+        """Walk or extend the trie along the prompt's full pages, at most
+        ``max_prefix_entries`` deep (more nodes than the cache holds
+        would only churn it), then evict down to the entry budget."""
+        full = min(len(req.prompt) // self.page_size,
+                   self._max_prefix_entries)
+        parent = None
+        for f in range(full):
+            key = (parent, tuple(req.prompt[f * self.page_size:
+                                            (f + 1) * self.page_size]))
+            node = self._prefix_nodes.get(key)
+            if node is None:
+                page = int(self._bt[slot, f])
+                self._incref(page)
+                self._prefix_nodes[key] = {"page": page, "parent": parent,
+                                           "children": 0}
+                if parent is not None:
+                    self._prefix_nodes[parent]["children"] += 1
+            else:
+                self._prefix_nodes.move_to_end(key)
+            parent = key
+        while len(self._prefix_nodes) > self._max_prefix_entries:
+            if not self._evict_one():
+                break
+
+    def _attach_shared(self, slot: int, shared: List[int]) -> int:
+        """Attach pinned prefix-cache pages read-only to `slot`'s block
+        table; returns the shared token length."""
+        self._slot_shared_pages[slot] = list(shared)
+        for j, p in enumerate(shared):
+            self._bt[slot, j] = p
+            self._incref(p)
+        self._slot_next_idx[slot] = len(shared)
+        return len(shared) * self.page_size
+
     # -- admission -------------------------------------------------------
     def _claim_candidate(self, free):
-        """Peek the queue head, check its worst-case reservation, claim
-        a slot. Returns (slot, req, prompt), or None when the head must
-        wait for pages (FIFO: stop admitting)."""
+        """Peek the queue head, match and PIN its cached prefix (before
+        the reservation, which may evict the matched chain), check its
+        worst-case reservation, claim a slot. Returns (slot, req,
+        prompt, shared pages or None) with the prefix still pinned, or
+        None when the head must wait for pages (FIFO: stop admitting)."""
         req = self._queue[0]
-        if not self._reserve_ok(req):
+        prompt = self._effective_prompt(req)
+        shared = self._match_prefix(prompt) if self._prefix_enabled \
+            else None
+        for p in shared or ():
+            self._incref(p)
+        try:
+            ok = self._reserve_ok(req, len(shared)) if shared \
+                else self._reserve_ok(req)
+        except BaseException:
+            for p in shared or ():
+                self._decref(p)
+            raise
+        if not ok:
+            for p in shared or ():
+                self._decref(p)              # unpin before waiting
             return None
         slot = free.pop(0)
         self._queue.pop(0)
@@ -995,7 +1274,16 @@ class ContinuousBatchingEngine:
         self._slot_adapter[slot] = self._adapter_row(req)
         self._slot_seq[slot] = self._admit_seq
         self._admit_seq += 1
-        return slot, req, self._effective_prompt(req)
+        return slot, req, prompt, shared
+
+    def _admission_pool_exhausted(self, slot, req, free, finished) -> bool:
+        """Back out a claimed slot after an admission-time allocation
+        failure and requeue (or starve out) its request. Returns True
+        when the caller should try the next queued request."""
+        self._release_slot(slot, register=False)
+        free.insert(0, slot)
+        self._requeue_or_starve(req, finished)
+        return req.done
 
     def _admit_ragged(self) -> List[Request]:
         """Collect every admittable request, then prefill them in packed
@@ -1014,25 +1302,37 @@ class ContinuousBatchingEngine:
 
     def _collect_ragged_entries(self, finished):
         """Host half of admission: reservation, slot and page
-        allocation. Returns the entries to pack."""
+        allocation, prefix-cache attach. Returns the entries to pack: a
+        prefix hit's entry is the prompt's suffix at offset
+        ``shared_len``, whose attention reads the shared pages through
+        the block table."""
         entries = []
         free = [i for i, r in enumerate(self._slot_req) if r is None]
         while free and self._queue:
             claim = self._claim_candidate(free)
             if claim is None:
                 break
-            slot, req, prompt = claim
+            slot, req, prompt, shared = claim
+            shared_len = 0
             try:
-                self._reserve_and_alloc(slot, req, len(prompt))
+                try:
+                    if shared:
+                        shared_len = self._attach_shared(slot, shared)
+                    self._reserve_and_alloc(slot, req, len(prompt))
+                finally:
+                    for p in shared or ():
+                        self._decref(p)      # unpin: the slot holds refs
             except PoolExhausted:
-                self._release_slot(slot)
-                free.insert(0, slot)
-                self._requeue_or_starve(req, finished)
-                if req.done:
+                if self._admission_pool_exhausted(slot, req, free,
+                                                  finished):
                     continue        # starved out: try the next request
                 break
-            entries.append({"slot": slot, "req": req, "tokens": prompt,
-                            "offset": 0})
+            if shared:
+                self.prefix_hits += 1
+                self.prefix_tokens_reused += shared_len
+            entries.append({"slot": slot, "req": req,
+                            "tokens": prompt[shared_len:],
+                            "offset": shared_len})
         return entries
 
     def _ragged_batches(self, entries):
@@ -1074,10 +1374,10 @@ class ContinuousBatchingEngine:
         bound = self._pages_bound(int(pk["context_len"][p["slot"]])
                                   for p in batch)
         t0 = time.perf_counter()
-        nxt = self._ragged_step(pk["ids"], pk["token_seq"],
-                                pk["positions"], pk["query_start"],
-                                pk["query_len"], pk["context_len"],
-                                pk["sample_rows"], bq, bound)
+        nxt = self._harvest_sync(self._ragged_step(
+            pk["ids"], pk["token_seq"], pk["positions"], pk["query_start"],
+            pk["query_len"], pk["context_len"], pk["sample_rows"], bq,
+            bound))
         self.admission_seconds += time.perf_counter() - t0
         self.admission_tokens += sum(len(p["tokens"]) for p in batch)
         self.num_admission_dispatches += 1
@@ -1118,7 +1418,7 @@ class ContinuousBatchingEngine:
             claim = self._claim_candidate(free)
             if claim is None:
                 break                      # FIFO: wait for pages to free
-            slot, req, prompt = claim
+            slot, req, prompt, _ = claim   # no prefix cache here
             p_len = len(prompt)
             t0 = time.perf_counter()
             tok, rows = self._legacy_prefill(prompt, self._bucket(p_len))
@@ -1127,10 +1427,8 @@ class ContinuousBatchingEngine:
                 self._paged_insert(slot, req, p_len, rows)
             except PoolExhausted:
                 self.admission_seconds += time.perf_counter() - t0
-                self._release_slot(slot)
-                free.insert(0, slot)
-                self._requeue_or_starve(req, finished)
-                if req.done:
+                if self._admission_pool_exhausted(slot, req, free,
+                                                  finished):
                     continue               # starved out: try the next
                 break
             self.admission_seconds += time.perf_counter() - t0
@@ -1180,11 +1478,11 @@ class ContinuousBatchingEngine:
                 paged_prefill_scatter(pools[0], pools[1], rk, rv, bt_row,
                                       p_len)
 
-    def _legacy_decode_step(self, tok, pos) -> np.ndarray:
+    def _legacy_decode_step(self, tok, pos) -> torch.Tensor:
         """≙ the paged `_build_decode`: ONE dispatch of (B, 1) tokens, each
         slot at its own position, through a `PagedKVCacheView` per layer
         (the attention appends the new K/V rows and launches the paged
-        attention kernel), greedy tokens copied to the host."""
+        attention kernel), greedy tokens left on the device."""
         tok_d, pos_d, bt_d = self._upload(tok, pos, self._bt)
         with torch.no_grad():
             views = [PagedKVCacheView(pools[0], pools[1], bt_d)
@@ -1192,26 +1490,32 @@ class ContinuousBatchingEngine:
             logits = self.model(tok_d[:, None], views,
                                 weights=self._dispatch_weights(),
                                 position_offset=pos_d)
-            return _sample_token(logits[:, 0]).cpu().numpy()
+            return _sample_token(logits[:, 0])
 
     # -- the ragged dispatch ---------------------------------------------
     def _ragged_step(self, ids, token_seq, positions, query_start,
                      query_len, context_len, sample_rows, block_q,
-                     pages_bound=None) -> np.ndarray:
+                     pages_bound=None) -> torch.Tensor:
         """ONE ragged dispatch: packed ids -> per-token rope -> one KV
         scatter into the pages per layer -> ragged paged attention ->
-        logits of each slot's sample row -> greedy tokens, copied to
-        the host (the step's sync point). Rows whose ``sample_rows``
-        entry is out of range are clamped and never read back."""
+        logits of each slot's sample row -> greedy tokens, left on the
+        device (`_harvest_sync` copies them to the host). ``ids`` is a
+        host array, or in a pipelined window the previous decode
+        dispatch's device tokens. Rows whose ``sample_rows`` entry is
+        out of range are clamped and never read back. Nothing is read
+        back from the device here."""
         t = len(ids)
         # multi-LoRA: each packed row takes its owning slot's adapter row
         # (a padding row's token_seq -1 takes the last slot's: inert, its
         # output is never read and the epilogue sums across no tokens)
         adapter_rows = self._slot_adapter[np.asarray(token_seq, np.int64)]
+        on_device = torch.is_tensor(ids)
         # one host-to-device copy for every index array of the dispatch
-        ids_d, seq_d, pos_d, qs_d, ql_d, cl_d, rows_d, ad_d, bt_d = \
-            self._upload(ids, token_seq, positions, query_start, query_len,
-                         context_len, sample_rows, adapter_rows, self._bt)
+        up = self._upload(*(() if on_device else (ids,)), token_seq,
+                          positions, query_start, query_len, context_len,
+                          sample_rows, adapter_rows, self._bt)
+        ids_d = ids if on_device else up.pop(0)
+        seq_d, pos_d, qs_d, ql_d, cl_d, rows_d, ad_d, bt_d = up
         with torch.no_grad():
             views = [RaggedKVCacheView(pools[0], pools[1], bt_d, seq_d,
                                        pos_d, qs_d, ql_d, cl_d, block_q,
@@ -1220,14 +1524,23 @@ class ContinuousBatchingEngine:
             logits = self.model(ids_d[None], views,
                                 rows=rows_d.clamp(0, t - 1),
                                 weights=self._dispatch_weights(ad_d))
-            return _sample_token(logits).cpu().numpy()
+            return _sample_token(logits)
 
     def _upload(self, *arrays):
         """Copy int32 host arrays to the device in ONE transfer; returns
-        a device view of each, in its shape."""
+        a device view of each, in its shape. On the card the copy goes
+        from a pinned staging buffer and does not wait for the stream
+        (a pageable copy would wait for every dispatch before it). The
+        buffer comes from PyTorch's pinned-memory caching allocator,
+        which hands it out again only after the copy that read it has
+        completed, so a later dispatch never overwrites a buffer that an
+        earlier one's copy still reads."""
         arrays = [np.asarray(a, np.int32) for a in arrays]
-        flat = torch.from_numpy(np.concatenate(
-            [a.ravel() for a in arrays])).to(self.device)
+        cuda = self.device.type == "cuda"
+        staged = torch.empty(sum(a.size for a in arrays), dtype=torch.int32,
+                             pin_memory=cuda)
+        np.concatenate([a.ravel() for a in arrays], out=staged.numpy())
+        flat = staged.to(self.device, non_blocking=cuda)
         out, at = [], 0
         for a in arrays:
             out.append(flat[at:at + a.size].view(a.shape))
@@ -1241,7 +1554,14 @@ class ContinuousBatchingEngine:
         (B, 1) dispatch through the paged attention. Inactive slots
         decode garbage at a clamped position; their block-table rows are
         all trash page, so their KV lands in page 0 (never read) and
-        their tokens are never read back."""
+        their tokens are never read back.
+
+        Positions advance at dispatch and the dispatch joins the window
+        that `_harvest_pending` commits, the one place where tokens are
+        committed and EOS, budget and cap decided. At ``harvest_every``
+        = 1 the window of one is harvested at once: the synchronous
+        loop. At k > 1 the tokens stay on the device as the next
+        dispatch's input until the window is due."""
         for i, r in enumerate(self._slot_req):
             if r is None:
                 continue
@@ -1259,22 +1579,116 @@ class ContinuousBatchingEngine:
                         self._decref(page)
                         self._bt[i, j] = 0
                     self._slot_freed[i] += 1
-        n_active = sum(r is not None for r in self._slot_req)
-        if not n_active:
+        act = tuple(i for i, r in enumerate(self._slot_req)
+                    if r is not None)
+        if not act:
             return                    # every slot preempted away
         pos = np.clip(self._pos, 0, self.S - 1).astype(np.int32)
         idx = np.arange(self.B, dtype=np.int32)
         t0 = time.perf_counter()
         if self.attn_impl == "ragged":
-            nxt = self._ragged_step(self._tok, idx, pos, idx,
+            # mid-window the input is the previous dispatch's device
+            # output: the greedy feedback makes no host round trip
+            tok = self._tok_dev if self._tok_dev is not None else self._tok
+            nxt = self._ragged_step(tok, idx, pos, idx,
                                     np.ones(self.B, np.int32), pos + 1, idx,
                                     1)
         else:
             nxt = self._legacy_decode_step(self._tok, pos)
-        self.decode_seconds += time.perf_counter() - t0
-        self.decode_tokens += n_active
         self.num_decode_dispatches += 1
+        self._window_wall += time.perf_counter() - t0
+        for i in act:
+            r = self._slot_req[i]
+            r.device_len = max(r.device_len, len(r.output)) + 1
+            self._pos[i] += 1
+        self._pending.append({"nxt": nxt, "act": act,
+                              "pos": self._pos.copy()})
+        self._tok_dev = nxt
+        if self.harvest_every == 1:
+            self._harvest_pending(finished)
+
+    # -- the harvest: the decode path's only reads from the device --------
+    def _harvest_sync(self, nxt: torch.Tensor) -> np.ndarray:
+        """Device tokens copied to the host: the decode path's one wait
+        for the device (and admission's, for its first tokens)."""
+        return nxt.cpu().numpy()
+
+    def _harvest_due(self) -> bool:
+        """≙ :3609: must the window be harvested before this step's
+        expiry, admission and dispatch? Yes when it is full, when a
+        request waits for admission, when a running request's deadline
+        has passed (expiry must see committed tokens), or when the next
+        dispatch could run past a request's token budget or the
+        sequence cap (the synchronous loop would have finalized it)."""
+        if len(self._pending) >= self.harvest_every or self._queue:
+            return True
+        now = self._clock()
+        depth = len(self._pending)
         for i, r in enumerate(self._slot_req):
+            if r is None:
+                continue
+            if r.deadline is not None and now >= r.deadline:
+                return True
+            if len(r.output) + depth >= r.max_new_tokens:
+                return True
+            if int(self._pos[i]) >= self.S - 1:
+                return True
+        return False
+
+    def _harvest_pending(self, finished: List[Request]):
+        """≙ :3636: drain the window. ONE copy of every pending
+        dispatch's tokens to the host (a window of one, at k = 1, is
+        copied without a stack), then the commits, dispatch by dispatch
+        in order, with EOS, budget and cap finalization at the dispatch
+        where it fired; a finalized slot's later tokens in the window
+        (the device ran past an EOS it could not see, at most k - 1
+        tokens) are discarded.
+        ``decode_seconds`` takes the window's dispatch walls plus this
+        copy's wait."""
+        entries, self._pending = self._pending, []
+        self._tok_dev = None
+        wall, self._window_wall = self._window_wall, 0.0
+        if not entries:
+            return
+        t0 = time.perf_counter()
+        toks = [e["nxt"] for e in entries]
+        stacked = self._harvest_sync(
+            toks[0][None] if len(toks) == 1 else torch.stack(toks))
+        self.decode_seconds += wall + time.perf_counter() - t0
+        done_slots: set = set()
+        live_last: Dict[int, int] = {}
+        for e, nxt in zip(entries, stacked):
+            for i in e["act"]:
+                r = self._slot_req[i]
+                if i in done_slots or r is None:
+                    continue
+                tok = int(nxt[i])
+                r.output.append(tok)
+                self.decode_tokens += 1
+                live_last[i] = tok
+                if (self.eos is not None and tok == self.eos) \
+                        or len(r.output) >= r.max_new_tokens \
+                        or int(e["pos"][i]) >= self.S - 1:
+                    r.device_len = len(r.output)
+                    self._finalize(r, RequestStatus.FINISHED, None,
+                                   finished)
+                    self._release_slot(i)
+                    done_slots.add(i)
+                    live_last.pop(i, None)
+        for i, tok in live_last.items():
+            self._tok[i] = tok
+        for r in self._slot_req:
             if r is not None:
-                self._tok[i] = nxt[i]
-                self._pos[i] += 1
+                r.device_len = len(r.output)        # staleness resync
+
+    def quiesce(self) -> int:
+        """Harvest the pipelined window NOW, so that host request state
+        (``output``, ``_tok``, ``_pos``) is committed and consistent;
+        every path that touches slot state from outside the step loop
+        calls it first. Returns the dispatches drained: 0 when the
+        window is empty, and always at ``harvest_every=1``.
+        Finalizations go to the backlog that the next step() returns."""
+        n = len(self._pending)
+        if n:
+            self._harvest_pending(self._finished_backlog)
+        return n

@@ -4,7 +4,7 @@
 and cross-attention without the incremental cache), :79
 (`TransformerEncoderLayer`, post-LN) and :118 (`TransformerEncoder`,
 whose layers start as copies of the one it is given). Not ported yet
-(ROADMAP.md queue A, item 15): the pre-LN layer (``normalize_before``),
+(ROADMAP.md queue A, item 6): the pre-LN layer (``normalize_before``),
 a separate ``act_dropout``, different key/value widths, the encoder's
 final ``norm``, and the decoder side. Attention goes through `F.scaled_dot_product_attention`:
 flash attention (the CUDA kernels on the card) without a mask and

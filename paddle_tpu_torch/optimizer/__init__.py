@@ -21,7 +21,7 @@ parameters where they lie (the card, or the CPU in the tests).
 
 ``learning_rate`` is a float or an `lr.LRScheduler`, which is read at
 every step (JAX's `get_lr`; the caller steps the scheduler). Not ported
-(ROADMAP.md queue A, item 15): the schedulers other than
+(ROADMAP.md queue A, item 6): the schedulers other than
 `lr.LinearWarmup`, ``apply_decay_param_fun``, ``lr_ratio``,
 ``amsgrad``, ``lazy_mode``, the other clip classes and the other
 optimizers.
@@ -72,7 +72,7 @@ class Adam(torch.optim.Optimizer):
                                                     ClipGradByGlobalNorm):
             raise NotImplementedError(
                 "only ClipGradByGlobalNorm is ported (ROADMAP.md queue A, "
-                "item 15)")
+                "item 6)")
         self._grad_clip = grad_clip
         self._multi_precision = bool(multi_precision)
         # the JAX optimizer's `_step_count`: one count for every

@@ -5,7 +5,7 @@
 stepped once per training step by the caller; `AdamW` reads it at each
 of its steps. The other schedulers, ``verbose``, a scheduler inside
 `LinearWarmup` and a scheduler's state dict are not ported yet
-(ROADMAP.md queue A, item 15).
+(ROADMAP.md queue A, item 6).
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ by default:
         --device cpu
 
 Not ported yet, and refused with `NotImplementedError`: ``--save``
-(ROADMAP.md queue A, item 15) and ``--data`` (item 16).
+(ROADMAP.md queue A, item 6) and ``--data`` (item 6).
 """
 from __future__ import annotations
 

@@ -52,9 +52,9 @@ def unported(flag: str, item: str):
 def refuse_unported(args) -> None:
     """Raise for the standard flags the port does not run yet."""
     if args.save:
-        unported("--save", "15: checkpoints")
+        unported("--save", "6: checkpoints")
     if args.data:
-        unported("--data", "16: file token sources")
+        unported("--data", "6: file token sources")
 
 
 def token_source(args, vocab_size: int) -> SyntheticTokens:

@@ -13,9 +13,9 @@ the CUDA card by default:
         --steps 2 --device cpu
 
 Not ported yet, and refused with `NotImplementedError`: ``--mesh``
-(ROADMAP.md queue A, item 15: the distributed stack), ``--save`` and
-``--resume-drill`` (item 15: checkpoints), ``--recompute`` (item 15) and
-``--data`` (item 16: file token sources).
+(ROADMAP.md queue A, item 9: the distributed stack), ``--save`` and
+``--resume-drill`` (item 6: checkpoints), ``--recompute`` (item 6) and
+``--data`` (item 6: file token sources).
 """
 from __future__ import annotations
 
@@ -66,11 +66,11 @@ def main(argv=None) -> RecipeResult:
                         "durability drill and print its telemetry")
     args = p.parse_args(argv)
     if args.mesh:
-        unported("--mesh", "15: the distributed stack")
+        unported("--mesh", "9: the distributed stack")
     if args.resume_drill:
-        unported("--resume-drill", "15: checkpoints")
+        unported("--resume-drill", "6: checkpoints")
     if args.recompute:
-        unported("--recompute", "15: activation recompute")
+        unported("--recompute", "6: activation recompute")
     refuse_unported(args)
 
     if args.size == "bench":

@@ -16,8 +16,8 @@ CUDA card by default:
 ``--dropless`` routes through the grouped-matmul kernel; the default is
 the capacity path (einsums, no kernel), as `MoEConfig` defaults. Not
 ported yet, and refused with `NotImplementedError`: ``--mesh`` (expert
-parallelism; ROADMAP.md queue A, items 12 and 15), ``--save`` (item 15)
-and ``--data`` (item 16).
+parallelism; ROADMAP.md queue A, item 9), ``--save`` (item 6) and
+``--data`` (item 6).
 """
 from __future__ import annotations
 
@@ -57,7 +57,7 @@ def main(argv=None) -> RecipeResult:
                    help="e.g. dp=2,ep=4")
     args = p.parse_args(argv)
     if args.mesh:
-        unported("--mesh", "12 and 15: expert parallelism needs a mesh")
+        unported("--mesh", "9: expert parallelism needs a mesh")
     refuse_unported(args)
 
     cfg = MoEConfig.tiny() if args.size == "tiny" else MoEConfig.small()

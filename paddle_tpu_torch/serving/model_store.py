@@ -2,7 +2,7 @@
 
 ≙ `paddle_tpu/serving/model_store.py`, whole: `model_id`,
 `split_model_id` and `FleetModelStore`. Its ``pdt_model_store_*``
-telemetry is not ported yet (ROADMAP.md queue A, item 5); the counters
+telemetry is not ported yet (ROADMAP.md queue A, item 4); the counters
 it keeps are plain attributes and `stats()`.
 
 Registered artifacts are full checkpoints (``register_model``) and LoRA

@@ -7,7 +7,7 @@ numpy generators, so the same seeds give the same ids and the same
 masked blocks. The loader is `torch.utils.data.DataLoader` (the recipes
 give its shuffle a seeded `torch.Generator`). `FileTokens`, `Vocab`,
 `WordTokenizer` and the BPE tokenizer are not ported yet (ROADMAP.md
-queue A, item 16).
+queue A, item 6).
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Where a decode step's time goes, per engine mode, on one card.
 
     python3 -m paddle_tpu_torch.tools.profile_decode [--steps 10]
+    python3 -m paddle_tpu_torch.tools.profile_decode --upload-turns 2
 
 Builds `LlamaConfig.llama3_8b()` in bf16 from seed 0, and for each
 engine mode — full width, ``QuantServingConfig("int8", "int8")``,
@@ -17,12 +18,17 @@ else).
 Then, for each matmul shape of a decode step, the device time of one
 dequant matmul (int8 and fp8) and of the full-width ``F.linear`` from the
 same trace, and the host time of one call of each (the wall of 200
-back-to-back calls over 200): ``decode_matmul {...}`` lines. Needs one
-CUDA card; without one it exits non-zero.
+back-to-back calls over 200): ``decode_matmul {...}`` lines.
+
+``--upload-turns N`` runs only `upload_turns`: the engine's decode step
+with its pinned index upload, with the pageable one it had before, and
+pipelined, in turns on one model. Needs one CUDA card; without one it
+exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -103,14 +109,17 @@ def seeded_lora_deltas(model, seed, rank=16):
     return deltas
 
 
-def profile_engine(model, mode, steps, seed=0):
+def profile_engine(model, mode, steps, seed=0, harvest_every=1):
     """``mode``: a `QuantServingConfig`, None (full width), ``"lora"`` or
-    ``"legacy"``. Prints and returns the ``decode_profile`` record."""
+    ``"legacy"``; ``harvest_every``: the engine's pipelined window (the
+    traced steps end with `quiesce`, so the wall holds the last window's
+    harvest). Prints and returns the ``decode_profile`` record."""
     from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
     quant = mode if not isinstance(mode, str) else None
     eng = ContinuousBatchingEngine(
         model, max_batch_size=8, max_seq_len=2048, quant=quant,
-        attention_impl="legacy" if mode == "legacy" else "ragged")
+        attention_impl="legacy" if mode == "legacy" else "ragged",
+        harvest_every=harvest_every)
     adapters = (None,)
     if mode == "lora":
         adapters += ("a1", "a2", "a3")
@@ -124,12 +133,14 @@ def profile_engine(model, mode, steps, seed=0):
                         adapter=adapters[i % len(adapters)])
     for _ in range(3):                   # admission, then warm decode
         eng.step()
+    eng.quiesce()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
+        eng.quiesce()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = _kernel_times(prof)
@@ -142,7 +153,7 @@ def profile_engine(model, mode, steps, seed=0):
     step_ms = 1e3 * wall / steps
     label = mode if isinstance(mode, str) else "full width" \
         if quant is None else f"{quant.weights} weights, {quant.kv} KV"
-    rec = dict(mode=label,
+    rec = dict(mode=label, harvest_every=harvest_every,
                steps=steps, step_ms=step_ms, device_ms_per_step=dev_ms,
                idle_share=max(0.0, 1 - dev_ms / step_ms),
                by_family={k: dict(launches_per_step=v[0] / steps,
@@ -150,6 +161,67 @@ def profile_engine(model, mode, steps, seed=0):
                           for k, v in sorted(fam.items())})
     print("decode_profile " + json.dumps(rec), flush=True)
     del eng
+    return rec
+
+
+def pageable_upload(eng, *arrays):
+    """The engine's index upload before its pinned staging buffer: one
+    copy from pageable memory, which waits for the stream."""
+    arrays = [np.asarray(a, np.int32) for a in arrays]
+    flat = torch.from_numpy(np.concatenate(
+        [a.ravel() for a in arrays])).to(eng.device)
+    out, at = [], 0
+    for a in arrays:
+        out.append(flat[at:at + a.size].view(a.shape))
+        at += a.size
+    return out
+
+
+UPLOAD_SIDES = (("k1_pinned", 1, False), ("k1_pageable", 1, True),
+                ("k4_pinned", 4, False))
+
+
+def upload_turns(model, turns=2, seed=0, n_requests=16):
+    """Serve ``n_requests`` seeded requests (prompts of 32..1024 tokens,
+    32..64 new tokens each: chip_smoke.py's `make_requests` at seed 0)
+    on a fresh 8-slot engine for each side of `UPLOAD_SIDES` — k = 1
+    with the pinned upload, k = 1 with `pageable_upload`, k = 4 pinned
+    — in turns, the order reversed every other turn. Greedy streams must
+    be equal on every run. Prints and returns the ``upload_turns``
+    record: each side's decode step ms (``decode_seconds`` over decode
+    dispatches) and run wall, run by run."""
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(n_requests):
+        n = int(rng.integers(32, 1025))
+        new = int(rng.integers(32, 65))
+        reqs.append((rng.integers(0, model.config.vocab_size, n), new))
+    rec = {name: dict(decode_step_ms=[], wall_s=[])
+           for name, _, _ in UPLOAD_SIDES}
+    want = None
+    for t in range(turns):
+        for name, k, pageable in UPLOAD_SIDES[::1 if t % 2 == 0 else -1]:
+            eng = ContinuousBatchingEngine(model, max_batch_size=8,
+                                           max_seq_len=2048, harvest_every=k)
+            if pageable:
+                eng._upload = functools.partial(pageable_upload, eng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rids = [eng.add_request(p, max_new_tokens=new)
+                    for p, new in reqs]
+            out = eng.run()
+            torch.cuda.synchronize()
+            rec[name]["wall_s"].append(time.perf_counter() - t0)
+            rec[name]["decode_step_ms"].append(
+                1e3 * eng.decode_seconds / eng.num_decode_dispatches)
+            streams = [out[r] for r in rids]
+            if want is None:
+                want = streams
+            elif streams != want:
+                raise AssertionError(f"{name}: streams differ")
+            del eng
+    print("upload_turns " + json.dumps(rec), flush=True)
     return rec
 
 
@@ -196,6 +268,8 @@ def profile_matmuls(cfg, calls=200):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--upload-turns", type=int, default=0,
+                    help="run only upload_turns, with this many turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: needs an NVIDIA card", file=sys.stderr)
@@ -208,6 +282,11 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     cfg = LlamaConfig.llama3_8b()
+    if args.upload_turns:
+        model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                 seed=0)
+        upload_turns(model, args.upload_turns)
+        return 0
     profile_matmuls(cfg)
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                              seed=0)

@@ -637,6 +637,29 @@ def test_tiny_engine_on_card_matches_cpu(cuda):
     assert streams[0] == streams[1]
 
 
+def test_tiny_engine_pipelined_matches_k1(cuda):
+    """harvest_every=4 on the card: the device-resident token feeds the
+    next dispatch, and the streams equal the synchronous loop's."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    rng = np.random.default_rng(4)
+    jobs = [(rng.integers(0, 512, n), new)
+            for n, new in ((5, 9), (20, 7), (47, 12), (3, 5), (30, 8))]
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                             seed=4).to("cuda")
+    streams = []
+    for k in (1, 4):
+        eng = ContinuousBatchingEngine(model, max_batch_size=3,
+                                       max_seq_len=64, harvest_every=k)
+        rids = [eng.add_request(p, max_new_tokens=n) for p, n in jobs]
+        out = eng.run()
+        eng.check_invariants()
+        assert eng._pending == [] and len(eng._free) == eng.num_pages - 1
+        streams.append([out[r] for r in rids])
+    assert streams[0] == streams[1]
+    assert [len(s) for s in streams[1]] == [n for _, n in jobs]
+
+
 def _lora_operands(dev, t, k, n, r, dtype, stacks=4, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed + t + k + n + r)
     x = torch.randn(t, k, device=dev, generator=g).to(dtype)

@@ -244,18 +244,20 @@ def test_unknown_adapter_refused_before_enqueue(models):
 
 
 def test_composition_refusals(models):
-    """prefill_chunk and the legacy path refuse adapters as in JAX;
-    prefix caching and spec decode cannot be built at all in the port,
-    so no engine can compose them with adapters."""
+    """prefill_chunk, prefix caching and the legacy path refuse adapters
+    as in JAX; spec decode cannot be built at all in the port, so no
+    engine can compose it with adapters."""
     _, tm, sd = models
     with pytest.raises(ValueError, match="prefill_chunk"):
         _port(tm, prefill_chunk=16).install_adapter("a1", _deltas(sd, 1))
+    with pytest.raises(ValueError, match="prefix caching"):
+        _port(tm, enable_prefix_caching=True).install_adapter(
+            "a1", _deltas(sd, 1))
     with pytest.raises(ValueError, match="ragged"):
         _port(tm, attention_impl="legacy").install_adapter(
             "a1", _deltas(sd, 1))
-    for kw in (dict(enable_prefix_caching=True), dict(spec_decode=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port(tm, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port(tm, spec_decode=object())
 
 
 @pytest.mark.parametrize("case", ["unknown", "non_matmul", "embedding",

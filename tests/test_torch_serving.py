@@ -4,6 +4,8 @@ serving`, ``device="cpu"``) against the JAX engine: on the same seeded
 streams — with more requests than slots, with ``prefill_chunk=16``
 (chunk continuations), with an ``eos_token_id``, and with a prompt near
 ``max_seq_len`` — and leave clean page accounting after `run()`."""
+import re
+
 import numpy as np
 import pytest
 
@@ -100,7 +102,8 @@ def test_preemption_keeps_greedy_streams(models, monkeypatch):
 def test_unported_options_raise(models, name, off, item):
     _, tm, _ = models
     value = True if off is False else object() if off is None else off + 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.*item {re.escape(item)}"):
         _port(tm, **{name: value})
 
 
@@ -115,15 +118,13 @@ def test_dense_and_legacy_paths_raise(models, layout):
         _port(tm, **layout)
 
 
-@pytest.mark.parametrize("kw", [dict(deadline=1.0),
-                                dict(max_queue_time=1.0),
-                                dict(adapter="a")])
+@pytest.mark.parametrize("kw", [dict(adapter="a")])
 def test_unported_request_options_raise(models, kw):
-    """Deadlines are not ported; an adapter is, and one that is not
+    """Every request option is ported (deadlines:
+    tests/test_torch_serving_deadlines.py); an adapter that is not
     resident is refused before enqueue (tests/test_torch_lora.py)."""
     _, tm, prompts = models
-    exc = ModelMismatch if "adapter" in kw else NotImplementedError
-    with pytest.raises(exc, match="ROADMAP|not resident"):
+    with pytest.raises(ModelMismatch, match="not resident"):
         _port(tm).add_request(prompts[0], **kw)
 
 
