@@ -69,6 +69,27 @@ Pipelined decode and the prefix cache add, in the same run (after 6):
     (``serving_prefix {...}``), and every page free once the trie is
     drained.
 
+The engine's program cache as CUDA graphs (the default on the card;
+``_graphs=False`` is the eager yardstick) adds, in the same run:
+
+5n. ``serve_8b_graphs``: the 16 requests of 5 on eager and graphed
+    engines in turns (eager, graphed, graphed, eager) at k = 1 and at
+    k = 4, every run's streams bitwise equal to 5's and its launch
+    counts exact by 5's formula (a replay adds the counts its capture
+    recorded); a window of 4 graphed decode dispatches under
+    ``set_sync_debug_mode("error")``; every run's decode step ms, host
+    us a step (the dispatch walls without the token copies), TTFT p50,
+    captures, capture seconds and peak memory (``serving_graphs_k1`` /
+    ``serving_graphs_k4``), and `profile_engine`'s step ms, device ms a
+    step and idle share, eager and graphed in turns at both k
+    (``serving_graphs {...}``). Phases 5b, 5c, 5d and 5m run graphed and
+    each holds its streams bitwise to an eager engine's on the same
+    requests; phases 6, 6b and 6c replay their kernel forward once as a
+    captured graph, bitwise equal to the eager kernel forward. The
+    tiny card-against-CPU parities that record every dispatch's logits
+    (4b, 4c) run eager: the record reads the card inside the forward,
+    which a capture cannot hold.
+
 Quantized serving adds, in the same run:
 
 3b. the dequant matmul kernel against its plain version at the serving
@@ -313,6 +334,7 @@ its launches on its own main-path run, and device_ms / host_us where the
 phase measured them), the card line, and last ``{"ok": true, "device":
 {...}}``.
 """
+import gc
 import json
 import math
 import os
@@ -324,6 +346,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # operations/s by input type
@@ -1357,9 +1380,12 @@ def tiny_quant_parity():
         streams, recs = [], []
         for dev in ("cuda", "cpu"):
             model = LlamaForCausalLM(cfg, device="cpu", seed=3).to(dev)
+            # eager: the logits record reads the card inside every
+            # forward, which a graph capture cannot hold
             eng = ContinuousBatchingEngine(
                 model, max_batch_size=2, max_seq_len=64, prefill_chunk=16,
-                device=dev, quant=QuantServingConfig(weights, "int8"))
+                device=dev, quant=QuantServingConfig(weights, "int8"),
+                _graphs=False)
             out, rec = recorded_run(model, eng, jobs)
             streams.append(out)
             recs.append(rec)
@@ -1409,9 +1435,10 @@ def tiny_lora_parity():
 
     def engine(dev, quant, adapters=("a1", "a2")):
         model = LlamaForCausalLM(cfg, device="cpu", seed=3).to(dev)
+        # eager, as in tiny_quant_parity: the record reads the card
         eng = ContinuousBatchingEngine(model, max_batch_size=3,
                                        max_seq_len=64, device=dev,
-                                       quant=quant)
+                                       quant=quant, _graphs=False)
         deltas = tiny_adapters(model)
         for name in adapters:
             eng.install_adapter(name, deltas[name])
@@ -1569,6 +1596,10 @@ def serving_stats(eng, done, wall):
                 decode_tokens_per_s=eng.decode_tokens / eng.decode_seconds,
                 decode_step_ms=1e3 * eng.decode_seconds
                 / eng.num_decode_dispatches,
+                host_us_per_step=1e6 * eng.decode_dispatch_seconds
+                / eng.num_decode_dispatches,
+                graph_captures=eng.num_graph_captures,
+                graph_capture_s=eng.graph_capture_seconds,
                 dispatches=eng.num_dispatches,
                 admission_dispatches=eng.num_admission_dispatches,
                 decode_dispatches=eng.num_decode_dispatches,
@@ -1591,17 +1622,19 @@ def step_summary(stats):
                                   "ttft_p50_s")}
 
 
-def sync_free_window(model):
+def sync_free_window(model, graphs):
     """One full window of `HARVEST_EVERY` decode dispatches of an 8B
     engine at ``harvest_every=HARVEST_EVERY``, under
     ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for
     the card inside the window (a host read of a device value, a
-    pageable copy) raises. The window is then drained; returns the
-    dispatches it held."""
+    pageable copy) raises. With ``graphs`` the decode program is
+    captured in the steps before (a capture synchronizes), so the window
+    holds replays only. The window is then drained."""
     import torch
     from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
-                                   harvest_every=HARVEST_EVERY)
+                                   harvest_every=HARVEST_EVERY,
+                                   _graphs=graphs)
     rng = np.random.default_rng(2)
     for _ in range(8):
         eng.add_request(rng.integers(0, model.config.vocab_size,
@@ -1610,6 +1643,8 @@ def sync_free_window(model):
     eng.step()                    # admission (its copy syncs) + dispatch 1
     eng.step()                    # dispatch 2: pinned buffers warmed
     eng.quiesce()
+    if graphs and eng._decode_program.graph is None:
+        raise AssertionError("the decode program was not captured")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1620,21 +1655,25 @@ def sync_free_window(model):
         torch.cuda.set_sync_debug_mode("default")
     drained = eng.quiesce()
     eng.check_invariants()
-    log(f"sync-free window: {held} decode dispatches with no synchronizing "
-        f"call under set_sync_debug_mode('error'), {drained} harvested "
-        "in one copy")
+    log(f"sync-free window ({'graphed' if graphs else 'eager'}): {held} "
+        "decode dispatches with no synchronizing call under "
+        f"set_sync_debug_mode('error'), {drained} harvested in one copy")
     if held != HARVEST_EVERY or drained != HARVEST_EVERY:
         raise AssertionError("the window did not hold its dispatches")
 
 
-def serve_run(model, reqs, k):
-    """Serve ``reqs`` on a fresh 8B engine at ``harvest_every=k`` with the
-    launch counts set to 0 before: (engine, streams, counts, stats)."""
+def serve_run(model, reqs, k, graphs=True):
+    """Serve ``reqs`` on a fresh 8B engine at ``harvest_every=k``, graphed
+    or eager, with the launch counts and the peak memory reset before:
+    (engine, streams, counts, stats)."""
     import torch
     from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
     from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    gc.collect()                  # nothing of an earlier run in the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
-                                   harvest_every=k)
+                                   harvest_every=k, _graphs=graphs)
     reset_launch_counts()
     t0 = time.perf_counter()
     for p, new in reqs:
@@ -1676,7 +1715,7 @@ def serve_8b_pipelined(model, reqs, want_streams, k1_stats):
         if streams != want_streams:
             raise AssertionError(f"k={k} streams differ from the first run's")
         turns[k].append(step_summary(st))
-    sync_free_window(model)
+    sync_free_window(model, graphs=False)
     for k, runs in turns.items():
         log(f"serving_k{k} " + json.dumps(runs))
     prof = {k: profile_engine(model, None, PROFILE_STEPS, harvest_every=k)
@@ -1686,6 +1725,139 @@ def serve_8b_pipelined(model, reqs, want_streams, k1_stats):
                      "step_ms", "device_ms_per_step", "idle_share")}
                      for k, p in prof.items()})
     log("serving_pipelined " + json.dumps(stats))
+
+
+def serve_8b_graphs(model, reqs, want_streams):
+    """The program cache as CUDA graphs at 8B: the 16 requests of
+    `serve_8b` on eager (``_graphs=False``) and graphed engines in turns
+    (eager, graphed, graphed, eager) at k = 1 and k = 4. Every run's
+    streams bitwise equal to `serve_8b`'s and its launch counts exact by
+    `check_serving_counts` (a replay adds what its capture recorded);
+    a graphed window free of synchronizing calls; every run's decode
+    step ms, host us a step, TTFT p50, captures, capture seconds and
+    peak memory; `profile_engine`'s step ms, device ms a step and idle
+    share, eager and graphed in turns at both k; the decode graph's
+    replay wall (`decode_replay_ms`)."""
+    from paddle_tpu_torch.tools.profile_decode import profile_engine
+    L = model.config.num_hidden_layers
+    fields = ("decode_step_ms", "host_us_per_step", "decode_tokens_per_s",
+              "ttft_p50_s", "admission_tokens_per_s", "graph_captures",
+              "graph_capture_s", "peak_mem_gib", "wall_s")
+    turns = {}
+    for k in (1, HARVEST_EVERY):
+        for graphs in (False, True, True, False):
+            eng, streams, counts, st = serve_run(model, reqs, k, graphs)
+            same = sum(a == b for a, b in zip(streams, want_streams))
+            side = f"k{k}_{'graphed' if graphs else 'eager'}"
+            log(f"{side}: {same} of {N_REQUESTS} streams bitwise equal to "
+                f"serve_8b's; {eng.num_graph_captures} captures, programs "
+                f"{list(eng._ragged_programs)}")
+            if streams != want_streams:
+                raise AssertionError(f"{side}: streams differ from "
+                                     "serve_8b's")
+            check_serving_counts(eng, counts, L)
+            if graphs != (eng.num_graph_captures > 0):
+                raise AssertionError(f"{side}: {eng.num_graph_captures} "
+                                     "captures")
+            turns.setdefault(side, []).append({f: st[f] for f in fields})
+            del eng
+    sync_free_window(model, graphs=True)
+    prof = {}
+    for k in (1, HARVEST_EVERY):
+        for graphs in (False, True, True, False):
+            p = profile_engine(model, None, PROFILE_STEPS, harvest_every=k,
+                               graphs=graphs)
+            fam = p["by_family"].get("split_attention", {})
+            prof.setdefault(f"k{k}_{'graphed' if graphs else 'eager'}",
+                            []).append(dict(
+                {f: p[f] for f in ("step_ms", "device_ms_per_step",
+                                   "idle_share", "captures")},
+                attention_launches_per_step=fam.get("launches_per_step"),
+                attention_device_ms_per_step=fam.get("device_ms_per_step"),
+                family_device_ms_per_step={
+                    f: v["device_ms_per_step"]
+                    for f, v in p["by_family"].items()}))
+    replay = [decode_replay_ms(model) for _ in range(2)]
+    for k in (1, HARVEST_EVERY):
+        log(f"serving_graphs_k{k} " + json.dumps(
+            {s: turns[s] for s in turns if s.startswith(f"k{k}_")}))
+    log("serving_graphs " + json.dumps(dict(turns=turns, profiled=prof,
+                                            decode_replay_ms=replay)))
+
+
+def decode_replay_ms(model, reps=20):
+    """The card's wall of one graphed decode step: the decode program of
+    an 8-slot engine (8 seeded prompts of 32-1024 tokens, as
+    `profile_engine` admits) replayed ``reps`` times back to back on its
+    last inputs, between two CUDA events. Beside the profiled sum of its
+    kernels' times it gives the gaps between a graph's kernels."""
+    import torch
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048)
+    rng = np.random.default_rng(0)
+    for _ in range(8):
+        eng.add_request(rng.integers(0, model.config.vocab_size,
+                                     int(rng.integers(32, 1025))),
+                        max_new_tokens=64)
+    for _ in range(3):            # admission, the warm-up, the capture
+        eng.step()
+    graph = eng._decode_program.graph
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def eager_streams(model, reqs, prepare=None, adapters=(None,), **kw):
+    """The streams of ``reqs`` on an eager 8B engine (``_graphs=False``;
+    ``prepare(engine)`` installs what a phase's engine had): the
+    yardstick that a graphed phase's streams are held to, bitwise."""
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
+                                   _graphs=False, **kw)
+    if prepare is not None:
+        prepare(eng)
+    rids = [eng.add_request(p, max_new_tokens=n,
+                            adapter=adapters[i % len(adapters)])
+            for i, (p, n) in enumerate(reqs)]
+    out = eng.run()
+    return [out[r] for r in rids]
+
+
+def check_eager_equal(label, streams, eager):
+    same = sum(a == b for a, b in zip(streams, eager))
+    log(f"{label}: {same} of {len(streams)} graphed streams bitwise equal "
+        "to an eager engine's")
+    if streams != eager:
+        raise AssertionError(f"{label}: graphed streams differ from the "
+                             "eager engine's")
+
+
+def graph_replay(fn):
+    """``fn()`` once eagerly on a side stream (the warm-up that makes the
+    split tickets of that stream), then captured there as a CUDA graph
+    and replayed once: the replay's output. The capture launches nothing
+    but the wrappers count it, so the launch counts are restored."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts
+    saved = dict(launch_counts)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    launch_counts.update(saved)
+    return out.clone()
 
 
 def prefix_requests(vocab):
@@ -1701,7 +1873,7 @@ def prefix_requests(vocab):
     return reqs
 
 
-def prefix_run(model, reqs, cached):
+def prefix_run(model, reqs, cached, graphs=True):
     """Serve the warm request to completion, then the hit requests on an
     engine with or without the prefix cache, recording the hit round's
     admission logits (one row per slot: the round admits all of them in
@@ -1710,9 +1882,12 @@ def prefix_run(model, reqs, cached):
     import torch
     from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
-                                   enable_prefix_caching=cached)
+                                   enable_prefix_caching=cached,
+                                   _graphs=graphs)
     eng.add_request(reqs[0][0], max_new_tokens=reqs[0][1])
     eng.run()
+    # the hit round's admission is its key's first use, an eager run, so
+    # the logits hook below records it on a graphed engine too
     rec, head, decode = [], model.logits, eng._decode
     decoding = [False]
 
@@ -1820,6 +1995,8 @@ def serve_8b_prefix(model):
     agree = (a.argmax(-1) == b.argmax(-1)).tolist()
     same = [x == y for x, y in zip(cached[1], plain[1])]
     bad, slot = planted_prefix_logits(model, reqs)
+    check_eager_equal("prefix (cached)", cached[1],
+                      prefix_run(model, reqs, True, graphs=False)[1])
     planted_diff = (bad[slot] - b[slot]).abs().max().item()
     planted_caught = bool(logits_disagree(bad, b)[slot])
     parts = {i: next((j for j, (x, y) in enumerate(zip(p, q)) if x != y),
@@ -1928,6 +2105,9 @@ def serve_8b_quant(model, reqs, weights, n_requests):
     log(f"{tag} " + json.dumps(stats))
     qweights = eng._qweights
     del eng
+    check_eager_equal(tag, [by_rid[rid].output for rid in range(len(reqs))],
+                      eager_streams(model, reqs, quant=QuantServingConfig(
+                          weights, "int8")))
     return counts, qweights
 
 
@@ -1998,6 +2178,11 @@ def serve_8b_lora(model, reqs):
                  lora_adapter_gib=eng.lora_adapter_bytes / 2 ** 30,
                  register_and_install_s=install_s, store=store.stats())
     log("serving_lora " + json.dumps(stats))
+    check_eager_equal(
+        "serving_lora", [by_rid[rid].output for rid in range(len(reqs))],
+        eager_streams(model, reqs, adapters=names, prepare=lambda e: [
+            store.ensure("card1", e, model_id("llama3_8b", name))
+            for name in LORA_ADAPTERS]))
     return counts, eng
 
 
@@ -2046,6 +2231,10 @@ def serve_8b_legacy(model, reqs):
         raise AssertionError("legacy launch counts do not match the "
                              "dispatches")
     log("serving_legacy " + json.dumps(serving_stats(eng, done, wall)))
+    del eng
+    check_eager_equal("serving_legacy",
+                      [by_rid[rid].output for rid in range(len(reqs))],
+                      eager_streams(model, reqs, attention_impl="legacy"))
     return counts
 
 
@@ -2081,7 +2270,7 @@ def path_check(model, reqs, weights=None, lora_engine=None):
         rows = (np.arange(n_seq, dtype=np.int32) + 1)[pk["token_seq"]]
         weights = lora_engine._dispatch_weights(torch.from_numpy(rows).cuda())
     logits = {}
-    for use_kernel in (True, False):
+    for use_kernel in (True, False, "graph"):
         pools = [tuple(torch.zeros(cfg.num_key_value_heads, nxt, ps,
                                    cfg.head_dim, device="cuda",
                                    dtype=torch.int8 if quant
@@ -2094,13 +2283,20 @@ def path_check(model, reqs, weights=None, lora_engine=None):
                                    dev["query_len"], dev["context_len"], 8,
                                    None, *e[2:])
                  for e in pools]
-        with torch.no_grad():
-            logits[use_kernel] = model(dev["ids"][None], views,
-                                       rows=dev["sample_rows"],
-                                       use_kernel=use_kernel,
-                                       weights=weights).float()
+
+        def forward():
+            with torch.no_grad():
+                return model(dev["ids"][None], views,
+                             rows=dev["sample_rows"],
+                             use_kernel=use_kernel is not False,
+                             weights=weights).float()
+        # "graph": the kernel forward captured and replayed, as the
+        # engine's admission programs run it
+        logits[use_kernel] = graph_replay(forward) if use_kernel == "graph" \
+            else forward()
         del pools, views
     a, b = logits[True], logits[False]
+    replay_equal = torch.equal(logits["graph"], a)
     diff = (a - b).abs().max().item()
     scale = b.abs().max().item()
     agree = (a.argmax(-1) == b.argmax(-1)).tolist()
@@ -2108,11 +2304,15 @@ def path_check(model, reqs, weights=None, lora_engine=None):
     log(f"{what}path check: max |logit diff| "
         f"{diff:.4g} (max |logit| "
         f"{scale:.4g}), argmax agrees per row {agree}, shape "
-        f"{tuple(a.shape)}")
+        f"{tuple(a.shape)}; the kernel forward replayed as a CUDA graph "
+        f"bitwise equal to its eager run: {replay_equal}")
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         raise AssertionError("non-finite logits")
     if a.shape != (n_seq, cfg.vocab_size) or diff > 0.1 * scale:
         raise AssertionError("kernel and plain paths disagree")
+    if not replay_equal:
+        raise AssertionError("the graph replay of the kernel forward "
+                             "differs from its eager run")
 
 
 def _sdpa_library(q, k, v, causal):
@@ -4825,6 +5025,7 @@ def main():
     model, counts, reqs, streams, stats = serve_8b()
     path_check(model, reqs)
     serve_8b_pipelined(model, reqs, streams, stats)
+    serve_8b_graphs(model, reqs, streams)
     serve_8b_prefix(model)
     qcounts, qweights = serve_8b_quant(model, reqs, "int8", N_REQUESTS)
     path_check(model, reqs, qweights)
@@ -4928,6 +5129,7 @@ def main():
             device_ms=rec.get("device_ms"), host_us=rec.get("host_us"),
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+    log(f"smoke seconds {time.perf_counter() - START:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

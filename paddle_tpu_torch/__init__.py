@@ -3,7 +3,8 @@
 The package serves greedy Llama requests through a port of
 `ContinuousBatchingEngine` (ragged paged admission + decode, or the
 legacy paged path; quantized weights and KV pages; batched multi-LoRA;
-checkpoint swaps through the fleet model store), and trains Llama, MoE
+checkpoint swaps through the fleet model store; on the card each
+dispatch replays as a CUDA graph), and trains Llama, MoE
 (Qwen2-MoE shape, capacity or dropless) and BERT masked-LM models
 (`TrainStep`, `AdamW`, the recipes), and offers the packed (varlen)
 attention, fused rope and fused-layer surface of the public API
@@ -16,7 +17,8 @@ the same function:
   int8 pages);
 * `ops.norm_kernels` — RMSNorm and LayerNorm, forward and backward;
 * `ops.quant_matmul` — the int8/fp8 dequant matmul;
-* `ops.lora_epilogue` — the BGMV per-token LoRA delta;
+* `ops.lora_epilogue` — the per-token LoRA delta (SGMV for bf16 and
+  f16 up to rank 64, BGMV for f32 and larger ranks);
 * `ops.paged_attention` — q = 1 paged decode attention;
 * `ops.flash_attention` — flash attention forward, dQ and dK/dV;
 * `ops.flash_varlen` — the same under a segment-id mask (packed

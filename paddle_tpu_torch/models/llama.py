@@ -370,9 +370,14 @@ class LlamaAttention(torch.nn.Module):
         cur = offset + s
         k_cache[:, offset:cur] = k.to(k_cache.dtype)
         v_cache[:, offset:cur] = v.to(v_cache.dtype)
-        mask = torch.from_numpy(_window_band(s, cur, offset,
-                                             self.sliding_window))
-        mask = mask.to(q.device)[None, None]
+        # built on the device: a host copy could not be captured into
+        # the legacy prefill's CUDA graph
+        rows = torch.arange(s, device=q.device)[:, None] + offset
+        cols = torch.arange(cur, device=q.device)[None, :]
+        mask = cols <= rows
+        if self.sliding_window is not None:
+            mask = mask & (cols > rows - self.sliding_window)
+        mask = mask[None, None]
         if attention_mask is not None:
             mask = mask & attention_mask[:, :cur].bool()[:, None, None, :]
         return F._sdpa(q, k_cache[:, :cur], v_cache[:, :cur], mask)

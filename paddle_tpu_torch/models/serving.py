@@ -23,7 +23,10 @@ tensor parallelism, and the paged part of `cache_memory_info`
 map). The legacy paged path, ``attention_impl="legacy"`` (≙ `_bucket` /
 `_build_prefill` :2347-2392, the `_admit` loop :2472-2561 without its
 prefix-cache branch, `_paged_insert` / `_build_scatter` :3079-3102 and
-the paged `_build_decode` :3241-3266).
+the paged `_build_decode` :3241-3266). The program cache (≙ `_jit_lru`
+/ `_jit_singleton` :2819-2850 over `_ragged_jits` and `_prefill_jits`
+:810-814, `_get_prefill` :2352, `_get_ragged_prefill` :2860 and the
+decode programs :3371-3392).
 
 With ``attention_impl="ragged"`` (the default) each admission batch and
 each decode step is ONE ragged dispatch: the packed token axis runs
@@ -38,10 +41,18 @@ dispatches (or sooner, when host work needs them). With ``"legacy"``
 each admitted request gets its own prefill dispatch over its prompt
 padded to a ``prompt_pad`` bucket, whose K/V rows are then scattered
 into its pages, and a decode step is one dispatch of (B, 1) tokens whose
-attention launches the q = 1 paged attention kernel. PyTorch runs
-eagerly, so there is no program cache: the JAX engine's jit families
-keyed on (padded tokens, pages bound) and its prefill and scatter
-buckets have no counterpart here.
+attention launches the q = 1 paged attention kernel.
+
+Each dispatch family the JAX engine compiles is a family of programs
+here (`_Program`), keyed as the JAX engine keys its programs and held
+in the same LRU: ragged admission by (padded tokens, pages bound) in
+`_ragged_programs`, the legacy prefill by its bucket in
+`_prefill_programs`, both capped at ``max_prefill_programs``; the decode
+step is one program. A program's body is the dispatch's code on static
+input buffers, with the KV pools and the dispatch weights bound when it
+is built; on the card it is captured once as a CUDA graph and replayed,
+so a step costs one host launch per program instead of one per kernel.
+A weight or adapter change drops every program (`_drop_programs`).
 
 Every constructor option outside this subset raises NotImplementedError
 naming the ROADMAP.md item that will port it.
@@ -58,11 +69,11 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..ops import resolve_device
+from ..ops import launch_counts, resolve_device
 from ..ops.lora_epilogue import LoraWeight
 from ..ops.paged_attention import paged_prefill_scatter
 from ..ops.quant_matmul import QuantizedWeight, quantize_weight_values
-from ..ops.ragged_paged_attention import pack_ragged_batch
+from ..ops.ragged_paged_attention import pack_ragged_batch, stream_tickets
 from .generation import RequestStatus, _sample_token
 from .llama import PagedKVCacheView, RaggedKVCacheView
 
@@ -118,7 +129,6 @@ class Request:
 # yet: (argument, the value that means "off", ROADMAP.md queue A item)
 _UNPORTED_OPTIONS = (
     ("do_sample", False, "5 (sampling)"),
-    ("max_prefill_programs", 8, "1 (the decode step as CUDA graphs)"),
     ("max_decode_retries", 3, "4 (fault points and telemetry)"),
     ("spec_decode", None, "5 (speculative decoding)"),
     ("submesh", None, "9 (tensor parallelism)"),
@@ -177,6 +187,43 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported yet (ROADMAP.md queue A, item {item})")
 
 
+class _Program:
+    """One program of the engine's program cache (≙ one compiled program
+    of the JAX engine: an entry of `_ragged_jits` or `_prefill_jits`, or
+    a decode program). It owns its static input ``flat``, ONE int32
+    tensor on the engine's device holding every index array of a
+    dispatch (`ContinuousBatchingEngine._upload` writes into it), its
+    ``body``, the dispatch's code on views of ``flat`` with the KV pools
+    and the dispatch weights bound when the program was built, and, once
+    captured, its static output ``out`` (the greedy tokens). A legacy
+    prefill program also owns its per-layer caches, ``caches``, which
+    the body writes and the caller scatters from. A body holds no
+    reference to its engine, so an engine that is dropped frees its
+    pools at once, not at the next garbage collection.
+
+    `ContinuousBatchingEngine._run_program` runs it: on the card the
+    first run is the body, eagerly, on the engine's capture stream (the
+    warm-up, which makes what the kernels create at first use: that
+    stream's split tickets, the loaded libraries); the second run
+    captures the body into ``graph`` and replays it, and every later run
+    replays it, adding ``launches`` (the launch counts the capture
+    recorded) to `ops.launch_counts`. ``held`` keeps alive the buffers
+    the graph reads by address that nothing else owns. On the CPU the
+    body runs eagerly every time, on the same buffers, and its result is
+    copied into ``out``."""
+
+    def __init__(self, flat: torch.Tensor, body: Callable[[], torch.Tensor],
+                 caches=None):
+        self.flat = flat
+        self.body = body
+        self.caches = caches
+        self.out: Optional[torch.Tensor] = None
+        self.graph = None
+        self.runs = 0
+        self.launches: Dict[str, int] = {}
+        self.held: tuple = ()
+
+
 class ContinuousBatchingEngine:
     """In-flight batched greedy serving for `LlamaForCausalLM`.
 
@@ -188,7 +235,12 @@ class ContinuousBatchingEngine:
     docstring); ``prompt_pad`` is the legacy prefill's bucket step and
     the ragged admission's pad. ``temperature`` / ``top_k`` / ``top_p``
     / ``seed`` act only with sampling, which is not ported, so a greedy
-    engine ignores them as the JAX engine does."""
+    engine ignores them as the JAX engine does. ``max_prefill_programs``
+    caps each keyed program family (module docstring).
+
+    ``_graphs`` (private) False runs every dispatch eagerly, with no
+    program cache: the yardstick that the card checks and the tests
+    hold the graphed engine against."""
 
     def __init__(self, model, max_batch_size: int = 8,
                  max_seq_len: Optional[int] = None,
@@ -220,7 +272,8 @@ class ContinuousBatchingEngine:
                  submesh=None,
                  quant=None,
                  harvest_every: int = 1,
-                 device=None):
+                 device=None,
+                 _graphs: bool = True):
         given = dict(locals())
         # pipelined decode (≙ :539-560): the JAX engine's checks, before
         # any other option is looked at
@@ -414,8 +467,25 @@ class ContinuousBatchingEngine:
         # and the tokens they committed
         self.decode_seconds = 0.0
         self.decode_tokens = 0
+        # the host wall of the decode dispatches alone, without the token
+        # copies: what the host spends issuing a step
+        self.decode_dispatch_seconds = 0.0
         self.admission_seconds = 0.0   # host wall of admission dispatches
         self.admission_tokens = 0      # prompt tokens they prefilled
+        # the program cache (≙ `_ragged_jits` / `_prefill_jits` under
+        # `_max_prefill`, and the decode program): LRU order, oldest
+        # first. Captures are metered apart from the dispatch walls, as
+        # the JAX engine meters compiles (`compile_timed`): the
+        # counterparts of ``pdt_jit_compiles_total`` and its seconds
+        self._graphs = bool(_graphs)
+        self._max_prefill = int(max_prefill_programs)
+        self._ragged_programs: "OrderedDict[tuple, _Program]" = OrderedDict()
+        self._prefill_programs: "OrderedDict[int, _Program]" = OrderedDict()
+        self._decode_program: Optional[_Program] = None
+        self._capture_stream = None
+        self._graph_pool = None
+        self.num_graph_captures = 0
+        self.graph_capture_seconds = 0.0
 
     # -- public API ----------------------------------------------------
     def add_request(self, prompt, max_new_tokens: int = 32,
@@ -614,7 +684,8 @@ class ContinuousBatchingEngine:
         state changes. Requires the ragged dispatch; refuses to compose
         with prefix caching and ``prefill_chunk``, as the JAX engine
         does (its spec decode, which it also refuses, is not ported:
-        the constructor refuses it). Drains a pipelined window first."""
+        the constructor refuses it). Drains a pipelined window first and
+        drops every program (their graphs read the old stacks)."""
         self.quiesce()
         if self.attn_impl != "ragged":
             raise ValueError(
@@ -723,6 +794,7 @@ class ContinuousBatchingEngine:
         self._lora = committed
         self._adapter_rows[adapter_id] = row
         self.lora_installs += 1
+        self._drop_programs()
         if _invariants_enabled():
             self.check_invariants()
 
@@ -734,7 +806,8 @@ class ContinuousBatchingEngine:
         strands a request. Dropping the last adapter drops the stacks,
         and dispatches return to the unadapted weights. Drains a
         pipelined window first, so that a request whose last token is
-        still on the device no longer counts as in flight."""
+        still on the device no longer counts as in flight; drops every
+        program on success."""
         self.quiesce()
         row = self._adapter_rows.get(adapter_id)
         if row is None:
@@ -759,6 +832,7 @@ class ContinuousBatchingEngine:
             lo["scale"][row] = 0.0
             self._lora_free_rows.append(row)
         self.lora_evictions += 1
+        self._drop_programs()
         if _invariants_enabled():
             self.check_invariants()
 
@@ -800,7 +874,8 @@ class ContinuousBatchingEngine:
         IDLE-ONLY, since every resident KV page is a function of the
         weights; refuses to compose with prefix caching for the same
         reason (the trie outlives requests). Resident adapters drop with
-        the base they adapted."""
+        the base they adapted, and so does every program (its graph
+        reads the old weights by address)."""
         self._require_idle("install_weights")
         if self._prefix_enabled:
             raise ValueError(
@@ -844,15 +919,18 @@ class ContinuousBatchingEngine:
         self._mpv = out
         self.model_tag = str(tag)
         self._drop_adapters()
+        self._drop_programs()
 
     def reset_weights(self) -> None:
         """Drop an install_weights override: dispatches return to the
         build-time weights (``model_tag`` None). Idle-only, like
-        install_weights, and for the same reason."""
+        install_weights, and for the same reason; drops every
+        program."""
         self._require_idle("reset_weights")
         self._mpv = None
         self.model_tag = None
         self._drop_adapters()
+        self._drop_programs()
 
     def _adapter_row(self, req: Request) -> int:
         if req.adapter is None:
@@ -1374,11 +1452,17 @@ class ContinuousBatchingEngine:
         bound = self._pages_bound(int(pk["context_len"][p["slot"]])
                                   for p in batch)
         t0 = time.perf_counter()
+        captured = self.graph_capture_seconds
+        t_pad = int(pk["t_pad"])
+        prog = self._program_lru(
+            self._ragged_programs, (t_pad, bound),
+            lambda: self._build_ragged(t_pad, bq, bound))
         nxt = self._harvest_sync(self._ragged_step(
-            pk["ids"], pk["token_seq"], pk["positions"], pk["query_start"],
-            pk["query_len"], pk["context_len"], pk["sample_rows"], bq,
-            bound))
-        self.admission_seconds += time.perf_counter() - t0
+            prog, pk["ids"], pk["token_seq"], pk["positions"],
+            pk["query_start"], pk["query_len"], pk["context_len"],
+            pk["sample_rows"]))
+        self.admission_seconds += time.perf_counter() - t0 \
+            - (self.graph_capture_seconds - captured)
         self.admission_tokens += sum(len(p["tokens"]) for p in batch)
         self.num_admission_dispatches += 1
         freed = False
@@ -1420,18 +1504,21 @@ class ContinuousBatchingEngine:
                 break                      # FIFO: wait for pages to free
             slot, req, prompt, _ = claim   # no prefix cache here
             p_len = len(prompt)
-            t0 = time.perf_counter()
+            # the dispatch wall without capture time (counted apart)
+            t0 = time.perf_counter() - self.graph_capture_seconds
             tok, rows = self._legacy_prefill(prompt, self._bucket(p_len))
             self.num_admission_dispatches += 1
             try:
                 self._paged_insert(slot, req, p_len, rows)
             except PoolExhausted:
-                self.admission_seconds += time.perf_counter() - t0
+                self.admission_seconds += time.perf_counter() \
+                    - self.graph_capture_seconds - t0
                 if self._admission_pool_exhausted(slot, req, free,
                                                   finished):
                     continue               # starved out: try the next
                 break
-            self.admission_seconds += time.perf_counter() - t0
+            self.admission_seconds += time.perf_counter() \
+                - self.graph_capture_seconds - t0
             self.admission_tokens += p_len
             self._pos[slot] = p_len
             self._tok[slot] = tok
@@ -1446,26 +1533,42 @@ class ContinuousBatchingEngine:
         return finished
 
     def _legacy_prefill(self, prompt: List[int], bucket: int):
-        """≙ `_build_prefill`: a causal pass over the prompt padded to
-        ``bucket`` tokens, with the padded tail masked out as keys,
-        into per-layer (1, bucket, HK, D) caches. Returns the first
-        token (greedy, from the last real row; the step's sync point)
-        and each layer's (k_rows, v_rows), (bucket, HK, D)."""
+        """≙ `_get_prefill` and its program's call: the prompt padded to
+        ``bucket`` tokens through the bucket's program (`_build_prefill`).
+        Returns the first token, read after the run (the step's sync
+        point), and each layer's (k_rows, v_rows), (bucket, HK, D):
+        views of the program's caches, which its next run overwrites."""
         p_len = len(prompt)
-        L, hk, hd, dt = self._kv_shape
         ids = np.zeros(bucket, np.int32)
         ids[:p_len] = prompt
-        ids_d, row_d = self._upload(ids, [p_len - 1])
-        with torch.no_grad():
-            caches = [tuple(torch.zeros(1, bucket, hk, hd, dtype=dt,
-                                        device=self.device)
-                            for _ in range(2)) for _ in range(L)]
-            valid = (torch.arange(bucket, device=self.device) < p_len)[None]
-            logits = self.model(ids_d[None], caches, rows=row_d,
-                                weights=self._dispatch_weights(),
-                                attention_mask=valid, position_offset=0)
-            tok = int(_sample_token(logits)[0])
-        return tok, [(k[0], v[0]) for k, v in caches]
+        prog = self._program_lru(self._prefill_programs, bucket,
+                                 lambda: self._build_prefill(bucket))
+        self._upload(ids, [p_len - 1], dst=prog.flat)
+        tok = int(self._run_program(prog)[0])
+        return tok, [(k[0], v[0]) for k, v in prog.caches]
+
+    def _build_prefill(self, bucket: int) -> _Program:
+        """≙ `_build_prefill`: a causal pass over a prompt padded to
+        ``bucket`` tokens, with the padded tail masked out as keys, into
+        per-layer (1, bucket, HK, D) caches (the program's static
+        outputs), and the greedy token of the last real row. Its flat
+        input holds the ids (``bucket``) and that row (1)."""
+        L, hk, hd, dt = self._kv_shape
+        dev = self.device
+        flat = torch.zeros(bucket + 1, dtype=torch.int32, device=dev)
+        ids, row = flat[:bucket], flat[bucket:]
+        caches = [tuple(torch.zeros(1, bucket, hk, hd, dtype=dt, device=dev)
+                        for _ in range(2)) for _ in range(L)]
+        weights, model = self._dispatch_weights(), self.model
+
+        def body():
+            with torch.no_grad():
+                valid = (torch.arange(bucket, device=dev) <= row)[None]
+                logits = model(ids[None], caches, rows=row,
+                               weights=weights, attention_mask=valid,
+                               position_offset=0)
+                return _sample_token(logits)
+        return _Program(flat, body, caches)
 
     def _paged_insert(self, slot: int, req: Request, p_len: int, rows):
         """≙ `_paged_insert` / `_build_scatter`: reserve and allocate the
@@ -1478,90 +1581,255 @@ class ContinuousBatchingEngine:
                 paged_prefill_scatter(pools[0], pools[1], rk, rv, bt_row,
                                       p_len)
 
-    def _legacy_decode_step(self, tok, pos) -> torch.Tensor:
-        """≙ the paged `_build_decode`: ONE dispatch of (B, 1) tokens, each
-        slot at its own position, through a `PagedKVCacheView` per layer
-        (the attention appends the new K/V rows and launches the paged
-        attention kernel), greedy tokens left on the device."""
-        tok_d, pos_d, bt_d = self._upload(tok, pos, self._bt)
-        with torch.no_grad():
-            views = [PagedKVCacheView(pools[0], pools[1], bt_d)
-                     for pools in self._kv]
-            logits = self.model(tok_d[:, None], views,
-                                weights=self._dispatch_weights(),
-                                position_offset=pos_d)
-            return _sample_token(logits[:, 0])
+    def _build_legacy_decode(self) -> _Program:
+        """≙ the paged `_build_decode`: ONE dispatch of (B, 1) tokens,
+        each slot at its own position, through a `PagedKVCacheView` per
+        layer (the attention appends the new K/V rows and launches the
+        paged attention kernel), greedy tokens left on the device. Its
+        flat input holds the tokens and positions (B each) and the block
+        table (B x pps)."""
+        B, pps = self.B, self.pps
+        flat = torch.zeros(2 * B + B * pps, dtype=torch.int32,
+                           device=self.device)
+        tok, pos = flat[:2 * B].view(2, B)
+        bt = flat[2 * B:].view(B, pps)
+        weights, model = self._dispatch_weights(), self.model
+        pools = list(self._kv)
+
+        def body():
+            with torch.no_grad():
+                views = [PagedKVCacheView(p[0], p[1], bt) for p in pools]
+                logits = model(tok[:, None], views, weights=weights,
+                               position_offset=pos)
+                return _sample_token(logits[:, 0])
+        return _Program(flat, body)
 
     # -- the ragged dispatch ---------------------------------------------
-    def _ragged_step(self, ids, token_seq, positions, query_start,
-                     query_len, context_len, sample_rows, block_q,
-                     pages_bound=None) -> torch.Tensor:
-        """ONE ragged dispatch: packed ids -> per-token rope -> one KV
-        scatter into the pages per layer -> ragged paged attention ->
-        logits of each slot's sample row -> greedy tokens, left on the
-        device (`_harvest_sync` copies them to the host). ``ids`` is a
-        host array, or in a pipelined window the previous decode
-        dispatch's device tokens. Rows whose ``sample_rows`` entry is
-        out of range are clamped and never read back. Nothing is read
-        back from the device here."""
-        t = len(ids)
+    def _build_ragged(self, t: int, block_q: int,
+                      pages_bound=None) -> _Program:
+        """≙ `_build_ragged_step`: the program of a ragged dispatch over
+        ``t`` packed rows. Its flat input holds, in this order, the ids,
+        token_seq, positions and adapter rows (``t`` each), query_start,
+        query_len, context_len and sample_rows (B each) and the block
+        table (B x pps): the ids first, so that a pipelined window copies
+        the previous dispatch's device tokens in alone. The body: packed
+        ids -> per-token rope -> one KV scatter into the pages per layer
+        -> ragged paged attention -> logits of each slot's sample row ->
+        greedy tokens, left on the device. Rows whose ``sample_rows``
+        entry is out of range are clamped and never read back. Nothing is
+        read back from the device."""
+        B, pps = self.B, self.pps
+        flat = torch.zeros(4 * t + 4 * B + B * pps, dtype=torch.int32,
+                           device=self.device)
+        ids, seq, pos, ad = flat[:4 * t].view(4, t)
+        qs, ql, cl, rows = flat[4 * t:4 * (t + B)].view(4, B)
+        bt = flat[4 * (t + B):].view(B, pps)
         # multi-LoRA: each packed row takes its owning slot's adapter row
-        # (a padding row's token_seq -1 takes the last slot's: inert, its
-        # output is never read and the epilogue sums across no tokens)
-        adapter_rows = self._slot_adapter[np.asarray(token_seq, np.int64)]
-        on_device = torch.is_tensor(ids)
-        # one host-to-device copy for every index array of the dispatch
-        up = self._upload(*(() if on_device else (ids,)), token_seq,
-                          positions, query_start, query_len, context_len,
-                          sample_rows, adapter_rows, self._bt)
-        ids_d = ids if on_device else up.pop(0)
-        seq_d, pos_d, qs_d, ql_d, cl_d, rows_d, ad_d, bt_d = up
-        with torch.no_grad():
-            views = [RaggedKVCacheView(pools[0], pools[1], bt_d, seq_d,
-                                       pos_d, qs_d, ql_d, cl_d, block_q,
-                                       pages_bound, *pools[2:])
-                     for pools in self._kv]
-            logits = self.model(ids_d[None], views,
-                                rows=rows_d.clamp(0, t - 1),
-                                weights=self._dispatch_weights(ad_d))
-            return _sample_token(logits)
+        weights, model = self._dispatch_weights(ad), self.model
+        pools = list(self._kv)
 
-    def _upload(self, *arrays):
-        """Copy int32 host arrays to the device in ONE transfer; returns
-        a device view of each, in its shape. On the card the copy goes
-        from a pinned staging buffer and does not wait for the stream
-        (a pageable copy would wait for every dispatch before it). The
-        buffer comes from PyTorch's pinned-memory caching allocator,
-        which hands it out again only after the copy that read it has
-        completed, so a later dispatch never overwrites a buffer that an
-        earlier one's copy still reads."""
+        def body():
+            with torch.no_grad():
+                views = [RaggedKVCacheView(p[0], p[1], bt, seq, pos, qs, ql,
+                                           cl, block_q, pages_bound, *p[2:])
+                         for p in pools]
+                logits = model(ids[None], views, rows=rows.clamp(0, t - 1),
+                               weights=weights)
+                return _sample_token(logits)
+        return _Program(flat, body)
+
+    def _ragged_step(self, prog: _Program, ids, token_seq, positions,
+                     query_start, query_len, context_len,
+                     sample_rows) -> torch.Tensor:
+        """ONE ragged dispatch: fill ``prog``'s input and run it. ``ids``
+        is a host array, or in a pipelined window the previous decode
+        dispatch's device tokens, copied in on the device; every other
+        array goes up in one host-to-device copy. A padding row's adapter
+        row is the last slot's (token_seq -1): inert, its output is never
+        read and the epilogue sums across no tokens."""
+        t = len(token_seq)
+        adapter_rows = self._slot_adapter[np.asarray(token_seq, np.int64)]
+        rest = (token_seq, positions, adapter_rows, query_start, query_len,
+                context_len, sample_rows, self._bt)
+        if torch.is_tensor(ids):
+            prog.flat[:t].copy_(ids)
+            self._upload(*rest, dst=prog.flat[t:])
+        else:
+            self._upload(ids, *rest, dst=prog.flat)
+        return self._run_program(prog)
+
+    def _upload(self, *arrays, dst=None):
+        """Copy int32 host arrays to the device in ONE transfer, into
+        ``dst`` (a program's flat input, exactly their size) or a new
+        tensor; returns a device view of each, in its shape. On the card
+        the copy goes from a pinned staging buffer and does not wait for
+        the stream (a pageable copy would wait for every dispatch before
+        it). The buffer comes from PyTorch's pinned-memory caching
+        allocator, which hands it out again only after the copy that read
+        it has completed, so a later dispatch never overwrites a buffer
+        that an earlier one's copy still reads; and the copy into
+        ``dst`` runs on the stream after every earlier dispatch, so it
+        never changes the input of a replay in flight."""
         arrays = [np.asarray(a, np.int32) for a in arrays]
         cuda = self.device.type == "cuda"
         staged = torch.empty(sum(a.size for a in arrays), dtype=torch.int32,
                              pin_memory=cuda)
         np.concatenate([a.ravel() for a in arrays], out=staged.numpy())
-        flat = staged.to(self.device, non_blocking=cuda)
+        if dst is None:
+            flat = staged.to(self.device, non_blocking=cuda)
+        else:
+            flat = dst.copy_(staged, non_blocking=cuda)
         out, at = [], 0
         for a in arrays:
             out.append(flat[at:at + a.size].view(a.shape))
             at += a.size
         return out
 
+    # -- the program cache -------------------------------------------------
+    def _program_lru(self, cache: "OrderedDict", key, build) -> _Program:
+        """≙ `_jit_lru`: the program of ``key`` in the keyed family
+        ``cache``; on a miss it is built and the oldest programs past
+        ``max_prefill_programs`` are evicted (each graph with its
+        program: every admission dispatch ends in a host read, so none
+        is in flight), on a hit it moves to the back. Without graphs, a
+        program built for this dispatch alone."""
+        if not self._graphs:
+            return build()
+        prog = cache.get(key)
+        if prog is None:
+            prog = cache[key] = build()
+            while len(cache) > self._max_prefill:
+                cache.popitem(last=False)                  # LRU
+        else:
+            cache.move_to_end(key)
+        return prog
+
+    def _decode_prog(self, build) -> _Program:
+        """≙ `_jit_singleton` for the decode program: built once, and
+        again after `_drop_programs`."""
+        if not self._graphs:
+            return build()
+        if self._decode_program is None:
+            self._decode_program = build()
+        return self._decode_program
+
+    def _programs(self) -> List[_Program]:
+        progs = list(self._ragged_programs.values()) \
+            + list(self._prefill_programs.values())
+        return progs + ([self._decode_program]
+                        if self._decode_program is not None else [])
+
+    def _drop_programs(self):
+        """Empty the program cache. A program binds the KV pools and the
+        dispatch weights when it is built and its graph reads them by
+        address, so after a weight or adapter change it would read the
+        old values with no error (the JAX engine passes weights as
+        arguments and needs no such step). Callers quiesce first, so no
+        replay is in flight."""
+        self._ragged_programs.clear()
+        self._prefill_programs.clear()
+        self._decode_program = None
+
+    def _run_program(self, prog: _Program) -> torch.Tensor:
+        """Run ``prog`` on its filled input; returns its greedy tokens,
+        which on the card and under graphs on the CPU are the program's
+        static output, overwritten by its next run: a caller that keeps
+        them past the next run copies them. Without graphs, the body
+        eagerly. On the CPU, the body eagerly on the program's buffers.
+        On the card: the first run is the warm-up (`_warm_up`), the
+        second captures (`_capture`), and from then on the graph replays,
+        adding the launches the capture recorded. A failed capture or
+        replay raises: nothing falls back to the eager body."""
+        if not self._graphs:
+            return prog.body()
+        prog.runs += 1
+        if self.device.type != "cuda":
+            res = prog.body()
+            if prog.out is None:
+                prog.out = torch.empty_like(res)
+            return prog.out.copy_(res)
+        if prog.graph is None:
+            if prog.runs == 1:
+                return self._warm_up(prog)
+            self._capture(prog)
+        prog.graph.replay()
+        for k, n in prog.launches.items():
+            launch_counts[k] += n
+        return prog.out
+
+    def _warm_up(self, prog: _Program) -> torch.Tensor:
+        """A program's first run on the card: its body, eagerly, on the
+        engine's capture stream, joined to the current stream both ways,
+        so that what the kernels make at first use on a stream (the split
+        tickets) exists when the capture comes. Its result is the
+        dispatch's: a key used once costs one eager run, no capture."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        cur = torch.cuda.current_stream(self.device)
+        side = self._capture_stream
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = prog.body()
+        cur.wait_stream(side)
+        out.record_stream(cur)
+        return out
+
+    def _capture(self, prog: _Program):
+        """Capture ``prog``'s body into a CUDA graph on the capture stream.
+        Every graph of the engine allocates from ONE shared pool (a new
+        one when no captured graph is left), so the graphs take about
+        the memory of the largest, not their sum. Sharing is safe here:
+        the engine replays one graph at a time on one stream and copies
+        or reads each replay's output before the next replay, since a
+        graph's output may lie where another graph keeps its scratch.
+        The wrappers count their launches while the body is captured,
+        but a capture launches nothing: that count moves to
+        ``prog.launches``, which each replay adds back. Timed into
+        ``graph_capture_seconds``, apart from the dispatch walls."""
+        t0 = time.perf_counter()
+        if self._graph_pool is None \
+                or not any(p.graph is not None for p in self._programs()):
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        before = dict(launch_counts)
+        graph = torch.cuda.CUDAGraph()
+        # capture_begin / capture_end rather than `torch.cuda.graph`, which
+        # synchronizes and empties the allocator's cache before each
+        # capture: every later dispatch would then allocate anew
+        try:
+            with torch.cuda.stream(self._capture_stream):
+                graph.capture_begin(pool=self._graph_pool)
+                try:
+                    out = prog.body()
+                    held = stream_tickets(self.device)
+                finally:
+                    graph.capture_end()
+        finally:
+            counted = {k: n - before[k] for k, n in launch_counts.items()
+                       if n != before[k]}
+            for k, n in counted.items():
+                launch_counts[k] -= n
+        prog.graph, prog.out, prog.launches = graph, out, counted
+        prog.held = (held,)
+        self.num_graph_captures += 1
+        self.graph_capture_seconds += time.perf_counter() - t0
+
     # -- decode ------------------------------------------------------------
     def _decode(self, finished: List[Request]):
-        """One batched decode step for every slot: the same ragged
-        dispatch at block_q = 1, one query row per slot, or the legacy
-        (B, 1) dispatch through the paged attention. Inactive slots
-        decode garbage at a clamped position; their block-table rows are
-        all trash page, so their KV lands in page 0 (never read) and
-        their tokens are never read back.
+        """One batched decode step for every slot: the decode program, a
+        ragged dispatch at block_q = 1 with one query row per slot, or
+        the legacy (B, 1) dispatch through the paged attention. Inactive
+        slots decode garbage at a clamped position; their block-table
+        rows are all trash page, so their KV lands in page 0 (never read)
+        and their tokens are never read back.
 
         Positions advance at dispatch and the dispatch joins the window
         that `_harvest_pending` commits, the one place where tokens are
         committed and EOS, budget and cap decided. At ``harvest_every``
         = 1 the window of one is harvested at once: the synchronous
         loop. At k > 1 the tokens stay on the device as the next
-        dispatch's input until the window is due."""
+        dispatch's input until the window is due. Each pending dispatch
+        keeps a copy of its tokens: the program's output is overwritten
+        by its next run."""
         for i, r in enumerate(self._slot_req):
             if r is None:
                 continue
@@ -1586,17 +1854,22 @@ class ContinuousBatchingEngine:
         pos = np.clip(self._pos, 0, self.S - 1).astype(np.int32)
         idx = np.arange(self.B, dtype=np.int32)
         t0 = time.perf_counter()
+        captured = self.graph_capture_seconds
         if self.attn_impl == "ragged":
+            prog = self._decode_prog(lambda: self._build_ragged(self.B, 1))
             # mid-window the input is the previous dispatch's device
             # output: the greedy feedback makes no host round trip
             tok = self._tok_dev if self._tok_dev is not None else self._tok
-            nxt = self._ragged_step(tok, idx, pos, idx,
-                                    np.ones(self.B, np.int32), pos + 1, idx,
-                                    1)
+            out = self._ragged_step(prog, tok, idx, pos, idx,
+                                    np.ones(self.B, np.int32), pos + 1, idx)
         else:
-            nxt = self._legacy_decode_step(self._tok, pos)
+            prog = self._decode_prog(self._build_legacy_decode)
+            self._upload(self._tok, pos, self._bt, dst=prog.flat)
+            out = self._run_program(prog)
+        nxt = out.clone()
         self.num_decode_dispatches += 1
-        self._window_wall += time.perf_counter() - t0
+        self._window_wall += time.perf_counter() - t0 \
+            - (self.graph_capture_seconds - captured)
         for i in act:
             r = self._slot_req[i]
             r.device_len = max(r.device_len, len(r.output)) + 1
@@ -1655,6 +1928,7 @@ class ContinuousBatchingEngine:
         stacked = self._harvest_sync(
             toks[0][None] if len(toks) == 1 else torch.stack(toks))
         self.decode_seconds += wall + time.perf_counter() - t0
+        self.decode_dispatch_seconds += wall
         done_slots: set = set()
         live_last: Dict[int, int] = {}
         for e, nxt in zip(entries, stacked):

@@ -166,6 +166,14 @@ def split_tickets(device, n: int) -> torch.Tensor:
     return buf
 
 
+def stream_tickets(device):
+    """The split tickets of the current stream of a CUDA device, or None
+    when no launch on it has needed any. A CUDA graph captured on that
+    stream reads them by address, so the graph's owner keeps this tensor
+    alive: a later launch that grows the stream's buffer then cannot free
+    the one the graph reads."""
+    idx = _index(device)
+    return _TICKETS.get((idx, current_stream(idx)))
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ engine mode — full width, ``QuantServingConfig("int8", "int8")``,
 ``QuantServingConfig("fp8", "int8")``, multi-LoRA (three seeded rank-16
 adapters on the seven matmuls of every layer, two of the 8 requests
 under each and two on the base) and ``attention_impl="legacy"`` — admits
-8 seeded requests, warms up, and traces ``--steps`` decode steps with
+8 seeded requests, warms up (the decode program's warm-up and capture),
+and traces ``--steps`` decode steps, graph replays, with
 `torch.profiler`. Prints one ``decode_profile {...}`` JSON line per
 mode: host wall per step, device time per step summed over kernels, the
 device's idle share of the wall, and device time per step by kernel
@@ -109,17 +110,21 @@ def seeded_lora_deltas(model, seed, rank=16):
     return deltas
 
 
-def profile_engine(model, mode, steps, seed=0, harvest_every=1):
+def profile_engine(model, mode, steps, seed=0, harvest_every=1,
+                   graphs=True):
     """``mode``: a `QuantServingConfig`, None (full width), ``"lora"`` or
     ``"legacy"``; ``harvest_every``: the engine's pipelined window (the
     traced steps end with `quiesce`, so the wall holds the last window's
-    harvest). Prints and returns the ``decode_profile`` record."""
+    harvest); ``graphs`` False profiles the eager engine (the private
+    ``_graphs=False``), else the decode program is captured in the warm
+    steps and the traced steps replay it. Prints and returns the
+    ``decode_profile`` record."""
     from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
     quant = mode if not isinstance(mode, str) else None
     eng = ContinuousBatchingEngine(
         model, max_batch_size=8, max_seq_len=2048, quant=quant,
         attention_impl="legacy" if mode == "legacy" else "ragged",
-        harvest_every=harvest_every)
+        harvest_every=harvest_every, _graphs=graphs)
     adapters = (None,)
     if mode == "lora":
         adapters += ("a1", "a2", "a3")
@@ -131,7 +136,7 @@ def profile_engine(model, mode, steps, seed=0, harvest_every=1):
                                      int(rng.integers(32, 1025))),
                         max_new_tokens=steps + 8,
                         adapter=adapters[i % len(adapters)])
-    for _ in range(3):                   # admission, then warm decode
+    for _ in range(3):         # admission, then warm decode (the capture)
         eng.step()
     eng.quiesce()
     torch.cuda.synchronize()
@@ -153,7 +158,8 @@ def profile_engine(model, mode, steps, seed=0, harvest_every=1):
     step_ms = 1e3 * wall / steps
     label = mode if isinstance(mode, str) else "full width" \
         if quant is None else f"{quant.weights} weights, {quant.kv} KV"
-    rec = dict(mode=label, harvest_every=harvest_every,
+    rec = dict(mode=label, harvest_every=harvest_every, graphs=graphs,
+               captures=eng.num_graph_captures,
                steps=steps, step_ms=step_ms, device_ms_per_step=dev_ms,
                idle_share=max(0.0, 1 - dev_ms / step_ms),
                by_family={k: dict(launches_per_step=v[0] / steps,
@@ -164,12 +170,13 @@ def profile_engine(model, mode, steps, seed=0, harvest_every=1):
     return rec
 
 
-def pageable_upload(eng, *arrays):
+def pageable_upload(eng, *arrays, dst=None):
     """The engine's index upload before its pinned staging buffer: one
-    copy from pageable memory, which waits for the stream."""
+    copy from pageable memory, which waits for the stream (into ``dst``,
+    a program's input, when given)."""
     arrays = [np.asarray(a, np.int32) for a in arrays]
-    flat = torch.from_numpy(np.concatenate(
-        [a.ravel() for a in arrays])).to(eng.device)
+    host = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]))
+    flat = host.to(eng.device) if dst is None else dst.copy_(host)
     out, at = [], 0
     for a in arrays:
         out.append(flat[at:at + a.size].view(a.shape))
@@ -202,8 +209,11 @@ def upload_turns(model, turns=2, seed=0, n_requests=16):
     want = None
     for t in range(turns):
         for name, k, pageable in UPLOAD_SIDES[::1 if t % 2 == 0 else -1]:
+            # eager dispatches: the upload these turns measure is the
+            # eager engine's (a graphed one replays one launch a step)
             eng = ContinuousBatchingEngine(model, max_batch_size=8,
-                                           max_seq_len=2048, harvest_every=k)
+                                           max_seq_len=2048, harvest_every=k,
+                                           _graphs=False)
             if pageable:
                 eng._upload = functools.partial(pageable_upload, eng)
             torch.cuda.synchronize()

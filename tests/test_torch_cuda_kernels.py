@@ -66,6 +66,9 @@ repeat, rows off 16 bytes on the rowblock route, and partial rows of
 exactly 48 KB of shared memory on both routes;
 two ragged decode attentions racing on two streams, bitwise equal to the
 same calls one after the other (the split tickets are per stream);
+the tiny engine's program cache (CUDA graphs) bitwise equal to the eager
+engine at k = 1 and k = 4, full width, int8, LoRA and legacy, with equal
+launch counts, and rebuilt after `install_weights`;
 the dense flash backward's wgmma kernels at the 8B slice, the bench
 shape and the A14B shape against the plain backward;
 the tiny MoE (dropless through the grouped-matmul kernel) and tiny BERT
@@ -660,6 +663,85 @@ def test_tiny_engine_pipelined_matches_k1(cuda):
     assert [len(s) for s in streams[1]] == [n for _, n in jobs]
 
 
+def _tiny_deltas(model, names=("a1", "a2")):
+    """Seeded rank-8 deltas (A (K, r), B (r, N)) on three matmuls of the
+    tiny Llama, the vocab head among them: {name: deltas}."""
+    params = dict(model.named_parameters())
+    out = {}
+    for i, name in enumerate(names):
+        g = np.random.default_rng(i + 1)
+        deltas = {}
+        for nm in ("model.layers.0.self_attn.q_proj.weight",
+                   "model.layers.1.mlp.down_proj.weight", "lm_head.weight"):
+            n, k = params[nm].shape
+            deltas[nm] = (g.normal(size=(k, 8)).astype(np.float32) * 0.3,
+                          g.normal(size=(8, n)).astype(np.float32) * 0.3)
+        out[name] = deltas
+    return out
+
+
+@pytest.mark.parametrize("mode", ["full", "quant", "lora", "legacy"])
+def test_tiny_engine_graphs_match_eager(cuda, mode):
+    """The program cache on the card: each dispatch family captured once
+    a key (after its warm-up on the engine's capture stream) and
+    replayed gives streams bitwise equal to the eager engine's
+    (``_graphs=False``) at k = 1 and k = 4, with launch counts equal to
+    eager's (each replay adds what its capture recorded); after
+    `install_weights` the programs are rebuilt and the replays read the
+    new weights (streams equal eager's under them, and not the old
+    streams)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.serving import (ContinuousBatchingEngine,
+                                                 QuantServingConfig)
+    from paddle_tpu_torch.ops import reset_launch_counts
+    rng = np.random.default_rng(5)
+    jobs = [(rng.integers(0, 512, n), new)
+            for n, new in ((5, 9), (20, 7), (47, 12), (3, 5), (30, 8))]
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                             seed=5).to(cuda)
+    other = {n: p.detach().to(cuda) for n, p in LlamaForCausalLM(
+        LlamaConfig.tiny(), device="cpu", seed=6).named_parameters()}
+    kw = {"quant": dict(quant=QuantServingConfig("int8", "int8")),
+          "legacy": dict(attention_impl="legacy")}.get(mode, {})
+    names = (None, "a1", "a2") if mode == "lora" else (None,)
+    deltas = _tiny_deltas(model)
+
+    def serve(eng):
+        for name in names[1:]:
+            eng.install_adapter(name, deltas[name])
+        rids = [eng.add_request(p, max_new_tokens=n,
+                                adapter=names[i % len(names)])
+                for i, (p, n) in enumerate(jobs)]
+        out = eng.run()
+        eng.check_invariants()
+        assert len(eng._free) == eng.num_pages - 1
+        return [out[r] for r in rids]
+
+    for k in (1,) if mode == "legacy" else (1, 4):
+        runs = {}
+        for graphs in (True, False):
+            eng = ContinuousBatchingEngine(model, max_batch_size=3,
+                                           max_seq_len=64, harvest_every=k,
+                                           _graphs=graphs, **kw)
+            reset_launch_counts()
+            first = serve(eng)
+            counts = dict(launch_counts)
+            captured = eng.num_graph_captures
+            eng.install_weights(other, "other")
+            second = serve(eng)
+            torch.cuda.synchronize()
+            runs[graphs] = (first, second, counts, captured,
+                            eng.num_graph_captures)
+        (g1, g2, gc, gcap, gcap2), (e1, e2, ec, ecap, _) = \
+            runs[True], runs[False]
+        assert g1 == e1 and g2 == e2
+        assert g2 != g1                 # the second checkpoint decodes
+        assert gc == ec
+        # the decode program was captured, and captured again after the
+        # weights changed; the eager engine captures nothing
+        assert gcap >= 1 and gcap2 > gcap and ecap == 0
+
+
 def _lora_operands(dev, t, k, n, r, dtype, stacks=4, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed + t + k + n + r)
     x = torch.randn(t, k, device=dev, generator=g).to(dtype)
@@ -883,16 +965,9 @@ def _tiny_streams(dev, **engine_kw):
     adapters = engine_kw.pop("adapters", ())
     eng = ContinuousBatchingEngine(model, max_batch_size=2, max_seq_len=64,
                                    device=dev, **engine_kw)
-    params = dict(model.named_parameters())
-    for i, name in enumerate(adapters):
-        g = np.random.default_rng(i + 1)
-        deltas = {}
-        for nm in ("model.layers.0.self_attn.q_proj.weight",
-                   "model.layers.1.mlp.down_proj.weight", "lm_head.weight"):
-            n, k = params[nm].shape
-            deltas[nm] = (g.normal(size=(k, 8)).astype(np.float32) * 0.3,
-                          g.normal(size=(8, n)).astype(np.float32) * 0.3)
-        eng.install_adapter(name, deltas)
+    deltas = _tiny_deltas(model, adapters)
+    for name in adapters:
+        eng.install_adapter(name, deltas[name])
     names = [None] + list(adapters)
     for i, p in enumerate(prompts):
         eng.add_request(p, max_new_tokens=8,
