@@ -2238,6 +2238,459 @@ def serve_8b_legacy(model, reqs):
     return counts
 
 
+# `generate_8b`: 4 prompts of 512 tokens, 32 new tokens each; beam
+# search at B = 1
+GEN_BATCH = 4
+GEN_PROMPT = 512
+GEN_NEW = 32
+GEN_BEAMS = 4
+# `serve_8b_legacy_chunked`: the chunk of the legacy chunked prefill
+LEGACY_CHUNK = 256
+
+
+def gen_prefill_check(model, ids, cache_len):
+    """`generate()`'s prefill of the 8B model (one causal pass over the
+    prompts into zeroed caches, the last row through the vocab matmul)
+    through the kernels and through the plain versions: the launches of
+    the kernel pass, and the two logits within `path_check`'s 0.1 x max
+    |logit| with equal argmax on every row."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg = model.config
+    logits = {}
+    for use_kernel in (True, False):
+        caches = [tuple(torch.zeros(ids.shape[0], cache_len,
+                                    cfg.num_key_value_heads, cfg.head_dim,
+                                    device="cuda", dtype=torch.bfloat16)
+                        for _ in range(2))
+                  for _ in range(cfg.num_hidden_layers)]
+        reset_launch_counts()
+        with torch.no_grad():
+            hidden = model.model(ids, caches, use_kernel=use_kernel)
+            logits[use_kernel] = model.logits(hidden[:, -1]).float()
+        if use_kernel:
+            counts = dict(launch_counts)
+        del caches, hidden
+    a, b = logits[True], logits[False]
+    diff = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    agree = (a.argmax(-1) == b.argmax(-1)).tolist()
+    L = cfg.num_hidden_layers
+    log(f"generate prefill check: max |logit diff| {diff:.4g} (max |logit| "
+        f"{scale:.4g}), argmax agrees per row {agree}, kernel launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()) \
+            or a.shape != (ids.shape[0], cfg.vocab_size) \
+            or diff > 0.1 * scale or not all(agree):
+        raise AssertionError("generate prefill: kernel and plain logits "
+                             "disagree")
+    if counts != {**{k: 0 for k in counts}, "flash_attention_fwd": L,
+                  "rms_norm": 2 * L + 1}:
+        raise AssertionError("generate prefill: launches off")
+    return diff, scale
+
+
+def gen_timed(model, ids, **kw):
+    """(ids, scores, wall seconds, launches) of one `generate()` call,
+    the launch counts set to 0 just before it."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, scores = model.generate(ids, max_new_tokens=GEN_NEW, **kw)
+    torch.cuda.synchronize()
+    return toks, scores, time.perf_counter() - t0, dict(launch_counts)
+
+
+def sync_free_decode(model, ids, **kw):
+    """`generate()` with its decode loop (`_generate` / `_beam_generate`:
+    the first token from the prefill's logits, then every cached step)
+    run under ``torch.cuda.set_sync_debug_mode("error")``: any call in
+    the loop that waits for the card raises. Returns the ids."""
+    import torch
+    name = "_beam_generate" if kw.get("decode_strategy") == "beam_search" \
+        else "_generate"
+    loop = getattr(model, name)
+
+    def checked(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    setattr(model, name, checked)
+    try:
+        toks, _ = model.generate(ids, max_new_tokens=GEN_NEW, **kw)
+    finally:
+        delattr(model, name)
+    return toks
+
+
+def generate_8b(model):
+    """`LlamaForCausalLM.generate()` on the 8B model, bf16: 4 prompts of
+    512 tokens and 32 new tokens, greedy, top-p 0.9 sampling (seeded;
+    two runs equal) and beam search K = 4 at B = 1. The prefill's logits
+    through the kernels against the plain versions; exact launches each
+    run (flash attention forward L, in the prefill; RMSNorm (2L + 1) a
+    forward, 32 forwards); every decode loop free of synchronizing
+    calls; prefill ms, decode ms a step, tokens/s, peak memory."""
+    import torch
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(18)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (GEN_BATCH, GEN_PROMPT))
+                           .astype(np.int32)).cuda()
+    cache_len = GEN_PROMPT + GEN_NEW
+    diff, scale = gen_prefill_check(model, ids, cache_len)
+    want = {"flash_attention_fwd": L, "rms_norm": (2 * L + 1) * GEN_NEW}
+    sampling = dict(decode_strategy="sampling", top_p=0.9)
+    beam = dict(decode_strategy="beam_search", num_beams=GEN_BEAMS)
+    # the warm-up runs, each decode loop under the sync check
+    greedy0 = sync_free_decode(model, ids)
+    sync_free_decode(model, ids, generator=torch.Generator("cuda")
+                     .manual_seed(1), **sampling)
+    sync_free_decode(model, ids[:1], **beam)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    greedy, gscores, wall, counts = gen_timed(model, ids)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    runs = {"greedy": counts}
+    samples = []
+    for _ in range(2):
+        toks, _, swall, runs["sampling"] = gen_timed(
+            model, ids, generator=torch.Generator("cuda").manual_seed(7),
+            **sampling)
+        samples.append(toks)
+    btoks, bscore, bwall, runs["beam"] = gen_timed(model, ids[:1], **beam)
+    with torch.no_grad():
+        caches_t = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model._zero_caches_prefill(ids, cache_len)
+            torch.cuda.synchronize()
+            caches_t.append(time.perf_counter() - t0)
+    prefill_s = statistics.median(caches_t)
+    rec = dict(batch=GEN_BATCH, prompt_len=GEN_PROMPT, new_tokens=GEN_NEW,
+               prefill_max_abs_logit_diff=diff, prefill_max_abs_logit=scale,
+               prefill_ms=1e3 * prefill_s,
+               decode_ms_per_step=1e3 * (wall - prefill_s) / (GEN_NEW - 1),
+               greedy_wall_s=wall,
+               greedy_tokens_per_s=GEN_BATCH * GEN_NEW / wall,
+               sampling_wall_s=swall, beam_wall_s=bwall,
+               beam_score=bscore.item(), peak_mem_gib=peak,
+               greedy_equal_warm_up=bool(torch.equal(greedy, greedy0)),
+               sampling_runs_equal=bool(torch.equal(*samples)),
+               sampled_tokens_equal_greedy=int((samples[0] == greedy)
+                                               .sum()),
+               launches={k: {n: c for n, c in v.items() if c}
+                         for k, v in runs.items()})
+    log("generate_8b " + json.dumps(rec))
+    for name, got in runs.items():
+        if got != {**{k: 0 for k in got}, **want}:
+            raise AssertionError(f"generate_8b {name}: launches {got}, "
+                                 f"expected {want}")
+    if not (torch.equal(greedy, greedy0) and torch.equal(*samples)):
+        raise AssertionError("generate_8b: a repeated run differs")
+    if greedy.shape != (GEN_BATCH, GEN_NEW) or btoks.shape != (1, GEN_NEW) \
+            or not (torch.isfinite(gscores).all()
+                    and torch.isfinite(bscore).all()) \
+            or int(greedy.min()) < 0 or int(greedy.max()) >= cfg.vocab_size:
+        raise AssertionError("generate_8b: outputs malformed")
+    return runs["greedy"]
+
+
+def serve_8b_dense(model, reqs):
+    """The first `N_LEGACY_REQUESTS` of `reqs` on ``kv_layout="dense"``
+    (per-slot (8, 2048, HK, D) caches, the legacy bucketed prefill and
+    the dense (B, 1) decode program, captured): exact launches (RMSNorm
+    (2L + 1) a dispatch, no attention kernel: the dense decode's
+    attention is plain, as in JAX), streams bitwise equal to an eager
+    engine's, step ms, TTFT p50, peak memory."""
+    reqs = reqs[:N_LEGACY_REQUESTS]
+    eng, streams, counts, stats = legacy_graphed_run(model, reqs,
+                                                     kv_layout="dense")
+    if eng._decode_program is None or eng._decode_program.graph is None:
+        raise AssertionError("the dense decode program was not captured")
+    stats.update(cache_memory=eng.cache_memory_info())
+    log("serving_dense " + json.dumps(stats))
+    del eng
+    check_eager_equal("serving_dense", streams,
+                      eager_streams(model, reqs, kv_layout="dense"))
+    return counts
+
+
+def admission_logits_run(model, reqs, warm=True, planted=False, **kw):
+    """Serve ``reqs`` on an eager 8B legacy engine (``_graphs=False``: the
+    logits are read inside the forward), recording each request's
+    first-token logits (the last real row of its admission: a bucketed,
+    suffix or last-chunk prefill). With ``warm`` the first request is
+    served alone first and the rest are the round that is recorded.
+    With ``planted`` the round's first suffix prefill reads the trash
+    page in place of its middle shared page, and the run stops after
+    that admission. Returns (engine, streams, logits (n, V))."""
+    import torch
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
+                                   attention_impl="legacy", _graphs=False,
+                                   **kw)
+    if warm:
+        eng.add_request(reqs[0][0], max_new_tokens=reqs[0][1])
+        eng.run()
+        reqs = reqs[1:]
+    last, firsts = [None], []
+    head = model.logits
+
+    def logits(h, *a, **k):
+        out = head(h, *a, **k)
+        last[0] = out
+        return out
+
+    def first_of(fn):
+        # an admission's last logits call is its first token's row
+        def call(*a, **k):
+            out = fn(*a, **k)
+            firsts.append(last[0][-1].float())
+            return out
+        return call
+    admit_shared = eng._admit_shared
+    up = eng._upload
+
+    def planted_shared(slot, req, prompt, pages):
+        def upload(*arrays, dst=None):
+            if dst is not None and len(arrays) == 3:   # ids, row, pages
+                wrong = np.array(arrays[2], np.int32)
+                wrong[len(wrong) // 2] = 0
+                arrays = (*arrays[:2], wrong)
+            return up(*arrays, dst=dst)
+        eng._upload = upload
+        try:
+            return admit_shared(slot, req, prompt, pages)
+        finally:
+            del eng._upload
+    eng._admit_shared = first_of(planted_shared if planted
+                                 else admit_shared)
+    eng._admit_chunked = first_of(eng._admit_chunked)
+    eng._legacy_prefill = first_of(eng._legacy_prefill)
+    model.logits = logits
+    try:
+        rids = [eng.add_request(p, max_new_tokens=n) for p, n in reqs]
+        if planted:
+            eng.step()
+            return eng, None, torch.stack(firsts)
+        out = eng.run()
+    finally:
+        del model.logits
+        del eng._admit_shared, eng._admit_chunked, eng._legacy_prefill
+    torch.cuda.synchronize()
+    return eng, [out[r] for r in rids], torch.stack(firsts)
+
+
+def legacy_graphed_run(model, reqs, warm=False, **kw):
+    """``reqs`` on a graphed 8B legacy engine (the program cache; paged,
+    or dense with ``kv_layout="dense"``), the launch counts set to 0 just
+    before (after the warm request with ``warm``) and checked exactly
+    after: RMSNorm (2L + 1) a dispatch, the paged attention L a paged
+    decode dispatch, nothing else. Returns (engine, streams, launches,
+    stats of the counted run)."""
+    import torch
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
+                                   attention_impl="legacy", **kw)
+    if warm:
+        eng.add_request(reqs[0][0], max_new_tokens=reqs[0][1])
+        eng.run()
+        reqs = reqs[1:]
+    disp = eng.num_admission_dispatches, eng.num_decode_dispatches
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new_tokens=n) for p, n in reqs]
+    done = []
+    while len(done) < len(reqs):
+        done += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    by_rid = {r.rid: r for r in done}
+    for rid, (_, new) in zip(rids, reqs):
+        r = by_rid[rid]
+        if r.status != "finished" or len(r.output) != new:
+            raise AssertionError(f"legacy request {rid}: {r.status} with "
+                                 f"{len(r.output)} of {new} tokens")
+    L = model.config.num_hidden_layers
+    n_adm = eng.num_admission_dispatches - disp[0]
+    n_dec = eng.num_decode_dispatches - disp[1]
+    want = {**{k: 0 for k in counts},
+            "rms_norm": (2 * L + 1) * (n_adm + n_dec),
+            "paged_attention": L * n_dec if eng.layout == "paged" else 0}
+    if counts != want:
+        raise AssertionError(f"legacy launches {counts}, expected {want} "
+                             f"over {n_adm} admission and {n_dec} decode "
+                             "dispatches")
+    ttft = sorted(by_rid[r].first_token_time - by_rid[r].arrival_time
+                  for r in rids)
+    stats = dict(requests=len(reqs), wall_s=wall,
+                 ttft_p50_s=statistics.median(ttft),
+                 admission_dispatches=n_adm, decode_dispatches=n_dec,
+                 decode_step_ms=1e3 * eng.decode_seconds
+                 / eng.num_decode_dispatches,
+                 graph_captures=eng.num_graph_captures,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches={k: n for k, n in counts.items() if n})
+    return eng, [by_rid[r].output for r in rids], counts, stats
+
+
+def fresh_prefix_logits(model, reqs, pad=16):
+    """Each hit's first-token logits computed as the legacy engine's
+    suffix program computes them (the suffix padded to its ``pad``
+    bucket, at ``position_offset`` 512 over 512 + bucket keys under the
+    key-validity mask, the same shapes), but over shared rows computed
+    afresh by a masked prefill of the prefix tokens alone instead of
+    read from the pages: (hits, V). Cached against uncached also differs
+    in the batch of the suffix rows' projections, which cuBLAS does not
+    compute bitwise alike at every size; this reference differs from the
+    cached admission only in where the shared rows come from."""
+    import torch
+    cfg = model.config
+    hk, hd = cfg.num_key_value_heads, cfg.head_dim
+    prefix = torch.from_numpy(np.asarray(reqs[1][0][:PREFIX_LEN],
+                                         np.int32)).cuda()[None]
+    dt = next(model.parameters()).dtype
+    pre = [tuple(torch.zeros(1, PREFIX_LEN, hk, hd, device="cuda", dtype=dt)
+                 for _ in range(2)) for _ in range(cfg.num_hidden_layers)]
+    out = []
+    with torch.no_grad():
+        model.model(prefix, pre, attention_mask=torch.ones(
+            1, PREFIX_LEN, dtype=torch.bool, device="cuda"))
+        for p, _ in reqs[1:]:
+            suffix = np.asarray(p[PREFIX_LEN:], np.int32)
+            n = len(suffix)
+            bucket = -(-n // pad) * pad
+            ids = torch.zeros(1, bucket, dtype=torch.int32, device="cuda")
+            ids[0, :n] = torch.from_numpy(suffix).cuda()
+            caches = [tuple(torch.cat([c, c.new_zeros(1, bucket, hk, hd)],
+                                      1) for c in layer) for layer in pre]
+            valid = (torch.arange(PREFIX_LEN + bucket, device="cuda")
+                     < PREFIX_LEN + n)[None]
+            logits = model(ids, caches, attention_mask=valid,
+                           rows=torch.tensor([n - 1], device="cuda"),
+                           position_offset=PREFIX_LEN)
+            out.append(logits[-1].float())
+    return torch.stack(out)
+
+
+def serve_8b_legacy_prefix(model):
+    """The prefix mix of `serve_8b_prefix` (a warm request, then 8
+    requests sharing its 512-token prefix) on the legacy path: graphed
+    with the cache (exact launches, hits, tokens reused, every page back
+    once the trie drains), its streams bitwise equal to the eager cached
+    engine's; the round's first-token logits within `logits_disagree`'s
+    bound of `fresh_prefix_logits` (the same suffix prefills over shared
+    rows computed afresh), and within `path_check`'s 0.1 x max |logit|
+    of the uncached engine's, argmax equal on every row; a planted wrong
+    shared page (the suffix program gathering the trash page in place
+    of the middle prefix page) must break the first check."""
+    import torch
+    reqs = prefix_requests(model.config.vocab_size)
+    eng, streams, counts, stats = legacy_graphed_run(
+        model, reqs, warm=True, enable_prefix_caching=True)
+    reused = N_PREFIX_HITS * PREFIX_LEN
+    hits, got_reused = eng.prefix_hits, eng.prefix_tokens_reused
+    suffix_keys = list(eng._suffix_programs)
+    while eng._evict_one():
+        pass
+    eng.check_invariants()
+    if len(eng._free) != eng.num_pages - 1 or eng._page_rc[1:].any():
+        raise AssertionError("legacy prefix: pages held after the trie "
+                             "was drained")
+    del eng
+    ceng, cstreams, a = admission_logits_run(model, reqs,
+                                             enable_prefix_caching=True)
+    peng, pstreams, b = admission_logits_run(model, reqs)
+    saved = peng.admission_tokens - ceng.admission_tokens
+    del ceng, peng
+    _, _, bad = admission_logits_run(model, reqs, planted=True,
+                                     enable_prefix_caching=True)
+    ref = fresh_prefix_logits(model, reqs)
+    # every hit of the planted round read a wrong page: the first is held
+    planted_caught = bool(logits_disagree(bad, ref)[0])
+    scale = b.abs().max().item()
+    stats.update(prefix_hits=hits, prefix_tokens_reused=got_reused,
+                 admission_tokens_saved=saved, suffix_programs=suffix_keys,
+                 max_abs_logit=scale,
+                 fresh_row_diffs=(a - ref).abs().amax(-1).tolist(),
+                 uncached_row_diffs=(a - b).abs().amax(-1).tolist(),
+                 argmax_agrees_uncached=(a.argmax(-1)
+                                         == b.argmax(-1)).tolist(),
+                 streams_equal_uncached=sum(x == y for x, y in
+                                            zip(cstreams, pstreams)),
+                 planted_wrong_page_diff=(bad[0] - ref[0]).abs().max().item(),
+                 planted_caught=planted_caught)
+    log("serving_legacy_prefix " + json.dumps(stats))
+    check_eager_equal("serving_legacy_prefix", streams, cstreams)
+    if hits != N_PREFIX_HITS or got_reused != reused or saved != reused:
+        raise AssertionError("legacy prefix: hits, reused or saved tokens "
+                             "off")
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()) \
+            or a.shape != (N_PREFIX_HITS, model.config.vocab_size) \
+            or logits_disagree(a, ref).any():
+        raise AssertionError("legacy prefix: the cached first-token logits "
+                             "disagree with the fresh-prefix reference")
+    if (a - b).abs().max().item() > 0.1 * scale \
+            or (a.argmax(-1) != b.argmax(-1)).any():
+        raise AssertionError("legacy prefix: cached and uncached first-"
+                             "token logits disagree")
+    if not planted_caught:
+        raise AssertionError("legacy prefix: a wrong shared page passes the "
+                             "logits check")
+    return counts
+
+
+def serve_8b_legacy_chunked(model, reqs):
+    """The first `N_LEGACY_REQUESTS` of `reqs` on the legacy path at
+    ``prefill_chunk=256``: graphed (the chunk program, every chunk a
+    dispatch: exact launches, paged attention L a decode dispatch), its
+    streams bitwise equal to the eager engine's; each request's
+    first-token logits against the unchunked engine's within
+    `logits_disagree`'s bound with equal argmax."""
+    import torch
+    reqs = reqs[:N_LEGACY_REQUESTS]
+    eng, streams, counts, stats = legacy_graphed_run(
+        model, reqs, prefill_chunk=LEGACY_CHUNK)
+    chunks = sum(-(-len(p) // LEGACY_CHUNK) for p, _ in reqs
+                 if len(p) >= LEGACY_CHUNK)
+    if eng._chunk_program is None or eng._chunk_program.runs != chunks \
+            or eng._chunk_program.graph is None:
+        raise AssertionError("legacy chunked: the chunk program did not run "
+                             f"{chunks} chunks or was not captured")
+    del eng
+    _, cstreams, a = admission_logits_run(model, reqs, warm=False,
+                                          prefill_chunk=LEGACY_CHUNK)
+    _, pstreams, b = admission_logits_run(model, reqs, warm=False)
+    diff = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    stats.update(chunk=LEGACY_CHUNK, chunks=chunks,
+                 max_abs_logit_diff=diff, max_abs_logit=scale,
+                 argmax_agrees=(a.argmax(-1) == b.argmax(-1)).tolist(),
+                 streams_equal_unchunked=sum(x == y for x, y in
+                                             zip(cstreams, pstreams)))
+    log("serving_legacy_chunked " + json.dumps(stats))
+    check_eager_equal("serving_legacy_chunked", streams, cstreams)
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()) \
+            or a.shape != (len(reqs), model.config.vocab_size) \
+            or logits_disagree(a, b).any():
+        raise AssertionError("legacy chunked: first-token logits disagree "
+                             "with the unchunked engine's")
+    return counts
+
+
 def path_check(model, reqs, weights=None, lora_engine=None):
     """One admission dispatch of the 8B model through the kernels and
     through the plain versions, on fresh pools each: full-width pools,
@@ -5035,6 +5488,14 @@ def main():
     path_check(model, reqs, lora_engine=lora_eng)
     del lora_eng
     gcounts = serve_8b_legacy(model, reqs)
+    # generate(), the dense layout, the legacy prefix cache and the legacy
+    # chunked prefill, each with its launches counted
+    t0 = time.perf_counter()
+    generate_8b(model)
+    serve_8b_dense(model, reqs)
+    serve_8b_legacy_prefix(model)
+    serve_8b_legacy_chunked(model, reqs)
+    log(f"generate, dense and legacy phases {time.perf_counter() - t0:.1f}s")
     # each kernel's launches on its own main path: the full-width run
     # for RMSNorm and full-width attention, the int8 run for int8-KV
     # attention and the dequant matmul, the LoRA run for the epilogue,

@@ -1,29 +1,35 @@
-"""Llama-3 family: the serving paths and the training forward.
+"""Llama-3 family: the serving paths, `generate()` and the training
+forward.
 
 ≙ `paddle_tpu/models/llama.py` :28-105 (`LlamaConfig`, `precompute_rope`),
-:108-146 (`apply_rope`), :166-177 (`_window_band`), :212-286
-(`PagedKVCacheView`, `RaggedKVCacheView`), :304-473 (the paged decode
-branch, the tuple-cache prefill branch and the no-cache branches of
-`LlamaAttention.forward`), :475-652 (the ragged attention path with its
-quantized-page branch :507-531, MLP, decoder, model) and :653-694
-(`LlamaForCausalLM`, with ``labels=``). The serving engine drives three
-paths:
+:108-146 (`apply_rope`, every offset form), :166-210 (`_window_band`,
+`_update_kv_cache`), :212-286 (`PagedKVCacheView`, `RaggedKVCacheView`),
+:304-473 (the paged decode branch, every tuple-cache branch and the
+no-cache branches of `LlamaAttention.forward`), :475-652 (the ragged
+attention path with its quantized-page branch :507-531, MLP, decoder,
+model) and :653-694 (`LlamaForCausalLM`, with ``labels=``, and
+`GenerationMixin.generate`, `models.generation`). The serving engine
+and `generate()` drive four paths:
 - the ragged paged path: a packed (1, T) token axis of decode steps,
   prefills and chunk continuations, with the KV cache in page pools
   (one `RaggedKVCacheView` per layer);
 - the legacy decode path: (B, 1) tokens, one per slot, each at its own
   position, over the page pools (one `PagedKVCacheView` per layer);
-- the legacy prefill: one (1, S) prompt at an int ``position_offset``
-  into per-layer (k, v) caches with a key-validity ``attention_mask``,
-  in plain PyTorch (the JAX package runs it through `_sdpa_xla`, outside
-  any Pallas kernel).
-Training runs the no-cache forward (``past_key_values=None``): causal
-flash attention over the whole (B, S) batch (`ops.flash_attention`, the
-CUDA kernels forward and backward on the card), windowed when the config
-has a ``sliding_window``, or the plain masked path under an
-``attention_mask``; ``labels=`` adds the mean cross entropy. The
-dense-cache decode and the context-parallel (``sep_strategy``) branch
-raise `NotImplementedError`; activation recompute is not ported.
+- the tuple-cache paths, per-layer (k, v) caches (B, S_max, HK, D)
+  written in place: a prefill at an int ``position_offset`` (causal
+  flash attention without a mask and a window, else plain masked
+  attention, as JAX's `_sdpa_xla`); a decode step, S == 1, at an int,
+  0-d or (B,) offset (plain `masked_multihead_attention`, as in JAX);
+  S > 1 at a tensor offset, the traced branch (plain attention over the
+  whole cache under a mask built on the device) that the engine's
+  chunked prefill and a verify pass take;
+- the no-cache forward of training (``past_key_values=None``): causal
+  flash attention over the whole (B, S) batch (`ops.flash_attention`,
+  the CUDA kernels forward and backward on the card), windowed when the
+  config has a ``sliding_window``, or the plain masked path under an
+  ``attention_mask``; ``labels=`` adds the mean cross entropy. The
+  context-parallel (``sep_strategy``) branch and activation recompute
+  are not ported.
 
 Linear weights are stored (out, in), the torch way; the JAX package
 stores (in, out) (`models.convert` transposes). RoPE pairs are
@@ -63,6 +69,7 @@ from ..ops.ragged_paged_attention import (NEG_INF,
                                           ragged_scatter_quantized,
                                           ragged_scatter_values)
 from ..ops.rope import rope_rotate_values
+from .generation import GenerationMixin
 
 
 @dataclass
@@ -135,25 +142,29 @@ def precompute_rope(head_dim: int, max_len: int, theta: float):
             torch.from_numpy(np.sin(freqs).astype(np.float32)))
 
 
-def _unported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A, item 3: the "
-        "dense-cache decode); the port runs the ragged paged path (a "
-        "RaggedKVCacheView per layer), the legacy paged decode (a "
-        "PagedKVCacheView per layer), the legacy prefill ((k, v) caches "
-        "with an int position_offset) and the no-cache forward "
-        "(past_key_value None)")
+def _rows_at(offset, s: int, n: int, device):
+    """The positions of ``s`` rows written at a tensor ``offset``: a 0-d
+    offset gives (s,) positions ``start + i``, the start clamped to [0,
+    n - s] as a dynamic slice clamps it; a (B,) offset gives (B, s)
+    positions ``offset[b] + i``."""
+    off = offset.to(device=device, dtype=torch.long)
+    i = torch.arange(s, device=device)
+    if off.ndim == 0:
+        return off.clamp(0, n - s) + i
+    return off[:, None] + i[None, :]
 
 
 def apply_rope(x, cos, sin, position_offset=0):
     """x: (B, S, H, D) rotated at positions ``position_offset + i`` for
-    row i: an int offset, or a (B,) tensor of per-sequence positions
-    with S == 1 (a decode step, each slot at its own angle). The
-    interleaved-pair rotation in f32 (`rope_rotate_values`), returned in
-    x's dtype. ≙ `apply_rope`, whose serving calls take the XLA path
-    (``use_pallas=False``)."""
+    row i. ``position_offset`` is an int, a 0-d tensor (the dynamic
+    slice of the tables, its start clamped into them) or a (B,) tensor
+    of per-sequence positions: row i of sequence b at ``offset[b] + i``
+    (S == 1 is a decode step, each slot at its own angle; S > 1 a verify
+    pass). The interleaved-pair rotation in f32 (`rope_rotate_values`),
+    returned in x's dtype. ≙ `apply_rope`, whose serving calls take the
+    XLA path (``use_pallas=False``)."""
+    s = x.shape[1]
     if isinstance(position_offset, int):
-        s = x.shape[1]
         if position_offset + s > cos.shape[0]:
             raise ValueError(
                 f"rope: position_offset {position_offset} + seq {s} "
@@ -161,14 +172,36 @@ def apply_rope(x, cos, sin, position_offset=0):
         rows = slice(position_offset, position_offset + s)
         cv = cos[rows].float()[None, :, None, :]
         sv = sin[rows].float()[None, :, None, :]
-    elif position_offset.ndim == 1 and x.shape[1] == 1:
-        pos = position_offset.long()
-        cv = cos[pos].float()[:, None, None, :]
-        sv = sin[pos].float()[:, None, None, :]
     else:
-        _unported("rope with (B,) positions over S > 1 rows (the "
-                  "speculative verify pass)")
+        rows = _rows_at(position_offset, s, cos.shape[0], cos.device)
+        if rows.ndim == 1:
+            cv = cos[rows].float()[None, :, None, :]
+            sv = sin[rows].float()[None, :, None, :]
+        else:
+            cv = cos[rows].float()[:, :, None, :]
+            sv = sin[rows].float()[:, :, None, :]
     return rope_rotate_values(x, cv, sv)
+
+
+def _update_kv_cache(cache, new, offset):
+    """Write ``new`` (B, S, HK, D) into the static cache (B, S_max, HK,
+    D) IN PLACE at sequence position ``offset``: an int, a 0-d tensor
+    (start clamped so that the rows fit, as a dynamic update slice
+    clamps it) or a (B,) tensor of per-sequence positions, row i of
+    sequence b landing at ``offset[b] + i``. ≙ `_update_kv_cache`; a
+    tensor offset never reads the device from the host. A (B,) offset's
+    rows must lie inside the cache (JAX drops the rows that do not)."""
+    new = new.to(cache.dtype)
+    s = new.shape[1]
+    if isinstance(offset, int):
+        cache[:, offset:offset + s] = new
+        return
+    rows = _rows_at(offset, s, cache.shape[1], cache.device)
+    if rows.ndim == 1:
+        cache.index_copy_(1, rows, new)
+    else:
+        b = torch.arange(cache.shape[0], device=cache.device)[:, None]
+        cache[b, rows] = new
 
 
 def _window_band(s: int, n_keys: int, offset: int, window):
@@ -270,29 +303,24 @@ class LlamaAttention(torch.nn.Module):
                 weights=None, attention_mask=None, position_offset=0):
         """x: (B, S, hidden). ``past_key_value`` picks the path:
         - None: the no-cache forward of training (`_forward_full`), rope
-          at ``position_offset`` (an int), ``attention_mask`` None or a
-          mask broadcastable to (B, H, S, S) (a bool (B, S) key-validity
-          mask too, with a sliding window);
+          at ``position_offset``, ``attention_mask`` None or a mask
+          broadcastable to (B, H, S, S) (a bool (B, S) key-validity mask
+          too, with a sliding window);
         - a `RaggedKVCacheView`: a packed (1, T) batch (`_forward_ragged`);
         - a `PagedKVCacheView`: one decode token per sequence, S == 1,
           at the (B,) positions ``position_offset`` (`_forward_paged`);
-        - a (k_cache, v_cache) pair of (B, S_max, HK, D) caches with an
-          int ``position_offset`` and S > 1: a prefill
-          (`_forward_prefill`), ``attention_mask`` a (B, >= offset + S)
+        - a (k_cache, v_cache) pair of (B, S_max, HK, D) caches
+          (`_forward_cached`), written in place at ``position_offset``:
+          an int, a 0-d tensor or a (B,) tensor of per-sequence
+          positions. S == 1 is a decode step over the cache; S > 1 at an
+          int offset a (chunked) prefill, at a tensor offset the traced
+          branch over the whole cache. ``attention_mask`` is a (B, keys)
           bool key-validity mask or None.
         ``weights`` as in `LlamaForCausalLM.forward`."""
         view = past_key_value
         if isinstance(view, RaggedKVCacheView):
             return self._forward_ragged(x, cos, sin, view, use_kernel,
                                         weights)
-        paged = isinstance(view, PagedKVCacheView)
-        prefill = isinstance(view, tuple) and x.shape[1] > 1 \
-            and isinstance(position_offset, int)
-        full = view is None and isinstance(position_offset, int)
-        if not (paged or prefill or full):
-            _unported("LlamaAttention without a RaggedKVCacheView, a "
-                      "PagedKVCacheView, a prefill into (k, v) caches or "
-                      "the no-cache forward")
         b, s = x.shape[0], x.shape[1]
         q = _proj(self, "q_proj", x, weights, use_kernel).reshape(
             b, s, self.num_heads, self.head_dim)
@@ -302,14 +330,14 @@ class LlamaAttention(torch.nn.Module):
             b, s, self.num_kv_heads, self.head_dim)
         q = apply_rope(q, cos, sin, position_offset)
         k = apply_rope(k, cos, sin, position_offset)
-        if full:
+        if view is None:
             out = self._forward_full(q, k, v, attention_mask, use_kernel)
-        elif paged:
+        elif isinstance(view, PagedKVCacheView):
             out = self._forward_paged(q, k, v, view, position_offset,
                                       use_kernel)
         else:
-            out = self._forward_prefill(q, k, v, view, position_offset,
-                                        attention_mask)
+            out = self._forward_cached(q, k, v, view, position_offset,
+                                       attention_mask, use_kernel)
         return _proj(self, "o_proj", out.reshape(b, s, -1), weights,
                      use_kernel)
 
@@ -359,24 +387,66 @@ class LlamaAttention(torch.nn.Module):
             view.block_tables, window=self.sliding_window,
             use_kernel=use_kernel)
 
-    def _forward_prefill(self, q, k, v, caches, offset, attention_mask):
-        """≙ the tuple-cache branch :358-433 for S > 1 at an int offset:
-        write the new rows into the caches IN PLACE at [offset, offset +
-        S), then attend keys [0, offset + S) under the causal (and
-        window) band ANDed with the key-validity mask. Plain PyTorch, as
-        in JAX (`_sdpa_xla`, no Pallas kernel)."""
+    def _forward_cached(self, q, k, v, caches, offset, attention_mask,
+                        use_kernel):
+        """≙ the tuple-cache branch :358-433: write the new rows into the
+        caches IN PLACE at ``offset`` (`_update_kv_cache`), then
+        - S == 1, a decode step: `F.masked_multihead_attention` over the
+          cache at ``seq_len = offset + 1``, window-banded, under the
+          key-validity mask (plain, as in JAX);
+        - S > 1 at an int offset, a (chunked) prefill over keys [0,
+          offset + S): without a mask and a window the end-aligned causal
+          flash attention (`flash_attention_values`, the CUDA kernel on
+          the card), as JAX routes it to the Pallas kernel; otherwise the
+          causal band, window-banded and ANDed with the mask, in plain
+          PyTorch (`_sdpa`, JAX's `_sdpa_xla`);
+        - S > 1 at a tensor offset (0-d or (B,)), the traced branch:
+          plain attention over the WHOLE static cache under an
+          end-aligned causal mask built on the device from the offset,
+          window-banded; a mask shorter than the cache is padded with
+          True (cells past it hold decode or verify rows)."""
         k_cache, v_cache = caches
-        s = q.shape[1]
+        _update_kv_cache(k_cache, k, offset)
+        _update_kv_cache(v_cache, v, offset)
+        b, s = q.shape[0], q.shape[1]
+        win = self.sliding_window
+        if s == 1:
+            return F.masked_multihead_attention(
+                q, k_cache, v_cache, seq_len=offset + 1,
+                attn_mask=attention_mask, window_size=win)
+        dev = q.device
+        if not isinstance(offset, int):
+            s_max = k_cache.shape[1]
+            off = offset.to(device=dev, dtype=torch.long).reshape(-1)
+            rows = (off[:, None] + torch.arange(s, device=dev)).expand(b, s)
+            cols = torch.arange(s_max, device=dev)[None, None, None, :]
+            rows = rows[:, None, :, None]
+            mask = cols <= rows                        # (B, 1, S, S_max)
+            if win is not None:
+                mask = mask & (cols > rows - win)
+            if attention_mask is not None:
+                am = attention_mask.bool()
+                if am.shape[-1] < s_max:
+                    am = torch.nn.functional.pad(
+                        am, (0, s_max - am.shape[-1]), value=True)
+                mask = mask & am[:, None, None, :s_max]
+            return F._sdpa(q, k_cache, v_cache, mask)
         cur = offset + s
-        k_cache[:, offset:cur] = k.to(k_cache.dtype)
-        v_cache[:, offset:cur] = v.to(v_cache.dtype)
+        if attention_mask is None and win is None:
+            # the cache prefix is a strided view when the cache is longer
+            # than it (and B > 1); the kernel reads dense rows, so the
+            # copy is made here, where it shows
+            return flash_attention_values(
+                q, k_cache[:, :cur].contiguous(),
+                v_cache[:, :cur].contiguous(), causal=True,
+                use_kernel=use_kernel)
         # built on the device: a host copy could not be captured into
         # the legacy prefill's CUDA graph
-        rows = torch.arange(s, device=q.device)[:, None] + offset
-        cols = torch.arange(cur, device=q.device)[None, :]
+        rows = torch.arange(s, device=dev)[:, None] + offset
+        cols = torch.arange(cur, device=dev)[None, :]
         mask = cols <= rows
-        if self.sliding_window is not None:
-            mask = mask & (cols > rows - self.sliding_window)
+        if win is not None:
+            mask = mask & (cols > rows - win)
         mask = mask[None, None]
         if attention_mask is not None:
             mask = mask & attention_mask[:, :cur].bool()[:, None, None, :]
@@ -508,12 +578,13 @@ class LlamaModel(torch.nn.Module):
                                 self.norm.weight))
 
 
-class LlamaForCausalLM(torch.nn.Module):
-    """Llama for serving and training. Builds on the CUDA card unless ``device``
-    names another device (without CUDA and without a device it raises
-    RuntimeError). ``dtype`` defaults to float32, as the JAX model's
-    parameters do; ``seed`` seeds the `torch.Generator` (on the build
-    device) that initialises the weights with the JAX package's
+class LlamaForCausalLM(torch.nn.Module, GenerationMixin):
+    """Llama for serving, generation (`generate()`, from
+    `GenerationMixin`) and training. Builds on the CUDA card unless
+    ``device`` names another device (without CUDA and without a device
+    it raises RuntimeError). ``dtype`` defaults to float32, as the JAX
+    model's parameters do; ``seed`` seeds the `torch.Generator` (on the
+    build device) that initialises the weights with the JAX package's
     initialisers: Normal(0, 1) embeddings, Xavier-normal linears, unit
     norm scales."""
 
@@ -564,8 +635,9 @@ class LlamaForCausalLM(torch.nn.Module):
         caches updated in place) — a `RaggedKVCacheView` for
         a packed (1, T) batch, a `PagedKVCacheView` for a (B, 1) decode
         step at the (B,) positions ``position_offset``, or a (k, v)
-        cache pair for a prefill at an int ``position_offset`` under the
-        key-validity ``attention_mask`` (`LlamaAttention.forward`).
+        cache pair at ``position_offset`` (an int, a 0-d or a (B,)
+        tensor) under the key-validity ``attention_mask``: a prefill, a
+        decode step or the traced branch (`LlamaAttention.forward`).
         Returns logits (B, S, vocab), or with ``rows`` (a (n,) index
         tensor into the packed axis of a (1, T) batch) only those rows'
         logits, (n, vocab) — the engine asks for the rows it samples and

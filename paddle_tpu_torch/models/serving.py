@@ -1,32 +1,35 @@
-"""Continuous-batching greedy serving over a paged KV cache.
+"""Continuous-batching greedy serving over a paged or dense KV cache.
 
 ≙ `paddle_tpu/models/serving.py`: `EngineOverloaded` / `PoolExhausted` /
 `EngineInvariantError` / `ModelMismatch` :322-369, `Request` :457, and
-the parts of `ContinuousBatchingEngine` that serve greedy requests over
-``kv_layout="paged"``: construction :502-931 (paged subset),
-`add_request` / `run` / `step` / `lifecycle_info` :1307-1512, `_expire`
-:2002, the paged `check_invariants` :2069-2176 with its adapter checks,
-`_finalize` / `_release_slot` :2284-2350, admission :2394-2470 and
-:2594-2763 (one packed ragged dispatch per batch, with `prefill_chunk`
-chunk continuations and prefix-cache suffixes), the page allocator and
-the prefix cache's page trie :2852-3110 (trash page 0, refcounts,
-worst-case reservation, LRU eviction of childless nodes) and the decode
-step with lazy page growth and preemption :3268-3565, synchronous or
-pipelined (``harvest_every=k``: `_harvest_due` / `_harvest_pending` /
-`quiesce` :3573-3730). Quantized serving (≙ `QUANT_MATMULS` /
-`QuantServingConfig` :401-453, the ``quant=`` check :561-571, the int8
-page and scale pools :668-693, `_build_quant_weights` :930-964 without
-tensor parallelism, and the paged part of `cache_memory_info`
-:2034-2066). Multi-model serving (≙ `install_adapter` / `evict_adapter` /
-`install_weights` / `reset_weights` / `_adapter_row` / `_lora_pv`
-:972-1304, `add_request(adapter=)` :1334-1339 and the slot-to-adapter
-map). The legacy paged path, ``attention_impl="legacy"`` (≙ `_bucket` /
-`_build_prefill` :2347-2392, the `_admit` loop :2472-2561 without its
-prefix-cache branch, `_paged_insert` / `_build_scatter` :3079-3102 and
-the paged `_build_decode` :3241-3266). The program cache (≙ `_jit_lru`
-/ `_jit_singleton` :2819-2850 over `_ragged_jits` and `_prefill_jits`
-:810-814, `_get_prefill` :2352, `_get_ragged_prefill` :2860 and the
-decode programs :3371-3392).
+the parts of `ContinuousBatchingEngine` that serve greedy requests:
+construction :502-931 (both layouts), `add_request` / `run` / `step` /
+`lifecycle_info` :1307-1512, `_expire` :2002, `cache_memory_info`
+:2034-2066, `check_invariants` :2069-2176 with its adapter checks,
+`_finalize` / `_release_slot` :2284-2350, admission :2394-2763 (one
+packed ragged dispatch per batch, with `prefill_chunk` chunk
+continuations and prefix-cache suffixes; on the legacy path one
+dispatch per request, `_admit` :2472-2561 with its three branches), the
+page allocator and the prefix cache's page trie :2852-3110 (trash page
+0, refcounts, worst-case reservation, LRU eviction of childless nodes)
+and the decode step with lazy page growth and preemption :3268-3565,
+synchronous or pipelined (``harvest_every=k``: `_harvest_due` /
+`_harvest_pending` / `quiesce` :3573-3730). Quantized serving (≙
+`QUANT_MATMULS` / `QuantServingConfig` :401-453, the ``quant=`` check
+:561-571, the int8 page and scale pools :668-693, `_build_quant_weights`
+:930-964 without tensor parallelism). Multi-model serving (≙
+`install_adapter` / `evict_adapter` / `install_weights` /
+`reset_weights` / `_adapter_row` / `_lora_pv` :972-1304,
+`add_request(adapter=)` :1334-1339 and the slot-to-adapter map). The
+legacy paths, ``attention_impl="legacy"`` and ``kv_layout="dense"``
+(≙ `_bucket` / `_build_prefill` :2347-2392, `_admit_shared` :2563-2592,
+`_dense_insert` :2935-2952, `_paged_insert` / `_build_scatter`
+:3079-3102, `_admit_chunked` / `_build_chunk_prefill` / `_build_sample`
+:3112-3183, `_build_suffix_prefill` :3185-3239 and both arms of
+`_build_decode` :3241-3266). The program cache (≙ `_jit_lru` /
+`_jit_singleton` :2819-2850 over `_ragged_jits`, `_prefill_jits` and
+`_suffix_jits` :810-814, `_get_prefill` :2352, `_get_ragged_prefill`
+:2860, `_get_suffix_prefill` :3185, and the decode and chunk programs).
 
 With ``attention_impl="ragged"`` (the default) each admission batch and
 each decode step is ONE ragged dispatch: the packed token axis runs
@@ -37,22 +40,38 @@ attaches the cached pages to the slot's block table and admits only the
 prompt's suffix, at an offset, through the same dispatch. With
 ``harvest_every=k > 1`` a decode dispatch's greedy tokens stay on the
 device and feed the next dispatch; the host reads them back once every k
-dispatches (or sooner, when host work needs them). With ``"legacy"``
-each admitted request gets its own prefill dispatch over its prompt
-padded to a ``prompt_pad`` bucket, whose K/V rows are then scattered
-into its pages, and a decode step is one dispatch of (B, 1) tokens whose
-attention launches the q = 1 paged attention kernel.
+dispatches (or sooner, when host work needs them).
+
+With ``"legacy"`` each admitted request gets its own prefill dispatch:
+its prompt padded to a ``prompt_pad`` bucket into the program's own
+(1, bucket, HK, D) caches, whose K/V rows are then scattered into its
+pages; a prefix-cache hit gathers the shared pages into the suffix
+program's caches and prefills only the suffix, at ``position_offset =
+shared_len``; a prompt of at least ``prefill_chunk`` tokens prefills in
+fixed chunks through one program at a device offset (the model's traced
+branch), each chunk's rows scattered as it completes. A decode step is
+one dispatch of (B, 1) tokens whose attention launches the q = 1 paged
+attention kernel. ``kv_layout="dense"`` serves through the legacy
+paths only: per-slot contiguous (B, S, HK, D) caches, the bucketed
+prefill's rows copied into the slot's rows, and a (B, 1) decode at (B,)
+positions over the caches in plain PyTorch (`masked_multihead_attention`,
+as the JAX package computes it, outside any Pallas kernel); it has no
+pages, so no prefix cache and no chunked prefill (both warn and are
+dropped, as in JAX).
 
 Each dispatch family the JAX engine compiles is a family of programs
 here (`_Program`), keyed as the JAX engine keys its programs and held
 in the same LRU: ragged admission by (padded tokens, pages bound) in
 `_ragged_programs`, the legacy prefill by its bucket in
-`_prefill_programs`, both capped at ``max_prefill_programs``; the decode
-step is one program. A program's body is the dispatch's code on static
-input buffers, with the KV pools and the dispatch weights bound when it
-is built; on the card it is captured once as a CUDA graph and replayed,
-so a step costs one host launch per program instead of one per kernel.
-A weight or adapter change drops every program (`_drop_programs`).
+`_prefill_programs`, both capped at ``max_prefill_programs``, the
+legacy suffix prefill by (shared_len, bucket) in `_suffix_programs`,
+capped at twice that; the decode step (ragged, paged or dense) and the
+chunk prefill are one program each. A program's body is the dispatch's
+code on static input buffers, with the KV pools or caches and the
+dispatch weights bound when it is built; on the card it is captured
+once as a CUDA graph and replayed, so a step costs one host launch per
+program instead of one per kernel. A weight or adapter change drops
+every program (`_drop_programs`).
 
 Every constructor option outside this subset raises NotImplementedError
 naming the ROADMAP.md item that will port it.
@@ -196,8 +215,9 @@ class _Program:
     ``body``, the dispatch's code on views of ``flat`` with the KV pools
     and the dispatch weights bound when the program was built, and, once
     captured, its static output ``out`` (the greedy tokens). A legacy
-    prefill program also owns its per-layer caches, ``caches``, which
-    the body writes and the caller scatters from. A body holds no
+    prefill, suffix or chunk program also owns its per-layer caches,
+    ``caches``, which the body writes and the caller scatters or copies
+    from (the chunk program's keep a prompt's earlier chunks). A body holds no
     reference to its engine, so an engine that is dropped frees its
     pools at once, not at the next garbage collection.
 
@@ -232,11 +252,14 @@ class ContinuousBatchingEngine:
     parameter dtype, or int8 with f32 scale pools under
     ``quant=QuantServingConfig(kv="int8")``. ``attention_impl`` picks
     the ragged dispatch (default) or the legacy paged path (module
-    docstring); ``prompt_pad`` is the legacy prefill's bucket step and
-    the ragged admission's pad. ``temperature`` / ``top_k`` / ``top_p``
-    / ``seed`` act only with sampling, which is not ported, so a greedy
-    engine ignores them as the JAX engine does. ``max_prefill_programs``
-    caps each keyed program family (module docstring).
+    docstring); ``kv_layout="dense"`` keeps per-slot contiguous caches
+    and serves through the legacy paths; ``prompt_pad`` is the legacy
+    prefill's bucket step and the ragged admission's pad.
+    ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` act only with
+    sampling, which the engine does not have yet (``do_sample``), so a
+    greedy engine ignores them as the JAX engine does.
+    ``max_prefill_programs`` caps each keyed program family (module
+    docstring).
 
     ``_graphs`` (private) False runs every dispatch eagerly, with no
     program cache: the yardstick that the card checks and the tests
@@ -310,27 +333,18 @@ class ContinuousBatchingEngine:
                 "attention_impl='ragged' — the quantized page layout "
                 "and the fused dequant epilogue thread through the "
                 "ragged dispatch family only")
-        if kv_layout != "paged":
-            _not_ported(f"kv_layout={kv_layout!r}",
-                        "3 (the dense KV layout)")
-        if attention_impl == "legacy" and prefill_chunk:
-            _not_ported("attention_impl='legacy' with prefill_chunk",
-                        "3 (the legacy path's chunked prefill)")
         for name, off, item in _UNPORTED_OPTIONS:
             if given[name] != off:
                 _not_ported(f"{name}={given[name]!r}", item)
         cfg = model.config
-        if cfg.sliding_window is not None and enable_prefix_caching:
+        if kv_layout == "paged" and cfg.sliding_window is not None \
+                and enable_prefix_caching:
             # ≙ :610-620: slid-out pages are reclaimed and trash-routed,
             # so a window model's prompt pages are not stable shared KV
             warnings.warn(
                 "sliding_window model: prefix caching is DISABLED "
                 "(window reclamation invalidates cached prompt pages)")
             enable_prefix_caching = False
-        if attention_impl == "legacy" and enable_prefix_caching:
-            _not_ported("attention_impl='legacy' with "
-                        "enable_prefix_caching", "3 (the legacy path's "
-                        "suffix prefill)")
         dev = resolve_device(device)
         mdev = model.device
         if dev.type != mdev.type or (dev.index is not None
@@ -340,7 +354,11 @@ class ContinuousBatchingEngine:
         self.device = mdev
         self.model = model
         self._params = dict(model.named_parameters())
-        self.attn_impl = attention_impl
+        # ragged attention walks the page table; the dense layout has no
+        # pages, so it always serves through the legacy paths (≙ :606-609)
+        self.layout = kv_layout
+        self.attn_impl = attention_impl if kv_layout == "paged" \
+            else "legacy"
         self.B = int(max_batch_size)
         self.S = int(max_seq_len or cfg.max_position_embeddings)
         if self.S > cfg.max_position_embeddings:
@@ -351,31 +369,11 @@ class ContinuousBatchingEngine:
         self._window = cfg.sliding_window
         self.eos = eos_token_id
         self.pad = int(prompt_pad)
-        self.page_size = int(page_size)
-        self.pps = -(-self.S // self.page_size)
-        # +1: page 0 is the reserved trash page
-        self.num_pages = int(num_pages or self.B * self.pps + 1)
-        if self.num_pages < 2:
-            raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
         hk, hd = cfg.num_key_value_heads, cfg.head_dim
         dt = next(model.parameters()).dtype
         self._qw_mode = quant.weights if quant is not None else None
         self._qkv = quant.kv if quant is not None else None
         self._kv_shape = (cfg.num_hidden_layers, hk, hd, dt)
-        pool_dt = torch.int8 if self._qkv else dt
-
-        def pools():
-            # (k, v) pages, and for int8 pages (k_scale, v_scale): one
-            # f32 dequant scale per page row, shared by every head
-            kv = [torch.zeros(hk, self.num_pages, self.page_size, hd,
-                              dtype=pool_dt, device=self.device)
-                  for _ in range(2)]
-            if self._qkv:
-                kv += [torch.zeros(self.num_pages, self.page_size,
-                                   dtype=torch.float32, device=self.device)
-                       for _ in range(2)]
-            return tuple(kv)
-        self._kv = [pools() for _ in range(cfg.num_hidden_layers)]
         # the quantized weights handed to every dispatch, and their count
         # and bytes (the JAX engine's ``pdt_quant_weight_*`` gauges;
         # telemetry is not ported yet)
@@ -384,36 +382,28 @@ class ContinuousBatchingEngine:
         qws = (self._qweights or {}).values()
         self.quant_weight_layers = len(qws)
         self.quant_weight_bytes = sum(w.nbytes for w in qws)
-        self._bt = np.zeros((self.B, self.pps), np.int32)
-        self._free: List[int] = list(range(1, self.num_pages))
-        self._slot_pages: List[List[int]] = [[] for _ in range(self.B)]
-        self._slot_reserved = np.zeros(self.B, np.int64)
-        # pages ever attached: the next block-table index to fill; stays
-        # monotonic after window reclamation frees leading pages
-        self._slot_next_idx = np.zeros(self.B, np.int64)
-        self._slot_freed = np.zeros(self.B, np.int64)
-        self._page_rc = np.zeros(self.num_pages, np.int32)
-        # the prefix cache (≙ :704-727): a page trie, one node per
-        # (parent key, page of tokens) in LRU order, each holding one
-        # reference on its page; a slot attaches matched pages read-only
-        # and holds one reference on each in _slot_shared_pages
-        self._prefix_enabled = bool(enable_prefix_caching)
-        self._max_prefix_entries = int(max_prefix_entries)
-        self._prefix_nodes: "OrderedDict[tuple, dict]" = OrderedDict()
-        self._slot_shared_pages: List[List[int]] = [[] for _ in
-                                                    range(self.B)]
-        self.prefix_hits = 0
-        self.prefix_tokens_reused = 0
-        self._chunk = int(prefill_chunk) if prefill_chunk else None
-        if self._chunk is not None:
-            if self._chunk % self.page_size:
-                raise ValueError(
-                    f"prefill_chunk {self._chunk} must be a multiple of "
-                    f"page_size {self.page_size}")
-            if self.S % self._chunk:
-                raise ValueError(
-                    f"max_seq_len {self.S} must be a multiple of "
-                    f"prefill_chunk {self._chunk}")
+        if kv_layout == "dense":
+            # ≙ :641-660: per-slot contiguous (B, S, HK, D) caches, no
+            # pages, so neither the prefix cache nor chunked prefill
+            if enable_prefix_caching:
+                warnings.warn(
+                    "enable_prefix_caching requires kv_layout='paged' — "
+                    "prefix caching is DISABLED on the dense layout")
+            self._prefix_enabled = False
+            self.prefix_hits = 0
+            self.prefix_tokens_reused = 0
+            if prefill_chunk:
+                warnings.warn("prefill_chunk requires kv_layout='paged' "
+                              "— chunked prefill is DISABLED on the "
+                              "dense layout")
+            self._chunk = None
+            self._caches = [tuple(torch.zeros(self.B, self.S, hk, hd,
+                                              dtype=dt, device=self.device)
+                                  for _ in range(2))
+                            for _ in range(cfg.num_hidden_layers)]
+        else:
+            self._init_pages(page_size, num_pages, enable_prefix_caching,
+                             max_prefix_entries, prefill_chunk)
         # host-side slot state
         self._pos = np.zeros(self.B, np.int32)       # next write position
         self._tok = np.zeros(self.B, np.int32)       # last emitted token
@@ -481,11 +471,73 @@ class ContinuousBatchingEngine:
         self._max_prefill = int(max_prefill_programs)
         self._ragged_programs: "OrderedDict[tuple, _Program]" = OrderedDict()
         self._prefill_programs: "OrderedDict[int, _Program]" = OrderedDict()
+        # the legacy prefix cache's suffix prefills by (shared_len,
+        # bucket), under twice the cap (≙ `_suffix_jits`)
+        self._suffix_programs: "OrderedDict[tuple, _Program]" = \
+            OrderedDict()
         self._decode_program: Optional[_Program] = None
+        # the legacy chunked prefill's one program (≙ `_chunk_jit`)
+        self._chunk_program: Optional[_Program] = None
         self._capture_stream = None
         self._graph_pool = None
         self.num_graph_captures = 0
         self.graph_capture_seconds = 0.0
+
+    def _init_pages(self, page_size, num_pages, enable_prefix_caching,
+                    max_prefix_entries, prefill_chunk):
+        """The paged layout's state (≙ :661-760): the page pools, the
+        allocator, the prefix cache's trie and the chunked prefill."""
+        self.page_size = int(page_size)
+        self.pps = -(-self.S // self.page_size)
+        # +1: page 0 is the reserved trash page
+        self.num_pages = int(num_pages or self.B * self.pps + 1)
+        if self.num_pages < 2:
+            raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
+        L, hk, hd, dt = self._kv_shape
+        pool_dt = torch.int8 if self._qkv else dt
+
+        def pools():
+            # (k, v) pages, and for int8 pages (k_scale, v_scale): one
+            # f32 dequant scale per page row, shared by every head
+            kv = [torch.zeros(hk, self.num_pages, self.page_size, hd,
+                              dtype=pool_dt, device=self.device)
+                  for _ in range(2)]
+            if self._qkv:
+                kv += [torch.zeros(self.num_pages, self.page_size,
+                                   dtype=torch.float32, device=self.device)
+                       for _ in range(2)]
+            return tuple(kv)
+        self._kv = [pools() for _ in range(L)]
+        self._bt = np.zeros((self.B, self.pps), np.int32)
+        self._free: List[int] = list(range(1, self.num_pages))
+        self._slot_pages: List[List[int]] = [[] for _ in range(self.B)]
+        self._slot_reserved = np.zeros(self.B, np.int64)
+        # pages ever attached: the next block-table index to fill; stays
+        # monotonic after window reclamation frees leading pages
+        self._slot_next_idx = np.zeros(self.B, np.int64)
+        self._slot_freed = np.zeros(self.B, np.int64)
+        self._page_rc = np.zeros(self.num_pages, np.int32)
+        # the prefix cache (≙ :704-727): a page trie, one node per
+        # (parent key, page of tokens) in LRU order, each holding one
+        # reference on its page; a slot attaches matched pages read-only
+        # and holds one reference on each in _slot_shared_pages
+        self._prefix_enabled = bool(enable_prefix_caching)
+        self._max_prefix_entries = int(max_prefix_entries)
+        self._prefix_nodes: "OrderedDict[tuple, dict]" = OrderedDict()
+        self._slot_shared_pages: List[List[int]] = [[] for _ in
+                                                    range(self.B)]
+        self.prefix_hits = 0
+        self.prefix_tokens_reused = 0
+        self._chunk = int(prefill_chunk) if prefill_chunk else None
+        if self._chunk is not None:
+            if self._chunk % self.page_size:
+                raise ValueError(
+                    f"prefill_chunk {self._chunk} must be a multiple of "
+                    f"page_size {self.page_size}")
+            if self.S % self._chunk:
+                raise ValueError(
+                    f"max_seq_len {self.S} must be a multiple of "
+                    f"prefill_chunk {self._chunk}")
 
     # -- public API ----------------------------------------------------
     def add_request(self, prompt, max_new_tokens: int = 32,
@@ -536,12 +588,12 @@ class ContinuousBatchingEngine:
                     deadline=None if budget is None else now + budget,
                     max_queue_time=max_queue_time
                     if max_queue_time is not None else self.max_queue_time)
-        need = self._worst_pages(r)
-        if need > self.num_pages - 1:
+        if self.layout == "paged" \
+                and self._worst_pages(r) > self.num_pages - 1:
             raise ValueError(
-                f"request needs up to {need} KV pages (prompt {len(toks)} "
-                f"+ max_new_tokens {max_new_tokens} at page_size "
-                f"{self.page_size}) but the pool has only "
+                f"request needs up to {self._worst_pages(r)} KV pages "
+                f"(prompt {len(toks)} + max_new_tokens {max_new_tokens} at "
+                f"page_size {self.page_size}) but the pool has only "
                 f"{self.num_pages - 1} usable pages; raise num_pages")
         if self.admission_policy is not None \
                 and not self.admission_policy(self, r):
@@ -616,8 +668,14 @@ class ContinuousBatchingEngine:
         cache pages included). With int8 pages ``page_bytes`` is the
         honest bill of one page across all layers: int8 storage plus the
         f32 scale rows of both pools. With prefix caching on it adds the
-        trie's size, its hits and the prompt tokens they reused."""
+        trie's size, its hits and the prompt tokens they reused. The
+        dense layout's caches are all in use from the start."""
         L, hk, hd, dt = self._kv_shape
+        if self.layout == "dense":
+            itemsize = torch.empty((), dtype=dt).element_size()
+            total = self.B * self.S * hk * hd * itemsize * 2 * L
+            return {"layout": "dense", "bytes_pool": total,
+                    "bytes_in_use": total, "utilization": 1.0}
         if self._qkv:
             page_bytes = self.page_size * hk * hd * 2 * L \
                 + self.page_size * 4 * 2 * L
@@ -968,11 +1026,13 @@ class ContinuousBatchingEngine:
         active slot's live block-table window points only at allocated
         pages while all else trash-routes to page 0. Drains a pipelined
         window first. Raises EngineInvariantError listing every
-        violation."""
+        violation. The dense layout has no pages to check."""
         self.quiesce()
         self._check_invariants()
 
     def _check_invariants(self):
+        if self.layout != "paged":
+            return
         errs: List[str] = []
         free = list(self._free)
         free_set = set(free)
@@ -1108,6 +1168,8 @@ class ContinuousBatchingEngine:
         req = self._slot_req[slot]
         self._slot_req[slot] = None
         self._slot_adapter[slot] = 0
+        if self.layout != "paged":
+            return        # a dense slot's rows are overwritten at admission
         if self._prefix_enabled and req is not None and register:
             # before the decrefs, so the prompt pages never pass through
             # the free list
@@ -1335,8 +1397,9 @@ class ContinuousBatchingEngine:
         for p in shared or ():
             self._incref(p)
         try:
-            ok = self._reserve_ok(req, len(shared)) if shared \
-                else self._reserve_ok(req)
+            ok = self.layout != "paged" or (
+                self._reserve_ok(req, len(shared)) if shared
+                else self._reserve_ok(req))
         except BaseException:
             for p in shared or ():
                 self._decref(p)
@@ -1491,25 +1554,43 @@ class ContinuousBatchingEngine:
         return min(-(-n // self.pad) * self.pad, self.S)
 
     def _admit_legacy(self) -> List[Request]:
-        """≙ `_admit` :2472-2561 without its prefix-cache branch: claim a
-        slot per queued request, run its own bucketed prefill dispatch,
-        reserve and allocate its pages and scatter its K/V rows into
-        them. A failed page allocation backs the slot out and requeues
-        the request (or starves it out)."""
+        """≙ `_admit` :2472-2561: claim a slot per queued request, then
+        one of three admissions (:2495-2514): a prefix-cache hit prefills
+        only its suffix over the attached pages (`_admit_shared`); a
+        paged prompt of at least ``prefill_chunk`` tokens prefills in
+        fixed chunks (`_admit_chunked`); any other runs its own bucketed
+        prefill dispatch, whose K/V rows go into its pages
+        (`_paged_insert`) or its dense cache rows (`_dense_insert`). A
+        failed page allocation backs the slot out and requeues the
+        request (or starves it out)."""
         finished: List[Request] = []
         free = [i for i, r in enumerate(self._slot_req) if r is None]
         while free and self._queue:
             claim = self._claim_candidate(free)
             if claim is None:
                 break                      # FIFO: wait for pages to free
-            slot, req, prompt, _ = claim   # no prefix cache here
+            slot, req, prompt, shared = claim
             p_len = len(prompt)
             # the dispatch wall without capture time (counted apart)
             t0 = time.perf_counter() - self.graph_capture_seconds
-            tok, rows = self._legacy_prefill(prompt, self._bucket(p_len))
-            self.num_admission_dispatches += 1
             try:
-                self._paged_insert(slot, req, p_len, rows)
+                try:
+                    if shared:
+                        tok = self._admit_shared(slot, req, prompt, shared)
+                    elif self.layout == "paged" and self._chunk \
+                            and p_len >= self._chunk:
+                        tok = self._admit_chunked(slot, req, prompt)
+                    else:
+                        tok, rows = self._legacy_prefill(
+                            prompt, self._bucket(p_len))
+                        if self.layout == "paged":
+                            self._paged_insert(slot, req, p_len, rows)
+                        else:
+                            self._dense_insert(slot, rows)
+                        self.admission_tokens += p_len
+                finally:
+                    for p in shared or ():
+                        self._decref(p)    # unpin: the slot holds refs
             except PoolExhausted:
                 self.admission_seconds += time.perf_counter() \
                     - self.graph_capture_seconds - t0
@@ -1519,7 +1600,6 @@ class ContinuousBatchingEngine:
                 break
             self.admission_seconds += time.perf_counter() \
                 - self.graph_capture_seconds - t0
-            self.admission_tokens += p_len
             self._pos[slot] = p_len
             self._tok[slot] = tok
             req.output.append(tok)
@@ -1545,6 +1625,7 @@ class ContinuousBatchingEngine:
                                  lambda: self._build_prefill(bucket))
         self._upload(ids, [p_len - 1], dst=prog.flat)
         tok = int(self._run_program(prog)[0])
+        self.num_admission_dispatches += 1
         return tok, [(k[0], v[0]) for k, v in prog.caches]
 
     def _build_prefill(self, bucket: int) -> _Program:
@@ -1575,11 +1656,168 @@ class ContinuousBatchingEngine:
         slot's pages, then scatter its prefilled rows into every layer's
         pools (the bucket's padding rows to trash page 0)."""
         self._reserve_and_alloc(slot, req, p_len)
-        (bt_row,) = self._upload(self._bt[slot])
+        self._scatter_rows(self._bt[slot], rows, p_len)
+
+    def _scatter_rows(self, bt_row, rows, true_len: int):
+        """Scatter one sequence's rows, each layer's (T, HK, D) pair for
+        positions 0..T-1 of the block-table row ``bt_row`` (host, (pps,)),
+        into every layer's pools; rows at or past ``true_len`` go to the
+        trash page. An eager index copy, as JAX's donated scatter."""
+        (bt_dev,) = self._upload(bt_row)
         with torch.no_grad():
             for pools, (rk, rv) in zip(self._kv, rows):
-                paged_prefill_scatter(pools[0], pools[1], rk, rv, bt_row,
-                                      p_len)
+                paged_prefill_scatter(pools[0], pools[1], rk, rv, bt_dev,
+                                      true_len)
+
+    def _rebased_bt(self, slot: int, first_page: int) -> np.ndarray:
+        """``slot``'s block-table row from page ``first_page`` on, zero
+        padded to (pps,): the scatter of rows that start at a page
+        boundary (a suffix after the shared pages, a chunk)."""
+        sub = np.zeros(self.pps, np.int32)
+        sub[:self.pps - first_page] = self._bt[slot, first_page:]
+        return sub
+
+    def _dense_insert(self, slot: int, rows):
+        """≙ `_dense_insert` / `_build_insert`: write the prefilled rows
+        (bucket, HK, D) of every layer into ``slot``'s dense cache rows
+        from position 0, an eager index copy. Rows past the prompt hold
+        the bucket's padding, which decode overwrites before it attends
+        them."""
+        with torch.no_grad():
+            for (ck, cv), (rk, rv) in zip(self._caches, rows):
+                ck[slot, :rk.shape[0]] = rk
+                cv[slot, :rv.shape[0]] = rv
+
+    def _admit_shared(self, slot: int, req: Request, prompt: List[int],
+                      pages: List[int]) -> int:
+        """≙ `_admit_shared` :2563-2592, a prefix-cache hit on the legacy
+        path: attach the cached pages read-only, allocate the rest,
+        prefill only the suffix at ``position_offset = shared_len`` over
+        the shared rows (`_build_suffix_prefill`), then scatter its rows
+        into the pages after the shared ones through a rebased
+        block-table row (shared_len is page aligned). Returns the first
+        token."""
+        p_len = len(prompt)
+        shared_len = self._attach_shared(slot, pages)
+        self._reserve_and_alloc(slot, req, p_len)
+        suffix = prompt[shared_len:]
+        bucket = self._bucket(len(suffix))
+        ids = np.zeros(bucket, np.int32)
+        ids[:len(suffix)] = suffix
+        prog = self._program_lru(
+            self._suffix_programs, (shared_len, bucket),
+            lambda: self._build_suffix_prefill(shared_len, bucket),
+            cap=2 * self._max_prefill)
+        self._upload(ids, [len(suffix) - 1], pages, dst=prog.flat)
+        tok = int(self._run_program(prog)[0])
+        self.num_admission_dispatches += 1
+        self._scatter_rows(self._rebased_bt(slot, len(pages)),
+                           [(k[0, shared_len:], v[0, shared_len:])
+                            for k, v in prog.caches], len(suffix))
+        self.admission_tokens += len(suffix)
+        self.prefix_hits += 1
+        self.prefix_tokens_reused += shared_len
+        return tok
+
+    def _build_suffix_prefill(self, shared_len: int,
+                              bucket: int) -> _Program:
+        """≙ `_build_suffix_prefill` :3195-3239: the program of a suffix
+        prefill after ``shared_len`` shared tokens. It gathers the
+        shared pages of every layer to dense rows [0, shared_len) of its
+        own (1, shared_len + bucket, HK, D) caches, prefills the suffix
+        padded to ``bucket`` at ``position_offset = shared_len`` under
+        the key-validity mask (keys past the real suffix masked out),
+        and takes the greedy token of the last real row. Its flat input
+        holds the ids (``bucket``), that row (1) and the shared pages
+        (shared_len / page_size)."""
+        L, hk, hd, dt = self._kv_shape
+        dev = self.device
+        n_pp = shared_len // self.page_size
+        flat = torch.zeros(bucket + 1 + n_pp, dtype=torch.int32, device=dev)
+        ids, row = flat[:bucket], flat[bucket:bucket + 1]
+        pages = flat[bucket + 1:]
+        n = shared_len + bucket
+        caches = [tuple(torch.zeros(1, n, hk, hd, dtype=dt, device=dev)
+                        for _ in range(2)) for _ in range(L)]
+        weights, model, pools = self._dispatch_weights(), self.model, \
+            list(self._kv)
+
+        def body():
+            with torch.no_grad():
+                idx = pages.long()
+                for (kp, vp), (kc, vc) in zip(pools, caches):
+                    # (HK, n_pp, page_size, D) -> (shared_len, HK, D)
+                    kc[0, :shared_len] = kp[:, idx].permute(1, 2, 0, 3) \
+                        .reshape(shared_len, hk, hd)
+                    vc[0, :shared_len] = vp[:, idx].permute(1, 2, 0, 3) \
+                        .reshape(shared_len, hk, hd)
+                valid = (torch.arange(n, device=dev) <= shared_len + row)[None]
+                logits = model(ids[None], caches, rows=row,
+                               weights=weights, attention_mask=valid,
+                               position_offset=shared_len)
+                return _sample_token(logits)
+        return _Program(flat, body, caches)
+
+    def _admit_chunked(self, slot: int, req: Request,
+                       prompt: List[int]) -> int:
+        """≙ `_admit_chunked` :3112-3152: a long prompt in fixed chunks of
+        ``prefill_chunk`` tokens, every chunk of every prompt through ONE
+        program (`_build_chunk_prefill`) at the chunk's offset, each
+        chunk's rows scattered into the pages after page ``off /
+        page_size``; the greedy token of the last real row of the last
+        chunk (≙ `_build_sample`'s greedy arm). The last chunk's padded
+        rows leave garbage only at positions >= the prompt's length,
+        which decode overwrites before it attends them; their scatter
+        goes to the trash page."""
+        C = self._chunk
+        p_len = len(prompt)
+        self._reserve_and_alloc(slot, req, p_len)
+        n_chunks = -(-p_len // C)
+        ids = np.zeros(n_chunks * C, np.int32)
+        ids[:p_len] = prompt
+        # one program for the whole prompt: its caches carry the earlier
+        # chunks' rows to the later chunks (without graphs too)
+        prog = self._program_singleton(
+            "_chunk_program", lambda: self._build_chunk_prefill(C))
+        tok = None
+        for ci in range(n_chunks):
+            off = ci * C
+            last = ci == n_chunks - 1
+            self._upload(ids[off:off + C], [off],
+                         [p_len - 1 - off if last else 0], dst=prog.flat)
+            out = self._run_program(prog)
+            self.num_admission_dispatches += 1
+            if last:
+                tok = int(out[0])
+            self._scatter_rows(self._rebased_bt(slot, off // self.page_size),
+                               [(k[0, off:off + C], v[0, off:off + C])
+                                for k, v in prog.caches],
+                               min(C, p_len - off))
+        self.admission_tokens += p_len
+        return tok
+
+    def _build_chunk_prefill(self, C: int) -> _Program:
+        """≙ `_build_chunk_prefill` :3162-3183: the program of one chunk
+        of ``C`` tokens at a device offset, through the model's traced
+        branch (attention over the whole (1, S, HK, D) working caches
+        under a causal mask built on the device from the offset), then
+        the greedy token of one row. The working caches are the
+        program's own and keep the prompt's earlier chunks. Its flat
+        input holds the ids (``C``), the offset (1) and the row (1)."""
+        L, hk, hd, dt = self._kv_shape
+        dev = self.device
+        flat = torch.zeros(C + 2, dtype=torch.int32, device=dev)
+        ids, off, row = flat[:C], flat[C], flat[C + 1:]
+        caches = [tuple(torch.zeros(1, self.S, hk, hd, dtype=dt, device=dev)
+                        for _ in range(2)) for _ in range(L)]
+        weights, model = self._dispatch_weights(), self.model
+
+        def body():
+            with torch.no_grad():
+                logits = model(ids[None], caches, rows=row,
+                               weights=weights, position_offset=off)
+                return _sample_token(logits)
+        return _Program(flat, body, caches)
 
     def _build_legacy_decode(self) -> _Program:
         """≙ the paged `_build_decode`: ONE dispatch of (B, 1) tokens,
@@ -1600,6 +1838,26 @@ class ContinuousBatchingEngine:
             with torch.no_grad():
                 views = [PagedKVCacheView(p[0], p[1], bt) for p in pools]
                 logits = model(tok[:, None], views, weights=weights,
+                               position_offset=pos)
+                return _sample_token(logits[:, 0])
+        return _Program(flat, body)
+
+    def _build_dense_decode(self) -> _Program:
+        """≙ `_build_decode`'s tuple-cache arm :3241-3266: ONE dispatch
+        of (B, 1) tokens over the dense (B, S, HK, D) caches, each slot
+        at its own position (the attention writes the new K/V rows in
+        place and attends in plain PyTorch, `masked_multihead_attention`,
+        as in JAX), greedy tokens left on the device. Its flat input
+        holds the tokens and the positions (B each)."""
+        B = self.B
+        flat = torch.zeros(2 * B, dtype=torch.int32, device=self.device)
+        tok, pos = flat.view(2, B)
+        weights, model, caches = self._dispatch_weights(), self.model, \
+            list(self._caches)
+
+        def body():
+            with torch.no_grad():
+                logits = model(tok[:, None], caches, weights=weights,
                                position_offset=pos)
                 return _sample_token(logits[:, 0])
         return _Program(flat, body)
@@ -1686,38 +1944,44 @@ class ContinuousBatchingEngine:
         return out
 
     # -- the program cache -------------------------------------------------
-    def _program_lru(self, cache: "OrderedDict", key, build) -> _Program:
+    def _program_lru(self, cache: "OrderedDict", key, build,
+                     cap: Optional[int] = None) -> _Program:
         """≙ `_jit_lru`: the program of ``key`` in the keyed family
         ``cache``; on a miss it is built and the oldest programs past
-        ``max_prefill_programs`` are evicted (each graph with its
-        program: every admission dispatch ends in a host read, so none
-        is in flight), on a hit it moves to the back. Without graphs, a
-        program built for this dispatch alone."""
+        ``cap`` (default ``max_prefill_programs``) are evicted (each
+        graph with its program: every admission dispatch ends in a host
+        read, so none is in flight), on a hit it moves to the back.
+        Without graphs, a program built for this dispatch alone."""
         if not self._graphs:
             return build()
         prog = cache.get(key)
         if prog is None:
             prog = cache[key] = build()
-            while len(cache) > self._max_prefill:
+            while len(cache) > (cap or self._max_prefill):
                 cache.popitem(last=False)                  # LRU
         else:
             cache.move_to_end(key)
         return prog
 
-    def _decode_prog(self, build) -> _Program:
-        """≙ `_jit_singleton` for the decode program: built once, and
-        again after `_drop_programs`."""
+    def _program_singleton(self, attr: str, build) -> _Program:
+        """≙ `_jit_singleton`: the one program kept in attribute ``attr``
+        (the decode program, the chunk program), built at first use and
+        again after `_drop_programs`. Without graphs, a program built for
+        this dispatch (or admission) alone."""
         if not self._graphs:
             return build()
-        if self._decode_program is None:
-            self._decode_program = build()
-        return self._decode_program
+        prog = getattr(self, attr)
+        if prog is None:
+            prog = build()
+            setattr(self, attr, prog)
+        return prog
 
     def _programs(self) -> List[_Program]:
         progs = list(self._ragged_programs.values()) \
-            + list(self._prefill_programs.values())
-        return progs + ([self._decode_program]
-                        if self._decode_program is not None else [])
+            + list(self._prefill_programs.values()) \
+            + list(self._suffix_programs.values())
+        return progs + [p for p in (self._decode_program,
+                                    self._chunk_program) if p is not None]
 
     def _drop_programs(self):
         """Empty the program cache. A program binds the KV pools and the
@@ -1728,7 +1992,9 @@ class ContinuousBatchingEngine:
         replay is in flight."""
         self._ragged_programs.clear()
         self._prefill_programs.clear()
+        self._suffix_programs.clear()
         self._decode_program = None
+        self._chunk_program = None
 
     def _run_program(self, prog: _Program) -> torch.Tensor:
         """Run ``prog`` on its filled input; returns its greedy tokens,
@@ -1816,11 +2082,13 @@ class ContinuousBatchingEngine:
     # -- decode ------------------------------------------------------------
     def _decode(self, finished: List[Request]):
         """One batched decode step for every slot: the decode program, a
-        ragged dispatch at block_q = 1 with one query row per slot, or
-        the legacy (B, 1) dispatch through the paged attention. Inactive
-        slots decode garbage at a clamped position; their block-table
-        rows are all trash page, so their KV lands in page 0 (never read)
-        and their tokens are never read back.
+        ragged dispatch at block_q = 1 with one query row per slot, the
+        legacy (B, 1) dispatch through the paged attention, or the dense
+        (B, 1) dispatch over the per-slot caches. Inactive slots decode
+        garbage at a clamped position; their block-table rows are all
+        trash page, so their KV lands in page 0 (never read), a dense
+        slot's rows are overwritten at its next admission, and their
+        tokens are never read back.
 
         Positions advance at dispatch and the dispatch joins the window
         that `_harvest_pending` commits, the one place where tokens are
@@ -1831,7 +2099,7 @@ class ContinuousBatchingEngine:
         keeps a copy of its tokens: the program's output is overwritten
         by its next run."""
         for i, r in enumerate(self._slot_req):
-            if r is None:
+            if r is None or self.layout != "paged":
                 continue
             if not self._grow_slot(i, finished):
                 continue              # slot i itself was preempted
@@ -1856,15 +2124,22 @@ class ContinuousBatchingEngine:
         t0 = time.perf_counter()
         captured = self.graph_capture_seconds
         if self.attn_impl == "ragged":
-            prog = self._decode_prog(lambda: self._build_ragged(self.B, 1))
+            prog = self._program_singleton(
+                "_decode_program", lambda: self._build_ragged(self.B, 1))
             # mid-window the input is the previous dispatch's device
             # output: the greedy feedback makes no host round trip
             tok = self._tok_dev if self._tok_dev is not None else self._tok
             out = self._ragged_step(prog, tok, idx, pos, idx,
                                     np.ones(self.B, np.int32), pos + 1, idx)
-        else:
-            prog = self._decode_prog(self._build_legacy_decode)
+        elif self.layout == "paged":
+            prog = self._program_singleton("_decode_program",
+                                           self._build_legacy_decode)
             self._upload(self._tok, pos, self._bt, dst=prog.flat)
+            out = self._run_program(prog)
+        else:
+            prog = self._program_singleton("_decode_program",
+                                           self._build_dense_decode)
+            self._upload(self._tok, pos, dst=prog.flat)
             out = self._run_program(prog)
         nxt = out.clone()
         self.num_decode_dispatches += 1

@@ -297,8 +297,11 @@ def masked_multihead_attention(query, k_cache, v_cache, seq_len, scale=None,
                           k_cache.float()) * sc
     dev = query.device
     kpos = torch.arange(t, device=dev)
-    sl = torch.as_tensor(seq_len, device=dev)
-    if sl.ndim == 0:
+    # an int length makes no tensor from host data: a decode loop that
+    # passes its step's length reads nothing back and waits for nothing
+    sl = seq_len if isinstance(seq_len, int) \
+        else torch.as_tensor(seq_len, device=dev)
+    if isinstance(sl, int) or sl.ndim == 0:
         qpos = (sl - s + torch.arange(s, device=dev))[None, :]
     else:
         qpos = sl[:, None] - s + torch.arange(s, device=dev)[None, :]

@@ -67,8 +67,14 @@ exactly 48 KB of shared memory on both routes;
 two ragged decode attentions racing on two streams, bitwise equal to the
 same calls one after the other (the split tickets are per stream);
 the tiny engine's program cache (CUDA graphs) bitwise equal to the eager
-engine at k = 1 and k = 4, full width, int8, LoRA and legacy, with equal
-launch counts, and rebuilt after `install_weights`;
+engine at k = 1 and k = 4, full width, int8, LoRA and legacy, and on the
+dense layout, the legacy prefix cache and the legacy chunked prefill,
+with equal launch counts, and rebuilt after `install_weights`;
+the tiny `generate()` (greedy with and without processors, beam search)
+on the card against the CPU: equal ids, scores within 1e-4 (flash
+attention's f32 limit), exact flash and RMSNorm launches; seeded
+sampling one stream a seed, with no synchronizing call, and top_k = 1
+greedy;
 the dense flash backward's wgmma kernels at the 8B slice, the bench
 shape and the A14B shape against the plain backward;
 the tiny MoE (dropless through the grouped-matmul kernel) and tiny BERT
@@ -740,6 +746,153 @@ def test_tiny_engine_graphs_match_eager(cuda, mode):
         # the decode program was captured, and captured again after the
         # weights changed; the eager engine captures nothing
         assert gcap >= 1 and gcap2 > gcap and ecap == 0
+
+
+def _tiny_legacy_jobs(mode):
+    """Seeded jobs for `test_tiny_legacy_engines_graphs_match_eager`: for
+    the prefix cache prompts sharing a 24-token prefix (hits of 1 and 2
+    pages of 8; the suffix key (16, 8) used twice, so that its program
+    is captured), for the chunked prefill prompts below, at and past a
+    16-token chunk."""
+    rng = np.random.default_rng(7)
+    if mode == "legacy_prefix":
+        base = list(rng.integers(1, 512, 24))
+        return [(base + [3], 6), (base[:16] + [9, 8], 7),
+                (base + list(rng.integers(1, 512, 5)), 5),
+                (base[:8] + [4], 6), (list(rng.integers(1, 512, 11)), 4),
+                (base[:16] + [2, 5, 7], 5)]
+    return [(rng.integers(0, 512, n), new)
+            for n, new in ((5, 9), (16, 7), (47, 12), (3, 5), (33, 8))]
+
+
+@pytest.mark.parametrize("mode", ["dense", "legacy_prefix",
+                                  "legacy_chunked"])
+def test_tiny_legacy_engines_graphs_match_eager(cuda, mode):
+    """The program cache of the dense layout (its decode one program),
+    the legacy prefix cache (the suffix programs) and the legacy chunked
+    prefill (the chunk program): streams bitwise equal to the eager
+    engine's, equal launch counts, every page back; the dense and chunk
+    programs rebuilt after `install_weights` (the prefix cache refuses
+    a weight change). Each mode's own program is captured: the dense
+    decode, a suffix program (its key's second use), the chunk
+    program."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import reset_launch_counts
+    jobs = _tiny_legacy_jobs(mode)
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                             seed=5).to(cuda)
+    other = {n: p.detach().to(cuda) for n, p in LlamaForCausalLM(
+        LlamaConfig.tiny(), device="cpu", seed=6).named_parameters()}
+    kw = {"dense": dict(kv_layout="dense"),
+          "legacy_prefix": dict(attention_impl="legacy", page_size=8,
+                                prompt_pad=8, enable_prefix_caching=True),
+          "legacy_chunked": dict(attention_impl="legacy",
+                                 prefill_chunk=16)}[mode]
+    batch = 1 if mode == "legacy_prefix" else 3
+
+    def serve(eng):
+        rids = [eng.add_request(p, max_new_tokens=n) for p, n in jobs]
+        out = eng.run()
+        eng.check_invariants()
+        if mode != "dense":
+            while eng._prefix_enabled and eng._evict_one():
+                pass
+            assert len(eng._free) == eng.num_pages - 1
+        return [out[r] for r in rids]
+
+    runs = {}
+    for graphs in (True, False):
+        eng = ContinuousBatchingEngine(model, max_batch_size=batch,
+                                       max_seq_len=64, _graphs=graphs, **kw)
+        reset_launch_counts()
+        first = serve(eng)
+        counts = dict(launch_counts)
+        captured = eng.num_graph_captures
+        own = {"dense": [eng._decode_program],
+               "legacy_prefix": list(eng._suffix_programs.values()),
+               "legacy_chunked": [eng._chunk_program]}[mode]
+        assert any(p is not None and p.graph is not None
+                   for p in own) == graphs
+        second = None
+        if mode != "legacy_prefix":
+            eng.install_weights(other, "other")
+            second = serve(eng)
+        torch.cuda.synchronize()
+        runs[graphs] = (first, second, counts, captured,
+                        eng.num_graph_captures, eng.prefix_hits)
+    (g1, g2, gc, gcap, gcap2, ghits), (e1, e2, ec, ecap, _, ehits) = \
+        runs[True], runs[False]
+    assert g1 == e1 and g2 == e2 and gc == ec and ghits == ehits
+    assert gcap >= 1 and ecap == 0
+    if mode == "legacy_prefix":
+        assert ghits == 4
+    else:
+        assert g2 != g1 and gcap2 > gcap
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(eos_token_id=7, repetition_penalty=1.3, no_repeat_ngram_size=2),
+    dict(decode_strategy="beam_search", num_beams=4),
+    dict(decode_strategy="beam_search", num_beams=2, eos_token_id=7,
+         length_penalty=0.6),
+], ids=["greedy", "greedy_processors", "beam4", "beam2_eos"])
+def test_tiny_generate_on_card_matches_cpu(cuda, kw):
+    """`generate()` of the tiny f32 Llama on the card (flash attention
+    kernel in the prefill, RMSNorm kernels in every forward) against the
+    CPU's plain versions: equal ids, scores within flash attention's f32
+    limit 1e-4, and exactly L flash launches and (2L + 1) RMSNorm
+    launches a forward."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import reset_launch_counts
+    cfg = LlamaConfig.tiny()
+    ids = np.random.default_rng(8).integers(0, 512, (2, 19)) \
+        .astype(np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = LlamaForCausalLM(cfg, device="cpu", seed=8).to(dev)
+        reset_launch_counts()
+        toks, scores = model.generate(torch.from_numpy(ids).to(dev),
+                                      max_new_tokens=9, **kw)
+        out[dev] = (toks.cpu(), scores.cpu(), dict(launch_counts))
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-4,
+                               rtol=1e-4)
+    L = cfg.num_hidden_layers
+    counts = out["cuda"][2]
+    assert counts["flash_attention_fwd"] == L
+    assert counts["rms_norm"] == (2 * L + 1) * 9
+    assert counts["paged_attention"] == 0
+    assert sum(out["cpu"][2].values()) == 0
+
+
+def test_tiny_generate_sampling_on_card(cuda):
+    """Seeded sampling on the card: one generator seed, one stream;
+    ``top_k=1`` is greedy; the loop reads nothing back from the card
+    (under ``set_sync_debug_mode("error")``)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                             seed=9).to(cuda)
+    ids = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 512, (2, 12)).astype(np.int32)).to(cuda)
+    kw = dict(max_new_tokens=8, decode_strategy="sampling", top_p=0.9,
+              temperature=0.8)
+    a, sa = model.generate(ids, generator=torch.Generator(cuda)
+                           .manual_seed(4), **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b, sb = model.generate(ids, generator=torch.Generator(cuda)
+                               .manual_seed(4), **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(a, b) and torch.equal(sa, sb)
+    greedy, _ = model.generate(ids, max_new_tokens=8)
+    top1, _ = model.generate(ids, max_new_tokens=8,
+                             decode_strategy="sampling", top_k=1,
+                             generator=torch.Generator(cuda).manual_seed(5))
+    assert torch.equal(top1, greedy)
 
 
 def _lora_operands(dev, t, k, n, r, dtype, stacks=4, seed=0):

@@ -18,7 +18,9 @@ writes) and ``ContinuousBatchingEngine(attention_impl="legacy")`` of
   legacy streams equal the JAX legacy engine's and the port's ragged
   engine's, in the clean run, through preemption under a small
   ``num_pages``, and with a ``sliding_window`` config; one prefill
-  dispatch per admitted request; the gates that still raise."""
+  dispatch per admitted request; the ``quant=`` refusal (the dense
+  layout, the prefix cache and ``prefill_chunk`` on this path:
+  tests/test_torch_serving_dense.py, tests/test_torch_serving_legacy.py)."""
 import numpy as np
 import pytest
 import torch
@@ -230,9 +232,5 @@ def test_bucket_matches_jax(small):
 
 def test_legacy_gates(small):
     _, tm = small
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(tm, prefill_chunk=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(tm, kv_layout="dense")
     with pytest.raises(ValueError, match="paged.*ragged"):
         _port(tm, quant=QuantServingConfig("int8", None))

@@ -107,17 +107,6 @@ def test_unported_options_raise(models, name, off, item):
         _port(tm, **{name: value})
 
 
-@pytest.mark.parametrize("layout", [dict(kv_layout="dense"),
-                                    dict(attention_impl="legacy",
-                                         prefill_chunk=16)])
-def test_dense_and_legacy_paths_raise(models, layout):
-    """The dense layout and the legacy path's chunked prefill are not
-    ported (the legacy path itself is: tests/test_torch_paged_attention.py)."""
-    _, tm, _ = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(tm, **layout)
-
-
 @pytest.mark.parametrize("kw", [dict(adapter="a")])
 def test_unported_request_options_raise(models, kw):
     """Every request option is ported (deadlines:

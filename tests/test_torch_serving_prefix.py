@@ -13,8 +13,8 @@ on the same seeded `LlamaConfig.tiny()` weights (crossing as numpy):
   (`TestPageAccounting`), and a reservation that raises unpins the
   matched prefix (`TestPinSafety`);
 - the JAX engine's refusals: a sliding-window model warns and disables
-  the cache, `install_adapter` and `install_weights` refuse, and the
-  legacy path's suffix prefill is not ported."""
+  the cache, `install_adapter` and `install_weights` refuse (the legacy
+  path's suffix prefill: tests/test_torch_serving_legacy.py)."""
 import numpy as np
 import pytest
 
@@ -229,9 +229,3 @@ def test_weight_changes_refuse_with_prefix_caching(models, call):
             eng.install_weights({n: p.detach() for n, p in
                                  tm.named_parameters()}, "other")
     assert eng.lora_adapters_resident == 0 and eng.model_tag is None
-
-
-def test_legacy_path_with_prefix_caching_raises(models):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
-        _port(tm, attention_impl="legacy", enable_prefix_caching=True)
