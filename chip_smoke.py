@@ -393,12 +393,21 @@ LORA_ADAPTERS = ("a1", "a2", "a3")
 # KV head h % HK instead of h // (H / HK)
 FLASH_TILE_K = 64
 # tiny f32 Llama training, card against CPU: f32 sums in another order
-# through every kernel and matmul; Adam's normalised step can move a
-# weight whose gradient is near zero by a visibly different amount (one
-# element measured 1.4e-4 off at lr 1e-3, H100), so the parameters'
-# budget is on each tensor's norm of the difference, relative
+# through every kernel and matmul. Held where that order is all that
+# differs: the losses of 3 AdamW steps, and the gradients of the first
+# step (each tensor's norm of the difference, relative) before Adam
+# normalises them. After Adam the parameters are not: an element whose
+# gradient sits at the rounding noise moves by ~lr either way with its
+# sign, which the host's CPU kernels decide (one host's CPU side read
+# 1.37e-4 in norm, 0.00155 in one element, H100 call). The parameters
+# are held card against card (``accumulate_steps=2`` against 1), where
+# the same kernels run in the same order
 TINY_TRAIN_LOSS_BUDGET = 1e-4
+TINY_TRAIN_GRAD_BUDGET = 1e-4
 TINY_TRAIN_PARAM_BUDGET = 1e-4
+# the planted fault of the gradient check: one parameter's gradient 1%
+# off (100x the budget)
+TINY_TRAIN_PLANTED_GRAD = "model.layers.1.mlp.down_proj.weight"
 # 8B-width bf16 training, kernels against plain versions on the same
 # weights: bf16 activations rounded at other places through 4 layers
 # (named gradients read 0.6-1.1% apart in norm on the H100). At random
@@ -703,14 +712,17 @@ def rms_phase(shapes, results):
         torch.cuda.empty_cache()
 
 
-def attn_case(seqs, block_q, tail_pad, dtype, window, gen, int8kv=False):
-    """One ragged batch: `seqs` is [(query_len, context_len), ...].
-    With ``int8kv`` the pools are int8, every row written by
-    `ragged_scatter_quantized`, and their scale pools come back too."""
+def attn_case(seqs, block_q, tail_pad, dtype, window, gen, int8kv=False,
+              heads=(32, 8, 128)):
+    """One ragged batch: `seqs` is [(query_len, context_len), ...], over
+    ``heads`` (H, HK, D). With ``int8kv`` the pools are int8, every row
+    written by `ragged_scatter_quantized`, and their scale pools come
+    back too."""
     import torch
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         pack_ragged_starts, ragged_scatter_quantized)
-    H, HK, D, ps = 32, 8, 128, 16
+    H, HK, D = heads
+    ps = 16
     ql = np.array([s[0] for s in seqs], np.int32)
     cl = np.array([s[1] for s in seqs], np.int32)
     qs, total = pack_ragged_starts(ql, block_q)
@@ -1662,10 +1674,10 @@ def sync_free_window(model, graphs):
         raise AssertionError("the window did not hold its dispatches")
 
 
-def serve_run(model, reqs, k, graphs=True):
+def serve_run(model, reqs, k, graphs=True, **kw):
     """Serve ``reqs`` on a fresh 8B engine at ``harvest_every=k``, graphed
-    or eager, with the launch counts and the peak memory reset before:
-    (engine, streams, counts, stats)."""
+    or eager (``kw``: more engine options), with the launch counts and
+    the peak memory reset before: (engine, streams, counts, stats)."""
     import torch
     from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
     from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -1673,7 +1685,7 @@ def serve_run(model, reqs, k, graphs=True):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
-                                   harvest_every=k, _graphs=graphs)
+                                   harvest_every=k, _graphs=graphs, **kw)
     reset_launch_counts()
     t0 = time.perf_counter()
     for p, new in reqs:
@@ -2461,10 +2473,10 @@ def admission_logits_run(model, reqs, warm=True, planted=False, **kw):
 
     def planted_shared(slot, req, prompt, pages):
         def upload(*arrays, dst=None):
-            if dst is not None and len(arrays) == 3:   # ids, row, pages
-                wrong = np.array(arrays[2], np.int32)
+            if dst is not None and len(arrays) == 4:   # ids, row, pages,
+                wrong = np.array(arrays[2], np.int32)  # sampling key
                 wrong[len(wrong) // 2] = 0
-                arrays = (*arrays[:2], wrong)
+                arrays = (*arrays[:2], wrong, arrays[3])
             return up(*arrays, dst=dst)
         eng._upload = upload
         try:
@@ -2689,6 +2701,513 @@ def serve_8b_legacy_chunked(model, reqs):
         raise AssertionError("legacy chunked: first-token logits disagree "
                              "with the unchunked engine's")
     return counts
+
+
+# -- speculative decoding and engine sampling ---------------------------
+# `serve_8b_spec`: the draft's proposals a round, and the requests the
+# target serves as its own draft (the full-acceptance case)
+SPEC_K = 4
+N_SELF_DRAFT = 8
+# the planted wrong accept's requests (of `make_requests`)
+N_PLANTED_SPEC = 4
+# the near-tie rule: a spec stream may leave the plain one only at a step
+# where the plain engine's top-2 logit gap is below this share of the
+# row's max |logit| (the verify rows run tensor-core attention with P in
+# bf16 and other cuBLAS row batches than a decode row: up to ~0.01 x max
+# |logit| apart, PERF.md §7)
+NEAR_TIE = 0.01
+# `serve_8b_sample`: the sampled requests, on the ragged and the legacy
+# path, and the sampling knobs
+N_SAMPLE_REQUESTS = 8
+N_SAMPLE_LEGACY = 4
+SAMPLE_KW = dict(do_sample=True, temperature=0.8, top_p=0.9)
+# the spec engine's attention launches timed beside the decode row's: a
+# verify dispatch (8 slots of k + 1 live rows in 8-row q blocks, contexts
+# up to 2048) and a draft-scan step at the 1B draft's head dim 64 (two
+# dead rows with query_len 0)
+VERIFY_SEQS = [(SPEC_K + 1, c) for c in (5, 37, 300, 517, 1024, 1500, 2000,
+                                         2048)]
+DRAFT_SEQS = [(1, 1), (1, 33), (0, 300), (1, 517), (1, 1024), (0, 1500),
+              (1, 2000), (1, 2048)]
+SPEC_ATTN_CASES = [("verify", VERIFY_SEQS, 8, (32, 8, 128)),
+                   ("draft_decode", DRAFT_SEQS, 1, (32, 8, 64))]
+
+
+def draft_1b_config():
+    """The 8B spec phases' draft: the widths of Meta's published
+    Llama-3.2-1B config (hidden 2048, intermediate 8192, 16 layers, 32
+    heads and 8 KV heads of dim 64, vocab 128256, tied embeddings, rope
+    theta 500000) with a rope table of the serving runs' 2048 positions;
+    weights random from a seed: the shape is real, the weights are
+    not."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(vocab_size=LLAMA_VOCAB, hidden_size=2048,
+                       intermediate_size=8192, num_hidden_layers=16,
+                       num_attention_heads=32, num_key_value_heads=8,
+                       max_position_embeddings=2048, rope_theta=500000.0,
+                       tie_word_embeddings=True)
+
+
+def spec_attn_phase(results):
+    """The ragged attention kernel at the spec engine's shapes (bf16):
+    against the plain version within ATTN_ATOL, dead rows exact zeros,
+    then timed (`timed_in_turns`) beside a copy of the live pages."""
+    import torch
+    from paddle_tpu_torch.ops import ragged_paged_attention as ra
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for label, seqs, bq, heads in SPEC_ATTN_CASES:
+        scale = 1.0 / math.sqrt(heads[2])
+        first = attn_case(seqs, bq, 0, torch.bfloat16, None, gen,
+                          heads=heads)
+        nbytes, ops = first[2], first[3]
+        sets = [first] + [attn_case(seqs, bq, 0, torch.bfloat16, None, gen,
+                                    heads=heads)
+                          for _ in range(rotation_sets(nbytes) - 1)]
+        sets = [(a, live_pages(a, None)) for a, _, _, _ in sets]
+        args = sets[0][0]
+        out = ra._ragged_cuda(*args, scale, None, bq)
+        ref = ra.ragged_paged_attention_ref(*args, scale, None, None)
+        err = (out.float() - ref.float()).abs().max().item()
+        seq, _ = ra.token_arrays(args[3].cpu().numpy(), args[4].cpu().numpy(),
+                                 args[5].cpu().numpy(), args[0].shape[0])
+        dead_zero = bool((out[torch.from_numpy(seq < 0).cuda()] == 0).all())
+        times = timed_in_turns(
+            {"split": lambda st: ra._ragged_cuda(*st[0], scale, None, bq),
+             "copy": lambda st: copy_live(st[0][1], st[0][2], st[1])}, sets)
+        plain = time_ms(lambda: ra.ragged_paged_attention_ref(
+            *args, scale, None, None), iters=5, warmup=1)
+        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        tm = times["split"]
+        rec = dict(kernel="ragged_paged_attention", case=label,
+                   dtype="bfloat16", block_q=bq, heads=list(heads),
+                   seqs=seqs, design="split", path_design=False,
+                   max_abs_err=err, tol=ATTN_ATOL["bfloat16"],
+                   dead_rows_zero=dead_zero, ms=tm["ms"],
+                   device_ms=tm["device_ms"], host_us=tm["host_us"],
+                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                   bound_fraction=b_ms / tm["device_ms"],
+                   copy_device_ms=times["copy"]["device_ms"],
+                   library_ms=None, rotation_sets=len(sets))
+        log("kernel " + json.dumps(rec))
+        results.append(rec)
+        if not (err <= ATTN_ATOL["bfloat16"] and dead_zero
+                and torch.isfinite(out).all()):
+            raise AssertionError(f"ragged attention at the spec shapes "
+                                 f"disagrees: {rec}")
+        del sets, args, out, ref
+        torch.cuda.empty_cache()
+
+
+def plain_gaps(model, reqs):
+    """The plain engine's streams of ``reqs`` and, at every token it
+    emits, its top-2 logit gap over the row's max |logit|: an eager 8B
+    engine (``_graphs=False``, so that the logits can be read in the
+    forward) with the vocab head wrapped to record the row of each slot
+    that emits in a dispatch (a decode step's live slots, an admission's
+    last pieces): (streams, {(request index, token index): gap ratio})."""
+    import torch
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
+                                   _graphs=False)
+    head, decode, admit = model.logits, eng._decode, eng._dispatch_ragged
+    gaps, live = {}, []
+
+    def logits(h, *a, **kw):
+        out = head(h, *a, **kw)
+        if live:
+            row = out.float()
+            top = torch.topk(row, 2, dim=-1).values
+            ratio = ((top[:, 0] - top[:, 1]) / row.abs().amax(-1)).tolist()
+            for slot, key in live:
+                gaps[key] = ratio[slot]
+        return out
+
+    def traced(finished):
+        live[:] = [(i, (r.rid, len(r.output)))
+                   for i, r in enumerate(eng._slot_req) if r is not None]
+        try:
+            decode(finished)
+        finally:
+            live.clear()
+
+    def traced_admit(batch, finished):
+        # an admission's logits rows are its slots' sample rows, in slot
+        # order
+        live[:] = [(p["slot"], (p["req"].rid, len(p["req"].output)))
+                   for p in batch if p["sample"]]
+        try:
+            return admit(batch, finished)
+        finally:
+            live.clear()
+    model.logits = logits
+    eng._decode = traced
+    eng._dispatch_ragged = traced_admit
+    try:
+        rids = [eng.add_request(p, max_new_tokens=n) for p, n in reqs]
+        out = eng.run()
+    finally:
+        del model.logits, eng._decode, eng._dispatch_ragged
+    return [out[r] for r in rids], gaps
+
+
+def first_divergences(want, got, gap_at):
+    """Each stream of ``got`` that leaves ``want``: (its index, the first
+    differing token index, ``gap_at(index, token index)``)."""
+    out = []
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a != b:
+            d = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            out.append((i, d, gap_at(i, d)))
+    return out
+
+
+def near_ties_only(divs):
+    return all(g is not None and g < NEAR_TIE for _, _, g in divs)
+
+
+def spec_launches(eng, model, draft):
+    """A spec run's launches: each layer's attention and every RMSNorm
+    once per target dispatch (admission, verify) and once per draft
+    forward (a backfill prefill is one, a draft scan K + 1); nothing
+    else."""
+    L, Ld = model.config.num_hidden_layers, draft.config.num_hidden_layers
+    nt = eng.num_admission_dispatches + eng.num_decode_dispatches
+    nd = eng.num_draft_prefills + (eng._spec_k + 1) * eng.num_draft_scans
+    return {"rms_norm": (2 * L + 1) * nt + (2 * Ld + 1) * nd,
+            "ragged_paged_attention": L * nt + Ld * nd,
+            "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
+            "lora_epilogue": 0, "paged_attention": 0, **NO_TRAINING}
+
+
+def spec_run(model, draft, reqs, graphs=True):
+    """Serve ``reqs`` on a fresh 8B spec engine (``SpecConfig(draft,
+    SPEC_K)``), graphed or eager, the launch counts and the peak memory
+    reset before: (engine, streams, counts, stats)."""
+    import torch
+    from paddle_tpu_torch.models.serving import (ContinuousBatchingEngine,
+                                                 SpecConfig)
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
+                                   spec_decode=SpecConfig(draft, k=SPEC_K),
+                                   _graphs=graphs)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for p, new in reqs:
+        eng.add_request(p, max_new_tokens=new)
+    done = []
+    while len(done) < len(reqs):
+        done += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    by_rid = {r.rid: r for r in done}
+    streams = [by_rid[rid].output for rid in range(len(reqs))]
+    eng.check_invariants()
+    if len(eng._free) != eng.num_pages - 1 \
+            or len(eng._d_free) != eng._d_num_pages - 1:
+        raise AssertionError("spec run: pages still held after the run")
+    rounds = max(eng.num_spec_rounds, 1)
+    ttft = sorted(r.first_token_time - r.arrival_time for r in done)
+    info = eng.spec_info()
+    stats = dict(requests=len(reqs), k=SPEC_K, wall_s=wall,
+                 ttft_p50_s=statistics.median(ttft),
+                 acceptance_rate=info["acceptance_rate"],
+                 rounds=info["rounds"], proposed=info["proposed"],
+                 accepted=info["accepted"],
+                 decode_tokens=eng.decode_tokens,
+                 decode_tokens_per_s=eng.decode_tokens / eng.decode_seconds,
+                 tokens_per_round=eng.decode_tokens / rounds,
+                 ms_per_round=1e3 * eng.decode_seconds / rounds,
+                 draft_ms_per_round=1e3 * eng.spec_draft_seconds / rounds,
+                 verify_ms_per_round=1e3 * eng.spec_verify_seconds / rounds,
+                 admission_dispatches=eng.num_admission_dispatches,
+                 verify_dispatches=eng.num_decode_dispatches,
+                 draft_prefills=eng.num_draft_prefills,
+                 draft_scans=eng.num_draft_scans,
+                 graph_captures=eng.num_graph_captures,
+                 graph_capture_s=eng.graph_capture_seconds,
+                 verify_programs=[list(k) for k in eng._verify_programs],
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches={k: n for k, n in counts.items() if n})
+    return eng, streams, counts, stats
+
+
+def spec_round_reads(model, draft, rounds=12):
+    """Spec rounds of an 8-slot 8B spec engine (8 seeded prompts of
+    32-1024 tokens), each under ``torch.cuda.set_sync_debug_mode("warn")``
+    with `_harvest_sync` let through and counted. In a round whose
+    programs all replay (no warm-up, no capture in it) the card is read
+    exactly twice (the proposals, the verify picks), nothing else
+    synchronizes, and the draft scan program runs once, as one graph
+    replay. Returns the rounds checked."""
+    import warnings
+    import torch
+    from paddle_tpu_torch.models.serving import (ContinuousBatchingEngine,
+                                                 SpecConfig)
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
+                                   spec_decode=SpecConfig(draft, k=SPEC_K))
+    rng = np.random.default_rng(2)
+    for _ in range(8):
+        eng.add_request(rng.integers(0, model.config.vocab_size,
+                                     int(rng.integers(32, 1025))),
+                        max_new_tokens=64)
+    reads, read = [0], eng._harvest_sync
+
+    def counted(t):
+        reads[0] += 1
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return read(t)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+    checked = []
+    for _ in range(rounds):
+        captures, n_rounds = eng.num_graph_captures, eng.num_spec_rounds
+        n_progs = len(eng._programs())
+        scan = eng._draft_scan_program
+        scan_runs = scan.runs if scan is not None else 0
+        torch.cuda.synchronize()
+        eng._harvest_sync = counted
+        reads[0] = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                eng._harvest_sync = read
+        syncs = [str(w.message)[:80] for w in caught
+                 if "synchroniz" in str(w.message)]
+        if eng.num_spec_rounds == n_rounds + 1 \
+                and eng.num_graph_captures == captures \
+                and n_progs == len(eng._programs()):
+            scan = eng._draft_scan_program
+            checked.append(dict(reads=reads[0], syncs=syncs,
+                                scan_replays=scan.runs - scan_runs,
+                                scan_graph=scan.graph is not None))
+    eng.quiesce()
+    log(f"spec round reads: {len(checked)} replay-only rounds of {rounds}: "
+        f"{checked}")
+    if len(checked) < 3 or any(
+            c["reads"] != 2 or c["syncs"] or c["scan_replays"] != 1
+            or not c["scan_graph"] for c in checked):
+        raise AssertionError("spec rounds: not exactly two host reads and "
+                             "one draft-scan replay a round")
+    return len(checked)
+
+
+def serve_8b_spec(model, reqs, want_streams):
+    """The 16 requests of `serve_8b` on a graphed spec engine (k = 4) with
+    the 1B-shaped draft, and the first `N_SELF_DRAFT` with the target as
+    its own draft. For each: acceptance, rounds, proposed and accepted,
+    decode tokens/s, ms a round with the draft's and the verify's host
+    ms apart, TTFT p50, captures, peak memory, exact launches
+    (`spec_launches`), and the streams against the plain engine's: equal,
+    or each first divergence at a near-tie of the plain engine's logits
+    (`plain_gaps`, NEAR_TIE). The 1B-draft run graphed against eager
+    bitwise; two host reads a round (`spec_round_reads`); a planted wrong
+    accept (one more proposal accepted than matched) must fail the
+    stream check. Returns the draft model and `plain_gaps`' gaps."""
+    import torch
+    from paddle_tpu_torch.models import serving
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    t0 = time.perf_counter()
+    draft = LlamaForCausalLM(draft_1b_config(), device="cuda",
+                             dtype=torch.bfloat16, seed=1)
+    plain, gaps = plain_gaps(model, reqs)
+    same = sum(a == b for a, b in zip(plain, want_streams))
+    log(f"spec: the plain eager engine's streams, {same} of {len(reqs)} "
+        "bitwise equal to serve_8b's")
+    if plain != want_streams:
+        raise AssertionError("spec: the recorded plain engine's streams "
+                             "differ from serve_8b's")
+    rec = {}
+    for label, d, sub in (("draft_1b", draft, reqs),
+                          ("self_draft", model, reqs[:N_SELF_DRAFT])):
+        eng, streams, counts, st = spec_run(model, d, sub)
+        divs = first_divergences(plain, streams,
+                                 lambda i, t: gaps.get((i, t)))
+        st.update(streams_equal_plain=sum(a == b for a, b in
+                                          zip(streams, plain)),
+                  divergences=len(divs), first_divergences=divs,
+                  near_ties_only=near_ties_only(divs))
+        rec[label] = st
+        log(f"serving_spec_{label} " + json.dumps(st))
+        want = spec_launches(eng, model, d)
+        if counts != want:
+            raise AssertionError(f"spec {label}: launches {counts}, "
+                                 f"expected {want}")
+        if not st["near_ties_only"] or eng.num_draft_scans == 0 \
+                or eng._draft_scan_program.graph is None:
+            raise AssertionError(f"spec {label}: a stream leaves the plain "
+                                 "one off a near-tie, or no captured scan")
+        if label == "draft_1b":
+            graphed = streams
+        del eng
+    _, eager, _, est = spec_run(model, draft, reqs, graphs=False)
+    check_eager_equal("serving_spec", graphed, eager)
+    rec["eager_draft_1b"] = {k: est[k] for k in (
+        "ms_per_round", "draft_ms_per_round", "verify_ms_per_round",
+        "decode_tokens_per_s", "wall_s")}
+    rec["replay_only_rounds_checked"] = spec_round_reads(model, draft)
+    right = serving.spec_accept_greedy
+
+    def wrong(greedy, props):
+        j, bonus = right(greedy, props)
+        return np.minimum(j + 1, (props >= 0).sum(1)).astype(np.int32), bonus
+    serving.spec_accept_greedy = wrong
+    try:
+        _, bad, _, _ = spec_run(model, draft, reqs[:N_PLANTED_SPEC])
+    finally:
+        serving.spec_accept_greedy = right
+    bad_divs = first_divergences(plain, bad, lambda i, t: gaps.get((i, t)))
+    rec["planted_wrong_accept"] = dict(divergences=len(bad_divs),
+                                       first_divergences=bad_divs,
+                                       caught=not near_ties_only(bad_divs))
+    rec["seconds"] = time.perf_counter() - t0
+    log("serving_spec " + json.dumps(rec))
+    if near_ties_only(bad_divs):
+        raise AssertionError("spec: a planted wrong accept passes the "
+                             "stream check")
+    return draft, gaps
+
+
+def generate_8b_spec(model, draft):
+    """`speculative_generate` on the 8B model with the 1B-shaped draft:
+    `generate_8b`'s 4 prompts of 512 tokens, 32 new tokens, k = 4.
+    Greedy: ids against `generate()`'s greedy ids, equal or each first
+    divergence at a near-tie of the target's logits there (one causal
+    forward over the prompt and the greedy tokens before it); exact flash
+    launches (the two prefills) and RMSNorm launches a whole number of
+    rounds; wall and tokens/s. Sampling at temperature 0.8: two runs of
+    one generator seed equal; the acceptance rate."""
+    import torch
+    from paddle_tpu_torch.models.speculative import speculative_generate
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg = model.config
+    L, Ld = cfg.num_hidden_layers, draft.config.num_hidden_layers
+    rng = np.random.default_rng(18)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (GEN_BATCH, GEN_PROMPT))
+                           .astype(np.int32)).cuda()
+    greedy, _ = model.generate(ids, max_new_tokens=GEN_NEW)
+    kw = dict(max_new_tokens=GEN_NEW, num_draft_tokens=SPEC_K)
+    speculative_generate(model, draft, ids, **kw)          # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, rate = speculative_generate(model, draft, ids, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in launch_counts.items() if n}
+    want_g = greedy.tolist()
+
+    def gap_at(i, t):
+        row_ids = torch.cat([ids[i], greedy[i, :t]])[None]
+        with torch.no_grad():
+            row = model(row_ids)[0, -1].float()
+        top = torch.topk(row, 2).values
+        return float((top[0] - top[1]) / row.abs().max())
+    divs = first_divergences(want_g, toks.tolist(), gap_at)
+    per_round = (2 * L + 1) + (SPEC_K + 1) * (2 * Ld + 1)
+    extra = counts.get("rms_norm", 0) - (2 * L + 1) - (2 * Ld + 1)
+    samples = []
+    for _ in range(2):
+        s, srate = speculative_generate(
+            model, draft, ids, do_sample=True, temperature=0.8,
+            generator=torch.Generator("cuda").manual_seed(7), **kw)
+        samples.append((s, float(srate)))
+    rec = dict(batch=GEN_BATCH, prompt_len=GEN_PROMPT, new_tokens=GEN_NEW,
+               k=SPEC_K, greedy_wall_s=wall,
+               greedy_tokens_per_s=GEN_BATCH * GEN_NEW / wall,
+               acceptance_rate=float(rate),
+               rows_equal_generate=sum(a == b for a, b in
+                                       zip(toks.tolist(), want_g)),
+               divergences=len(divs), first_divergences=divs,
+               near_ties_only=near_ties_only(divs),
+               rounds=extra // per_round, launches=counts,
+               sampling_acceptance_rate=samples[0][1],
+               sampling_runs_equal=bool(torch.equal(samples[0][0],
+                                                    samples[1][0])))
+    log("generate_8b_spec " + json.dumps(rec))
+    if counts.get("flash_attention_fwd") != L + Ld or extra % per_round \
+            or set(counts) != {"flash_attention_fwd", "rms_norm"}:
+        raise AssertionError(f"generate_8b_spec: launches {counts}")
+    if not rec["near_ties_only"] or not rec["sampling_runs_equal"] \
+            or toks.shape != (GEN_BATCH, GEN_NEW):
+        raise AssertionError("generate_8b_spec: ids leave generate()'s off "
+                             "a near-tie, or a seeded run differs")
+
+
+def serve_8b_sample(model, reqs, want_streams, gaps):
+    """The first `N_SAMPLE_REQUESTS` of `reqs` with ``do_sample=True,
+    temperature=0.8, top_p=0.9``: graphed (seed 0), eager (seed 0),
+    graphed again (seed 0) and graphed at seed 1; the three seed-0 runs
+    bitwise equal, seed 1 another stream; ``top_k=1`` graphed against
+    `serve_8b`'s greedy streams: equal up to an exact tie at the top of
+    the plain engine's logits (``gaps``, `plain_gaps`': 0.0), where
+    top-k keeps every tied token, as JAX's filter does, and the draw
+    picks one while argmax takes the lowest index; exact launches
+    (`check_serving_counts`); decode step ms. Then the first
+    `N_SAMPLE_LEGACY` on the legacy path, graphed against eager and at
+    another seed."""
+    L = model.config.num_hidden_layers
+    sub = reqs[:N_SAMPLE_REQUESTS]
+    runs, stats = {}, {}
+    for name, graphs, kw in (("seed0_graphed", True, dict(seed=0)),
+                             ("seed0_eager", False, dict(seed=0)),
+                             ("seed0_graphed_again", True, dict(seed=0)),
+                             ("seed1_graphed", True, dict(seed=1)),
+                             ("top_k_1", True, dict(seed=0, top_k=1))):
+        eng, streams, counts, st = serve_run(model, sub, 1, graphs,
+                                             **SAMPLE_KW, **kw)
+        check_serving_counts(eng, counts, L)
+        runs[name] = streams
+        stats[name] = {f: st[f] for f in ("decode_step_ms",
+                                           "decode_tokens_per_s",
+                                           "ttft_p50_s", "graph_captures")}
+        del eng
+    lruns = {}
+    for name, kw in (("seed0_graphed", dict(seed=0)),
+                     ("seed0_eager", dict(seed=0, _graphs=False)),
+                     ("seed1_graphed", dict(seed=1))):
+        eng, lruns[name], _, st = legacy_graphed_run(
+            model, reqs[:N_SAMPLE_LEGACY], **SAMPLE_KW, **kw)
+        stats["legacy_" + name] = {f: st[f] for f in ("decode_step_ms",
+                                                      "ttft_p50_s")}
+        del eng
+    rec = dict(
+        runs=stats,
+        seed0_graphed_equal_eager=runs["seed0_graphed"]
+        == runs["seed0_eager"],
+        seed0_runs_equal=runs["seed0_graphed"]
+        == runs["seed0_graphed_again"],
+        seed1_streams_differing=sum(a != b for a, b in zip(
+            runs["seed1_graphed"], runs["seed0_graphed"])),
+        top_k_1_equal_greedy=sum(a == b for a, b in zip(
+            runs["top_k_1"], want_streams)),
+        top_k_1_divergences=first_divergences(
+            want_streams, runs["top_k_1"], lambda i, t: gaps.get((i, t))),
+        sampled_equal_greedy=sum(a == b for a, b in zip(
+            runs["seed0_graphed"], want_streams)),
+        legacy_graphed_equal_eager=lruns["seed0_graphed"]
+        == lruns["seed0_eager"],
+        legacy_seed1_differs=lruns["seed1_graphed"]
+        != lruns["seed0_graphed"])
+    log("serving_sample " + json.dumps(rec))
+    if not (rec["seed0_graphed_equal_eager"] and rec["seed0_runs_equal"]
+            and rec["seed1_streams_differing"]
+            and all(g == 0.0 for _, _, g in rec["top_k_1_divergences"])
+            and rec["legacy_graphed_equal_eager"]
+            and rec["legacy_seed1_differs"]):
+        raise AssertionError("serving_sample: a seeded stream is not "
+                             "reproduced, or top_k=1 leaves greedy off an "
+                             "exact tie")
 
 
 def path_check(model, reqs, weights=None, lora_engine=None):
@@ -3434,39 +3953,71 @@ def _tiny_train(dev, ids, accumulate_steps=1, steps=3):
                     for n, p in model.named_parameters()}
 
 
+def _tiny_grads(dev, ids):
+    """The tiny Llama's loss and gradients on ``dev`` at the weights the
+    first `TrainStep` sees (`_tiny_train`'s model and batch): the first
+    step before the optimizer."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                             seed=3).to(dev)
+    t = torch.from_numpy(ids).to(dev)
+    loss = model(t[:, :-1], labels=t[:, 1:])[0]
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().float().cpu()
+                         for n, p in model.named_parameters()}
+
+
+def _rel(a, b):
+    """Largest ||a - b|| / ||b|| over the tensors of ``b``, and max
+    |a - b|."""
+    return (max(((a[n] - p).norm() / p.norm()).item()
+                for n, p in b.items()),
+            max((a[n] - p).abs().max().item() for n, p in b.items()))
+
+
 def tiny_train_parity():
     """A tiny f32 Llama trained three AdamW `TrainStep`s on the card
-    (kernels) and on the CPU (plain versions) from the same weights:
-    losses and final parameters within the budgets; on the card,
-    ``accumulate_steps=2`` against 1."""
+    (kernels) and on the CPU (plain versions) from the same weights: the
+    losses within their budget, and the first step's gradients card
+    against CPU within theirs, with a planted wrong gradient on one
+    parameter that must break it; on the card, ``accumulate_steps=2``
+    against 1, losses and parameters."""
     from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
     ids = np.random.default_rng(5).integers(0, 512, (4, 65))
     reset_launch_counts()
     card, cparams = _tiny_train("cuda", ids)
     counts = dict(launch_counts)
-    cpu, pparams = _tiny_train("cpu", ids)
+    cpu, _ = _tiny_train("cpu", ids)
     acc, aparams = _tiny_train("cuda", ids, accumulate_steps=2)
-    def rel(a, b):
-        """largest ||a - b|| / ||b|| over the parameters, and max |a - b|"""
-        return (max(((a[n] - p).norm() / p.norm()).item()
-                    for n, p in b.items()),
-                max((a[n] - p).abs().max().item() for n, p in b.items()))
-    dl = max(abs(a - b) for a, b in zip(card, cpu))
-    dp, dp_max = rel(cparams, pparams)
+    loss_c, grads_c = _tiny_grads("cuda", ids)
+    loss_p, grads_p = _tiny_grads("cpu", ids)
+    planted = dict(grads_c)
+    planted[TINY_TRAIN_PLANTED_GRAD] = planted[TINY_TRAIN_PLANTED_GRAD] \
+        * 1.01
+    dl = max(abs(a - b) for a, b in zip(card + [loss_c], cpu + [loss_p]))
+    dg, dg_max = _rel(grads_c, grads_p)
+    dg_planted, _ = _rel(planted, grads_p)
     dl_acc = max(abs(a - b) for a, b in zip(acc, card))
-    dp_acc, dp_acc_max = rel(aparams, cparams)
-    log(f"tiny train parity: losses card {card} cpu {cpu}; max |loss "
-        f"diff| {dl:.3g} (budget {TINY_TRAIN_LOSS_BUDGET}); parameters "
-        f"after 3 steps: relative diff {dp:.3g} (budget "
-        f"{TINY_TRAIN_PARAM_BUDGET}), max |diff| {dp_max:.3g}; "
-        f"accumulate_steps=2 vs 1 on the card: loss {dl_acc:.3g}, params "
-        f"relative {dp_acc:.3g}, max |diff| {dp_acc_max:.3g}; card "
+    dp_acc, dp_acc_max = _rel(aparams, cparams)
+    log(f"tiny train parity: losses card {card} cpu {cpu}; first step "
+        f"loss card {loss_c} cpu {loss_p}; max |loss diff| {dl:.3g} "
+        f"(budget {TINY_TRAIN_LOSS_BUDGET}); first-step gradients: "
+        f"relative diff {dg:.3g} (budget {TINY_TRAIN_GRAD_BUDGET}), max "
+        f"|diff| {dg_max:.3g}; planted ({TINY_TRAIN_PLANTED_GRAD} x 1.01) "
+        f"{dg_planted:.3g}; accumulate_steps=2 vs 1 on the card: loss "
+        f"{dl_acc:.3g}, params relative {dp_acc:.3g} (budget "
+        f"{TINY_TRAIN_PARAM_BUDGET}), max |diff| {dp_acc_max:.3g}; card "
         f"launches {counts}")
     # 2 layers x 3 steps; 5 norms per step
     if counts["flash_attention_fwd"] != 6 or counts["rms_norm_bwd"] != 15:
         raise AssertionError("tiny training did not run the kernels")
-    if max(dl, dl_acc) > TINY_TRAIN_LOSS_BUDGET or \
-            max(dp, dp_acc) > TINY_TRAIN_PARAM_BUDGET or card[-1] >= card[0]:
+    if dg_planted <= TINY_TRAIN_GRAD_BUDGET:
+        raise AssertionError("tiny train parity: a wrong gradient passes "
+                             "the gradient check")
+    if max(dl, dl_acc) > TINY_TRAIN_LOSS_BUDGET \
+            or dg > TINY_TRAIN_GRAD_BUDGET \
+            or dp_acc > TINY_TRAIN_PARAM_BUDGET or card[-1] >= card[0]:
         raise AssertionError("tiny Llama training: card and CPU disagree")
 
 
@@ -5496,6 +6047,14 @@ def main():
     serve_8b_legacy_prefix(model)
     serve_8b_legacy_chunked(model, reqs)
     log(f"generate, dense and legacy phases {time.perf_counter() - t0:.1f}s")
+    # speculative decoding and engine sampling
+    t0 = time.perf_counter()
+    spec_attn_phase(results)
+    draft, gaps = serve_8b_spec(model, reqs, streams)
+    generate_8b_spec(model, draft)
+    del draft
+    serve_8b_sample(model, reqs, streams, gaps)
+    log(f"spec and sampling phases {time.perf_counter() - t0:.1f}s")
     # each kernel's launches on its own main path: the full-width run
     # for RMSNorm and full-width attention, the int8 run for int8-KV
     # attention and the dequant matmul, the LoRA run for the epilogue,

@@ -76,14 +76,23 @@ def filter_logits(logits, temperature=1.0, top_k=0, top_p=1.0):
     return logits
 
 
+def gumbel_pick(logits, u, temperature=1.0, top_k=0, top_p=1.0):
+    """The sampling arm of `_sample_token` on (B, V) f32 logits, given
+    uniforms ``u`` in (0, 1) of the same shape: one token a row drawn
+    from softmax(`filter_logits`' result) as `jax.random.categorical`
+    draws, ``argmax(filtered + G)`` with ``G = -log(-log u)`` standard
+    Gumbel noise. (B,) int32."""
+    return _sample_token(filter_logits(logits, temperature, top_k, top_p)
+                         - torch.log(-torch.log(u)))
+
+
 def choose_token(logits, strategy="greedy_search", generator=None,
                  temperature=1.0, top_k=0, top_p=1.0):
     """≙ `_sample_token`: logits (B, V) -> (tokens (B,) int32, the
     chosen tokens' log-probabilities (B,) under the unfiltered
     log-softmax of the f32 logits). Greedy takes the argmax; sampling
-    draws one token a row from softmax(`filter_logits`' result) as
-    `jax.random.categorical` does, ``argmax(logits + G)`` with G standard
-    Gumbel noise from ``generator`` (on the logits' device)."""
+    is `gumbel_pick` with uniforms from ``generator`` (on the logits'
+    device)."""
     logits = logits.float()
     logp = torch.log_softmax(logits, dim=-1)
     if strategy == "greedy_search":
@@ -92,9 +101,56 @@ def choose_token(logits, strategy="greedy_search", generator=None,
         u = torch.rand(logits.shape, generator=generator,
                        device=logits.device).clamp_min(
             torch.finfo(torch.float32).tiny)
-        tok = _sample_token(filter_logits(logits, temperature, top_k, top_p)
-                            - torch.log(-torch.log(u)))
+        tok = gumbel_pick(logits, u, temperature, top_k, top_p)
     return tok, logp.gather(-1, tok[:, None].long())[:, 0]
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant, in 16-bit halves so that no int64 product overflows."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _MASK32
+
+
+def _hash32(x):
+    """A 32-bit integer mix (xor-shift, multiply, twice: "lowbias32"), a
+    bijection of [0, 2**32), elementwise on int64 tensors."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def counter_uniform(key, shape):
+    """Uniforms in (0, 1) of ``shape`` (R, V), float32, made without a
+    generator's state from ``key``, a (2,) int32 tensor (seed, counter)
+    on the device: element (r, v) is a hash of (seed, counter, r·V + v),
+    its top 23 bits centred in their interval (exact in float32, so no
+    uniform rounds to 0 or 1). The same key gives the
+    same numbers on every run and every device, and a CUDA graph that
+    reads its key from an input replays new numbers once the counter in
+    that input moves: the serving engine's sampling stream."""
+    k = key.to(torch.int64) & _MASK32
+    base = _hash32(_hash32(k[0]) ^ k[1])
+    salt = _hash32(base ^ 0x9E3779B9)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    idx = torch.arange(n, device=key.device, dtype=torch.int64)
+    h = _hash32((_hash32(idx ^ base) + salt) & _MASK32).reshape(shape)
+    return ((h >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
+
+
+def sample_tokens(logits, key, temperature=1.0, top_k=0, top_p=1.0):
+    """The engine's sampling: (B, V) logits -> (B,) int32 tokens by
+    `gumbel_pick` over f32 logits with `counter_uniform`'s uniforms for
+    ``key`` (seed, counter)."""
+    logits = logits.float()
+    return gumbel_pick(logits, counter_uniform(key, logits.shape),
+                       temperature, top_k, top_p)
 
 
 def ban_repeat_ngrams(logits, buf, cur: int, n: int):

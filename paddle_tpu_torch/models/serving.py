@@ -1,4 +1,5 @@
-"""Continuous-batching greedy serving over a paged or dense KV cache.
+"""Continuous-batching serving over a paged or dense KV cache: greedy,
+sampled, or speculative.
 
 ≙ `paddle_tpu/models/serving.py`: `EngineOverloaded` / `PoolExhausted` /
 `EngineInvariantError` / `ModelMismatch` :322-369, `Request` :457, and
@@ -30,6 +31,16 @@ legacy paths, ``attention_impl="legacy"`` and ``kv_layout="dense"``
 `_jit_singleton` :2819-2850 over `_ragged_jits`, `_prefill_jits` and
 `_suffix_jits` :810-814, `_get_prefill` :2352, `_get_ragged_prefill`
 :2860, `_get_suffix_prefill` :3185, and the decode and chunk programs).
+Sampling (≙ ``do_sample`` / ``temperature`` / ``top_k`` / ``top_p`` /
+``seed`` :510-514, :624-628, `_next_keys` :2342 and the `_sample_token`
+call of every program). Speculative decoding on the ragged path (≙
+`SpecConfig` :373-399, the ``spec_decode=`` checks and draft pools
+:816-919, `_check_invariants_draft` :2234, the draft drop of
+`_release_slot` :2335-2340, `_build_ragged_step`'s ``draft=`` /
+``select_rows=`` :2871-2930 and the spec round :3776-4161 without its
+fault sites: `_spec_decode`, `_spec_draft`, `_d_grow` / `_d_release`,
+`_spec_backfill`, `_dispatch_draft_prefill`, `_spec_scan`,
+`_build_draft_scan`, `_spec_verify`, `spec_info`).
 
 With ``attention_impl="ragged"`` (the default) each admission batch and
 each decode step is ONE ragged dispatch: the packed token axis runs
@@ -59,16 +70,36 @@ as the JAX package computes it, outside any Pallas kernel); it has no
 pages, so no prefix cache and no chunked prefill (both warn and are
 dropped, as in JAX).
 
+Under ``do_sample`` every program draws its tokens by
+`generation.sample_tokens`: Gumbel-max over the filtered logits, the
+uniforms a hash of (``seed``, a dispatch counter) that rides in the
+program's input beside the index arrays. A captured program holds no
+generator state, so the same seed gives the same streams eager and
+graphed; the counter advances once a sampling dispatch, as JAX's key
+splits once a dispatch.
+
+With ``spec_decode=SpecConfig(draft, k)`` each decode step is a
+speculative round: the draft model's own page pools (backfilled by a
+draft prefill when a slot's draft cache was dropped), one draft-scan
+program of k + 1 single-token draft forwards (the last the catch-up
+that writes the k-th proposal's row), one host read of the proposals,
+one verify dispatch of every slot's [last token, proposals] through the
+target's ragged program returning every packed row's greedy pick, one
+host read of those, then `speculative.spec_accept_greedy`, the commit
+and the rewind. The streams equal the plain greedy engine's.
+
 Each dispatch family the JAX engine compiles is a family of programs
 here (`_Program`), keyed as the JAX engine keys its programs and held
 in the same LRU: ragged admission by (padded tokens, pages bound) in
 `_ragged_programs`, the legacy prefill by its bucket in
 `_prefill_programs`, both capped at ``max_prefill_programs``, the
 legacy suffix prefill by (shared_len, bucket) in `_suffix_programs`,
-capped at twice that; the decode step (ragged, paged or dense) and the
-chunk prefill are one program each. A program's body is the dispatch's
-code on static input buffers, with the KV pools or caches and the
-dispatch weights bound when it is built; on the card it is captured
+capped at twice that; the spec engine's draft prefills by (padded
+tokens, pages bound) in `_d_prefill_programs` and its verify dispatches
+likewise in `_verify_programs`; the decode step (ragged, paged or
+dense), the chunk prefill and the draft scan are one program each. A
+program's body is the dispatch's code on static input buffers, with the
+KV pools or caches and the dispatch weights bound when it is built; on the card it is captured
 once as a CUDA graph and replayed, so a step costs one host launch per
 program instead of one per kernel. A weight or adapter change drops
 every program (`_drop_programs`).
@@ -93,8 +124,9 @@ from ..ops.lora_epilogue import LoraWeight
 from ..ops.paged_attention import paged_prefill_scatter
 from ..ops.quant_matmul import QuantizedWeight, quantize_weight_values
 from ..ops.ragged_paged_attention import pack_ragged_batch, stream_tickets
-from .generation import RequestStatus, _sample_token
+from .generation import RequestStatus, _sample_token, sample_tokens
 from .llama import PagedKVCacheView, RaggedKVCacheView
+from .speculative import spec_accept_greedy
 
 
 class EngineOverloaded(RuntimeError):
@@ -147,11 +179,34 @@ class Request:
 # constructor options of the JAX engine that this port does not have
 # yet: (argument, the value that means "off", ROADMAP.md queue A item)
 _UNPORTED_OPTIONS = (
-    ("do_sample", False, "5 (sampling)"),
     ("max_decode_retries", 3, "4 (fault points and telemetry)"),
-    ("spec_decode", None, "5 (speculative decoding)"),
     ("submesh", None, "9 (tensor parallelism)"),
 )
+
+
+@dataclass
+class SpecConfig:
+    """Speculative decoding as an engine mode:
+    ``ContinuousBatchingEngine(spec_decode=SpecConfig(draft, k))``. Every
+    decode round drafts ``k`` greedy tokens a slot with ``draft_model``
+    over its own page pools (one draft-scan program), verifies every slot
+    in ONE ragged target dispatch, keeps the longest matching prefix plus
+    the bonus token (`speculative.spec_accept_greedy`) and rewinds past
+    the rejected positions (their stale K/V is overwritten by the next
+    round's scatter before any causal mask admits it). Greedy streams
+    equal the plain engine's exactly.
+
+    ``draft_model`` shares the target's vocabulary and device and covers
+    ``max_seq_len`` with its rope table; its weights stay its own (full
+    width under ``quant=``, whose int8 KV the draft pools take too).
+    ``num_pages`` sizes the draft page pool (default the full ``B x
+    pages_per_seq`` worst case: the draft cache has no prefix sharing).
+    Greedy engines only; sampling callers use
+    `speculative.speculative_generate`."""
+
+    draft_model: object
+    k: int = 4
+    num_pages: Optional[int] = None
 
 
 # the matmuls a quantized engine converts (embeddings stay full width:
@@ -245,7 +300,7 @@ class _Program:
 
 
 class ContinuousBatchingEngine:
-    """In-flight batched greedy serving for `LlamaForCausalLM`.
+    """In-flight batched serving for `LlamaForCausalLM`.
 
     Runs on the CUDA card unless ``device`` names another device; the
     model must live on that device. The KV page pools take the model's
@@ -255,9 +310,11 @@ class ContinuousBatchingEngine:
     docstring); ``kv_layout="dense"`` keeps per-slot contiguous caches
     and serves through the legacy paths; ``prompt_pad`` is the legacy
     prefill's bucket step and the ragged admission's pad.
-    ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` act only with
-    sampling, which the engine does not have yet (``do_sample``), so a
-    greedy engine ignores them as the JAX engine does.
+    ``do_sample`` draws every token from softmax of the logits under
+    ``temperature``, ``top_k`` and ``top_p`` (`generation.filter_logits`),
+    reproducibly from ``seed`` (module docstring); a greedy engine
+    ignores the four, as the JAX engine does. ``spec_decode`` takes a
+    `SpecConfig` (paged ragged greedy engines only).
     ``max_prefill_programs`` caps each keyed program family (module
     docstring).
 
@@ -404,6 +461,17 @@ class ContinuousBatchingEngine:
         else:
             self._init_pages(page_size, num_pages, enable_prefix_caching,
                              max_prefix_entries, prefill_chunk)
+        # sampling (≙ :624-628): the (seed, counter) key of the next
+        # sampling dispatch (`_next_key`)
+        self.strategy = "sampling" if do_sample else "greedy_search"
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self._seed_bits = int(np.array([int(seed) & 0xFFFFFFFF],
+                                       np.uint32).view(np.int32)[0])
+        self._sample_ctr = 0
+        self._ragged_block_q = 8
+        self._init_spec(spec_decode, do_sample)
         # host-side slot state
         self._pos = np.zeros(self.B, np.int32)       # next write position
         self._tok = np.zeros(self.B, np.int32)       # last emitted token
@@ -421,7 +489,6 @@ class ContinuousBatchingEngine:
         self._finished_backlog: List[Request] = []
         self._admit_seq = 0
         self._slot_seq = np.zeros(self.B, np.int64)
-        self._ragged_block_q = 8
         # the decode window: one entry per decode dispatch not harvested
         # yet (at harvest_every=1, harvested in the same step), {nxt: its
         # device tokens, act: the active slots (constant within a
@@ -478,6 +545,13 @@ class ContinuousBatchingEngine:
         self._decode_program: Optional[_Program] = None
         # the legacy chunked prefill's one program (≙ `_chunk_jit`)
         self._chunk_program: Optional[_Program] = None
+        # the spec engine's families (≙ `_d_prefill_jits`,
+        # `_verify_jits`, `_d_scan_jit`)
+        self._d_prefill_programs: "OrderedDict[tuple, _Program]" = \
+            OrderedDict()
+        self._verify_programs: "OrderedDict[tuple, _Program]" = \
+            OrderedDict()
+        self._draft_scan_program: Optional[_Program] = None
         self._capture_stream = None
         self._graph_pool = None
         self.num_graph_captures = 0
@@ -538,6 +612,85 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     f"max_seq_len {self.S} must be a multiple of "
                     f"prefill_chunk {self._chunk}")
+
+    def _init_spec(self, spec, do_sample):
+        """The spec engine's checks and state (≙ :816-919): the draft's
+        page pools (page 0 the trash page; int8 with (P, page_size) f32
+        scale pools under int8 KV), its block table, free list, pages a
+        slot, frontier and validity, and the round counters. A draft
+        cache is valid when it holds rows [0, pos) of its slot's stream;
+        a release drops it, and the next round backfills it."""
+        self._spec = spec
+        self.num_spec_rounds = 0
+        self.num_spec_proposed = 0
+        self.num_spec_accepted = 0
+        # spec rounds degraded to plain decode: only a fault site does
+        # that (ROADMAP.md queue A, item 4), so it stays 0
+        self.num_spec_degraded = 0
+        # the draft's dispatches (backfill prefills, scans) and the host
+        # walls of a round's halves, the reads included (the JAX
+        # engine's ``pdt_spec_draft_seconds`` / ``_verify_seconds``)
+        self.num_draft_prefills = 0
+        self.num_draft_scans = 0
+        self.spec_draft_seconds = 0.0
+        self.spec_verify_seconds = 0.0
+        if spec is None:
+            return
+        if self.layout != "paged" or self.attn_impl != "ragged":
+            raise ValueError(
+                "spec_decode requires kv_layout='paged' with "
+                "attention_impl='ragged' — the verify pass is a ragged "
+                "multi-token dispatch over the page table")
+        if do_sample:
+            raise ValueError(
+                "spec_decode is greedy-only (bit-identical to the plain "
+                "engine); for sampling use "
+                "models.speculative.speculative_generate")
+        if self._window is not None:
+            raise ValueError(
+                "spec_decode does not compose with sliding_window models "
+                "(window page reclamation would race the draft cache's "
+                "rewind bookkeeping)")
+        if int(spec.k) < 1:
+            raise ValueError(f"spec_decode.k must be >= 1, got {spec.k}")
+        draft = spec.draft_model
+        d_cfg, cfg = draft.config, self.model.config
+        if draft.device != self.device:
+            raise ValueError(f"draft model on {draft.device} but the "
+                             f"engine serves on {self.device}")
+        if d_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(f"draft vocab {d_cfg.vocab_size} != target "
+                             f"vocab {cfg.vocab_size}")
+        if d_cfg.max_position_embeddings < self.S:
+            raise ValueError(
+                f"draft rope table ({d_cfg.max_position_embeddings} "
+                f"positions) does not cover max_seq_len {self.S}")
+        self._spec_k = int(spec.k)
+        d_dt = next(draft.parameters()).dtype
+        self._d_num_pages = int(spec.num_pages or self.B * self.pps + 1)
+        hk, hd = d_cfg.num_key_value_heads, d_cfg.head_dim
+        pool_dt = torch.int8 if self._qkv else d_dt
+
+        def pools():
+            kv = [torch.zeros(hk, self._d_num_pages, self.page_size, hd,
+                              dtype=pool_dt, device=self.device)
+                  for _ in range(2)]
+            if self._qkv:
+                kv += [torch.zeros(self._d_num_pages, self.page_size,
+                                   dtype=torch.float32, device=self.device)
+                       for _ in range(2)]
+            return tuple(kv)
+        self._d_kv = [pools() for _ in range(d_cfg.num_hidden_layers)]
+        self._d_bt = np.zeros((self.B, self.pps), np.int32)
+        self._d_free: List[int] = list(range(1, self._d_num_pages))
+        self._d_slot_pages: List[List[int]] = [[] for _ in range(self.B)]
+        self._d_next_idx = np.zeros(self.B, np.int64)
+        self._d_valid = np.zeros(self.B, bool)
+        # the verify pass packs k + 1 live rows a slot: exactly on the
+        # CPU (the plain attention takes any alignment), in the kernel's
+        # 8-row q blocks on the card (the tensor-core route's block)
+        self._verify_block_q = self._ragged_block_q \
+            if self.device.type == "cuda" else self._spec_k + 1
 
     # -- public API ----------------------------------------------------
     def add_request(self, prompt, max_new_tokens: int = 32,
@@ -740,10 +893,9 @@ class ContinuousBatchingEngine:
         pads ranks to its ``max_rank``). Transactional: the new stacks
         are built in full, in the model's dtype, before any engine
         state changes. Requires the ragged dispatch; refuses to compose
-        with prefix caching and ``prefill_chunk``, as the JAX engine
-        does (its spec decode, which it also refuses, is not ported:
-        the constructor refuses it). Drains a pipelined window first and
-        drops every program (their graphs read the old stacks)."""
+        with prefix caching, ``spec_decode`` and ``prefill_chunk``, as
+        the JAX engine does. Drains a pipelined window first and drops
+        every program (their graphs read the old stacks)."""
         self.quiesce()
         if self.attn_impl != "ragged":
             raise ValueError(
@@ -757,6 +909,11 @@ class ContinuousBatchingEngine:
                 "weights, so a shared trie would alias KV across "
                 "adapters — build the engine with "
                 "enable_prefix_caching=False to serve multi-LoRA")
+        if self._spec is not None:
+            raise ValueError(
+                "install_adapter does not compose with spec_decode (the "
+                "draft cache's rewind bookkeeping has no per-adapter "
+                "dimension)")
         if self._chunk is not None:
             raise ValueError(
                 "install_adapter does not compose with prefill_chunk (the "
@@ -1081,6 +1238,8 @@ class ContinuousBatchingEngine:
                                 f"the live window [{lo}, {hi}) must "
                                 "trash-route to 0")
         self._check_invariants_adapters(errs)
+        if self._spec is not None:
+            self._check_invariants_draft(errs)
         if errs:
             raise EngineInvariantError(
                 "engine invariant violations:\n  " + "\n  ".join(errs))
@@ -1116,6 +1275,52 @@ class ContinuousBatchingEngine:
         elif self._adapter_rows:
             errs.append(f"adapter rows {self._adapter_rows} registered but "
                         "no stacks resident")
+
+    def _check_invariants_draft(self, errs: List[str]):
+        """Draft-cache page accounting (≙ :2234): draft pages are owned
+        by one slot each, with no refcounts and no sharing, so the free
+        list and the slots' page lists partition {1..P-1} exactly,
+        released slots hold nothing, and each live slot's draft block
+        table points only at its own pages below its frontier and at
+        trash page 0 past it."""
+        free = list(self._d_free)
+        free_set = set(free)
+        if len(free_set) != len(free):
+            errs.append(f"draft free list has duplicates: {sorted(free)}")
+        if 0 in free_set:
+            errs.append("draft trash page 0 is on the free list")
+        owner: Dict[int, int] = {}
+        for i, r in enumerate(self._slot_req):
+            if r is None and (self._d_slot_pages[i]
+                              or np.any(self._d_bt[i] != 0)
+                              or self._d_valid[i]):
+                errs.append(f"released slot {i} still holds draft pages "
+                            f"{self._d_slot_pages[i]} / a nonzero draft "
+                            "block-table row / a validity flag")
+            for p in self._d_slot_pages[i]:
+                if p in owner:
+                    errs.append(f"draft page {p} owned by slots "
+                                f"{owner[p]} and {i}")
+                owner[p] = i
+        for p in range(1, self._d_num_pages):
+            if (p in owner) == (p in free_set):
+                errs.append(f"draft page {p} must be exactly one of "
+                            f"owned/free (owned={p in owner}, "
+                            f"free={p in free_set})")
+        for i, r in enumerate(self._slot_req):
+            if r is None:
+                continue
+            hi = int(self._d_next_idx[i])
+            for j in range(self.pps):
+                p = int(self._d_bt[i, j])
+                if j < hi:
+                    if p == 0 or owner.get(p) != i:
+                        errs.append(f"slot {i} draft block-table[{j}] -> "
+                                    f"page {p} is not a page the slot owns")
+                elif p != 0:
+                    errs.append(f"slot {i} draft block-table[{j}] = {p} "
+                                f"past the frontier {hi} must trash-route "
+                                "to 0")
 
     # -- request lifecycle ---------------------------------------------
     def _finalize(self, req: Request, status: str, error: Optional[str],
@@ -1184,6 +1389,10 @@ class ContinuousBatchingEngine:
         # inactive slots keep decoding garbage; their block-table row
         # must point at the trash page, not at reclaimed pages
         self._bt[slot] = 0
+        if self._spec is not None:
+            # the draft cache dies with the slot: a preempted request's
+            # next spec round backfills it from the folded stream
+            self._d_release(slot)
 
     def _requeue_or_starve(self, req: Request, finished: List[Request]):
         """Requeue a preempted request at the head of its priority
@@ -1270,8 +1479,12 @@ class ContinuousBatchingEngine:
         need = max(-(-int(c) // self.page_size) for c in contexts)
         return min(1 << max(need - 1, 0).bit_length(), self.pps)
 
-    def _grow_slot(self, slot: int, finished: List[Request]) -> bool:
-        """Lazy page growth for `slot`'s next decode write. On pool
+    def _grow_slot(self, slot: int, finished: List[Request],
+                   extra: int = 0) -> bool:
+        """Lazy page growth for `slot`'s next decode write, and ``extra``
+        positions past it when a spec round scatters k + 1 rows (within
+        the admission reservation: the verify budget is capped at the
+        remaining token budget). On pool
         exhaustion (reachable only through an accounting fault, since
         admission reserves the worst case) harvest a pipelined window
         first (the victim keeps every token the device made, and an EOS
@@ -1279,7 +1492,7 @@ class ContinuousBatchingEngine:
         running request, and retry. Returns False if `slot` itself was
         finalized or preempted."""
         while self._slot_next_idx[slot] * self.page_size \
-                <= int(self._pos[slot]):
+                <= int(self._pos[slot]) + extra:
             try:
                 self._alloc_page(slot)
             except PoolExhausted:
@@ -1623,7 +1836,7 @@ class ContinuousBatchingEngine:
         ids[:p_len] = prompt
         prog = self._program_lru(self._prefill_programs, bucket,
                                  lambda: self._build_prefill(bucket))
-        self._upload(ids, [p_len - 1], dst=prog.flat)
+        self._upload(ids, [p_len - 1], self._next_key(), dst=prog.flat)
         tok = int(self._run_program(prog)[0])
         self.num_admission_dispatches += 1
         return tok, [(k[0], v[0]) for k, v in prog.caches]
@@ -1632,15 +1845,18 @@ class ContinuousBatchingEngine:
         """≙ `_build_prefill`: a causal pass over a prompt padded to
         ``bucket`` tokens, with the padded tail masked out as keys, into
         per-layer (1, bucket, HK, D) caches (the program's static
-        outputs), and the greedy token of the last real row. Its flat
-        input holds the ids (``bucket``) and that row (1)."""
+        outputs), and the token of the last real row (`_picker`). Its
+        flat input holds the ids (``bucket``), that row (1) and the
+        sampling key (2)."""
         L, hk, hd, dt = self._kv_shape
         dev = self.device
-        flat = torch.zeros(bucket + 1, dtype=torch.int32, device=dev)
-        ids, row = flat[:bucket], flat[bucket:]
+        flat = torch.zeros(bucket + 3, dtype=torch.int32, device=dev)
+        ids, row, key = flat[:bucket], flat[bucket:bucket + 1], \
+            flat[bucket + 1:]
         caches = [tuple(torch.zeros(1, bucket, hk, hd, dtype=dt, device=dev)
                         for _ in range(2)) for _ in range(L)]
-        weights, model = self._dispatch_weights(), self.model
+        weights, model, pick = self._dispatch_weights(), self.model, \
+            self._picker()
 
         def body():
             with torch.no_grad():
@@ -1648,7 +1864,7 @@ class ContinuousBatchingEngine:
                 logits = model(ids[None], caches, rows=row,
                                weights=weights, attention_mask=valid,
                                position_offset=0)
-                return _sample_token(logits)
+                return pick(logits, key)
         return _Program(flat, body, caches)
 
     def _paged_insert(self, slot: int, req: Request, p_len: int, rows):
@@ -1708,7 +1924,8 @@ class ContinuousBatchingEngine:
             self._suffix_programs, (shared_len, bucket),
             lambda: self._build_suffix_prefill(shared_len, bucket),
             cap=2 * self._max_prefill)
-        self._upload(ids, [len(suffix) - 1], pages, dst=prog.flat)
+        self._upload(ids, [len(suffix) - 1], pages, self._next_key(),
+                     dst=prog.flat)
         tok = int(self._run_program(prog)[0])
         self.num_admission_dispatches += 1
         self._scatter_rows(self._rebased_bt(slot, len(pages)),
@@ -1727,20 +1944,21 @@ class ContinuousBatchingEngine:
         own (1, shared_len + bucket, HK, D) caches, prefills the suffix
         padded to ``bucket`` at ``position_offset = shared_len`` under
         the key-validity mask (keys past the real suffix masked out),
-        and takes the greedy token of the last real row. Its flat input
-        holds the ids (``bucket``), that row (1) and the shared pages
-        (shared_len / page_size)."""
+        and takes the token of the last real row (`_picker`). Its flat
+        input holds the ids (``bucket``), that row (1), the shared pages
+        (shared_len / page_size) and the sampling key (2)."""
         L, hk, hd, dt = self._kv_shape
         dev = self.device
         n_pp = shared_len // self.page_size
-        flat = torch.zeros(bucket + 1 + n_pp, dtype=torch.int32, device=dev)
+        flat = torch.zeros(bucket + 3 + n_pp, dtype=torch.int32, device=dev)
         ids, row = flat[:bucket], flat[bucket:bucket + 1]
-        pages = flat[bucket + 1:]
+        pages, key = flat[bucket + 1:bucket + 1 + n_pp], flat[-2:]
         n = shared_len + bucket
         caches = [tuple(torch.zeros(1, n, hk, hd, dtype=dt, device=dev)
                         for _ in range(2)) for _ in range(L)]
         weights, model, pools = self._dispatch_weights(), self.model, \
             list(self._kv)
+        pick = self._picker()
 
         def body():
             with torch.no_grad():
@@ -1755,7 +1973,7 @@ class ContinuousBatchingEngine:
                 logits = model(ids[None], caches, rows=row,
                                weights=weights, attention_mask=valid,
                                position_offset=shared_len)
-                return _sample_token(logits)
+                return pick(logits, key)
         return _Program(flat, body, caches)
 
     def _admit_chunked(self, slot: int, req: Request,
@@ -1764,8 +1982,9 @@ class ContinuousBatchingEngine:
         ``prefill_chunk`` tokens, every chunk of every prompt through ONE
         program (`_build_chunk_prefill`) at the chunk's offset, each
         chunk's rows scattered into the pages after page ``off /
-        page_size``; the greedy token of the last real row of the last
-        chunk (≙ `_build_sample`'s greedy arm). The last chunk's padded
+        page_size``; the token of the last real row of the last chunk
+        (≙ `_build_sample`), the only chunk that takes a sampling key.
+        The last chunk's padded
         rows leave garbage only at positions >= the prompt's length,
         which decode overwrites before it attends them; their scatter
         goes to the trash page."""
@@ -1784,7 +2003,9 @@ class ContinuousBatchingEngine:
             off = ci * C
             last = ci == n_chunks - 1
             self._upload(ids[off:off + C], [off],
-                         [p_len - 1 - off if last else 0], dst=prog.flat)
+                         [p_len - 1 - off if last else 0],
+                         self._next_key() if last else self._NO_KEY,
+                         dst=prog.flat)
             out = self._run_program(prog)
             self.num_admission_dispatches += 1
             if last:
@@ -1801,37 +2022,41 @@ class ContinuousBatchingEngine:
         of ``C`` tokens at a device offset, through the model's traced
         branch (attention over the whole (1, S, HK, D) working caches
         under a causal mask built on the device from the offset), then
-        the greedy token of one row. The working caches are the
+        the token of one row (`_picker`). The working caches are the
         program's own and keep the prompt's earlier chunks. Its flat
-        input holds the ids (``C``), the offset (1) and the row (1)."""
+        input holds the ids (``C``), the offset (1), the row (1) and the
+        sampling key (2)."""
         L, hk, hd, dt = self._kv_shape
         dev = self.device
-        flat = torch.zeros(C + 2, dtype=torch.int32, device=dev)
-        ids, off, row = flat[:C], flat[C], flat[C + 1:]
+        flat = torch.zeros(C + 4, dtype=torch.int32, device=dev)
+        ids, off, row, key = flat[:C], flat[C], flat[C + 1:C + 2], \
+            flat[C + 2:]
         caches = [tuple(torch.zeros(1, self.S, hk, hd, dtype=dt, device=dev)
                         for _ in range(2)) for _ in range(L)]
-        weights, model = self._dispatch_weights(), self.model
+        weights, model, pick = self._dispatch_weights(), self.model, \
+            self._picker()
 
         def body():
             with torch.no_grad():
                 logits = model(ids[None], caches, rows=row,
                                weights=weights, position_offset=off)
-                return _sample_token(logits)
+                return pick(logits, key)
         return _Program(flat, body, caches)
 
     def _build_legacy_decode(self) -> _Program:
         """≙ the paged `_build_decode`: ONE dispatch of (B, 1) tokens,
         each slot at its own position, through a `PagedKVCacheView` per
         layer (the attention appends the new K/V rows and launches the
-        paged attention kernel), greedy tokens left on the device. Its
-        flat input holds the tokens and positions (B each) and the block
-        table (B x pps)."""
+        paged attention kernel), the tokens (`_picker`) left on the
+        device. Its flat input holds the tokens and positions (B each),
+        the block table (B x pps) and the sampling key (2)."""
         B, pps = self.B, self.pps
-        flat = torch.zeros(2 * B + B * pps, dtype=torch.int32,
+        flat = torch.zeros(2 * B + B * pps + 2, dtype=torch.int32,
                            device=self.device)
         tok, pos = flat[:2 * B].view(2, B)
-        bt = flat[2 * B:].view(B, pps)
-        weights, model = self._dispatch_weights(), self.model
+        bt, key = flat[2 * B:-2].view(B, pps), flat[-2:]
+        weights, model, pick = self._dispatch_weights(), self.model, \
+            self._picker()
         pools = list(self._kv)
 
         def body():
@@ -1839,7 +2064,7 @@ class ContinuousBatchingEngine:
                 views = [PagedKVCacheView(p[0], p[1], bt) for p in pools]
                 logits = model(tok[:, None], views, weights=weights,
                                position_offset=pos)
-                return _sample_token(logits[:, 0])
+                return pick(logits[:, 0], key)
         return _Program(flat, body)
 
     def _build_dense_decode(self) -> _Program:
@@ -1847,68 +2072,118 @@ class ContinuousBatchingEngine:
         of (B, 1) tokens over the dense (B, S, HK, D) caches, each slot
         at its own position (the attention writes the new K/V rows in
         place and attends in plain PyTorch, `masked_multihead_attention`,
-        as in JAX), greedy tokens left on the device. Its flat input
-        holds the tokens and the positions (B each)."""
+        as in JAX), the tokens (`_picker`) left on the device. Its flat
+        input holds the tokens and the positions (B each) and the
+        sampling key (2)."""
         B = self.B
-        flat = torch.zeros(2 * B, dtype=torch.int32, device=self.device)
-        tok, pos = flat.view(2, B)
+        flat = torch.zeros(2 * B + 2, dtype=torch.int32, device=self.device)
+        tok, pos = flat[:2 * B].view(2, B)
+        key = flat[2 * B:]
         weights, model, caches = self._dispatch_weights(), self.model, \
             list(self._caches)
+        pick = self._picker()
 
         def body():
             with torch.no_grad():
                 logits = model(tok[:, None], caches, weights=weights,
                                position_offset=pos)
-                return _sample_token(logits[:, 0])
+                return pick(logits[:, 0], key)
         return _Program(flat, body)
 
+    # -- token selection -------------------------------------------------
+    # the key of a dispatch that draws nothing (a greedy engine's, an
+    # earlier chunk's)
+    _NO_KEY = np.zeros(2, np.int32)
+
+    def _next_key(self) -> np.ndarray:
+        """≙ `_next_keys`: the (seed, counter) key of the next sampling
+        dispatch, the counter advanced once a dispatch; a greedy engine's
+        programs read no key."""
+        if self.strategy != "sampling":
+            return self._NO_KEY
+        key = np.array([self._seed_bits, self._sample_ctr], np.int32)
+        self._sample_ctr = (self._sample_ctr + 1) & 0x7FFFFFFF
+        return key
+
+    def _picker(self):
+        """The token selection of every program, ``pick(logits (R, V),
+        key (2,) int32) -> (R,) int32``: the greedy argmax, or under
+        ``do_sample`` `sample_tokens` with the engine's filter, its
+        uniforms drawn from the key in the program's input (≙
+        `_sample_token` with the dispatch's key)."""
+        if self.strategy != "sampling":
+            return lambda logits, key: _sample_token(logits)
+        temp, top_k, top_p = self.temperature, self.top_k, self.top_p
+        return lambda logits, key: sample_tokens(logits, key, temp, top_k,
+                                                 top_p)
+
     # -- the ragged dispatch ---------------------------------------------
-    def _build_ragged(self, t: int, block_q: int,
-                      pages_bound=None) -> _Program:
+    def _build_ragged(self, t: int, block_q: int, pages_bound=None,
+                      draft: bool = False,
+                      select_rows: bool = True) -> _Program:
         """≙ `_build_ragged_step`: the program of a ragged dispatch over
         ``t`` packed rows. Its flat input holds, in this order, the ids,
         token_seq, positions and adapter rows (``t`` each), query_start,
-        query_len, context_len and sample_rows (B each) and the block
-        table (B x pps): the ids first, so that a pipelined window copies
-        the previous dispatch's device tokens in alone. The body: packed
-        ids -> per-token rope -> one KV scatter into the pages per layer
-        -> ragged paged attention -> logits of each slot's sample row ->
-        greedy tokens, left on the device. Rows whose ``sample_rows``
-        entry is out of range are clamped and never read back. Nothing is
-        read back from the device."""
+        query_len, context_len and sample_rows (B each), the block table
+        (B x pps) and the sampling key (2): the ids first, so that a
+        pipelined window copies the previous dispatch's device tokens in
+        alone. The body: packed ids -> per-token rope -> one KV scatter
+        into the pages per layer -> ragged paged attention -> logits of
+        each slot's sample row -> tokens (`_picker`), left on the device.
+        Rows whose ``sample_rows`` entry is out of range are clamped and
+        never read back. Nothing is read back from the device.
+
+        ``draft=True`` runs the spec engine's draft model over the draft
+        pools with its own weights (the draft cache's backfill prefill,
+        whose tokens are never read); ``select_rows=False`` returns the
+        pick of EVERY packed row and ignores ``sample_rows`` (the verify
+        pass, whose acceptance needs the target's choice at all k + 1
+        positions)."""
         B, pps = self.B, self.pps
-        flat = torch.zeros(4 * t + 4 * B + B * pps, dtype=torch.int32,
+        flat = torch.zeros(4 * t + 4 * B + B * pps + 2, dtype=torch.int32,
                            device=self.device)
         ids, seq, pos, ad = flat[:4 * t].view(4, t)
         qs, ql, cl, rows = flat[4 * t:4 * (t + B)].view(4, B)
-        bt = flat[4 * (t + B):].view(B, pps)
-        # multi-LoRA: each packed row takes its owning slot's adapter row
-        weights, model = self._dispatch_weights(ad), self.model
-        pools = list(self._kv)
+        bt, key = flat[4 * (t + B):-2].view(B, pps), flat[-2:]
+        pick = self._picker()
+        if draft:
+            weights, model = None, self._spec.draft_model
+            pools = list(self._d_kv)
+        else:
+            # multi-LoRA: each packed row takes its owning slot's adapter
+            # row
+            weights, model = self._dispatch_weights(ad), self.model
+            pools = list(self._kv)
 
         def body():
             with torch.no_grad():
                 views = [RaggedKVCacheView(p[0], p[1], bt, seq, pos, qs, ql,
                                            cl, block_q, pages_bound, *p[2:])
                          for p in pools]
+                if not select_rows:
+                    return pick(model(ids[None], views, weights=weights)[0],
+                                key)
                 logits = model(ids[None], views, rows=rows.clamp(0, t - 1),
                                weights=weights)
-                return _sample_token(logits)
+                return pick(logits, key)
         return _Program(flat, body)
 
     def _ragged_step(self, prog: _Program, ids, token_seq, positions,
                      query_start, query_len, context_len,
-                     sample_rows) -> torch.Tensor:
+                     sample_rows, bt=None) -> torch.Tensor:
         """ONE ragged dispatch: fill ``prog``'s input and run it. ``ids``
         is a host array, or in a pipelined window the previous decode
         dispatch's device tokens, copied in on the device; every other
-        array goes up in one host-to-device copy. A padding row's adapter
+        array goes up in one host-to-device copy, with the block table
+        ``bt`` (default the target's; a draft dispatch passes the
+        draft's) and the dispatch's sampling key. A padding row's adapter
         row is the last slot's (token_seq -1): inert, its output is never
         read and the epilogue sums across no tokens."""
         t = len(token_seq)
         adapter_rows = self._slot_adapter[np.asarray(token_seq, np.int64)]
         rest = (token_seq, positions, adapter_rows, query_start, query_len,
-                context_len, sample_rows, self._bt)
+                context_len, sample_rows, self._bt if bt is None else bt,
+                self._next_key())
         if torch.is_tensor(ids):
             prog.flat[:t].copy_(ids)
             self._upload(*rest, dst=prog.flat[t:])
@@ -1979,9 +2254,13 @@ class ContinuousBatchingEngine:
     def _programs(self) -> List[_Program]:
         progs = list(self._ragged_programs.values()) \
             + list(self._prefill_programs.values()) \
-            + list(self._suffix_programs.values())
+            + list(self._suffix_programs.values()) \
+            + list(self._d_prefill_programs.values()) \
+            + list(self._verify_programs.values())
         return progs + [p for p in (self._decode_program,
-                                    self._chunk_program) if p is not None]
+                                    self._chunk_program,
+                                    self._draft_scan_program)
+                        if p is not None]
 
     def _drop_programs(self):
         """Empty the program cache. A program binds the KV pools and the
@@ -1993,8 +2272,11 @@ class ContinuousBatchingEngine:
         self._ragged_programs.clear()
         self._prefill_programs.clear()
         self._suffix_programs.clear()
+        self._d_prefill_programs.clear()
+        self._verify_programs.clear()
         self._decode_program = None
         self._chunk_program = None
+        self._draft_scan_program = None
 
     def _run_program(self, prog: _Program) -> torch.Tensor:
         """Run ``prog`` on its filled input; returns its greedy tokens,
@@ -2097,7 +2379,11 @@ class ContinuousBatchingEngine:
         loop. At k > 1 the tokens stay on the device as the next
         dispatch's input until the window is due. Each pending dispatch
         keeps a copy of its tokens: the program's output is overwritten
-        by its next run."""
+        by its next run. A spec engine runs a speculative round instead
+        (`_spec_decode`), which commits its own tokens."""
+        if self._spec is not None:
+            self._spec_decode(finished)
+            return
         for i, r in enumerate(self._slot_req):
             if r is None or self.layout != "paged":
                 continue
@@ -2134,12 +2420,13 @@ class ContinuousBatchingEngine:
         elif self.layout == "paged":
             prog = self._program_singleton("_decode_program",
                                            self._build_legacy_decode)
-            self._upload(self._tok, pos, self._bt, dst=prog.flat)
+            self._upload(self._tok, pos, self._bt, self._next_key(),
+                         dst=prog.flat)
             out = self._run_program(prog)
         else:
             prog = self._program_singleton("_decode_program",
                                            self._build_dense_decode)
-            self._upload(self._tok, pos, dst=prog.flat)
+            self._upload(self._tok, pos, self._next_key(), dst=prog.flat)
             out = self._run_program(prog)
         nxt = out.clone()
         self.num_decode_dispatches += 1
@@ -2154,6 +2441,263 @@ class ContinuousBatchingEngine:
         self._tok_dev = nxt
         if self.harvest_every == 1:
             self._harvest_pending(finished)
+
+    # -- speculative decoding ----------------------------------------------
+    def _spec_decode(self, finished: List[Request]):
+        """≙ `_spec_decode` :3776 (without its fault sites and
+        `_spec_degrade`, ROADMAP.md queue A item 4): one speculative
+        round, the draft half (`_spec_draft`), then ONE verify dispatch
+        of every slot and its commit (`_spec_verify`). The round makes
+        two host reads, the proposals and the verify picks. Its host
+        wall, capture time excluded, goes to ``decode_seconds`` and its
+        tokens to ``decode_tokens``, as a decode step's."""
+        t0 = time.perf_counter()
+        captured = self.graph_capture_seconds
+        props, kuse = self._spec_draft(finished)
+        t1 = time.perf_counter()
+        draft_capture = self.graph_capture_seconds - captured
+        active = [i for i, r in enumerate(self._slot_req) if r is not None]
+        if not active:
+            return                    # growth preempted everything
+        emitted, proposed, accepted = self._spec_verify(active, props, kuse,
+                                                        finished)
+        t2 = time.perf_counter()
+        capture = self.graph_capture_seconds - captured
+        self.num_spec_rounds += 1
+        self.num_spec_proposed += proposed
+        self.num_spec_accepted += accepted
+        self.spec_draft_seconds += t1 - t0 - draft_capture
+        self.spec_verify_seconds += t2 - t1 - (capture - draft_capture)
+        self.decode_seconds += t2 - t0 - capture
+        self.decode_tokens += emitted
+
+    def _spec_draft(self, finished: List[Request]):
+        """≙ `_spec_draft` :3853: each slot's verify budget ``k_i =
+        min(k, remaining tokens - 1, cache room)`` (a round never emits
+        past ``max_new_tokens`` or the cache end), the target's pages
+        grown to cover the verify scatter at ``pos..pos+k_i``, the draft's
+        pages grown through ``pos + k_i`` (the scan's catch-up row) and
+        backfilled where the draft cache was dropped, then the draft
+        scan. A slot the draft pool cannot grow rides the round as a
+        plain one-row verify (k_i = 0) with its draft cache dropped.
+        Returns (proposals (B, K), verify budgets (B,))."""
+        K = self._spec_k
+        kuse = np.zeros(self.B, np.int32)
+        for i, r in enumerate(self._slot_req):
+            if r is None:
+                continue
+            ki = max(min(K, r.max_new_tokens - len(r.output) - 1,
+                         self.S - 1 - int(self._pos[i])), 0)
+            if not self._grow_slot(i, finished, extra=ki):
+                continue              # preempted away mid-growth
+            kuse[i] = ki
+        backfill = []
+        for i, r in enumerate(self._slot_req):
+            if r is None or kuse[i] < 1:
+                continue
+            try:
+                self._d_grow(i, int(self._pos[i]) + int(kuse[i]))
+            except PoolExhausted:
+                self._d_release(i)
+                kuse[i] = 0
+                continue
+            if not self._d_valid[i]:
+                backfill.append(i)
+        if backfill:
+            self._spec_backfill(backfill)
+        return self._spec_scan(kuse), kuse
+
+    def _d_grow(self, slot: int, last_pos: int):
+        """≙ `_d_grow` :3896: draft pages until the slot's draft block
+        table covers writes through ``last_pos``."""
+        while self._d_next_idx[slot] * self.page_size <= last_pos:
+            if not self._d_free:
+                raise PoolExhausted(f"draft page pool exhausted "
+                                    f"({self._d_num_pages - 1} usable "
+                                    "pages)")
+            page = self._d_free.pop()
+            self._d_slot_pages[slot].append(page)
+            self._d_bt[slot, self._d_next_idx[slot]] = page
+            self._d_next_idx[slot] += 1
+
+    def _d_release(self, slot: int):
+        """≙ `_d_release` :3909: a slot's draft pages back to the free
+        list (owned by one slot, so no refcounts), its draft block table
+        to the trash page, its draft cache invalid."""
+        self._d_free.extend(self._d_slot_pages[slot])
+        self._d_slot_pages[slot] = []
+        self._d_bt[slot] = 0
+        self._d_next_idx[slot] = 0
+        self._d_valid[slot] = False
+
+    def _spec_backfill(self, slots: List[int]):
+        """≙ `_spec_backfill` :3919: rebuild dropped draft caches by
+        prefilling each slot's stream but its pending last token (the
+        rows the next draft scan attends) through the draft's ragged
+        program, packed like an admission batch and cut by
+        ``prefill_chunk``."""
+        entries = []
+        for i in slots:
+            r = self._slot_req[i]
+            entries.append({"slot": i, "req": r, "offset": 0,
+                            "tokens": self._effective_prompt(r)[:-1]})
+        for batch in self._ragged_batches(entries):
+            self._dispatch_draft_prefill(batch)
+        for i in slots:
+            self._d_valid[i] = True
+
+    def _dispatch_draft_prefill(self, batch):
+        """≙ `_dispatch_draft_prefill` :3938: one backfill batch through
+        the draft prefill program of its (padded tokens, pages bound)
+        (≙ `_get_draft_prefill` :3962). Nothing is read back."""
+        bq = self._ragged_block_q
+        grid = -(-self.pad // bq) * bq
+        pk = pack_ragged_batch(
+            [{"seq": p["slot"], "tokens": p["tokens"], "offset": p["offset"]}
+             for p in batch], self.B, block_q=bq, pad_to=grid)
+        bound = self._pages_bound(int(pk["context_len"][p["slot"]])
+                                  for p in batch)
+        t_pad = int(pk["t_pad"])
+        prog = self._program_lru(
+            self._d_prefill_programs, (t_pad, bound),
+            lambda: self._build_ragged(t_pad, bq, bound, draft=True))
+        self._ragged_step(prog, pk["ids"], pk["token_seq"], pk["positions"],
+                          pk["query_start"], pk["query_len"],
+                          pk["context_len"], pk["sample_rows"],
+                          bt=self._d_bt)
+        self.num_draft_prefills += 1
+
+    def _spec_scan(self, kuse) -> np.ndarray:
+        """≙ `_spec_scan` :3969: K greedy draft tokens for every live slot
+        (a draft cache to extend and k_i >= 1) by ONE run of the draft
+        scan program, then the round's first host read: the proposals
+        (B, K)."""
+        live = np.array([r is not None and kuse[i] >= 1
+                         and bool(self._d_valid[i])
+                         for i, r in enumerate(self._slot_req)], np.int32)
+        if not live.any():
+            return np.zeros((self.B, self._spec_k), np.int32)
+        prog = self._program_singleton("_draft_scan_program",
+                                       self._build_draft_scan)
+        self._upload(self._tok, self._pos, live, self._d_bt, dst=prog.flat)
+        props = self._harvest_sync(self._run_program(prog))
+        self.num_draft_scans += 1
+        return props
+
+    def _build_draft_scan(self, catch_up: bool = True) -> _Program:
+        """≙ `_build_draft_scan` :3991-4047: K + 1 single-token draft
+        forwards as one program (one CUDA graph on the card, as
+        `lax.scan` is one program), each step's argmax feeding the next
+        at the next position through the draft pools at block_q 1. Dead
+        rows (no live draft, or a position past the cache) have
+        query_len 0: their attention rows are zero and their K/V goes to
+        the trash page. The (K+1)-th step is the catch-up: K steps alone
+        never feed the last proposal, so a full accept would leave a
+        hole at pos + K that the next round attends (self-draft
+        acceptance 0.67 instead of 1.0); its token is dropped
+        (``catch_up=False`` leaves the step out: the planted fault that
+        the checks of self-draft acceptance must catch). Its flat input
+        holds the last tokens, the positions and the live flags (B each)
+        and the draft block table (B x pps); its output the proposals
+        (B, K)."""
+        B, pps, K, S = self.B, self.pps, self._spec_k, self.S
+        dev = self.device
+        flat = torch.zeros(3 * B + B * pps, dtype=torch.int32, device=dev)
+        tok0, pos0, live = flat[:3 * B].view(3, B)
+        bt = flat[3 * B:].view(B, pps)
+        model, pools = self._spec.draft_model, list(self._d_kv)
+
+        def body():
+            with torch.no_grad():
+                bidx = torch.arange(B, dtype=torch.int32, device=dev)
+                tok, props = tok0, []
+                for step in range(K + int(catch_up)):
+                    ok = (live != 0) & (pos0 + step <= S - 1)
+                    posv = torch.clamp(pos0 + step, max=S - 1)
+                    seq = torch.where(ok, bidx, -1)
+                    qlen = ok.to(torch.int32)
+                    views = [RaggedKVCacheView(p[0], p[1], bt, seq, posv,
+                                               bidx, qlen, posv + 1, 1, None,
+                                               *p[2:])
+                             for p in pools]
+                    tok = _sample_token(model(tok[None], views)[0])
+                    props.append(tok)
+                return torch.stack(props[:K], 1)
+        return _Program(flat, body)
+
+    def _spec_verify(self, active, props, kuse, finished):
+        """≙ `_spec_verify` :4049: ONE target dispatch over every slot's
+        packed rows ``[last token, d_1..d_{k_i}]`` at ``pos..pos+k_i``
+        through the verify program of its (padded tokens, pages bound)
+        (≙ `_get_spec_verify` :4140), the round's second host read (every
+        row's greedy pick), acceptance by `spec_accept_greedy` on
+        sentinel-padded rows, then the commit: the accepted prefix and
+        the bonus token, cut after an EOS, with the position advanced by
+        what was committed. The rows scattered past it are stale and are
+        overwritten before any causal mask admits them. Returns
+        (emitted, proposed, accepted)."""
+        K = self._spec_k
+        pieces = [{"seq": i, "offset": int(self._pos[i]),
+                   "tokens": [int(self._tok[i])]
+                   + [int(t) for t in props[i, :int(kuse[i])]]}
+                  for i in active]
+        bq = self._verify_block_q
+        pk = pack_ragged_batch(pieces, self.B, block_q=bq, pad_to=bq)
+        bound = self._pages_bound(int(pk["context_len"][i]) for i in active)
+        t_pad = int(pk["t_pad"])
+        prog = self._program_lru(
+            self._verify_programs, (t_pad, bound),
+            lambda: self._build_ragged(t_pad, bq, bound, select_rows=False))
+        g_all = self._harvest_sync(self._ragged_step(
+            prog, pk["ids"], pk["token_seq"], pk["positions"],
+            pk["query_start"], pk["query_len"], pk["context_len"],
+            pk["sample_rows"]))
+        self.num_decode_dispatches += 1
+        # ragged acceptance through the one shared core: sentinels that
+        # never match cap each row's j at its real proposal count
+        n = len(active)
+        gm = np.full((n, K + 1), -2, np.int32)
+        pm = np.full((n, K), -1, np.int32)
+        for idx, i in enumerate(active):
+            r0, ki = int(pk["query_start"][i]), int(kuse[i])
+            gm[idx, :ki + 1] = g_all[r0:r0 + ki + 1]
+            pm[idx, :ki] = props[i, :ki]
+        j_arr = spec_accept_greedy(gm, pm)[0]
+        emitted = proposed = accepted = 0
+        for idx, i in enumerate(active):
+            r = self._slot_req[i]
+            ki, j = int(kuse[i]), int(j_arr[idx])
+            toks = [int(t) for t in gm[idx, :j + 1]]
+            if self.eos is not None and self.eos in toks:
+                toks = toks[:toks.index(self.eos) + 1]
+            r.output.extend(toks)
+            r.device_len = len(r.output)
+            self._pos[i] += len(toks)
+            self._tok[i] = toks[-1]
+            proposed += ki
+            accepted += j
+            emitted += len(toks)
+            if (self.eos is not None and toks[-1] == self.eos) \
+                    or len(r.output) >= r.max_new_tokens \
+                    or int(self._pos[i]) >= self.S - 1:
+                self._finalize(r, RequestStatus.FINISHED, None, finished)
+                self._release_slot(i)
+        return emitted, proposed, accepted
+
+    @property
+    def spec_enabled(self) -> bool:
+        return self._spec is not None
+
+    def spec_info(self) -> Dict[str, float]:
+        """Speculation counters, keyed as the JAX engine's (zeros on an
+        engine without ``spec_decode``). ``degraded`` stays 0: only the
+        fault sites degrade a round (ROADMAP.md queue A, item 4)."""
+        return {"rounds": self.num_spec_rounds,
+                "proposed": self.num_spec_proposed,
+                "accepted": self.num_spec_accepted,
+                "degraded": self.num_spec_degraded,
+                "acceptance_rate": self.num_spec_accepted
+                / max(self.num_spec_proposed, 1)}
 
     # -- the harvest: the decode path's only reads from the device --------
     def _harvest_sync(self, nxt: torch.Tensor) -> np.ndarray:

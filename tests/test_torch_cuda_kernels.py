@@ -2557,3 +2557,299 @@ def test_flash_bwd_wgmma_at_the_main_shapes(cuda, shape):
         _flash_close(a, r, torch.bfloat16)
     again = fa._flash_bwd(q, k, v, o, lse, do, d ** -0.5, True, None)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+# -- speculative decoding and engine sampling ------------------------------
+# the ragged kernel at the spec engine's shapes: a verify dispatch (8
+# slots of k + 1 = 5 live rows, and ragged budgets, in 8-row q blocks) and
+# a draft-scan step (one row a slot at block_q 1, dead rows with query_len
+# 0 over live contexts), at the 8B target's and the 1B draft's widths
+SPEC_ATTN_CASES = [
+    # (name, hk, g, d, query lens, context lens, block_q)
+    ("verify_8x5", 8, 4, 128, [5] * 8,
+     [5, 37, 300, 517, 1024, 1500, 2000, 2048], 8),
+    ("verify_ragged", 8, 4, 128, [5, 1, 3, 5, 2],
+     [40, 1200, 19, 2048, 700], 8),
+    ("draft_scan_d64", 8, 4, 64, [1, 0, 1, 1, 0, 1, 1, 1],
+     [1, 300, 517, 1024, 2000, 1500, 33, 2048], 1),
+    ("tiny_verify_d32", 2, 2, 32, [5, 3, 1], [9, 40, 57], 5),
+    ("tiny_scan_d32", 1, 2, 32, [1, 0, 1], [10, 41, 57], 1),
+]
+
+
+@pytest.mark.parametrize("pools", ["full", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPEC_ATTN_CASES,
+                         ids=[c[0] for c in SPEC_ATTN_CASES])
+def test_ragged_attention_at_spec_shapes(cuda, case, dtype, pools):
+    """The kernel against its plain version on the card at the verify and
+    draft-scan shapes: within the attention tolerances (f32 1e-5, bf16
+    2e-2), rows of no sequence (padding, dead scan rows) exact zeros and
+    every row finite."""
+    name, hk, g, d, ql, cl, bq = case
+    rng = np.random.default_rng(sum(map(ord, name)) + 19)
+    arrays = _case(rng, hk, g, ql, cl, bq, 0, d=d)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    kw = {}
+    if pools == "int8":
+        kq, vq, ks, vs = _quantized(args)
+        args[1:3] = [kq, vq]
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        args[1:3] = [a.to(dtype) for a in args[1:3]]
+    args[0] = args[0].to(dtype)
+    out = ra.ragged_paged_attention_values(*args, block_q=bq, **kw)
+    ref = ra.ragged_paged_attention_values(*args, block_q=bq,
+                                           use_kernel=False, **kw)
+    tol = dict(atol=2e-2, rtol=0) if dtype != torch.float32 \
+        else dict(atol=1e-5, rtol=1e-5)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    seq, _ = ra.token_arrays(arrays[3], arrays[4], arrays[5],
+                             arrays[0].shape[0])
+    assert bool((out[torch.from_numpy(seq < 0).to(cuda)] == 0).all())
+
+
+SPEC_JOBS = [(5, 9), (20, 14), (47, 12), (3, 2), (30, 20), (11, 1),
+             (16, 17)]
+
+
+def _spec_jobs(seed=21):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 512, n), new) for n, new in SPEC_JOBS]
+
+
+def _spec_pair(dev, dtype):
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    target = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                              seed=21).to(dev, dtype)
+    draft = LlamaForCausalLM(LlamaConfig.tiny_draft(), device="cpu",
+                             seed=22).to(dev, dtype)
+    return target, draft
+
+
+def _spec_engine(model, draft=None, k=4, num_pages=None, **kw):
+    from paddle_tpu_torch.models.serving import (ContinuousBatchingEngine,
+                                                 SpecConfig)
+    if draft is not None:
+        kw["spec_decode"] = SpecConfig(draft, k=k, num_pages=num_pages)
+    return ContinuousBatchingEngine(model, max_batch_size=3, max_seq_len=128,
+                                    **kw)
+
+
+def _spec_serve(eng, jobs):
+    rids = [eng.add_request(p, max_new_tokens=n) for p, n in jobs]
+    out = eng.run()
+    eng.check_invariants()
+    assert len(eng._free) == eng.num_pages - 1
+    if eng.spec_enabled:
+        assert len(eng._d_free) == eng._d_num_pages - 1
+    return [out[r] for r in rids]
+
+
+def _first_divergences(model, jobs, want, got):
+    """For each request whose stream ``got`` leaves ``want``: (the index
+    of the first differing token, the top-2 gap of ``model``'s logits
+    there over the row's max |logit|), the logits of one causal forward
+    over the prompt and ``want``'s tokens before it."""
+    out = []
+    for (prompt, _), a, b in zip(jobs, want, got):
+        if a == b:
+            continue
+        d = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        ids = torch.tensor([list(prompt) + a[:d]], dtype=torch.int32,
+                           device=model.device)
+        with torch.no_grad():
+            row = model(ids)[0, -1].float()
+        top = torch.topk(row, 2).values
+        out.append((d, float((top[0] - top[1]) / row.abs().max())))
+    return out
+
+
+def _spec_launches(eng, model, draft):
+    """The launches a spec engine's run makes: every target dispatch
+    (admission, verify) runs each layer's attention once and every RMSNorm
+    once, and so does every draft forward (a backfill prefill is one, a
+    draft scan K + 1)."""
+    L, Ld = model.config.num_hidden_layers, draft.config.num_hidden_layers
+    nt = eng.num_admission_dispatches + eng.num_decode_dispatches
+    nd = eng.num_draft_prefills + (eng._spec_k + 1) * eng.num_draft_scans
+    attn = "ragged_paged_attention_int8kv" if eng._qkv \
+        else "ragged_paged_attention"
+    return {"rms_norm": (2 * L + 1) * nt + (2 * Ld + 1) * nd,
+            attn: L * nt + Ld * nd}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiny_spec_engine_on_card(cuda, dtype):
+    """The tiny spec engine (tiny() with tiny_draft(), k = 4) on the card:
+    graphed streams bitwise equal to the eager engine's with equal
+    launches, exact by `_spec_launches`; the draft scan one graph replay
+    a round; the streams equal the plain engine's (f32: exactly; bf16:
+    each first divergence at a near-tie, a top-2 gap below 0.01 of the
+    row's max |logit|, since the verify rows take other attention and
+    matmul row batches than decode rows); the target as its own draft
+    accepts every proposal."""
+    from paddle_tpu_torch.ops import reset_launch_counts
+    model, draft = _spec_pair(cuda, dtype)
+    jobs = _spec_jobs()
+    plain = _spec_serve(_spec_engine(model), jobs)
+    runs = {}
+    for graphs in (True, False):
+        eng = _spec_engine(model, draft, _graphs=graphs)
+        reset_launch_counts()
+        streams = _spec_serve(eng, jobs)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in launch_counts.items() if n}
+        assert counts == _spec_launches(eng, model, draft)
+        runs[graphs] = (streams, counts, eng.spec_info())
+        if graphs:
+            scan = eng._draft_scan_program
+            assert scan.graph is not None
+            assert scan.runs == eng.num_draft_scans
+            assert eng.num_spec_rounds >= eng.num_draft_scans > 0
+    assert runs[True] == runs[False]
+    streams = runs[True][0]
+    if dtype == torch.float32:
+        assert streams == plain
+    else:
+        assert all(gap < 0.01 for _, gap in
+                   _first_divergences(model, jobs, plain, streams))
+    if dtype == torch.float32:
+        own = _spec_engine(model, model)
+        assert _spec_serve(own, jobs) == plain
+        assert own.spec_info()["acceptance_rate"] == 1.0
+
+
+@pytest.mark.parametrize("mode", ["int8", "draft_pool", "preemption"])
+def test_tiny_spec_engine_modes_on_card(cuda, mode):
+    """f32 on the card: int8 weights and KV (the draft pools int8 too),
+    an undersized draft pool (slots ride rounds as plain rows) and a
+    forced preemption (the draft cache dropped and backfilled): spec
+    streams equal the plain engine's under the same options, graphed
+    equal to eager."""
+    from paddle_tpu_torch.models.serving import (PoolExhausted,
+                                                 QuantServingConfig)
+    model, draft = _spec_pair(cuda, torch.float32)
+    jobs = _spec_jobs(23)
+    kw = dict(quant=QuantServingConfig("int8", "int8")) \
+        if mode == "int8" else {}
+    plain = _spec_serve(_spec_engine(model, **kw), jobs)
+    for graphs in (True, False):
+        eng = _spec_engine(model, draft, _graphs=graphs,
+                           num_pages=3 if mode == "draft_pool" else None,
+                           **kw)
+        if mode == "preemption":
+            alloc, visits = eng._alloc_page, [0]
+
+            def faulty(slot):
+                visits[0] += 1
+                if visits[0] == 6:
+                    raise PoolExhausted("forced")
+                return alloc(slot)
+            eng._alloc_page = faulty
+        assert _spec_serve(eng, jobs) == plain
+        if mode == "preemption":
+            assert eng.num_preemptions >= 1
+        if mode == "int8":
+            assert eng._d_kv[0][0].dtype == torch.int8
+
+
+def _wrong_accept(monkeypatch):
+    """A planted fault: one more proposal accepted than matched, where a
+    row has one to accept."""
+    from paddle_tpu_torch.models import serving
+    right = serving.spec_accept_greedy
+
+    def wrong(greedy, props):
+        j, bonus = right(greedy, props)
+        return np.minimum(j + 1, (props >= 0).sum(1)).astype(np.int32), bonus
+    monkeypatch.setattr(serving, "spec_accept_greedy", wrong)
+
+
+def test_tiny_spec_checks_catch_planted_faults(cuda, monkeypatch):
+    """The checks above catch their planted faults on the card: a wrong
+    accepted count breaks the streams' equality with the plain engine's,
+    and a draft scan without its catch-up step breaks self-draft
+    acceptance 1.0."""
+    model, draft = _spec_pair(cuda, torch.float32)
+    # long streams: holes in the draft cache to attend
+    jobs = [(p, 40) for p, _ in _spec_jobs()[:5]]
+    plain = _spec_serve(_spec_engine(model), jobs)
+    own = _spec_engine(model, model)
+    own._build_draft_scan = lambda: type(own)._build_draft_scan(
+        own, catch_up=False)
+    assert _spec_serve(own, jobs) == plain
+    assert own.spec_info()["acceptance_rate"] < 1.0
+    _wrong_accept(monkeypatch)
+    assert _spec_serve(_spec_engine(model, draft), jobs) != plain
+
+
+def test_tiny_spec_round_makes_two_host_reads(cuda):
+    """Spec rounds under ``torch.cuda.set_sync_debug_mode("warn")`` with
+    `_harvest_sync` let through and counted: a round whose programs all
+    replay (no warm-up, no capture in it) reads from the card exactly
+    twice, the proposals and the verify picks, and nothing else
+    synchronizes (no warning)."""
+    import warnings
+    model, draft = _spec_pair(cuda, torch.float32)
+    eng = _spec_engine(model, draft)
+    for p, n in _spec_jobs()[:3]:
+        eng.add_request(p, max_new_tokens=40)
+    reads, read = [0], eng._harvest_sync
+
+    def counted(t):
+        reads[0] += 1
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return read(t)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+    checked = 0
+    for _ in range(30):
+        captures, rounds = eng.num_graph_captures, eng.num_spec_rounds
+        n_progs = len(eng._programs())
+        torch.cuda.synchronize()
+        eng._harvest_sync = counted
+        reads[0] = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                eng._harvest_sync = read
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        if eng.num_spec_rounds == rounds + 1 \
+                and eng.num_graph_captures == captures \
+                and n_progs == len(eng._programs()):
+            assert reads[0] == 2 and not syncs, (reads, syncs)
+            checked += 1
+    assert checked >= 3
+
+
+def test_tiny_sampling_engine_on_card(cuda):
+    """Sampling on the card: one seed gives one stream, graphed and eager
+    bitwise equal (the draw's key rides in the program's input), another
+    seed another; ``top_k=1`` equals the greedy engine; the legacy path
+    likewise; exact launches."""
+    from paddle_tpu_torch.ops import reset_launch_counts
+    model, _ = _spec_pair(cuda, torch.bfloat16)
+    jobs = _spec_jobs(25)
+    kw = dict(do_sample=True, temperature=0.8, top_p=0.9)
+    for impl in ("ragged", "legacy"):
+        runs = {}
+        for seed, graphs in ((0, True), (0, False), (0, True), (1, True)):
+            eng = _spec_engine(model, attention_impl=impl, seed=seed,
+                               _graphs=graphs, **kw)
+            reset_launch_counts()
+            runs.setdefault((seed, graphs), []).append(
+                (_spec_serve(eng, jobs), dict(launch_counts)))
+        a, b, c, d = runs[0, True][0], runs[0, False][0], \
+            runs[0, True][1], runs[1, True][0]
+        assert a == b == c and d[0] != a[0]
+        greedy = _spec_serve(_spec_engine(model, attention_impl=impl), jobs)
+        assert _spec_serve(_spec_engine(model, attention_impl=impl,
+                                        top_k=1, **kw), jobs) == greedy

@@ -32,7 +32,7 @@ from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.models.serving import (ContinuousBatchingEngine,
                                              EngineInvariantError,
                                              ModelMismatch,
-                                             QuantServingConfig)
+                                             QuantServingConfig, SpecConfig)
 from paddle_tpu_torch.ops.lora_epilogue import (LoraWeight,
                                                 lora_epilogue_ref,
                                                 lora_epilogue_values,
@@ -244,9 +244,8 @@ def test_unknown_adapter_refused_before_enqueue(models):
 
 
 def test_composition_refusals(models):
-    """prefill_chunk, prefix caching and the legacy path refuse adapters
-    as in JAX; spec decode cannot be built at all in the port, so no
-    engine can compose it with adapters."""
+    """prefill_chunk, prefix caching, the legacy path and spec decode
+    refuse adapters as in JAX."""
     _, tm, sd = models
     with pytest.raises(ValueError, match="prefill_chunk"):
         _port(tm, prefill_chunk=16).install_adapter("a1", _deltas(sd, 1))
@@ -256,8 +255,9 @@ def test_composition_refusals(models):
     with pytest.raises(ValueError, match="ragged"):
         _port(tm, attention_impl="legacy").install_adapter(
             "a1", _deltas(sd, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(tm, spec_decode=object())
+    with pytest.raises(ValueError, match="spec_decode"):
+        _port(tm, spec_decode=SpecConfig(tm, k=2)).install_adapter(
+            "a1", _deltas(sd, 1))
 
 
 @pytest.mark.parametrize("case", ["unknown", "non_matmul", "embedding",
