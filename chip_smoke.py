@@ -329,6 +329,28 @@ The decode case of 3 also tries `varlen_attn` over the pages
 (``block_table=``, ``seqused_k=``) as the paged attention's one-call
 library (``paged_library``: its time, or its refusal in its own words).
 
+Telemetry, fault points and attribution add, after the spec and
+sampling phases, on the same 8B model:
+
+5t. ``serve_8b_telemetry``: the 16 requests of 5 graphed at k = 1 with
+    telemetry off and on in turns (off, on, on, off), every run's
+    streams bitwise equal to 5's and its launches exact by 5's formula,
+    each run's decode step ms, host us a step and TTFT p50; the
+    decode-round decomposition's components (`observability.profile`)
+    summed against the steps' measured wall; a graphed window of 4
+    decode dispatches under ``set_sync_debug_mode("error")`` with
+    telemetry on; `profile_round()` on a graphed engine mid-run (the top
+    gap pairs, the launches of its two eager passes counted, the streams
+    afterwards bitwise equal to 5's); the drills at full width:
+    ``serving.prefill`` at its 3rd visit fails exactly one request and
+    the other 15 streams equal 5's, ``serving.decode`` once is retried
+    with equal streams, ``decode_retries`` 1, no recapture and exact
+    launches, ``serving.decode`` always raises after
+    ``max_decode_retries`` + 1 faults, and the 1B-draft spec engine with
+    ``speculative.verify`` always armed degrades every round and fails
+    no request (streams equal 5's); the Prometheus text parsed back by
+    ``parse_prometheus`` (``telemetry {...}``).
+
 It prints a ``{"kernels": [...]}`` line (eighteen kernels, each with
 its launches on its own main-path run, and device_ms / host_us where the
 phase measured them), the card line, and last ``{"ok": true, "device":
@@ -1582,10 +1604,12 @@ def serve_8b():
     return model, counts, reqs, streams, stats
 
 
-def check_serving_counts(eng, counts, L):
+def check_serving_counts(eng, counts, L, extra=0):
     """A full-width bf16 serving run's launches: every dispatch runs each
-    layer's attention once and every RMSNorm once, and nothing else."""
-    nd = eng.num_dispatches
+    layer's attention once and every RMSNorm once, and nothing else;
+    ``extra`` eager decode passes (`profile_round`'s) each count as one
+    more dispatch."""
+    nd = eng.num_dispatches + extra
     want = {"ragged_paged_attention": L * nd, "rms_norm": (2 * L + 1) * nd,
             "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
             "lora_epilogue": 0, "paged_attention": 0, **NO_TRAINING}
@@ -3208,6 +3232,221 @@ def serve_8b_sample(model, reqs, want_streams, gaps):
         raise AssertionError("serving_sample: a seeded stream is not "
                              "reproduced, or top_k=1 leaves greedy off an "
                              "exact tie")
+
+
+def telemetry_run(model, reqs, on, **kw):
+    """`serve_run` at k = 1, graphed, with telemetry ``on`` or off (the
+    registry and the trace ring emptied first) and each step timed on
+    the host: (engine, streams, counts, stats, the steps' summed wall)."""
+    import torch
+    import paddle_tpu_torch.observability as telemetry
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    telemetry.reset()
+    telemetry.clear_events()
+    if on:
+        telemetry.enable()
+    else:
+        telemetry.disable()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
+                                   **kw)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for p, new in reqs:
+        eng.add_request(p, max_new_tokens=new)
+    done, steps = [], 0.0
+    while len(done) < len(reqs):
+        s0 = time.perf_counter()
+        done += eng.step()
+        steps += time.perf_counter() - s0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    by_rid = {r.rid: r for r in done}
+    streams = [by_rid[rid].output for rid in range(len(reqs))]
+    return eng, streams, counts, serving_stats(eng, done, wall), steps
+
+
+def telemetry_drill(model, reqs, arms, **kw):
+    """The 16 requests on a graphed 8B engine (``kw``: engine options)
+    with ``arms`` ({site: FaultInjector.arm options}) armed, telemetry
+    on: (engine, requests by id, counts), or the exception it raised
+    in place of the requests."""
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.utils.faults import FaultInjector
+    eng = ContinuousBatchingEngine(model, max_batch_size=8, max_seq_len=2048,
+                                   **kw)
+    reset_launch_counts()
+    for p, new in reqs:
+        eng.add_request(p, max_new_tokens=new)
+    done = []
+    with FaultInjector(seed=0) as fi:
+        for site, opts in arms.items():
+            fi.arm(site, **opts)
+        try:
+            while eng._queue or any(r is not None for r in eng._slot_req):
+                done += eng.step()
+        except Exception as e:              # noqa: BLE001 - returned
+            return eng, e, dict(launch_counts)
+    return eng, {r.rid: r for r in done}, dict(launch_counts)
+
+
+def serve_8b_telemetry(model, reqs, want_streams, draft):
+    """Telemetry, fault points and attribution at 8B (phase 5t of the
+    module docstring). Any failed check raises."""
+    import torch
+    import paddle_tpu_torch.observability as telemetry
+    from paddle_tpu_torch.models.serving import (ContinuousBatchingEngine,
+                                                 SpecConfig)
+    from paddle_tpu_torch.observability import profile
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    L = model.config.num_hidden_layers
+    rec = {"turns": {"off": [], "on": []}}
+    try:
+        for on in (False, True, True, False):
+            eng, streams, counts, st, steps = telemetry_run(model, reqs, on)
+            side = "on" if on else "off"
+            if streams != want_streams:
+                raise AssertionError(f"telemetry {side}: streams differ "
+                                     "from serve_8b's")
+            check_serving_counts(eng, counts, L)
+            run = {f: st[f] for f in ("decode_step_ms", "host_us_per_step",
+                                      "ttft_p50_s", "decode_tokens_per_s",
+                                      "graph_captures", "wall_s")}
+            if on:
+                snap = telemetry.snapshot()
+                rounds = profile.round_summary(snap)
+                total = sum(r["total_s"] for r in rounds.values())
+                run.update(steps_wall_s=steps, components_s={
+                    c: r["total_s"] for c, r in rounds.items()},
+                    components_share_of_wall=total / steps,
+                    components_median_ms={c: 1e3 * r["median_s"]
+                                          for c, r in rounds.items()},
+                    compiles=profile.compile_summary(snap),
+                    graph_capture_s=eng.graph_capture_seconds,
+                    spans=len(telemetry.events()))
+                if not 0.9 <= total / steps <= 1.0:
+                    raise AssertionError(
+                        f"the decomposition sums to {total:.4f}s of the "
+                        f"steps' {steps:.4f}s")
+                prom = telemetry.to_prometheus()
+                parsed = telemetry.parse_prometheus(prom)
+                if parsed != {k: v for k, v in snap.items()
+                              if k != "enabled"}:
+                    raise AssertionError("the Prometheus text does not "
+                                         "parse back to the snapshot")
+                run["prometheus_lines"] = prom.count("\n")
+            rec["turns"][side].append(run)
+            del eng
+        telemetry.enable()
+        sync_free_window(model, graphs=True)
+        # profile_round on a graphed engine, 3 steps in (admission, the
+        # decode program's warm-up and its capture), then on to the end
+        telemetry.reset()
+        eng = ContinuousBatchingEngine(model, max_batch_size=8,
+                                       max_seq_len=2048)
+        reset_launch_counts()
+        for p, new in reqs:
+            eng.add_request(p, max_new_tokens=new)
+        done = []
+        for _ in range(3):
+            done += eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = eng.profile_round()
+        pr_s = time.perf_counter() - t0
+        while len(done) < len(reqs):
+            done += eng.step()
+        by_rid = {r.rid: r for r in done}
+        streams = [by_rid[i].output for i in range(len(reqs))]
+        if streams != want_streams:
+            raise AssertionError("profile_round: later streams differ "
+                                 "from serve_8b's")
+        check_serving_counts(eng, dict(launch_counts), L, extra=2)
+        pairs = {r["op_pair"] for r in rows}
+        want_pairs = {"embed->rmsnorm", "rmsnorm->qkv", "qkv->rope",
+                      "rope->kv_scatter", "kv_scatter->attention",
+                      "attention->oproj", "oproj->mlp", "mlp->rmsnorm"}
+        if pairs != want_pairs:
+            raise AssertionError(f"profile_round pairs {sorted(pairs)}")
+        rec["profile_round"] = dict(
+            seconds=pr_s, captures=eng.num_graph_captures,
+            gap_ms_sum=1e3 * sum(r["gap_s"] for r in rows),
+            device_ms_sum=1e3 * sum(r["device_s"] for r in rows),
+            top=[{"op_pair": r["op_pair"], "gap_ms": 1e3 * r["gap_s"],
+                  "device_ms": 1e3 * r["device_s"], "count": r["count"]}
+                 for r in rows])
+        log("profile_round " + json.dumps(rec["profile_round"]))
+        del eng
+        # the drills
+        eng, got, counts = telemetry_drill(
+            model, reqs, {"serving.prefill": dict(nth=3)})
+        failed = [i for i, r in got.items() if r.status == "failed"]
+        others = [i for i in range(len(reqs)) if i not in failed]
+        same = sum(got[i].output == want_streams[i] for i in others)
+        rec["drill_prefill"] = dict(failed=failed, error=got[2].error,
+                                    others_equal=same,
+                                    lifecycle=eng.lifecycle_info())
+        check_serving_counts(eng, counts, L)
+        if failed != [2] or same != len(others):
+            raise AssertionError(f"prefill drill: failed {failed}, "
+                                 f"{same} of {len(others)} streams equal")
+        del eng
+        eng, got, counts = telemetry_drill(
+            model, reqs, {"serving.decode": dict(nth=5)})
+        streams = [got[i].output for i in range(len(reqs))]
+        rec["drill_decode_once"] = dict(
+            streams_equal=sum(a == b for a, b in zip(streams, want_streams)),
+            lifecycle=eng.lifecycle_info(), captures=eng.num_graph_captures,
+            retries_counted=telemetry.value(
+                "pdt_serving_decode_retries_total"))
+        check_serving_counts(eng, counts, L)
+        if streams != want_streams \
+                or eng.lifecycle_info()["decode_retries"] != 1 \
+                or eng.num_graph_captures \
+                != rec["turns"]["on"][0]["graph_captures"]:
+            raise AssertionError("decode drill: a retried step changed "
+                                 "the streams, was not counted or "
+                                 "recaptured a program")
+        del eng
+        eng, got, _ = telemetry_drill(model, reqs,
+                                      {"serving.decode": dict(always=True)},
+                                      max_decode_retries=2)
+        rec["drill_decode_always"] = dict(
+            raised=f"{type(got).__name__}: {got}",
+            site=getattr(got, "site", None), lifecycle=eng.lifecycle_info())
+        if getattr(got, "site", None) != "serving.decode" \
+                or eng.num_decode_retries != 3:
+            raise AssertionError("decode drill: an always-armed decode did "
+                                 "not raise after max_decode_retries + 1")
+        del eng
+        eng, got, _ = telemetry_drill(
+            model, reqs, {"speculative.verify": dict(always=True)},
+            spec_decode=SpecConfig(draft, k=SPEC_K))
+        streams = [got[i].output for i in range(len(reqs))]
+        info = eng.spec_info()
+        rec["drill_spec_verify"] = dict(
+            spec=info, statuses=sorted({r.status for r in got.values()}),
+            streams_equal=sum(a == b for a, b in zip(streams, want_streams)),
+            degraded_counted=telemetry.value("pdt_spec_degraded_total",
+                                             site="verify"))
+        if info["degraded"] < 1 or info["rounds"] != 0 \
+                or rec["drill_spec_verify"]["statuses"] != ["finished"] \
+                or streams != want_streams:
+            raise AssertionError("spec drill: a degraded round failed a "
+                                 "request or changed a stream")
+        del eng
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+        telemetry.clear_events()
+    for side in ("off", "on"):
+        log(f"telemetry_{side} " + json.dumps(rec["turns"][side]))
+    log("telemetry " + json.dumps(rec))
 
 
 def path_check(model, reqs, weights=None, lora_engine=None):
@@ -6052,9 +6291,13 @@ def main():
     spec_attn_phase(results)
     draft, gaps = serve_8b_spec(model, reqs, streams)
     generate_8b_spec(model, draft)
-    del draft
     serve_8b_sample(model, reqs, streams, gaps)
     log(f"spec and sampling phases {time.perf_counter() - t0:.1f}s")
+    # telemetry, fault points and the decode-round attribution
+    t0 = time.perf_counter()
+    serve_8b_telemetry(model, reqs, streams, draft)
+    del draft
+    log(f"telemetry phase {time.perf_counter() - t0:.1f}s")
     # each kernel's launches on its own main path: the full-width run
     # for RMSNorm and full-width attention, the int8 run for int8-KV
     # attention and the dequant matmul, the LoRA run for the epilogue,

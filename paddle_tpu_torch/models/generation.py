@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from ..observability import span as telemetry_span
+
 NEG_INF = -1e30
 
 
@@ -32,10 +34,8 @@ class RequestStatus:
     admission queue, RUNNING while it owns a slot, and ends in exactly
     one terminal state: FINISHED (eos / max_new_tokens / cache end),
     TIMEOUT (its deadline or queue-time budget passed), or PREEMPTED
-    (evicted for pool pressure more than `max_preemptions` times).
-    FAILED belongs to the engine's failure isolation, which this port
-    does not have yet (ROADMAP.md queue A, item 4); it is kept so that
-    the states read as the JAX package's do."""
+    (evicted for pool pressure more than `max_preemptions` times) or
+    FAILED (its admission raised: the engine's failure isolation)."""
 
     QUEUED = "queued"
     RUNNING = "running"
@@ -261,14 +261,24 @@ class GenerationMixin:
                 int(torch.randint(0, 2 ** 62, ()).item()))
         procs = dict(rp=float(repetition_penalty), min_new=int(min_new_tokens),
                      eos=eos_token_id, ngram=int(no_repeat_ngram_size))
-        logits0, caches = self._zero_caches_prefill(ids, cache_len)
-        if decode_strategy == "beam_search":
-            return self._beam_generate(ids, logits0, caches, n_new,
-                                       int(num_beams), float(length_penalty),
-                                       **procs)
-        return self._generate(ids, logits0, caches, n_new, decode_strategy,
-                              generator, float(temperature), int(top_k),
-                              float(top_p), **procs)
+        attrs = dict(strategy=decode_strategy, batch=b,
+                     prompt_len=prompt_len, n_new=n_new)
+        # ≙ :208-226: the JAX package builds a program per signature
+        # under ``generate.build`` and runs it under ``generate.dispatch``;
+        # the eager loop builds no program, so its ``generate.build`` is
+        # the call's set-up (the zeroed caches), on every call
+        with telemetry_span("generate.build", **attrs):
+            caches = self._zero_caches(ids, cache_len)
+        with telemetry_span("generate.dispatch", **attrs):
+            logits0 = self._prefill(ids, caches)
+            if decode_strategy == "beam_search":
+                return self._beam_generate(ids, logits0, caches, n_new,
+                                           int(num_beams),
+                                           float(length_penalty), **procs)
+            return self._generate(ids, logits0, caches, n_new,
+                                  decode_strategy, generator,
+                                  float(temperature), int(top_k),
+                                  float(top_p), **procs)
 
     def _zero_caches_prefill(self, ids, cache_len):
         """≙ `_zero_caches_prefill`: zeroed static caches (B, cache_len,
@@ -276,15 +286,21 @@ class GenerationMixin:
         over the prompt into them (no mask: the flash attention kernel
         on the card). Returns (the last prompt row's logits (B, V), the
         caches). Only that row goes through the vocab matmul."""
+        caches = self._zero_caches(ids, cache_len)
+        return self._prefill(ids, caches), caches
+
+    def _zero_caches(self, ids, cache_len):
         cfg = self.config
-        b = ids.shape[0]
         dt = next(self.parameters()).dtype
-        shape = (b, cache_len, cfg.num_key_value_heads, cfg.head_dim)
-        caches = [(torch.zeros(shape, dtype=dt, device=ids.device),
-                   torch.zeros(shape, dtype=dt, device=ids.device))
-                  for _ in range(cfg.num_hidden_layers)]
+        shape = (ids.shape[0], cache_len, cfg.num_key_value_heads,
+                 cfg.head_dim)
+        return [(torch.zeros(shape, dtype=dt, device=ids.device),
+                 torch.zeros(shape, dtype=dt, device=ids.device))
+                for _ in range(cfg.num_hidden_layers)]
+
+    def _prefill(self, ids, caches):
         hidden = self.model(ids, caches, position_offset=0)
-        return self.logits(hidden[:, -1]), caches
+        return self.logits(hidden[:, -1])
 
     def _step_logits(self, tok, caches, pos: int):
         """One cached forward of (R,) tokens at position ``pos``: the

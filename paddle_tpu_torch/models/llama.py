@@ -47,6 +47,12 @@ a full-width engine side by side (the JAX engine gets the same from
 binding values per dispatch, `bind_state`). An explicit argument was
 chosen over a scoped binding because it leaves no state on the modules
 between calls and reads plainly at each call site.
+
+The forward carries the JAX model's `observability.profile.fence` hooks
+at its op-family boundaries (embed, rmsnorm, qkv, rope, kv_scatter,
+attention, oproj, mlp; ≙ :496-626): one global check each, until
+`ContinuousBatchingEngine.profile_round` arms the gap sampler around an
+eager pass.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ import torch
 
 from ..nn import functional as F
 from ..nn.layers import RMSNorm
+from ..observability import profile as _pf
 from ..ops import resolve_device
 from ..ops.flash_attention import flash_attention_values
 from ..ops.lora_epilogue import LoraWeight
@@ -470,11 +477,16 @@ class LlamaAttention(torch.nn.Module):
             t, self.num_kv_heads, self.head_dim)
         v = _proj(self, "v_proj", x, weights, use_kernel).reshape(
             t, self.num_kv_heads, self.head_dim)
+        # profile.fence: op-family boundaries for the dispatch-gap
+        # sampler (engine.profile_round), ≙ :496-555; one global check
+        # and the identity unless a sampler is armed around an eager pass
+        q, k, v = _pf.fence("qkv", (q, k, v))
         pos = view.positions.long()
         cv = cos[pos].float()[:, None, :]
         sv = sin[pos].float()[:, None, :]
         q = rope_rotate_values(q, cv, sv)
         k = rope_rotate_values(k, cv, sv)
+        q, k = _pf.fence("rope", (q, k))
         if view.k_scale is not None:
             ragged_scatter_quantized(view.k_pages, view.v_pages,
                                      view.k_scale, view.v_scale, k, v,
@@ -484,14 +496,16 @@ class LlamaAttention(torch.nn.Module):
             ragged_scatter_values(view.k_pages, view.v_pages, k, v,
                                   view.block_tables, view.token_seq,
                                   view.positions)
+        _pf.fence("kv_scatter", (view.k_pages, view.v_pages))
         out = ragged_paged_attention_values(
             q, view.k_pages, view.v_pages, view.query_start,
             view.query_len, view.context_lens, view.block_tables,
             window=self.sliding_window, block_q=view.block_q,
             use_kernel=use_kernel, pages_bound=view.pages_bound,
             k_scale=view.k_scale, v_scale=view.v_scale)
-        return _proj(self, "o_proj", out.reshape(1, t, -1), weights,
-                     use_kernel)
+        out = _pf.fence("attention", out)
+        return _pf.fence("oproj", _proj(self, "o_proj", out.reshape(1, t, -1),
+                                        weights, use_kernel))
 
 
 class LlamaMLP(torch.nn.Module):
@@ -529,12 +543,13 @@ class LlamaDecoderLayer(torch.nn.Module):
                      self.input_layernorm.weight)
         ln2 = _bound(weights, f"{self.prefix}post_attention_layernorm.weight",
                      self.post_attention_layernorm.weight)
-        x = x + self.self_attn(self.input_layernorm(x, use_kernel, ln1),
-                               cos, sin, past_key_value, use_kernel,
-                               weights, attention_mask, position_offset)
-        return x + self.mlp(self.post_attention_layernorm(x, use_kernel,
-                                                          ln2),
-                            use_kernel, weights)
+        x = x + self.self_attn(
+            _pf.fence("rmsnorm", self.input_layernorm(x, use_kernel, ln1)),
+            cos, sin, past_key_value, use_kernel, weights, attention_mask,
+            position_offset)
+        return _pf.fence("mlp", x + self.mlp(
+            self.post_attention_layernorm(x, use_kernel, ln2), use_kernel,
+            weights))
 
 
 class LlamaModel(torch.nn.Module):
@@ -567,7 +582,8 @@ class LlamaModel(torch.nn.Module):
         layer (training); the JAX ``recompute`` branch is not ported."""
         emb = _bound(weights, "model.embed_tokens.weight",
                      self.embed_tokens.weight)
-        x = torch.nn.functional.embedding(input_ids.long(), emb)
+        x = _pf.fence("embed", torch.nn.functional.embedding(
+            input_ids.long(), emb))
         if past_key_values is None:
             past_key_values = [None] * len(self.layers)
         for layer, kv in zip(self.layers, past_key_values, strict=True):

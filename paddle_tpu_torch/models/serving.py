@@ -40,7 +40,17 @@ call of every program). Speculative decoding on the ragged path (≙
 ``select_rows=`` :2871-2930 and the spec round :3776-4161 without its
 fault sites: `_spec_decode`, `_spec_draft`, `_d_grow` / `_d_release`,
 `_spec_backfill`, `_dispatch_draft_prefill`, `_spec_scan`,
-`_build_draft_scan`, `_spec_verify`, `spec_info`).
+`_build_draft_scan`, `_spec_verify`, `spec_info`). Fault points,
+failure isolation and telemetry (≙ the ``_M_*`` instruments :196-320,
+`_admission_failed` :2453, the decode retry of `step` :1433-1455, the
+``serving.*`` and ``speculative.*`` fault sites, `_spec_degrade` :3841,
+`profile_round` :3730 and the spans, events and `note_round` calls of
+every path): a prefill that raises before its admission launches
+anything fails its request alone; a decode step that faults before its
+dispatch is retried up to ``max_decode_retries``; a spec round whose
+draft or verify site faults decodes plainly; every ``pdt_*`` series of
+the JAX engine is kept under the same names and labels, the program
+cache metered by the JAX engine's family names.
 
 With ``attention_impl="ragged"`` (the default) each admission batch and
 each decode step is ONE ragged dispatch: the packed token axis runs
@@ -109,6 +119,7 @@ naming the ROADMAP.md item that will port it.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import warnings
@@ -119,6 +130,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import observability as telemetry
+from ..observability import profile as _profile
 from ..ops import launch_counts, resolve_device
 from ..ops.lora_epilogue import LoraWeight
 from ..ops.paged_attention import paged_prefill_scatter
@@ -127,6 +140,136 @@ from ..ops.ragged_paged_attention import pack_ragged_batch, stream_tickets
 from .generation import RequestStatus, _sample_token, sample_tokens
 from .llama import PagedKVCacheView, RaggedKVCacheView
 from .speculative import spec_accept_greedy
+from ..utils.faults import FaultError, fault_point
+
+
+# -- telemetry (≙ :196-320: names, help, labels and buckets unchanged) --
+# Instruments are process-global (all engines in a process aggregate)
+# and created unconditionally — recording is a no-op unless telemetry
+# is enabled (PDT_TELEMETRY=1 / telemetry.enable()).
+_M_QUEUE_DEPTH = telemetry.gauge(
+    "pdt_serving_queue_depth", "Requests waiting for a slot.")
+_M_RUNNING = telemetry.gauge(
+    "pdt_serving_running_slots", "Slots with an in-flight request.")
+_M_ADMISSIONS = telemetry.counter(
+    "pdt_serving_admissions_total",
+    "Requests admitted into a slot (prefill dispatched successfully).")
+_M_REJECTIONS = telemetry.counter(
+    "pdt_serving_rejections_total",
+    "add_request refusals by reason.", ("reason",))
+_M_TERMINAL = telemetry.counter(
+    "pdt_serving_requests_terminal_total",
+    "Requests reaching a terminal state, by final status.", ("status",))
+_M_TTFT = telemetry.histogram(
+    "pdt_serving_ttft_seconds",
+    "Time to first token: enqueue to first prefill token, engine clock.")
+_M_TPOT = telemetry.histogram(
+    "pdt_serving_tpot_seconds",
+    "Time per output token after the first, finished requests.",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5))
+_M_DECODE_STEP = telemetry.histogram(
+    "pdt_serving_decode_step_seconds",
+    "Wall time of one batched decode dispatch incl. its D2H sync "
+    "(the synchronous harvest_every=1 path).")
+# pipelined decode (harvest_every=k): dispatch wall and harvest/D2H
+# wall are SEPARATE histograms — the single step histogram conflates
+# exactly the two costs the overlap window trades off
+_M_DECODE_DISPATCH = telemetry.histogram(
+    "pdt_serving_decode_dispatch_seconds",
+    "Wall time of one batched decode dispatch WITHOUT its D2H sync "
+    "(the device-feedback half of the pipelined hot loop).")
+_M_HARVEST = telemetry.histogram(
+    "pdt_serving_harvest_seconds",
+    "Wall time of one batched harvest: the D2H sync over a whole "
+    "deferred window (harvest_every dispatches) plus token commits.")
+_M_DECODE_TOKENS = telemetry.counter(
+    "pdt_serving_decode_tokens_total",
+    "Tokens emitted by decode steps (excludes prefill first tokens).")
+_M_TOKENS_PER_SEC = telemetry.gauge(
+    "pdt_serving_tokens_per_sec",
+    "Decode throughput of the most recent step (active slots / wall).")
+_M_PREEMPTIONS = telemetry.counter(
+    "pdt_serving_preemptions_total",
+    "Preemption events (requeues and starvation finalizations).")
+_M_DECODE_RETRIES = telemetry.counter(
+    "pdt_serving_decode_retries_total",
+    "Transient decode-dispatch faults retried.")
+_M_PAGES_IN_USE = telemetry.gauge(
+    "pdt_serving_pages_in_use", "Allocated KV pages (paged layout).")
+_M_PAGE_OCCUPANCY = telemetry.gauge(
+    "pdt_serving_page_occupancy",
+    "Fraction of usable KV pages allocated (paged layout).")
+_M_INVARIANT_SECONDS = telemetry.histogram(
+    "pdt_serving_invariant_check_seconds",
+    "Duration of check_invariants() page-accounting sweeps.")
+# -- speculative decoding (spec_decode=SpecConfig(...)) ---------------
+_M_SPEC_ROUNDS = telemetry.counter(
+    "pdt_spec_rounds_total",
+    "Completed speculative decode rounds (draft + verify + commit).")
+_M_SPEC_PROPOSED = telemetry.counter(
+    "pdt_spec_proposed_total",
+    "Draft tokens submitted to a verify pass.")
+_M_SPEC_ACCEPTED = telemetry.counter(
+    "pdt_spec_accepted_total",
+    "Draft tokens the target's greedy verify accepted.")
+_M_SPEC_ACCEPT_RATE = telemetry.gauge(
+    "pdt_spec_acceptance_rate",
+    "Running accepted/proposed fraction across all spec rounds.")
+_M_SPEC_DEGRADED = telemetry.counter(
+    "pdt_spec_degraded_total",
+    "Spec rounds degraded to plain decode, by failing site.", ("site",))
+_M_SPEC_DRAFT_SECONDS = telemetry.histogram(
+    "pdt_spec_draft_seconds",
+    "Wall time of one round's draft pass (backfill prefills + the "
+    "k-step draft scan), incl. the D2H sync.")
+_M_SPEC_VERIFY_SECONDS = telemetry.histogram(
+    "pdt_spec_verify_seconds",
+    "Wall time of one batched verify dispatch incl. the D2H sync.")
+# -- quantized serving (quant=QuantServingConfig(...)) -----------------
+_M_QUANT_WEIGHT_LAYERS = telemetry.gauge(
+    "pdt_quant_weight_layers",
+    "Matmul weights held quantized (int8/fp8 + per-channel scale) by "
+    "the most recently built quantized engine.")
+_M_QUANT_WEIGHT_BYTES = telemetry.gauge(
+    "pdt_quant_weight_bytes",
+    "Bytes of the most recently built engine's quantized weights, "
+    "storage plus scales (the HBM the full-width copies would have "
+    "multiplied).")
+_M_QUANT_PAGE_BYTES = telemetry.gauge(
+    "pdt_quant_page_bytes",
+    "Bytes of ONE quantized KV page across layers, int8 storage plus "
+    "per-page-row scales (cache_memory_info page_bytes of the most "
+    "recently built quantized engine).")
+_M_QUANT_MISMATCH = telemetry.counter(
+    "pdt_quant_mode_mismatch_total",
+    "Cross-quant-mode installs refused with QuantMismatch, by entry "
+    "path (import = migration payload, prefix = spill-chain restore).",
+    ("kind",))
+# -- multi-model serving (serving/model_store.py) ----------------------
+_M_MODEL_MISMATCH = telemetry.counter(
+    "pdt_model_mismatch_total",
+    "Cross-model installs refused with ModelMismatch, by entry path "
+    "(import = migration payload, adapter = unknown/non-resident "
+    "adapter id at add_request or import).", ("kind",))
+_M_LORA_RESIDENT = telemetry.gauge(
+    "pdt_lora_adapters_resident",
+    "LoRA adapter rows resident in the most recently mutated engine's "
+    "stacked A/B tensors (row 0 — the all-zeros no-adapter row — "
+    "excluded).")
+_M_LORA_BYTES = telemetry.gauge(
+    "pdt_lora_adapter_bytes",
+    "Bytes held by the resident LoRA adapter stacks (A + B + per-row "
+    "scales) across all adapted matmuls of the most recently mutated "
+    "engine.")
+_M_LORA_INSTALLS = telemetry.counter(
+    "pdt_lora_installs_total",
+    "Adapter rows installed into an engine's stacks (install_adapter "
+    "commits).")
+_M_LORA_EVICTIONS = telemetry.counter(
+    "pdt_lora_evictions_total",
+    "Adapter rows evicted from an engine's stacks (evict_adapter "
+    "commits; refusals for in-flight use do not count).")
 
 
 class EngineOverloaded(RuntimeError):
@@ -179,7 +322,6 @@ class Request:
 # constructor options of the JAX engine that this port does not have
 # yet: (argument, the value that means "off", ROADMAP.md queue A item)
 _UNPORTED_OPTIONS = (
-    ("max_decode_retries", 3, "4 (fault points and telemetry)"),
     ("submesh", None, "9 (tensor parallelism)"),
 )
 
@@ -285,7 +427,9 @@ class _Program:
     recorded) to `ops.launch_counts`. ``held`` keeps alive the buffers
     the graph reads by address that nothing else owns. On the CPU the
     body runs eagerly every time, on the same buffers, and its result is
-    copied into ``out``."""
+    copied into ``out``. ``family`` and ``key`` are the JAX engine's
+    names for its program family and its key, the labels under which
+    its first run (and on the card its capture) is metered."""
 
     def __init__(self, flat: torch.Tensor, body: Callable[[], torch.Tensor],
                  caches=None):
@@ -297,6 +441,9 @@ class _Program:
         self.runs = 0
         self.launches: Dict[str, int] = {}
         self.held: tuple = ()
+        # the program-cache family and key, the labels of its metering
+        self.family = "misc"
+        self.key = None
 
 
 class ContinuousBatchingEngine:
@@ -432,13 +579,15 @@ class ContinuousBatchingEngine:
         self._qkv = quant.kv if quant is not None else None
         self._kv_shape = (cfg.num_hidden_layers, hk, hd, dt)
         # the quantized weights handed to every dispatch, and their count
-        # and bytes (the JAX engine's ``pdt_quant_weight_*`` gauges;
-        # telemetry is not ported yet)
+        # and bytes (the ``pdt_quant_weight_*`` gauges)
         self._qweights = self._build_quant_weights() if self._qw_mode \
             else None
         qws = (self._qweights or {}).values()
         self.quant_weight_layers = len(qws)
         self.quant_weight_bytes = sum(w.nbytes for w in qws)
+        if self._qw_mode:
+            _M_QUANT_WEIGHT_LAYERS.set(self.quant_weight_layers)
+            _M_QUANT_WEIGHT_BYTES.set(self.quant_weight_bytes)
         if kv_layout == "dense":
             # ≙ :641-660: per-slot contiguous (B, S, HK, D) caches, no
             # pages, so neither the prefix cache nor chunked prefill
@@ -461,6 +610,9 @@ class ContinuousBatchingEngine:
         else:
             self._init_pages(page_size, num_pages, enable_prefix_caching,
                              max_prefix_entries, prefill_chunk)
+            if self._qkv:
+                _M_QUANT_PAGE_BYTES.set(
+                    self.cache_memory_info()["page_bytes"])
         # sampling (≙ :624-628): the (seed, counter) key of the next
         # sampling dispatch (`_next_key`)
         self.strategy = "sampling" if do_sample else "greedy_search"
@@ -482,10 +634,18 @@ class ContinuousBatchingEngine:
         self.request_timeout = request_timeout
         self.max_queue_time = max_queue_time
         self.max_preemptions = int(max_preemptions)
+        self.max_decode_retries = int(max_decode_retries)
         self.admission_policy = admission_policy
         self._clock = clock if clock is not None else time.monotonic
         self.num_timeouts = 0
+        self.num_failures = 0
         self.num_preemptions = 0
+        self.num_decode_retries = 0
+        self._consec_decode_faults = 0
+        # program runs begun (the warm-ups, captures and replays, and the
+        # eager bodies): a failed legacy admission is isolated only while
+        # it has launched nothing (`_admit_legacy`)
+        self._program_runs = 0
         self._finished_backlog: List[Request] = []
         self._admit_seq = 0
         self._slot_seq = np.zeros(self.B, np.int64)
@@ -511,8 +671,8 @@ class ContinuousBatchingEngine:
         self._adapter_rows: Dict[str, int] = {}
         self._lora_free_rows: List[int] = []
         self._slot_adapter = np.zeros(self.B, np.int32)
-        # the JAX engine's ``pdt_lora_*`` counters (telemetry is not
-        # ported yet; the two gauges are the properties below)
+        # the ``pdt_lora_installs_total`` / ``_evictions_total`` counts of
+        # this engine (the two gauges are the properties below)
         self.lora_installs = 0
         self.lora_evictions = 0
         # dispatch accounting: every dispatch runs each layer's attention
@@ -624,8 +784,8 @@ class ContinuousBatchingEngine:
         self.num_spec_rounds = 0
         self.num_spec_proposed = 0
         self.num_spec_accepted = 0
-        # spec rounds degraded to plain decode: only a fault site does
-        # that (ROADMAP.md queue A, item 4), so it stays 0
+        # spec rounds degraded to plain decode by a fault at a
+        # ``speculative.*`` site (`_spec_degrade`)
         self.num_spec_degraded = 0
         # the draft's dispatches (backfill prefills, scans) and the host
         # walls of a round's halves, the reads included (the JAX
@@ -714,6 +874,7 @@ class ContinuousBatchingEngine:
         if not toks:
             raise ValueError("empty prompt")
         if adapter is not None and adapter not in self._adapter_rows:
+            _M_MODEL_MISMATCH.inc(kind="adapter")
             raise ModelMismatch(
                 f"adapter {adapter!r} is not resident in this engine "
                 f"(resident: {sorted(self._adapter_rows)}) — "
@@ -728,6 +889,7 @@ class ContinuousBatchingEngine:
                 f"{self.S} (need at least one decode position)")
         if self.max_waiting is not None \
                 and len(self._queue) >= self.max_waiting:
+            _M_REJECTIONS.inc(reason="queue_full")
             raise EngineOverloaded(
                 f"admission queue full ({self.max_waiting} waiting) — "
                 "shed load or retry after in-flight requests drain")
@@ -750,6 +912,7 @@ class ContinuousBatchingEngine:
                 f"{self.num_pages - 1} usable pages; raise num_pages")
         if self.admission_policy is not None \
                 and not self.admission_policy(self, r):
+            _M_REJECTIONS.inc(reason="policy")
             raise EngineOverloaded(
                 f"admission policy rejected request (prompt {len(toks)} "
                 f"tokens, max_new_tokens {max_new_tokens})")
@@ -758,6 +921,7 @@ class ContinuousBatchingEngine:
         while idx > 0 and self._queue[idx - 1].priority > r.priority:
             idx -= 1
         self._queue.insert(idx, r)
+        _M_QUEUE_DEPTH.set(len(self._queue))
         return r.rid
 
     def run(self) -> Dict[int, List[int]]:
@@ -775,41 +939,86 @@ class ContinuousBatchingEngine:
         admission batch; legacy: one prefill dispatch per request),
         decode ONE token for every active slot (one dispatch), release
         finished slots. Returns the requests that reached a terminal
-        state this step (finished, timeout or preempted: see
+        state this step (finished, timeout, failed or preempted: see
         ``status``).
 
         Pipelined (``harvest_every`` = k > 1): a due window is
         harvested FIRST, before expiry, admission and the next dispatch,
         so that each of them acts on committed tokens as the
         synchronous loop would; the decode dispatch then leaves its
-        tokens on the device."""
+        tokens on the device.
+
+        ≙ :1400-1489 with its decode retry: a `FaultError` out of the
+        decode step (``serving.decode`` fires before the dispatch, and
+        before the sampling key advances) leaves slot and page state
+        consistent, so the step returns and the next one retries; past
+        ``max_decode_retries`` consecutive faults it raises. With
+        telemetry on, the step's wall is split into the
+        `profile.COMPONENTS` (`note_round`), as the JAX engine splits
+        it."""
         finished = self._finished_backlog
         self._finished_backlog = []
+        prof = telemetry.enabled()
         try:
             if self._pending and self._harvest_due():
                 self._harvest_pending(finished)
+            p0 = time.perf_counter() if prof else 0.0
             finished += self._expire()
             finished += self._admit_ragged() if self.attn_impl == "ragged" \
                 else self._admit_legacy()
-            self._decode(finished)
+            active = any(r is not None for r in self._slot_req)
+            if prof:
+                _profile.note_round("host", time.perf_counter() - p0)
+            if active:
+                try:
+                    # starvation-guard finalizations land in `finished`
+                    # before the dispatch, so they survive a fault
+                    self._decode(finished)
+                except FaultError:
+                    self.num_decode_retries += 1
+                    _M_DECODE_RETRIES.inc()
+                    self._consec_decode_faults += 1
+                    if self._consec_decode_faults > self.max_decode_retries:
+                        raise
+                    if _invariants_enabled():
+                        self._check_invariants()
+                    self._update_telemetry_gauges()
+                    return finished
+                self._consec_decode_faults = 0
         except BaseException:
             # requests finalized this step are delivered by the next one
             self._finished_backlog = finished
             raise
+        p1 = time.perf_counter() if prof else 0.0
         if _invariants_enabled():
             self._check_invariants()      # mid-window: no quiesce
+        self._update_telemetry_gauges()
+        if prof:
+            _profile.note_round("host", time.perf_counter() - p1)
         return finished
+
+    def _update_telemetry_gauges(self):
+        """≙ :1490-1501: the point-in-time gauges, once a step (queue
+        depth, running slots, page occupancy)."""
+        if not telemetry.enabled():
+            return
+        _M_QUEUE_DEPTH.set(len(self._queue))
+        _M_RUNNING.set(sum(r is not None for r in self._slot_req))
+        if self.layout == "paged":
+            usable = self.num_pages - 1
+            in_use = usable - len(self._free)
+            _M_PAGES_IN_USE.set(in_use)
+            _M_PAGE_OCCUPANCY.set(in_use / max(usable, 1))
 
     def lifecycle_info(self) -> Dict[str, int]:
         """Queue depth and the robustness counters, keyed as the JAX
-        engine's. The port has no failure isolation or decode retries
-        yet (ROADMAP.md queue A, item 4), so those two read 0."""
+        engine's."""
         return {"waiting": len(self._queue),
                 "running": sum(r is not None for r in self._slot_req),
                 "timeouts": self.num_timeouts,
-                "failures": 0,
+                "failures": self.num_failures,
                 "preemptions": self.num_preemptions,
-                "decode_retries": 0}
+                "decode_retries": self.num_decode_retries}
 
     @property
     def num_dispatches(self) -> int:
@@ -1009,6 +1218,9 @@ class ContinuousBatchingEngine:
         self._lora = committed
         self._adapter_rows[adapter_id] = row
         self.lora_installs += 1
+        _M_LORA_INSTALLS.inc()
+        _M_LORA_RESIDENT.set(len(self._adapter_rows))
+        _M_LORA_BYTES.set(self._lora_nbytes())
         self._drop_programs()
         if _invariants_enabled():
             self.check_invariants()
@@ -1047,6 +1259,9 @@ class ContinuousBatchingEngine:
             lo["scale"][row] = 0.0
             self._lora_free_rows.append(row)
         self.lora_evictions += 1
+        _M_LORA_EVICTIONS.inc()
+        _M_LORA_RESIDENT.set(len(self._adapter_rows))
+        _M_LORA_BYTES.set(self._lora_nbytes())
         self._drop_programs()
         if _invariants_enabled():
             self.check_invariants()
@@ -1074,6 +1289,8 @@ class ContinuousBatchingEngine:
         self._adapter_rows = {}
         self._lora_free_rows = []
         self._slot_adapter[:] = 0
+        _M_LORA_RESIDENT.set(0)
+        _M_LORA_BYTES.set(0)
 
     def install_weights(self, values: dict, tag: str) -> None:
         """Swap the engine's dispatch weights to another checkpoint of
@@ -1190,6 +1407,10 @@ class ContinuousBatchingEngine:
     def _check_invariants(self):
         if self.layout != "paged":
             return
+        with _M_INVARIANT_SECONDS.time():
+            self._check_invariants_paged()
+
+    def _check_invariants_paged(self):
         errs: List[str] = []
         free = list(self._free)
         free_set = set(free)
@@ -1325,11 +1546,24 @@ class ContinuousBatchingEngine:
     # -- request lifecycle ---------------------------------------------
     def _finalize(self, req: Request, status: str, error: Optional[str],
                   finished: List[Request]):
-        """The one place a request enters a terminal state."""
+        """The one place a request enters a terminal state, so the
+        per-status terminal counters reconcile exactly with the requests
+        that step() hands back."""
         req.done = True
         req.status = status
         req.error = error
         finished.append(req)
+        _M_TERMINAL.inc(status=status)
+        if telemetry.enabled():
+            n = len(req.output)
+            if status == RequestStatus.FINISHED and n >= 2 \
+                    and req.first_token_time is not None:
+                _M_TPOT.observe((self._clock() - req.first_token_time)
+                                / (n - 1))
+            telemetry.event("serving.terminal", rid=req.rid,
+                            request_id=req.request_id,
+                            status=status, tokens=n,
+                            preemptions=req.preemptions)
 
     def _expire(self) -> List[Request]:
         """≙ `_expire` :2002: finalize TIMEOUT the queued requests whose
@@ -1398,6 +1632,11 @@ class ContinuousBatchingEngine:
         """Requeue a preempted request at the head of its priority
         class, or finalize it PREEMPTED past `max_preemptions`."""
         self.num_preemptions += 1
+        _M_PREEMPTIONS.inc()
+        telemetry.event("serving.preempt", rid=req.rid,
+                        request_id=req.request_id,
+                        preemptions=req.preemptions + 1,
+                        tokens=len(req.output))
         req.preemptions += 1
         if req.preemptions > self.max_preemptions:
             self._finalize(req, RequestStatus.PREEMPTED,
@@ -1453,6 +1692,9 @@ class ContinuousBatchingEngine:
             self._free.append(page)
 
     def _alloc_page(self, slot: int) -> int:
+        # chaos drills arm this site (exc=PoolExhausted) to force the
+        # preemption path that reservation accounting makes unreachable
+        fault_point("serving.alloc_page")
         if not self._free:
             self._ensure_free(1)
         if not self._free:
@@ -1639,6 +1881,16 @@ class ContinuousBatchingEngine:
         self._requeue_or_starve(req, finished)
         return req.done
 
+    def _admission_failed(self, slot, req, exc, free, finished):
+        """≙ :2453: isolate a failed admission: finalize THIS request
+        FAILED, free the slot's partial state (its pages never enter the
+        prefix cache), keep admitting the rest."""
+        self.num_failures += 1
+        self._finalize(req, RequestStatus.FAILED,
+                       f"{type(exc).__name__}: {exc}", finished)
+        self._release_slot(slot, register=False)
+        free.insert(0, slot)
+
     def _admit_ragged(self) -> List[Request]:
         """Collect every admittable request, then prefill them in packed
         ragged dispatches; loop while instant finishes free slots."""
@@ -1655,8 +1907,10 @@ class ContinuousBatchingEngine:
         return finished
 
     def _collect_ragged_entries(self, finished):
-        """Host half of admission: reservation, slot and page
-        allocation, prefix-cache attach. Returns the entries to pack: a
+        """≙ :2614-2660, the host half of admission: reservation, slot
+        and page allocation, prefix-cache attach, per request and before
+        any dispatch, so a ``serving.prefill`` fault fails its request
+        alone (`_admission_failed`). Returns the entries to pack: a
         prefix hit's entry is the prompt's suffix at offset
         ``shared_len``, whose attention reads the shared pages through
         the block table."""
@@ -1669,18 +1923,28 @@ class ContinuousBatchingEngine:
             slot, req, prompt, shared = claim
             shared_len = 0
             try:
-                try:
-                    if shared:
-                        shared_len = self._attach_shared(slot, shared)
-                    self._reserve_and_alloc(slot, req, len(prompt))
-                finally:
-                    for p in shared or ():
-                        self._decref(p)      # unpin: the slot holds refs
+                with telemetry.span("serving.prefill", rid=req.rid,
+                                    request_id=req.request_id,
+                                    prompt_len=len(prompt),
+                                    shared_pages=len(shared)
+                                    if shared else 0):
+                    try:
+                        fault_point("serving.prefill")
+                        if shared:
+                            shared_len = self._attach_shared(slot, shared)
+                        self._reserve_and_alloc(slot, req, len(prompt))
+                    finally:
+                        for p in shared or ():
+                            self._decref(p)  # unpin: the slot holds refs
             except PoolExhausted:
                 if self._admission_pool_exhausted(slot, req, free,
                                                   finished):
                     continue        # starved out: try the next request
                 break
+            except Exception as e:
+                # nothing was dispatched: the pools are intact
+                self._admission_failed(slot, req, e, free, finished)
+                continue
             if shared:
                 self.prefix_hits += 1
                 self.prefix_tokens_reused += shared_len
@@ -1730,13 +1994,18 @@ class ContinuousBatchingEngine:
         t0 = time.perf_counter()
         captured = self.graph_capture_seconds
         t_pad = int(pk["t_pad"])
-        prog = self._program_lru(
-            self._ragged_programs, (t_pad, bound),
-            lambda: self._build_ragged(t_pad, bq, bound))
-        nxt = self._harvest_sync(self._ragged_step(
-            prog, pk["ids"], pk["token_seq"], pk["positions"],
-            pk["query_start"], pk["query_len"], pk["context_len"],
-            pk["sample_rows"]))
+        rids = ([p["req"].request_id for p in batch]
+                if telemetry.enabled() else ())
+        with telemetry.span("serving.ragged_prefill",
+                            tokens=int(pk["tokens"]), t_pad=t_pad,
+                            rids=rids):
+            prog = self._program_lru(
+                self._ragged_programs, (t_pad, bound),
+                lambda: self._build_ragged(t_pad, bq, bound), "ragged")
+            nxt = self._harvest_sync(self._ragged_step(
+                prog, pk["ids"], pk["token_seq"], pk["positions"],
+                pk["query_start"], pk["query_len"], pk["context_len"],
+                pk["sample_rows"]))
         self.admission_seconds += time.perf_counter() - t0 \
             - (self.graph_capture_seconds - captured)
         self.admission_tokens += sum(len(p["tokens"]) for p in batch)
@@ -1750,8 +2019,7 @@ class ContinuousBatchingEngine:
             tok = int(nxt[s])
             self._tok[s] = tok
             req.output.append(tok)
-            if req.first_token_time is None:
-                req.first_token_time = self._clock()
+            self._first_token(req)
             if (self.eos is not None and tok == self.eos) \
                     or len(req.output) >= req.max_new_tokens:
                 self._finalize(req, RequestStatus.FINISHED, None,
@@ -1759,6 +2027,20 @@ class ContinuousBatchingEngine:
                 self._release_slot(s)
                 freed = True
         return freed
+
+    def _first_token(self, req: Request):
+        """An admission's token: counted in ``pdt_serving_admissions``,
+        and on the request's first (a re-admission after preemption
+        keeps it) its TTFT observed with the request id as exemplar."""
+        _M_ADMISSIONS.inc()
+        if req.first_token_time is not None:
+            return
+        req.first_token_time = self._clock()
+        if telemetry.enabled():
+            ttft = req.first_token_time - req.arrival_time
+            _M_TTFT.observe(ttft, exemplar=req.request_id)
+            telemetry.event("serving.first_token", rid=req.rid,
+                            request_id=req.request_id, ttft_s=ttft)
 
     # -- legacy admission ------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -1775,7 +2057,11 @@ class ContinuousBatchingEngine:
         prefill dispatch, whose K/V rows go into its pages
         (`_paged_insert`) or its dense cache rows (`_dense_insert`). A
         failed page allocation backs the slot out and requeues the
-        request (or starves it out)."""
+        request (or starves it out). Any other failure (an armed
+        ``serving.prefill``, a fault in the allocator) fails the request
+        alone (`_admission_failed`) while the admission has launched
+        nothing; a failure after its first launch re-raises, as the JAX
+        engine re-raises once a dispatch has consumed its buffers."""
         finished: List[Request] = []
         free = [i for i, r in enumerate(self._slot_req) if r is None]
         while free and self._queue:
@@ -1786,24 +2072,32 @@ class ContinuousBatchingEngine:
             p_len = len(prompt)
             # the dispatch wall without capture time (counted apart)
             t0 = time.perf_counter() - self.graph_capture_seconds
+            runs = self._program_runs
             try:
-                try:
-                    if shared:
-                        tok = self._admit_shared(slot, req, prompt, shared)
-                    elif self.layout == "paged" and self._chunk \
-                            and p_len >= self._chunk:
-                        tok = self._admit_chunked(slot, req, prompt)
-                    else:
-                        tok, rows = self._legacy_prefill(
-                            prompt, self._bucket(p_len))
-                        if self.layout == "paged":
-                            self._paged_insert(slot, req, p_len, rows)
+                with telemetry.span("serving.prefill", rid=req.rid,
+                                    request_id=req.request_id,
+                                    prompt_len=p_len,
+                                    shared_pages=len(shared)
+                                    if shared else 0):
+                    try:
+                        fault_point("serving.prefill")
+                        if shared:
+                            tok = self._admit_shared(slot, req, prompt,
+                                                     shared)
+                        elif self.layout == "paged" and self._chunk \
+                                and p_len >= self._chunk:
+                            tok = self._admit_chunked(slot, req, prompt)
                         else:
-                            self._dense_insert(slot, rows)
-                        self.admission_tokens += p_len
-                finally:
-                    for p in shared or ():
-                        self._decref(p)    # unpin: the slot holds refs
+                            tok, rows = self._legacy_prefill(
+                                prompt, self._bucket(p_len))
+                            if self.layout == "paged":
+                                self._paged_insert(slot, req, p_len, rows)
+                            else:
+                                self._dense_insert(slot, rows)
+                            self.admission_tokens += p_len
+                    finally:
+                        for p in shared or ():
+                            self._decref(p)  # unpin: the slot holds refs
             except PoolExhausted:
                 self.admission_seconds += time.perf_counter() \
                     - self.graph_capture_seconds - t0
@@ -1811,13 +2105,17 @@ class ContinuousBatchingEngine:
                                                   finished):
                     continue               # starved out: try the next
                 break
+            except Exception as e:
+                if self._program_runs != runs:
+                    raise
+                self._admission_failed(slot, req, e, free, finished)
+                continue
             self.admission_seconds += time.perf_counter() \
                 - self.graph_capture_seconds - t0
             self._pos[slot] = p_len
             self._tok[slot] = tok
             req.output.append(tok)
-            if req.first_token_time is None:
-                req.first_token_time = self._clock()
+            self._first_token(req)
             if (self.eos is not None and tok == self.eos) \
                     or len(req.output) >= req.max_new_tokens:
                 self._finalize(req, RequestStatus.FINISHED, None, finished)
@@ -1835,7 +2133,8 @@ class ContinuousBatchingEngine:
         ids = np.zeros(bucket, np.int32)
         ids[:p_len] = prompt
         prog = self._program_lru(self._prefill_programs, bucket,
-                                 lambda: self._build_prefill(bucket))
+                                 lambda: self._build_prefill(bucket),
+                                 "prefill")
         self._upload(ids, [p_len - 1], self._next_key(), dst=prog.flat)
         tok = int(self._run_program(prog)[0])
         self.num_admission_dispatches += 1
@@ -1923,7 +2222,7 @@ class ContinuousBatchingEngine:
         prog = self._program_lru(
             self._suffix_programs, (shared_len, bucket),
             lambda: self._build_suffix_prefill(shared_len, bucket),
-            cap=2 * self._max_prefill)
+            "suffix", cap=2 * self._max_prefill)
         self._upload(ids, [len(suffix) - 1], pages, self._next_key(),
                      dst=prog.flat)
         tok = int(self._run_program(prog)[0])
@@ -1997,7 +2296,7 @@ class ContinuousBatchingEngine:
         # one program for the whole prompt: its caches carry the earlier
         # chunks' rows to the later chunks (without graphs too)
         prog = self._program_singleton(
-            "_chunk_program", lambda: self._build_chunk_prefill(C))
+            "_chunk_program", lambda: self._build_chunk_prefill(C), "chunk")
         tok = None
         for ci in range(n_chunks):
             off = ci * C
@@ -2219,35 +2518,45 @@ class ContinuousBatchingEngine:
         return out
 
     # -- the program cache -------------------------------------------------
-    def _program_lru(self, cache: "OrderedDict", key, build,
+    def _program_lru(self, cache: "OrderedDict", key, build, family: str,
                      cap: Optional[int] = None) -> _Program:
         """≙ `_jit_lru`: the program of ``key`` in the keyed family
         ``cache``; on a miss it is built and the oldest programs past
         ``cap`` (default ``max_prefill_programs``) are evicted (each
         graph with its program: every admission dispatch ends in a host
         read, so none is in flight), on a hit it moves to the back.
-        Without graphs, a program built for this dispatch alone."""
+        ``family`` is the JAX engine's name for the family: the label of
+        the ``pdt_jit_*`` series, a miss's first run metered as its
+        compile (`_run_program`) and the cache's size and evictions
+        noted (`profile.note_cache`). Without graphs, a program built for
+        this dispatch alone, and nothing metered."""
         if not self._graphs:
             return build()
         prog = cache.get(key)
         if prog is None:
             prog = cache[key] = build()
+            prog.family, prog.key = family, key
+            evicted = 0
             while len(cache) > (cap or self._max_prefill):
                 cache.popitem(last=False)                  # LRU
+                evicted += 1
+            _profile.note_cache(family, len(cache), evicted)
         else:
             cache.move_to_end(key)
         return prog
 
-    def _program_singleton(self, attr: str, build) -> _Program:
+    def _program_singleton(self, attr: str, build, family: str) -> _Program:
         """≙ `_jit_singleton`: the one program kept in attribute ``attr``
-        (the decode program, the chunk program), built at first use and
-        again after `_drop_programs`. Without graphs, a program built for
-        this dispatch (or admission) alone."""
+        (the decode program, the chunk program, the draft scan), built at
+        first use and again after `_drop_programs`, its first run
+        metered as a compile of ``family``. Without graphs, a program
+        built for this dispatch (or admission) alone."""
         if not self._graphs:
             return build()
         prog = getattr(self, attr)
         if prog is None:
             prog = build()
+            prog.family = family
             setattr(self, attr, prog)
         return prog
 
@@ -2287,19 +2596,26 @@ class ContinuousBatchingEngine:
         On the card: the first run is the warm-up (`_warm_up`), the
         second captures (`_capture`), and from then on the graph replays,
         adding the launches the capture recorded. A failed capture or
-        replay raises: nothing falls back to the eager body."""
+        replay raises: nothing falls back to the eager body. A program's
+        first run is metered as its family's compile, and its capture
+        under ``jit.compile`` without a count (`profile.compile_timed`)."""
+        self._program_runs += 1
         if not self._graphs:
             return prog.body()
         prog.runs += 1
         if self.device.type != "cuda":
-            res = prog.body()
+            body = prog.body if prog.runs > 1 else _profile.compile_timed(
+                prog.body, prog.family, prog.key)
+            res = body()
             if prog.out is None:
                 prog.out = torch.empty_like(res)
             return prog.out.copy_(res)
         if prog.graph is None:
             if prog.runs == 1:
-                return self._warm_up(prog)
-            self._capture(prog)
+                return _profile.compile_timed(
+                    lambda: self._warm_up(prog), prog.family, prog.key)()
+            _profile.compile_timed(lambda: self._capture(prog), prog.family,
+                                   prog.key, count=False)()
         prog.graph.replay()
         for k, n in prog.launches.items():
             launch_counts[k] += n
@@ -2380,10 +2696,21 @@ class ContinuousBatchingEngine:
         dispatch's input until the window is due. Each pending dispatch
         keeps a copy of its tokens: the program's output is overwritten
         by its next run. A spec engine runs a speculative round instead
-        (`_spec_decode`), which commits its own tokens."""
-        if self._spec is not None:
-            self._spec_decode(finished)
+        (`_spec_decode`), which commits its own tokens, unless the round
+        degrades (an armed ``speculative.*`` site fired): then this plain
+        step runs.
+
+        ``serving.decode`` fires after page growth and window
+        reclamation and before the sampling key and the index upload (≙
+        :3427), so a retried step replays the same dispatch with the same
+        uniforms. With telemetry on, the step is split as the JAX
+        engine's (≙ :3370-3535): "host" before the dispatch, "dispatch"
+        (the replay), the bookkeeping after it; "device" and "harvest"
+        at the harvest."""
+        if self._spec is not None and self._spec_decode(finished):
             return
+        prof = telemetry.enabled()
+        d0 = time.perf_counter() if prof else 0.0
         for i, r in enumerate(self._slot_req):
             if r is None or self.layout != "paged":
                 continue
@@ -2404,14 +2731,36 @@ class ContinuousBatchingEngine:
         act = tuple(i for i, r in enumerate(self._slot_req)
                     if r is not None)
         if not act:
+            if prof:
+                _profile.note_round("harvest", 0.0)   # nothing to commit
             return                    # every slot preempted away
+        fault_point("serving.decode")
+        rids = ([self._slot_req[i].request_id for i in act] if prof else ())
+        with telemetry.span("serving.decode_step", slots=len(act),
+                            rids=rids):
+            t0 = time.perf_counter()
+            if prof:
+                _profile.note_round("host", t0 - d0)
+            copied = self._decode_dispatch(act, t0)
+            t2 = time.perf_counter() if prof else 0.0
+        if copied is not None:
+            # ≙ the JAX step's commit, outside the step's span
+            if prof:
+                _profile.note_round("host", time.perf_counter() - t2)
+            self._harvest_commit(finished, *copied)
+
+    def _decode_dispatch(self, act, t0: float):
+        """The decode step's dispatch, timed from ``t0``; at
+        ``harvest_every`` = 1 also the harvest's copy, which it returns
+        (`_harvest_copy`)."""
+        prof = telemetry.enabled()
         pos = np.clip(self._pos, 0, self.S - 1).astype(np.int32)
         idx = np.arange(self.B, dtype=np.int32)
-        t0 = time.perf_counter()
         captured = self.graph_capture_seconds
         if self.attn_impl == "ragged":
             prog = self._program_singleton(
-                "_decode_program", lambda: self._build_ragged(self.B, 1))
+                "_decode_program", lambda: self._build_ragged(self.B, 1),
+                "decode")
             # mid-window the input is the previous dispatch's device
             # output: the greedy feedback makes no host round trip
             tok = self._tok_dev if self._tok_dev is not None else self._tok
@@ -2419,19 +2768,24 @@ class ContinuousBatchingEngine:
                                     np.ones(self.B, np.int32), pos + 1, idx)
         elif self.layout == "paged":
             prog = self._program_singleton("_decode_program",
-                                           self._build_legacy_decode)
+                                           self._build_legacy_decode,
+                                           "decode")
             self._upload(self._tok, pos, self._bt, self._next_key(),
                          dst=prog.flat)
             out = self._run_program(prog)
         else:
             prog = self._program_singleton("_decode_program",
-                                           self._build_dense_decode)
+                                           self._build_dense_decode,
+                                           "decode")
             self._upload(self._tok, pos, self._next_key(), dst=prog.flat)
             out = self._run_program(prog)
         nxt = out.clone()
+        t1 = time.perf_counter()
         self.num_decode_dispatches += 1
-        self._window_wall += time.perf_counter() - t0 \
-            - (self.graph_capture_seconds - captured)
+        self._window_wall += t1 - t0 - (self.graph_capture_seconds - captured)
+        if prof:
+            _M_DECODE_DISPATCH.observe(t1 - t0)
+            _profile.note_round("dispatch", t1 - t0)
         for i in act:
             r = self._slot_req[i]
             r.device_len = max(r.device_len, len(r.output)) + 1
@@ -2439,28 +2793,52 @@ class ContinuousBatchingEngine:
         self._pending.append({"nxt": nxt, "act": act,
                               "pos": self._pos.copy()})
         self._tok_dev = nxt
+        if prof:
+            _profile.note_round("host", time.perf_counter() - t1)
         if self.harvest_every == 1:
-            self._harvest_pending(finished)
+            return self._harvest_copy()
+        return None
 
     # -- speculative decoding ----------------------------------------------
-    def _spec_decode(self, finished: List[Request]):
-        """≙ `_spec_decode` :3776 (without its fault sites and
-        `_spec_degrade`, ROADMAP.md queue A item 4): one speculative
-        round, the draft half (`_spec_draft`), then ONE verify dispatch
-        of every slot and its commit (`_spec_verify`). The round makes
-        two host reads, the proposals and the verify picks. Its host
-        wall, capture time excluded, goes to ``decode_seconds`` and its
-        tokens to ``decode_tokens``, as a decode step's."""
+    def _spec_decode(self, finished: List[Request]) -> bool:
+        """≙ `_spec_decode` :3776-3839: one speculative round, the draft
+        half (`_spec_draft`, behind ``speculative.draft``), then ONE
+        verify dispatch of every slot and its commit (`_spec_verify`,
+        behind ``speculative.verify``). The round makes two host reads,
+        the proposals and the verify picks. Its host wall, capture time
+        excluded, goes to ``decode_seconds`` and its tokens to
+        ``decode_tokens``, as a decode step's. Returns True when the
+        round handled the step; False when a fault at one of its two
+        sites degraded it (`_spec_degrade`): the caller then decodes the
+        step plainly. A `FaultError` of another site (``serving.
+        alloc_page`` in the page growth) keeps its own meaning, the
+        step's decode retry."""
+        rids = ([r.request_id for r in self._slot_req if r is not None]
+                if telemetry.enabled() else ())
         t0 = time.perf_counter()
         captured = self.graph_capture_seconds
-        props, kuse = self._spec_draft(finished)
+        try:
+            with telemetry.span("serving.draft", k=self._spec_k, rids=rids):
+                fault_point("speculative.draft")
+                props, kuse = self._spec_draft(finished)
+        except FaultError as e:
+            if getattr(e, "site", "") != "speculative.draft":
+                raise
+            self._spec_degrade("draft", e)
+            return False
         t1 = time.perf_counter()
         draft_capture = self.graph_capture_seconds - captured
         active = [i for i, r in enumerate(self._slot_req) if r is not None]
         if not active:
-            return                    # growth preempted everything
-        emitted, proposed, accepted = self._spec_verify(active, props, kuse,
-                                                        finished)
+            return True               # growth preempted everything
+        try:
+            emitted, proposed, accepted = self._spec_verify(
+                active, props, kuse, finished)
+        except FaultError as e:
+            if getattr(e, "site", "") != "speculative.verify":
+                raise
+            self._spec_degrade("verify", e)
+            return False
         t2 = time.perf_counter()
         capture = self.graph_capture_seconds - captured
         self.num_spec_rounds += 1
@@ -2470,6 +2848,32 @@ class ContinuousBatchingEngine:
         self.spec_verify_seconds += t2 - t1 - (capture - draft_capture)
         self.decode_seconds += t2 - t0 - capture
         self.decode_tokens += emitted
+        _M_SPEC_ROUNDS.inc()
+        _M_SPEC_PROPOSED.inc(proposed)
+        _M_SPEC_ACCEPTED.inc(accepted)
+        if telemetry.enabled():
+            _M_SPEC_DRAFT_SECONDS.observe(t1 - t0)
+            # the round IS this step's decode dispatch
+            _M_DECODE_STEP.observe(t2 - t0)
+            _M_DECODE_TOKENS.inc(emitted)
+            if t2 > t0:
+                _M_TOKENS_PER_SEC.set(emitted / (t2 - t0))
+            if self.num_spec_proposed:
+                _M_SPEC_ACCEPT_RATE.set(self.num_spec_accepted
+                                        / self.num_spec_proposed)
+        return True
+
+    def _spec_degrade(self, site: str, err: BaseException):
+        """≙ :3841: an armed spec fault site fired: count it, drop every
+        draft cache's validity (what the draft pass wrote is unverified
+        relative to the stream plain decode now extends; the next round
+        backfills), and let the caller decode this step plainly. No
+        request fails."""
+        self.num_spec_degraded += 1
+        _M_SPEC_DEGRADED.inc(site=site)
+        telemetry.event("serving.spec_degraded", site=site,
+                        error=f"{type(err).__name__}: {err}")
+        self._d_valid[:] = False
 
     def _spec_draft(self, finished: List[Request]):
         """≙ `_spec_draft` :3853: each slot's verify budget ``k_i =
@@ -2560,7 +2964,8 @@ class ContinuousBatchingEngine:
         t_pad = int(pk["t_pad"])
         prog = self._program_lru(
             self._d_prefill_programs, (t_pad, bound),
-            lambda: self._build_ragged(t_pad, bq, bound, draft=True))
+            lambda: self._build_ragged(t_pad, bq, bound, draft=True),
+            "draft")
         self._ragged_step(prog, pk["ids"], pk["token_seq"], pk["positions"],
                           pk["query_start"], pk["query_len"],
                           pk["context_len"], pk["sample_rows"],
@@ -2578,7 +2983,7 @@ class ContinuousBatchingEngine:
         if not live.any():
             return np.zeros((self.B, self._spec_k), np.int32)
         prog = self._program_singleton("_draft_scan_program",
-                                       self._build_draft_scan)
+                                       self._build_draft_scan, "draft_scan")
         self._upload(self._tok, self._pos, live, self._d_bt, dst=prog.flat)
         props = self._harvest_sync(self._run_program(prog))
         self.num_draft_scans += 1
@@ -2645,13 +3050,24 @@ class ContinuousBatchingEngine:
         pk = pack_ragged_batch(pieces, self.B, block_q=bq, pad_to=bq)
         bound = self._pages_bound(int(pk["context_len"][i]) for i in active)
         t_pad = int(pk["t_pad"])
-        prog = self._program_lru(
-            self._verify_programs, (t_pad, bound),
-            lambda: self._build_ragged(t_pad, bq, bound, select_rows=False))
-        g_all = self._harvest_sync(self._ragged_step(
-            prog, pk["ids"], pk["token_seq"], pk["positions"],
-            pk["query_start"], pk["query_len"], pk["context_len"],
-            pk["sample_rows"]))
+        rids = ([self._slot_req[i].request_id for i in active]
+                if telemetry.enabled() else ())
+        with telemetry.span("serving.verify", slots=len(active),
+                            tokens=int(pk["tokens"]), rids=rids):
+            fault_point("speculative.verify")
+            t0 = time.perf_counter()
+            prog = self._program_lru(
+                self._verify_programs, (t_pad, bound),
+                lambda: self._build_ragged(t_pad, bq, bound,
+                                           select_rows=False),
+                "verify")
+            g_all = self._harvest_sync(self._ragged_step(
+                prog, pk["ids"], pk["token_seq"], pk["positions"],
+                pk["query_start"], pk["query_len"], pk["context_len"],
+                pk["sample_rows"]))
+            vdt = time.perf_counter() - t0
+        if telemetry.enabled():
+            _M_SPEC_VERIFY_SECONDS.observe(vdt)
         self.num_decode_dispatches += 1
         # ragged acceptance through the one shared core: sentinels that
         # never match cap each row's j at its real proposal count
@@ -2690,8 +3106,8 @@ class ContinuousBatchingEngine:
 
     def spec_info(self) -> Dict[str, float]:
         """Speculation counters, keyed as the JAX engine's (zeros on an
-        engine without ``spec_decode``). ``degraded`` stays 0: only the
-        fault sites degrade a round (ROADMAP.md queue A, item 4)."""
+        engine without ``spec_decode``); ``degraded`` counts the rounds a
+        ``speculative.*`` fault turned into plain decode steps."""
         return {"rounds": self.num_spec_rounds,
                 "proposed": self.num_spec_proposed,
                 "accepted": self.num_spec_accepted,
@@ -2736,18 +3152,43 @@ class ContinuousBatchingEngine:
         (the device ran past an EOS it could not see, at most k - 1
         tokens) are discarded.
         ``decode_seconds`` takes the window's dispatch walls plus this
-        copy's wait."""
+        copy's wait. With telemetry on, the copy's wait is the round's
+        "device" component (the tokens' device time surfaces there on
+        the host clock) and the commits its "harvest" (≙ :3650-3712); a
+        window of k > 1 dispatches is a ``serving.harvest`` span."""
+        copied = self._harvest_copy()
+        if copied is not None:
+            self._harvest_commit(finished, *copied)
+
+    def _harvest_copy(self):
+        """The harvest's copy: every pending dispatch's tokens to the
+        host in one copy. Returns (entries, tokens, dispatch wall, copy
+        wait), or None when the window is empty."""
         entries, self._pending = self._pending, []
         self._tok_dev = None
         wall, self._window_wall = self._window_wall, 0.0
         if not entries:
-            return
-        t0 = time.perf_counter()
-        toks = [e["nxt"] for e in entries]
-        stacked = self._harvest_sync(
-            toks[0][None] if len(toks) == 1 else torch.stack(toks))
-        self.decode_seconds += wall + time.perf_counter() - t0
+            return None
+        prof = telemetry.enabled()
+        with telemetry.span("serving.harvest", window=len(entries)) \
+                if self.harvest_every > 1 else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            toks = [e["nxt"] for e in entries]
+            stacked = self._harvest_sync(
+                toks[0][None] if len(toks) == 1 else torch.stack(toks))
+            sync = time.perf_counter() - t0
+        self.decode_seconds += wall + sync
         self.decode_dispatch_seconds += wall
+        if prof:
+            _M_HARVEST.observe(sync)
+            _profile.note_round("device", sync)
+        return entries, stacked, wall, sync
+
+    def _harvest_commit(self, finished, entries, stacked, wall, sync):
+        """The harvest's commits, dispatch by dispatch (`_harvest_pending`)."""
+        prof = telemetry.enabled()
+        c0 = time.perf_counter() if prof else 0.0
+        committed = 0
         done_slots: set = set()
         live_last: Dict[int, int] = {}
         for e, nxt in zip(entries, stacked):
@@ -2757,7 +3198,7 @@ class ContinuousBatchingEngine:
                     continue
                 tok = int(nxt[i])
                 r.output.append(tok)
-                self.decode_tokens += 1
+                committed += 1
                 live_last[i] = tok
                 if (self.eos is not None and tok == self.eos) \
                         or len(r.output) >= r.max_new_tokens \
@@ -2773,6 +3214,14 @@ class ContinuousBatchingEngine:
         for r in self._slot_req:
             if r is not None:
                 r.device_len = len(r.output)        # staleness resync
+        self.decode_tokens += committed
+        if prof:
+            _profile.note_round("harvest", time.perf_counter() - c0)
+            _M_DECODE_TOKENS.inc(committed)
+            if self.harvest_every == 1:
+                _M_DECODE_STEP.observe(wall + sync)
+            if wall + sync > 0:
+                _M_TOKENS_PER_SEC.set(committed / (wall + sync))
 
     def quiesce(self) -> int:
         """Harvest the pipelined window NOW, so that host request state
@@ -2785,3 +3234,41 @@ class ContinuousBatchingEngine:
         if n:
             self._harvest_pending(self._finished_backlog)
         return n
+
+    def profile_round(self) -> List[Dict[str, object]]:
+        """≙ :3730-3775: a dispatch-gap sample of ONE decode step. The
+        decode body runs eagerly — a fresh program, never cached,
+        captured or replayed — twice: once untimed, then under
+        `profile.gap_sampler`, whose `profile.fence` hooks in the model
+        synchronize the card at every op-family boundary
+        (`models/llama.py`). Returns the ranked gap table (rows of
+        {op_pair, gap_s, device_s, count}, summed over layers) and sets
+        ``pdt_profile_gap_seconds{op_pair}``.
+
+        Observation only: the window is quiesced first (k > 1), the
+        passes draw with a constant key (the sampling counter does not
+        move), and their tokens are discarded. The body scatters K/V in
+        place: each active slot's row at its next position, the row the
+        next decode step (or a spec round's verify) writes again before
+        any attention reads it, and the inactive slots' rows into the
+        trash page; so every later stream is bitwise what it would have
+        been. Paged ragged engines only."""
+        if self.layout != "paged" or self.attn_impl != "ragged":
+            raise RuntimeError(
+                "profile_round requires the paged+ragged decode path "
+                f"(layout={self.layout!r}, attn_impl={self.attn_impl!r})")
+        self.quiesce()
+        if not any(r is not None for r in self._slot_req):
+            raise RuntimeError("profile_round needs >= 1 active slot")
+        prog = self._build_ragged(self.B, 1)
+        pos = np.clip(self._pos, 0, self.S - 1).astype(np.int32)
+        idx = np.arange(self.B, dtype=np.int32)
+        self._upload(self._tok, idx, pos, self._slot_adapter, idx,
+                     np.ones(self.B, np.int32), pos + 1, idx, self._bt,
+                     self._NO_KEY, dst=prog.flat)
+        prog.body()            # untimed: first-use work stays out of the gaps
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        with _profile.gap_sampler() as sampler:
+            prog.body()
+        return sampler.table()

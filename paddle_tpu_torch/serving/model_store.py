@@ -1,9 +1,8 @@
 """Fleet-wide model store: model identity as a fleet dimension.
 
 ≙ `paddle_tpu/serving/model_store.py`, whole: `model_id`,
-`split_model_id` and `FleetModelStore`. Its ``pdt_model_store_*``
-telemetry is not ported yet (ROADMAP.md queue A, item 4); the counters
-it keeps are plain attributes and `stats()`.
+`split_model_id` and `FleetModelStore`, with its ``pdt_model_store_*``
+series (≙ :52-80); the same counts are plain attributes and `stats()`.
 
 Registered artifacts are full checkpoints (``register_model``) and LoRA
 adapters over a registered checkpoint (``register_adapter``). Every
@@ -45,7 +44,35 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import observability as telemetry
+
 __all__ = ["FleetModelStore", "model_id", "split_model_id"]
+
+
+_M_ARTIFACTS = telemetry.gauge(
+    "pdt_model_store_artifacts",
+    "Artifacts registered with the fleet model store (the builtin "
+    "base + full checkpoints + adapters).")
+_M_RESIDENT_BYTES = telemetry.gauge(
+    "pdt_model_store_resident_bytes",
+    "Artifact bytes resident across all replicas, by the store's "
+    "accounting (full-checkpoint swaps + adapter stacks).")
+_M_INSTALLS = telemetry.counter(
+    "pdt_model_store_installs_total",
+    "Cold installs the store drove into an engine, by artifact kind "
+    "(full = install_weights swap, adapter = install_adapter row).",
+    ("kind",))
+_M_EVICTIONS = telemetry.counter(
+    "pdt_model_store_evictions_total",
+    "Artifacts the store evicted from a replica under its byte "
+    "budget, by kind.", ("kind",))
+_M_HITS = telemetry.counter(
+    "pdt_model_store_hits_total",
+    "ensure() calls that found the model already resident (warm "
+    "replica).")
+_M_MISSES = telemetry.counter(
+    "pdt_model_store_misses_total",
+    "ensure() calls that had to cold-install at least one artifact.")
 
 
 # the id separator: base and adapter names must not contain it, so the
@@ -131,6 +158,7 @@ class FleetModelStore:
         self.hits = 0
         self.misses = 0
         self.evict_refusals = 0
+        _M_ARTIFACTS.set(len(self._artifacts))
 
     # -- registration --------------------------------------------------
     def register_model(self, name: str, values: dict) -> str:
@@ -159,6 +187,7 @@ class FleetModelStore:
         self._artifacts[mid] = {"kind": "full", "base": None,
                                 "values": vals,
                                 "nbytes": _values_nbytes(vals)}
+        _M_ARTIFACTS.set(len(self._artifacts))
         return mid
 
     def register_adapter(self, name: str, deltas: dict,
@@ -218,6 +247,7 @@ class FleetModelStore:
                                 "nbytes": nbytes}
         if want is None:
             self._schemas[base_mid] = schema
+        _M_ARTIFACTS.set(len(self._artifacts))
         return mid
 
     def known(self, mid: str) -> bool:
@@ -275,6 +305,11 @@ class FleetModelStore:
         next ensure() reinstalls."""
         self._resident.pop(replica, None)
         self._pins.pop(replica, None)
+        self._set_resident_bytes()
+
+    def _set_resident_bytes(self):
+        _M_RESIDENT_BYTES.set(
+            sum(sum(r.values()) for r in self._resident.values()))
 
     # -- install/evict -------------------------------------------------
     def ensure(self, replica, engine, mid: str) -> bool:
@@ -297,6 +332,7 @@ class FleetModelStore:
             if base is not None and base in rset:
                 rset.move_to_end(base)    # the adapter keeps its base
             self.hits += 1
+            _M_HITS.inc()
             return False
         if art["kind"] == "lora":
             self._ensure_base(replica, engine, art["base"], rset)
@@ -305,9 +341,12 @@ class FleetModelStore:
             engine.install_adapter(aname, art["deltas"], scale=art["scale"])
             rset[mid] = art["nbytes"]
             self.installs += 1
+            _M_INSTALLS.inc(kind="adapter")
         else:
             self._ensure_base(replica, engine, mid, rset)
         self.misses += 1
+        _M_MISSES.inc()
+        self._set_resident_bytes()
         return True
 
     def _ensure_base(self, replica, engine, base_mid: str,
@@ -330,6 +369,7 @@ class FleetModelStore:
         rset[base_mid] = art["nbytes"]
         if art["kind"] != "base":
             self.installs += 1
+            _M_INSTALLS.inc(kind="full")
         return True
 
     def _make_room(self, replica, engine,
@@ -362,6 +402,7 @@ class FleetModelStore:
                 continue
             used -= rset.pop(mid)
             self.evictions += 1
+            _M_EVICTIONS.inc(kind="adapter")
         # over budget with nothing evictable is legal: pinned work
         # outranks the budget
 
