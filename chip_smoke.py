@@ -348,8 +348,40 @@ sampling phases, on the same 8B model:
     launches, ``serving.decode`` always raises after
     ``max_decode_retries`` + 1 faults, and the 1B-draft spec engine with
     ``speculative.verify`` always armed degrades every round and fails
-    no request (streams equal 5's); the Prometheus text parsed back by
+    no request (streams equal 5's); ``serving.alloc_page`` at the first
+    page of the first legacy admission of 5d's 8 requests, after its
+    prefill ran: that request fails alone and the other 7 streams equal
+    5d's (``drill_legacy_alloc``); the Prometheus text parsed back by
     ``parse_prometheus`` (``telemetry {...}``).
+
+KV page transfer adds, after 5t, on the same 8B model:
+
+5u. ``serve_8b_migrate``: the 16 requests of 5 on a graphed source
+    engine at k = 1, every even one moved at its 4th token to a second
+    graphed engine on the card (`serving.transfer.migrate_request`:
+    export with its sha256 manifest, verify, the install program), both
+    run to the end: 16 streams equal to 5's, or each first parting at a
+    near-tie of the plain engine's logits (`plain_gaps`, NEAR_TIE), the
+    launches exact over both engines' dispatches,
+    ``pdt_transfer_bytes_total`` equal to the payloads' summed bytes;
+    a ``migrate {...}`` line a move: pages, payload MiB, export ms (the
+    gather, one copy to pinned host memory, the manifest), manifest ms,
+    verify ms, install ms (one pinned copy to the staging buffer and the
+    install program), the whole move's ms, and the install program's
+    warm-up, capture or replay; the drills: ``transfer.serialize`` and
+    ``transfer.install`` faults at requests 0 and 2 (each stays on its
+    source, both engines' invariants hold, the move then succeeds), a
+    payload of request 1 damaged after its manifest (refused at
+    ``stage="verify"``; request 1 decodes on at its source to 5's
+    stream); then the first 8 requests on int8-KV engines (5b's
+    ``QuantServingConfig("int8", "int8")``) with the 4 even ones moved:
+    streams bitwise equal to 5b's, and the bytes a page int8 over bf16
+    exactly (2 x 16 KiB + 2 x 64 B) / (2 x 32 KiB) = 0.50195; then 5m's
+    warm request serialized at its 4th token and spilled into a
+    `FleetPrefixStore`, the hit prompt's 32-page chain fetched and
+    installed by `import_prefix` into a fresh engine: the 8 hit requests
+    hit (4096 tokens reused) with 5m's cached streams; the peak memory
+    (``serving_migrate {...}``).
 
 It prints a ``{"kernels": [...]}`` line (eighteen kernels, each with
 its launches on its own main-path run, and device_ms / host_us where the
@@ -2071,6 +2103,7 @@ def serve_8b_prefix(model):
     eng.check_invariants()
     if len(eng._free) != eng.num_pages - 1 or eng._page_rc[1:].any():
         raise AssertionError("pages held after the trie was drained")
+    return cached[1]
 
 
 
@@ -2078,7 +2111,7 @@ def serve_8b_quant(model, reqs, weights, n_requests):
     """Serve the first `n_requests` of `reqs` on the same bf16 8B model
     object with ``quant=QuantServingConfig(weights, "int8")`` and check
     the launch counts exactly. Returns (counts, the engine's quantized
-    weights); the engine itself is freed."""
+    weights, the streams); the engine itself is freed."""
     import torch
     from paddle_tpu_torch.models.serving import (ContinuousBatchingEngine,
                                                  QuantServingConfig)
@@ -2141,10 +2174,10 @@ def serve_8b_quant(model, reqs, weights, n_requests):
     log(f"{tag} " + json.dumps(stats))
     qweights = eng._qweights
     del eng
-    check_eager_equal(tag, [by_rid[rid].output for rid in range(len(reqs))],
-                      eager_streams(model, reqs, quant=QuantServingConfig(
-                          weights, "int8")))
-    return counts, qweights
+    streams = [by_rid[rid].output for rid in range(len(reqs))]
+    check_eager_equal(tag, streams, eager_streams(
+        model, reqs, quant=QuantServingConfig(weights, "int8")))
+    return counts, qweights, streams
 
 
 def serve_8b_lora(model, reqs):
@@ -2225,7 +2258,7 @@ def serve_8b_lora(model, reqs):
 def serve_8b_legacy(model, reqs):
     """Serve the first `N_LEGACY_REQUESTS` of `reqs` on the same bf16 8B
     model object with ``attention_impl="legacy"`` and check the launch
-    counts exactly. Returns the counts."""
+    counts exactly. Returns (the counts, the streams)."""
     import torch
     from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
     from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -2254,6 +2287,19 @@ def serve_8b_legacy(model, reqs):
     eng.check_invariants()
     if len(eng._free) != eng.num_pages - 1:
         raise AssertionError("pages still held after the legacy run")
+    check_legacy_counts(eng, counts, L)
+    log("serving_legacy " + json.dumps(serving_stats(eng, done, wall)))
+    del eng
+    streams = [by_rid[rid].output for rid in range(len(reqs))]
+    check_eager_equal("serving_legacy", streams,
+                      eager_streams(model, reqs, attention_impl="legacy"))
+    return counts, streams
+
+
+def check_legacy_counts(eng, counts, L):
+    """A legacy serving run's launches: 2L + 1 RMSNorms a dispatch and L
+    paged attentions a decode dispatch, nothing else (the page scatter
+    and the prefill's attention launch no kernel)."""
     nd = eng.num_dispatches
     want = {"rms_norm": (2 * L + 1) * nd, "ragged_paged_attention": 0,
             "ragged_paged_attention_int8kv": 0, "dequant_matmul": 0,
@@ -2266,12 +2312,6 @@ def serve_8b_legacy(model, reqs):
     if counts != want:
         raise AssertionError("legacy launch counts do not match the "
                              "dispatches")
-    log("serving_legacy " + json.dumps(serving_stats(eng, done, wall)))
-    del eng
-    check_eager_equal("serving_legacy",
-                      [by_rid[rid].output for rid in range(len(reqs))],
-                      eager_streams(model, reqs, attention_impl="legacy"))
-    return counts
 
 
 # `generate_8b`: 4 prompts of 512 tokens, 32 new tokens each; beam
@@ -3295,9 +3335,10 @@ def telemetry_drill(model, reqs, arms, **kw):
     return eng, {r.rid: r for r in done}, dict(launch_counts)
 
 
-def serve_8b_telemetry(model, reqs, want_streams, draft):
+def serve_8b_telemetry(model, reqs, want_streams, draft, legacy_streams):
     """Telemetry, fault points and attribution at 8B (phase 5t of the
-    module docstring). Any failed check raises."""
+    module docstring); ``legacy_streams`` are `serve_8b_legacy`'s. Any
+    failed check raises."""
     import torch
     import paddle_tpu_torch.observability as telemetry
     from paddle_tpu_torch.models.serving import (ContinuousBatchingEngine,
@@ -3396,6 +3437,27 @@ def serve_8b_telemetry(model, reqs, want_streams, draft):
             raise AssertionError(f"prefill drill: failed {failed}, "
                                  f"{same} of {len(others)} streams equal")
         del eng
+        # a page-allocation fault after a legacy prefill ran, before its
+        # rows reach the pages: that request fails alone
+        lreqs = reqs[:N_LEGACY_REQUESTS]
+        eng, got, counts = telemetry_drill(
+            model, lreqs, {"serving.alloc_page": dict(nth=1)},
+            attention_impl="legacy")
+        if isinstance(got, Exception):
+            raise AssertionError(f"legacy alloc drill raised {got!r}")
+        failed = [i for i, r in got.items() if r.status == "failed"]
+        same = sum(got[i].output == legacy_streams[i]
+                   for i in range(len(lreqs)) if i not in failed)
+        rec["drill_legacy_alloc"] = dict(
+            failed=failed, error=got[0].error, others_equal=same,
+            lifecycle=eng.lifecycle_info(), pool_writes=eng._pool_writes)
+        check_legacy_counts(eng, counts, L)
+        eng.check_invariants()
+        if failed != [0] or same != len(lreqs) - 1 \
+                or len(eng._free) != eng.num_pages - 1:
+            raise AssertionError(f"legacy alloc drill: failed {failed}, "
+                                 f"{same} of {len(lreqs) - 1} streams equal")
+        del eng
         eng, got, counts = telemetry_drill(
             model, reqs, {"serving.decode": dict(nth=5)})
         streams = [got[i].output for i in range(len(reqs))]
@@ -3447,6 +3509,299 @@ def serve_8b_telemetry(model, reqs, want_streams, draft):
     for side in ("off", "on"):
         log(f"telemetry_{side} " + json.dumps(rec["turns"][side]))
     log("telemetry " + json.dumps(rec))
+
+
+# `serve_8b_migrate`: a request moves once it holds MIGRATE_AT tokens; the
+# int8-KV run serves the first N_QUANT_MIGRATE requests (one admission
+# batch, as the int8 phase's first) and moves the even ones
+MIGRATE_AT = 4
+N_QUANT_MIGRATE = 8
+# the drills of the bf16 run, at a request's move: a fault at either end
+# (then the move again), a payload damaged after its manifest (the
+# request stays on its source)
+MIGRATE_DRILLS = {0: "transfer.serialize", 2: "transfer.install",
+                  1: "transfer.payload"}
+
+
+def _resident(eng, rid):
+    return any(r is not None and r.rid == rid for r in eng._slot_req)
+
+
+def migrate_run(model, reqs, moves, drills=None, **kw):
+    """Serve ``reqs`` on a graphed 8B source engine at k = 1 and move each
+    request whose index is in ``moves`` to a graphed target engine on the
+    same card (`serving.transfer.migrate_request`) once it holds
+    `MIGRATE_AT` tokens; run both to the end. ``drills`` ({index: fault
+    site}) first fails that request's move once: ``transfer.serialize``
+    or ``transfer.install`` raised, ``transfer.payload`` damaged after
+    the manifest (refused at verify; the request then stays on its
+    source). Each move is timed: the export (gather, one D2H copy, the
+    manifest's sha256), the manifest alone, the target's
+    `verify_payload`, the install (one pinned H2D copy and the install
+    program) and the whole migration, with the install program's state.
+    Returns (streams by index, move records, drill records, source,
+    target); telemetry must be on."""
+    import torch
+    import paddle_tpu_torch.observability as telemetry
+    from paddle_tpu_torch.models import serving
+    from paddle_tpu_torch.serving import transfer
+    from paddle_tpu_torch.utils.faults import FaultError, FaultInjector
+    gc.collect()                  # an earlier run's engines off the card
+    src, dst = [serving.ContinuousBatchingEngine(
+        model, max_batch_size=8, max_seq_len=2048, **kw) for _ in range(2)]
+    # each timed call's host wall by name, in call order: a move's first
+    # `payload_checksums` is the export's manifest, its second the one
+    # inside `verify_payload`
+    times = {}
+    real = {n: getattr(serving, n) for n in ("payload_checksums",
+                                             "verify_payload")}
+
+    def timed(name, fn, sync=False):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                times.setdefault(name, []).append(time.perf_counter() - t0)
+        return call
+    for name, fn in real.items():
+        setattr(serving, name, timed(name, fn))
+    src.export_pages = timed("export", src.export_pages)
+    dst._install_kv = timed("install", dst._install_kv, sync=True)
+    drills = dict(drills or {})
+    todo = set(moves) | set(drills)
+    rids = [src.add_request(p, max_new_tokens=n) for p, n in reqs]
+    done, moved, drilled = {}, [], {}
+
+    def drill(i, site):
+        before = telemetry.value("pdt_transfer_failures_total",
+                                 stage="verify")
+        with FaultInjector(seed=0) as fi:
+            if site == "transfer.payload":
+                fi.arm_corrupt(site, mode="bitflip", nth=1)
+            else:
+                fi.arm(site, nth=1)
+            try:
+                transfer.migrate_request(src, dst, rids[i])
+            except (FaultError, serving.PayloadCorruption) as e:
+                err = f"{type(e).__name__}: {e}"
+            else:
+                raise AssertionError(f"migrate drill {site}: the move "
+                                     "went through")
+        src.check_invariants()
+        dst.check_invariants()
+        live = _resident(src, rids[i])
+        drilled[i] = dict(site=site, error=err[:120], live_on_source=live,
+                          target_running=dst.lifecycle_info()["running"],
+                          verify_failures=telemetry.value(
+                              "pdt_transfer_failures_total",
+                              stage="verify") - before)
+        if not live:
+            raise AssertionError(f"migrate drill {site}: the request left "
+                                 "its source")
+
+    def move(i):
+        times.clear()
+        t0 = time.perf_counter()
+        req, payload = transfer.migrate_request(src, dst, rids[i])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        n = payload["n_pages"]
+        runs = dst._install_programs[n].runs
+        moved.append(dict(
+            index=i, pages=n, nbytes=transfer.payload_nbytes(payload),
+            payload_mib=transfer.payload_nbytes(payload) / 2 ** 20,
+            export_ms=1e3 * times["export"][0],
+            manifest_ms=1e3 * times["payload_checksums"][0],
+            verify_ms=1e3 * times["verify_payload"][0],
+            install_ms=1e3 * times["install"][0], total_ms=1e3 * total,
+            install_program={1: "warm-up", 2: "capture+replay"}.get(
+                runs, "replay")))
+
+    try:
+        while any(r is not None for e in (src, dst) for r in e._slot_req) \
+                or src._queue:
+            for r in src.step():
+                done[int(r.request_id)] = r.output
+            for i in sorted(todo):
+                req = src.get_request(rids[i])
+                if req is None or not _resident(src, rids[i]) \
+                        or len(req.output) < MIGRATE_AT:
+                    continue
+                todo.discard(i)
+                if i in drills:
+                    drill(i, drills[i])
+                if i in moves:
+                    move(i)
+            for r in dst.step():
+                done[int(r.request_id)] = r.output
+    finally:
+        for name, fn in real.items():
+            setattr(serving, name, fn)
+    torch.cuda.synchronize()
+    if todo:
+        raise AssertionError(f"requests {sorted(todo)} never reached "
+                             f"{MIGRATE_AT} tokens on the source")
+    for eng in (src, dst):
+        eng.check_invariants()
+        if len(eng._free) != eng.num_pages - 1:
+            raise AssertionError("pages held after the migration run")
+    return [done[i] for i in range(len(reqs))], moved, drilled, src, dst
+
+
+def spill_revive(model, want_streams):
+    """`serve_8b_prefix`'s warm request on an engine with the prefix
+    cache, serialized at its `MIGRATE_AT`-th token and spilled into a
+    `FleetPrefixStore`; the spilled chain of a hit prompt fetched and
+    installed by `import_prefix` into a fresh engine, then the 8 hit
+    requests: 8 hits reusing 4096 tokens, and the streams of
+    `serve_8b_prefix`'s cached run (its pages came from the same warm
+    admission)."""
+    import torch
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.observability import profile
+    from paddle_tpu_torch.serving import FleetPrefixStore, transfer
+    preqs = prefix_requests(model.config.vocab_size)
+    warm = ContinuousBatchingEngine(model, max_batch_size=8,
+                                    max_seq_len=2048,
+                                    enable_prefix_caching=True)
+    rid = warm.add_request(preqs[0][0], max_new_tokens=preqs[0][1])
+    while len(warm.get_request(rid).output) < MIGRATE_AT:
+        warm.step()
+    payload = transfer.serialize_request(warm, rid)
+    del warm
+    # a budget for the whole chain: the default 32 MiB holds 16 pages at
+    # 8B width, and the LRU would drop the chain's head first
+    store = FleetPrefixStore(page_size=16, spill_budget_bytes=1 << 30)
+    spilled = store.spill_payload(payload)
+    del payload
+    fresh = ContinuousBatchingEngine(model, max_batch_size=8,
+                                     max_seq_len=2048,
+                                     enable_prefix_caching=True)
+    entry = store.fetch(preqs[1][0])
+    if entry is None:
+        raise AssertionError("spill: the hit prompt's chain is not held")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    installed = fresh.import_prefix(*entry)
+    torch.cuda.synchronize()
+    import_ms = 1e3 * (time.perf_counter() - t0)
+    store.note_lookup("spill")
+    rids = [fresh.add_request(p, max_new_tokens=n) for p, n in preqs[1:]]
+    out = fresh.run()
+    streams = [out[r] for r in rids]
+    rec = dict(spilled_pages=spilled, spilled_mib=store.spilled_bytes / 2 ** 20,
+               fetched_pages=len(entry[0]), installed=installed,
+               import_prefix_ms=import_ms, prefix_hits=fresh.prefix_hits,
+               prefix_tokens_reused=fresh.prefix_tokens_reused,
+               streams_equal_cached=sum(a == b for a, b in
+                                        zip(streams, want_streams)),
+               store=store.stats(), ledger=profile.memory_ledger(
+                   [fresh], prefix_store=store))
+    fresh.check_invariants()
+    if installed != PREFIX_LEN // 16 or fresh.prefix_hits != N_PREFIX_HITS \
+            or fresh.prefix_tokens_reused != N_PREFIX_HITS * PREFIX_LEN \
+            or streams != want_streams:
+        raise AssertionError(f"spill: {installed} pages installed, "
+                             f"{fresh.prefix_hits} hits, "
+                             f"{rec['streams_equal_cached']} streams equal")
+    return rec
+
+
+def serve_8b_migrate(model, reqs, want_streams, gaps, quant_streams,
+                     prefix_streams):
+    """KV page transfer at 8B (phase 5u of the module docstring): the 16
+    requests with every even one moved to a second engine at its
+    `MIGRATE_AT`-th token and the three transfer drills, against
+    `serve_8b`'s streams (bitwise, or each first parting at a near-tie
+    of the plain engine's logits, `plain_gaps`); 4 moves on int8-KV
+    engines against the int8 phase's streams, and the int8 / bf16 bytes
+    a page; the spilled prefix revived. Any failed check raises."""
+    import torch
+    import paddle_tpu_torch.observability as telemetry
+    from paddle_tpu_torch.models.serving import QuantServingConfig
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    L = model.config.num_hidden_layers
+    t_phase = time.perf_counter()
+    rec = {}
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        evens = list(range(0, len(reqs), 2))
+        streams, moved, drilled, src, dst = migrate_run(
+            model, reqs, evens, MIGRATE_DRILLS)
+        check_serving_counts(src, dict(launch_counts), L,
+                             extra=dst.num_dispatches)
+        divs = first_divergences(want_streams, streams,
+                                 lambda i, t: gaps.get((i, t)))
+        nbytes = sum(m["nbytes"] for m in moved)
+        counted = telemetry.value("pdt_transfer_bytes_total")
+        rec["bf16"] = dict(
+            moved=len(moved), streams_equal=sum(
+                a == b for a, b in zip(streams, want_streams)),
+            first_divergences=divs, near_ties_only=near_ties_only(divs),
+            transfer_bytes_total=counted, payload_nbytes_sum=nbytes,
+            migrations_total=telemetry.value(
+                "pdt_transfer_migrations_total"),
+            failures={s: telemetry.value("pdt_transfer_failures_total",
+                                         stage=s)
+                      for s in ("serialize", "install", "verify")},
+            drills=drilled, install_captures=sum(
+                p.graph is not None
+                for p in dst._install_programs.values()),
+            migrations=moved)
+        del src, dst
+        for m in moved:
+            log("migrate " + json.dumps(m))
+        if len(moved) != len(evens) or counted != nbytes \
+                or not rec["bf16"]["near_ties_only"] \
+                or [drilled[i]["live_on_source"] for i in sorted(drilled)] \
+                != [True] * 3 or drilled[1]["verify_failures"] != 1:
+            raise AssertionError("migrate: a move, a stream, the byte count "
+                                 "or a drill is off: "
+                                 + json.dumps(rec["bf16"])[:2000])
+        qreqs = reqs[:N_QUANT_MIGRATE]
+        qstreams, qmoved, _, src, dst = migrate_run(
+            model, qreqs, list(range(0, N_QUANT_MIGRATE, 2)),
+            quant=QuantServingConfig("int8", "int8"))
+        del src, dst
+        per_page = {k: statistics.median(m["nbytes"] / m["pages"]
+                                         for m in ms)
+                    for k, ms in (("bf16", moved), ("int8", qmoved))}
+        ratio = per_page["int8"] / per_page["bf16"]
+        # a page row int8 over the model's dtype: int8 k and v and one f32
+        # scale each, over k and v at full width (at 8B bf16 (2 x 1024 +
+        # 8) / (2 x 2048) = 0.50195)
+        cfg = model.config
+        row = 2 * cfg.num_key_value_heads * cfg.head_dim
+        want_ratio = (row + 2 * 4) \
+            / (row * next(model.parameters()).element_size())
+        rec["int8"] = dict(moved=len(qmoved), streams_equal=sum(
+            a == b for a, b in zip(qstreams, quant_streams)),
+            bytes_per_page=per_page, ratio=ratio, ratio_expected=want_ratio,
+            migrations=qmoved)
+        for m in qmoved:
+            log("migrate_int8 " + json.dumps(m))
+        if qstreams != quant_streams[:N_QUANT_MIGRATE] \
+                or ratio != want_ratio:
+            raise AssertionError("migrate int8: streams or bytes off: "
+                                 + json.dumps(rec["int8"])[:2000])
+        rec["spill"] = spill_revive(model, prefix_streams)
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["seconds"] = time.perf_counter() - t_phase
+        log("serving_migrate " + json.dumps(
+            {k: ({kk: vv for kk, vv in v.items() if kk != "migrations"}
+                 if isinstance(v, dict) else v) for k, v in rec.items()}))
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+        telemetry.clear_events()
 
 
 def path_check(model, reqs, weights=None, lora_engine=None):
@@ -6269,15 +6624,16 @@ def main():
     path_check(model, reqs)
     serve_8b_pipelined(model, reqs, streams, stats)
     serve_8b_graphs(model, reqs, streams)
-    serve_8b_prefix(model)
-    qcounts, qweights = serve_8b_quant(model, reqs, "int8", N_REQUESTS)
+    prefix_streams = serve_8b_prefix(model)
+    qcounts, qweights, qstreams = serve_8b_quant(model, reqs, "int8",
+                                                 N_REQUESTS)
     path_check(model, reqs, qweights)
     del qweights
     serve_8b_quant(model, reqs, "fp8", N_FP8_REQUESTS)
     lcounts, lora_eng = serve_8b_lora(model, reqs)
     path_check(model, reqs, lora_engine=lora_eng)
     del lora_eng
-    gcounts = serve_8b_legacy(model, reqs)
+    gcounts, lstreams = serve_8b_legacy(model, reqs)
     # generate(), the dense layout, the legacy prefix cache and the legacy
     # chunked prefill, each with its launches counted
     t0 = time.perf_counter()
@@ -6295,9 +6651,11 @@ def main():
     log(f"spec and sampling phases {time.perf_counter() - t0:.1f}s")
     # telemetry, fault points and the decode-round attribution
     t0 = time.perf_counter()
-    serve_8b_telemetry(model, reqs, streams, draft)
+    serve_8b_telemetry(model, reqs, streams, draft, lstreams)
     del draft
     log(f"telemetry phase {time.perf_counter() - t0:.1f}s")
+    # KV page transfer: migrations, their drills, int8 KV, the spill tier
+    serve_8b_migrate(model, reqs, streams, gaps, qstreams, prefix_streams)
     # each kernel's launches on its own main path: the full-width run
     # for RMSNorm and full-width attention, the int8 run for int8-KV
     # attention and the dequant matmul, the LoRA run for the epilogue,

@@ -45,12 +45,19 @@ failure isolation and telemetry (≙ the ``_M_*`` instruments :196-320,
 `_admission_failed` :2453, the decode retry of `step` :1433-1455, the
 ``serving.*`` and ``speculative.*`` fault sites, `_spec_degrade` :3841,
 `profile_round` :3730 and the spans, events and `note_round` calls of
-every path): a prefill that raises before its admission launches
-anything fails its request alone; a decode step that faults before its
+every path): a prefill that raises before its admission writes the
+pools fails its request alone; a decode step that faults before its
 dispatch is retried up to ``max_decode_retries``; a spec round whose
 draft or verify site faults decodes plainly; every ``pdt_*`` series of
 the JAX engine is kept under the same names and labels, the program
-cache metered by the JAX engine's family names.
+cache metered by the JAX engine's family names. KV page transfer (≙
+the payload helpers :103-197, `PayloadCorruption` / `QuantMismatch`
+:338-356, `get_request` :1513, `_resident_slot` / `export_pages` /
+`import_pages` / `evict_request` / `import_prefix` :1579-1948 and
+`_install_kv` / `_build_install` :1950-2000): a running request's pages
+and state leave one engine as a host payload with a sha256 manifest
+and enter another through the install program
+(`serving/transfer.py`, `serving/prefix_store.py`).
 
 With ``attention_impl="ragged"`` (the default) each admission batch and
 each decode step is ONE ragged dispatch: the packed token axis runs
@@ -70,7 +77,11 @@ pages; a prefix-cache hit gathers the shared pages into the suffix
 program's caches and prefills only the suffix, at ``position_offset =
 shared_len``; a prompt of at least ``prefill_chunk`` tokens prefills in
 fixed chunks through one program at a device offset (the model's traced
-branch), each chunk's rows scattered as it completes. A decode step is
+branch), each chunk's rows scattered as it completes. Every legacy
+program that makes K/V rows (prefill, suffix, chunk) writes them into
+one engine-wide rows buffer (`_legacy_rows`), and one scatter program a
+row count copies them into the pages, the source offset, the true
+length and the block-table row among its device inputs. A decode step is
 one dispatch of (B, 1) tokens whose attention launches the q = 1 paged
 attention kernel. ``kv_layout="dense"`` serves through the legacy
 paths only: per-slot contiguous (B, S, HK, D) caches, the bucketed
@@ -106,8 +117,12 @@ in the same LRU: ragged admission by (padded tokens, pages bound) in
 legacy suffix prefill by (shared_len, bucket) in `_suffix_programs`,
 capped at twice that; the spec engine's draft prefills by (padded
 tokens, pages bound) in `_d_prefill_programs` and its verify dispatches
-likewise in `_verify_programs`; the decode step (ragged, paged or
-dense), the chunk prefill and the draft scan are one program each. A
+likewise in `_verify_programs`; the legacy page scatter by its row
+count in `_scatter_programs` and the transfer plane's page install by
+its page count in `_install_programs`, each capped at
+``max_prefill_programs`` (≙ `_scatter_jits`, `_install_jits`); the
+decode step (ragged, paged or dense), the chunk prefill and the draft
+scan are one program each. A
 program's body is the dispatch's code on static input buffers, with the
 KV pools or caches and the dispatch weights bound when it is built; on the card it is captured
 once as a CUDA graph and replayed, so a step costs one host launch per
@@ -120,6 +135,7 @@ naming the ROADMAP.md item that will port it.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import os
 import time
 import warnings
@@ -141,6 +157,122 @@ from .generation import RequestStatus, _sample_token, sample_tokens
 from .llama import PagedKVCacheView, RaggedKVCacheView
 from .speculative import spec_accept_greedy
 from ..utils.faults import FaultError, fault_point
+
+__all__ = ["ContinuousBatchingEngine", "Request", "RequestStatus",
+           "SpecConfig", "QuantServingConfig", "EngineOverloaded",
+           "PoolExhausted", "EngineInvariantError", "ModelMismatch",
+           "PayloadCorruption", "QuantMismatch", "assemble_payload_kv",
+           "payload_checksums", "payload_scale_checksums",
+           "verify_payload"]
+
+
+# -- transfer payloads (≙ :103-197) --------------------------------------
+# A payload's arrays are CPU torch tensors (numpy has no bfloat16); the
+# helpers take numpy arrays as well, so that a JAX engine's payload
+# verifies and installs here.
+def _dtype_name(dt) -> str:
+    """The JAX package's name of a dtype ("bfloat16", "float32", "int8")
+    for a torch dtype."""
+    return str(dt).replace("torch.", "")
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """``a``, a torch tensor or a numpy array (bfloat16 through
+    ``ml_dtypes``, as the JAX package exports it), as a torch tensor on
+    the host, sharing its memory where it can."""
+    if torch.is_tensor(a):
+        return a
+    a = np.asarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)) \
+            .view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _sha256(a) -> str:
+    """``"sha256:<hex>"`` of an array's raw bytes in C order: the same
+    digest as the JAX package's ``np.ascontiguousarray(a).tobytes()``
+    for the same values (a bf16 tensor hashes its 16-bit words)."""
+    if torch.is_tensor(a):
+        t = a.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        a = t.numpy()
+    raw = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    return "sha256:" + hashlib.sha256(raw).hexdigest()
+
+
+def assemble_payload_kv(payload: dict):
+    """The logical per-layer (k, v) page rows of a transfer payload:
+    ``payload["kv"]``, or a tensor-parallel source's per-shard fragments
+    (``payload["kv_shards"]``: outer list the shards in head order,
+    inner the layers) joined on the KV-head axis. This engine exports
+    ``kv`` (one shard); a JAX tensor-parallel payload installs through
+    this view."""
+    if payload.get("kv") is not None:
+        return payload["kv"]
+    shards = payload["kv_shards"]
+    if len(shards) == 1:
+        return list(shards[0])
+    return [tuple(torch.cat([_host_tensor(s[li][j]) for s in shards])
+                  for j in range(2))
+            for li in range(len(shards[0]))]
+
+
+def payload_checksums(payload: dict):
+    """One ``"sha256:<hex>"`` per key and value array of every shard
+    fragment (the wire unit), per layer, in wire order: the bytes that
+    cross the device-to-host link, so a flipped byte anywhere in the
+    payload is seen before it installs into a target's pool."""
+    shards = [payload["kv"]] if payload.get("kv") is not None \
+        else payload["kv_shards"]
+    return [[[_sha256(k), _sha256(v)] for k, v in shard]
+            for shard in shards]
+
+
+def payload_scale_checksums(payload: dict):
+    """The checksums of a quantized payload's per-page scale rows
+    (``payload["kv_scales"]``, one (k_scale, v_scale) pair a layer): a
+    flipped scale byte corrupts every row of a page at dequant. None
+    for a full-width payload."""
+    scales = payload.get("kv_scales")
+    if scales is None:
+        return None
+    return [[_sha256(ks), _sha256(vs)] for ks, vs in scales]
+
+
+def verify_payload(payload: dict) -> None:
+    """Hold a payload's ``kv_sha256`` manifest (and ``scales_sha256``)
+    to its bytes; raises :class:`PayloadCorruption` on any mismatch. A
+    payload without a manifest passes (`export_pages` always attaches
+    one). `import_pages` calls it before any target mutation."""
+    want = payload.get("kv_sha256")
+    if want is None:
+        return
+    got = payload_checksums(payload)
+    if got != [[list(pair) for pair in shard] for shard in want]:
+        for s, (gs, ws) in enumerate(zip(got, want)):
+            for layer, (gp, wp) in enumerate(zip(gs, ws)):
+                if gp != list(wp):
+                    raise PayloadCorruption(
+                        f"KV payload checksum mismatch for request "
+                        f"{payload.get('request_id')!r} at shard {s} "
+                        f"layer {layer} — the payload was corrupted "
+                        "in flight; refusing to install")
+        raise PayloadCorruption(
+            f"KV payload checksum manifest shape mismatch for request "
+            f"{payload.get('request_id')!r} (manifest "
+            f"{len(want)} shards vs payload {len(got)})")
+    want_sc = payload.get("scales_sha256")
+    if want_sc is not None:
+        got_sc = payload_scale_checksums(payload)
+        if got_sc != [list(pair) for pair in want_sc]:
+            raise PayloadCorruption(
+                f"KV payload SCALE checksum mismatch for request "
+                f"{payload.get('request_id')!r} — the per-page dequant "
+                "scales were corrupted in flight; refusing to install")
 
 
 # -- telemetry (≙ :196-320: names, help, labels and buckets unchanged) --
@@ -287,11 +419,31 @@ class EngineInvariantError(AssertionError):
     """check_invariants() found inconsistent page accounting."""
 
 
+class PayloadCorruption(ValueError):
+    """A transfer payload's KV bytes do not match its ``kv_sha256``
+    manifest (`verify_payload`). Raised by `import_pages` before any
+    target mutation: both engines stay consistent, and the transfer
+    plane counts ``pdt_transfer_failures_total{stage="verify"}``."""
+
+
+class QuantMismatch(ValueError):
+    """A KV install crossed quantization modes: int8 pages and their
+    scales offered to a full-width engine, or the other way. The bytes
+    are not interpretable on the other side. Raised by `import_pages` /
+    `import_prefix` before any target mutation and counted
+    ``pdt_quant_mode_mismatch_total{kind=}``."""
+
+
 class ModelMismatch(ValueError):
-    """A request names a LoRA adapter that is not resident in this
-    engine's stacks. Raised by `add_request` before the request is
-    queued; the fleet model store (`serving.model_store`) installs the
-    adapter before it routes a request there."""
+    """A request or KV install crossed model identity: a migration
+    payload produced under one hosted model (``model_tag``) or adapter
+    offered to an engine serving another, whose pages would encode
+    another function of the weights, or a request naming a LoRA adapter
+    that is not resident in this engine's stacks. Raised before any
+    target mutation (by `add_request` before the request is queued) and
+    counted ``pdt_model_mismatch_total{kind=}``; the fleet model store
+    (`serving.model_store`) installs the right weights or adapter before
+    it routes a request there."""
 
 
 @dataclass
@@ -412,9 +564,9 @@ class _Program:
     ``body``, the dispatch's code on views of ``flat`` with the KV pools
     and the dispatch weights bound when the program was built, and, once
     captured, its static output ``out`` (the greedy tokens). A legacy
-    prefill, suffix or chunk program also owns its per-layer caches,
-    ``caches``, which the body writes and the caller scatters or copies
-    from (the chunk program's keep a prompt's earlier chunks). A body holds no
+    prefill, suffix or chunk program's body writes its K/V rows into the
+    engine's `_legacy_rows`, which the scatter program or the dense copy
+    reads. A body holds no
     reference to its engine, so an engine that is dropped frees its
     pools at once, not at the next garbage collection.
 
@@ -431,11 +583,9 @@ class _Program:
     names for its program family and its key, the labels under which
     its first run (and on the card its capture) is metered."""
 
-    def __init__(self, flat: torch.Tensor, body: Callable[[], torch.Tensor],
-                 caches=None):
+    def __init__(self, flat: torch.Tensor, body: Callable[[], torch.Tensor]):
         self.flat = flat
         self.body = body
-        self.caches = caches
         self.out: Optional[torch.Tensor] = None
         self.graph = None
         self.runs = 0
@@ -642,10 +792,11 @@ class ContinuousBatchingEngine:
         self.num_preemptions = 0
         self.num_decode_retries = 0
         self._consec_decode_faults = 0
-        # program runs begun (the warm-ups, captures and replays, and the
-        # eager bodies): a failed legacy admission is isolated only while
-        # it has launched nothing (`_admit_legacy`)
-        self._program_runs = 0
+        # writes to the KV pools or dense caches begun by a non-ragged
+        # writer (the scatter and install programs, `_dense_insert`),
+        # counted just before each: a failed legacy admission is
+        # isolated only while it has written nothing (`_admit_legacy`)
+        self._pool_writes = 0
         self._finished_backlog: List[Request] = []
         self._admit_seq = 0
         self._slot_seq = np.zeros(self.B, np.int64)
@@ -712,6 +863,15 @@ class ContinuousBatchingEngine:
         self._verify_programs: "OrderedDict[tuple, _Program]" = \
             OrderedDict()
         self._draft_scan_program: Optional[_Program] = None
+        # the legacy page scatter by row count and the page install by
+        # page count (≙ `_scatter_jits`, `_install_jits`), and the static
+        # buffers they read, made at first use: the legacy programs' K/V
+        # rows (`_legacy_rows`) and the install's staging
+        # (`_install_staging`)
+        self._scatter_programs: "OrderedDict[int, _Program]" = OrderedDict()
+        self._install_programs: "OrderedDict[int, _Program]" = OrderedDict()
+        self._rows: Optional[list] = None
+        self._staging: Optional[torch.Tensor] = None
         self._capture_stream = None
         self._graph_pool = None
         self.num_graph_captures = 0
@@ -1019,6 +1179,18 @@ class ContinuousBatchingEngine:
                 "failures": self.num_failures,
                 "preemptions": self.num_preemptions,
                 "decode_retries": self.num_decode_retries}
+
+    def get_request(self, rid: int) -> Optional[Request]:
+        """≙ :1513: the live (queued or running) Request with engine-local
+        id ``rid``, or None once it reached a terminal state (or left by
+        `evict_request`)."""
+        for req in self._queue:
+            if req.rid == rid:
+                return req
+        for req in self._slot_req:
+            if req is not None and req.rid == rid:
+                return req
+        return None
 
     @property
     def num_dispatches(self) -> int:
@@ -1390,6 +1562,431 @@ class ContinuousBatchingEngine:
             out[nm] = LoraWeight(out.get(nm, self._params[nm]), lo["a"][nm],
                                  lo["b"][nm], lo["scale"], adapter_ids)
         return out
+
+    # -- migration (serving/transfer.py, serving/prefix_store.py) -------
+    def _resident_slot(self, rid: int) -> int:
+        for i, r in enumerate(self._slot_req):
+            if r is not None and r.rid == rid:
+                return i
+        raise ValueError(f"no resident request with rid {rid} (queued "
+                         "or terminal requests hold no pages)")
+
+    def _pool_dtype(self) -> torch.dtype:
+        return torch.int8 if self._qkv else self._kv_shape[3]
+
+    def export_pages(self, rid: int) -> dict:
+        """≙ :1586: serialize a RUNNING request's resident KV pages and
+        request state for migration into another engine. Read-only: the
+        request keeps running here until `evict_request`. Drains a
+        pipelined window first, so that the payload holds every token the
+        device made. The payload's ``kv`` is one (k, v) pair of CPU
+        tensors a layer, (HK, n_pages, page_size, D) over the slot's live
+        block-table window [freed, next index), in the pool dtype; under
+        int8 KV ``kv_scales`` holds each layer's (n_pages, page_size) f32
+        scale rows. Every layer's pages are gathered on the device into
+        one buffer and cross to the host in one copy (the scales in a
+        second). ``kv_sha256`` / ``scales_sha256`` are the manifest
+        `verify_payload` checks; the keys and their meanings are the JAX
+        engine's (``tp`` 1, ``kv_shards`` None)."""
+        if self.layout != "paged":
+            raise ValueError("export_pages requires the paged layout")
+        self.quiesce()
+        slot = self._resident_slot(rid)
+        req = self._slot_req[slot]
+        freed = int(self._slot_freed[slot])
+        n_idx = int(self._slot_next_idx[slot])
+        L, hk, hd, _ = self._kv_shape
+        now = self._clock()
+        pages = torch.as_tensor(self._bt[slot, freed:n_idx].astype(np.int64),
+                                device=self.device)
+        n = int(pages.numel())
+        cuda = self.device.type == "cuda"
+        with torch.no_grad():
+            dev = torch.empty(2 * L, hk, n, self.page_size, hd,
+                              dtype=self._pool_dtype(), device=self.device)
+            for li, e in enumerate(self._kv):
+                torch.index_select(e[0], 1, pages, out=dev[2 * li])
+                torch.index_select(e[1], 1, pages, out=dev[2 * li + 1])
+            host = self._to_host(dev)
+            kv = [(host[2 * li], host[2 * li + 1]) for li in range(L)]
+            kv_scales = None
+            if self._qkv:
+                sh = self._to_host(torch.stack([e[j][pages] for e in self._kv
+                                                for j in (2, 3)]))
+                kv_scales = [(sh[2 * li], sh[2 * li + 1]) for li in range(L)]
+            if cuda:
+                torch.cuda.current_stream(self.device).synchronize()
+        payload_kv = {"kv": kv, "kv_shards": None, "kv_scales": kv_scales}
+        return {
+            "request_id": req.request_id,
+            "prompt": list(req.prompt),
+            "output": list(req.output),
+            "max_new_tokens": req.max_new_tokens,
+            "model_tag": self.model_tag,
+            "adapter": req.adapter,
+            "deadline_remaining": None if req.deadline is None
+            else req.deadline - now,
+            # ages, not absolutes: the target rebases them on its clock
+            "first_token_age": None if req.first_token_time is None
+            else now - req.first_token_time,
+            "preemptions": req.preemptions,
+            "priority": req.priority,
+            "ctx": int(self._pos[slot]),
+            "last_token": int(self._tok[slot]),
+            "freed": freed,
+            "n_pages": n_idx - freed,
+            "page_size": self.page_size,
+            "max_seq_len": self.S,
+            "kv_spec": (L, hk, hd, _dtype_name(self._pool_dtype())),
+            "kv": kv,
+            "kv_shards": None,
+            "kv_scales": kv_scales,
+            "kv_quant": self._qkv,
+            "kv_sha256": payload_checksums(payload_kv),
+            "scales_sha256": payload_scale_checksums(payload_kv),
+            "tp": 1,
+        }
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` itself on the CPU; on the card a copy into pinned host
+        memory, made without waiting (the caller synchronizes)."""
+        if self.device.type != "cuda":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t, non_blocking=True)
+
+    def import_pages(self, payload: dict,
+                     deadline: Optional[float] = None) -> Request:
+        """≙ :1682: install a serialized request (an `export_pages`
+        payload, this package's or the JAX package's) into this engine:
+        claim a free slot, attach any prompt prefix this engine's own
+        trie holds read-only, allocate the remaining pages and write
+        their contents through the install program (`_install_kv`), then
+        register the installed chain in the prefix cache. ``deadline``
+        (seconds from now on this engine's clock) overrides the payload's
+        remaining budget. Refuses, before any mutation and in this
+        order: a cross-quant-mode payload (`QuantMismatch`), a payload of
+        another hosted model or of an adapter not resident here
+        (`ModelMismatch`), another geometry or page size or a context
+        past ``max_seq_len`` (ValueError), no free slot
+        (`EngineOverloaded`), then a payload whose bytes fail their
+        manifest (`PayloadCorruption`). Raises PoolExhausted when the
+        worst-case pages cannot be reserved. Transactional: a failure
+        after the slot is claimed backs it out. A spec engine's imported
+        slot has no draft cache: its next round backfills it from the
+        migrated stream."""
+        if self.layout != "paged":
+            raise ValueError("import_pages requires the paged layout")
+        # a window's device token ring has no entry for a slot installed
+        # mid-window
+        self.quiesce()
+        pq = payload.get("kv_quant")
+        if pq != self._qkv:
+            _M_QUANT_MISMATCH.inc(kind="import")
+            raise QuantMismatch(
+                f"cross-quant-mode migration refused: payload KV is "
+                f"{pq or 'full-width'}, this engine serves "
+                f"{self._qkv or 'full-width'} pages — fleets must be "
+                "quant-homogeneous")
+        ptag = payload.get("model_tag")
+        if ptag != self.model_tag:
+            _M_MODEL_MISMATCH.inc(kind="import")
+            raise ModelMismatch(
+                f"cross-model migration refused: payload KV was "
+                f"produced under model {ptag or 'base'!r}, this "
+                f"engine hosts {self.model_tag or 'base'!r} — the "
+                "fleet store installs the model before routing here")
+        pad = payload.get("adapter")
+        if pad is not None and pad not in self._adapter_rows:
+            _M_MODEL_MISMATCH.inc(kind="adapter")
+            raise ModelMismatch(
+                f"migration payload decodes under adapter {pad!r} "
+                "which is not resident in this engine — the fleet "
+                "store installs adapters before routing here")
+        L, hk, hd, _ = self._kv_shape
+        spec = tuple(payload["kv_spec"])
+        mine = (L, hk, hd, _dtype_name(self._pool_dtype()))
+        if spec != mine:
+            raise ValueError(f"kv geometry mismatch: payload {spec} vs "
+                             f"engine {mine}")
+        if payload["page_size"] != self.page_size:
+            raise ValueError(
+                f"page_size mismatch: payload {payload['page_size']} "
+                f"vs engine {self.page_size}")
+        ctx = int(payload["ctx"])
+        if ctx >= self.S:
+            raise ValueError(f"context {ctx} does not fit max_seq_len "
+                             f"{self.S}")
+        free = [i for i, r in enumerate(self._slot_req) if r is None]
+        if not free:
+            raise EngineOverloaded("no free slot for a migration "
+                                   "import — retry after a step")
+        # after the free-slot check: a deferred migration retries every
+        # tick, and hashing the payload per deferral would be wasted
+        verify_payload(payload)
+        now = self._clock()
+        budget = payload["deadline_remaining"] if deadline is None \
+            else deadline
+        output = [int(t) for t in payload["output"]]
+        req = Request(self._next_rid, [int(t) for t in payload["prompt"]],
+                      int(payload["max_new_tokens"]), output=output,
+                      status=RequestStatus.RUNNING,
+                      deadline=None if budget is None else now + budget,
+                      enqueue_time=now, arrival_time=now,
+                      preemptions=int(payload.get("preemptions", 0)),
+                      first_token_time=None
+                      if payload.get("first_token_age") is None
+                      else now - payload["first_token_age"],
+                      request_id=payload["request_id"],
+                      priority=int(payload.get("priority", 0)),
+                      adapter=pad, device_len=len(output))
+        freed = int(payload["freed"])
+        shared = None
+        if self._prefix_enabled and not freed:
+            shared = self._match_prefix(req.prompt)
+            for p in shared or ():
+                self._incref(p)            # pin across _reserve_ok
+        # any exit without a reservation, a refusal or a raise, unpins
+        ok = False
+        try:
+            ok = self._reserve_ok(req, len(shared) if shared else 0)
+        finally:
+            if not ok:
+                for p in shared or ():
+                    self._decref(p)
+        if not ok:
+            raise PoolExhausted(
+                "migration import cannot reserve worst-case pages — "
+                "retry after running requests release")
+        slot = free[0]
+        self._slot_req[slot] = req
+        self._slot_adapter[slot] = self._adapter_row(req)
+        self._slot_seq[slot] = self._admit_seq
+        self._admit_seq += 1
+        self._next_rid += 1
+        try:
+            m = 0
+            try:
+                if shared:
+                    self._attach_shared(slot, shared)
+                    m = len(shared)
+            finally:
+                for p in shared or ():
+                    self._decref(p)        # unpin: the slot holds refs
+            if freed:
+                # a window engine's slid-out leading pages stay
+                # trash-routed on the target too
+                self._slot_next_idx[slot] = freed
+                self._slot_freed[slot] = freed
+            self._slot_reserved[slot] = self._worst_pages(req)
+            n_total = freed + int(payload["n_pages"])
+            while int(self._slot_next_idx[slot]) < n_total:
+                self._alloc_page(slot)
+            start = m if m else freed
+            ids = [int(self._bt[slot, j]) for j in range(start, n_total)]
+            off = start - freed
+            scale_rows = None
+            if self._qkv:
+                scale_rows = [(_host_tensor(ks)[off:], _host_tensor(vs)[off:])
+                              for ks, vs in payload["kv_scales"]]
+            self._install_kv(ids, [(_host_tensor(kp)[:, off:],
+                                    _host_tensor(vp)[:, off:])
+                                   for kp, vp in assemble_payload_kv(payload)],
+                             scale_rows)
+            if self._prefix_enabled and not freed:
+                self._register_prefix(slot, req)
+            if shared:
+                self.prefix_hits += 1
+                self.prefix_tokens_reused += m * self.page_size
+        except BaseException:
+            self._release_slot(slot, register=False)
+            raise
+        self._pos[slot] = ctx
+        self._tok[slot] = int(payload["last_token"])
+        if _invariants_enabled():
+            self._check_invariants()
+        return req
+
+    def evict_request(self, rid: int) -> Request:
+        """≙ :1855: detach a live request without a terminal transition,
+        the migration hand-off (its pages now live in another engine). A
+        running slot is released as a finished request's is (its prompt's
+        full pages enter the prefix cache); a queued request leaves the
+        queue. Terminal counters are untouched: the request finishes,
+        once, wherever it lands."""
+        self.quiesce()          # hand off committed state only
+        for i, r in enumerate(self._slot_req):
+            if r is not None and r.rid == rid:
+                self._release_slot(i)
+                return r
+        for i, r in enumerate(self._queue):
+            if r.rid == rid:
+                self._queue.pop(i)
+                return r
+        raise ValueError(f"no live request with rid {rid}")
+
+    def import_prefix(self, pages_tokens: List[List[int]], kv_rows,
+                      kv_scales=None) -> int:
+        """≙ :1874: install an externally held prefix chain (the fleet
+        prefix store's host spill, `serving.prefix_store`) into this
+        engine's prefix cache. ``pages_tokens`` are FULL-page token lists
+        forming one chain from position 0, ``kv_rows`` each layer's (k,
+        v) page contents, (HK, n, page_size, D), and under int8 KV
+        ``kv_scales`` each layer's (n, page_size) scale rows. Pages the
+        trie holds are skipped; the missing ones (always a suffix of the
+        chain) take only genuinely free pages, so the restore never
+        evicts a resident chain nor changes the trie mid-build; the
+        entry budget is applied after the content lands. Returns the
+        pages installed (0 without prefix caching, when the chain is
+        resident, or when nothing is free). A chain of the other quant
+        mode is refused with `QuantMismatch`."""
+        if self.layout != "paged" or not self._prefix_enabled:
+            return 0
+        if (kv_scales is None) == bool(self._qkv):
+            _M_QUANT_MISMATCH.inc(kind="prefix")
+            raise QuantMismatch(
+                f"cross-quant-mode prefix install refused: chain is "
+                f"{'quantized' if kv_scales is not None else 'full-width'}"
+                f", this engine serves "
+                f"{self._qkv or 'full-width'} pages")
+        parent, missing_from = None, None
+        for f, ptoks in enumerate(pages_tokens):
+            if len(ptoks) != self.page_size:
+                raise ValueError("import_prefix needs FULL pages "
+                                 f"(page {f} has {len(ptoks)} tokens)")
+            key = (parent, tuple(int(t) for t in ptoks))
+            if missing_from is None and key not in self._prefix_nodes:
+                missing_from = f
+            parent = key
+        if missing_from is None:
+            return 0                       # chain already resident
+        page_ids, parent = [], None
+        for f, ptoks in enumerate(pages_tokens):
+            key = (parent, tuple(int(t) for t in ptoks))
+            if f < missing_from:
+                self._prefix_nodes.move_to_end(key)
+                parent = key
+                continue
+            if not self._free:
+                break                      # install what fits for free
+            page = self._free.pop()
+            self._page_rc[page] = 1        # held by the trie node
+            self._prefix_nodes[key] = {"page": page, "parent": parent,
+                                       "children": 0}
+            if parent is not None:
+                self._prefix_nodes[parent]["children"] += 1
+            page_ids.append(page)
+            parent = key
+        if page_ids:
+            end = missing_from + len(page_ids)
+            self._install_kv(
+                page_ids, [(_host_tensor(kp)[:, missing_from:end],
+                            _host_tensor(vp)[:, missing_from:end])
+                           for kp, vp in kv_rows],
+                None if kv_scales is None else
+                [(_host_tensor(ks)[missing_from:end],
+                  _host_tensor(vs)[missing_from:end])
+                 for ks, vs in kv_scales])
+        # the entry budget after the content lands: an eviction here can
+        # only take a fully installed node
+        while len(self._prefix_nodes) > self._max_prefix_entries:
+            if not self._evict_one():
+                break
+        return len(page_ids)
+
+    def _install_staging(self) -> torch.Tensor:
+        """The install program's static device staging, made at first
+        use: bytes for the (k, v) rows of every layer over ``pps`` pages
+        (the most one slot holds) in the pool dtype, then under int8 KV
+        their f32 scale rows. An install of n pages uses its first bytes
+        (`_staging_views`); at Llama-3-8B width in bf16 it is 128 pages x
+        2 MiB = 256 MiB."""
+        if self._staging is None:
+            self._staging = torch.empty(self._staging_bytes(self.pps),
+                                        dtype=torch.uint8, device=self.device)
+        return self._staging
+
+    def _staging_bytes(self, n: int) -> int:
+        L, hk, hd, _ = self._kv_shape
+        item = torch.empty((), dtype=self._pool_dtype()).element_size()
+        rows = 2 * L * hk * n * self.page_size * hd * item
+        return rows + (2 * L * n * self.page_size * 4 if self._qkv else 0)
+
+    def _staging_views(self, buf: torch.Tensor, n: int):
+        """Views of ``buf`` (uint8, at least `_staging_bytes(n)`) in the
+        layout of an n-page install: each layer's k and v rows (HK, n,
+        page_size, D) in turn, then under int8 KV each layer's k and v
+        scale rows (n, page_size). One list a layer."""
+        L, hk, hd, _ = self._kv_shape
+        ps, dt = self.page_size, self._pool_dtype()
+        item = torch.empty((), dtype=dt).element_size()
+        e = hk * n * ps * hd * item
+        views = [[buf[(2 * li + j) * e:(2 * li + j + 1) * e].view(dt)
+                  .view(hk, n, ps, hd) for j in range(2)]
+                 for li in range(L)]
+        if self._qkv:
+            f, at = n * ps * 4, 2 * L * e
+            for li in range(L):
+                views[li] += [buf[at + (2 * li + j) * f:
+                                  at + (2 * li + j + 1) * f]
+                              .view(torch.float32).view(n, ps)
+                              for j in range(2)]
+        return views
+
+    def _install_kv(self, page_ids: List[int], rows, scale_rows=None):
+        """≙ `_install_kv` :1950: write transferred page contents into the
+        pools. ``rows`` are each layer's (k, v) host rows (HK, n,
+        page_size, D) and, under int8 KV, ``scale_rows`` each layer's (k,
+        v) (n, page_size) scale rows; the quantized bytes move verbatim,
+        never re-quantized. The rows go into one pinned host buffer in
+        the staging layout, cross to the device staging in ONE copy, and
+        the install program of n pages (`_build_install`) writes them at
+        the page ids in its input; counted in `_pool_writes` before it
+        runs. More than ``pps`` pages install ``pps`` at a time."""
+        for at in range(0, len(page_ids), self.pps):
+            part = slice(at, at + self.pps)
+            self._install_part(
+                page_ids[part], [(k[:, part], v[:, part]) for k, v in rows],
+                None if scale_rows is None
+                else [(k[part], v[part]) for k, v in scale_rows])
+
+    def _install_part(self, page_ids, rows, scale_rows):
+        n = len(page_ids)
+        cuda = self.device.type == "cuda"
+        staging = self._install_staging()
+        host = torch.empty(self._staging_bytes(n), dtype=torch.uint8,
+                           pin_memory=cuda)
+        srcs = [list(r) + list(sc) for r, sc in
+                zip(rows, scale_rows or [()] * len(rows))]
+        for views, parts in zip(self._staging_views(host, n), srcs):
+            for dst, src in zip(views, parts):
+                dst.copy_(src)
+        staging[:host.numel()].copy_(host, non_blocking=cuda)
+        prog = self._program_lru(self._install_programs, n,
+                                 lambda: self._build_install(n), "install")
+        self._upload(page_ids, dst=prog.flat)
+        self._pool_writes += 1
+        self._run_program(prog)
+
+    def _build_install(self, n: int) -> _Program:
+        """≙ `_build_install` :1985: the program that writes an n-page
+        install from the staging buffer into every layer's pools (and
+        scale pools under int8 KV) at the page ids of its flat input (n),
+        by `index_copy_`."""
+        flat = torch.zeros(n, dtype=torch.int32, device=self.device)
+        views = self._staging_views(self._install_staging(), n)
+        pools = list(self._kv)
+
+        def body():
+            with torch.no_grad():
+                idx = flat.long()
+                for pool, parts in zip(pools, views):
+                    for j, src in enumerate(parts):
+                        # (HK, P, page_size, D) pages on dim 1; (P,
+                        # page_size) scale rows on dim 0
+                        pool[j].index_copy_(1 if j < 2 else 0, idx, src)
+                return flat
+        return _Program(flat, body)
 
     # -- invariants ----------------------------------------------------
     def check_invariants(self):
@@ -2058,10 +2655,12 @@ class ContinuousBatchingEngine:
         (`_paged_insert`) or its dense cache rows (`_dense_insert`). A
         failed page allocation backs the slot out and requeues the
         request (or starves it out). Any other failure (an armed
-        ``serving.prefill``, a fault in the allocator) fails the request
-        alone (`_admission_failed`) while the admission has launched
-        nothing; a failure after its first launch re-raises, as the JAX
-        engine re-raises once a dispatch has consumed its buffers."""
+        ``serving.prefill``, a fault in the allocator after the prefill
+        ran) fails the request alone (`_admission_failed`) while the
+        admission has written nothing into the pools or caches
+        (`_pool_writes`); a failure after a write began re-raises, as
+        the JAX engine re-raises once a donating dispatch has consumed
+        the pools."""
         finished: List[Request] = []
         free = [i for i, r in enumerate(self._slot_req) if r is None]
         while free and self._queue:
@@ -2072,7 +2671,7 @@ class ContinuousBatchingEngine:
             p_len = len(prompt)
             # the dispatch wall without capture time (counted apart)
             t0 = time.perf_counter() - self.graph_capture_seconds
-            runs = self._program_runs
+            writes = self._pool_writes
             try:
                 with telemetry.span("serving.prefill", rid=req.rid,
                                     request_id=req.request_id,
@@ -2088,10 +2687,10 @@ class ContinuousBatchingEngine:
                                 and p_len >= self._chunk:
                             tok = self._admit_chunked(slot, req, prompt)
                         else:
-                            tok, rows = self._legacy_prefill(
-                                prompt, self._bucket(p_len))
+                            bucket = self._bucket(p_len)
+                            tok, rows = self._legacy_prefill(prompt, bucket)
                             if self.layout == "paged":
-                                self._paged_insert(slot, req, p_len, rows)
+                                self._paged_insert(slot, req, p_len, bucket)
                             else:
                                 self._dense_insert(slot, rows)
                             self.admission_tokens += p_len
@@ -2106,7 +2705,7 @@ class ContinuousBatchingEngine:
                     continue               # starved out: try the next
                 break
             except Exception as e:
-                if self._program_runs != runs:
+                if self._pool_writes != writes:
                     raise
                 self._admission_failed(slot, req, e, free, finished)
                 continue
@@ -2128,7 +2727,8 @@ class ContinuousBatchingEngine:
         ``bucket`` tokens through the bucket's program (`_build_prefill`).
         Returns the first token, read after the run (the step's sync
         point), and each layer's (k_rows, v_rows), (bucket, HK, D):
-        views of the program's caches, which its next run overwrites."""
+        views of `_legacy_rows`, which the next legacy program
+        overwrites."""
         p_len = len(prompt)
         ids = np.zeros(bucket, np.int32)
         ids[:p_len] = prompt
@@ -2138,22 +2738,20 @@ class ContinuousBatchingEngine:
         self._upload(ids, [p_len - 1], self._next_key(), dst=prog.flat)
         tok = int(self._run_program(prog)[0])
         self.num_admission_dispatches += 1
-        return tok, [(k[0], v[0]) for k, v in prog.caches]
+        return tok, [(k[0], v[0]) for k, v in self._rows_caches(0, bucket)]
 
     def _build_prefill(self, bucket: int) -> _Program:
         """≙ `_build_prefill`: a causal pass over a prompt padded to
         ``bucket`` tokens, with the padded tail masked out as keys, into
-        per-layer (1, bucket, HK, D) caches (the program's static
-        outputs), and the token of the last real row (`_picker`). Its
-        flat input holds the ids (``bucket``), that row (1) and the
+        per-layer (1, bucket, HK, D) caches (rows [0, bucket) of
+        `_legacy_rows`), and the token of the last real row (`_picker`).
+        Its flat input holds the ids (``bucket``), that row (1) and the
         sampling key (2)."""
-        L, hk, hd, dt = self._kv_shape
         dev = self.device
         flat = torch.zeros(bucket + 3, dtype=torch.int32, device=dev)
         ids, row, key = flat[:bucket], flat[bucket:bucket + 1], \
             flat[bucket + 1:]
-        caches = [tuple(torch.zeros(1, bucket, hk, hd, dtype=dt, device=dev)
-                        for _ in range(2)) for _ in range(L)]
+        caches = self._rows_caches(0, bucket)
         weights, model, pick = self._dispatch_weights(), self.model, \
             self._picker()
 
@@ -2164,25 +2762,75 @@ class ContinuousBatchingEngine:
                                weights=weights, attention_mask=valid,
                                position_offset=0)
                 return pick(logits, key)
-        return _Program(flat, body, caches)
+        return _Program(flat, body)
 
-    def _paged_insert(self, slot: int, req: Request, p_len: int, rows):
-        """≙ `_paged_insert` / `_build_scatter`: reserve and allocate the
-        slot's pages, then scatter its prefilled rows into every layer's
-        pools (the bucket's padding rows to trash page 0)."""
+    def _legacy_rows(self) -> list:
+        """The K/V rows that every legacy program writes: per layer a
+        (S + prompt_pad, HK, D) pair, made at first use. The prefill,
+        suffix and chunk programs' caches are views of it (a suffix
+        program's reach shared_len + its bucket, at most S + prompt_pad -
+        2 rows), so the scatter program of a row count reads any of them
+        from one address, at an offset in its input. One legacy program
+        runs at a time and its rows are scattered or copied before the
+        next one runs; rows past a program's reach (another program's,
+        finite) are masked out of its attention as keys."""
+        if self._rows is None:
+            L, hk, hd, dt = self._kv_shape
+            self._rows = [tuple(torch.zeros(self.S + self.pad, hk, hd,
+                                            dtype=dt, device=self.device)
+                                for _ in range(2)) for _ in range(L)]
+        return self._rows
+
+    def _rows_caches(self, start: int, n: int):
+        """Rows [start, start + n) of `_legacy_rows` as each layer's
+        (1, n, HK, D) cache pair."""
+        return [tuple(r[start:start + n][None] for r in pair)
+                for pair in self._legacy_rows()]
+
+    def _paged_insert(self, slot: int, req: Request, p_len: int,
+                      bucket: int):
+        """≙ `_paged_insert`: reserve and allocate the slot's pages, then
+        scatter its prefilled rows (rows [0, bucket) of `_legacy_rows`)
+        into every layer's pools, the bucket's padding rows to trash page
+        0."""
         self._reserve_and_alloc(slot, req, p_len)
-        self._scatter_rows(self._bt[slot], rows, p_len)
+        self._scatter(self._bt[slot], p_len, 0, bucket)
 
-    def _scatter_rows(self, bt_row, rows, true_len: int):
-        """Scatter one sequence's rows, each layer's (T, HK, D) pair for
-        positions 0..T-1 of the block-table row ``bt_row`` (host, (pps,)),
-        into every layer's pools; rows at or past ``true_len`` go to the
-        trash page. An eager index copy, as JAX's donated scatter."""
-        (bt_dev,) = self._upload(bt_row)
-        with torch.no_grad():
-            for pools, (rk, rv) in zip(self._kv, rows):
-                paged_prefill_scatter(pools[0], pools[1], rk, rv, bt_dev,
-                                      true_len)
+    def _scatter(self, bt_row, true_len: int, src: int, t: int):
+        """≙ `_get_scatter` and its program's call: scatter rows [src,
+        src + t) of `_legacy_rows`, positions 0..t-1 of the block-table row
+        ``bt_row`` (host, (pps,)), into every layer's pools through the
+        scatter program of ``t`` rows (`_build_scatter`); rows at or past
+        ``true_len`` go to the trash page. Counted in `_pool_writes`
+        before it runs."""
+        # own LRU: suffix admissions reach row counts that never enter
+        # the prefill family (≙ :3087)
+        prog = self._program_lru(self._scatter_programs, t,
+                                 lambda: self._build_scatter(t), "scatter")
+        self._upload(bt_row, [true_len], [src], dst=prog.flat)
+        self._pool_writes += 1
+        self._run_program(prog)
+
+    def _build_scatter(self, t: int) -> _Program:
+        """≙ `_build_scatter` :3092-3102: the program that scatters ``t``
+        rows of `_legacy_rows` into the pages (`paged_prefill_scatter` per
+        layer). Its flat input holds the block-table row (pps), the true
+        length (1) and the rows' offset in `_legacy_rows` (1): all three
+        device values, so one capture serves every admission of ``t``
+        rows."""
+        pps, dev = self.pps, self.device
+        flat = torch.zeros(pps + 2, dtype=torch.int32, device=dev)
+        bt, true_len, off = flat[:pps], flat[pps:pps + 1], flat[pps + 1:]
+        pools, rows = list(self._kv), self._legacy_rows()
+
+        def body():
+            with torch.no_grad():
+                src = torch.arange(t, device=dev) + off.long()
+                for (kp, vp), (rk, rv) in zip(pools, rows):
+                    paged_prefill_scatter(kp, vp, rk[src], rv[src], bt,
+                                          true_len)
+                return true_len
+        return _Program(flat, body)
 
     def _rebased_bt(self, slot: int, first_page: int) -> np.ndarray:
         """``slot``'s block-table row from page ``first_page`` on, zero
@@ -2195,9 +2843,10 @@ class ContinuousBatchingEngine:
     def _dense_insert(self, slot: int, rows):
         """≙ `_dense_insert` / `_build_insert`: write the prefilled rows
         (bucket, HK, D) of every layer into ``slot``'s dense cache rows
-        from position 0, an eager index copy. Rows past the prompt hold
-        the bucket's padding, which decode overwrites before it attends
-        them."""
+        from position 0, an eager index copy, counted in `_pool_writes`
+        before it begins. Rows past the prompt hold the bucket's padding,
+        which decode overwrites before it attends them."""
+        self._pool_writes += 1
         with torch.no_grad():
             for (ck, cv), (rk, rv) in zip(self._caches, rows):
                 ck[slot, :rk.shape[0]] = rk
@@ -2227,9 +2876,8 @@ class ContinuousBatchingEngine:
                      dst=prog.flat)
         tok = int(self._run_program(prog)[0])
         self.num_admission_dispatches += 1
-        self._scatter_rows(self._rebased_bt(slot, len(pages)),
-                           [(k[0, shared_len:], v[0, shared_len:])
-                            for k, v in prog.caches], len(suffix))
+        self._scatter(self._rebased_bt(slot, len(pages)), len(suffix),
+                      shared_len, bucket)
         self.admission_tokens += len(suffix)
         self.prefix_hits += 1
         self.prefix_tokens_reused += shared_len
@@ -2240,21 +2888,21 @@ class ContinuousBatchingEngine:
         """≙ `_build_suffix_prefill` :3195-3239: the program of a suffix
         prefill after ``shared_len`` shared tokens. It gathers the
         shared pages of every layer to dense rows [0, shared_len) of its
-        own (1, shared_len + bucket, HK, D) caches, prefills the suffix
+        (1, shared_len + bucket, HK, D) caches (rows of `_legacy_rows`),
+        prefills the suffix
         padded to ``bucket`` at ``position_offset = shared_len`` under
         the key-validity mask (keys past the real suffix masked out),
         and takes the token of the last real row (`_picker`). Its flat
         input holds the ids (``bucket``), that row (1), the shared pages
         (shared_len / page_size) and the sampling key (2)."""
-        L, hk, hd, dt = self._kv_shape
+        _, hk, hd, _ = self._kv_shape
         dev = self.device
         n_pp = shared_len // self.page_size
         flat = torch.zeros(bucket + 3 + n_pp, dtype=torch.int32, device=dev)
         ids, row = flat[:bucket], flat[bucket:bucket + 1]
         pages, key = flat[bucket + 1:bucket + 1 + n_pp], flat[-2:]
         n = shared_len + bucket
-        caches = [tuple(torch.zeros(1, n, hk, hd, dtype=dt, device=dev)
-                        for _ in range(2)) for _ in range(L)]
+        caches = self._rows_caches(0, n)
         weights, model, pools = self._dispatch_weights(), self.model, \
             list(self._kv)
         pick = self._picker()
@@ -2273,7 +2921,7 @@ class ContinuousBatchingEngine:
                                weights=weights, attention_mask=valid,
                                position_offset=shared_len)
                 return pick(logits, key)
-        return _Program(flat, body, caches)
+        return _Program(flat, body)
 
     def _admit_chunked(self, slot: int, req: Request,
                        prompt: List[int]) -> int:
@@ -2293,8 +2941,7 @@ class ContinuousBatchingEngine:
         n_chunks = -(-p_len // C)
         ids = np.zeros(n_chunks * C, np.int32)
         ids[:p_len] = prompt
-        # one program for the whole prompt: its caches carry the earlier
-        # chunks' rows to the later chunks (without graphs too)
+        # its caches carry the earlier chunks' rows to the later chunks
         prog = self._program_singleton(
             "_chunk_program", lambda: self._build_chunk_prefill(C), "chunk")
         tok = None
@@ -2309,10 +2956,8 @@ class ContinuousBatchingEngine:
             self.num_admission_dispatches += 1
             if last:
                 tok = int(out[0])
-            self._scatter_rows(self._rebased_bt(slot, off // self.page_size),
-                               [(k[0, off:off + C], v[0, off:off + C])
-                                for k, v in prog.caches],
-                               min(C, p_len - off))
+            self._scatter(self._rebased_bt(slot, off // self.page_size),
+                          min(C, p_len - off), off, C)
         self.admission_tokens += p_len
         return tok
 
@@ -2321,17 +2966,14 @@ class ContinuousBatchingEngine:
         of ``C`` tokens at a device offset, through the model's traced
         branch (attention over the whole (1, S, HK, D) working caches
         under a causal mask built on the device from the offset), then
-        the token of one row (`_picker`). The working caches are the
-        program's own and keep the prompt's earlier chunks. Its flat
+        the token of one row (`_picker`). The working caches, rows [0, S)
+        of `_legacy_rows`, keep the prompt's earlier chunks. Its flat
         input holds the ids (``C``), the offset (1), the row (1) and the
         sampling key (2)."""
-        L, hk, hd, dt = self._kv_shape
-        dev = self.device
-        flat = torch.zeros(C + 4, dtype=torch.int32, device=dev)
+        flat = torch.zeros(C + 4, dtype=torch.int32, device=self.device)
         ids, off, row, key = flat[:C], flat[C], flat[C + 1:C + 2], \
             flat[C + 2:]
-        caches = [tuple(torch.zeros(1, self.S, hk, hd, dtype=dt, device=dev)
-                        for _ in range(2)) for _ in range(L)]
+        caches = self._rows_caches(0, self.S)
         weights, model, pick = self._dispatch_weights(), self.model, \
             self._picker()
 
@@ -2340,7 +2982,7 @@ class ContinuousBatchingEngine:
                 logits = model(ids[None], caches, rows=row,
                                weights=weights, position_offset=off)
                 return pick(logits, key)
-        return _Program(flat, body, caches)
+        return _Program(flat, body)
 
     def _build_legacy_decode(self) -> _Program:
         """≙ the paged `_build_decode`: ONE dispatch of (B, 1) tokens,
@@ -2565,7 +3207,9 @@ class ContinuousBatchingEngine:
             + list(self._prefill_programs.values()) \
             + list(self._suffix_programs.values()) \
             + list(self._d_prefill_programs.values()) \
-            + list(self._verify_programs.values())
+            + list(self._verify_programs.values()) \
+            + list(self._scatter_programs.values()) \
+            + list(self._install_programs.values())
         return progs + [p for p in (self._decode_program,
                                     self._chunk_program,
                                     self._draft_scan_program)
@@ -2583,6 +3227,8 @@ class ContinuousBatchingEngine:
         self._suffix_programs.clear()
         self._d_prefill_programs.clear()
         self._verify_programs.clear()
+        self._scatter_programs.clear()
+        self._install_programs.clear()
         self._decode_program = None
         self._chunk_program = None
         self._draft_scan_program = None
@@ -2599,7 +3245,6 @@ class ContinuousBatchingEngine:
         replay raises: nothing falls back to the eager body. A program's
         first run is metered as its family's compile, and its capture
         under ``jit.compile`` without a count (`profile.compile_timed`)."""
-        self._program_runs += 1
         if not self._graphs:
             return prog.body()
         prog.runs += 1

@@ -177,12 +177,14 @@ def paged_prefill_scatter(k_pages, v_pages, k_rows, v_rows, block_table,
 
     k_rows/v_rows: (T, HK, D) rows for positions 0..T-1; block_table:
     (pps,) page ids of the sequence; rows at positions >= ``true_len``
-    (the bucket's padding) go to ``trash_page``, never read. Returns
-    (k_pages, v_pages)."""
+    (the bucket's padding) go to ``trash_page``, never read.
+    ``true_len`` is an int or a device tensor of one element, which the
+    host never reads (the engine's scatter program is captured).
+    Returns (k_pages, v_pages)."""
     t = k_rows.shape[0]
     page_size = k_pages.shape[2]
     pos = torch.arange(t, device=k_rows.device)
-    page_idx = torch.where(pos < int(true_len),
+    page_idx = torch.where(pos < true_len,
                            block_table[pos // page_size].long(), trash_page)
     slot = pos % page_size
     k_pages[:, page_idx, slot] = k_rows.transpose(0, 1).to(k_pages.dtype)

@@ -34,11 +34,16 @@ Instrumented sites of the port (grep ``fault_point(``):
   ``max_decode_retries``;
 * ``speculative.draft`` / ``speculative.verify`` — before a speculative
   round's draft pass and its verify dispatch: either fault degrades that
-  round to plain decode and drops the draft caches; no request fails.
+  round to plain decode and drops the draft caches; no request fails;
+* ``transfer.serialize`` / ``transfer.install`` — the KV transfer plane
+  (serving/transfer.py), before the source's export and before the
+  target's import: the request stays live on its source, both engines
+  consistent; ``transfer.payload`` — a VALUE site: a serialized payload
+  damaged after its manifest, which the target's verify refuses.
 
 The value sites of the JAX engine (``serving.kv_page``,
-``serving.logits``) and the fleet's, transfer and checkpoint sites come
-with the modules that hold them (ROADMAP.md queue A, items 6-8).
+``serving.logits``) and the fleet's and checkpoint sites come with the
+modules that hold them (ROADMAP.md queue A, items 6 and 8).
 """
 from __future__ import annotations
 

@@ -831,6 +831,94 @@ def test_tiny_legacy_engines_graphs_match_eager(cuda, mode):
         assert g2 != g1 and gcap2 > gcap
 
 
+def test_tiny_migration_graphs_match_eager(cuda):
+    """KV page transfer on the card: three requests move mid-decode from
+    one engine to another (`serving.transfer.migrate_request`), on
+    graphed and on eager engines. The streams are bitwise equal to the
+    eager run's and to one engine's unmigrated run; the launches of the
+    graphed pair equal the eager pair's; the install program of the
+    migrations' page count (three of them) is warmed up, captured and
+    replayed."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import reset_launch_counts
+    from paddle_tpu_torch.serving import transfer
+    rng = np.random.default_rng(8)
+    jobs = [(rng.integers(0, 512, 20), 9), (rng.integers(0, 512, 5), 7),
+            (rng.integers(0, 512, 20), 8), (rng.integers(0, 512, 40), 6),
+            (rng.integers(0, 512, 20), 10)]
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                             seed=8).to(cuda)
+    ref = ContinuousBatchingEngine(model, max_batch_size=5, max_seq_len=64)
+    rids = [ref.add_request(p, max_new_tokens=n) for p, n in jobs]
+    out = ref.run()
+    want = [out[r] for r in rids]
+    runs = {}
+    for graphs in (True, False):
+        src, dst = [ContinuousBatchingEngine(model, max_batch_size=5,
+                                             max_seq_len=64, _graphs=graphs)
+                    for _ in range(2)]
+        reset_launch_counts()
+        rids = [src.add_request(p, max_new_tokens=n) for p, n in jobs]
+        src.step()
+        src.step()
+        moved = {}
+        for rid in rids[::2]:
+            req, payload = transfer.migrate_request(src, dst, rid)
+            assert payload["n_pages"] == 2
+            moved[rid] = req
+        done = {}
+        while any(r is not None for e in (src, dst) for r in e._slot_req):
+            for eng in (src, dst):
+                for r in eng.step():
+                    done[r.request_id] = r.output
+        src.check_invariants()
+        dst.check_invariants()
+        torch.cuda.synchronize()
+        prog = dst._install_programs.get(2)
+        runs[graphs] = ([done[str(r)] for r in rids], dict(launch_counts),
+                        None if prog is None else (prog.runs,
+                                                   prog.graph is not None))
+    (gs, gc, gprog), (es, ec, eprog) = runs[True], runs[False]
+    assert gs == es == want
+    assert gc == ec
+    assert gprog == (3, True) and eprog is None
+
+
+def test_tiny_legacy_scatter_program_graphs_match_eager(cuda):
+    """The legacy page scatter as a program on the card: prompts of one
+    bucket admitted one after another reuse its scatter program, which
+    is captured at its second use; the streams are bitwise equal to the
+    eager engine's, and the launches too."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import reset_launch_counts
+    rng = np.random.default_rng(9)
+    jobs = [(rng.integers(0, 512, n), new)
+            for n, new in ((17, 6), (20, 5), (30, 7), (5, 4), (25, 6))]
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                             seed=9).to(cuda)
+    runs = {}
+    for graphs in (True, False):
+        eng = ContinuousBatchingEngine(model, max_batch_size=2,
+                                       max_seq_len=64, prompt_pad=32,
+                                       attention_impl="legacy",
+                                       _graphs=graphs)
+        reset_launch_counts()
+        rids = [eng.add_request(p, max_new_tokens=n) for p, n in jobs]
+        out = eng.run()
+        eng.check_invariants()
+        torch.cuda.synchronize()
+        prog = eng._scatter_programs.get(32)
+        runs[graphs] = ([out[r] for r in rids], dict(launch_counts),
+                        None if prog is None else (prog.runs,
+                                                   prog.graph is not None),
+                        eng._pool_writes)
+    (gs, gc, gprog, gw), (es, ec, eprog, ew) = runs[True], runs[False]
+    assert gs == es and gc == ec
+    assert gprog == (5, True) and eprog is None and gw == ew == 5
+
+
 @pytest.mark.parametrize("kw", [
     dict(),
     dict(eos_token_id=7, repetition_penalty=1.3, no_repeat_ngram_size=2),

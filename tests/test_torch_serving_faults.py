@@ -8,7 +8,10 @@ the requests' statuses, error strings, streams and preemption counts,
 invariants are checked after every step of both. The prefill drill runs
 on the ragged path, the legacy path and at ``harvest_every=4``, the
 decode and pool drills on the ragged path and at k = 4; a sampled engine
-whose decode faults once keeps the streams of its unfaulted run."""
+whose decode faults once keeps the streams of its unfaulted run. On the
+legacy path a ``serving.alloc_page`` fault after the prefill ran fails
+that request alone on both engines, and a failure once the page scatter
+began writing the pools re-raises."""
 import collections
 import time
 import types
@@ -221,6 +224,42 @@ def test_prefill_failure_isolates_request(sides, layout):
     assert got["lifecycle"]["failures"] == 1
     assert got["fired"] == got["terminal_failed"] == got["fire_events"] == 1
     assert got["after_lifecycle"]["running"] == 0
+
+
+def test_legacy_alloc_fault_after_prefill_fails_one_request(sides):
+    """``serving.alloc_page`` with its default FaultError at the first
+    allocation of a legacy admission: the bucketed prefill has run and
+    no row has reached the pages. Both engines fail that request alone,
+    with the same text, and serve the other to its unfaulted stream;
+    lifecycle, pages in use and the invariants (every step) agree."""
+    ref = _drill(sides[1], layout="legacy")[2]
+    _, fi, got = _both(sides, [("serving.alloc_page", dict(nth=1))],
+                       layout="legacy")
+    assert got["statuses"] == ["failed", "finished"]
+    assert got["errors"][0] == ("FaultError: injected fault at "
+                                "'serving.alloc_page' (visit #1)")
+    assert got["streams"] == [[], ref["streams"][1]]
+    assert got["lifecycle"]["failures"] == 1
+    assert got["pages_in_use"] == 0 and fi.trips("serving.alloc_page") == 1
+
+
+def test_legacy_failure_after_pool_write_reraises(sides, monkeypatch):
+    """A legacy admission that fails once its scatter began writing the
+    pools re-raises out of step(), as the JAX engine re-raises once a
+    donating dispatch consumed the pools: the pools may hold a partial
+    write, so failing the one request and serving on is not safe."""
+    eng = _engine(sides[1], "legacy")
+    eng.add_request(*JOBS[0])
+    run = eng._run_program
+
+    def broken(prog):
+        if prog.family == "scatter":
+            raise RuntimeError("scatter launch failed")
+        return run(prog)
+    monkeypatch.setattr(eng, "_run_program", broken)
+    with pytest.raises(RuntimeError, match="scatter launch failed"):
+        eng.step()
+    assert eng._pool_writes == 1 and eng.num_failures == 0
 
 
 def test_deadline_expiry_mid_decode(sides):

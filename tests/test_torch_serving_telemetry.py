@@ -47,9 +47,6 @@ GAUGES = ("pdt_serving_queue_depth", "pdt_serving_running_slots",
           "pdt_serving_pages_in_use", "pdt_serving_page_occupancy",
           "pdt_jit_cache_entries", "pdt_spec_acceptance_rate",
           "pdt_mem_bytes")
-# the JAX legacy path's page scatter is a compiled program family; the
-# port scatters eagerly (ROADMAP.md queue A, item 1)
-EAGER_FAMILIES = {"scatter"}
 
 
 def _pair(seed, cfg):
@@ -108,27 +105,17 @@ def _serve(side, jobs=JOBS, **kw):
     return eng, [out[r] for r in rids]
 
 
-def _drop_families(series, families):
-    return {k: v for k, v in series.items()
-            if not any(f'family="{f}"' in k for f in families)}
-
-
-def _reading(side, eng, families=()):
+def _reading(side, eng):
     """What the two engines must agree on, from ``side``'s registry and
-    trace ring, less the program families in ``families``."""
+    trace ring."""
     snap = side.telemetry.snapshot()
-    counters = {n: _drop_families(s, families)
-                for n, s in snap["counters"].items()
+    counters = {n: s for n, s in snap["counters"].items()
                 if n != "pdt_jit_retrace_storms_total"}
-    hists = {n: {k: v["count"]
-                 for k, v in _drop_families(s, families).items()}
+    hists = {n: {k: v["count"] for k, v in s.items()}
              for n, s in snap["histograms"].items()}
     ledger = side.profile.memory_ledger([eng])
-    gauges = {n: _drop_families(snap["gauges"].get(n, {}), families)
-              for n in GAUGES}
-    names = collections.Counter(
-        e["name"] for e in side.telemetry.events()
-        if (e.get("attrs") or {}).get("family") not in families)
+    gauges = {n: snap["gauges"].get(n, {}) for n in GAUGES}
+    names = collections.Counter(e["name"] for e in side.telemetry.events())
     tree = side.telemetry.request_tree("q1")
     children = collections.Counter(c["event"]["name"]
                                    for c in tree["children"])
@@ -142,29 +129,23 @@ def _reading(side, eng, families=()):
 
 @pytest.mark.parametrize("config", list(CONFIGS))
 def test_series_equal_jax(sides, config):
-    jax, port = sides
-    readings, streams, families = [], [], []
+    readings, streams = [], []
     for side in sides:
         side.telemetry.start_trace("q1")
         eng, out = _serve(side, **CONFIGS[config])
-        families.append(set(side.telemetry.snapshot()["counters"][
-            "pdt_jit_compiles_total"]))
         streams.append(out)
-        readings.append(_reading(
-            side, eng, EAGER_FAMILIES if side is jax else ()))
+        readings.append(_reading(side, eng))
     assert streams[1] == streams[0]
     want, got = readings
     for key in want:
         assert got[key] == want[key], key
     assert got["counters"]["pdt_serving_admissions_total"][""] >= len(JOBS)
+    # the legacy page scatter is a program family of both engines
     fams = set(got["counters"]["pdt_jit_compiles_total"])
-    assert fams == ({'family="prefill"', 'family="decode"'}
+    assert fams == ({'family="prefill"', 'family="scatter"',
+                     'family="decode"'}
                     if config == "legacy"
                     else {'family="ragged"', 'family="decode"'})
-    # the JAX engine compiles one family more on the legacy path, the
-    # page scatter the port runs eagerly
-    assert families[0] - families[1] == ({'family="scatter"'}
-                                         if config == "legacy" else set())
     # a request's trace: its admission, the decode steps that served it
     # and its terminal event, fanned in under its root alike
     assert got["ttft_exemplars_known"] and got["q1_children"][
