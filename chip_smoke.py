@@ -201,6 +201,21 @@ Training adds, in the same run:
     differences against their budgets, and the same readings of the
     plain versions under a planted fault, which the gradients' budget
     must catch;
+5e'. ``train_8b_resume {...}``: the training state of 5e's model moved
+    to the disk and back mid-run. The free space of the temp directory
+    first; then N = 6 AdamW steps uninterrupted (losses and final
+    parameters kept on the host, exact launches), a second uninterrupted
+    run (the noise yardstick), and a run of k = 3 steps, a checkpoint
+    through `ElasticManager.save` (bf16 weights, f32 master, m and v:
+    ~26.9 GB), the model and optimizer freed, fresh ones from another
+    seed, `ElasticManager.resume` (verify with rehash, then load) and the
+    other 3 steps: checkpoint bytes, save / verify / load seconds and
+    GB/s, peak memory, the loaded state's sha256 against the manifest
+    (must be equal), the resumed losses and parameters against the
+    uninterrupted run and the yardstick against it, and which kernels
+    give other bits on a second call with the same inputs; then the
+    resume drill of `recipes.llama_pretrain` on a tiny model on the
+    card and `paddle_tpu_torch.save` / `load` of card tensors, bitwise;
 5f. ``train_recipe {...}``: the ported recipe in-process, ``--size bench
     --bf16 --batch-size 8 --seq-len 2048 --steps 5``: step ms, tokens/s,
     MFU (with and without the input embedding).
@@ -4829,6 +4844,269 @@ def train_recipe():
         raise AssertionError("the recipe did not train through the kernels")
 
 
+RESUME_STEPS = 6
+RESUME_AT = 3
+
+
+def _resume_build(cfg, seed):
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=seed)
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, opt, loss_fn=lambda m, a, c: m(a, labels=c)[0])
+    return model, opt, step
+
+
+def _host_params(model):
+    return {n: p.detach().to("cpu") for n, p in model.named_parameters()}
+
+
+def _param_diff(a, b):
+    """(every tensor bitwise equal, largest |a - b|) over named tensors."""
+    same = all(a[n].equal(b[n]) for n in a)
+    return same, max((a[n].float() - b[n].float()).abs().max().item()
+                     for n in a)
+
+
+def _uninterrupted(cfg, x, y):
+    """`RESUME_STEPS` steps from seed 0: losses, host parameters and the
+    launch counts."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    model, opt, step = _resume_build(cfg, 0)
+    reset_launch_counts()
+    losses = [float(step(x, y)) for _ in range(RESUME_STEPS)]
+    counts = dict(launch_counts)
+    params = _host_params(model)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return losses, params, counts
+
+
+def _determinism_probe(cfg, b, s):
+    """Each kernel of the path called twice on the same inputs at the
+    8B slice's shapes: does it give the same bits?"""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import norm_kernels as nk
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    H, HK, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                cfg.head_dim)
+    q, k, v, do = (torch.randn(b, s, h, D, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for h in (H, HK, HK, H))
+    x = torch.randn(b * s, cfg.hidden_size, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    w = torch.randn(cfg.hidden_size, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    g = torch.randn_like(x)
+
+    def flash():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = fa.flash_attention_values(qq, kk, vv, causal=True)
+        o.backward(do)
+        return o, qq.grad, kk.grad, vv.grad
+
+    def norm():
+        xx, ww = x.detach().requires_grad_(), w.detach().requires_grad_()
+        o = nk.rms_norm_values(xx, ww, cfg.rms_norm_eps)
+        o.backward(g)
+        return o, xx.grad, ww.grad
+
+    f1, f2 = flash(), flash()
+    n1, n2 = norm(), norm()
+    return {"flash_attention_fwd": f1[0].equal(f2[0]),
+            "flash_attention_bwd_dq": f1[1].equal(f2[1]),
+            "flash_attention_bwd_dkv": f1[2].equal(f2[2])
+            and f1[3].equal(f2[3]),
+            "rms_norm": n1[0].equal(n2[0]),
+            "rms_norm_bwd": n1[1].equal(n2[1]) and n1[2].equal(n2[2])}
+
+
+def _card_checkpoint_drill():
+    """The recipe's resume drill on a tiny Llama on the card, and
+    `paddle_tpu_torch.save` / `load` of card tensors, bitwise."""
+    import tempfile
+    import torch
+    import paddle_tpu_torch
+    import paddle_tpu_torch.observability as telemetry
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.recipes.llama_pretrain import run_resume_drill
+    telemetry.reset()
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cuda", seed=2)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                weight_decay=0.01)
+    try:
+        with tempfile.TemporaryDirectory(prefix="pdt_drill_") as d:
+            run_resume_drill(model, opt, d)
+    finally:
+        telemetry.disable(clear_override=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    obj = {"bf16": torch.randn(64, 33, device="cuda",
+                               generator=gen).to(torch.bfloat16),
+           "f32": torch.randn(1000, device="cuda", generator=gen),
+           "i64": torch.arange(-7, 9, device="cuda"),
+           "nested": [torch.ones(3, device="cuda", dtype=torch.int8), 5]}
+    with tempfile.TemporaryDirectory(prefix="pdt_io_") as d:
+        path = os.path.join(d, "obj.pdparams")
+        paddle_tpu_torch.save(obj, path)
+        back = paddle_tpu_torch.load(path)
+    same = all(back[k].is_cuda and back[k].equal(obj[k])
+               for k in ("bf16", "f32", "i64")) and \
+        back["nested"][0].equal(obj["nested"][0]) and back["nested"][1] == 5
+    log(f"card checkpoint drill: resume drill held; save / load of card "
+        f"tensors bitwise equal: {same}")
+    if not same:
+        raise AssertionError("paddle_tpu_torch.save / load of card tensors "
+                             "is not bitwise")
+
+
+def train_8b_resume():
+    """`train_8b_config()` trained `RESUME_STEPS` steps straight through,
+    twice, and once with a checkpoint after `RESUME_AT` and a resume into
+    fresh objects (module docstring, 5e')."""
+    import shutil
+    import tempfile
+    import torch
+    import paddle_tpu_torch.observability as telemetry
+    from paddle_tpu_torch.distributed.checkpoint import (
+        flat_arrays, read_manifest, storage, verify_checkpoint)
+    from paddle_tpu_torch.distributed.fleet.elastic import ElasticManager
+    from paddle_tpu_torch.recipes.llama_pretrain import (
+        TRAIN_8B_LAYERS, TRAIN_8B_SHAPE, train_8b_config)
+    t_phase = time.perf_counter()
+    cfg = train_8b_config()
+    b, s = TRAIN_8B_SHAPE
+    root = tempfile.mkdtemp(prefix="pdt_resume_")
+    free = shutil.disk_usage(root).free
+    # bf16 weights, f32 master, m and v: 14 bytes a parameter on disk
+    need = 14 * cfg.num_params()
+    log(f"train_8b_resume: temp directory {root}: {free / 1e9:.2f} GB free, "
+        f"the checkpoint needs {need / 1e9:.2f} GB at {TRAIN_8B_LAYERS} "
+        f"layers")
+    if free < 1.05 * need:
+        shutil.rmtree(root, ignore_errors=True)
+        raise AssertionError("train_8b_resume: the disk cannot hold the "
+                             "checkpoint")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1))).cuda()
+    x, y = ids[:, :-1], ids[:, 1:]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        la, pa, counts = _uninterrupted(cfg, x, y)
+        lb, pb, _ = _uninterrupted(cfg, x, y)
+        runs_s = time.perf_counter() - t0
+        L = TRAIN_8B_LAYERS
+        want = {k: 0 for k in counts}
+        want.update({k: L * RESUME_STEPS for k in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")})
+        want.update(rms_norm=(2 * L + 1) * RESUME_STEPS,
+                    rms_norm_bwd=(2 * L + 1) * RESUME_STEPS)
+        if counts != want:
+            raise AssertionError(f"train_8b_resume: launches {counts}, "
+                                 f"expected {want}")
+
+        model, opt, step = _resume_build(cfg, 0)
+        lc = [float(step(x, y)) for _ in range(RESUME_AT)]
+        telemetry.enable()
+        telemetry.clear_events()
+        em = ElasticManager(root, save_interval_steps=1, keep_last=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        em.save(RESUME_AT - 1, model, opt)
+        save_s = time.perf_counter() - t0
+        groups_s = sum(e["dur_s"] for e in telemetry.events()
+                       if e["name"] == "checkpoint.save")
+        step_dir = os.path.join(root, f"step_{RESUME_AT - 1}")
+        manifest = read_manifest(step_dir)
+        nbytes = sum(e["nbytes"] for g in manifest["groups"].values()
+                     for e in g.values())
+        on_disk = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(step_dir) for f in fs)
+        t0 = time.perf_counter()
+        res = verify_checkpoint(step_dir, rehash=True)
+        verify_s = time.perf_counter() - t0
+        if not res.ok:
+            raise AssertionError(f"train_8b_resume: verify {res.errors}")
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        free_mem = torch.cuda.mem_get_info()[0]
+
+        model, opt, step = _resume_build(cfg, 1)
+        torch.cuda.reset_peak_memory_stats()
+        telemetry.clear_events()
+        t0 = time.perf_counter()
+        start = em.resume(model, opt)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        spans = telemetry.events()
+        load_s = sum(e["dur_s"] for e in spans
+                     if e["name"] == "checkpoint.load")
+        resume_verify_s = sum(e["dur_s"] for e in spans
+                              if e["name"] == "checkpoint.verify")
+        telemetry.disable(clear_override=True)
+        resume_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        got = {"model": storage.checksums(model.state_dict()),
+               "opt": storage.checksums(flat_arrays(
+                   opt.paddle_state_dict()))}
+        digest_s = time.perf_counter() - t0
+        loaded_equal = {g: got[g] == {k: e["checksum"] for k, e in
+                                      manifest["groups"][g].items()}
+                        for g in manifest["groups"]}
+        lc += [float(step(x, y)) for _ in range(RESUME_STEPS - RESUME_AT)]
+        pc = _host_params(model)
+        del model, opt, step
+        torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        yard_same, yard_diff = _param_diff(pb, pa)
+        res_same, res_diff = _param_diff(pc, pa)
+        det = _determinism_probe(cfg, b, s)
+        stats = dict(
+            layers=L, batch=b, seq=s, params=cfg.num_params(),
+            host_cpus=os.cpu_count(), steps=RESUME_STEPS, resume_at=RESUME_AT, start=start,
+            disk_free_gb=free / 1e9, checkpoint_bytes=nbytes,
+            bytes_on_disk=on_disk,
+            groups={g: sum(e["nbytes"] for e in v.values())
+                    for g, v in manifest["groups"].items()},
+            save_s=save_s, groups_written_s=groups_s,
+            manifest_commit_gc_s=save_s - groups_s,
+            save_gb_per_s=nbytes / groups_s / 1e9,
+            verify_rehash_s=verify_s, verify_gb_per_s=nbytes / verify_s / 1e9,
+            resume_s=resume_s, resume_verify_s=resume_verify_s,
+            load_s=load_s, load_gb_per_s=nbytes / load_s / 1e9,
+            loaded_digest_s=digest_s, loaded_state_equal=loaded_equal,
+            card_free_gib_before_resume=free_mem / 2 ** 30,
+            resume_peak_mem_gib=resume_peak, peak_mem_gib=peak,
+            losses_uninterrupted=la, losses_yardstick=lb, losses_resumed=lc,
+            yardstick_bitwise=yard_same and lb == la,
+            yardstick_param_max_abs=yard_diff,
+            resumed_bitwise=res_same and lc == la,
+            resumed_param_max_abs=res_diff,
+            kernels_bitwise_on_repeat=det,
+            two_runs_s=runs_s, phase_s=time.perf_counter() - t_phase)
+        log("train_8b_resume " + json.dumps(stats))
+        if start != RESUME_AT or not all(loaded_equal.values()):
+            raise AssertionError("train_8b_resume: the loaded state is not "
+                                 "the saved state")
+        if not all(np.isfinite(lc)):
+            raise AssertionError("train_8b_resume: non-finite losses")
+        if stats["yardstick_bitwise"] and not stats["resumed_bitwise"]:
+            raise AssertionError("train_8b_resume: two straight runs agree "
+                                 "bitwise, the resumed one does not")
+    finally:
+        telemetry.disable(clear_override=True)
+        shutil.rmtree(root, ignore_errors=True)
+    _card_checkpoint_drill()
+
+
 # ---------------------------------------------------------------------------
 # MoE (grouped matmul) and BERT (LayerNorm) training
 # ---------------------------------------------------------------------------
@@ -6609,6 +6887,7 @@ def main():
     tiny_legacy_parity()
     tiny_train_parity()
     tcounts = train_8b_width()
+    train_8b_resume()
     train_recipe()
     ln_phase(results)
     tiny_moe_train_parity()

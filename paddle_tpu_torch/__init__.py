@@ -6,7 +6,9 @@ legacy paged path; quantized weights and KV pages; batched multi-LoRA;
 checkpoint swaps through the fleet model store; on the card each
 dispatch replays as a CUDA graph), and trains Llama, MoE
 (Qwen2-MoE shape, capacity or dropless) and BERT masked-LM models
-(`TrainStep`, `AdamW`, the recipes), and offers the packed (varlen)
+(`TrainStep`, `AdamW`, the recipes), saves and resumes that training
+(`save` / `load`, `distributed.checkpoint` with its integrity manifests,
+`distributed.fleet.elastic.ElasticManager`), and offers the packed (varlen)
 attention, fused rope and fused-layer surface of the public API
 (`nn.functional.flash_attn_unpadded`, `incubate.nn`), on an NVIDIA
 Hopper card. Every Pallas kernel of the JAX package is a hand-written
@@ -34,5 +36,7 @@ kernel cannot take.
 The JAX package `paddle_tpu` is the reference this package is held
 against; nothing here imports it or JAX.
 """
+
+from .framework.io import load, save  # noqa: F401
 
 __version__ = "0.1.0"

@@ -20,17 +20,30 @@ no master weights, so it is not used. Every entry point takes the
 parameters where they lie (the card, or the CPU in the tests).
 
 ``learning_rate`` is a float or an `lr.LRScheduler`, which is read at
-every step (JAX's `get_lr`; the caller steps the scheduler). Not ported
-(ROADMAP.md queue A, item 6): the schedulers other than
+every step (JAX's `get_lr`; the caller steps the scheduler).
+
+State comes in two forms. torch's own `state_dict()` / `load_state_dict`
+(per-parameter index, f32 kept f32); and the JAX optimizer's
+(:187-231), `paddle_state_dict()` / `set_state_dict`, which
+`distributed.fleet.elastic.ElasticManager` writes as a checkpoint's
+``opt`` group: ``moment1_<k>``, ``moment2_<k>``, ``master_<k>``, the
+scheduler's state under ``LR_Scheduler`` and the step count under
+``@step``, where ``<k>`` is a parameter's Paddle name or, as a torch
+parameter has none, its index.
+
+Not ported (ROADMAP.md queue A, item 6): the schedulers other than
 `lr.LinearWarmup`, ``apply_decay_param_fun``, ``lr_ratio``,
 ``amsgrad``, ``lazy_mode``, the other clip classes and the other
 optimizers.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .lr import LRScheduler
+
+_ACCUMULATORS = ("moment1", "moment2")
 
 
 class ClipGradByGlobalNorm:
@@ -142,13 +155,61 @@ class Adam(torch.optim.Optimizer):
             st["master"] = new
         p.copy_(new)
 
+    def _params(self):
+        return [p for group in self.param_groups for p in group["params"]]
+
+    @staticmethod
+    def _key(p, i) -> str:
+        return str(getattr(p, "name", None) or i)
+
+    def paddle_state_dict(self) -> dict:
+        """The JAX optimizer's state dict (module docstring): the moments
+        by accumulator then parameter, the master weights, the
+        scheduler's state and ``@step``; the tensors are the live state,
+        not copies."""
+        sd = {}
+        params = self._params()
+        for name in _ACCUMULATORS + ("master",):
+            for i, p in enumerate(params):
+                st = self.state.get(p)
+                if st and name in st:
+                    sd[f"{name}_{self._key(p, i)}"] = st[name]
+        if isinstance(self._learning_rate, LRScheduler):
+            sd["LR_Scheduler"] = self._learning_rate.state_dict()
+        sd["@step"] = self.state["@step"]
+        return sd
+
+    def set_state_dict(self, state_dict):
+        """Take the JAX optimizer's form back (`paddle_state_dict`'s, or
+        a checkpoint's flat ``{dotted key: array}`` form of it, the
+        scheduler's values under ``LR_Scheduler.<name>``); each moment
+        and master weight lands on its parameter's device as f32. A
+        tensor already there in f32 is taken over, not copied (a
+        checkpoint's optimizer state may be most of the card)."""
+        self.state["@step"] = int(state_dict.get("@step", 0))
+        lr = state_dict.get("LR_Scheduler")
+        if not isinstance(lr, dict):
+            pre = "LR_Scheduler."
+            lr = {k[len(pre):]: v for k, v in state_dict.items()
+                  if k.startswith(pre)}
+        if lr and isinstance(self._learning_rate, LRScheduler):
+            self._learning_rate.set_state_dict(lr)
+        for i, p in enumerate(self._params()):
+            for name in _ACCUMULATORS + ("master",):
+                v = state_dict.get(f"{name}_{self._key(p, i)}")
+                if v is None:
+                    continue
+                if not isinstance(v, torch.Tensor):
+                    v = torch.from_numpy(np.array(v, np.float32))
+                self.state[p][name] = v.to(p.device, torch.float32)
+
     def load_state_dict(self, state_dict):
         """As `torch.optim.Optimizer.load_state_dict`, but the f32 moments
         and master weights stay f32 (torch's would cast them to each
         parameter's dtype, which loses a bf16 model's master weights)."""
         saved = {k: v for k, v in state_dict["state"].items()}
         super().load_state_dict(state_dict)
-        params = [p for group in self.param_groups for p in group["params"]]
+        params = self._params()
         for idx, st in saved.items():
             if idx == "@step":
                 self.state["@step"] = int(st)

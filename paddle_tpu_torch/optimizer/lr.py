@@ -1,11 +1,12 @@
 """Learning-rate schedulers.
 
-≙ `paddle_tpu/optimizer/lr.py` :7-36 (`LRScheduler`) and :163
-(`LinearWarmup`). A scheduler is called for the current rate and
-stepped once per training step by the caller; `AdamW` reads it at each
-of its steps. The other schedulers, ``verbose``, a scheduler inside
-`LinearWarmup` and a scheduler's state dict are not ported yet
-(ROADMAP.md queue A, item 6).
+≙ `paddle_tpu/optimizer/lr.py` :7-36 (`LRScheduler`, its state dict
+included) and :163 (`LinearWarmup`). A scheduler is called for the
+current rate and stepped once per training step by the caller; `AdamW`
+reads it at each of its steps and keeps its state dict under
+``LR_Scheduler`` in its own. The other schedulers, ``verbose`` and a
+scheduler inside `LinearWarmup` are not ported yet (ROADMAP.md queue A,
+item 6).
 """
 from __future__ import annotations
 
@@ -32,6 +33,21 @@ class LRScheduler:
 
     def get_lr(self):
         raise NotImplementedError
+
+    def state_dict(self):
+        """Every plain attribute (``last_epoch``, ``last_lr``, the
+        schedule's constants), as the JAX scheduler's."""
+        return {k: v for k, v in self.__dict__.items()
+                if isinstance(v, (int, float, bool, str, list))}
+
+    def set_state_dict(self, state_dict):
+        """Take a `state_dict` back; 0-d arrays (a checkpoint's form of
+        a scalar) become Python scalars."""
+        self.__dict__.update(
+            {k: v.item() if getattr(v, "ndim", None) == 0 else v
+             for k, v in state_dict.items()})
+
+    set_dict = set_state_dict
 
 
 class LinearWarmup(LRScheduler):

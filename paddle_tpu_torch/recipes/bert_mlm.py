@@ -14,8 +14,9 @@ by default:
     python -m paddle_tpu_torch.recipes.bert_mlm --size tiny --steps 2 \\
         --device cpu
 
-Not ported yet, and refused with `NotImplementedError`: ``--save``
-(ROADMAP.md queue A, item 6) and ``--data`` (item 6).
+Not ported yet, and refused with `NotImplementedError`: ``--data``
+(ROADMAP.md queue A, item 6). ``--save PATH`` writes the trained model's
+state dict (`save_model`).
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ from ..ops import resolve_device
 from ..optimizer import AdamW
 from ..optimizer.lr import LinearWarmup
 from ..text import ByteTokenizer, MLMBlockDataset
-from .common import (RecipeResult, refuse_unported, run_train, std_parser,
-                     token_source)
+from .common import (RecipeResult, refuse_unported, run_train, save_model,
+                     std_parser, token_source)
 
 
 def main(argv=None) -> RecipeResult:
@@ -61,7 +62,9 @@ def main(argv=None) -> RecipeResult:
         loss = step(x.to(device), y.to(device))
         sched.step()
         return loss
-    return run_train(step_and_sched, loader, args.steps, args.log_every)
+    result = run_train(step_and_sched, loader, args.steps, args.log_every)
+    save_model(args, model)
+    return result
 
 
 if __name__ == "__main__":

@@ -2,9 +2,11 @@
 synthetic token source, the train loop and its result.
 
 ≙ `recipes/common.py` (`std_parser`, `token_source`, `run_train`,
-`RecipeResult`). ``--data`` (file token sources) and ``--save``
-(checkpoints) are refused by every recipe (`refuse_unported`);
-`RecipeResult` also carries each step's host seconds and loss.
+`RecipeResult`). ``--save`` writes the trained model's state dict with
+`paddle_tpu_torch.save` (`save_model`), as the JAX recipes write theirs;
+``--data`` (file token sources) is refused by every recipe
+(`refuse_unported`). `RecipeResult` also carries each step's host seconds
+and loss.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import itertools
 import time
 from dataclasses import dataclass, field
 
+from ..framework.io import save
 from ..text import SyntheticTokens
 
 
@@ -51,10 +54,16 @@ def unported(flag: str, item: str):
 
 def refuse_unported(args) -> None:
     """Raise for the standard flags the port does not run yet."""
-    if args.save:
-        unported("--save", "6: checkpoints")
     if args.data:
         unported("--data", "6: file token sources")
+
+
+def save_model(args, model) -> None:
+    """``--save PATH``: the model's state dict to PATH (≙ the JAX
+    recipes' ``paddle.save(model.state_dict(), args.save)``)."""
+    if args.save:
+        save(model.state_dict(), args.save)
+        print(f"saved {args.save}")
 
 
 def token_source(args, vocab_size: int) -> SyntheticTokens:

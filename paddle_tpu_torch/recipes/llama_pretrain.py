@@ -10,14 +10,19 @@ the CUDA card by default:
     python -m paddle_tpu_torch.recipes.llama_pretrain --size bench --bf16 \\
         --batch-size 8 --seq-len 2048 --steps 5
     python -m paddle_tpu_torch.recipes.llama_pretrain --size tiny \\
-        --steps 2 --device cpu
+        --steps 2 --device cpu --resume-drill
 
-Not ported yet, and refused with `NotImplementedError`: ``--mesh``
-(ROADMAP.md queue A, item 9: the distributed stack), ``--save`` and
-``--resume-drill`` (item 6: checkpoints), ``--recompute`` (item 6) and
+``--save PATH`` writes the trained model's state dict (`save_model`);
+``--resume-drill`` runs the durable-checkpoint drill of
+``docs/checkpointing.md`` after training (`run_resume_drill`). Not ported
+yet, and refused with `NotImplementedError`: ``--mesh`` (ROADMAP.md queue
+A, item 9: the distributed stack), ``--recompute`` (item 6) and
 ``--data`` (item 6: file token sources).
 """
 from __future__ import annotations
+
+import os
+import tempfile
 
 import torch
 
@@ -26,8 +31,48 @@ from ..models.llama import LlamaConfig, LlamaForCausalLM
 from ..ops import resolve_device
 from ..optimizer import AdamW
 from ..text import LMBlockDataset
-from .common import (RecipeResult, refuse_unported, run_train, std_parser,
-                     token_source, unported)
+from .common import (RecipeResult, refuse_unported, run_train, save_model,
+                     std_parser, token_source, unported)
+
+
+def run_resume_drill(model, optimizer, ckpt_dir):
+    """Save -> corrupt -> resume drill (``docs/checkpointing.md``; ≙
+    `recipes/llama_pretrain.py` :26-65): commit two checkpoints through
+    the atomic protocol, verify both, flip bytes in the newest one's data
+    files, and prove `ElasticManager.resume` quarantines it and falls
+    back — then print the telemetry a real incident would leave behind."""
+    from .. import observability as telemetry
+    from ..distributed.checkpoint import verify_checkpoint
+    from ..distributed.fleet.elastic import ElasticManager
+    from ..utils.faults import flip_checkpoint_shards
+
+    telemetry.enable()
+    print("--- durable-checkpoint resume drill ---")
+    em = ElasticManager(ckpt_dir, save_interval_steps=1,
+                        sleep=lambda _: None)
+    em.save(0, model, optimizer)
+    em.save(1, model, optimizer)
+    for step in (0, 1):
+        res = verify_checkpoint(os.path.join(ckpt_dir, f"step_{step}"),
+                                rehash=True)
+        print(f"verify step_{step}: ok={res.ok} "
+              f"({res.arrays_checked} arrays re-hashed)")
+    # flip one byte in every data file of the newest checkpoint's model
+    # group — a silent disk corruption, .done marker still valid
+    n = flip_checkpoint_shards(os.path.join(ckpt_dir, "step_1"))
+    print(f"corrupted step_1 (flipped bytes in {n} model shards)")
+    start = em.resume(model, optimizer)
+    quarantined = sorted(n for n in os.listdir(ckpt_dir)
+                         if n.endswith(".corrupt"))
+    print(f"resume fell back to start step {start} "
+          f"(quarantined: {quarantined})")
+    if not (start == 1 and quarantined == ["step_1.corrupt"]):
+        raise AssertionError((start, quarantined))
+    print("--- checkpoint telemetry (Prometheus text exposition) ---")
+    for line in telemetry.to_prometheus().splitlines():
+        if "pdt_checkpoint" in line:
+            print(line)
+    print("--- end drill ---")
 
 
 def bench_config() -> LlamaConfig:
@@ -67,8 +112,6 @@ def main(argv=None) -> RecipeResult:
     args = p.parse_args(argv)
     if args.mesh:
         unported("--mesh", "9: the distributed stack")
-    if args.resume_drill:
-        unported("--resume-drill", "6: checkpoints")
     if args.recompute:
         unported("--recompute", "6: activation recompute")
     refuse_unported(args)
@@ -96,7 +139,14 @@ def main(argv=None) -> RecipeResult:
 
     def step_fn(x, y):
         return step(x.to(device), y.to(device))
-    return run_train(step_fn, loader, args.steps, args.log_every)
+    result = run_train(step_fn, loader, args.steps, args.log_every)
+    save_model(args, model)
+    if args.resume_drill:
+        opt = AdamW(learning_rate=args.lr, parameters=model.parameters(),
+                    weight_decay=0.01)
+        with tempfile.TemporaryDirectory(prefix="pdt_ckpt_drill_") as d:
+            run_resume_drill(model, opt, d)
+    return result
 
 
 if __name__ == "__main__":

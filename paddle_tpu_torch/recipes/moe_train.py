@@ -16,8 +16,8 @@ CUDA card by default:
 ``--dropless`` routes through the grouped-matmul kernel; the default is
 the capacity path (einsums, no kernel), as `MoEConfig` defaults. Not
 ported yet, and refused with `NotImplementedError`: ``--mesh`` (expert
-parallelism; ROADMAP.md queue A, item 9), ``--save`` (item 6) and
-``--data`` (item 6).
+parallelism; ROADMAP.md queue A, item 9) and ``--data`` (item 6).
+``--save PATH`` writes the trained model's state dict (`save_model`).
 """
 from __future__ import annotations
 
@@ -28,8 +28,8 @@ from ..models.moe import MoEConfig, MoEForCausalLM
 from ..ops import resolve_device
 from ..optimizer import AdamW
 from ..text import LMBlockDataset
-from .common import (RecipeResult, refuse_unported, run_train, std_parser,
-                     token_source, unported)
+from .common import (RecipeResult, refuse_unported, run_train, save_model,
+                     std_parser, token_source, unported)
 
 # the A14B-width training run of chip_smoke.py: `qwen2_moe_a14b()` at its
 # published width cut to 1 of 28 decoder layers (one layer holds ~2.0B
@@ -79,7 +79,9 @@ def main(argv=None) -> RecipeResult:
 
     def step_fn(x, y):
         return step(x.to(device), y.to(device))
-    return run_train(step_fn, loader, args.steps, args.log_every)
+    result = run_train(step_fn, loader, args.steps, args.log_every)
+    save_model(args, model)
+    return result
 
 
 if __name__ == "__main__":

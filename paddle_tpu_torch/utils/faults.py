@@ -41,9 +41,20 @@ Instrumented sites of the port (grep ``fault_point(``):
   consistent; ``transfer.payload`` — a VALUE site: a serialized payload
   damaged after its manifest, which the target's verify refuses.
 
-The value sites of the JAX engine (``serving.kv_page``,
-``serving.logits``) and the fleet's and checkpoint sites come with the
-modules that hold them (ROADMAP.md queue A, items 6 and 8).
+* ``checkpoint.save`` — before any byte of a state-dict write;
+  ``checkpoint.write`` — after one group's bytes land (fires between
+  groups of a multi-group save: forces torn ``step_N.tmp`` dirs; for
+  ``async_save`` it fires in ``wait_until_finished()``, where the bytes
+  have landed); ``checkpoint.finalize`` — before the tmp->final rename
+  + ``.done`` commit; ``checkpoint.load`` — before a restore
+  (distributed/checkpoint/);
+* ``elastic.gc`` — checkpoint garbage collection
+  (distributed/fleet/elastic.py ``ElasticManager._gc``).
+
+`flip_checkpoint_shards` is the disk-level sibling of these: silent
+damage to a committed checkpoint's data files. The value sites of the
+JAX engine (``serving.kv_page``, ``serving.logits``) and the fleet's
+sites come with the modules that hold them (ROADMAP.md queue A, item 8).
 """
 from __future__ import annotations
 
@@ -54,7 +65,7 @@ from typing import Dict, List, Optional, Type
 from .. import observability as telemetry
 
 __all__ = ["FaultError", "FaultInjector", "fault_point", "fault_value",
-           "value_armed"]
+           "value_armed", "flip_checkpoint_shards"]
 
 CORRUPT_MODES = ("bitflip", "nan", "scale")
 
@@ -233,6 +244,30 @@ class FaultInjector:
         telemetry.event("fault.fire", site=site, visit=rule.calls,
                         exc=f"corrupt:{rule.corrupt}")
         return _mutate(arr, rule, self._rng)
+
+
+def flip_checkpoint_shards(step_dir, group: str = "model") -> int:
+    """Corrupt the middle byte of every data file of a checkpoint group
+    (``<step_dir>/<group>/d/*``, `distributed.checkpoint.storage`) —
+    silent disk damage under a still-valid `.done` marker, for the chaos
+    tests and the recipes' resume drill (≙ `flip_ocdbt_shards`,
+    `paddle_tpu/utils/faults.py` :314, for this package's layout).
+    Raises when no data file exists, so a layout change fails loudly
+    here and not in a later resume assertion. Returns the files
+    damaged."""
+    import glob
+    import os
+    files = glob.glob(os.path.join(str(step_dir), group, "d", "*"))
+    if not files:
+        raise FileNotFoundError(f"no data files under {step_dir}/{group}/d")
+    for p in files:
+        with open(p, "r+b") as f:
+            size = f.seek(0, os.SEEK_END)
+            f.seek(size // 2)
+            b = f.read(1)
+            f.seek(size // 2)
+            f.write(bytes([b[0] ^ 0xFF]))
+    return len(files)
 
 
 def _mutate(arr, rule: _Rule, rng: random.Random):

@@ -42,6 +42,7 @@ from paddle_tpu.optimizer.lr import LinearWarmup as JLinearWarmup
 from paddle_tpu.text import ByteTokenizer as JByteTokenizer
 from paddle_tpu.text import MLMBlockDataset as JMLMBlockDataset
 from paddle_tpu.text import SyntheticTokens as JSyntheticTokens
+import paddle_tpu_torch
 from paddle_tpu_torch import text as tt
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import bert as tb
@@ -258,14 +259,20 @@ def test_layers_start_equal_and_the_decoder_is_tied():
                                          for p in tm.parameters())
 
 
-def test_recipe_tiny_on_cpu(capsys):
-    r = bert_mlm.main(["--size", "tiny", "--steps", "2", "--device", "cpu"])
+def test_recipe_tiny_on_cpu(capsys, tmp_path):
+    path = tmp_path / "bert.pdparams"
+    r = bert_mlm.main(["--size", "tiny", "--steps", "2", "--device", "cpu",
+                       "--save", str(path)])
     assert r.steps == 2 and len(r.step_seconds) == 2
     assert np.isfinite(r.final_loss)
-    assert "step    1" in capsys.readouterr().out
-    for flag in (["--save", "x.pt"], ["--data", "x.txt"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bert_mlm.main(["--size", "tiny", "--device", "cpu", *flag])
+    out = capsys.readouterr().out
+    assert "step    1" in out and f"saved {path}" in out
+    # the file written loads back into the model
+    tm = tb.BertForMaskedLM(tb.BertConfig.tiny(), device="cpu")
+    tm.load_state_dict(paddle_tpu_torch.load(str(path), device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bert_mlm.main(["--size", "tiny", "--device", "cpu", "--data",
+                       "x.txt"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             bert_mlm.main(["--size", "tiny", "--steps", "1"])

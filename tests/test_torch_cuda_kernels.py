@@ -107,7 +107,10 @@ rounds each product and the sum once, as the plain version's separate
 ops do), forward and backward; both designs (`rp.rope_design`: rope_vec
 for heads of whole 16-byte vectors on 16 bytes, q and k in one launch;
 the pair design for the rest, a view off 16 bytes too) bitwise, the
-fused op one launch each way under autograd, and no ptxas spills."""
+fused op one launch each way under autograd, and no ptxas spills;
+checkpoints: a group of card tensors through the pinned staging buffers
+(digests equal the CPU copies', read back bitwise) and a tiny bf16 run
+resumed by `ElasticManager` bitwise equal to an uninterrupted one."""
 import numpy as np
 import pytest
 import torch
@@ -2941,3 +2944,66 @@ def test_tiny_sampling_engine_on_card(cuda):
         greedy = _spec_serve(_spec_engine(model, attention_impl=impl), jobs)
         assert _spec_serve(_spec_engine(model, attention_impl=impl,
                                         top_k=1, **kw), jobs) == greedy
+
+
+def test_checkpoint_group_of_card_tensors(cuda, tmp_path):
+    """A state dict of card tensors through the pinned staging buffers:
+    an array of several 64 MiB chunks, bf16 and small ones, written,
+    re-hashed and read back bitwise onto the card; the digests equal the
+    CPU copies' (the bytes that left the card are the bytes hashed)."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.distributed.checkpoint import storage
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sd = {"big": torch.randn(3 * storage.CHUNK // 2 + 7, device=cuda,
+                             generator=gen).to(torch.bfloat16),
+          "w": torch.randn(33, 65, device=cuda, generator=gen),
+          "i": torch.arange(17, device=cuda), "n": 4}
+    path = str(tmp_path / "g")
+    ckpt.save_state_dict(sd, path)
+    cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in sd.items()}
+    assert storage.checksums(sd) == storage.checksums(cpu)
+    assert storage.stored_checksums(path, storage.read_metadata(path)) \
+        == storage.checksums(cpu)
+    target = {k: torch.zeros_like(v) for k, v in sd.items()
+              if torch.is_tensor(v)}
+    ckpt.load_state_dict(target, path)
+    raw = ckpt.load_state_dict_raw(path)
+    for k, v in target.items():
+        assert v.is_cuda and v.equal(sd[k]) and raw[k].equal(sd[k]), k
+    assert raw["n"].is_cuda and raw["n"].item() == 4
+
+
+def test_elastic_resume_on_card_is_bitwise(cuda, tmp_path):
+    """A tiny bf16 Llama with f32 masters on the card: 4 AdamW steps
+    straight through equal 2, `ElasticManager.save`, fresh objects,
+    `resume` and 2 more, bitwise (losses and parameters)."""
+    from paddle_tpu_torch.distributed.fleet.elastic import ElasticManager
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 512, (2, 65))).to(cuda)
+
+    def build(seed):
+        m = LlamaForCausalLM(LlamaConfig.tiny(), device=cuda,
+                             dtype=torch.bfloat16, seed=seed)
+        o = AdamW(learning_rate=1e-3, parameters=m.parameters(),
+                  multi_precision=True)
+        return m, o, TrainStep(m, o, loss_fn=lambda mm, a, b: mm(
+            a, labels=b)[0])
+
+    def run(resume):
+        m, o, step = build(0)
+        losses = []
+        for i in range(4):
+            if resume and i == 2:
+                em = ElasticManager(str(tmp_path), save_interval_steps=1)
+                em.save(1, m, o)
+                m, o, step = build(5)
+                assert em.resume(m, o) == 2
+            losses.append(float(step(ids[:, :-1], ids[:, 1:])))
+        return losses, [p.detach().clone() for p in m.parameters()]
+
+    (la, pa), (lb, pb) = run(False), run(True)
+    assert la == lb
+    assert all(a.equal(b) for a, b in zip(pa, pb))

@@ -37,7 +37,10 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, paddle_tpu_torch.models.serving, "
             "paddle_tpu_torch.models.convert, paddle_tpu_torch.ops._build, "
             "paddle_tpu_torch.recipes.llama_pretrain, "
-            "paddle_tpu_torch.tools.profile_train;"
+            "paddle_tpu_torch.tools.profile_train, "
+            "paddle_tpu_torch.framework.io, "
+            "paddle_tpu_torch.distributed.fleet.elastic, "
+            "paddle_tpu_torch.distributed.checkpoint.__main__;"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

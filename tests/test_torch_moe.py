@@ -34,6 +34,7 @@ import paddle_tpu as paddle
 from paddle_tpu.incubate import moe as jmoe
 from paddle_tpu.models import moe as jmm
 from paddle_tpu.optimizer import AdamW as JAdamW
+import paddle_tpu_torch
 from paddle_tpu_torch.incubate import moe as tmoe
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import moe as tmm
@@ -245,11 +246,17 @@ def test_recipe_tiny_on_cpu(dropless, capsys):
     assert "step    1" in capsys.readouterr().out
 
 
-def test_recipe_refusals():
-    for flag in (["--mesh", "dp=2,ep=4"], ["--save", "x.pt"],
-                 ["--data", "x.bin"]):
+def test_recipe_refusals(tmp_path, capsys):
+    for flag in (["--mesh", "dp=2,ep=4"], ["--data", "x.bin"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             moe_train.main(["--size", "tiny", "--device", "cpu", *flag])
+    # --save is no refusal: the file written loads back into the model
+    path = tmp_path / "moe.pdparams"
+    moe_train.main(["--size", "tiny", "--device", "cpu", "--steps", "1",
+                    "--save", str(path)])
+    assert f"saved {path}" in capsys.readouterr().out
+    tm = tmm.MoEForCausalLM(tmm.MoEConfig.tiny(), device="cpu")
+    tm.load_state_dict(paddle_tpu_torch.load(str(path), device="cpu"))
     with pytest.raises(NotImplementedError, match="mesh"):
         tmoe.shard_moe(None, None)
     if not torch.cuda.is_available():

@@ -27,6 +27,8 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.models import llama as jl
 from paddle_tpu.optimizer import AdamW as JAdamW
+import paddle_tpu_torch
+import paddle_tpu_torch.observability as port_telemetry
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import llama as tl
 from paddle_tpu_torch.models.convert import (llama_grads_to_numpy,
@@ -166,17 +168,31 @@ def test_accumulate_steps_2_matches_1():
         step(torch.from_numpy(x[:3]), torch.from_numpy(y[:3]))
 
 
-def test_recipe_tiny_on_cpu(capsys):
+def test_recipe_tiny_on_cpu(capsys, tmp_path):
     r = llama_pretrain.main(["--size", "tiny", "--steps", "2",
                              "--device", "cpu"])
     assert r.steps == 2 and len(r.step_seconds) == 2
     assert np.isfinite(r.final_loss)
     assert "step    1" in capsys.readouterr().out
-    for flag in (["--mesh", "dp=2"], ["--save", "x.pt"], ["--resume-drill"],
-                 ["--recompute"], ["--data", "x.bin"]):
+    for flag in (["--mesh", "dp=2"], ["--recompute"], ["--data", "x.bin"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             llama_pretrain.main(["--size", "tiny", "--device", "cpu",
                                  *flag])
+    # --save writes the state dict, which loads back into the model;
+    # --resume-drill's own assertion held (quarantine and fall back)
+    path = tmp_path / "llama.pdparams"
+    try:
+        llama_pretrain.main(["--size", "tiny", "--steps", "2", "--device",
+                             "cpu", "--save", str(path), "--resume-drill"])
+    finally:
+        port_telemetry.disable(clear_override=True)
+    out = capsys.readouterr().out
+    assert f"saved {path}" in out
+    assert "resume fell back to start step 1 (quarantined: " \
+        "['step_1.corrupt'])" in out
+    assert 'pdt_checkpoint_corrupt_total{reason="verify"} 1' in out
+    tm = tl.LlamaForCausalLM(tl.LlamaConfig.tiny(), device="cpu")
+    tm.load_state_dict(paddle_tpu_torch.load(str(path), device="cpu"))
 
 
 def test_recipe_needs_a_card_or_a_device():
