@@ -2339,12 +2339,15 @@ GEN_BEAMS = 4
 LEGACY_CHUNK = 256
 
 
-def gen_prefill_check(model, ids, cache_len):
-    """`generate()`'s prefill of the 8B model (one causal pass over the
-    prompts into zeroed caches, the last row through the vocab matmul)
-    through the kernels and through the plain versions: the launches of
-    the kernel pass, and the two logits within `path_check`'s 0.1 x max
-    |logit| with equal argmax on every row."""
+def gen_prefill_check(model, ids, cache_len, want=None, near_ties=False):
+    """`generate()`'s prefill (one causal pass over the prompts into
+    zeroed caches, the last row through the vocab matmul) of a bf16
+    model through the kernels and through the plain versions: the
+    launches of the kernel pass (``want``, by default the 8B Llama's),
+    and the two logits within `path_check`'s 0.1 x max |logit| with equal
+    argmax on every row; with ``near_ties`` a row's two picks may differ
+    where the plain logits of both lie within the max |logit diff| (GPT-2
+    at random init: |logits| near 200, where one bf16 step is 1.0)."""
     import torch
     from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
     cfg = model.config
@@ -2366,6 +2369,9 @@ def gen_prefill_check(model, ids, cache_len):
     diff = (a - b).abs().max().item()
     scale = b.abs().max().item()
     agree = (a.argmax(-1) == b.argmax(-1)).tolist()
+    if near_ties:
+        picked = b.gather(1, a.argmax(-1, keepdim=True))[:, 0]
+        agree = (picked >= b.amax(-1) - diff).tolist()
     L = cfg.num_hidden_layers
     log(f"generate prefill check: max |logit diff| {diff:.4g} (max |logit| "
         f"{scale:.4g}), argmax agrees per row {agree}, kernel launches "
@@ -2375,8 +2381,8 @@ def gen_prefill_check(model, ids, cache_len):
             or diff > 0.1 * scale or not all(agree):
         raise AssertionError("generate prefill: kernel and plain logits "
                              "disagree")
-    if counts != {**{k: 0 for k in counts}, "flash_attention_fwd": L,
-                  "rms_norm": 2 * L + 1}:
+    want = want or {"flash_attention_fwd": L, "rms_norm": 2 * L + 1}
+    if counts != {**{k: 0 for k in counts}, **want}:
         raise AssertionError("generate prefill: launches off")
     return diff, scale
 
@@ -3948,6 +3954,8 @@ def _pairs(b, h, sq, sk, causal, window):
 FLASH_CASES = [
     ("slice_8b", 2, 2048, 2048, 32, 8, 128, True, None, "bfloat16", True),
     ("bench", 8, 2048, 2048, 16, 8, 64, True, None, "bfloat16", True),
+    # GPT-2 training (`train_gpt2`): 12 heads of 64, causal, no GQA
+    ("gpt2", 8, 1024, 1024, 12, 12, 64, True, None, "bfloat16", True),
     ("tail_1000", 1, 1000, 1000, 8, 2, 128, True, None, "bfloat16", False),
     ("sq300_sk1000", 1, 300, 1000, 8, 2, 128, True, None, "bfloat16", False),
     ("sq600_sk200", 1, 600, 200, 8, 2, 64, True, None, "bfloat16", False),
@@ -4316,8 +4324,17 @@ RMS_BWD_SHAPES = [("train_8b_width", 4096, 4096, "bfloat16"),
                   ("train_moe_a14b_width", 4096, 3584, "bfloat16"),
                   ("f32", 4096, 4096, "float32"),
                   ("ragged", 3001, 4096, "bfloat16")]
-LN_BWD_SHAPES = [("train_bert_base", 16384, 768, "float32"),
-                 ("a14b_width", 4096, 3584, "bfloat16")]
+# (label, rows, width, dtype, affine): DiT's LayerNorms have no affine
+# (constant ones / zeros, no dw / db sums)
+LN_BWD_SHAPES = [("train_bert_base", 16384, 768, "float32", True),
+                 ("a14b_width", 4096, 3584, "bfloat16", True),
+                 ("train_gpt2", 8192, 768, "bfloat16", True),
+                 ("train_dit_xl2", 8192, 1152, "bfloat16", False)]
+# the forwards timed by `ln_phase`: (rows, width, dtype, affine)
+LN_FWD_SHAPES = [(16384, 768, "float32", True),
+                 (4096, 3584, "bfloat16", True),
+                 (8192, 768, "bfloat16", True),
+                 (8192, 1152, "bfloat16", False)]
 # mangled-name codes of the kernels' element types (ptxas -v names them so)
 _TYPE_CODES = {"float32": "f", "bfloat16": "13__nv_bfloat16",
                "float16": "6__half"}
@@ -4386,7 +4403,7 @@ def kernel_split_us(call, n=20):
     return {k: dict(launches=c / n, us=u / n) for k, (c, u) in out.items()}
 
 
-def norm_bwd_case(kind, label, n, h, name, gen, results):
+def norm_bwd_case(kind, label, n, h, name, gen, results, affine=True):
     """One norm backward (``kind`` "rms" or "ln") at (n, h) of ``name``:
     each design (the register-row one where a class holds the row, and
     the rowblock one) against torch autograd of the plain version (dx
@@ -4400,7 +4417,10 @@ def norm_bwd_case(kind, label, n, h, name, gen, results):
     device time split into its kernels (`kernel_split_us`) and the
     registers instance's ptxas registers and spills. LayerNorm also
     holds a planted fault (dx without its mean(w g) term) outside the
-    limits. Returns the records, the path design's first."""
+    limits. Without ``affine`` (LayerNorm only) w and b are constant ones
+    and zeros, only dx is asked for and held (the kernel writes no dw / db
+    partials) and the library call takes no weight. Returns the records,
+    the path design's first."""
     import torch
     from paddle_tpu_torch.ops import kernel_errors
     from paddle_tpu_torch.ops import norm_kernels as nk
@@ -4409,6 +4429,11 @@ def norm_bwd_case(kind, label, n, h, name, gen, results):
     eps = 1e-5 if kind == "rms" else 1e-12
     w = (1 + 0.1 * torch.randn(h, device="cuda", generator=gen)).to(dt)
     b = (0.1 * torch.randn(h, device="cuda", generator=gen)).to(dt)
+    # the library's weight and bias: none without an affine
+    lw, lb = w, b
+    if not affine:
+        w, b = torch.ones_like(w), torch.zeros_like(b)
+        lw = lb = None
     aten = torch.ops.aten
     sets = []
     for _ in range(rotation_sets(3 * n * h * isz)):
@@ -4420,35 +4445,42 @@ def norm_bwd_case(kind, label, n, h, name, gen, results):
             lib = aten._fused_rms_norm(x, [h], w, eps)[1:]
         else:
             stats = nk._ln_fwd(x, w, b, eps)[1:]
-            lib = aten.native_layer_norm(x, [h], w, b, eps)[1:]
+            lib = aten.native_layer_norm(x, [h], lw, lb, eps)[1:]
         sets.append((x, g, stats, lib))
     x, g, stats, _ = sets[0]
-    leaves = [t.clone().requires_grad_() for t in ((x, w) if kind == "rms"
-                                                   else (x, w, b))]
+    leaves = [t.clone().requires_grad_() for t in (
+        (x, w) if kind == "rms" else (x, w, b) if affine else (x,))]
     out = nk.rms_norm_ref(*leaves, eps) if kind == "rms" else \
-        nk.layer_norm_ref(*leaves, eps)
+        nk.layer_norm_ref(*leaves, eps) if affine else \
+        nk.layer_norm_ref(leaves[0], w, b, eps)
     refs = torch.autograd.grad(out, leaves, g, retain_graph=True)
     path = nk.norm_bwd_design(dt, h)
     cls = nk.bwd_row_class(dt, h)
     bwd = nk._rms_bwd if kind == "rms" else nk._ln_bwd
     designs = ("registers", "rowblock") if cls is not None else \
         ("rowblock",)
-    named = {d: (lambda st, d=d: bwd(st[0], w, *st[2], st[1], _design=d))
+    kw = {} if affine else dict(affine=False)
+    named = {d: (lambda st, d=d: bwd(st[0], w, *st[2], st[1], _design=d,
+                                     **kw))
              for d in designs}
     if kind == "rms":
         named["library"] = lambda st: aten._fused_rms_norm_backward(
             st[1], st[0], [h], st[3][0], w, [True, True])
     else:
         named["library"] = lambda st: aten.native_layer_norm_backward(
-            st[1], st[0], [h], st[3][0], st[3][1], w, b, [True, True, True])
+            st[1], st[0], [h], st[3][0], st[3][1], lw, lb,
+            [True, affine, affine])
     tol = TOL[name]
     lim = nk.LN_LIMITS[dt]
     within = lambda e: e[0] <= lim["rel"] and e[1] <= lim["row"]
     checks = {}
     for d in designs:
-        got = named[d](sets[0])
-        again = named[d](sets[0])
+        got = [t for t in named[d](sets[0]) if t is not None]
+        again = [t for t in named[d](sets[0]) if t is not None]
         torch.cuda.synchronize()
+        if len(got) != len(refs):
+            raise AssertionError(f"{kind} backward at {label}: "
+                                 f"{len(got)} outputs, want {len(refs)}")
         errs = {k: kernel_errors(a.reshape(-1, h), r.reshape(-1, h))
                 for k, a, r in zip(("dx", "dw", "db"), got, refs)}
         if kind == "rms":
@@ -4480,11 +4512,16 @@ def norm_bwd_case(kind, label, n, h, name, gen, results):
     lib_autograd = time_ms(lambda: torch.autograd.grad(
         (torch.nn.functional.rms_norm(leaves[0], (h,), leaves[1], eps)
          if kind == "rms" else torch.nn.functional.layer_norm(
-             leaves[0], (h,), leaves[1], leaves[2], eps)), leaves, g))
+             leaves[0], (h,), *(leaves[1:] if affine else (None, None)),
+             eps)),
+        leaves, g))
     if kind == "rms":
         nbytes, ops = 3 * n * h * isz + 2 * h * isz + 4 * n, 10 * n * h
-    else:
+    elif affine:
         nbytes, ops = 3 * n * h * isz + 4 * h * isz + 8 * n, 12 * n * h
+    else:
+        # x and g read, dx written, the statistics and the constant w read
+        nbytes, ops = 3 * n * h * isz + h * isz + 8 * n, 10 * n * h
     b_ms, b_by = bound(nbytes, ops, name)
     lt = times["library"]
     kname = "rms_norm_bwd" if kind == "rms" else "layer_norm_bwd"
@@ -4493,8 +4530,10 @@ def norm_bwd_case(kind, label, n, h, name, gen, results):
         t = times[d]
         reg = d == "registers"
         usage = bwd_instance_usage(kind, name, cls) if reg else None
-        rec = dict(kernel=kname, case=f"rows={n}_h={h}", shape_of=label,
-                   N=n, H=h, dtype=name, design=d, path_design=d == path,
+        rec = dict(kernel=kname, case=f"rows={n}_h={h}"
+                   + ("" if affine else "_no_affine"), shape_of=label,
+                   N=n, H=h, dtype=name, affine=affine, design=d,
+                   path_design=d == path,
                    row_class=cls if reg else None,
                    **checks[d],
                    limits=tol if kind == "rms" else lim, ms=t["ms"],
@@ -5332,7 +5371,7 @@ def ln_phase(results):
     gen = torch.Generator(device="cuda").manual_seed(13)
     eps = 1e-12
     lib = torch.nn.functional.layer_norm
-    for n, h, name in ((16384, 768, "float32"), (4096, 3584, "bfloat16")):
+    for n, h, name, affine in LN_FWD_SHAPES:
         dt = getattr(torch, name)
         lim = nk.LN_LIMITS[dt]
         isz = torch.empty((), dtype=dt).element_size()
@@ -5341,6 +5380,12 @@ def ln_phase(results):
         x = sets[0]
         w = (1 + 0.1 * torch.randn(h, device="cuda", generator=gen)).to(dt)
         b = (0.1 * torch.randn(h, device="cuda", generator=gen)).to(dt)
+        # without an affine: the constants `F.layer_norm` hands the
+        # kernel, and the library call without weight and bias
+        lw, lb = w, b
+        if not affine:
+            w, b = torch.ones_like(w), torch.zeros_like(b)
+            lw = lb = None
         path = nk.norm_design(dt, h)
         designs = ("strided", "registers") if path == "registers" \
             else ("strided",)
@@ -5380,7 +5425,7 @@ def ln_phase(results):
         named = {d: (lambda xs, d=d: nk._ln_fwd(xs, w, b, eps, _design=d,
                                                  stats=False))
                  for d in designs}
-        named["library"] = lambda xs: lib(xs, (h,), w, b, eps)
+        named["library"] = lambda xs: lib(xs, (h,), lw, lb, eps)
         named["entry"] = lambda xs: nk.layer_norm_values(xs, w, b, eps,
                                                          use_kernel=True)
         named["copy"] = lambda xs: xs.clone()
@@ -5388,7 +5433,8 @@ def ln_phase(results):
         plain_fwd = time_ms(lambda: nk.layer_norm_ref(x, w, b, eps))
         # the timed forwards store no statistics
         fwd_b = bound(2 * n * h * isz + 2 * h * isz, 7 * n * h, name)
-        base = dict(case=f"rows={n}", dtype=name, N=n, H=h, limits=lim)
+        base = dict(case=f"rows={n}" + ("" if affine else "_no_affine"),
+                    dtype=name, N=n, H=h, affine=affine, limits=lim)
         lt = times["library"]
         for d in designs:
             f, t = fwd[d], times[d]
@@ -5426,40 +5472,55 @@ def ln_phase(results):
                                  "forward fault")
         del sets, x, ref, fwd, xf, fwd_fault
         torch.cuda.empty_cache()
-    for label, n, h, name in LN_BWD_SHAPES:
-        recs = norm_bwd_case("ln", label, n, h, name, gen, results)
+    for label, n, h, name, affine in LN_BWD_SHAPES:
+        recs = norm_bwd_case("ln", label, n, h, name, gen, results, affine)
         if recs[0]["design"] != "registers":
             raise AssertionError(f"the LayerNorm backward at {label} does "
                                  f"not take the registers design")
 
 
-def _tiny_run(dev, build, x, y, steps=TINY_MOE_STEPS):
+def _lm_loss(m, a, b):
+    return m(a, labels=b)[0]
+
+
+def _tiny_run(dev, build, batch, steps=TINY_MOE_STEPS, loss_fn=_lm_loss):
     import torch
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import AdamW
     model = build().to(dev)
     opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
                 weight_decay=0.01)
-    step = TrainStep(model, opt, loss_fn=lambda m, a, b: m(a, labels=b)[0])
-    a, b = torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev)
-    losses = [float(step(a, b)) for _ in range(steps)]
+    step = TrainStep(model, opt, loss_fn=loss_fn)
+    args = [torch.as_tensor(t).to(dev) for t in batch]
+    losses = [float(step(*args)) for _ in range(steps)]
     return losses, {n: p.detach().float().cpu()
                     for n, p in model.named_parameters()}
 
 
-def _card_vs_cpu(label, build, x, y, want_counts):
+def _card_vs_cpu(label, build, batch, want_counts, loss_fn=_lm_loss):
     """Three AdamW steps of a tiny f32 model on the card (kernels) and on
-    the CPU (plain versions) from the same weights: losses and final
-    parameters within the tiny-training budgets."""
+    the CPU (plain versions) from the same weights and ``batch`` (the
+    arguments of ``loss_fn(model, *batch)``, by default a causal LM's
+    (inputs, labels)): losses and final parameters within the
+    tiny-training budgets."""
+    import torch
     from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
     reset_launch_counts()
-    card, cparams = _tiny_run("cuda", build, x, y)
+    card, cparams = _tiny_run("cuda", build, batch, loss_fn=loss_fn)
     counts = {k: v for k, v in launch_counts.items() if v}
-    cpu, pparams = _tiny_run("cpu", build, x, y)
+    cpu, pparams = _tiny_run("cpu", build, batch, loss_fn=loss_fn)
     dl = max(abs(a - b) for a, b in zip(card, cpu))
     # a key bias's true gradient is zero (softmax ignores q.b_k, the same
-    # for every key), so Adam's step there follows rounding noise
-    dp = max(((cparams[n] - p).norm() / p.norm().clamp_min(1e-12)).item()
+    # for every key), so Adam's step there follows rounding noise: left
+    # out, alone (`k_proj.bias`) or as the middle third of a fused
+    # `qkv.bias` (GPT, DiT)
+    def no_key_bias(n, t):
+        if n.endswith("qkv.bias"):
+            third = t.shape[0] // 3
+            return torch.cat([t[:third], t[2 * third:]])
+        return t
+    dp = max(((no_key_bias(n, cparams[n]) - no_key_bias(n, p)).norm()
+              / no_key_bias(n, p).norm().clamp_min(1e-12)).item()
              for n, p in pparams.items() if not n.endswith("k_proj.bias"))
     log(f"{label}: losses card {card} cpu {cpu}; max |loss diff| {dl:.3g} "
         f"(budget {TINY_TRAIN_LOSS_BUDGET}); parameters after "
@@ -5489,7 +5550,7 @@ def tiny_moe_train_parity():
         mode = "dropless" if dropless else "capacity"
         _card_vs_cpu(f"tiny moe train parity ({mode})",
                      lambda: MoEForCausalLM(cfg, device="cpu", seed=4),
-                     ids[:, :-1], ids[:, 1:], want)
+                     (ids[:, :-1], ids[:, 1:]), want)
 
 
 def tiny_bert_train_parity():
@@ -5506,7 +5567,7 @@ def tiny_bert_train_parity():
     n_ln = (2 * L + 2) * TINY_MOE_STEPS
     _card_vs_cpu("tiny bert train parity (dropout 0)",
                  lambda: BertForMaskedLM(cfg, device="cpu", seed=5),
-                 torch.from_numpy(x), torch.from_numpy(y),
+                 (torch.from_numpy(x), torch.from_numpy(y)),
                  {"layer_norm": n_ln, "layer_norm_bwd": n_ln,
                   "flash_attention_fwd": L * TINY_MOE_STEPS})
 
@@ -6830,6 +6891,583 @@ def _pretrain_varlen_check(q, k, v, do, seg, seg_np, results):
                              f"varlen_tile_plan: {plan_rec}")
 
 
+# ---------------------------------------------------------------------------
+# the single-card model families: GPT-2, ERNIE-base and DiT-XL/2
+# ---------------------------------------------------------------------------
+GPT2_SHAPE = (8, 1024)
+# `generate()` on GPT-2: prompts, prompt length, new tokens, beams (B 1)
+GPT2_GEN = (4, 512, 64, 4)
+ERNIE_SHAPE = (8, 512)
+# ERNIE-base trains in f32: kernels against plain versions differ by f32
+# sums in another order (tiny BERT, f32, card against CPU: 3e-6 after
+# three steps), so its gradients are held to 1e-3 relative
+ERNIE_GRAD_REL_BUDGET = 1e-3
+DIT_BATCH = 32
+# the DDIM run: steps, batch; and the recipe's own sample (10 steps)
+DDIM_SHAPE = (50, 8)
+DIT_RECIPE_STEPS = 3
+# adaLN-Zero starts every gate at 0 (DiT's output is exactly 0 and
+# attention contributes nothing): every DiT check first sets `ada` and
+# `final_layer` to seeded Normal(0, DIT_GATE_STD) values
+DIT_GATE_STD = 0.02
+# the planted fault of the DiT check: the plain path's attention without
+# its 1/sqrt(D) scale (a 1.25x scale moved its gradients 0.014-0.033,
+# too close to the budget to show it)
+
+
+def _open_gates(model, seed=1):
+    """``model`` (a DiT) with every ``ada`` and ``final_layer`` weight and
+    bias set to seeded Normal(0, `DIT_GATE_STD`) values."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if ".ada." in n or n.startswith("final_layer."):
+                p.copy_(DIT_GATE_STD * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def _scale_left_out():
+    """The DiT planted fault: flash attention (the plain path too)
+    without its 1/sqrt(D) scale."""
+    from unittest import mock
+    from paddle_tpu_torch.ops import flash_attention as fa
+    apply = fa._FlashAttentionFn.apply
+    return mock.patch.object(
+        fa._FlashAttentionFn, "apply",
+        lambda q, k, v, scale, *a: apply(q, k, v, 1.0, *a))
+
+
+def _ln_mean_left_out():
+    """A planted fault of the plain LayerNorm: the mean left out."""
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.ops import norm_kernels as nk
+
+    def faulty(x, w, b, eps=1e-5):
+        xf = x.float()
+        r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        return (xf * r * w.float() + b.float()).to(x.dtype)
+    return mock.patch.object(nk, "layer_norm_ref", faulty)
+
+
+def model_path_check(label, model, loss_of, named, fault, budget,
+                     before=None):
+    """One forward and backward of ``loss_of(use_kernel)`` on ``model``
+    through the kernels and through the plain versions (``before()``
+    first, each run: a reseeded dropout stream): the loss within
+    `TRAIN_LOSS_REL_BUDGET` and each ``named`` gradient within ``budget``
+    of the plain run's (relative norms); the plain run under ``fault``
+    must break the gradient budget. Returns the readings."""
+    import torch
+    params = dict(model.named_parameters())
+
+    def run(use_kernel):
+        if before:
+            before()
+        loss = loss_of(use_kernel)
+        loss.backward()
+        out = (float(loss.detach()),
+               {n: params[n].grad.float().clone() for n in named})
+        for p in model.parameters():
+            p.grad = None
+        del loss
+        torch.cuda.empty_cache()
+        return out
+    lp, gp = run(False)
+    lk, gk = run(True)
+    with fault:
+        lf, gf = run(False)
+
+    def rel(g):
+        return {n: ((g[n] - gp[n]).norm() / gp[n].norm()).item()
+                for n in named}
+    rec = dict(loss_kernels=lk, loss_plain=lp,
+               loss_rel_diff=abs(lk - lp) / abs(lp), grad_rel_diff=rel(gk),
+               grad_budget=budget, planted_fault_loss_rel_diff=abs(lf - lp)
+               / abs(lp), planted_fault_grad_rel_diff=rel(gf))
+    log(f"{label} path check " + json.dumps(rec))
+    if not (np.isfinite(lk) and rec["loss_rel_diff"] <= TRAIN_LOSS_REL_BUDGET
+            and max(rec["grad_rel_diff"].values()) <= budget):
+        raise AssertionError(f"{label}: kernels and plain versions "
+                             f"disagree")
+    if max(rec["planted_fault_grad_rel_diff"].values()) <= budget:
+        raise AssertionError(f"{label}: the gradient budget misses the "
+                             f"planted fault")
+    return rec
+
+
+def timed_train_steps(step, batch, want_per_step, label):
+    """`TRAIN_STEPS` steps of ``step(*batch)``, the launch counts set to 0
+    just before and held to ``want_per_step`` x the steps after: (losses,
+    host seconds a step, the counts, peak GiB)."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))     # waits for the step
+        times.append(time.perf_counter() - t0)
+    counts = dict(launch_counts)
+    want = {**{k: 0 for k in counts},
+            **{k: v * TRAIN_STEPS for k, v in want_per_step.items()}}
+    log(f"{label} launches {counts} expected {want}")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts do not match the "
+                             f"steps")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
+    return losses, times, counts, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def tiny_gpt_parity():
+    """The tiny f32 GPT (LayerNorm kernels, causal flash), card against
+    CPU."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig.tiny()
+    ids = np.random.default_rng(21).integers(0, cfg.vocab_size, (2, 65))
+    L = cfg.num_hidden_layers
+    n_ln = (2 * L + 1) * TINY_MOE_STEPS
+    _card_vs_cpu("tiny gpt train parity",
+                 lambda: GPTForCausalLM(cfg, device="cpu", seed=6),
+                 (ids[:, :-1], ids[:, 1:]),
+                 {"layer_norm": n_ln, "layer_norm_bwd": n_ln,
+                  "flash_attention_fwd": L * TINY_MOE_STEPS,
+                  "flash_attention_bwd_dq": L * TINY_MOE_STEPS})
+
+
+def tiny_ernie_parity():
+    """The tiny f32 ERNIE at dropout 0 (flash attention), MLM + SOP loss
+    with token types, card against CPU."""
+    from paddle_tpu_torch.models.ernie import (ErnieConfig,
+                                               ErnieForPretraining,
+                                               synthetic_ernie_batch)
+    cfg = ErnieConfig.tiny()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    ids, lbl, sop = synthetic_ernie_batch(2, 64, cfg.vocab_size, seed=22)
+    tt = np.random.default_rng(22).integers(0, 4, (2, 64))
+    L = cfg.num_hidden_layers
+    n_ln = (2 * L + 2) * TINY_MOE_STEPS
+    _card_vs_cpu("tiny ernie train parity (dropout 0)",
+                 lambda: ErnieForPretraining(cfg, device="cpu", seed=7),
+                 (ids, lbl, sop, tt),
+                 {"layer_norm": n_ln, "layer_norm_bwd": n_ln,
+                  "flash_attention_fwd": L * TINY_MOE_STEPS},
+                 loss_fn=lambda m, a, b, c, d: m(
+                     a, token_type_ids=d, labels=b, sop_labels=c)[0])
+
+
+def tiny_dit_parity():
+    """The tiny f32 DiT with its gates open (`_open_gates`; LayerNorms
+    without an affine, non-causal flash), `training_loss` with a fixed
+    noise, card against CPU."""
+    import torch
+    from paddle_tpu_torch.models.dit import (DiT, DiTConfig,
+                                             GaussianDiffusion,
+                                             synthetic_dit_batch)
+    cfg = DiTConfig.tiny()
+    x, t, y = synthetic_dit_batch(2, cfg, seed=23)
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(23))
+    L = cfg.num_hidden_layers
+    n_ln = (2 * L + 1) * TINY_MOE_STEPS
+    diffusion = GaussianDiffusion()
+    _card_vs_cpu("tiny dit train parity (gates open)",
+                 lambda: _open_gates(DiT(cfg, device="cpu", seed=8)),
+                 (x, t, y, noise),
+                 {"layer_norm": n_ln, "layer_norm_bwd": n_ln,
+                  "flash_attention_fwd": L * TINY_MOE_STEPS,
+                  "flash_attention_bwd_dkv": L * TINY_MOE_STEPS},
+                 loss_fn=lambda m, a, b, c, d: diffusion.training_loss(
+                     m, a, b, c, noise=d))
+
+
+def generate_gpt2(model):
+    """`GPTForCausalLM.generate()` on GPT-2, bf16: `GPT2_GEN`'s prompts,
+    greedy twice (equal) and beam search at B 1; the prefill's logits
+    through the kernels against the plain versions, and against the
+    uncached forward's last row (within the same 0.1 x max |logit|, the
+    picks equal up to a near tie); exact launches each run (flash forward
+    L in the prefill; LayerNorm 2L + 1 a forward)."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    b, prompt, new, beams = GPT2_GEN
+    ids = torch.from_numpy(np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (b, prompt)).astype(np.int32)).cuda()
+    diff, scale = gen_prefill_check(
+        model, ids, prompt + new,
+        {"flash_attention_fwd": L, "layer_norm": 2 * L + 1}, near_ties=True)
+    # the cached prefill (the caches' prefix, made contiguous) against the
+    # uncached forward over the prompts, both through the kernels
+    with torch.no_grad():
+        cached = model._zero_caches_prefill(ids, prompt + new)[0].float()
+        uncached = model(ids)[:, -1].float()
+    u_diff = (cached - uncached).abs().max().item()
+    u_picks = uncached.gather(1, cached.argmax(-1, keepdim=True))[:, 0]
+    u_agree = (u_picks >= uncached.amax(-1) - u_diff).tolist()
+    del cached, uncached
+    want = {"flash_attention_fwd": L, "layer_norm": (2 * L + 1) * new}
+    beam = dict(decode_strategy="beam_search", num_beams=beams)
+    model.generate(ids, max_new_tokens=new)            # warm-up
+    runs, walls, outs = {}, {}, []
+    for name, x, kw in (("greedy", ids, {}), ("greedy_again", ids, {}),
+                        ("beam", ids[:1], beam)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, scores = model.generate(x, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        runs[name] = dict(launch_counts)
+        outs.append((toks, scores))
+    (g, gs), (g2, _), (bt, bs) = outs
+    rec = dict(batch=b, prompt_len=prompt, new_tokens=new, beams=beams,
+               prefill_max_abs_logit_diff=diff, prefill_max_abs_logit=scale,
+               prefill_against_uncached_max_abs_diff=u_diff,
+               prefill_against_uncached_picks_agree=u_agree,
+               greedy_wall_s=walls["greedy"],
+               greedy_tokens_per_s=b * new / walls["greedy"],
+               decode_ms_per_token_step=1e3 * walls["greedy"] / new,
+               beam_wall_s=walls["beam"], beam_score=bs.item(),
+               greedy_runs_equal=bool(torch.equal(g, g2)),
+               launches={k: {n: c for n, c in v.items() if c}
+                         for k, v in runs.items()})
+    log("generate_gpt2 " + json.dumps(rec))
+    for name, got in runs.items():
+        if got != {**{k: 0 for k in got}, **want}:
+            raise AssertionError(f"generate_gpt2 {name}: launches {got}, "
+                                 f"expected {want}")
+    if u_diff > 0.1 * scale or not all(u_agree):
+        raise AssertionError("generate_gpt2: the cached prefill and the "
+                             "uncached forward disagree")
+    if not torch.equal(g, g2) or g.shape != (b, new) \
+            or bt.shape != (1, new) or not torch.isfinite(gs).all() \
+            or not np.isfinite(bs.item()) or int(g.min()) < 0 \
+            or int(g.max()) >= cfg.vocab_size:
+        raise AssertionError("generate_gpt2: outputs malformed")
+
+
+def train_gpt2():
+    """GPT-2 (124M) at full width and depth, bf16 with AdamW master
+    weights, B 8 x S 1024: the path check (planted fault: `_skip_tile`),
+    `TRAIN_STEPS` steps with exact launches (flash L each kernel,
+    LayerNorm 2L + 1 forward and backward a step), step ms, tokens/s and
+    MFU; then `generate_gpt2`. Returns the steps' launch counts."""
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
+                                             synthetic_lm_batch)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.gpt2()
+    L = cfg.num_hidden_layers
+    b, s = GPT2_SHAPE
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    x, y = (t.cuda() for t in synthetic_lm_batch(b, s, cfg.vocab_size,
+                                                 seed=0))
+    check = model_path_check(
+        "train_gpt2", model,
+        lambda uk: model(x, labels=y, use_kernel=uk)[0],
+        ("transformer.wte.weight", "transformer.wpe.weight",
+         "transformer.h.0.ln_1.weight", "transformer.h.0.attn.qkv.weight",
+         "transformer.h.11.attn.proj.weight", "transformer.h.11.fc.weight",
+         "transformer.ln_f.weight"),
+        mock.patch.object(fa, "_live", _skip_tile(fa._live)),
+        TRAIN_GRAD_REL_BUDGET)
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, opt, loss_fn=_lm_loss)
+    losses, times, counts, peak = timed_train_steps(
+        step, (x, y), {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                       "flash_attention_bwd_dkv": L,
+                       "layer_norm": 2 * L + 1,
+                       "layer_norm_bwd": 2 * L + 1}, "train_gpt2")
+    step_s = statistics.median(times[1:])
+    mfu = _mfu(cfg, b * s, s, step_s)
+    del step, opt
+    torch.cuda.empty_cache()
+    model.eval()
+    generate_gpt2(model)
+    stats = dict(params=cfg.num_params(), batch=b, seq=s, dtype="bfloat16",
+                 losses=losses, step_ms=1e3 * step_s,
+                 first_step_ms=1e3 * times[0], tokens_per_s=b * s / step_s,
+                 mfu=mfu[0], mfu_without_embedding=mfu[1],
+                 peak_mem_gib=peak,
+                 flash_design=fa.sm90_design(torch.bfloat16, cfg.head_dim),
+                 launches_per_step={k: v // TRAIN_STEPS
+                                    for k, v in counts.items() if v},
+                 path_check=check,
+                 phase_s=time.perf_counter() - t_phase)
+    log("train_gpt2 " + json.dumps(stats))
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_ernie_base():
+    """ERNIE-base through the port's `recipes.ernie_4d` at B 8 x S 512,
+    f32, with its configured dropout (attention dropout 0.1 sends
+    attention to the plain path, as in JAX: no flash launch): exact
+    LayerNorm launches (26 forward and backward a step), the path check
+    on a second model (dropout stream reseeded each run; planted fault:
+    the plain LayerNorm without its mean) and one
+    `ErnieForSequenceClassification` loss at base width. Returns the
+    recipe's launch counts."""
+    import torch
+    from paddle_tpu_torch.models.ernie import (
+        ErnieConfig, ErnieForPretraining, ErnieForSequenceClassification,
+        synthetic_ernie_batch)
+    from paddle_tpu_torch.nn.layers import set_generator
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.recipes import ernie_4d
+    t_phase = time.perf_counter()
+    cfg = ErnieConfig.base()
+    L = cfg.num_hidden_layers
+    b, s = ERNIE_SHAPE
+    n_ln = 2 * L + 2
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    r = ernie_4d.main(["--size", "base", "--batch-size", str(b),
+                       "--seq-len", str(s), "--steps", str(TRAIN_STEPS),
+                       "--log-every", "1"])
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {**{k: 0 for k in counts}, "layer_norm": n_ln * TRAIN_STEPS,
+            "layer_norm_bwd": n_ln * TRAIN_STEPS}
+    log(f"train_ernie_base launches {counts} expected {want}")
+    if counts != want or not np.isfinite(r.final_loss):
+        raise AssertionError("train_ernie_base: launches off or the loss "
+                             "is not finite")
+    step_s = statistics.median(r.step_seconds[1:])
+    ids, lbl, sop = (t.cuda() for t in synthetic_ernie_batch(
+        b, s, cfg.vocab_size, seed=25))
+
+    def reseed(m):
+        return lambda: set_generator(m, torch.Generator("cuda")
+                                     .manual_seed(3))
+    model = ErnieForPretraining(cfg, device="cuda", seed=1)
+    check = model_path_check(
+        "train_ernie_base", model,
+        lambda uk: model(ids, labels=lbl, sop_labels=sop, use_kernel=uk)[0],
+        ("ernie.embeddings.word_embeddings.weight",
+         "ernie.embeddings.layer_norm.weight",
+         "ernie.encoder.layers.0.self_attn.q_proj.weight",
+         "ernie.encoder.layers.11.norm2.weight",
+         "ernie.encoder.layers.11.linear2.weight", "layer_norm.weight",
+         "decoder_bias", "seq_relationship.weight"),
+        _ln_mean_left_out(), ERNIE_GRAD_REL_BUDGET, reseed(model))
+    del model
+    torch.cuda.empty_cache()
+    cls = ErnieForSequenceClassification(cfg, num_classes=3, device="cuda",
+                                         seed=2)
+    cls_check = model_path_check(
+        "ernie_base_classification", cls,
+        lambda uk: cls(ids, labels=sop, use_kernel=uk)[0],
+        ("ernie.embeddings.layer_norm.weight",
+         "ernie.encoder.layers.5.self_attn.v_proj.weight",
+         "ernie.pooler.weight", "classifier.weight"),
+        _ln_mean_left_out(), ERNIE_GRAD_REL_BUDGET, reseed(cls))
+    reset_launch_counts()
+    loss = cls(ids, labels=sop)[0]
+    loss.backward()
+    cls_counts = {k: v for k, v in launch_counts.items() if v}
+    del cls, loss
+    torch.cuda.empty_cache()
+    stats = dict(size="base", batch=b, seq=s, dtype="float32",
+                 dropout=[cfg.hidden_dropout_prob,
+                          cfg.attention_probs_dropout_prob],
+                 losses=r.losses, step_ms=1e3 * step_s,
+                 first_step_ms=1e3 * r.step_seconds[0],
+                 tokens_per_s=b * s / step_s, peak_mem_gib=peak,
+                 launches_per_step={k: v // TRAIN_STEPS
+                                    for k, v in counts.items() if v},
+                 path_check=check, classification_path_check=cls_check,
+                 classification_launches=cls_counts,
+                 phase_s=time.perf_counter() - t_phase)
+    log("train_ernie_base " + json.dumps(stats))
+    if cls_counts != {"layer_norm": 2 * L + 1, "layer_norm_bwd": 2 * L + 1}:
+        raise AssertionError(f"ERNIE classification launches {cls_counts}")
+    return counts
+
+
+def ddim_run(diffusion, model, y, seed):
+    """(the DDIM sample, its wall seconds, its launches)."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    steps, b = DDIM_SHAPE
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    img = diffusion.ddim_sample(model, b, y, num_steps=steps, seed=seed)
+    torch.cuda.synchronize()
+    return img, time.perf_counter() - t0, dict(launch_counts)
+
+
+def _dit_flops(cfg, images):
+    """6 N per token plus the attention term 12 L h S per token (the
+    bench.py formula over the `num_patches` tokens of each image); N
+    leaves out the label table, a lookup."""
+    s = cfg.num_patches
+    n = cfg.num_params() - (cfg.num_classes + 1) * cfg.hidden_size
+    return images * s * (6.0 * n + 12 * cfg.num_hidden_layers
+                         * cfg.hidden_size * s)
+
+
+def train_dit_xl2():
+    """DiT-XL/2 (28 layers, width 1152, 16 heads of 72) at full width and
+    depth, bf16 with AdamW master weights, B 32 (256 patch tokens each),
+    its gates open (`_open_gates`): the path check (planted fault: the
+    attention's scale left out), `TRAIN_STEPS` steps with exact
+    launches (flash L each kernel, LayerNorm 2L + 1 forward and backward
+    a step), step ms, images/s and MFU; then `ddim_sample` at
+    `DDIM_SHAPE`, eta 0, twice with one seed (bitwise equal), flash L and
+    LayerNorm 2L + 1 a step. The timed steps start from the published
+    adaLN-Zero init (the gates closed again: with them open at random,
+    AdamW's first step at 3e-4 drove the loss from 1.59 to 17.6) and
+    train on the check's noise. Returns the steps' launch counts."""
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.dit import (DiT, DiTConfig,
+                                             GaussianDiffusion,
+                                             synthetic_dit_batch)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    t_phase = time.perf_counter()
+    cfg = DiTConfig.xl_2()
+    L = cfg.num_hidden_layers
+    model = _open_gates(DiT(cfg, device="cuda", dtype=torch.bfloat16,
+                            seed=0))
+    diffusion = GaussianDiffusion(seed=0)
+    x, t, y = (a.cuda() for a in synthetic_dit_batch(DIT_BATCH, cfg,
+                                                      seed=0))
+    noise = torch.randn(x.shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(26))
+    check = model_path_check(
+        "train_dit_xl2", model,
+        lambda uk: diffusion.training_loss(model, x, t, y, noise=noise,
+                                           use_kernel=uk),
+        ("x_embedder.weight", "t_embedder.mlp.0.weight",
+         "blocks.0.qkv.weight", "blocks.0.ada.weight", "blocks.13.fc1.weight",
+         "blocks.27.proj.weight", "final_layer.ada.weight",
+         "final_layer.linear.weight"),
+        _scale_left_out(), TRAIN_GRAD_REL_BUDGET)
+    # the steps: from adaLN-Zero, on a fixed objective (the check's noise)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if ".ada." in n or n.startswith("final_layer."):
+                p.zero_()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.0, multi_precision=True)
+    step = TrainStep(model, opt, loss_fn=lambda m, a, b, c, n:
+                     diffusion.training_loss(m, a, b, c, noise=n))
+    losses, times, counts, peak = timed_train_steps(
+        step, (x, t, y, noise), {"flash_attention_fwd": L,
+                          "flash_attention_bwd_dq": L,
+                          "flash_attention_bwd_dkv": L,
+                          "layer_norm": 2 * L + 1,
+                          "layer_norm_bwd": 2 * L + 1}, "train_dit_xl2")
+    step_s = statistics.median(times[1:])
+    del step, opt
+    torch.cuda.empty_cache()
+    # DDIM: a warm-up of one step, then two runs with one seed
+    steps, b = DDIM_SHAPE
+    yy = torch.arange(b, dtype=torch.int32) * 97 % cfg.num_classes
+    diffusion.ddim_sample(model, b, yy, num_steps=1, seed=1)
+    runs = [ddim_run(diffusion, model, yy, seed=5)
+            for _ in range(2)]
+    (img, wall, dcounts), (img2, wall2, dcounts2) = runs
+    ddim_want = {**{k: 0 for k in dcounts},
+                 "flash_attention_fwd": L * steps,
+                 "layer_norm": (2 * L + 1) * steps}
+    stats = dict(params=cfg.num_params(), batch=DIT_BATCH,
+                 tokens_per_image=cfg.num_patches, head_dim=cfg.hidden_size
+                 // cfg.num_attention_heads, dtype="bfloat16",
+                 losses=losses, step_ms=1e3 * step_s,
+                 first_step_ms=1e3 * times[0],
+                 images_per_s=DIT_BATCH / step_s,
+                 mfu=_dit_flops(cfg, DIT_BATCH) / step_s / PEAK_BF16,
+                 peak_mem_gib=peak,
+                 flash_design=fa.sm90_design(torch.bfloat16, 72),
+                 launches_per_step={k: v // TRAIN_STEPS
+                                    for k, v in counts.items() if v},
+                 path_check=check,
+                 ddim=dict(steps=steps, batch=b, eta=0.0, wall_s=[wall, wall2],
+                           ms_per_step=1e3 * min(wall, wall2) / steps,
+                           launches={k: v for k, v in dcounts.items() if v},
+                           bitwise_equal=bool(torch.equal(img, img2)),
+                           finite=bool(torch.isfinite(img).all()),
+                           max_abs=img.abs().max().item()),
+                 phase_s=time.perf_counter() - t_phase)
+    log("train_dit_xl2 " + json.dumps(stats))
+    if dcounts != ddim_want or dcounts2 != ddim_want:
+        raise AssertionError(f"DDIM launches {dcounts}, expected "
+                             f"{ddim_want}")
+    if not (stats["ddim"]["bitwise_equal"] and stats["ddim"]["finite"]) \
+            or img.shape != (b, cfg.in_channels, cfg.input_size,
+                             cfg.input_size):
+        raise AssertionError("DDIM: two runs of one seed differ, or the "
+                             "sample is malformed")
+    del model, img, img2
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dit_recipe():
+    """The port's `recipes.dit_train` at ``--size s`` (head dim 64, f32),
+    `DIT_RECIPE_STEPS` steps and its 10-step DDIM sample: exact launches
+    (flash forward L a training step and a sampling step, backward L a
+    training step; LayerNorm 2L + 1 likewise) and a finite sample."""
+    import torch
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.recipes import dit_train
+    t0 = time.perf_counter()
+    L = dit_train.s_config().num_hidden_layers
+    reset_launch_counts()
+    r = dit_train.main(["--size", "s", "--steps", str(DIT_RECIPE_STEPS),
+                        "--sample-after", "--log-every", "1"])
+    counts = {k: v for k, v in launch_counts.items() if v}
+    n, k = DIT_RECIPE_STEPS, 10
+    want = {"flash_attention_fwd": L * (n + k),
+            "flash_attention_bwd_dq": L * n, "flash_attention_bwd_dkv": L * n,
+            "layer_norm": (2 * L + 1) * (n + k),
+            "layer_norm_bwd": (2 * L + 1) * n}
+    rec = dict(losses=r.losses, step_ms=[1e3 * t for t in r.step_seconds],
+               sample_shape=list(r.sample.shape),
+               sample_finite=bool(torch.isfinite(r.sample).all()),
+               launches=counts, seconds=time.perf_counter() - t0)
+    log("dit_recipe " + json.dumps(rec))
+    if counts != want or not rec["sample_finite"] \
+            or rec["sample_shape"] != [2, 4, 32, 32] \
+            or not np.isfinite(r.final_loss):
+        raise AssertionError(f"dit_recipe: launches {counts}, expected "
+                             f"{want}, or the sample is malformed")
+
+
+# the kernels of the single-card families' training paths
+FAMILY_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv", "layer_norm", "layer_norm_bwd")
+
+
+def single_card_families():
+    """The GPT, ERNIE and DiT phases, each model freed before the next;
+    returns {phase: the launch counts of its training steps}."""
+    t0 = time.perf_counter()
+    tiny_gpt_parity()
+    tiny_ernie_parity()
+    tiny_dit_parity()
+    out = dict(train_gpt2=train_gpt2(), train_ernie_base=train_ernie_base(),
+               train_dit_xl2=train_dit_xl2())
+    dit_recipe()
+    log(f"single-card families {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6899,6 +7537,7 @@ def main():
     varlen_phase(results)
     packed_sft_8b()
     pcounts = packed_pretrain_8b(results)
+    fcounts = single_card_families()
     model, counts, reqs, streams, stats = serve_8b()
     path_check(model, reqs)
     serve_8b_pipelined(model, reqs, streams, stats)
@@ -6948,6 +7587,15 @@ def main():
     counts["grouped_matmul"] = mcounts["grouped_matmul"]
     counts["layer_norm"] = bcounts["layer_norm"]
     counts["layer_norm_bwd"] = bcounts["layer_norm_bwd"]
+    # the LayerNorm pair and the flash triplet also run on the
+    # single-card families' training paths: their launches are added
+    by_path = {k: {"train_8b_width": tcounts[k]} for k in FAMILY_KERNELS}
+    for k in ("layer_norm", "layer_norm_bwd"):
+        by_path[k] = {"train_bert_base": bcounts[k]}
+    for k in FAMILY_KERNELS:
+        for path, c in fcounts.items():
+            by_path[k][path] = c[k]
+        counts[k] = sum(by_path[k].values())
     # the varlen kernels and rope: the packed pretraining run
     counts.update((k, pcounts[k]) for k in (
         "flash_varlen_fwd", "flash_varlen_bwd_dq", "flash_varlen_bwd_dkv",
@@ -7028,7 +7676,8 @@ def main():
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             device_ms=rec.get("device_ms"), host_us=rec.get("host_us"),
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            launches_by_path=by_path.get(name)))
     log(f"smoke seconds {time.perf_counter() - START:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

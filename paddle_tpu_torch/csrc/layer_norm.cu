@@ -456,8 +456,9 @@ extern "C" int pdt_layer_norm_fwd(const void* x, const void* w,
 // the rowblock design (part: 2 * ceil(n / 16) * h f32 scratch, the dw
 // partials, then the db partials), else the register-row design of class
 // (wpr, nv) (part: two planes of part_rows x h f32, at most part_rows
-// blocks); device is the pointers' device, made current for the launch
-// only.
+// blocks; part, dw and db all null for dx alone, as a LayerNorm without an
+// affine wants); device is the pointers' device, made current for the
+// launch only.
 extern "C" int pdt_layer_norm_bwd(const void* x, const void* w,
                                   const void* mean, const void* rstd,
                                   const void* g, void* dx, void* part,

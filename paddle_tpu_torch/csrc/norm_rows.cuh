@@ -339,6 +339,9 @@ __device__ __forceinline__ void norm_bwd_rows(
     r = rn;
     mu = mun;
   }
+  // no partials asked for (a LayerNorm without an affine: dw and db of
+  // constants); the test is the same in every thread of the block
+  if (part == nullptr) return;
   // the block's partial rows: its row groups add theirs in group order
   for (int k = 0; k < groups; ++k) {
     if (group == k) {
@@ -499,7 +502,7 @@ cudaError_t launch_bwd_rows(const void* x, const void* w, const float* mean,
       static_cast<const T*>(x), static_cast<const T*>(w), mean, rstd,
       static_cast<const T*>(g), static_cast<T*>(dx), part, part_rows, n, h);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || dw == nullptr) return err;
   cols_sum_kernel<T, LN>()<<<(h + kSumCols - 1) / kSumCols, 32 * kSumWarps,
                              0, s>>>(part, blocks, part_rows, h,
                                      static_cast<T*>(dw),
@@ -538,7 +541,8 @@ cudaError_t bwd_rows_nv(int nv, const void* x, const void* w,
 
 // the register-row backward of class (wpr, nv), which must cover the row's
 // whole 16-byte vectors at 16-byte-aligned pointers; part holds K planes of
-// part_rows x h f32 (part_rows >= 1)
+// part_rows x h f32 (part_rows >= 1), or part and dw are both null for dx
+// alone (no partial rows written, no column sums launched)
 template <typename T, bool LN>
 cudaError_t launch_bwd_registers(const void* x, const void* w,
                                  const float* mean, const float* rstd,

@@ -79,8 +79,10 @@ def _init(module: torch.nn.Module, generator: Optional[torch.Generator]):
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, LayerNorm):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
+            if m.weight is not None:
+                m.weight.fill_(1.0)
+            if m.bias is not None:
+                m.bias.zero_()
 
 
 class BertEmbeddings(torch.nn.Module):

@@ -21,6 +21,12 @@ weights transpose, and everything else — embeddings, norms, biases, the
 MoE router (H, E) and the stacked experts (E, H, I) / (E, I, H), which
 keep the JAX layout — crosses unchanged.
 
+GPT, ERNIE and DiT carry the same way (``gpt_``, ``ernie_`` and
+``dit_state_from_numpy`` and their ``_to_numpy`` / grads helpers): each
+Linear weight transposes; a tied weight (GPT's ``wte``, ERNIE's word
+embedding) is one entry, as in the JAX state dict; DiT's ``pos_embed`` is
+a non-persistent buffer on both sides and is not carried.
+
 The incubate `Fused*` layers keep the JAX layouts of every parameter
 ((in, out) weights, the fused (3, H, head_dim, E) QKV weight), so
 `fused_layer_state_from_numpy` and its ``_to_numpy`` / grads helpers
@@ -168,6 +174,12 @@ _MOE_LINEAR = re.compile(r".*(_proj|shared_(gate|up|down))\.weight|"
 _NO_LINEAR = re.compile(r"(?!)")   # matches no name
 _BERT_LINEAR = re.compile(r".*\.(q_proj|k_proj|v_proj|out_proj|linear1|"
                           r"linear2|pooler|transform)\.weight")
+_GPT_LINEAR = re.compile(r".*\.(qkv|proj|fc)\.weight|lm_head\.weight")
+_ERNIE_LINEAR = re.compile(r"(.*\.)?(q_proj|k_proj|v_proj|out_proj|linear1|"
+                           r"linear2|pooler|transform|seq_relationship|"
+                           r"classifier)\.weight")
+# every DiT weight but the label table is a Linear's (its norms have none)
+_DIT_LINEAR = re.compile(r"(?!y_embedder\.).*\.weight")
 
 
 def _state_from_numpy(sd, model, linear_re):
@@ -246,6 +258,61 @@ def bert_grads_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
 def bert_state_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     return _numpy_from_tensors(dict(model.named_parameters()), model,
                                _BERT_LINEAR)
+
+
+def gpt_state_from_numpy(sd: Dict[str, np.ndarray], model: torch.nn.Module
+                         ) -> Dict[str, torch.Tensor]:
+    """Map a JAX `GPTForCausalLM` state dict onto ``model``'s parameters
+    (the same ``transformer.*`` names; the tied head is ``wte``, one
+    entry), transposing the Linear weights. Raises as
+    `moe_state_from_numpy`."""
+    return _state_from_numpy(sd, model, _GPT_LINEAR)
+
+
+def gpt_grads_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    return _numpy_from_tensors(_grads(model), model, _GPT_LINEAR)
+
+
+def gpt_state_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    return _numpy_from_tensors(dict(model.named_parameters()), model,
+                               _GPT_LINEAR)
+
+
+def ernie_state_from_numpy(sd: Dict[str, np.ndarray],
+                           model: torch.nn.Module
+                           ) -> Dict[str, torch.Tensor]:
+    """Map a JAX `ErnieForPretraining` or
+    `ErnieForSequenceClassification` state dict onto ``model``'s
+    parameters (the same names; the MLM decoder is the word embedding,
+    one entry), transposing the Linear weights. Raises as
+    `moe_state_from_numpy`."""
+    return _state_from_numpy(sd, model, _ERNIE_LINEAR)
+
+
+def ernie_grads_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    return _numpy_from_tensors(_grads(model), model, _ERNIE_LINEAR)
+
+
+def ernie_state_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    return _numpy_from_tensors(dict(model.named_parameters()), model,
+                               _ERNIE_LINEAR)
+
+
+def dit_state_from_numpy(sd: Dict[str, np.ndarray], model: torch.nn.Module
+                         ) -> Dict[str, torch.Tensor]:
+    """Map a JAX `DiT` state dict onto ``model``'s parameters (the same
+    names: ``t_embedder.mlp.0`` / ``.2`` are the Sequential's Linears),
+    transposing every Linear weight. Raises as `moe_state_from_numpy`."""
+    return _state_from_numpy(sd, model, _DIT_LINEAR)
+
+
+def dit_grads_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    return _numpy_from_tensors(_grads(model), model, _DIT_LINEAR)
+
+
+def dit_state_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    return _numpy_from_tensors(dict(model.named_parameters()), model,
+                               _DIT_LINEAR)
 
 
 def fused_layer_state_from_numpy(sd: Dict[str, np.ndarray],

@@ -43,7 +43,9 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
     (the CUDA kernels, forward and backward, for CUDA tensors; any row
     count), as `F.layer_norm` routed to the Pallas kernel on the TPU. A
     missing weight or bias is a constant ones or zeros vector that takes
-    no gradient: x̂·1 + 0 is exactly the JAX functional's x̂ without them.
+    no gradient: x̂·1 + 0 is exactly the JAX functional's x̂ without them
+    (which JAX sends to XLA, not to its kernel), and the backward kernel
+    spends no dw / db sums on them.
     Several normalised axes are not ported (ROADMAP.md queue A)."""
     ns = list(normalized_shape) if isinstance(normalized_shape,
                                               (list, tuple)) \

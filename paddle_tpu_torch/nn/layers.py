@@ -34,16 +34,22 @@ class RMSNorm(torch.nn.Module):
 
 class LayerNorm(torch.nn.Module):
     """LayerNorm over the last axis with a learned scale (ones) and bias
-    (zeros); the CUDA kernels on the card (`F.layer_norm`)."""
+    (zeros); the CUDA kernels on the card (`F.layer_norm`).
+    ``weight_attr=False`` / ``bias_attr=False`` leave the scale / the bias
+    out, as the JAX layer's do (DiT's norms have neither): no parameter,
+    no state-dict key; the kernels then take a constant ones / zeros
+    vector and spend no dw / db sums on it."""
 
     def __init__(self, normalized_shape, epsilon=1e-5, device=None,
-                 dtype=None):
+                 dtype=None, weight_attr=None, bias_attr=None):
         super().__init__()
         self.normalized_shape = normalized_shape
         self.epsilon = epsilon
         kw = dict(device=device, dtype=dtype)
-        self.weight = torch.nn.Parameter(torch.ones(normalized_shape, **kw))
-        self.bias = torch.nn.Parameter(torch.zeros(normalized_shape, **kw))
+        self.weight = None if weight_attr is False else \
+            torch.nn.Parameter(torch.ones(normalized_shape, **kw))
+        self.bias = None if bias_attr is False else \
+            torch.nn.Parameter(torch.zeros(normalized_shape, **kw))
 
     def forward(self, x, use_kernel=None):
         return F.layer_norm(x, self.normalized_shape, self.weight,

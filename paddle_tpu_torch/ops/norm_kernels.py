@@ -478,11 +478,14 @@ def _ln_fwd(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float,
     return (o, st[0], st[1]) if stats else (o, None, None)
 
 
-def _ln_bwd(x2, w, mean, rstd, g2, _design=None):
+def _ln_bwd(x2, w, mean, rstd, g2, _design=None, affine=True):
     """Launch the backward kernels on (n, h) rows: ``(dx, dw, db)``, dx in
     x's dtype, dw and db summed over the rows in f32 (partial rows added
     in a fixed order by a second kernel) and cast to w's dtype. The
-    design as `_rms_bwd`'s."""
+    design as `_rms_bwd`'s. Without ``affine`` (w and b constants that
+    take no gradient) it returns ``(dx, None, None)``: the register-row
+    design then writes no partial rows and launches no column sums; the
+    rowblock design (widths off the classes) sums them and drops them."""
     n, h = x2.shape
     wpr, nv = _bwd_route(x2.dtype, h, x2.data_ptr() | w.data_ptr()
                          | g2.data_ptr(), _design, _LN_BWD_MAX_H)
@@ -497,18 +500,22 @@ def _ln_bwd(x2, w, mean, rstd, g2, _design=None):
                              "f32 mean and rstd")
     fn = kernel_fn("layer_norm", "pdt_layer_norm_bwd", _LN_BWD_ARGTYPES)
     dx = torch.empty_like(x2)
-    dw = torch.empty_like(w)
-    db = torch.empty_like(w)
-    part, rows = _bwd_part(x2, 2, wpr, n, h)
+    sums = affine or not wpr
+    dw = torch.empty_like(w) if sums else None
+    db = torch.empty_like(w) if sums else None
+    # without sums the grid is the same (part_rows caps the blocks) and
+    # no scratch is allocated
+    part, rows = _bwd_part(x2, 2, wpr, n, h) if sums else \
+        (None, sm_count(x2.device) * BWD_BLOCKS_PER_SM)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
     err = fn(x2.data_ptr(), w.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-             g2.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(),
-             db.data_ptr(), n, h, _DTYPES[x2.dtype], wpr, nv, rows, dev,
-             current_stream(dev))
+             g2.data_ptr(), dx.data_ptr(), ptr(part), ptr(dw), ptr(db), n,
+             h, _DTYPES[x2.dtype], wpr, nv, rows, dev, current_stream(dev))
     if err:
         raise RuntimeError(f"layer_norm backward kernel launch failed: CUDA "
                            f"error {err}")
     launch_counts["layer_norm_bwd"] += 1
-    return dx, dw, db
+    return (dx, dw, db) if affine else (dx, None, None)
 
 
 class _LayerNormFn(torch.autograd.Function):
@@ -525,8 +532,10 @@ class _LayerNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x2, w, mean, rstd = ctx.saved_tensors
-        dx, dw, db = _ln_bwd(x2, w, mean, rstd, g.contiguous())
-        return dx, dw, db, None
+        _, need_w, need_b, _ = ctx.needs_input_grad
+        dx, dw, db = _ln_bwd(x2, w, mean, rstd, g.contiguous(),
+                             affine=need_w or need_b)
+        return dx, dw if need_w else None, db if need_b else None, None
 
 
 def layer_norm_values(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -45,6 +45,9 @@ class RecipeResult:
     # host (which waits for the device)
     step_seconds: list = field(default_factory=list)
     losses: list = field(default_factory=list)
+    # the image of a recipe's sample after training (DiT's
+    # ``--sample-after``), else None
+    sample: object = None
 
 
 def unported(flag: str, item: str):

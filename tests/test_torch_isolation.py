@@ -37,6 +37,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, paddle_tpu_torch.models.serving, "
             "paddle_tpu_torch.models.convert, paddle_tpu_torch.ops._build, "
             "paddle_tpu_torch.recipes.llama_pretrain, "
+            "paddle_tpu_torch.recipes.ernie_4d, "
+            "paddle_tpu_torch.recipes.dit_train, "
             "paddle_tpu_torch.tools.profile_train, "
             "paddle_tpu_torch.framework.io, "
             "paddle_tpu_torch.distributed.fleet.elastic, "
@@ -63,6 +65,17 @@ def test_entry_points_raise_without_cuda():
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ContinuousBatchingEngine(model)
+    from paddle_tpu_torch.models.dit import DiT, DiTConfig
+    from paddle_tpu_torch.models.ernie import (
+        ErnieConfig, ErnieForPretraining, ErnieForSequenceClassification)
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    for build, cfg in ((GPTForCausalLM, GPTConfig.tiny()),
+                       (ErnieForPretraining, ErnieConfig.tiny()),
+                       (ErnieForSequenceClassification, ErnieConfig.tiny()),
+                       (DiT, DiTConfig.tiny())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(cfg)
+        assert build(cfg, device="cpu").training
 
 
 @pytest.mark.parametrize("alone", [False, True])
