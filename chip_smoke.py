@@ -219,6 +219,32 @@ Training adds, in the same run:
 5f. ``train_recipe {...}``: the ported recipe in-process, ``--size bench
     --bf16 --batch-size 8 --seq-len 2048 --steps 5``: step ms, tokens/s,
     MFU (with and without the input embedding).
+5h. ``train_8b_recompute {...}``: activation recompute on 5e's model and
+    batch (`train_8b_config()`, B=2, S=2048, bf16). One forward and
+    backward from the same weights without recompute, under policy
+    "full" and under "dots_with_no_batch_dims": the loss and every
+    gradient bitwise equal, and each one's peak above the weights; a
+    planted fault (`_skip_tile` in the flash forward of the backward's
+    recompute only) must change gradients past 5e's budget. Then 3
+    AdamW steps (master weights) without and with recompute from the
+    same weights: losses and every parameter bitwise equal (else the
+    first tensor that differs, held to 5e's budgets), step ms, the peak
+    up to each AdamW update (recompute's must be lower) and over whole
+    steps (AdamW's temporaries set it; recompute's no higher), and exact
+    launches a step (with
+    recompute 2L flash forwards and 4L + 1 RMSNorm forwards; the Llama
+    training path rotates with plain PyTorch, so rope launches none).
+    Then ``train_recipe_recompute_data {...}``: the recipe with
+    ``--size bench --bf16 --recompute --data tokens.bin --batch-size 8
+    --seq-len 2048 --steps 5``, the file `encode_file` of the repo's
+    README.md and docs/*.md (`ByteTokenizer`): step ms, tokens/s, MFU
+    (the model's flops, not the recomputed ones) and peak beside 5f's;
+    ``data_loader {...}``: that file's `LMBlockDataset` through
+    `io.DataLoader` with 4 shared-memory workers (forked from this
+    process, which holds a CUDA context) and inline, in turns: equal
+    batches and batches/s of both; ``bpe {...}``: `BPETokenizer` trained
+    at vocab 512 on 64 KB of the text, the native encode against the
+    plain one (equal ids on 16 KB) and MB/s of each.
 
 MoE and BERT training add, in the same run (after 5f):
 
@@ -4881,6 +4907,325 @@ def train_recipe():
     if not np.isfinite(r.final_loss) or \
             counts.get("flash_attention_fwd") != L * TRAIN_STEPS:
         raise AssertionError("the recipe did not train through the kernels")
+    return stats
+
+
+RECOMPUTE_STEPS = 3
+
+
+def _recompute_launches(L, steps, recompute):
+    """Exact launches of `steps` training steps of an L-layer Llama:
+    under recompute each layer's flash forward and its two RMSNorm
+    forwards run again in the backward; the final norm stays outside."""
+    return dict(flash_attention_fwd=(2 if recompute else 1) * L * steps,
+                flash_attention_bwd_dq=L * steps,
+                flash_attention_bwd_dkv=L * steps,
+                rms_norm=((4 if recompute else 2) * L + 1) * steps,
+                rms_norm_bwd=(2 * L + 1) * steps)
+
+
+def _token_file(root):
+    """The repository's README.md and docs/*.md as one text file,
+    encoded with `ByteTokenizer` by `encode_file` into ``tokens.bin``:
+    (text path, bin path, token count)."""
+    import glob
+    from paddle_tpu_torch.text import encode_file
+    txt = os.path.join(root, "corpus.txt")
+    with open(txt, "w", encoding="utf-8") as out:
+        for src in [os.path.join(HERE, "README.md")] + sorted(
+                glob.glob(os.path.join(HERE, "docs", "*.md"))):
+            with open(src, encoding="utf-8") as f:
+                out.write(f.read())
+    path = os.path.join(root, "tokens.bin")
+    return txt, path, encode_file(txt, path)
+
+
+def train_8b_recompute(recipe_stats):
+    """5h: activation recompute at the 8B width, the recipe with
+    ``--recompute --data``, the data loader's workers and BPE; returns
+    the recompute run's launch counts."""
+    import tempfile
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.recipes import llama_pretrain
+    from paddle_tpu_torch.recipes.llama_pretrain import (
+        TRAIN_8B_LAYERS, TRAIN_8B_SHAPE, train_8b_config)
+    from paddle_tpu_torch.text import (BPETokenizer, FileTokens,
+                                       LMBlockDataset)
+    t_phase = time.perf_counter()
+    cfg = train_8b_config()
+    cfg.recompute = True
+    L, (b, s) = TRAIN_8B_LAYERS, TRAIN_8B_SHAPE
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1))).cuda()
+    x, y = ids[:, :-1], ids[:, 1:]
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    init = [p.detach().clone() for p in params]
+
+    # one forward and backward a policy from the same weights: loss,
+    # every gradient and the peak above the weights
+    def fwd_bwd(recompute, policy="full"):
+        model.config.recompute = recompute
+        model.config.recompute_policy = policy
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = model(x, labels=y)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        grads = [p.grad for p in params]
+        for p in params:
+            p.grad = None
+        return loss.detach(), grads, peak
+    l_off, g_off, peak_off = fwd_bwd(False)
+    policy_peaks = {"off": peak_off}
+    policy_equal = {}
+    for policy in ("full", "dots_with_no_batch_dims"):
+        loss, grads, policy_peaks[policy] = fwd_bwd(True, policy)
+        policy_equal[policy] = bool(torch.equal(loss, l_off)) and all(
+            torch.equal(a, c) for a, c in zip(grads, g_off))
+        del grads
+
+    # the planted fault: the skipped K tile in the flash forward of the
+    # backward's recompute only (the first L calls are the forward's)
+    calls = [0]
+    real_fwd = fa._flash_fwd
+
+    def faulty_fwd(q, k, v, scale, causal, window, _design=None):
+        calls[0] += 1
+        if calls[0] <= L:
+            return real_fwd(q, k, v, scale, causal, window, _design)
+        with mock.patch.object(fa, "_live", _skip_tile(fa._live)):
+            return fa.flash_attention_ref(q, k, v, causal, scale, window)
+    with mock.patch.object(fa, "_flash_fwd", faulty_fwd):
+        f_loss, f_grads, _ = fwd_bwd(True)
+    fault_differs = [n for n, a, c in zip(names, f_grads, g_off)
+                     if not torch.equal(a, c)]
+    fault_rel = max(((a.float() - c.float()).norm() / c.float().norm())
+                    .item() for a, c in zip(f_grads, g_off)
+                    if c.float().norm() > 0)
+    del f_grads, g_off
+    log(f"train_8b_recompute path check: one forward and backward a "
+        f"policy from the same weights, loss and all {len(params)} "
+        f"gradients bitwise equal to the run without recompute "
+        f"{json.dumps(policy_equal)}; peak above the weights (GiB) "
+        f"{json.dumps(policy_peaks)}; planted fault (the recompute's "
+        f"flash forward skips the K tile of each row's last key): "
+        f"forward loss equal {bool(torch.equal(f_loss, l_off))}, "
+        f"{len(fault_differs)} of {len(params)} gradients differ, largest "
+        f"relative difference {fault_rel:.3g} (5e's budget "
+        f"{TRAIN_GRAD_REL_BUDGET})")
+    if calls[0] != 2 * L:
+        raise AssertionError(f"recompute: {calls[0]} flash forwards in one "
+                             f"forward and backward, expected {2 * L}")
+    if not fault_differs or fault_rel <= TRAIN_GRAD_REL_BUDGET:
+        raise AssertionError("recompute: the planted fault in the "
+                             "recompute does not break the comparison")
+
+    # 3 AdamW steps without and with recompute from the same weights
+    runs = {}
+    for recompute in (False, True):
+        with torch.no_grad():
+            for p, w in zip(params, init):
+                p.copy_(w)
+        model.config.recompute = recompute
+        model.config.recompute_policy = "full"
+        opt = AdamW(learning_rate=3e-4, parameters=params,
+                    weight_decay=0.01, multi_precision=True)
+        # the peak up to each AdamW update (forward and backward, the
+        # optimizer's state held from step 2 on) and over whole steps
+        peaks = {"fwd_bwd": 0, "step": 0}
+        adam_step = opt.step
+
+        def step_with_peaks(*a, **k):
+            peaks["fwd_bwd"] = max(peaks["fwd_bwd"],
+                                   torch.cuda.max_memory_allocated())
+            out = adam_step(*a, **k)
+            peaks["step"] = max(peaks["step"],
+                                torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            return out
+        opt.step = step_with_peaks
+        step = TrainStep(model, opt,
+                         loss_fn=lambda m, a, c: m(a, labels=c)[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, times = [], []
+        for _ in range(RECOMPUTE_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(x, y))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = dict(launch_counts)
+        want = {k: 0 for k in counts}
+        want.update(_recompute_launches(L, RECOMPUTE_STEPS, recompute))
+        # the parameters kept on the host: a copy on the card would
+        # count in the next run's peak
+        runs[recompute] = dict(
+            losses=torch.stack(losses).cpu(), counts=counts, want=want,
+            params=[p.detach().cpu() for p in params],
+            peak=peaks["step"] / 2 ** 30,
+            peak_fwd_bwd=peaks["fwd_bwd"] / 2 ** 30,
+            step_ms=1e3 * statistics.median(times[1:]))
+        del opt.step                  # the wrapper's cycle back to opt
+        del step, opt, step_with_peaks, adam_step
+        torch.cuda.empty_cache()
+    off, on = runs[False], runs[True]
+    bitwise = bool(torch.equal(on["losses"], off["losses"])) and all(
+        torch.equal(a, c) for a, c in zip(on["params"], off["params"]))
+    first_diff = None
+    if not bitwise:
+        loss_rel = ((on["losses"] - off["losses"]).abs().max()
+                    / off["losses"].abs().max()).item()
+        for n, a, c in zip(names, on["params"], off["params"]):
+            if not torch.equal(a, c):
+                first_diff = dict(
+                    name=n, rel=((a.float() - c.float()).norm()
+                                 / c.float().norm()).item(),
+                    max_abs=(a.float() - c.float()).abs().max().item(),
+                    loss_rel=loss_rel)
+                break
+    del init, runs
+    model.config.recompute = False
+    del model, params, fwd_bwd
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = {k: v // RECOMPUTE_STEPS for k, v in on["counts"].items()
+                if v}
+    stats = dict(layers=L, batch=b, seq=s, steps=RECOMPUTE_STEPS,
+                 losses_off=off["losses"].tolist(),
+                 losses_recompute=on["losses"].tolist(),
+                 bitwise_equal=bitwise, first_difference=first_diff,
+                 step_ms_off=off["step_ms"], step_ms_recompute=on["step_ms"],
+                 peak_mem_gib_off=off["peak"],
+                 peak_mem_gib_recompute=on["peak"],
+                 peak_fwd_bwd_gib_off=off["peak_fwd_bwd"],
+                 peak_fwd_bwd_gib_recompute=on["peak_fwd_bwd"],
+                 fwd_bwd_peak_above_weights_gib=policy_peaks,
+                 policies_bitwise=policy_equal,
+                 launches_per_step_recompute=per_step,
+                 launches_per_step_off={
+                     k: v // RECOMPUTE_STEPS
+                     for k, v in off["counts"].items() if v},
+                 rope_launches_per_step=per_step.get("rope", 0))
+    log("train_8b_recompute " + json.dumps(stats))
+    for run in (off, on):
+        if run["counts"] != run["want"]:
+            raise AssertionError(f"recompute launches {run['counts']} "
+                                 f"expected {run['want']}")
+    if not bitwise and not (first_diff["loss_rel"] <= TRAIN_LOSS_REL_BUDGET
+                            and first_diff["rel"] <= TRAIN_GRAD_REL_BUDGET):
+        raise AssertionError("recompute: the steps disagree past 5e's "
+                             "budgets")
+    if not all(policy_equal.values()):
+        raise AssertionError(f"recompute: a policy's loss or gradients "
+                             f"differ {policy_equal}")
+    # the whole step's peak is AdamW's (its f32 temporaries over the
+    # 525M-row tables outgrow the activations), the same in both runs
+    if not (on["peak_fwd_bwd"] < off["peak_fwd_bwd"]
+            and on["peak"] <= off["peak"]
+            and policy_peaks["full"] < policy_peaks["off"]):
+        raise AssertionError("recompute: the peak memory is not lower")
+
+    with tempfile.TemporaryDirectory(prefix="pdt_recompute_") as root:
+        txt, path, n_tokens = _token_file(root)
+        # the recipe with --recompute --data on the bench model
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        rb = 8
+        r = llama_pretrain.main(["--size", "bench", "--bf16", "--recompute",
+                                 "--data", path, "--batch-size", str(rb),
+                                 "--seq-len", str(s), "--steps",
+                                 str(TRAIN_STEPS), "--log-every", "1"])
+        rcfg = llama_pretrain.bench_config()
+        step_s = statistics.median(r.step_seconds[1:])
+        recipe = dict(tokens_in_file=n_tokens, final_loss=r.final_loss,
+                      step_ms=1e3 * step_s, tokens_per_s=rb * s / step_s,
+                      mfu=_mfu(rcfg, rb * s, s, step_s)[0],
+                      peak_mem_gib=torch.cuda.max_memory_allocated()
+                      / 2 ** 30, held_before_gib=held,
+                      recipe_5f=dict(step_ms=recipe_stats["step_ms"],
+                                     tokens_per_s=recipe_stats[
+                                         "tokens_per_s"],
+                                     mfu=recipe_stats["mfu"],
+                                     peak_mem_gib=recipe_stats[
+                                         "peak_mem_gib"]),
+                      mfu_counts="the model's flops (6ND + attention), "
+                                 "not the recomputed forward")
+        torch.cuda.empty_cache()
+        if not np.isfinite(r.final_loss):
+            raise AssertionError("the recipe with --recompute --data did "
+                                 "not train")
+
+        # the loader: 4 shared-memory workers forked from this process
+        # (which holds a CUDA context) against the inline loader
+        # (the first batch's wait, which holds the fork, apart from the
+        # rate of the others)
+        ds = LMBlockDataset(FileTokens(path), s)
+        first, rates, got = {}, {}, {}
+        for workers in (0, 4, 4, 0):
+            t0 = time.perf_counter()
+            it = iter(DataLoader(ds, batch_size=rb, num_workers=workers))
+            batches = [next(it)]
+            t1 = time.perf_counter()
+            batches += list(it)
+            t2 = time.perf_counter()
+            first.setdefault(workers, []).append(1e3 * (t1 - t0))
+            rates.setdefault(workers, []).append(
+                (len(batches) - 1) / (t2 - t1))
+            got[workers] = batches
+        same = len(got[0]) == len(got[4]) and all(
+            all(torch.equal(a, c) for a, c in zip(p, q))
+            for p, q in zip(got[0], got[4]))
+        loader = dict(batches=len(got[0]), batch=rb, seq=s,
+                      equal=same, first_batch_ms_inline=first[0],
+                      first_batch_ms_4_workers=first[4],
+                      batches_per_s_inline=rates[0],
+                      batches_per_s_4_workers=rates[4])
+
+        # BPE: trained at vocab 512 on ~64 KB of the text; the native
+        # encode against the plain one
+        with open(txt, encoding="utf-8") as f:
+            text = f.read()
+        corpus = text[:65536]
+        t0 = time.perf_counter()
+        bpe = BPETokenizer.train(corpus, vocab_size=512)
+        train_s = time.perf_counter() - t0
+        data = corpus.encode("utf-8")
+        plain_data = data[:16384]
+        t0 = time.perf_counter()
+        native_ids = bpe.encode(data)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain_ids = bpe._encode_py(plain_data)
+        plain_s = time.perf_counter() - t0
+        bpe_equal = bool(np.array_equal(bpe.encode(plain_data), plain_ids))
+        bpe_stats = dict(merges=len(bpe.merges), train_s=train_s,
+                         corpus_bytes=len(data), ids=len(native_ids),
+                         native_mb_per_s=len(data) / native_s / 1e6,
+                         plain_bytes=len(plain_data),
+                         plain_mb_per_s=len(plain_data) / plain_s / 1e6,
+                         native_equals_plain=bpe_equal,
+                         round_trip=bpe.decode(native_ids) == corpus)
+    log("train_recipe_recompute_data " + json.dumps(recipe))
+    log("data_loader " + json.dumps(loader))
+    log("bpe " + json.dumps(bpe_stats))
+    log(f"train_8b_recompute phase {time.perf_counter() - t_phase:.1f}s")
+    if not (same and bpe_equal and bpe_stats["round_trip"]):
+        raise AssertionError("the data pipeline disagrees with its inline "
+                             "or plain version")
+    return on["counts"]
 
 
 RESUME_STEPS = 6
@@ -7526,7 +7871,7 @@ def main():
     tiny_train_parity()
     tcounts = train_8b_width()
     train_8b_resume()
-    train_recipe()
+    rcounts = train_8b_recompute(train_recipe())
     ln_phase(results)
     tiny_moe_train_parity()
     tiny_bert_train_parity()
@@ -7590,6 +7935,16 @@ def main():
     # the LayerNorm pair and the flash triplet also run on the
     # single-card families' training paths: their launches are added
     by_path = {k: {"train_8b_width": tcounts[k]} for k in FAMILY_KERNELS}
+    # the recompute run of 5h drives the flash triplet and the RMSNorm
+    # pair on its own path
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        by_path[k]["train_8b_recompute"] = rcounts[k]
+    by_path["rms_norm"] = {"serve_8b": counts["rms_norm"]}
+    by_path["rms_norm_bwd"] = {"train_8b_width": counts["rms_norm_bwd"]}
+    for k in ("rms_norm", "rms_norm_bwd"):
+        by_path[k]["train_8b_recompute"] = rcounts[k]
+        counts[k] = sum(by_path[k].values())
     for k in ("layer_norm", "layer_norm_bwd"):
         by_path[k] = {"train_bert_base": bcounts[k]}
     for k in FAMILY_KERNELS:

@@ -6,7 +6,10 @@ legacy paged path; quantized weights and KV pages; batched multi-LoRA;
 checkpoint swaps through the fleet model store; on the card each
 dispatch replays as a CUDA graph), and trains Llama, MoE
 (Qwen2-MoE shape, capacity or dropless) and BERT masked-LM models
-(`TrainStep`, `AdamW`, the recipes), saves and resumes that training
+(`TrainStep`, every optimizer and scheduler of the JAX package, the
+recipes; activation recompute; `io.DataLoader` with shared-memory
+workers over the host library of ``csrc/native.cc``, file token sources
+and tokenizers in `text`), saves and resumes that training
 (`save` / `load`, `distributed.checkpoint` with its integrity manifests,
 `distributed.fleet.elastic.ElasticManager`), and offers the packed (varlen)
 attention, fused rope and fused-layer surface of the public API

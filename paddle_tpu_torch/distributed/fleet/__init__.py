@@ -1,2 +1,2 @@
 """≙ `paddle_tpu/distributed/fleet/`: so far `elastic`, the train-loop
-side of elastic training."""
+side of elastic training, and `utils` (`recompute`)."""

@@ -63,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..distributed.fleet.utils import recompute
 from ..nn import functional as F
 from ..nn.layers import RMSNorm
 from ..observability import profile as _pf
@@ -81,10 +82,11 @@ from .generation import GenerationMixin
 
 @dataclass
 class LlamaConfig:
-    """The JAX `LlamaConfig` without ``recompute`` / ``recompute_policy``
-    (activation recompute is not ported), ``sep_strategy`` (context
+    """The JAX `LlamaConfig` without ``sep_strategy`` (context
     parallelism needs a mesh) and ``dtype``, which no code reads (the
-    dtype is the model's build argument)."""
+    dtype is the model's build argument). ``recompute`` sends every
+    decoder layer of a training forward through
+    `distributed.fleet.utils.recompute` with ``recompute_policy``."""
 
     vocab_size: int = 128256
     hidden_size: int = 4096
@@ -96,6 +98,11 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 500000.0
     tie_word_embeddings: bool = False
+    # activation checkpointing of each decoder layer in training; the
+    # policy names what is kept anyway ('full': nothing, 'dots': the
+    # matmul outputs, ...; `distributed.fleet.utils`)
+    recompute: bool = False
+    recompute_policy: str = "full"
     sliding_window: Optional[int] = None
 
     @staticmethod
@@ -579,16 +586,26 @@ class LlamaModel(torch.nn.Module):
     def forward(self, input_ids, past_key_values=None, use_kernel=None,
                 weights=None, attention_mask=None, position_offset=0):
         """``past_key_values`` None runs the no-cache forward of every
-        layer (training); the JAX ``recompute`` branch is not ported."""
+        layer (training). With ``config.recompute``, in training mode
+        and without caches, each layer runs under `recompute` (≙ JAX
+        :641-646); the final norm stays outside."""
         emb = _bound(weights, "model.embed_tokens.weight",
                      self.embed_tokens.weight)
         x = _pf.fence("embed", torch.nn.functional.embedding(
             input_ids.long(), emb))
-        if past_key_values is None:
-            past_key_values = [None] * len(self.layers)
-        for layer, kv in zip(self.layers, past_key_values, strict=True):
-            x = layer(x, self.rope_cos, self.rope_sin, kv, use_kernel,
-                      weights, attention_mask, position_offset)
+        if past_key_values is None and self.config.recompute \
+                and self.training:
+            for layer in self.layers:
+                x = recompute(layer, x, self.rope_cos, self.rope_sin, None,
+                              use_kernel, weights, attention_mask,
+                              position_offset,
+                              policy=self.config.recompute_policy)
+        else:
+            if past_key_values is None:
+                past_key_values = [None] * len(self.layers)
+            for layer, kv in zip(self.layers, past_key_values, strict=True):
+                x = layer(x, self.rope_cos, self.rope_sin, kv, use_kernel,
+                          weights, attention_mask, position_offset)
         return self.norm(x, use_kernel,
                          _bound(weights, "model.norm.weight",
                                 self.norm.weight))

@@ -1,4 +1,4 @@
-"""BERT masked-LM training on synthetic tokens.
+"""BERT masked-LM training on synthetic tokens or a token file.
 
 ≙ `recipes/bert_mlm.py`: ``--size tiny|base`` (default base) and the
 standard flags and defaults (`common.py`), over `ByteTokenizer`,
@@ -14,13 +14,12 @@ by default:
     python -m paddle_tpu_torch.recipes.bert_mlm --size tiny --steps 2 \\
         --device cpu
 
-Not ported yet, and refused with `NotImplementedError`: ``--data``
-(ROADMAP.md queue A, item 6). ``--save PATH`` writes the trained model's
-state dict (`save_model`).
+``--data FILE`` masks blocks of a ``.bin`` of ids or a byte-tokenized
+text file (ids past the byte tokenizer's 261 raise, as in JAX), batched
+by `io.DataLoader` in a seeded shuffle. ``--save PATH`` writes the
+trained model's state dict (`save_model`).
 """
 from __future__ import annotations
-
-import torch
 
 from ..jit import TrainStep
 from ..models.bert import BertConfig, BertForMaskedLM
@@ -28,15 +27,14 @@ from ..ops import resolve_device
 from ..optimizer import AdamW
 from ..optimizer.lr import LinearWarmup
 from ..text import ByteTokenizer, MLMBlockDataset
-from .common import (RecipeResult, refuse_unported, run_train, save_model,
-                     std_parser, token_source)
+from .common import (RecipeResult, run_train, save_model,
+                     shuffled_loader, std_parser, token_source)
 
 
 def main(argv=None) -> RecipeResult:
     p = std_parser("BERT MLM fine-tune (single chip)")
     p.add_argument("--size", choices=["tiny", "base"], default="base")
     args = p.parse_args(argv)
-    refuse_unported(args)
 
     cfg = BertConfig.base() if args.size == "base" else BertConfig.tiny()
     device = resolve_device(args.device)
@@ -47,9 +45,7 @@ def main(argv=None) -> RecipeResult:
     ds = MLMBlockDataset(token_source(args, vocab), args.seq_len,
                          mask_id=tok.mask_id, vocab_size=vocab,
                          seed=args.seed)
-    loader = torch.utils.data.DataLoader(
-        ds, batch_size=args.batch_size, shuffle=True, drop_last=True,
-        generator=torch.Generator().manual_seed(args.seed))
+    loader = shuffled_loader(args, ds)
 
     sched = LinearWarmup(args.lr, warmup_steps=min(10, args.steps),
                          start_lr=0.0, end_lr=args.lr)

@@ -1,12 +1,12 @@
-"""Plumbing shared by the ported recipes: argument parsing, the
-synthetic token source, the train loop and its result.
+"""Plumbing shared by the ported recipes: argument parsing, the token
+source, the loader, the train loop and its result.
 
 ≙ `recipes/common.py` (`std_parser`, `token_source`, `run_train`,
-`RecipeResult`). ``--save`` writes the trained model's state dict with
-`paddle_tpu_torch.save` (`save_model`), as the JAX recipes write theirs;
-``--data`` (file token sources) is refused by every recipe
-(`refuse_unported`). `RecipeResult` also carries each step's host seconds
-and loss.
+`RecipeResult`). ``--data FILE`` reads a ``.bin`` of ids or a text file
+through `text.FileTokens` (`token_source`); without it the tokens are
+synthetic. ``--save`` writes the trained model's state dict with
+`paddle_tpu_torch.save` (`save_model`), as the JAX recipes write theirs.
+`RecipeResult` also carries each step's host seconds and loss.
 """
 from __future__ import annotations
 
@@ -15,8 +15,11 @@ import itertools
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
+
 from ..framework.io import save
-from ..text import SyntheticTokens
+from ..io import BatchSampler, DataLoader, RandomSampler
+from ..text import FileTokens, SyntheticTokens
 
 
 def std_parser(desc: str) -> argparse.ArgumentParser:
@@ -55,12 +58,6 @@ def unported(flag: str, item: str):
                               f"A, item {item})")
 
 
-def refuse_unported(args) -> None:
-    """Raise for the standard flags the port does not run yet."""
-    if args.data:
-        unported("--data", "6: file token sources")
-
-
 def save_model(args, model) -> None:
     """``--save PATH``: the model's state dict to PATH (≙ the JAX
     recipes' ``paddle.save(model.state_dict(), args.save)``)."""
@@ -69,11 +66,30 @@ def save_model(args, model) -> None:
         print(f"saved {args.save}")
 
 
-def token_source(args, vocab_size: int) -> SyntheticTokens:
-    """The synthetic stream of `recipes/common.py` `token_source`: enough
-    ids for ``max(steps, 4)`` batches, seeded with ``--seed``."""
+def token_source(args, vocab_size: int):
+    """``--data``'s `FileTokens` (ValueError when its ids pass the
+    model's vocabulary), else the synthetic stream of JAX's
+    `token_source`: enough ids for ``max(steps, 4)`` batches, seeded with
+    ``--seed``."""
+    if args.data:
+        src = FileTokens(args.data)
+        if src.vocab_size > vocab_size:
+            raise ValueError(
+                f"data has ids up to {src.vocab_size}, model vocab is "
+                f"{vocab_size}")
+        return src
     need = args.batch_size * (args.seq_len + 1) * max(args.steps, 4)
     return SyntheticTokens(vocab_size, need, seed=args.seed)
+
+
+def shuffled_loader(args, dataset) -> DataLoader:
+    """The recipes' `io.DataLoader`: ``--batch-size`` blocks, the last
+    partial batch dropped, shuffled by ``np.random.default_rng(--seed)``
+    (the JAX recipes shuffle unseeded; see `io`)."""
+    sampler = RandomSampler(dataset,
+                            generator=np.random.default_rng(args.seed))
+    return DataLoader(dataset, batch_sampler=BatchSampler(
+        sampler=sampler, batch_size=args.batch_size, drop_last=True))
 
 
 def run_train(step_fn, loader, steps: int, log_every: int) -> RecipeResult:

@@ -16,8 +16,9 @@ at the end. ``--device`` picks where it runs, the CUDA card by default:
         --sample-after --device cpu
 
 ``--save PATH`` writes the trained model's state dict (`save_model`).
-Not ported yet, and refused with `NotImplementedError`: ``--mesh``
-(ROADMAP.md queue A, item 9) and ``--data`` (item 6).
+``--data`` is parsed and not read: the latents are always synthetic, as
+in the JAX recipe. Not ported yet, and refused with
+`NotImplementedError`: ``--mesh`` (ROADMAP.md queue A, item 9).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from ..models.dit import DiT, DiTConfig, GaussianDiffusion, \
     synthetic_dit_batch
 from ..ops import resolve_device
 from ..optimizer import AdamW
-from .common import (RecipeResult, refuse_unported, run_train, save_model,
+from .common import (RecipeResult, run_train, save_model,
                      std_parser, unported)
 
 
@@ -48,7 +49,6 @@ def main(argv=None) -> RecipeResult:
     args = p.parse_args(argv)
     if args.mesh:
         unported("--mesh", "9: the distributed stack")
-    refuse_unported(args)
 
     cfg = DiTConfig.tiny() if args.size == "tiny" else s_config()
     device = resolve_device(args.device)

@@ -15,8 +15,10 @@ card by default:
         --device cpu
 
 ``--save PATH`` writes the trained model's state dict (`save_model`).
-Not ported yet, and refused with `NotImplementedError`: ``--mesh`` (the
-4D hybrid mesh, ROADMAP.md queue A, item 9) and ``--data`` (item 6).
+``--data`` is parsed and not read: the batches are always synthetic, as
+in the JAX recipe. Not ported yet, and refused with
+`NotImplementedError`: ``--mesh`` (the 4D hybrid mesh, ROADMAP.md queue
+A, item 9).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from ..models.ernie import (ErnieConfig, ErnieForPretraining,
                             synthetic_ernie_batch)
 from ..ops import resolve_device
 from ..optimizer import AdamW
-from .common import (RecipeResult, refuse_unported, run_train, save_model,
+from .common import (RecipeResult, run_train, save_model,
                      std_parser, unported)
 
 
@@ -37,7 +39,6 @@ def main(argv=None) -> RecipeResult:
     args = p.parse_args(argv)
     if args.mesh:
         unported("--mesh", "9: the distributed stack")
-    refuse_unported(args)
 
     cfg = ErnieConfig.tiny() if args.size == "tiny" else ErnieConfig.base()
     device = resolve_device(args.device)

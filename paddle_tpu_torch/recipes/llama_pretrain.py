@@ -1,4 +1,4 @@
-"""Llama causal-LM pretraining on synthetic tokens.
+"""Llama causal-LM pretraining on synthetic tokens or a token file.
 
 ≙ `recipes/llama_pretrain.py` (its shared plumbing in `common.py`): the
 same ``--size tiny|small|bench`` configurations and the same flags and
@@ -11,13 +11,18 @@ the CUDA card by default:
         --batch-size 8 --seq-len 2048 --steps 5
     python -m paddle_tpu_torch.recipes.llama_pretrain --size tiny \\
         --steps 2 --device cpu --resume-drill
+    python -m paddle_tpu_torch.recipes.llama_pretrain --size bench --bf16 \\
+        --recompute --data tokens.bin --batch-size 8 --seq-len 2048
 
-``--save PATH`` writes the trained model's state dict (`save_model`);
-``--resume-drill`` runs the durable-checkpoint drill of
+``--data FILE`` trains on a ``.bin`` of ids (`text.encode_file`) or a
+text file (byte-tokenized), batched by `io.DataLoader` in a seeded
+shuffle (`common.shuffled_loader`); ``--recompute`` recomputes each
+decoder layer's activations in the backward (`LlamaConfig.recompute`,
+policy "full"). ``--save PATH`` writes the trained model's state dict
+(`save_model`); ``--resume-drill`` runs the durable-checkpoint drill of
 ``docs/checkpointing.md`` after training (`run_resume_drill`). Not ported
 yet, and refused with `NotImplementedError`: ``--mesh`` (ROADMAP.md queue
-A, item 9: the distributed stack), ``--recompute`` (item 6) and
-``--data`` (item 6: file token sources).
+A, item 9: the distributed stack).
 """
 from __future__ import annotations
 
@@ -31,8 +36,8 @@ from ..models.llama import LlamaConfig, LlamaForCausalLM
 from ..ops import resolve_device
 from ..optimizer import AdamW
 from ..text import LMBlockDataset
-from .common import (RecipeResult, refuse_unported, run_train, save_model,
-                     std_parser, token_source, unported)
+from .common import (RecipeResult, run_train, save_model,
+                     shuffled_loader, std_parser, token_source, unported)
 
 
 def run_resume_drill(model, optimizer, ckpt_dir):
@@ -112,9 +117,6 @@ def main(argv=None) -> RecipeResult:
     args = p.parse_args(argv)
     if args.mesh:
         unported("--mesh", "9: the distributed stack")
-    if args.recompute:
-        unported("--recompute", "6: activation recompute")
-    refuse_unported(args)
 
     if args.size == "bench":
         cfg = bench_config()
@@ -122,15 +124,14 @@ def main(argv=None) -> RecipeResult:
         cfg = LlamaConfig.small()
     else:
         cfg = LlamaConfig.tiny()
+    cfg.recompute = args.recompute
     device = resolve_device(args.device)
     model = LlamaForCausalLM(cfg, device=device,
                              dtype=torch.bfloat16 if args.bf16 else None,
                              seed=args.seed)
 
     ds = LMBlockDataset(token_source(args, cfg.vocab_size), args.seq_len)
-    loader = torch.utils.data.DataLoader(
-        ds, batch_size=args.batch_size, shuffle=True, drop_last=True,
-        generator=torch.Generator().manual_seed(args.seed))
+    loader = shuffled_loader(args, ds)
 
     opt = AdamW(learning_rate=args.lr, parameters=model.parameters(),
                 weight_decay=0.01, multi_precision=args.bf16)

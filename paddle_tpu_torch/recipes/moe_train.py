@@ -1,4 +1,4 @@
-"""MoE causal-LM training on synthetic tokens.
+"""MoE causal-LM training on synthetic tokens or a token file.
 
 ≙ `recipes/moe_train.py`: the same ``--size tiny|small`` configurations,
 ``--dropless`` and the standard flags and defaults (`common.py`), over
@@ -14,9 +14,11 @@ CUDA card by default:
         --device cpu
 
 ``--dropless`` routes through the grouped-matmul kernel; the default is
-the capacity path (einsums, no kernel), as `MoEConfig` defaults. Not
-ported yet, and refused with `NotImplementedError`: ``--mesh`` (expert
-parallelism; ROADMAP.md queue A, item 9) and ``--data`` (item 6).
+the capacity path (einsums, no kernel), as `MoEConfig` defaults.
+``--data FILE`` trains on a ``.bin`` of ids or a byte-tokenized text
+file, batched by `io.DataLoader` in a seeded shuffle. Not ported yet,
+and refused with `NotImplementedError`: ``--mesh`` (expert parallelism;
+ROADMAP.md queue A, item 9).
 ``--save PATH`` writes the trained model's state dict (`save_model`).
 """
 from __future__ import annotations
@@ -28,8 +30,8 @@ from ..models.moe import MoEConfig, MoEForCausalLM
 from ..ops import resolve_device
 from ..optimizer import AdamW
 from ..text import LMBlockDataset
-from .common import (RecipeResult, refuse_unported, run_train, save_model,
-                     std_parser, token_source, unported)
+from .common import (RecipeResult, run_train, save_model,
+                     shuffled_loader, std_parser, token_source, unported)
 
 # the A14B-width training run of chip_smoke.py: `qwen2_moe_a14b()` at its
 # published width cut to 1 of 28 decoder layers (one layer holds ~2.0B
@@ -58,7 +60,6 @@ def main(argv=None) -> RecipeResult:
     args = p.parse_args(argv)
     if args.mesh:
         unported("--mesh", "9: expert parallelism needs a mesh")
-    refuse_unported(args)
 
     cfg = MoEConfig.tiny() if args.size == "tiny" else MoEConfig.small()
     cfg.dropless = args.dropless
@@ -68,9 +69,7 @@ def main(argv=None) -> RecipeResult:
                            seed=args.seed)
 
     ds = LMBlockDataset(token_source(args, cfg.vocab_size), args.seq_len)
-    loader = torch.utils.data.DataLoader(
-        ds, batch_size=args.batch_size, shuffle=True, drop_last=True,
-        generator=torch.Generator().manual_seed(args.seed))
+    loader = shuffled_loader(args, ds)
 
     opt = AdamW(learning_rate=args.lr, parameters=model.parameters(),
                 weight_decay=0.01, multi_precision=args.bf16)

@@ -270,9 +270,20 @@ def test_recipe_tiny_on_cpu(capsys, tmp_path):
     # the file written loads back into the model
     tm = tb.BertForMaskedLM(tb.BertConfig.tiny(), device="cpu")
     tm.load_state_dict(paddle_tpu_torch.load(str(path), device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --data: a text file, byte-tokenized, trains; a missing file and
+    # ids past the byte tokenizer's 261 raise, as in JAX
+    src = tmp_path / "corpus.txt"
+    src.write_text("masked tokens from a file. " * 30)
+    rd = bert_mlm.main(["--size", "tiny", "--steps", "1", "--device", "cpu",
+                        "--data", str(src), "--seq-len", "64"])
+    assert np.isfinite(rd.final_loss)
+    with pytest.raises(FileNotFoundError):
         bert_mlm.main(["--size", "tiny", "--device", "cpu", "--data",
-                       "x.txt"])
+                       str(tmp_path / "x.txt")])
+    wide = str(tmp_path / "wide.bin")
+    np.asarray([1, 300], np.uint16).tofile(wide)
+    with pytest.raises(ValueError, match="data has ids up to 301"):
+        bert_mlm.main(["--size", "tiny", "--device", "cpu", "--data", wide])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             bert_mlm.main(["--size", "tiny", "--steps", "1"])

@@ -1611,6 +1611,64 @@ def test_tiny_train_steps_on_card_match_cpu(cuda):
         assert diff <= 1e-4, (name, diff.item())
 
 
+def test_tiny_recompute_on_card_matches_plain(cuda):
+    """The tiny f32 Llama with ``recompute`` on the card: the loss and
+    every gradient bitwise equal to the card's run without it (the same
+    kernels on the same inputs), each flash forward launched twice and
+    each RMSNorm forward of a layer twice (2L and 4L + 1 a step), and
+    within the budgets of `test_tiny_train_steps_on_card_match_cpu` of
+    the plain path on the CPU."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 512, (2, 65)).astype(np.int64))
+    out = {}
+    for dev, rc in (("cuda", False), ("cuda", True), ("cpu", True)):
+        cfg = LlamaConfig.tiny()
+        cfg.recompute = rc
+        model = LlamaForCausalLM(cfg, device="cpu", seed=3).to(dev)
+        reset_launch_counts()
+        loss, _ = model(ids[:, :-1].to(dev), labels=ids[:, 1:].to(dev))
+        loss.backward()
+        counts = dict(launch_counts)
+        out[dev, rc] = loss.detach().cpu(), {
+            n: p.grad.cpu() for n, p in model.named_parameters()}, counts
+    L = LlamaConfig.tiny().num_hidden_layers
+    (l0, g0, c0), (l1, g1, c1) = out["cuda", False], out["cuda", True]
+    assert torch.equal(l0, l1)
+    for n in g0:
+        assert torch.equal(g0[n], g1[n]), n
+    assert (c0["flash_attention_fwd"], c1["flash_attention_fwd"]) == \
+        (L, 2 * L)
+    assert (c0["rms_norm"], c1["rms_norm"]) == (2 * L + 1, 4 * L + 1)
+    assert c1["flash_attention_bwd_dq"] == c1["flash_attention_bwd_dkv"] \
+        == L and c1["rms_norm_bwd"] == 2 * L + 1
+    lc, gc, _ = out["cpu", True]
+    np.testing.assert_allclose(float(l1), float(lc), atol=1e-4)
+    for n, g in gc.items():
+        assert (g1[n] - g).norm() <= 1e-4 * g.norm() + 1e-6, n
+
+
+def test_shm_loader_forks_from_a_cuda_process(cuda):
+    """The shared-memory `io.DataLoader` forks its workers from this
+    process, which holds a CUDA context: the workers touch no CUDA, and
+    their batches equal the inline loader's (a shuffle seeded alike)."""
+    from paddle_tpu_torch.io import BatchSampler, DataLoader, RandomSampler
+    from paddle_tpu_torch.text import LMBlockDataset, SyntheticTokens
+    torch.zeros(1, device=cuda).sum().item()
+    ds = LMBlockDataset(SyntheticTokens(1000, 40000, seed=2), 128)
+
+    def batches(workers):
+        bs = BatchSampler(sampler=RandomSampler(
+            ds, generator=np.random.default_rng(5)), batch_size=16,
+            drop_last=True)
+        return list(DataLoader(ds, batch_sampler=bs, num_workers=workers))
+    inline, shm = batches(0), batches(3)
+    assert len(inline) == len(shm) == len(ds) // 16
+    for a, b in zip(inline, shm):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert shm[0][0].device.type == "cpu"
+
 def _gmm_inputs(cuda, m, k, n, sizes, dtype, trans, seed):
     g = torch.Generator(device=cuda).manual_seed(seed)
     lhs = torch.randn(m, k, device=cuda, generator=g).to(dtype)

@@ -252,8 +252,10 @@ def test_untrained_model_is_zero_and_the_loss_draws_its_noise():
 
 def test_recipe_tiny_on_cpu(capsys, tmp_path):
     path = tmp_path / "dit.pdparams"
+    # --data is parsed and not read (synthetic latents, as in JAX)
     r = dit_train.main(["--size", "tiny", "--steps", "2", "--device", "cpu",
-                        "--sample-after", "--save", str(path)])
+                        "--sample-after", "--save", str(path), "--data",
+                        str(tmp_path / "unread.bin")])
     assert r.steps == 2 and np.isfinite(r.final_loss)
     assert r.sample.shape == (2, 4, 8, 8)
     out = capsys.readouterr().out

@@ -101,8 +101,13 @@ SIDES = {
 
 @pytest.fixture(autouse=True)
 def _fresh(monkeypatch):
-    """Recording on, both registries and trace rings empty."""
+    """Recording on, both registries and trace rings empty, before each
+    test and again after it, so no series outlives the test."""
     monkeypatch.setenv("PDT_TELEMETRY", "1")
+    for t in (telemetry, jtelemetry):
+        t.reset()
+        t.clear_events()
+    yield
     for t in (telemetry, jtelemetry):
         t.reset()
         t.clear_events()

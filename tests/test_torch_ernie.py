@@ -153,8 +153,10 @@ def test_synthetic_batch_matches_jax():
 
 def test_recipe_tiny_on_cpu(capsys, tmp_path):
     path = tmp_path / "ernie.pdparams"
+    # --data is parsed and not read (synthetic batches, as in JAX)
     r = ernie_4d.main(["--size", "tiny", "--steps", "2", "--device", "cpu",
-                       "--save", str(path)])
+                       "--save", str(path), "--data",
+                       str(tmp_path / "unread.bin")])
     assert r.steps == 2 and len(r.losses) == 2
     assert np.isfinite(r.final_loss)
     out = capsys.readouterr().out

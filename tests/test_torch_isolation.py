@@ -42,7 +42,10 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.tools.profile_train, "
             "paddle_tpu_torch.framework.io, "
             "paddle_tpu_torch.distributed.fleet.elastic, "
-            "paddle_tpu_torch.distributed.checkpoint.__main__;"
+            "paddle_tpu_torch.distributed.checkpoint.__main__, "
+            "paddle_tpu_torch.distributed.fleet.utils, "
+            "paddle_tpu_torch.io, paddle_tpu_torch.text.bpe, "
+            "paddle_tpu_torch._native, paddle_tpu_torch.optimizer.lr;"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

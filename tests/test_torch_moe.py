@@ -247,9 +247,21 @@ def test_recipe_tiny_on_cpu(dropless, capsys):
 
 
 def test_recipe_refusals(tmp_path, capsys):
-    for flag in (["--mesh", "dp=2,ep=4"], ["--data", "x.bin"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            moe_train.main(["--size", "tiny", "--device", "cpu", *flag])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        moe_train.main(["--size", "tiny", "--device", "cpu", "--mesh",
+                        "dp=2,ep=4"])
+    # --data is no refusal: a .bin of ids trains, ids past the vocabulary
+    # raise JAX's ValueError
+    data = str(tmp_path / "ids.bin")
+    np.random.default_rng(0).integers(0, 512, 2000).astype(
+        np.uint16).tofile(data)
+    rd = moe_train.main(["--size", "tiny", "--device", "cpu", "--steps",
+                         "1", "--data", data, "--seq-len", "32"])
+    assert np.isfinite(rd.final_loss)
+    np.asarray([3, 512], np.uint16).tofile(data)
+    with pytest.raises(ValueError, match="data has ids up to 513"):
+        moe_train.main(["--size", "tiny", "--device", "cpu", "--data",
+                        data])
     # --save is no refusal: the file written loads back into the model
     path = tmp_path / "moe.pdparams"
     moe_train.main(["--size", "tiny", "--device", "cpu", "--steps", "1",

@@ -9,7 +9,9 @@ same (B, S) tokens from numpy through both.
 - three `TrainStep`s with `AdamW` against the JAX `TrainStep`: the loss
   of each step and every parameter after the third;
 - ``accumulate_steps=2`` against 1;
-- the ported recipe at ``--size tiny --steps 2 --device cpu``.
+- the ported recipe at ``--size tiny --steps 2 --device cpu``, with
+  ``--recompute`` (the same losses) and ``--data`` (a ``.bin`` written by
+  `encode_file`; ids past the vocabulary raise as in JAX).
 
 On the CPU JAX attends through `_sdpa_xla` (no mask, no window), the
 interpret-mode Pallas flash kernels (window) or the masked XLA path; the
@@ -36,6 +38,7 @@ from paddle_tpu_torch.models.convert import (llama_grads_to_numpy,
                                              llama_state_to_numpy)
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.recipes import llama_pretrain
+from paddle_tpu_torch.text import encode_file
 
 GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
 
@@ -174,10 +177,29 @@ def test_recipe_tiny_on_cpu(capsys, tmp_path):
     assert r.steps == 2 and len(r.step_seconds) == 2
     assert np.isfinite(r.final_loss)
     assert "step    1" in capsys.readouterr().out
-    for flag in (["--mesh", "dp=2"], ["--recompute"], ["--data", "x.bin"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            llama_pretrain.main(["--size", "tiny", "--device", "cpu",
-                                 *flag])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        llama_pretrain.main(["--size", "tiny", "--device", "cpu", "--mesh",
+                             "dp=2"])
+    # --recompute: the same losses as without it
+    rc = llama_pretrain.main(["--size", "tiny", "--steps", "2", "--device",
+                              "cpu", "--recompute"])
+    assert rc.losses == r.losses
+    # --data: a .bin written by encode_file trains; ids past the model's
+    # vocabulary raise JAX's ValueError
+    src = tmp_path / "corpus.txt"
+    src.write_text("the port reads its tokens from a file. " * 40)
+    data = str(tmp_path / "corpus.bin")
+    n = encode_file(str(src), data)
+    rd = llama_pretrain.main(["--size", "tiny", "--steps", "2", "--device",
+                              "cpu", "--data", data, "--seq-len", "64"])
+    assert n == len(src.read_text()) and len(rd.losses) == 2
+    assert np.isfinite(rd.final_loss)
+    wide = str(tmp_path / "wide.bin")
+    np.asarray([5, 600, 7], np.uint16).tofile(wide)
+    with pytest.raises(ValueError, match="data has ids up to 601, model "
+                       "vocab is 512"):
+        llama_pretrain.main(["--size", "tiny", "--device", "cpu", "--data",
+                             wide])
     # --save writes the state dict, which loads back into the model;
     # --resume-drill's own assertion held (quarantine and fall back)
     path = tmp_path / "llama.pdparams"
